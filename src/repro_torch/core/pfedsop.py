@@ -1,0 +1,224 @@
+"""pFedSOP: personalized federated learning with second-order optimization.
+
+Port of ``repro/core/pfedsop.py`` (Sen & Mohan, 2025; equations in
+PAPER.md):
+
+per client i at round t
+  1. beta   = gompertz(angle(delta_i(t-1), delta(t-1)))          (Eq. 14)
+  2. dp     = (1-beta) * delta_i + beta * delta                  (Eq. 15)
+  3. step   = [dp dp^T + rho I]^{-1} dp   via Sherman-Morrison   (Eq. 18)
+  4. x_it   = x_i(t-1) - eta1 * step                             (Eq. 19)
+  5. T-step local SGD from x_it; delta_it = (x0 - xT)/eta2       (Eq. 11)
+server
+  6. delta_t = mean_i delta_it                                   (Eq. 13)
+
+Parameters and deltas are flat f32 vectors here (``repro_torch.utils.
+pytree.FlatLayout``), so every function takes one client's ``(N,)``
+vector or a cohort's ``(C, N)`` block alike: reductions run over the last
+axis and per-client scalars broadcast over it.
+
+The round-start update (steps 1-4) runs once per round over the whole
+gathered cohort: ``round_start`` makes ONE batched call to the kernel
+pair (``repro_torch.kernels.pfedsop_update``) on the ``(C, N)`` rows
+with the server delta shared as ``(N,)``, then masks with
+``torch.where``.  ``repro`` reaches the same launch through a
+``custom_vmap`` rule; here the batch axis is written out.  Local SGD
+(step 5, ``local_round``) is the per-client part that the engine maps
+over the cohort with ``torch.func.vmap``.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Any, Callable, NamedTuple
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.dispatch import check_impl
+from repro_torch.kernels.pfedsop_update import ops
+from repro_torch.optim.reduce import cohort_mean
+from repro_torch.optim.sgd import sgd_loop
+
+
+@dataclass(frozen=True)
+class PFedSOPConfig:
+    """Hyperparameters (paper Sec. V-B4: rho=1, lambda=1, batch 50, 1 epoch)."""
+
+    eta1: float = 0.01  # personalization learning rate (Eq. 19)
+    eta2: float = 0.01  # local-SGD learning rate (Eq. 10)
+    rho: float = 1.0  # FIM regularization (Eq. 17)
+    lam: float = 1.0  # Gompertz steepness (Eq. 14)
+    use_pc: bool = True  # personalization component (ablation Table III)
+    eps: float = 1e-12  # cosine-similarity guard
+    # round-start update implementation (repro_torch.kernels.dispatch):
+    # "auto" = CUDA kernel pair on the card, its plain version on the CPU;
+    # "reference" = the per-equation math below; "kernel" = CUDA only.
+    update_impl: str = "auto"
+
+
+class ClientState(NamedTuple):
+    """Per-client persistent state (flat vectors; stacked (K, ...) at rest)."""
+
+    params: torch.Tensor  # personalized model x_i, (N,)
+    delta: torch.Tensor  # latest local gradient update Delta_i, (N,)
+    has_delta: torch.Tensor  # bool scalar: False for new clients
+    rounds_seen: torch.Tensor  # int32 scalar (diagnostics)
+
+
+def init_client_state(params: torch.Tensor) -> ClientState:
+    return ClientState(
+        params=params,
+        delta=torch.zeros_like(params),
+        has_delta=torch.zeros((), dtype=torch.bool, device=params.device),
+        rounds_seen=torch.zeros((), dtype=torch.int32, device=params.device),
+    )
+
+
+def _dot(a, b):
+    return (a.float() * b.float()).sum(-1)
+
+
+# ---------------------------------------------------------------------------
+# Personalized aggregation (Algorithm 1 lines 1-4)
+# ---------------------------------------------------------------------------
+
+
+def gompertz_weight(local_delta, global_delta, lam, eps=1e-12):
+    """Aggregation weight beta from the Gompertz-normalized angle.
+
+    Returns (beta, aux); all reductions f32.  A (numerically) zero update
+    leaves the angle undefined: theta = pi/2 ("no information")."""
+    dot = _dot(local_delta, global_delta)
+    nl2 = _dot(local_delta, local_delta)
+    ng2 = _dot(global_delta, global_delta).expand_as(dot)
+    denom = torch.sqrt(nl2) * torch.sqrt(ng2)
+    ok = denom > eps
+    sim = torch.where(ok, dot / torch.where(ok, denom, torch.ones_like(denom)),
+                      torch.zeros_like(dot))
+    sim = torch.clamp(sim, -1.0, 1.0)
+    theta = torch.arccos(sim)  # [0, pi]
+    beta = 1.0 - torch.exp(-torch.exp(-lam * (theta - 1.0)))  # Eq. 14
+    return beta, {"sim": sim, "theta": theta, "beta": beta, "dot": dot,
+                  "local_sqnorm": nl2, "global_sqnorm": ng2}
+
+
+def personalized_delta(local_delta, global_delta, lam, eps=1e-12):
+    """Eq. 15: dp = (1-beta) * delta_i + beta * delta."""
+    beta, aux = gompertz_weight(local_delta, global_delta, lam, eps)
+    b = beta[..., None]
+    return (1.0 - b) * local_delta.float() + b * global_delta.float(), aux
+
+
+def theta_from_beta(beta, lam):
+    """Invert Eq. 14: theta = 1 - ln(-ln(1 - beta)) / lam (host numpy,
+    diagnostics only), beta clipped away from {0, 1}, theta to [0, pi]."""
+    b = np.clip(np.asarray(beta, np.float64), 1e-9, 1.0 - 1e-9)
+    theta = 1.0 - np.log(-np.log1p(-b)) / float(lam)
+    return np.clip(theta, 0.0, np.pi)
+
+
+# ---------------------------------------------------------------------------
+# Sherman-Morrison second-order step (Algorithm 1 line 5, Eq. 18)
+# ---------------------------------------------------------------------------
+
+
+def sherman_morrison_step(delta_p, rho):
+    """F^{-1} dp for F = dp dp^T + rho I, via Sherman-Morrison (Eq. 18).
+
+    step = dp/rho - dp * ||dp||^2 / (rho^2 + rho ||dp||^2)
+
+    Equivalent to dp / (rho + ||dp||^2); the explicit two-term form is
+    kept to mirror the paper and ``repro`` (they differ in the last bits
+    at large ||dp||, so the port is held to the same form)."""
+    sq = _dot(delta_p, delta_p)
+    coeff = 1.0 / rho - sq / (rho**2 + rho * sq)
+    return (coeff[..., None] * delta_p.float()).to(delta_p.dtype)
+
+
+def personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
+    """Algorithm 1: (x_it, aux) from (x_i(t-1), Delta_i, Delta).
+
+    ``params``/``local_delta``: (N,) or a cohort's (C, N); ``global_delta``
+    (N,).  With ``use_pc`` the fused kernel pair covers the blend and the
+    Sherman-Morrison step ("auto"/"kernel"); "reference" and the no-PC
+    ablation run the per-equation math above."""
+    impl = check_impl(cfg.update_impl, "pfedsop_update", params)
+    if cfg.use_pc and impl != "reference":
+        fused = (ops.pfedsop_update_batched if params.dim() == 2
+                 else ops.pfedsop_update)
+        new, beta = fused(params, local_delta, global_delta, cfg.eta1,
+                          cfg.rho, cfg.lam, cfg.eps, impl=impl)
+        return new, {"beta": beta}
+    if cfg.use_pc:
+        dp, aux = personalized_delta(local_delta, global_delta, cfg.lam, cfg.eps)
+    else:
+        # ablation: no personalization component -> use the global update
+        dp = global_delta.float().expand_as(local_delta)
+        aux = {"beta": torch.ones(params.shape[:-1], device=params.device)}
+    step = sherman_morrison_step(dp, cfg.rho)
+    new = (params.float() - cfg.eta1 * step.float()).to(params.dtype)
+    return new, aux
+
+
+# ---------------------------------------------------------------------------
+# Local training (Algorithm 2)
+# ---------------------------------------------------------------------------
+
+
+def local_sgd_delta(loss_fn: Callable, params, batches: Any, eta2: float):
+    """T SGD iterations; returns (delta_i, final_params, mean_loss).
+
+    delta_i = (x0 - xT)/eta2 = the sum of the per-iteration gradients
+    (Eq. 11/12); multiplied by the reciprocal, as ``repro`` does."""
+    final, loss = sgd_loop(loss_fn, params, batches, eta2)
+    delta = ((params.float() - final.float()) * (1.0 / eta2)).to(params.dtype)
+    return delta, final, loss
+
+
+# ---------------------------------------------------------------------------
+# Client round (Algorithm 3 lines 4-11) and server aggregation
+# ---------------------------------------------------------------------------
+
+
+def round_start(state: ClientState, global_delta, global_has_delta,
+                cfg: PFedSOPConfig):
+    """The cohort's round-start update (lines 4-7): one batched call over
+    the (C, N)-stacked ``state``, then a mask.  New clients
+    (has_delta=False) and round 1 (no global update yet) keep their
+    stored params; no python branch on a tensor value."""
+    can = torch.logical_and(state.has_delta, global_has_delta)
+    personalized, aux = personalize(state.params, state.delta, global_delta, cfg)
+    params = torch.where(can[..., None], personalized, state.params)
+    return state._replace(params=params), {"beta": aux["beta"],
+                                           "personalized": can}
+
+
+def local_round(loss_fn: Callable, state: ClientState, batches,
+                cfg: PFedSOPConfig):
+    """One client's local phase (lines 8-11) from its round-start params;
+    the engine maps it over the cohort."""
+    delta, final_params, loss = local_sgd_delta(loss_fn, state.params, batches,
+                                                cfg.eta2)
+    new_state = ClientState(
+        params=final_params,
+        delta=delta,
+        has_delta=torch.ones_like(state.has_delta),
+        rounds_seen=state.rounds_seen + 1,
+    )
+    return new_state, delta, {"loss": loss}
+
+
+def client_round(loss_fn: Callable, state: ClientState, global_delta,
+                 global_has_delta, batches, cfg: PFedSOPConfig):
+    """One pFedSOP round for a (C, N)-stacked cohort: ``round_start`` then
+    ``local_round`` mapped over the clients with ``torch.func.vmap``."""
+    state, aux = round_start(state, global_delta, global_has_delta, cfg)
+    new_state, delta, metrics = torch.func.vmap(
+        lambda s, b: local_round(loss_fn, s, b, cfg))(state, batches)
+    return new_state, delta, {**metrics, **aux}
+
+
+def server_aggregate(deltas):
+    """Eq. 13: mean over the client axis, canonically associated
+    (``repro_torch.optim.reduce.cohort_mean``)."""
+    return cohort_mean(deltas)

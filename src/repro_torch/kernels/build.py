@@ -1,0 +1,69 @@
+"""Build and load the port's CUDA sources.
+
+Each ``csrc/*.cu`` file has a plain C interface.  It is compiled with
+``nvcc`` into a shared library under ``build/repro_torch/`` at the repo
+root (listed in ``.gitignore``) at first use, named by a hash of the
+source and the flags, and loaded with ``ctypes``.  A library built for
+the same source is reused.  Nothing is compiled on import, and nothing
+falls back: a missing ``nvcc`` or a failed build raises.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+from typing import List
+
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (PATH or /usr/local/cuda/bin); the "
+                       "CUDA kernels of repro_torch build on a CUDA machine only")
+
+
+def library_path(source: Path) -> Path:
+    digest = hashlib.sha256(
+        Path(source).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+
+
+def build(*sources: Path) -> List[Path]:
+    """Compile every source whose library is missing, one ``nvcc`` per
+    source, all started together; returns the library paths in order."""
+    todo = [(Path(s), library_path(s)) for s in sources
+            if not library_path(s).exists()]
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        nvcc = _nvcc()
+        jobs = []
+        for src, lib in todo:
+            tmp = lib.with_name(f"{lib.name}.{os.getpid()}.tmp")
+            cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
+            jobs.append((subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True),
+                         src, tmp, lib))
+        failed = []
+        for proc, src, tmp, lib in jobs:
+            log = proc.communicate()[0]
+            if proc.returncode:
+                failed.append(f"{src}:\n{log}")
+            else:
+                os.replace(tmp, lib)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+    return [library_path(s) for s in sources]
+
+
+@functools.lru_cache(maxsize=None)
+def load_library(source: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(build(source)[0]))

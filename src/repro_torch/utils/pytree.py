@@ -1,0 +1,92 @@
+"""Pytree helpers over nested dicts / tuples / lists / NamedTuples of tensors.
+
+The leaf order is ``jax.tree.leaves`` order (``repro/utils/pytree.py``):
+dict keys sorted, tuples and lists positional, NamedTuples positional.
+That order fixes the flat parameter vector, so the port's flat client
+state lines up element for element with ``repro``'s
+``tree_flatten_to_vector`` (for the CNN: ``blocks[i].{conv1, conv2,
+gn1.bias, gn1.scale, gn2.bias, gn2.scale, proj}``, then ``fc_b``,
+``fc_w``, ``stem``, ``stem_gn.bias``, ``stem_gn.scale``).
+
+The federation keeps each client's parameters as ONE flat f32 row of a
+``(K, N)`` buffer; ``FlatLayout.unflatten`` hands the model per-leaf
+views of a row (or of a stacked ``(C, N)`` block), so no flatten or
+unflatten copy is made per round.
+"""
+from __future__ import annotations
+
+from typing import Any, Callable, List, Sequence, Tuple
+
+import torch
+
+Pytree = Any
+
+
+def tree_flatten(tree: Pytree) -> Tuple[List[Any], Any]:
+    """(leaves in jax order, treedef)."""
+    leaves: List[Any] = []
+
+    def rec(x):
+        if isinstance(x, dict):
+            keys = sorted(x)
+            return (dict, keys, [rec(x[k]) for k in keys])
+        if isinstance(x, (tuple, list)):  # NamedTuples included
+            return (type(x), None, [rec(v) for v in x])
+        leaves.append(x)
+        return None
+
+    return leaves, rec(tree)
+
+
+def tree_unflatten(treedef, leaves: Sequence[Any]) -> Pytree:
+    it = iter(leaves)
+
+    def rec(node):
+        if node is None:
+            return next(it)
+        kind, keys, children = node
+        if kind is dict:
+            return {k: rec(c) for k, c in zip(keys, children)}
+        vals = [rec(c) for c in children]
+        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+            return kind(*vals)
+        return kind(vals)
+
+    return rec(treedef)
+
+
+def tree_leaves(tree: Pytree) -> List[Any]:
+    return tree_flatten(tree)[0]
+
+
+def tree_map(fn: Callable, tree: Pytree) -> Pytree:
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [fn(x) for x in leaves])
+
+
+class FlatLayout:
+    """Where each leaf of a parameter tree lives in the flat vector.
+
+    Built once from a template tree.  ``flatten`` concatenates a tree's
+    leaves (as f32) into ``(N,)``; ``unflatten`` splits a ``(..., N)`` tensor
+    back into leaf views of shape ``(..., *leaf_shape)`` — one
+    ``torch.split``, whose backward is a single concatenation, so a
+    gradient taken through it lands in one flat ``(..., N)`` buffer.
+    Works unchanged inside ``torch.func.vmap``.
+    """
+
+    def __init__(self, template: Pytree):
+        leaves, self.treedef = tree_flatten(template)
+        self.shapes = [tuple(x.shape) for x in leaves]
+        self.sizes = [int(x.numel()) for x in leaves]
+        self.size = sum(self.sizes)
+
+    def flatten(self, tree: Pytree) -> torch.Tensor:
+        return torch.cat([x.float().reshape(-1) for x in tree_leaves(tree)])
+
+    def unflatten(self, vec: torch.Tensor) -> Pytree:
+        lead = tuple(vec.shape[:-1])
+        parts = vec.split(self.sizes, dim=-1)
+        return tree_unflatten(
+            self.treedef,
+            [p.reshape(lead + s) for p, s in zip(parts, self.shapes)])
