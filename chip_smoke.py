@@ -7,21 +7,36 @@ Phases (any failure exits non-zero; nothing is caught):
 
   1. environment  card name and power limit (nvidia-smi), torch/CUDA
                   versions, compute capability 9.0 asserted;
-  2. build        the CUDA kernels from ``src/repro_torch/kernels/*/csrc``;
-  3. kernels      each kernel against its plain PyTorch version on the card
-                  at the main-path shape (C = 20 clients, N = 1,249,956
-                  ResNet-9 parameters, shared server delta) and at per-client
-                  delta, C = 1, ragged N and bf16; times from CUDA events
-                  beside the bound (bytes over 3.35 TB/s, or operations over
-                  the f32 peak);
-  4. small parity the port's federation on the card against the same run
-                  on the CPU (plain kernel versions) on a small CNN;
-  5. slice        the main path: ``Federation`` at RESNET9_CIFAR100 width,
-                  32x32 images, 100 classes, 20,000 samples, K = 100,
-                  participation 0.2, batch 50, Dir(0.07), seed 0 — 3 rounds
-                  each of pfedsop and fedavg with the launch counters reset
-                  just before, then 2 pfedsop rounds with the reference
-                  update held against the kernel run.
+  2. build        the CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
+                  one nvcc per source, all started together;
+  3. kernels      each kernel against its plain PyTorch version on the card:
+                  the update pair (K1/K2) at the ResNet path's shape (C = 20
+                  clients, N = 1,249,956, shared server delta), at
+                  per-client delta, C = 1, ragged N and bf16, and at the LM
+                  path's C = 1, N = 999,826,048 (gemma3-1b); rmsnorm (K4)
+                  and flash_gqa forward / dq / dk-dv (K5-K7) at the LM
+                  slice's shapes (B = 2, S = 2048, D = 256), G = 1 and 4,
+                  window on and off, softcap on and off, f32 and bf16.
+                  Times from CUDA events beside the bound (bytes over 3.35
+                  TB/s, or operations over the type's peak), the plain
+                  version's time and, where one PyTorch call computes the
+                  same function, that call's time (never used by the port);
+  4. small parity the port on the card against the same run on the CPU
+                  (plain kernel versions): a small-CNN federation, and 3
+                  rounds of federated LM training on gemma3-1b-smoke in f32;
+  5. ResNet slice ``Federation`` at RESNET9_CIFAR100 width, 32x32 images,
+                  100 classes, 20,000 samples, K = 100, participation 0.2,
+                  batch 50, Dir(0.07), seed 0 — 3 rounds each of pfedsop and
+                  fedavg with the launch counters reset just before, then 2
+                  pfedsop rounds with the reference update held against the
+                  kernel run;
+  6. LM slice     ``train_lm_pfedsop`` at gemma3-1b full width and depth
+                  (26 layers, N = 999,826,048 bf16): 4 clients, batch 2,
+                  seq_len 2048, 2 local iterations, 3 rounds, eta 0.1, seed
+                  0, with every launch counter reset just before and the
+                  exact launch counts asserted; then one forward of the
+                  trained model with ``kernel_impl="reference"`` held
+                  against the kernel path on the same batch.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -41,6 +56,9 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+import torch.nn.functional as F  # noqa: E402
+
+from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.configs.resnet_cifar import RESNET9_CIFAR100, SMALL_CNN  # noqa: E402
 from repro_torch.core.baselines import FedAvg, PFedSOP  # noqa: E402
 from repro_torch.core.pfedsop import PFedSOPConfig  # noqa: E402
@@ -50,14 +68,26 @@ from repro_torch.data import (  # noqa: E402
     make_class_conditional_images,
 )
 from repro_torch.fl import Federation, FLRunConfig, masked_accuracy  # noqa: E402
+from repro_torch.kernels import build as kernel_build  # noqa: E402
+from repro_torch.kernels.flash_gqa import grid  # noqa: E402
+from repro_torch.kernels.flash_gqa import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update import ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update.ref import coeff_from_sums, gompertz_beta  # noqa: E402
+from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.launch import train_lm_pfedsop as lm_driver  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
+from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
+BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 MAIN_C, MAIN_N = 20, 1_249_956  # K' = 0.2 * 100 clients; RESNET9_CIFAR100 params
+LM_N = 999_826_048  # gemma3-1b parameters (the LM path's C = 1 update)
 SOURCE = "src/repro_torch/kernels/pfedsop_update/csrc/pfedsop_update.cu"
+RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu"
+LM = dict(clients=4, rounds=3, local_iters=2, batch=2, seq_len=2048)  # the LM slice
 
 
 def median_ms(fn, reps=30, warmup=3):
@@ -75,9 +105,30 @@ def median_ms(fn, reps=30, warmup=3):
     return statistics.median(times)
 
 
-def bound(nbytes, nops):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / F32_OPS_PER_S
+def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def reset_launches():
+    for counts in (ops.LAUNCHES, rms_ops.LAUNCHES, flash_ops.LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def all_launches():
+    return {**ops.LAUNCHES, **rms_ops.LAUNCHES, **flash_ops.LAUNCHES}
+
+
+def errors(got, want):
+    """(max |got - want|, the same over max |want|: the error in units of
+    the largest value), in f32.  An all-zero reference would make any
+    comparison pass, so it fails here."""
+    got, want = got.float(), want.float()
+    err = (got - want).abs().max().item()
+    scale = want.abs().max().item()
+    assert scale > 0 and math.isfinite(scale), scale
+    return err, err / scale
 
 
 def make_operands(c, n, dtype, shared, seed):
@@ -161,6 +212,217 @@ def check_kernels():
     return rec
 
 
+def check_update_c1():
+    """K1/K2 at the LM path's C = 1, N = 999,826,048 f32 (the flattened
+    gemma3-1b tree): each against its plain version, then timed.  Returns
+    the C = 1 numbers the update records carry besides their main ones."""
+    x, di, dg = make_operands(1, LM_N, torch.float32, True, seed=7)
+    got = ops.reduce3_batched(di, dg)
+    want = ops.reduce3_batched_plain(di, dg)
+    err1 = (got - want).abs().max().item()
+    assert err1 <= 1e-5 * want.abs().max().item(), err1
+    dot, nl2, ng2 = want.sum(1).unbind(-1)
+    beta = gompertz_beta(dot, nl2, ng2, 1.0).contiguous()
+    ec = (0.1 * coeff_from_sums(dot, nl2, ng2, beta, 1.0)).contiguous()
+    out = ops.update_batched(x, di, dg, beta, ec)
+    ref = ops.update_batched_plain(x, di, dg, beta, ec)
+    err2 = (out - ref).abs().max().item()
+    assert err2 <= 2.0 ** -23 * ref.abs().max().item(), err2
+    del got, want, out, ref
+    torch.cuda.empty_cache()
+    b1, _ = bound(di.nbytes + dg.nbytes + ops.n_tiles(LM_N) * 12, 6 * LM_N)
+    b2, _ = bound(3 * x.nbytes + dg.nbytes + 8, 5 * LM_N)
+    rec = {
+        "reduce3": dict(c1_ms=median_ms(lambda: ops.reduce3_batched(di, dg), reps=10),
+                        c1_plain_ms=median_ms(lambda: ops.reduce3_batched_plain(di, dg),
+                                              reps=5, warmup=1),
+                        c1_bound_ms=b1, c1_max_abs_err=err1),
+        "update": dict(c1_ms=median_ms(lambda: ops.update_batched(x, di, dg, beta, ec), reps=10),
+                       c1_plain_ms=median_ms(
+                           lambda: ops.update_batched_plain(x, di, dg, beta, ec),
+                           reps=5, warmup=1),
+                       c1_bound_ms=b2, c1_max_abs_err=err2),
+    }
+    for k, r in rec.items():
+        print(f"kernels[time {k} C=1]: N={LM_N} f32 kernel {r['c1_ms']:.4f} ms, plain "
+              f"{r['c1_plain_ms']:.4f} ms, bound {r['c1_bound_ms']:.4f} ms (bytes), kernel "
+              f"at {100 * r['c1_bound_ms'] / r['c1_ms']:.1f}% of bound, max_abs_err "
+              f"{r['c1_max_abs_err']:.3g}", flush=True)
+    del x, di, dg
+    torch.cuda.empty_cache()
+    return rec
+
+
+def _randn(g, *shape, dtype=torch.float32, scale=1.0):
+    return (scale * torch.randn(*shape, generator=g, device="cuda")).to(dtype)
+
+
+def check_rmsnorm():
+    """K4 against its plain version at the LM slice's shapes (ln1/ln2/final
+    (4096, 1152), q-norm (16384, 256), k-norm (4096, 256)) and a ragged row
+    count, f32 and bf16.  Tolerance in units of the largest output: f32
+    1e-5 (a 1,152-term f32 sum in another order), bf16 2**-7 (one ulp: a
+    value next to a rounding boundary may round the other way)."""
+    g = torch.Generator(device="cuda").manual_seed(11)
+    worst = 0.0
+    for rows, d in ((4096, 1152), (16384, 256), (4096, 256), (1001, 1152)):
+        for dtype in (torch.bfloat16, torch.float32):
+            x = _randn(g, rows, d, dtype=dtype, scale=3.0)
+            sc = _randn(g, d, dtype=dtype, scale=0.5)
+            err, rel = errors(rms_ops.rmsnorm_fwd(x, sc), rms_ops.rmsnorm_plain(x, sc))
+            tol = 1e-5 if dtype == torch.float32 else 2.0 ** -7
+            assert rel <= tol, (rows, d, dtype, rel)
+            worst = max(worst, err)
+            print(f"kernels[rmsnorm ({rows}, {d}) {str(dtype)[6:]}]: max_abs_err {err:.3g}, "
+                  f"relative {rel:.3g} (tol {tol:.3g})", flush=True)
+    x = _randn(g, 4096, 1152, dtype=torch.bfloat16, scale=3.0)
+    sc = _randn(g, 1152, dtype=torch.bfloat16, scale=0.5)
+    lib = None
+    if hasattr(F, "rms_norm"):  # PyTorch >= 2.4
+        w = (1.0 + sc.float()).to(sc.dtype)
+        lib = median_ms(lambda: F.rms_norm(x, (1152,), weight=w, eps=1e-6))
+        # the same function: (1 + scale) rounded to bf16 and bf16 roundings
+        # at other places leave a few ulps
+        torch.testing.assert_close(F.rms_norm(x, (1152,), weight=w, eps=1e-6),
+                                   rms_ops.rmsnorm_fwd(x, sc), rtol=2.0 ** -5,
+                                   atol=2.0 ** -5)
+    b, by = bound(2 * x.nbytes + sc.nbytes, 4 * x.numel(), BF16_OPS_PER_S)
+    rec = dict(ms=median_ms(lambda: rms_ops.rmsnorm_fwd(x, sc)),
+               plain_ms=median_ms(lambda: rms_ops.rmsnorm_plain(x, sc)),
+               bound_ms=b, bound_by=by, library_ms=lib, max_abs_err=worst)
+    _print_time("rmsnorm (4096, 1152) bf16", rec)
+    return rec
+
+
+def _print_time(label, r):
+    lib = "none" if r.get("library_ms") is None else f"{r['library_ms']:.4f} ms"
+    print(f"kernels[time {label}]: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library {lib}, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), kernel at "
+          f"{100 * r['bound_ms'] / r['ms']:.1f}% of bound", flush=True)
+
+
+def _attention(g, h, kv, dtype, b=2, s=2048, d=256):
+    q = _randn(g, b, s, h, d, dtype=dtype)
+    k = _randn(g, b, s, kv, d, dtype=dtype)
+    v = _randn(g, b, s, kv, d, dtype=dtype)
+    do = _randn(g, b, s, h, d, dtype=dtype)
+    return q, k, v, do
+
+
+def check_flash():
+    """K5-K7 against their plain versions at the LM slice's attention shapes
+    (B = 2, S = 2048, D = 256; gemma3-1b's H = 4 over KV = 1, i.e. G = 4,
+    and G = 1), window 512 and none, softcap 50 and none, bf16 and f32.
+    The backward kernels take the plain forward's LSE and delta, so each is
+    checked alone.  Tolerance in units of the largest value: f32 1e-4
+    (sums of up to 8,192 f32 terms in another order, the online softmax
+    against one logsumexp), bf16 2**-7 (one ulp of the output); the LSE is
+    f32 in both and held to 1e-5.  (Without a softcap the backward passes
+    may equal their plain versions bit for bit: both accumulate each sum
+    as one FMA chain in the same order, as cuBLAS's f32 GEMM does.)"""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
+    cases = [  # (G, window, softcap, dtype)
+        (4, 512, None, torch.bfloat16), (4, None, None, torch.bfloat16),
+        (1, 512, 50.0, torch.bfloat16), (4, None, 50.0, torch.float32),
+        (1, 512, None, torch.float32)]
+    for gq, window, cap, dtype in cases:
+        q, k, v, do = _attention(g, 4, 4 // gq, dtype)
+        kw = dict(window=window, softcap=cap)
+        out, lse = flash_ops.flash_fwd(q, k, v, **kw)
+        pout, plse = flash_ops.flash_fwd_plain(q, k, v, **kw)
+        delta = flash_ops.row_delta(do, pout)
+        lse_err = errors(lse, plse)
+        dk, dv = flash_ops.flash_bwd_dkv(q, k, v, do, plse, delta, **kw)
+        pdk, pdv = flash_ops.flash_bwd_dkv_plain(q, k, v, do, plse, delta, **kw)
+        pairs = {"flash_fwd": [errors(out, pout)],
+                 "flash_bwd_dq": [errors(
+                     flash_ops.flash_bwd_dq(q, k, v, do, plse, delta, **kw),
+                     flash_ops.flash_bwd_dq_plain(q, k, v, do, plse, delta, **kw))],
+                 "flash_bwd_dkv": [errors(dk, pdk), errors(dv, pdv)]}
+        torch.cuda.synchronize()
+        tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+        assert lse_err[1] <= 1e-5, (gq, window, cap, dtype, lse_err)
+        line = []
+        for name, es in pairs.items():
+            for err, rel in es:
+                assert rel <= tol, (name, gq, window, cap, dtype, err, rel)
+                worst[name] = max(worst[name], err)
+                line.append(f"{name[6:]} {err:.3g}/{rel:.3g}")
+        worst["flash_fwd"] = max(worst["flash_fwd"], lse_err[0])
+        print(f"kernels[flash G={gq} window={window} softcap={cap} {str(dtype)[6:]}]: "
+              f"max_abs_err/relative " + ", ".join(line) + f", lse {lse_err[0]:.3g}/"
+              f"{lse_err[1]:.3g} (tol {tol:.3g}, lse 1e-05)", flush=True)
+    return worst
+
+
+def time_flash(worst):
+    """Times at the LM slice's shapes, bf16, G = 4: the records at a
+    full-attention layer (4 of gemma3-1b's 26, where one PyTorch call,
+    ``F.scaled_dot_product_attention``, computes the same function), and
+    the 512-window layer (the other 22) printed beside them.  Bounds count
+    the visible (query, key) pairs: 4D flops each forward, 6D for the dq
+    pass (scores, dO v^T, dq), 8D for the dk/dv pass, at the bf16 peak."""
+    g = torch.Generator(device="cuda").manual_seed(13)
+    q, k, v, do = _attention(g, 4, 1, torch.bfloat16)
+    b, s, h, d = q.shape
+    recs = {}
+    for window in (None, 512):
+        out, lse = flash_ops.flash_fwd(q, k, v, window=window)
+        delta = flash_ops.row_delta(do, out)
+        pairs = b * h * grid.attention_pairs(s, window)
+        io = q.nbytes + k.nbytes + v.nbytes
+        rows = lse.nbytes
+        fns = {
+            "flash_fwd": (lambda: flash_ops.flash_fwd(q, k, v, window=window),
+                          lambda: flash_ops.flash_fwd_plain(q, k, v, window=window),
+                          io + out.nbytes + rows, 4 * d * pairs),
+            "flash_bwd_dq": (
+                lambda: flash_ops.flash_bwd_dq(q, k, v, do, lse, delta, window=window),
+                lambda: flash_ops.flash_bwd_dq_plain(q, k, v, do, lse, delta, window=window),
+                io + 2 * do.nbytes + 2 * rows, 6 * d * pairs),
+            "flash_bwd_dkv": (
+                lambda: flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta, window=window),
+                lambda: flash_ops.flash_bwd_dkv_plain(q, k, v, do, lse, delta, window=window),
+                io + do.nbytes + 2 * rows + k.nbytes + v.nbytes, 8 * d * pairs),
+        }
+        for name, (kern, plain, nbytes, nops) in fns.items():
+            bnd, by = bound(nbytes, nops, BF16_OPS_PER_S)
+            r = dict(ms=median_ms(kern, reps=20), plain_ms=median_ms(plain, reps=5, warmup=1),
+                     bound_ms=bnd, bound_by=by)
+            _print_time(f"{name} window={window} B={b} S={s} H={h} KV=1 D={d} bf16", r)
+            if window is None:
+                recs[name] = r
+            else:
+                recs[name]["window512"] = r
+
+    # the library yardstick at the full-attention layer; before PyTorch 2.5
+    # SDPA has no enable_gqa, and the KV head is repeated for it beforehand
+    qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+    if tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
+        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
+            a, b_, c, is_causal=True, enable_gqa=True)
+    else:
+        kt, vt = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (kt, vt))
+        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
+            a, b_, c, is_causal=True)
+    want = flash_ops.flash_fwd(q, k, v)[0]
+    torch.testing.assert_close(sdpa(qt, kt, vt).transpose(1, 2), want, rtol=2.0 ** -6,
+                               atol=2.0 ** -6)
+    recs["flash_fwd"]["library_ms"] = median_ms(lambda: sdpa(qt, kt, vt))
+    leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+    o = sdpa(*leaves)
+    bwd = median_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
+    # one call computes dq, dk and dv: the yardstick of both passes together
+    recs["flash_bwd_dq"]["library_ms"] = recs["flash_bwd_dkv"]["library_ms"] = bwd
+    print(f"kernels[time sdpa full-attention bf16]: forward "
+          f"{recs['flash_fwd']['library_ms']:.4f} ms, backward (dq, dk, dv) {bwd:.4f} ms",
+          flush=True)
+    for name in recs:
+        recs[name]["max_abs_err"] = worst[name]
+    return recs
+
+
 def federation(cfg, data, method, rounds, device, **kw):
     run_cfg = FLRunConfig(n_clients=data.n_clients, rounds=rounds, seed=0, **kw)
     params = cnn.init_params(torch.Generator().manual_seed(0), cfg, device=device)
@@ -198,14 +460,14 @@ def slice_run():
     kw = dict(participation=0.2, batch=50)
     pcfg = PFedSOPConfig(eta1=0.05, eta2=0.05)  # the driver's default lr
 
-    for k in ops.LAUNCHES:
-        ops.LAUNCHES[k] = 0
+    reset_launches()
     fed_k, h_k = federation(cfg, data, PFedSOP(cfg=pcfg), 3, "cuda", **kw)
-    after_pfedsop = dict(ops.LAUNCHES)
+    after_pfedsop = all_launches()
     _, h_f = federation(cfg, data, FedAvg(lr=0.05), 3, "cuda", **kw)
-    launches = dict(ops.LAUNCHES)
+    launches = all_launches()
     assert fed_k.layout.size == MAIN_N and fed_k.kprime == MAIN_C
-    assert after_pfedsop == {"reduce3": 3, "update": 3}, after_pfedsop
+    assert after_pfedsop == {**{k: 0 for k in launches}, "reduce3": 3, "update": 3}, \
+        after_pfedsop
     assert launches == after_pfedsop, launches  # FedAvg launches nothing
     for name, h in (("pfedsop", h_k), ("fedavg", h_f)):
         assert all(math.isfinite(v) for v in h["loss"]), (name, h["loss"])
@@ -216,13 +478,80 @@ def slice_run():
 
     _, h_r = federation(cfg, data, PFedSOP(cfg=pcfg), 2, "cuda",
                         update_impl="reference", **kw)
-    assert dict(ops.LAUNCHES) == launches
+    assert all_launches() == launches
     # kernel vs reference update: fp32 reduction order in beta/the step,
     # plus cuDNN's run-to-run order; acc may flip one prediction of the
     # smallest test set (>= 1 sample) of one of the 20 clients
     np.testing.assert_allclose(h_r["loss"], h_k["loss"][:2], rtol=1e-4)
     np.testing.assert_allclose(h_r["acc"], h_k["acc"][:2], atol=0.05)
     print(f"slice: reference update loss {h_r['loss']} acc {h_r['acc']}", flush=True)
+    return launches
+
+
+def lm_small_parity():
+    """The LM path on the card against the same run on the CPU (which the
+    CPU tests hold against ``repro``): gemma3-1b-smoke in f32, the same
+    init, 2 clients x 2 local iterations x 3 rounds, batch 2, seq_len 64.
+    The card's kernels sum in another order than the CPU's plain versions:
+    f32 noise through 12 SGD steps and 2 personalized updates -> loss rtol
+    2e-4, beta rtol 1e-3 (an angle between two deltas)."""
+    cfg = get_config("gemma3-1b", reduced=True)
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1)
+    kw = dict(clients=2, rounds=3, local_iters=2, batch=2, seq_len=64)
+    h_g, _ = lm_driver.train(cfg, tree_map(lambda x: x.cuda(), params), pcfg, **kw)
+    h_c, _ = lm_driver.train(cfg, params, pcfg, **kw)
+    np.testing.assert_allclose(h_g["loss"], h_c["loss"], rtol=2e-4)
+    np.testing.assert_allclose(h_g["beta"], h_c["beta"], rtol=1e-3)
+    print(f"small LM parity: cuda loss {h_g['loss']} beta {h_g['beta']}; cpu loss "
+          f"{h_c['loss']} beta {h_c['beta']}", flush=True)
+
+
+def lm_slice():
+    """The LM main path at gemma3-1b full width and depth; returns its
+    launch counts and the per-round history."""
+    cfg = get_config("gemma3-1b")
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)  # the example's defaults
+    t0 = time.perf_counter()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n = sum(x.numel() for x in tree_leaves(params))
+    assert n == LM_N, n
+    torch.cuda.synchronize()
+    print(f"lm slice: {cfg.name} N={n} {cfg.dtype}, init {time.perf_counter() - t0:.1f}s",
+          flush=True)
+
+    def log(t, loss, beta, dt):
+        print(f"lm slice round {t}: loss={loss:.6f} beta={beta:.6f} round_time={dt:.4f}s",
+              flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    hist, states = lm_driver.train(cfg, params, pcfg, on_round=log, **LM)
+    launches = all_launches()
+    steps = LM["clients"] * LM["local_iters"] * LM["rounds"]
+    want = {k: steps * v for k, v in lm_driver.launches_per_step(cfg).items()}
+    want.update(reduce3=LM["clients"] * (LM["rounds"] - 1),
+                update=LM["clients"] * (LM["rounds"] - 1))
+    assert launches == want, (launches, want)
+    assert all(math.isfinite(v) for v in hist["loss"]), hist["loss"]
+    print(f"lm slice: launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+
+    # one forward of client 0's trained model, reference path against kernels
+    del params
+    trained = states[0].params
+    states = None
+    batch = next(lm_driver.client_streams(cfg, 1, LM["batch"], LM["seq_len"])[0])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    with torch.no_grad():
+        loss_k = tf.lm_loss(trained, cfg, batch).item()
+        loss_r = tf.lm_loss(trained, cfg.replace(kernel_impl="reference"), batch).item()
+    # bf16 activations rounded at other places (the reference rounds the
+    # probabilities to bf16 before the PV product, the kernel keeps them in
+    # f32) through 26 layers: rtol 1e-2 on a loss near ln(262144) = 12.5
+    assert abs(loss_k - loss_r) <= 1e-2 * abs(loss_r), (loss_k, loss_r)
+    print(f"lm slice: forward loss kernel {loss_k:.6f} reference {loss_r:.6f} "
+          f"(rel diff {abs(loss_k - loss_r) / abs(loss_r):.3g})", flush=True)
     return launches
 
 
@@ -244,20 +573,42 @@ def main():
     assert cap == (9, 0), cap
 
     t0 = time.perf_counter()
-    ops.build()
+    kernel_build.build(ops.SOURCE, rms_ops.SOURCE, flash_ops.SOURCE)
+    for mod in (ops, rms_ops, flash_ops):
+        mod.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
 
     rec = check_kernels()
+    for k, r in check_update_c1().items():
+        rec[k].update(r)
+    rec["rmsnorm"] = check_rmsnorm()
+    rec.update(time_flash(check_flash()))
     small_parity()
-    launches = slice_run()
+    lm_small_parity()
+    resnet = slice_run()
+    lm = lm_slice()
+
+    def record(name, key, source, replaces):
+        r = dict(rec[key])
+        r.setdefault("library_ms", None)
+        launches = lm[key] + resnet[key]
+        extra = ({"launches_by_path": {"resnet9": resnet[key], "lm_gemma3_1b": lm[key]}}
+                 if resnet[key] else {})
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, **r, **extra}
 
     kernels = [
-        {"name": "pfedsop_reduce3", "route": "cuda", "source": SOURCE,
-         "replaces": "src/repro/kernels/pfedsop_update/kernel.py:132",
-         "launches": launches["reduce3"], **rec["reduce3"], "library_ms": None},
-        {"name": "pfedsop_update", "route": "cuda", "source": SOURCE,
-         "replaces": "src/repro/kernels/pfedsop_update/kernel.py:163",
-         "launches": launches["update"], **rec["update"], "library_ms": None},
+        record("pfedsop_reduce3", "reduce3", SOURCE,
+               "src/repro/kernels/pfedsop_update/kernel.py:132"),
+        record("pfedsop_update", "update", SOURCE,
+               "src/repro/kernels/pfedsop_update/kernel.py:163"),
+        record("rmsnorm", "rmsnorm", RMS_SOURCE, "src/repro/kernels/rmsnorm/kernel.py:28"),
+        record("flash_fwd", "flash_fwd", FLASH_SOURCE,
+               "src/repro/kernels/flash_gqa/kernel.py:176"),
+        record("flash_bwd_dq", "flash_bwd_dq", FLASH_SOURCE,
+               "src/repro/kernels/flash_gqa/kernel.py:394"),
+        record("flash_bwd_dkv", "flash_bwd_dkv", FLASH_SOURCE,
+               "src/repro/kernels/flash_gqa/kernel.py:436"),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -12,10 +12,13 @@ per client i at round t
 server
   6. delta_t = mean_i delta_it                                   (Eq. 13)
 
-Parameters and deltas are flat f32 vectors here (``repro_torch.utils.
-pytree.FlatLayout``), so every function takes one client's ``(N,)``
-vector or a cohort's ``(C, N)`` block alike: reductions run over the last
-axis and per-client scalars broadcast over it.
+On the CNN slice, parameters and deltas are flat f32 vectors
+(``repro_torch.utils.pytree.FlatLayout``), so every function takes one
+client's ``(N,)`` vector or a cohort's ``(C, N)`` block alike: reductions
+run over the last axis and per-client scalars broadcast over it.  The LM
+slice keeps one client's parameters as a pytree (bf16 at full width) and
+runs ``repro``'s per-client round on it, one client at a time
+(``tree_client_round`` and the ``tree_*`` functions at the end).
 
 The round-start update (steps 1-4) runs once per round over the whole
 gathered cohort: ``round_start`` makes ONE batched call to the kernel
@@ -36,8 +39,10 @@ import torch
 
 from repro_torch.kernels.dispatch import check_impl
 from repro_torch.kernels.pfedsop_update import ops
+from repro_torch.kernels.pfedsop_update.ref import gompertz_beta
 from repro_torch.optim.reduce import cohort_mean
-from repro_torch.optim.sgd import sgd_loop
+from repro_torch.optim.sgd import sgd_loop, tree_sgd_loop
+from repro_torch.utils.pytree import FlatLayout, tree_leaves, tree_map
 
 
 @dataclass(frozen=True)
@@ -65,12 +70,14 @@ class ClientState(NamedTuple):
     rounds_seen: torch.Tensor  # int32 scalar (diagnostics)
 
 
-def init_client_state(params: torch.Tensor) -> ClientState:
+def init_client_state(params) -> ClientState:
+    """``params``: a flat vector or a parameter tree."""
+    device = tree_leaves(params)[0].device
     return ClientState(
         params=params,
-        delta=torch.zeros_like(params),
-        has_delta=torch.zeros((), dtype=torch.bool, device=params.device),
-        rounds_seen=torch.zeros((), dtype=torch.int32, device=params.device),
+        delta=tree_map(torch.zeros_like, params),
+        has_delta=torch.zeros((), dtype=torch.bool, device=device),
+        rounds_seen=torch.zeros((), dtype=torch.int32, device=device),
     )
 
 
@@ -222,3 +229,80 @@ def server_aggregate(deltas):
     """Eq. 13: mean over the client axis, canonically associated
     (``repro_torch.optim.reduce.cohort_mean``)."""
     return cohort_mean(deltas)
+
+
+# ---------------------------------------------------------------------------
+# One client's round on a parameter tree (the LM slice)
+# ---------------------------------------------------------------------------
+
+
+def _tree_dot(a, b):
+    """<a, b> over all leaves: per-leaf f32 sums, then their sum (repro's
+    ``tree_dot``)."""
+    return torch.stack([(x.float() * y.float()).sum()
+                        for x, y in zip(tree_leaves(a), tree_leaves(b))]).sum()
+
+
+def tree_personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
+    """Algorithm 1 on one client's tree: returns (x_it, aux).
+
+    With ``use_pc`` and "auto"/"kernel", ``repro``'s ``_personalize_fused``:
+    flatten the three trees once to f32 vectors, one C = 1 launch pair of
+    the fused update, unflatten back to each leaf's dtype.  "reference" and
+    the no-PC ablation run ``repro``'s per-leaf math, rounding the blend and
+    the step to each leaf's dtype as it does."""
+    leaf = tree_leaves(params)[0]
+    impl = check_impl(cfg.update_impl, "pfedsop_update", leaf)
+    if cfg.use_pc and impl != "reference":
+        layout = FlatLayout(params)
+        new, beta = ops.pfedsop_update(
+            layout.flatten(params), layout.flatten(local_delta),
+            layout.flatten(global_delta), cfg.eta1, cfg.rho, cfg.lam, cfg.eps, impl=impl)
+        return layout.unflatten(new), {"beta": beta}
+    if cfg.use_pc:
+        nl2, ng2 = _tree_dot(local_delta, local_delta), _tree_dot(global_delta, global_delta)
+        beta = gompertz_beta(_tree_dot(local_delta, global_delta), nl2, ng2, cfg.lam, cfg.eps)
+        dp = tree_map(lambda x, y: ((1.0 - beta) * x.float() + beta * y.float()).to(x.dtype),
+                      local_delta, global_delta)
+    else:
+        dp, beta = global_delta, torch.ones((), device=leaf.device)
+    sq = _tree_dot(dp, dp)
+    coeff = 1.0 / cfg.rho - sq / (cfg.rho**2 + cfg.rho * sq)
+    step = tree_map(lambda x: (coeff * x.float()).to(x.dtype), dp)
+    new = tree_map(lambda x, st: (x.float() - cfg.eta1 * st.float()).to(x.dtype), params, step)
+    return new, {"beta": beta}
+
+
+def tree_local_sgd_delta(loss_fn: Callable, params, batches: Any, eta2: float):
+    """T SGD iterations on a tree; returns (delta_i, final_params, mean_loss),
+    delta_i = (x0 - xT) * (1/eta2) with the difference in the leaf dtype, as
+    ``repro``'s ``tree_scale(1/eta2, tree_sub(x0, xT))``."""
+    final, loss = tree_sgd_loop(loss_fn, params, batches, eta2)
+    delta = tree_map(lambda a, b: ((a - b).float() * (1.0 / eta2)).to(a.dtype),
+                     params, final)
+    return delta, final, loss
+
+
+def tree_client_round(loss_fn: Callable, state: ClientState, global_delta,
+                      global_has_delta, batches, cfg: PFedSOPConfig):
+    """``repro``'s ``client_round`` for ONE client whose params are a tree.
+
+    New clients (has_delta False) and round 1 (no global update yet) skip
+    the round-start update.  ``repro`` computes it anyway and selects the
+    stored params with ``tree_where``; here the choice is made on the host
+    and the update does not run.  Then one of the two deltas is zero, so
+    the reported beta is the Gompertz weight of the zero-information angle
+    pi/2, the value ``repro`` reports."""
+    can = bool(state.has_delta) and bool(global_has_delta)
+    if can:
+        params, aux = tree_personalize(state.params, state.delta, global_delta, cfg)
+    else:
+        zero = torch.zeros((), device=state.has_delta.device)
+        params = state.params
+        aux = {"beta": gompertz_beta(zero, zero, zero, cfg.lam, cfg.eps)
+               if cfg.use_pc else torch.ones_like(zero)}
+    delta, final, loss = tree_local_sgd_delta(loss_fn, params, batches, cfg.eta2)
+    new_state = ClientState(params=final, delta=delta,
+                            has_delta=torch.ones_like(state.has_delta),
+                            rounds_seen=state.rounds_seen + 1)
+    return new_state, delta, {"loss": loss, "beta": aux["beta"], "personalized": can}

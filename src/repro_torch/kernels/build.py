@@ -16,7 +16,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import List
+from typing import Any, Dict, List, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,3 +67,22 @@ def build(*sources: Path) -> List[Path]:
 @functools.lru_cache(maxsize=None)
 def load_library(source: Path) -> ctypes.CDLL:
     return ctypes.CDLL(str(build(source)[0]))
+
+
+def bind(source: Path, signatures: Dict[str, Tuple[list, Any]]) -> ctypes.CDLL:
+    """The library of ``source`` with each symbol's ``(argtypes, restype)``
+    set: every pointer and the stream as ``c_void_p``, or ctypes would cut
+    them to 32 bits."""
+    lib = load_library(source)
+    for name, (argtypes, restype) in signatures.items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = argtypes, restype
+    return lib
+
+
+def check_launch(lib: ctypes.CDLL, err: int, name: str, prefix: str) -> None:
+    """Raise if a launch returned a CUDA error: a refused launch never runs,
+    and a later synchronize would not report it."""
+    if err:
+        msg = getattr(lib, f"{prefix}_error_string")(err).decode()
+        raise RuntimeError(f"{name} launch failed: cudaError {err} ({msg})")

@@ -1,0 +1,63 @@
+"""Grid arithmetic of the flash_gqa kernels.
+
+``_block_sizes``, ``_first_kv_block``, ``flash_gqa_grid`` and
+``flash_gqa_bwd_grid`` are ``repro/kernels/flash_gqa/kernel.py:53-110``
+as they are: the TPU kernels' window-pruned grids at their (512-default)
+tiles, kept so the tile census the benchmarks quote can be checked
+against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
+own tiles and compute the exact tile range a window needs themselves.
+``attention_pairs`` counts the (query, key) pairs causality and the
+window leave, the work any implementation must do (``chip_smoke.py``'s
+operation bounds).
+"""
+from __future__ import annotations
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _block_sizes(s: int, bq: int, bk: int):
+    """Clamp/halve the requested block sizes until they divide S."""
+    bq = min(bq, s)
+    while s % bq:
+        bq //= 2
+    bk = min(bk, s)
+    while s % bk:
+        bk //= 2
+    return bq, bk, s // bq, s // bk
+
+
+def _first_kv_block(qi: int, bq: int, bk: int, nkp: int) -> int:
+    """First visited k-block for q block ``qi`` under the pruned grid."""
+    last = (qi * bq + bq - 1) // bk
+    return max(last - (nkp - 1), 0)
+
+
+def flash_gqa_grid(s: int, bq: int = 512, bk: int = 512, window=None,
+                   prune_window: bool = True):
+    """(nq, nk_visited) of the TPU forward for the given sequence/window/tiling."""
+    bq, bk, nq, nk = _block_sizes(s, bq, bk)
+    if window is None or not prune_window:
+        return nq, nk
+    return nq, min(nk, _cdiv(window + bq, bk) + 1)
+
+
+def flash_gqa_bwd_grid(s: int, bq: int = 512, bk: int = 512, window=None,
+                       prune_window: bool = True):
+    """Visited block counts of the TPU backward passes: (nk_dq, nq_dkv)."""
+    bq, bk, nq, nk = _block_sizes(s, bq, bk)
+    _, nkp = flash_gqa_grid(s, bq, bk, window, prune_window)
+    if window is not None and prune_window:
+        nqv = min(nq, _cdiv(window + bk, bq) + 1)
+    else:
+        nqv = nq
+    return nkp, nqv
+
+
+def attention_pairs(s: int, window=None) -> int:
+    """(query, key) pairs with k <= q and q - k < window, per (batch, head)."""
+    if window is None or window >= s:
+        return s * (s + 1) // 2
+    w = window
+    return w * (w + 1) // 2 + (s - w) * w

@@ -29,7 +29,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.build import load_library
+from repro_torch.kernels.build import bind, check_launch
 from repro_torch.kernels.dispatch import check_impl
 from repro_torch.kernels.pfedsop_update.ref import (
     coeff_from_sums,
@@ -57,11 +57,7 @@ SIGNATURES = {
 
 @functools.lru_cache(maxsize=None)
 def _lib() -> ctypes.CDLL:
-    lib = load_library(SOURCE)
-    for name, (argtypes, restype) in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes, fn.restype = argtypes, restype
-    return lib
+    return bind(SOURCE, SIGNATURES)
 
 
 def build() -> None:
@@ -74,9 +70,7 @@ def n_tiles(n: int) -> int:
 
 
 def _check_launch(err: int, name: str) -> None:
-    if err:
-        msg = _lib().pfedsop_error_string(err).decode()
-        raise RuntimeError(f"{name} launch failed: cudaError {err} ({msg})")
+    check_launch(_lib(), err, name, "pfedsop")
 
 
 def _operands(delta_i, delta_g, *more):

@@ -59,9 +59,17 @@ def tree_leaves(tree: Pytree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
-def tree_map(fn: Callable, tree: Pytree) -> Pytree:
+def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
+    """``fn`` over the leaves of ``tree`` (and, zipped, of same-structured
+    ``rest`` trees)."""
     leaves, treedef = tree_flatten(tree)
-    return tree_unflatten(treedef, [fn(x) for x in leaves])
+    others = [tree_leaves(r) for r in rest]
+    return tree_unflatten(treedef, [fn(*xs) for xs in zip(leaves, *others)])
+
+
+def tree_stack(trees: Sequence[Pytree]) -> Pytree:
+    """Stack same-structured trees leaf by leaf on a new leading axis."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
 
 
 class FlatLayout:
@@ -69,15 +77,19 @@ class FlatLayout:
 
     Built once from a template tree.  ``flatten`` concatenates a tree's
     leaves (as f32) into ``(N,)``; ``unflatten`` splits a ``(..., N)`` tensor
-    back into leaf views of shape ``(..., *leaf_shape)`` — one
-    ``torch.split``, whose backward is a single concatenation, so a
-    gradient taken through it lands in one flat ``(..., N)`` buffer.
-    Works unchanged inside ``torch.func.vmap``.
+    back into leaves of shape ``(..., *leaf_shape)`` in the template's leaf
+    dtypes — one ``torch.split``, whose backward is a single concatenation,
+    so a gradient taken through it lands in one flat ``(..., N)`` buffer.
+    Leaves whose dtype is the vector's are views (an f32 template, as the
+    CNN's, gets views of the f32 rows); others are cast copies (a bf16
+    model gets its leaves back as bf16, as ``repro``'s
+    ``tree_unflatten_from_vector`` does).  Works inside ``torch.func.vmap``.
     """
 
     def __init__(self, template: Pytree):
         leaves, self.treedef = tree_flatten(template)
         self.shapes = [tuple(x.shape) for x in leaves]
+        self.dtypes = [x.dtype for x in leaves]
         self.sizes = [int(x.numel()) for x in leaves]
         self.size = sum(self.sizes)
 
@@ -89,4 +101,4 @@ class FlatLayout:
         parts = vec.split(self.sizes, dim=-1)
         return tree_unflatten(
             self.treedef,
-            [p.reshape(lead + s) for p, s in zip(parts, self.shapes)])
+            [p.reshape(lead + s).to(dt) for p, s, dt in zip(parts, self.shapes, self.dtypes)])

@@ -1,10 +1,17 @@
 """Carry parameter trees between ``repro`` (JAX) and the port.
 
 Both packages use the same nested-dict layout (``repro_torch.models.cnn``
-keeps JAX's HWIO conv weights), so a tree moves across as numpy leaves:
+keeps JAX's HWIO conv weights; ``repro_torch.models.transformer`` keeps
+the stacked ``pattern`` tuples), so a tree moves across as numpy leaves:
 ``params_from_jax(jax.tree.map(np.asarray, params), device)`` here, and
 ``params_to_numpy`` back.  ``jax.random`` init bits cannot be reproduced
 in torch, so parity tests carry ``repro``'s initialization across.
+
+A JAX bfloat16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
+``torch.from_numpy`` refuses; it crosses as its 16-bit pattern
+(an ``int16`` view, reinterpreted as ``torch.bfloat16``), so every bit is
+kept.  Back in numpy a bfloat16 leaf comes out as float32, which holds
+every bfloat16 value exactly.
 """
 from __future__ import annotations
 
@@ -15,11 +22,22 @@ from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
 
 
+def _tensor(x) -> torch.Tensor:
+    a = np.array(x)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
 def params_from_jax(tree, device="cuda"):
     """Tree of numpy arrays (same structure as ``repro``'s) -> tensors."""
     dev = resolve_device(device)
-    return tree_map(lambda x: torch.from_numpy(np.array(x)).to(dev), tree)
+    return tree_map(lambda x: _tensor(x).to(dev), tree)
 
 
 def params_to_numpy(tree):
-    return tree_map(lambda x: x.detach().cpu().numpy(), tree)
+    """Tensors -> numpy; bfloat16 leaves as exact float32."""
+    def leaf(x):
+        x = x.detach().cpu()
+        return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
+    return tree_map(leaf, tree)

@@ -1,0 +1,242 @@
+"""The LM slice's kernels (K4 rmsnorm, K5-K7 flash_gqa) against ``repro``.
+
+On the CPU each wrapper runs its plain PyTorch version (a CUDA kernel has
+no interpreter); ``chip_smoke.py`` holds the CUDA kernels against these
+plain versions on the card.  The reference is ``repro``'s Pallas kernels
+in interpret mode, as its own tests run them.
+
+Tolerances:
+- f32: rtol/atol 1e-5 — sums of at most 1,152 (rmsnorm) or 64 x 64
+  (attention) f32 products taken in another order than the Pallas tiles,
+  and the online softmax (``repro``) against one logsumexp (the plain
+  version);
+- bf16 outputs: one bf16 ulp (rtol 2**-7) — the f32 values agree to ~1e-6,
+  so a value next to a rounding boundary may round the other way.
+"""
+import ctypes
+import re
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.flash_gqa import kernel as j_kernel
+from repro.kernels.flash_gqa.ops import flash_gqa as j_flash_gqa
+from repro.kernels.rmsnorm.ops import rmsnorm as j_rmsnorm
+from repro_torch.kernels.flash_gqa import grid
+from repro_torch.kernels.flash_gqa import ops as flash_ops
+from repro_torch.kernels.flash_gqa.ref import visible_mask
+from repro_torch.kernels.rmsnorm import ops as rms_ops
+
+F32_TOL = dict(rtol=1e-5, atol=1e-5)
+BF16_TOL = dict(rtol=2.0**-7, atol=1e-6)
+
+
+def _pair(a, dtype):
+    """The same numpy values as a JAX array and a torch tensor of ``dtype``."""
+    a = a.astype(np.float32)
+    return (jnp.asarray(a).astype(getattr(jnp, dtype)),
+            torch.from_numpy(a).to(getattr(torch, dtype)))
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+# -- K4 rmsnorm ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,d", [(37, 256), (19, 1152)])  # ragged row counts
+def test_rmsnorm_forward_and_grad_match_repro_interpret(rows, d, dtype):
+    rng = np.random.RandomState(rows)
+    (jx, tx), (js, ts), (jg, tg) = (_pair(a, dtype) for a in (
+        rng.randn(2, rows, d) * 3.0, 0.5 * rng.randn(d), rng.randn(2, rows, d)))
+    want, vjp = jax.vjp(lambda x, s: j_rmsnorm(x, s, 1e-6, interpret=True), jx, js)
+    wgx, wgs = vjp(jg)
+
+    tx.requires_grad_()
+    ts.requires_grad_()
+    got = rms_ops.rmsnorm(tx, ts, 1e-6)
+    ggx, ggs = torch.autograd.grad(got, (tx, ts), tg)
+    tol = F32_TOL if dtype == "float32" else BF16_TOL
+    assert got.dtype == tx.dtype and ggx.dtype == tx.dtype and ggs.dtype == ts.dtype
+    np.testing.assert_allclose(_np(got), _np(want), **tol)
+    np.testing.assert_allclose(_np(ggx), _np(wgx), **tol)
+    # the scale gradient sums over all 2 x rows rows: f32 order noise on
+    # sums of magnitude up to ~100, so an absolute floor of 1e-4 besides
+    np.testing.assert_allclose(_np(ggs), _np(wgs), rtol=tol["rtol"], atol=1e-4)
+    assert rms_ops.LAUNCHES["rmsnorm"] == 0  # CPU: the plain version, no launch
+
+
+def test_rmsnorm_impls():
+    x, s = torch.randn(4, 64), torch.randn(64)
+    torch.testing.assert_close(rms_ops.rmsnorm(x, s, impl="reference"),
+                               rms_ops.rmsnorm(x, s, impl="auto"), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        rms_ops.rmsnorm(x, s, impl="kernel")
+    with pytest.raises(ValueError, match="no counterpart"):
+        rms_ops.rmsnorm(x, s, impl="kernel_interpret")
+
+
+@pytest.mark.parametrize("bad", ["scale_shape", "dtype_mix", "float64", "strided"])
+def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(bad):
+    x, s = torch.randn(8, 64), torch.randn(64)
+    if bad == "scale_shape":
+        s = s[:63]
+    elif bad == "dtype_mix":
+        s = s.bfloat16()
+    elif bad == "float64":
+        x, s = x.double(), s.double()
+    else:
+        x = x[:, ::2]
+        s = s[:32]
+    with pytest.raises(ValueError):
+        rms_ops.rmsnorm_fwd(x, s)
+
+
+# -- K5-K7 flash_gqa -------------------------------------------------------
+
+B, S, D, BLK = 2, 64, 64, 16
+
+
+def _qkv(h, kv, dtype, seed=0):
+    rng = np.random.RandomState(seed)
+    arrays = (rng.randn(B, S, h, D), rng.randn(B, S, kv, D), rng.randn(B, S, kv, D),
+              rng.randn(B, S, h, D))
+    return zip(*(_pair(a, dtype) for a in arrays))
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("window", [None, 16])
+@pytest.mark.parametrize("g", [1, 4])
+def test_flash_forward_lse_and_grads_match_repro_interpret(g, window, softcap):
+    """Forward, LSE and (dq, dk, dv); at window 16 with 16-blocks the Pallas
+    grid is pruned (3 of 4 k-blocks per q row)."""
+    h, kv = 4, 4 // g
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkv(h, kv, "float32")
+    if window is not None:
+        assert j_kernel.flash_gqa_grid(S, BLK, BLK, window) == (4, 3)
+    kw = dict(window=window, softcap=softcap)
+    j_out, j_lse = j_kernel.flash_gqa_pallas(
+        *(jnp.swapaxes(t, 1, 2) for t in (jq, jk, jv)), bq=BLK, bk=BLK,
+        interpret=True, return_residual=True, **kw)
+    t_out, t_lse = flash_ops.flash_fwd(tq, tk, tv, **kw)
+    np.testing.assert_allclose(_np(t_out), _np(jnp.swapaxes(j_out, 1, 2)), **F32_TOL)
+    np.testing.assert_allclose(_np(t_lse), _np(j_lse), **F32_TOL)
+
+    _, vjp = jax.vjp(lambda q, k, v: j_flash_gqa(q, k, v, bq=BLK, bk=BLK, interpret=True,
+                                                 bwd="kernel_interpret", **kw), jq, jk, jv)
+    j_grads = vjp(jdo)
+    leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
+    out = flash_ops.flash_gqa(*leaves, **kw)
+    t_grads = torch.autograd.grad(out, leaves, tdo)
+    for name, a, b in zip(("dq", "dk", "dv"), t_grads, j_grads):
+        np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
+    assert flash_ops.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+def test_flash_bf16_and_reference_impl():
+    """bf16 operands: the plain forward against repro's interpret kernel to
+    one bf16 ulp; the port's oracle ("reference") against the plain path."""
+    (jq, jk, jv, _), (tq, tk, tv, _) = _qkv(4, 1, "bfloat16", seed=1)
+    j_out = j_flash_gqa(jq, jk, jv, window=16, softcap=50.0, bq=BLK, bk=BLK, interpret=True)
+    t_out = flash_ops.flash_gqa(tq, tk, tv, window=16, softcap=50.0)
+    assert t_out.dtype == torch.bfloat16
+    np.testing.assert_allclose(_np(t_out), _np(j_out), rtol=2.0**-7, atol=2.0**-8)
+    ref = flash_ops.flash_gqa(tq.float(), tk.float(), tv.float(), window=16, softcap=50.0,
+                              impl="reference")
+    np.testing.assert_allclose(_np(ref), _np(flash_ops.flash_gqa(
+        tq.float(), tk.float(), tv.float(), window=16, softcap=50.0)), **F32_TOL)
+    with pytest.raises(ValueError, match="needs CUDA tensors"):
+        flash_ops.flash_gqa(tq, tk, tv, impl="kernel")
+
+
+@pytest.mark.parametrize("bad", ["kv_heads", "lse_shape", "strided", "dtype_mix", "window"])
+def test_flash_wrappers_reject_what_the_kernels_do_not_take(bad):
+    (_, _, _, _), (q, k, v, do) = _qkv(4, 2, "float32")
+    lse = delta = torch.zeros(B, 4, S)
+    window = None
+    if bad == "kv_heads":
+        k = v = torch.zeros(B, S, 3, D)
+    elif bad == "lse_shape":
+        lse = torch.zeros(B, S, 4)
+    elif bad == "strided":
+        q = q.transpose(1, 2).contiguous().transpose(1, 2)
+    elif bad == "dtype_mix":
+        do = do.bfloat16()
+    else:
+        window = 0
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd_dq(q, k, v, do, lse, delta, window=window)
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta, window=window)
+
+
+# -- grids -----------------------------------------------------------------
+
+
+@pytest.mark.parametrize("s,bq,bk,window", [
+    (4096, 512, 512, 512),     # gemma3-1b train_4k
+    (32768, 512, 512, 4096),   # gemma2-9b prefill_32k
+    (2048, 512, 512, 512),     # the LM slice on the card
+    (1024, 512, 512, 512),
+    (64, 16, 16, 16), (256, 32, 32, 40), (100, 512, 512, None)])
+def test_grid_helpers_equal_repro(s, bq, bk, window):
+    assert grid.flash_gqa_grid(s, bq, bk, window) == j_kernel.flash_gqa_grid(s, bq, bk, window)
+    assert (grid.flash_gqa_bwd_grid(s, bq, bk, window)
+            == j_kernel.flash_gqa_bwd_grid(s, bq, bk, window))
+    bq_, bk_, nq, _ = grid._block_sizes(s, bq, bk)
+    _, nkp = grid.flash_gqa_grid(s, bq, bk, window)
+    for qi in range(nq):
+        assert grid._first_kv_block(qi, bq_, bk_, nkp) == int(
+            j_kernel._first_kv_block(qi, bq_, bk_, nkp))
+
+
+def test_tile_census():
+    """The numbers the benchmarks quote (ROADMAP.md queue 2)."""
+    assert grid.flash_gqa_grid(4096, 512, 512, 512) == (8, 3)
+    nq, nk = grid.flash_gqa_grid(4096, 512, 512, 512, prune_window=False)
+    nk_dq, nq_dkv = grid.flash_gqa_bwd_grid(4096, 512, 512, 512)
+    assert (nq * nk_dq + nk * nq_dkv, 2 * nq * nk) == (48, 128)
+    assert grid.flash_gqa_grid(32768, 512, 512, 4096)[1] == 10
+    assert grid.flash_gqa_grid(32768, 512, 512, 4096, prune_window=False)[1] == 64
+    # the slice's seq_len is the smallest that prunes repro's 512-blocks
+    assert grid.flash_gqa_grid(2048, 512, 512, 512) == (4, 3)
+    assert grid.flash_gqa_grid(1024, 512, 512, 512) == (2, 2)
+
+
+@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (200, 300)])
+def test_attention_pairs_counts_the_visible_pairs(s, window):
+    assert visible_mask(s, window, "cpu").sum().item() == grid.attention_pairs(s, window)
+
+
+# -- the C interface --------------------------------------------------------
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
+            "int": ctypes.c_int, "long long": ctypes.c_longlong,
+            "float": ctypes.c_float, "const char*": ctypes.c_char_p}
+
+
+@pytest.mark.parametrize("ops", [rms_ops, flash_ops], ids=["rmsnorm", "flash_gqa"])
+def test_ctypes_signatures_match_the_cuda_source(ops):
+    """No compiler here: hold the ctypes declarations to the .cu's C
+    interface, parameter by parameter."""
+    src = ops.SOURCE.read_text()
+    for name, (argtypes, restype) in ops.SIGNATURES.items():
+        m = re.search(r'extern "C" ([\w ]+\*?) ?' + name + r"\(([^)]*)\)", src)
+        assert m, name
+        params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(2).split(",")]
+        assert [_C_TYPES[p] for p in params] == argtypes, name
+        assert _C_TYPES[m.group(1).strip()] is restype, name
+
+
+def test_head_dims_match_the_source_dispatch():
+    src = flash_ops.SOURCE.read_text()
+    for d in flash_ops.HEAD_DIMS:
+        for dtype in (0, 1):
+            assert f"dtype == {dtype} && d == {d}" in src
