@@ -3,9 +3,12 @@
 Each ``csrc/*.cu`` file has a plain C interface.  It is compiled with
 ``nvcc`` into a shared library under ``build/repro_torch/`` at the repo
 root (listed in ``.gitignore``) at first use, named by a hash of the
-source and the flags, and loaded with ``ctypes``.  A library built for
-the same source is reused.  Nothing is compiled on import, and nothing
-falls back: a missing ``nvcc`` or a failed build raises.
+source, every header (``*.cuh``, ``*.h``) beside it in its ``csrc/``
+directory and the flags, and loaded with ``ctypes``.  A library built for
+the same sources is reused.  nvcc's log (with ``-Xptxas -v``: registers,
+shared memory and spills of every kernel) is kept beside the library
+(``build_log``).  Nothing is compiled on import, and nothing falls back:
+a missing ``nvcc`` or a failed build raises.
 """
 from __future__ import annotations
 
@@ -20,7 +23,7 @@ from typing import Any, Dict, List, Tuple
 
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -32,9 +35,20 @@ def _nvcc() -> str:
 
 
 def library_path(source: Path) -> Path:
-    digest = hashlib.sha256(
-        Path(source).read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"{Path(source).stem}-{digest[:16]}.so"
+    """The library of ``source``, named by a hash of the source, the headers
+    it may include from its own directory, and the flags."""
+    source = Path(source)
+    h = hashlib.sha256(source.read_bytes())
+    headers = sorted(p for p in source.parent.iterdir() if p.suffix in (".cuh", ".h"))
+    for header in headers:
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{source.stem}-{h.hexdigest()[:16]}.so"
+
+
+def build_log(source: Path) -> str:
+    """nvcc's output for the library of ``source`` (built or cached)."""
+    return library_path(source).with_suffix(".log").read_text()
 
 
 def build(*sources: Path) -> List[Path]:
@@ -58,6 +72,7 @@ def build(*sources: Path) -> List[Path]:
             if proc.returncode:
                 failed.append(f"{src}:\n{log}")
             else:
+                lib.with_suffix(".log").write_text(log)
                 os.replace(tmp, lib)
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))

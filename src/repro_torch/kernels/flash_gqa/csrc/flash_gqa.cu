@@ -1,9 +1,12 @@
-// Causal GQA flash attention for Hopper (sm_90a): forward and two-pass backward.
+// Causal GQA flash attention for Hopper (sm_90a): forward and two-pass backward,
+// on the CUDA cores.
 //
 // Replaces the Pallas TPU kernels of src/repro/kernels/flash_gqa/kernel.py:
 //   K5  flash_gqa_pallas (_flash_kernel, return_residual)    -> flash_gqa_fwd
 //   K6  flash_gqa_bwd_pallas, dq pass (_flash_bwd_dq_kernel)  -> flash_gqa_bwd_dq
 //   K7  flash_gqa_bwd_pallas, dk/dv pass (_flash_bwd_dkv_kernel) -> flash_gqa_bwd_dkv
+// K6 takes f32 and bf16; K5 and K7 take f32 here, and bf16 runs their
+// tensor-core versions in flash_gqa_sm90.cu.
 //
 // Layouts are the model's (repro.kernels.flash_gqa.ops.flash_gqa takes them):
 //   q, o, dO, dq  (B, S, H, D)     k, v, dk, dv  (B, S, KV, D)     lse, delta (B, H, S) f32
@@ -25,7 +28,8 @@
 // (dq) and 8D (dk/dv) backward, over ~1-9 MB of operands: operations set the
 // bound, at the 989 TFLOP/s bf16 tensor-core peak.  These kernels do their
 // products in f32 on the CUDA cores (67 TFLOP/s at most), so they sit far from
-// that bound; tensor-core tiles (wgmma) are the later PR that closes it.
+// that bound: in bf16 the forward and dk/dv pass run on the tensor cores in
+// flash_gqa_sm90.cu, and the dq pass's tensor-core version is still to come.
 //
 // What the design does now:
 //  - one 256-thread block per (batch*head, 64-query tile) for K5 and K6, and per
@@ -515,16 +519,20 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }
 
 // Returns LAUNCH<T, D>(args...) for dtype (0 = float32, 1 = bfloat16) and
-// D in {64, 128, 256}.
-#define FLASH_DISPATCH(LAUNCH, ...)                                          \
+// D in {64, 128, 256}; FLASH_DISPATCH_F32 for float32 only.
+#define FLASH_DISPATCH_F32(LAUNCH, ...)                                      \
   do {                                                                       \
     if (dtype == 0 && d == 64) return LAUNCH<float, 64>(__VA_ARGS__);        \
     if (dtype == 0 && d == 128) return LAUNCH<float, 128>(__VA_ARGS__);      \
     if (dtype == 0 && d == 256) return LAUNCH<float, 256>(__VA_ARGS__);      \
+    return (int)cudaErrorInvalidValue;                                       \
+  } while (0)
+#define FLASH_DISPATCH(LAUNCH, ...)                                          \
+  do {                                                                       \
     if (dtype == 1 && d == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);   \
     if (dtype == 1 && d == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); \
     if (dtype == 1 && d == 256) return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__); \
-    return (int)cudaErrorInvalidValue;                                       \
+    FLASH_DISPATCH_F32(LAUNCH, __VA_ARGS__);                                 \
   } while (0)
 
 Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float scale) {
@@ -542,12 +550,13 @@ Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float s
 }  // namespace
 
 // Returns a cudaError_t (0 = launched).  window 0 = none, softcap 0 = none.
+// fwd and bwd_dkv take dtype 0 (float32) only.
 extern "C" int flash_gqa_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int dtype, int b, int s, int h, int kv, int d,
                              int window, float softcap, float scale, void* stream) {
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, sh, st);
+  FLASH_DISPATCH_F32(launch_fwd, q, k, v, o, lse, sh, st);
 }
 
 extern "C" int flash_gqa_bwd_dq(const void* q, const void* k, const void* v,
@@ -566,7 +575,7 @@ extern "C" int flash_gqa_bwd_dkv(const void* q, const void* k, const void* v,
                                  void* stream) {
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st);
+  FLASH_DISPATCH_F32(launch_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st);
 }
 
 extern "C" const char* flash_gqa_error_string(int err) {

@@ -5,10 +5,12 @@
 as they are: the TPU kernels' window-pruned grids at their (512-default)
 tiles, kept so the tile census the benchmarks quote can be checked
 against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
-own tiles and compute the exact tile range a window needs themselves.
-``attention_pairs`` counts the (query, key) pairs causality and the
-window leave, the work any implementation must do (``chip_smoke.py``'s
-operation bounds).
+own tiles and compute the exact tile range a window needs themselves;
+``sm90_fwd_key_tiles`` and ``sm90_dkv_query_tiles`` are those ranges of
+the tensor-core kernels (``csrc/flash_gqa_sm90.cu``), written out so the
+CPU tests can hold them to the mask.  ``attention_pairs`` counts the
+(query, key) pairs causality and the window leave, the work any
+implementation must do (``chip_smoke.py``'s operation bounds).
 """
 from __future__ import annotations
 
@@ -61,3 +63,27 @@ def attention_pairs(s: int, window=None) -> int:
         return s * (s + 1) // 2
     w = window
     return w * (w + 1) // 2 + (s - w) * w
+
+
+SM90_TILE = 64       # keys of a K5 K/V tile; keys and queries of a K7 tile
+SM90_FWD_ROWS = 128  # query rows of a K5 block (two warpgroups of 64)
+
+
+def sm90_fwd_key_tiles(q0: int, rows: int, s: int, window=None) -> range:
+    """Key tiles (of 64 keys) that query rows q0 .. q0 + rows - 1 visit in
+    ``fwd_kernel``: a block's range at rows = 128, one warpgroup's (the
+    tiles it computes) at rows = 64.  Rows that all lie past S visit none."""
+    if q0 >= s:
+        return range(0)
+    first = max(0, q0 - window + 1) // SM90_TILE if window else 0
+    last = (min(q0 + rows, s) - 1) // SM90_TILE
+    return range(first, last + 1)
+
+
+def sm90_dkv_query_tiles(kt: int, s: int, window=None) -> range:
+    """Query tiles (of 64 queries) that key tile ``kt`` visits in
+    ``dkv_kernel``."""
+    k0 = kt * SM90_TILE
+    k1 = min(k0 + SM90_TILE, s) - 1
+    last = min(s - 1, k1 + window - 1) if window else s - 1
+    return range(k0 // SM90_TILE, last // SM90_TILE + 1)

@@ -2,21 +2,27 @@
 
 Layouts are ``repro.kernels.flash_gqa.ops.flash_gqa``'s model layout:
 q (B, S, H, D), k/v (B, S, KV, D); the per-row LSE residual and
-``delta = rowsum(dO * out)`` are (B, H, S) f32.  Three launches of
-``csrc/flash_gqa.cu``, each with a wrapper that launches its kernel for
-CUDA tensors and runs its plain PyTorch version (``*_plain``, the whole
-(S, S) score matrix at once) for CPU tensors:
+``delta = rowsum(dO * out)`` are (B, H, S) f32.  Each wrapper launches
+its kernel for CUDA tensors and runs its plain PyTorch version
+(``*_plain``, the whole (S, S) score matrix at once) for CPU tensors:
 
   ``flash_fwd``      K5: (out, lse);
   ``flash_bwd_dq``   K6: dq;
   ``flash_bwd_dkv``  K7: (dk, dv).
+
+Which kernel runs is a dispatch by dtype, not a fallback: bf16 (the LM
+slice's type) runs K5 and K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``;
+at G = H / KV > 1, K7 writes per-head f32 partials and
+``flash_bwd_dkv_sum`` adds them in head order); f32 runs the SIMT kernels
+of ``csrc/flash_gqa.cu``, whose products stay in f32.  K6 is
+``flash_gqa.cu``'s in both types.  A failed build or launch raises.
 
 ``flash_gqa(q, k, v, window, softcap, scale, impl)`` is the
 differentiable entry: an ``autograd.Function`` whose forward is K5 and
 whose backward is K6 + K7, with delta a torch op between them as
 ``repro`` computes it outside its kernels.  "reference" runs the oracle
 (``ref.flash_gqa_ref``) under plain autograd.  ``LAUNCHES`` counts kernel
-launches (never plain calls).
+launches (never plain calls); the K7 sum pass has its own key.
 
 The kernels take the canonical positions arange(S): key j is visible to
 query i iff j <= i and i - j < window.  Masked scores are NEG_INF in the
@@ -35,7 +41,8 @@ from repro_torch.kernels.dispatch import check_impl
 from repro_torch.kernels.flash_gqa.ref import NEG_INF, flash_gqa_ref, visible_mask
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
 HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -47,6 +54,12 @@ SIGNATURES = {
     "flash_gqa_bwd_dkv": ([_PTR] * 8 + _SHAPE, _INT),
     "flash_gqa_error_string": ([_INT], ctypes.c_char_p),
 }
+SM90_SIGNATURES = {
+    "flash_gqa_sm90_fwd": ([_PTR] * 5 + _SHAPE, _INT),
+    "flash_gqa_sm90_bwd_dkv": ([_PTR] * 8 + _SHAPE, _INT),
+    "flash_gqa_sm90_dkv_sum": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
+    "flash_gqa_sm90_error_string": ([_INT], ctypes.c_char_p),
+}
 
 
 @functools.lru_cache(maxsize=None)
@@ -54,9 +67,15 @@ def _lib() -> ctypes.CDLL:
     return bind(SOURCE, SIGNATURES)
 
 
+@functools.lru_cache(maxsize=None)
+def _sm90_lib() -> ctypes.CDLL:
+    return bind(SM90_SOURCE, SM90_SIGNATURES)
+
+
 def build() -> None:
-    """Compile (or load the cached) kernel library now."""
+    """Compile (or load the cached) kernel libraries now."""
     _lib()
+    _sm90_lib()
 
 
 def _scale(d, scale):
@@ -97,12 +116,15 @@ def _check(q, k, v, window, *rows, **more):
 
 
 def _launch(kind, *ptrs, dtype, b, s, h, kv, d, window, softcap, scale):
-    """Launch ``flash_gqa_<kind>`` and count it under ``flash_<kind>``."""
-    name = f"flash_gqa_{kind}"
-    err = getattr(_lib(), name)(*ptrs, _DTYPE_CODES[dtype], b, s, h, kv, d,
-                                window or 0, softcap or 0.0, scale,
-                                torch.cuda.current_stream().cuda_stream)
-    check_launch(_lib(), err, name, "flash_gqa")
+    """Launch ``flash_gqa_<kind>`` (bf16 K5/K7: ``flash_gqa_sm90_<kind>``)
+    and count it under ``flash_<kind>``."""
+    sm90 = dtype == torch.bfloat16 and kind in ("fwd", "bwd_dkv")
+    lib, prefix = (_sm90_lib(), "flash_gqa_sm90") if sm90 else (_lib(), "flash_gqa")
+    name = f"{prefix}_{kind}"
+    err = getattr(lib, name)(*ptrs, _DTYPE_CODES[dtype], b, s, h, kv, d,
+                             window or 0, softcap or 0.0, scale,
+                             torch.cuda.current_stream().cuda_stream)
+    check_launch(lib, err, name, prefix)
     LAUNCHES[f"flash_{kind}"] += 1
 
 
@@ -167,6 +189,19 @@ def flash_bwd_dkv_plain(q, k, v, dout, lse, delta, window=None, softcap=None, sc
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_dkv_sum_plain(pk, pv, kv):
+    """Plain K7 sum pass: (dk, dv) (B,S,KV,D) bf16 from f32 per-head
+    partials (B,S,H,D), the G heads of each KV head added in order."""
+    def one(p):
+        b, s, h, d = p.shape
+        x = p.reshape(b, s, kv, h // kv, d)
+        acc = x[:, :, :, 0]
+        for g in range(1, h // kv):
+            acc = acc + x[:, :, :, g]
+        return acc.to(torch.bfloat16)
+    return one(pk), one(pv)
+
+
 # -- wrappers ----------------------------------------------------------------
 
 
@@ -203,12 +238,59 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, window=None, softcap=None, scale=No
     b, s, h, kv, d = _check(q, k, v, window, lse, delta, dout=dout)
     if not q.is_cuda:
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, window, softcap, scale)
+    # bf16 at G > 1: the tensor-core kernel writes f32 per-query-head
+    # partials, which the sum pass adds in head order (no atomics)
+    if q.dtype == torch.bfloat16 and h > kv:
+        return flash_bwd_dkv_sum(*flash_bwd_dkv_partials(q, k, v, dout, lse, delta, window,
+                                                         softcap, scale), kv)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
         _launch("bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
                 dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
                 dv.data_ptr(), dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
                 softcap=softcap, scale=_scale(d, scale))
+    return dk, dv
+
+
+def flash_bwd_dkv_partials(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
+    """bf16 K7 at G > 1 on the card, before its sum pass: the f32 dk and dv
+    partials of each query head, (B,S,H,D) each."""
+    b, s, h, kv, d = _check(q, k, v, window, lse, delta, dout=dout)
+    if not (q.is_cuda and q.dtype == torch.bfloat16 and h > kv):
+        raise ValueError(f"per-head partials come from bf16 CUDA tensors with H > KV, got "
+                         f"{q.dtype} on {q.device}, H={h} KV={kv}")
+    dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
+    with torch.cuda.device(q.device):
+        _launch("bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
+                dv.data_ptr(), dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
+                softcap=softcap, scale=_scale(d, scale))
+    return dk, dv
+
+
+def flash_bwd_dkv_sum(pk, pv, kv):
+    """K7's sum pass on the card for CUDA tensors; the plain version for
+    CPU ones.  pk, pv: f32 (B,S,H,D) partials -> (dk, dv) (B,S,KV,D) bf16."""
+    if (pk.dim() != 4 or pv.shape != pk.shape or pk.shape[2] % kv
+            or pk.dtype != torch.float32 or pv.dtype != torch.float32
+            or pk.shape[3] % 4 or pv.device != pk.device
+            or not (pk.is_contiguous() and pv.is_contiguous())):
+        raise ValueError(f"need contiguous f32 partials (B,S,H,D) with H a multiple "
+                         f"of {kv} and D of 4, got {tuple(pk.shape)} {pk.dtype}, "
+                         f"{tuple(pv.shape)} {pv.dtype}")
+    if not pk.is_cuda:
+        return flash_bwd_dkv_sum_plain(pk, pv, kv)
+    b, s, h, d = pk.shape
+    dk = torch.empty((b, s, kv, d), dtype=torch.bfloat16, device=pk.device)
+    dv = torch.empty_like(dk)
+    with torch.cuda.device(pk.device):
+        lib = _sm90_lib()
+        err = lib.flash_gqa_sm90_dkv_sum(pk.data_ptr(), pv.data_ptr(), dk.data_ptr(),
+                                         dv.data_ptr(), b, s, h, kv, d,
+                                         torch.cuda.current_stream().cuda_stream)
+        check_launch(lib, err, "flash_gqa_sm90_dkv_sum", "flash_gqa_sm90")
+    LAUNCHES["flash_bwd_dkv_sum"] += 1
     return dk, dv
 
 

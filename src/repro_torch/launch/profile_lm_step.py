@@ -40,6 +40,7 @@ FAMILIES = [
     ("flash_fwd (K5)", ("fwd_kernel",)),
     ("flash_bwd_dq (K6)", ("dq_kernel",)),
     ("flash_bwd_dkv (K7)", ("dkv_kernel",)),
+    ("flash_bwd_dkv sum pass (K7)", ("dkv_sum_kernel",)),
     ("rmsnorm (K4)", ("rmsnorm_kernel",)),
     ("pfedsop reduce3/update (K1/K2)", ("reduce3_kernel", "update_kernel")),
     ("matmul (cuBLAS)", ("gemm", "sm90_xmma", "cutlass", "nvjet")),

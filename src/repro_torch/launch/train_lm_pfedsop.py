@@ -33,12 +33,16 @@ def launches_per_step(cfg):
     ``tf.lm_loss`` on the kernel path: per sublayer, the rmsnorms ln1, ln2
     and (with qk-norm) q/k-norm and one flash forward, all launched again
     when ``remat="block"`` recomputes the sublayer in the backward; one dq
-    and one dk/dv pass per sublayer; and the final norm once."""
+    and one dk/dv pass per sublayer (in bf16 with G > 1 query heads per KV
+    head, also the dk/dv sum pass); and the final norm once."""
     n = cfg.n_layers
     norms = 4 if cfg.use_qk_norm else 2
     again = 2 if cfg.remat == "block" else 1
-    return {"rmsnorm": norms * n * again + 1, "flash_fwd": n * again,
-            "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    out = {"rmsnorm": norms * n * again + 1, "flash_fwd": n * again,
+           "flash_bwd_dq": n, "flash_bwd_dkv": n}
+    if cfg.dtype == "bfloat16" and cfg.n_heads > cfg.n_kv_heads:
+        out["flash_bwd_dkv_sum"] = n
+    return out
 
 
 def client_streams(cfg, clients, batch, seq_len):

@@ -137,7 +137,8 @@ def test_flash_forward_lse_and_grads_match_repro_interpret(g, window, softcap):
     t_grads = torch.autograd.grad(out, leaves, tdo)
     for name, a, b in zip(("dq", "dk", "dv"), t_grads, j_grads):
         np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
-    assert flash_ops.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+    assert flash_ops.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
+                                  "flash_bwd_dkv_sum": 0}
 
 
 def test_flash_bf16_and_reference_impl():
@@ -215,6 +216,74 @@ def test_attention_pairs_counts_the_visible_pairs(s, window):
     assert visible_mask(s, window, "cpu").sum().item() == grid.attention_pairs(s, window)
 
 
+@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (200, 300),
+                                      (1000, 512), (1000, None)])
+def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
+    """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py): every
+    visible (query, key) pair lies in a visited tile, and no visited tile
+    is fully masked -- for each K5 block (128 rows), each of its warpgroups
+    (64 rows), and each K7 key tile (64 keys)."""
+    mask = visible_mask(s, window, "cpu")
+    t = grid.SM90_TILE
+    pad = -s % t
+    tiles = torch.nn.functional.pad(mask, (0, pad, 0, pad)).reshape(
+        (s + pad) // t, t, (s + pad) // t, t).any(3).any(1)  # (query tile, key tile)
+
+    def key_tiles(q0, rows):
+        hit = mask[q0:q0 + rows].any(0)
+        return sorted({j // t for j in hit.nonzero().flatten().tolist()})
+
+    for q0 in range(0, s, grid.SM90_FWD_ROWS):
+        block = list(grid.sm90_fwd_key_tiles(q0, grid.SM90_FWD_ROWS, s, window))
+        assert block == key_tiles(q0, grid.SM90_FWD_ROWS), q0
+        for r0 in (q0, q0 + t):
+            assert list(grid.sm90_fwd_key_tiles(r0, t, s, window)) == key_tiles(r0, t), r0
+    for kt in range(tiles.shape[1]):
+        want = tiles[:, kt].nonzero().flatten().tolist()
+        assert list(grid.sm90_dkv_query_tiles(kt, s, window)) == want, kt
+
+
+def test_dkv_sum_plain_adds_the_head_partials():
+    """K7's bf16 path at G > 1: each query head's dk/dv partial (the dk/dv
+    pass at G = 1 on that head alone), summed over the G heads by the sum
+    pass, is the whole dk/dv -- to one bf16 ulp."""
+    h, kv = 4, 2
+    (_, _, _, _), (q, k, v, do) = _qkv(h, kv, "float32", seed=3)
+    out, lse = flash_ops.flash_fwd(q, k, v, window=16, softcap=50.0)
+    delta = flash_ops.row_delta(do, out)
+    g = h // kv
+    parts = [flash_ops.flash_bwd_dkv(
+        q[:, :, i:i + 1].contiguous(), k[:, :, i // g:i // g + 1].contiguous(),
+        v[:, :, i // g:i // g + 1].contiguous(), do[:, :, i:i + 1].contiguous(),
+        lse[:, i:i + 1].contiguous(), delta[:, i:i + 1].contiguous(), window=16,
+        softcap=50.0) for i in range(h)]
+    pk, pv = (torch.cat([p[j] for p in parts], dim=2) for j in (0, 1))
+    dk, dv = flash_ops.flash_bwd_dkv_sum(pk, pv, kv)
+    want_k, want_v = flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta, window=16, softcap=50.0)
+    assert dk.dtype == dv.dtype == torch.bfloat16 and dk.shape == k.shape
+    np.testing.assert_allclose(_np(dk), _np(want_k.bfloat16()), rtol=2.0**-7, atol=1e-6)
+    np.testing.assert_allclose(_np(dv), _np(want_v.bfloat16()), rtol=2.0**-7, atol=1e-6)
+    # the heads are added in order g = 0 .. G-1, as the kernel adds them
+    x = pk.reshape(B, S, kv, g, D)
+    assert torch.equal(dk, (((x[:, :, :, 0] + x[:, :, :, 1])).bfloat16()))
+    with pytest.raises(ValueError):
+        flash_ops.flash_bwd_dkv_sum(pk.bfloat16(), pv, kv)
+    assert flash_ops.LAUNCHES["flash_bwd_dkv_sum"] == 0
+
+
+@pytest.mark.parametrize("dtype,h,kv", [("bfloat16", 4, 2), ("float32", 4, 2),
+                                        ("bfloat16", 4, 4)])
+def test_dkv_partials_come_only_from_the_bf16_kernel_at_several_heads(dtype, h, kv):
+    """K7's f32 head partials exist only where the tensor-core kernel writes
+    them (bf16 CUDA tensors, G > 1); there is no plain version of them, so
+    a CPU tensor raises, whatever its type, and nothing is launched."""
+    (_, _, _, _), (q, k, v, do) = _qkv(h, kv, dtype)
+    lse = delta = torch.zeros(B, h, S)
+    with pytest.raises(ValueError, match="partials"):
+        flash_ops.flash_bwd_dkv_partials(q, k, v, do, lse, delta)
+    assert flash_ops.LAUNCHES["flash_bwd_dkv"] == 0
+
+
 # -- the C interface --------------------------------------------------------
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -222,12 +291,15 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
             "float": ctypes.c_float, "const char*": ctypes.c_char_p}
 
 
-@pytest.mark.parametrize("ops", [rms_ops, flash_ops], ids=["rmsnorm", "flash_gqa"])
-def test_ctypes_signatures_match_the_cuda_source(ops):
+@pytest.mark.parametrize("source,signatures", [
+    (rms_ops.SOURCE, rms_ops.SIGNATURES), (flash_ops.SOURCE, flash_ops.SIGNATURES),
+    (flash_ops.SM90_SOURCE, flash_ops.SM90_SIGNATURES)],
+    ids=["rmsnorm", "flash_gqa", "flash_gqa_sm90"])
+def test_ctypes_signatures_match_the_cuda_source(source, signatures):
     """No compiler here: hold the ctypes declarations to the .cu's C
     interface, parameter by parameter."""
-    src = ops.SOURCE.read_text()
-    for name, (argtypes, restype) in ops.SIGNATURES.items():
+    src = source.read_text()
+    for name, (argtypes, restype) in signatures.items():
         m = re.search(r'extern "C" ([\w ]+\*?) ?' + name + r"\(([^)]*)\)", src)
         assert m, name
         params = [re.sub(r"\s+\w+$", "", p.strip()) for p in m.group(2).split(",")]
@@ -240,3 +312,12 @@ def test_head_dims_match_the_source_dispatch():
     for d in flash_ops.HEAD_DIMS:
         for dtype in (0, 1):
             assert f"dtype == {dtype} && d == {d}" in src
+
+
+def test_sm90_head_dims_match_the_source_dispatch():
+    """The tensor-core source takes bf16 (dtype 1) only, at every head_dim
+    the wrappers accept; float32 stays on flash_gqa.cu."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    for d in flash_ops.HEAD_DIMS:
+        assert f"dtype == 1 && d == {d}" in src
+    assert "dtype == 0" not in src

@@ -276,3 +276,16 @@ def test_lm_entry_points_default_to_the_card():
         t_tf.init_params(torch.Generator().manual_seed(0), cfg)
     with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
         driver.main(["--arch", "gemma3-1b", "--rounds", "1"])
+
+
+def test_launch_count_formula_counts_the_bf16_dkv_sum_pass():
+    """At full width gemma3-1b is bf16 with G = 4 query heads per KV head:
+    every dk/dv pass is followed by its sum pass; the f32 smoke config
+    launches none (its dk/dv pass writes dk/dv itself)."""
+    full = driver.launches_per_step(get_config("gemma3-1b"))
+    assert full["flash_bwd_dkv_sum"] == full["flash_bwd_dkv"] == 26
+    assert "flash_bwd_dkv_sum" not in driver.launches_per_step(
+        get_config("gemma3-1b", reduced=True))
+    g1 = get_config("gemma3-1b").replace(n_kv_heads=get_config("gemma3-1b").n_heads)
+    assert "flash_bwd_dkv_sum" not in driver.launches_per_step(g1)
+
