@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build        the CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
                   one nvcc per source, all started together; ptxas's
                   registers, shared memory and spills of the tensor-core
-                  flash kernels printed;
+                  flash kernels printed, and no spill allowed there;
   3. kernels      each kernel against its plain PyTorch version on the card:
                   the update pair (K1/K2) at the ResNet path's shape (C = 20
                   clients, N = 1,249,956, shared server delta), at
@@ -19,13 +19,14 @@ Phases (any failure exits non-zero; nothing is caught):
                   and flash_gqa forward / dq / dk-dv (K5-K7) at the LM
                   slice's shapes (B = 2, S = 2048, D = 256), G = 1 and 4,
                   window on and off, softcap on and off, f32 and bf16, plus
-                  bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40 (bf16 K5
-                  and K7 run on the tensor cores, ``flash_gqa_sm90.cu``;
-                  K7's dk/dv held bitwise across two launches, in f32
-                  before its sum pass within half an ulp, and its sum pass
-                  bitwise against its plain version); the flash cases at
-                  8 seeds.  Device times (torch.profiler; host time and an
-                  L2 flush before each call left out) beside
+                  bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40 (bf16
+                  K5-K7 run on the tensor cores, ``flash_gqa_sm90.cu``;
+                  K6's dq and K7's dk/dv held bitwise across two launches,
+                  in f32 before their final rounding within half an ulp,
+                  and K7's sum pass bitwise against its plain version); the
+                  flash cases at 8 seeds; K6 + K7 timed together beside
+                  SDPA's backward.  Device times (torch.profiler; host time
+                  and an L2 flush before each call left out) beside
                   the bound (bytes over 3.35 TB/s, or operations over the
                   type's peak), the plain version's time and, where one
                   PyTorch call computes the same function, that call's
@@ -98,7 +99,6 @@ MAIN_C, MAIN_N = 20, 1_249_956  # K' = 0.2 * 100 clients; RESNET9_CIFAR100 param
 LM_N = 999_826_048  # gemma3-1b parameters (the LM path's C = 1 update)
 SOURCE = "src/repro_torch/kernels/pfedsop_update/csrc/pfedsop_update.cu"
 RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
-FLASH_SOURCE = "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu"
 FLASH_SM90_SOURCE = "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa_sm90.cu"
 LM = dict(clients=4, rounds=3, local_iters=2, batch=2, seq_len=2048)  # the LM slice
 FLASH_SEEDS = (12, 21, 22, 23, 24, 25, 26, 27)  # check_flash: each case at each seed
@@ -405,25 +405,27 @@ def check_flash(seeds=FLASH_SEEDS):
     both and held to 1e-5.
 
     In bf16, K5 rounds P to bf16 before the PV product (where the model's
-    reference rounds it; the plain version keeps f32) and K7 rounds P^T and
-    dS^T to bf16 before the dV and dK products (the TPU kernel keeps both in
-    f32); both multiply bf16 tiles on the tensor cores with f32 sums.  A
-    bf16 output that rounds the other way at the largest value's binade
-    reads up to one ulp there, the whole tolerance, however small the error
-    before rounding.  So at G > 1, where K7's f32 head partials can be read
-    before its sum pass rounds them, their sum is held to the plain version
-    in f32 within 2**-8 of the largest value: half an ulp, under which the
-    rounded outputs cannot leave the 2**-7 tolerance.  (In f32, without a
-    softcap, the SIMT dq and dk/dv passes may equal their plain versions bit
-    for bit: both accumulate each sum as one FMA chain in the same order, as
-    cuBLAS's f32 GEMM does.)  K7's dk and dv must be bitwise the same over
-    two launches; its sum pass (G > 1 in bf16) must equal its plain version
-    bit for bit (the same f32 adds in head order).  Returns the worst
-    absolute error of each kernel over all cases and seeds."""
+    reference rounds it; the plain version keeps f32), K6 rounds dS to bf16
+    before the dS K product and K7 rounds P^T and dS^T to bf16 before the
+    dV and dK products (the TPU kernels keep f32); all multiply bf16 tiles
+    on the tensor cores with f32 sums.  A bf16 output that rounds the other
+    way at the largest value's binade reads up to one ulp there, the whole
+    tolerance, however small the error before rounding.  So K6's f32 dq
+    before its final rounding (every bf16 case) and, at G > 1, K7's f32 head
+    partials before its sum pass rounds them, are held to the plain version
+    on the inputs widened to f32 within 2**-8 of the largest value: half an
+    ulp, under which the rounded outputs cannot leave the 2**-7 tolerance.
+    (In f32, without a softcap, the SIMT dq and dk/dv passes may equal their
+    plain versions bit for bit: both accumulate each sum as one FMA chain
+    in the same order, as cuBLAS's f32 GEMM does.)  K6's dq and K7's dk and
+    dv must be bitwise the same over two launches; K7's sum pass (G > 1 in
+    bf16) must equal its plain version bit for bit (the same f32 adds in
+    head order).  Returns the worst absolute error of each kernel over all
+    cases and seeds."""
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
              "flash_bwd_dkv_sum": 0.0}
     worst_rel = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
-    worst_pre = 0.0
+    worst_pre = {"dq": 0.0, "dk/dv": 0.0}  # before the final rounding, bf16
     bf16, f32 = torch.bfloat16, torch.float32
     cases = [  # (G, window, softcap, dtype, S, D)
         (4, 512, None, bf16, 2048, 256), (4, None, None, bf16, 2048, 256),
@@ -441,17 +443,19 @@ def check_flash(seeds=FLASH_SEEDS):
             pout, plse = flash_ops.flash_fwd_plain(q, k, v, **kw)
             delta = flash_ops.row_delta(do, pout)
             lse_err = errors(lse, plse)
+            dq = flash_ops.flash_bwd_dq(q, k, v, do, plse, delta, **kw)
+            dq2 = flash_ops.flash_bwd_dq(q, k, v, do, plse, delta, **kw)
             dk, dv = flash_ops.flash_bwd_dkv(q, k, v, do, plse, delta, **kw)
             dk2, dv2 = flash_ops.flash_bwd_dkv(q, k, v, do, plse, delta, **kw)
             pdk, pdv = flash_ops.flash_bwd_dkv_plain(q, k, v, do, plse, delta, **kw)
             pairs = {"flash_fwd": [errors(out, pout)],
-                     "flash_bwd_dq": [errors(
-                         flash_ops.flash_bwd_dq(q, k, v, do, plse, delta, **kw),
-                         flash_ops.flash_bwd_dq_plain(q, k, v, do, plse, delta, **kw))],
+                     "flash_bwd_dq": [errors(dq, flash_ops.flash_bwd_dq_plain(
+                         q, k, v, do, plse, delta, **kw))],
                      "flash_bwd_dkv": [errors(dk, pdk), errors(dv, pdv)]}
             torch.cuda.synchronize()
             label = (f"seed={seed} G={gq} window={window} softcap={cap} {str(dtype)[6:]} "
                      f"S={s} D={d}")
+            assert torch.equal(dq, dq2), ("K6 not deterministic", label)
             assert torch.equal(dk, dk2) and torch.equal(dv, dv2), ("K7 not deterministic", label)
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
             assert lse_err[1] <= 1e-5, (label, lse_err)
@@ -464,23 +468,30 @@ def check_flash(seeds=FLASH_SEEDS):
                         worst_rel[name] = max(worst_rel[name], rel)
                     line.append(f"{name[6:]} {err:.3g}/{rel:.3g}")
             worst["flash_fwd"] = max(worst["flash_fwd"], lse_err[0])
-            if dtype == bf16 and gq > 1:
-                # K7's dk/dv in f32 before the sum pass rounds them
-                pk, pv = flash_ops.flash_bwd_dkv_partials(q, k, v, do, plse, delta, **kw)
+            if dtype == bf16:
+                # K6's dq, and K7's dk/dv at G > 1, in f32 before their final
+                # rounding, against the plain versions on widened inputs
                 wide = [t.float() for t in (q, k, v, do)]
-                refs = flash_ops.flash_bwd_dkv_plain(*wide, plse, delta, **kw)
-                pre = max(errors(p.reshape(*k.shape[:3], gq, d).sum(3), r)[1]
-                          for p, r in zip((pk, pv), refs))
-                assert pre <= 2.0 ** -8, ("K7 before rounding", label, pre)
-                worst_pre = max(worst_pre, pre)
-                line.append(f"dk/dv before rounding -/{pre:.3g} (tol {2.0 ** -8:.3g})")
+                pre = {"dq": errors(
+                    flash_ops.flash_bwd_dq_wide(q, k, v, do, plse, delta, **kw),
+                    flash_ops.flash_bwd_dq_plain(*wide, plse, delta, **kw))[1]}
+                if gq > 1:
+                    pk, pv = flash_ops.flash_bwd_dkv_partials(q, k, v, do, plse, delta, **kw)
+                    refs = flash_ops.flash_bwd_dkv_plain(*wide, plse, delta, **kw)
+                    pre["dk/dv"] = max(errors(p.reshape(*k.shape[:3], gq, d).sum(3), r)[1]
+                                       for p, r in zip((pk, pv), refs))
+                for name, rel in pre.items():
+                    assert rel <= 2.0 ** -8, (f"{name} before rounding", label, rel)
+                    worst_pre[name] = max(worst_pre[name], rel)
+                    line.append(f"{name} before rounding -/{rel:.3g} (tol {2.0 ** -8:.3g})")
             print(f"kernels[flash {label}]: max_abs_err/relative " + ", ".join(line) +
                   f", lse {lse_err[0]:.3g}/{lse_err[1]:.3g} (tol {tol:.3g}, lse 1e-05); "
-                  "dk/dv bitwise over two launches", flush=True)
+                  "dq, dk/dv bitwise over two launches", flush=True)
     print(f"kernels[flash bf16, worst of {len(seeds)} seeds]: relative " + ", ".join(
         f"{n[6:]} {r:.6g} ({100 * r / 2.0 ** -7:.1f}% of tol)" for n, r in worst_rel.items())
-        + f"; K7 before rounding {worst_pre:.6g} ({100 * worst_pre / 2.0 ** -8:.1f}% of "
-        "2**-8)", flush=True)
+        + "; before rounding " + ", ".join(
+            f"K{6 if n == 'dq' else 7} {r:.6g} ({100 * r / 2.0 ** -8:.1f}% of 2**-8)"
+            for n, r in worst_pre.items()), flush=True)
 
     # K7's sum pass at the slice's shape: f32 partials (B, S, H, D) -> bf16
     pk, pv = (_randn(g, 2, 2048, 4, 256) for _ in range(2))
@@ -499,9 +510,10 @@ def time_flash(worst):
     """Times at the LM slice's shapes, bf16, G = 4: the records at a
     full-attention layer (4 of gemma3-1b's 26, where one PyTorch call,
     ``F.scaled_dot_product_attention``, computes the same function), and
-    the 512-window layer (the other 22) printed beside them.  Bounds count
-    the visible (query, key) pairs: 4D flops each forward, 6D for the dq
-    pass (scores, dO v^T, dq), 8D for the dk/dv pass, at the bf16 peak."""
+    the 512-window layer (the other 22) printed beside them, and K6 + K7
+    timed as one backward beside SDPA's.  Bounds count the visible (query,
+    key) pairs: 4D flops each forward, 6D for the dq pass (scores, dO v^T,
+    dq), 8D for the dk/dv pass, at the bf16 peak."""
     g = torch.Generator(device="cuda").manual_seed(13)
     q, k, v, do = _attention(g, 4, 1, torch.bfloat16)
     b, s, h, d = q.shape
@@ -546,7 +558,7 @@ def time_flash(worst):
         kt, vt = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (kt, vt))
         sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
             a, b_, c, is_causal=True)
-    want = flash_ops.flash_fwd(q, k, v)[0]
+    want, lse = flash_ops.flash_fwd(q, k, v)
     torch.testing.assert_close(sdpa(qt, kt, vt).transpose(1, 2), want, rtol=2.0 ** -6,
                                atol=2.0 ** -6)
     recs["flash_fwd"]["library_ms"] = device_ms(lambda: sdpa(qt, kt, vt))
@@ -558,6 +570,12 @@ def time_flash(worst):
     print(f"kernels[time sdpa full-attention bf16]: forward "
           f"{recs['flash_fwd']['library_ms']:.4f} ms, backward (dq, dk, dv) {bwd:.4f} ms",
           flush=True)
+    delta = flash_ops.row_delta(do, want)
+    pair = device_ms(lambda: (flash_ops.flash_bwd_dq(q, k, v, do, lse, delta),
+                              flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta)))
+    recs["flash_bwd_dq"]["with_dkv_ms"] = pair
+    print(f"kernels[time K6 + K7 full-attention bf16]: {pair:.4f} ms, SDPA's backward "
+          f"{bwd:.4f} ms ({pair / bwd:.2f}x)", flush=True)
 
     # K7's sum pass alone: reads G f32 partials of dk and of dv, writes both
     pk, pv = (torch.empty((b, s, h, d), device="cuda") for _ in range(2))
@@ -713,7 +731,8 @@ def lm_slice():
 
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
-    the ``-Xptxas -v`` report the build keeps."""
+    the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
+    tensor-core kernels' f32 accumulators are sized to fit their registers."""
     name = None
     for line in kernel_build.build_log(source).splitlines():
         m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(?:I(\w+?)E*v)?", line)
@@ -722,6 +741,8 @@ def print_ptxas(source):
             name = f"{m.group(1)}<{', '.join(args)}>"
         elif name and ("registers" in line or "spill" in line):
             print(f"build[ptxas {name}]: {line.split(':', 1)[-1].strip()}", flush=True)
+            spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            assert not spills or spills.groups() == ("0", "0"), (name, line)
 
 
 def main():
@@ -777,7 +798,7 @@ def main():
         record("rmsnorm", "rmsnorm", RMS_SOURCE, "src/repro/kernels/rmsnorm/kernel.py:28"),
         record("flash_fwd", "flash_fwd", FLASH_SM90_SOURCE,
                "src/repro/kernels/flash_gqa/kernel.py:176"),
-        record("flash_bwd_dq", "flash_bwd_dq", FLASH_SOURCE,
+        record("flash_bwd_dq", "flash_bwd_dq", FLASH_SM90_SOURCE,
                "src/repro/kernels/flash_gqa/kernel.py:394"),
         record("flash_bwd_dkv", "flash_bwd_dkv", FLASH_SM90_SOURCE,
                "src/repro/kernels/flash_gqa/kernel.py:436"),

@@ -5,12 +5,12 @@
 //   K5  flash_gqa_pallas (_flash_kernel, return_residual)    -> flash_gqa_fwd
 //   K6  flash_gqa_bwd_pallas, dq pass (_flash_bwd_dq_kernel)  -> flash_gqa_bwd_dq
 //   K7  flash_gqa_bwd_pallas, dk/dv pass (_flash_bwd_dkv_kernel) -> flash_gqa_bwd_dkv
-// K6 takes f32 and bf16; K5 and K7 take f32 here, and bf16 runs their
-// tensor-core versions in flash_gqa_sm90.cu.
+// All three take f32 here; bf16 runs their tensor-core versions in
+// flash_gqa_sm90.cu.
 //
 // Layouts are the model's (repro.kernels.flash_gqa.ops.flash_gqa takes them):
 //   q, o, dO, dq  (B, S, H, D)     k, v, dk, dv  (B, S, KV, D)     lse, delta (B, H, S) f32
-// all contiguous; q/k/v/o/dO/dq/dk/dv all f32 or all bf16.  Query head h reads
+// all contiguous; q/k/v/o/dO/dq/dk/dv all f32.  Query head h reads
 // KV head h / (H/KV).  Positions are the canonical arange(S): key j is visible
 // to query i iff j <= i and (no window, or i - j < window).  The optional logit
 // softcap c applies s = c*tanh(s/c) to the scaled scores before the mask.
@@ -28,8 +28,7 @@
 // (dq) and 8D (dk/dv) backward, over ~1-9 MB of operands: operations set the
 // bound, at the 989 TFLOP/s bf16 tensor-core peak.  These kernels do their
 // products in f32 on the CUDA cores (67 TFLOP/s at most), so they sit far from
-// that bound: in bf16 the forward and dk/dv pass run on the tensor cores in
-// flash_gqa_sm90.cu, and the dq pass's tensor-core version is still to come.
+// that bound: in bf16 all three run on the tensor cores in flash_gqa_sm90.cu.
 //
 // What the design does now:
 //  - one 256-thread block per (batch*head, 64-query tile) for K5 and K6, and per
@@ -51,7 +50,6 @@
 //    sequential innermost axis).  No atomics: results are bitwise run to run;
 //  - a ragged S is masked: rows past S load as zero and are never stored.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -75,18 +73,6 @@ struct Shape {
   float scale;
 };
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float v);
-template <>
-__device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
-
 __device__ __forceinline__ float group_max(float v) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
@@ -101,14 +87,14 @@ __device__ __forceinline__ float group_sum(float v) {
 
 // dst[r][c] = mul * src[row0 + r][c] for r < nrows (zero past S); src rows are
 // row_stride elements apart, dst rows D + 1 floats apart.
-template <typename T, int D>
-__device__ __forceinline__ void load_rows(float* dst, const T* __restrict__ src,
+template <int D>
+__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
                                           long long row_stride, int row0, int nrows,
                                           int s, float mul) {
   for (int i = threadIdx.x; i < nrows * D; i += kThreads) {
     const int r = i / D, c = i % D;
     const int row = row0 + r;
-    dst[r * (D + 1) + c] = row < s ? to_f32(src[(long long)row * row_stride + c]) * mul : 0.f;
+    dst[r * (D + 1) + c] = row < s ? src[(long long)row * row_stride + c] * mul : 0.f;
   }
 }
 
@@ -140,10 +126,10 @@ __device__ __forceinline__ bool visible(int qi, int kj, const Shape& sh) {
 
 // -- K5: forward ---------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           T* __restrict__ o, float* __restrict__ lse, Shape sh) {
+fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           float* __restrict__ o, float* __restrict__ lse, Shape sh) {
   constexpr int ld = D + 1, NC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;             // kBQ x ld, scaled
@@ -159,7 +145,7 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const int q0 = blockIdx.x * kBQ;
 
-  load_rows<T, D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
+  load_rows<D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
 
   const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kBK : 0;
   const int kt_last = (min(q0 + kBQ, sh.s) - 1) / kBK;
@@ -176,8 +162,8 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();  // the last tile's Ks/Vs/Ps reads are done
-    load_rows<T, D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
-    load_rows<T, D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
+    load_rows<D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
+    load_rows<D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
     __syncthreads();
 
     float sc[4][2];
@@ -236,9 +222,9 @@ fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     const int qi = q0 + tr * 4 + i;
     if (qi >= sh.s) continue;
     const float lz = l[i] == 0.f ? 1.f : l[i];
-    T* orow = o + q_off + (long long)qi * q_rs;
+    float* orow = o + q_off + (long long)qi * q_rs;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) orow[tc + 16 * c] = from_f32<T>(acc[i][c] / lz);
+    for (int c = 0; c < NC; ++c) orow[tc + 16 * c] = acc[i][c] / lz;
     if (tc == 0) lse[(long long)bh * sh.s + qi] = m[i] + logf(lz);
   }
 }
@@ -269,11 +255,11 @@ __device__ __forceinline__ void probs_and_dscores(float (&sc)[4][2], float (&dp)
 
 // -- K6: dq pass ---------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, T* __restrict__ dq, Shape sh) {
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+          const float* __restrict__ dout, const float* __restrict__ lse,
+          const float* __restrict__ delta, float* __restrict__ dq, Shape sh) {
   constexpr int ld = D + 1, NC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;              // kBQ x ld, scaled
@@ -290,8 +276,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
   const int q0 = blockIdx.x * kBQ;
 
-  load_rows<T, D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
-  load_rows<T, D>(dOs, dout + q_off, q_rs, q0, kBQ, sh.s, 1.f);
+  load_rows<D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
+  load_rows<D>(dOs, dout + q_off, q_rs, q0, kBQ, sh.s, 1.f);
   float lse_r[4], delta_r[4];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
@@ -312,8 +298,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int kt = kt_first; kt <= kt_last; ++kt) {
     const int k0 = kt * kBK;
     __syncthreads();
-    load_rows<T, D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
-    load_rows<T, D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
+    load_rows<D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
+    load_rows<D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
     __syncthreads();
 
     float sc[4][2], dp[4][2];
@@ -344,19 +330,19 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + tr * 4 + i;
     if (qi >= sh.s) continue;
-    T* row = dq + q_off + (long long)qi * q_rs;
+    float* row = dq + q_off + (long long)qi * q_rs;
 #pragma unroll
-    for (int c = 0; c < NC; ++c) row[tc + 16 * c] = from_f32<T>(acc[i][c] * sh.scale);
+    for (int c = 0; c < NC; ++c) row[tc + 16 * c] = acc[i][c] * sh.scale;
   }
 }
 
 // -- K7: dk/dv pass ------------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const T* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+           const float* __restrict__ dout, const float* __restrict__ lse,
+           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
            Shape sh) {
   constexpr int ld = D + 1, NC = D / 16;
   extern __shared__ float smem[];
@@ -375,8 +361,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   const int k0 = blockIdx.x * kBK;
   const int k1 = min(k0 + kBK, sh.s) - 1;
 
-  load_rows<T, D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
-  load_rows<T, D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
+  load_rows<D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
+  load_rows<D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
 
   const int qt_first = k0 / kBQ;
   const int qt_last = (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : sh.s - 1) / kBQ;
@@ -394,8 +380,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
     for (int qt = qt_first; qt <= qt_last; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();  // the last step's Qs/dOs/Ps/dSs reads are done
-      load_rows<T, D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
-      load_rows<T, D>(dOs, dout + q_off, q_rs, q0, kBQ, sh.s, 1.f);
+      load_rows<D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
+      load_rows<D>(dOs, dout + q_off, q_rs, q0, kBQ, sh.s, 1.f);
       __syncthreads();
 
       float lse_r[4], delta_r[4];
@@ -444,12 +430,12 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict
   for (int jj = 0; jj < 2; ++jj) {
     const int kj = k0 + tr * 2 + jj;
     if (kj >= sh.s) continue;
-    T* krow = dk + k_off + (long long)kj * k_rs;
-    T* vrow = dv + k_off + (long long)kj * k_rs;
+    float* krow = dk + k_off + (long long)kj * k_rs;
+    float* vrow = dv + k_off + (long long)kj * k_rs;
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
-      krow[tc + 16 * c] = from_f32<T>(acc_k[jj][c]);
-      vrow[tc + 16 * c] = from_f32<T>(acc_v[jj][c]);
+      krow[tc + 16 * c] = acc_k[jj][c];
+      vrow[tc + 16 * c] = acc_v[jj][c];
     }
   }
 }
@@ -475,64 +461,56 @@ int prepare(Kernel kernel, size_t smem) {
                                    (int)smem);
 }
 
-template <typename T, int D>
+template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
                const Shape& sh, cudaStream_t st) {
-  auto kernel = fwd_kernel<T, D>;
+  auto kernel = fwd_kernel<D>;
   constexpr size_t smem = fwd_smem<D>();
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid((sh.s + kBQ - 1) / kBQ, sh.b * sh.h);
-  kernel<<<grid, kThreads, smem, st>>>(static_cast<const T*>(q), static_cast<const T*>(k),
-                                       static_cast<const T*>(v), static_cast<T*>(o),
+  kernel<<<grid, kThreads, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
+                                       static_cast<const float*>(v), static_cast<float*>(o),
                                        static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, const Shape& sh,
               cudaStream_t st) {
-  auto kernel = dq_kernel<T, D>;
+  auto kernel = dq_kernel<D>;
   constexpr size_t smem = dq_smem<D>();
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid((sh.s + kBQ - 1) / kBQ, sh.b * sh.h);
   kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), sh);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), sh);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D>
+template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
                cudaStream_t st) {
-  auto kernel = dkv_kernel<T, D>;
+  auto kernel = dkv_kernel<D>;
   constexpr size_t smem = dkv_smem<D>();
   if (int err = prepare(kernel, smem)) return err;
   const dim3 grid((sh.s + kBK - 1) / kBK, sh.b * sh.kv);
   kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), sh);
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sh);
   return (int)cudaGetLastError();
 }
 
-// Returns LAUNCH<T, D>(args...) for dtype (0 = float32, 1 = bfloat16) and
-// D in {64, 128, 256}; FLASH_DISPATCH_F32 for float32 only.
-#define FLASH_DISPATCH_F32(LAUNCH, ...)                                      \
-  do {                                                                       \
-    if (dtype == 0 && d == 64) return LAUNCH<float, 64>(__VA_ARGS__);        \
-    if (dtype == 0 && d == 128) return LAUNCH<float, 128>(__VA_ARGS__);      \
-    if (dtype == 0 && d == 256) return LAUNCH<float, 256>(__VA_ARGS__);      \
-    return (int)cudaErrorInvalidValue;                                       \
-  } while (0)
-#define FLASH_DISPATCH(LAUNCH, ...)                                          \
-  do {                                                                       \
-    if (dtype == 1 && d == 64) return LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__);   \
-    if (dtype == 1 && d == 128) return LAUNCH<__nv_bfloat16, 128>(__VA_ARGS__); \
-    if (dtype == 1 && d == 256) return LAUNCH<__nv_bfloat16, 256>(__VA_ARGS__); \
-    FLASH_DISPATCH_F32(LAUNCH, __VA_ARGS__);                                 \
+// Returns LAUNCH<D>(args...) for dtype 0 (float32) and D in {64, 128, 256}.
+#define FLASH_DISPATCH(LAUNCH, ...)                                \
+  do {                                                             \
+    if (dtype == 0 && d == 64) return LAUNCH<64>(__VA_ARGS__);     \
+    if (dtype == 0 && d == 128) return LAUNCH<128>(__VA_ARGS__);   \
+    if (dtype == 0 && d == 256) return LAUNCH<256>(__VA_ARGS__);   \
+    return (int)cudaErrorInvalidValue;                             \
   } while (0)
 
 Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float scale) {
@@ -549,14 +527,14 @@ Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float s
 
 }  // namespace
 
-// Returns a cudaError_t (0 = launched).  window 0 = none, softcap 0 = none.
-// fwd and bwd_dkv take dtype 0 (float32) only.
+// Returns a cudaError_t (0 = launched).  window 0 = none, softcap 0 = none;
+// dtype 0 (float32) only: bfloat16 runs flash_gqa_sm90.cu's kernels.
 extern "C" int flash_gqa_fwd(const void* q, const void* k, const void* v, void* o,
                              void* lse, int dtype, int b, int s, int h, int kv, int d,
                              int window, float softcap, float scale, void* stream) {
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_F32(launch_fwd, q, k, v, o, lse, sh, st);
+  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, sh, st);
 }
 
 extern "C" int flash_gqa_bwd_dq(const void* q, const void* k, const void* v,
@@ -575,7 +553,7 @@ extern "C" int flash_gqa_bwd_dkv(const void* q, const void* k, const void* v,
                                  void* stream) {
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH_F32(launch_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st);
+  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, sh, st);
 }
 
 extern "C" const char* flash_gqa_error_string(int err) {

@@ -1,21 +1,22 @@
 // Causal GQA flash attention on Hopper's tensor cores (sm_90a), bf16:
-// the forward and the dk/dv pass of the backward.
+// the forward and both passes of the backward.
 //
 // Replaces, for bf16 operands, the Pallas TPU kernels of
 // src/repro/kernels/flash_gqa/kernel.py:
 //   K5  flash_gqa_pallas (_flash_kernel, return_residual)        -> flash_gqa_sm90_fwd
+//   K6  flash_gqa_bwd_pallas, dq pass (_flash_bwd_dq_kernel)     -> flash_gqa_sm90_bwd_dq
 //   K7  flash_gqa_bwd_pallas, dk/dv pass (_flash_bwd_dkv_kernel) -> flash_gqa_sm90_bwd_dkv,
 //       then flash_gqa_sm90_dkv_sum when G = H / KV > 1
-// f32 operands and the dq pass (K6) stay on flash_gqa.cu.  The contract is
-// flash_gqa.cu's: q, o, dO (B, S, H, D) and k, v (B, S, KV, D) bf16, lse and
-// delta (B, H, S) f32, all contiguous; query head h reads KV head h / G; key j
-// is visible to query i iff j <= i and (no window, or i - j < window); the
-// softcap c applies s = c*tanh(s/c) to the scaled scores before the mask.
+// f32 operands stay on flash_gqa.cu.  The contract is flash_gqa.cu's: q, o,
+// dO, dq (B, S, H, D) and k, v (B, S, KV, D) bf16, lse and delta (B, H, S)
+// f32, all contiguous; query head h reads KV head h / G; key j is visible to
+// query i iff j <= i and (no window, or i - j < window); the softcap c
+// applies s = c*tanh(s/c) to the scaled scores before the mask.
 //
 // What bounds it on an H100 SXM: at the LM slice (B = 2, S = 2048, H = 4,
-// KV = 1, D = 256) the work is 4D (forward) and 8D (dk/dv) flops per visible
-// (query, key) pair over ~10-30 MB of operands, so the 989 TFLOP/s bf16
-// tensor-core peak sets the bound.  What the design does about it:
+// KV = 1, D = 256) the work is 4D (forward), 6D (dq) and 8D (dk/dv) flops per
+// visible (query, key) pair over ~10-30 MB of operands, so the 989 TFLOP/s
+// bf16 tensor-core peak sets the bound.  What the design does about it:
 //  - every product is a wgmma (m64nNk16, bf16 in, f32 accumulate) on tiles in
 //    shared memory stored as bf16 in the 128-byte swizzled layout wgmma reads:
 //    a (rows, D) tile is D/64 column blocks of rows x 128 bytes, and the
@@ -41,15 +42,26 @@
 //    double-buffered shared tile as bf16; after one named barrier,
 //    warpgroup 0 runs dV += P^T dO and warpgroup 1 dK += dS^T Q (each a
 //    64 x D f32 accumulator, 128 registers a thread at D = 256);
+//  - K6: one block per (batch*head, 128-query tile), heaviest first, as K5;
+//    Q and dO stay resident (2 x 64 KB at D = 256), K/V stream through the
+//    ring in 32-key tiles (two 64-key stages would not fit in 227 KB at
+//    D = 256; one width for every D keeps one tile range).  Each consumer
+//    warpgroup computes S = Q K^T and dP = dO V^T for its 64 rows (m64n32),
+//    P and dS = P (dP - delta) [(1 - t^2)] in f32 registers, rounds dS to
+//    bf16 in registers (the TPU kernel keeps f32) as the A operand of
+//    dQ += dS K, K the MN-major B operand: dS never goes through shared
+//    memory, and the two warpgroups never wait for each other;
 //  - masked scores never enter exp (p = 0; a row with no visible key yet
 //    keeps m = -inf, l = 0, alpha = 1), and the window prunes tiles exactly:
-//    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (each
-//    warpgroup computes only those its 64 rows see), K7 query tiles k0/64 ..
-//    (k0 + 63 + W - 1)/64 (kernels/flash_gqa/grid.py mirrors both);
+//    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 and K6 the
+//    same range in 32-key tiles (each warpgroup computes only those its 64
+//    rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64
+//    (kernels/flash_gqa/grid.py mirrors all three);
 //  - no atomics: at G > 1 each K7 block writes its head's dk/dv partial in
 //    f32 to (B, S, H, D) scratch and dkv_sum_kernel adds the G heads in the
-//    fixed order g = 0 .. G-1; at G = 1 K7 writes bf16 dk/dv itself.  Every
-//    sum has one order, so results are bitwise run to run.
+//    fixed order g = 0 .. G-1; at G = 1 K7 writes bf16 dk/dv itself; a K6
+//    block owns its dq rows.  Every sum has one order, so results are
+//    bitwise run to run.
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // from the CUDA driver through cudaGetDriverEntryPoint, so the library links
@@ -725,6 +737,170 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   }
 }
 
+// -- K6: dq pass ---------------------------------------------------------------
+
+constexpr int kDqKeys = 32;  // keys of a K6 K/V tile
+
+template <int D>
+struct DqLayout {
+  static constexpr int kRows = 2 * kTile;          // one query tile: two warpgroups' rows
+  static constexpr int kQ = kRows * D * 2;         // the Q or the dO tile
+  static constexpr int kKV = kDqKeys * D * 2;      // one K or V tile
+  static constexpr int kBars = 2 * kQ + 4 * kKV;   // qd_full, kv_full[2], kv_empty[2]
+  static constexpr int kBytes = kBars + 5 * 8 + 1024;
+};
+
+// kWide: dq is the f32 sum before the final rounding; otherwise bf16.
+template <int D, bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
+          const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tdo,
+          const float* __restrict__ lse, const float* __restrict__ delta,
+          void* __restrict__ dq, Shape sh) {
+  using L = DqLayout<D>;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t sQ = base, sdO = base + L::kQ;
+  const uint32_t sKV = base + 2 * L::kQ;  // stage st: K at sKV + 2 st kKV, V after it
+  const uint32_t qd_full = base + L::kBars, kv_full = qd_full + 8, kv_empty = kv_full + 16;
+
+  const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
+  const int kvh = h / (sh.h / sh.kv);
+  const int n_qt = (sh.s + L::kRows - 1) / L::kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * L::kRows;  // heaviest tiles first
+  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kDqKeys : 0;
+  const int kt_last = (min(q0 + L::kRows, sh.s) - 1) / kDqKeys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int st = 0; st < 2; ++st) {
+      mbar_init(kv_full + 8 * st, 1);
+      mbar_init(kv_empty + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup; one thread starts every copy
+    set_max_registers_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qd_full, 2 * L::kQ);
+      tma_tile<D, L::kRows>(sQ, &tq, qd_full, h, q0, b);
+      tma_tile<D, L::kRows>(sdO, &tdo, qd_full, h, q0, b);
+      for (int kt = kt_first; kt <= kt_last; ++kt) {
+        const int i = kt - kt_first, st = i & 1;
+        if (i >= 2) mbar_wait(kv_empty + 8 * st, ((i >> 1) - 1) & 1);
+        const uint32_t full = kv_full + 8 * st, dst = sKV + st * 2 * L::kKV;
+        mbar_expect_tx(full, 2 * L::kKV);
+        tma_tile<D, kDqKeys>(dst, &tk, full, kvh, kt * kDqKeys, b);
+        tma_tile<D, kDqKeys>(dst + L::kKV, &tv, full, kvh, kt * kDqKeys, b);
+      }
+    }
+    return;
+  }
+  set_max_registers_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x - 128;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
+  const long long q_rs = (long long)sh.h * D;
+  const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
+  const int r0 = q0 + wg * kTile;  // this warpgroup's first row
+  const bool live = r0 < sh.s;
+  const int wk_first = sh.window > 0 ? max(0, r0 - sh.window + 1) / kDqKeys : 0;
+  const int wk_last = (min(r0 + kTile, sh.s) - 1) / kDqKeys;
+  const int row[2] = {r0 + acc_row(0, warp, lane), r0 + acc_row(2, warp, lane)};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = row[r] < sh.s ? lse[(long long)bh * sh.s + row[r]] : 0.f;
+    delta_r[r] = row[r] < sh.s ? delta[(long long)bh * sh.s + row[r]] : 0.f;
+  }
+
+  const bool capped = sh.softcap > 0.f;
+  const float score_mul = capped ? sh.scale / sh.softcap : sh.scale;
+  float acc[D / 2];  // dq / scale
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(qd_full, 0);
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    const int i = kt - kt_first, st_i = i & 1;
+    const uint32_t sK = sKV + st_i * 2 * L::kKV, sV = sK + L::kKV;
+    mbar_wait(kv_full + 8 * st_i, (i >> 1) & 1);
+    if (live && kt >= wk_first && kt <= wk_last) {  // some row of ours sees the tile
+      const int k0 = kt * kDqKeys;
+
+      // S = Q K^T and dP = dO V^T (64 x 32 each), K-major operands
+      float sc[16], dp[16];
+#pragma unroll
+      for (int j = 0; j < 16; ++j) sc[j] = dp[j] = 0.f;
+      fence_regs(sc);
+      fence_regs(dp);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t a_off = (kk >> 2) * (L::kRows * 128) + wg * kTile * 128 + (kk & 3) * 32;
+        const uint32_t b_off = (kk >> 2) * (kDqKeys * 128) + (kk & 3) * 32;
+        wgmma_ss<32, 0>(sc, desc(sQ + a_off, 16, 1024), desc(sK + b_off, 16, 1024), kk > 0);
+        wgmma_ss<32, 0>(dp, desc(sdO + a_off, 16, 1024), desc(sV + b_off, 16, 1024), kk > 0);
+      }
+      wgmma_commit_and_wait();
+      fence_regs(sc);
+      fence_regs(dp);
+
+      // P = exp(s - lse), dS = P (dP - delta) [(1 - t^2)], rounded to bf16 in
+      // registers: the A operand of dS K
+      const bool masked = !(k0 + kDqKeys - 1 <= r0 && r0 + kTile - 1 < sh.s &&
+                            (sh.window <= 0 || r0 + kTile - 1 - k0 < sh.window));
+      uint32_t da[8];
+#pragma unroll
+      for (int j = 0; j < 16; j += 2) {
+        const int r = (j >> 1) & 1;
+        float ds[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float x = sc[j + e] * score_mul, th = 0.f;
+          if (capped) {
+            th = tanhf(x);
+            x = sh.softcap * th;
+          }
+          const float p = masked && !visible(row[r], k0 + acc_col(j + e, lane), sh)
+                              ? 0.f
+                              : exp2f((x - lse_r[r]) * kLog2e);
+          ds[e] = p * (dp[j + e] - delta_r[r]);
+          if (capped) ds[e] *= 1.f - th * th;
+        }
+        da[j >> 1] = pack_bf16(ds[0], ds[1]);
+      }
+
+      // dQ += dS K: dS from registers, K MN-major
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kDqKeys / 16; ++kk)
+        wgmma_rs<D>(acc, da + 4 * kk, desc(sK + kk * 2048, kDqKeys * 128, 1024), 1);
+      wgmma_commit_and_wait();
+      fence_regs(acc);
+    }
+    mbar_arrive(kv_empty + 8 * st_i);  // this thread is done with the stage
+  }
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= sh.s) continue;
+    const long long off = q_off + (long long)row[r] * q_rs + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = acc[4 * n + 2 * r] * sh.scale, x1 = acc[4 * n + 2 * r + 1] * sh.scale;
+      if (kWide)
+        *reinterpret_cast<float2*>(static_cast<float*>(dq) + off + 8 * n) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dq) + off + 8 * n) = pack_bf16(x0, x1);
+    }
+  }
+}
+
 // dk/dv (B, S, KV, D) bf16 = sum over g = 0 .. G-1, in that order, of the f32
 // partials (B, S, H, D) of query heads kvh * G + g.  4 columns a thread.
 __global__ void __launch_bounds__(256)
@@ -836,6 +1012,25 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_dq(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
+              cudaStream_t st) {
+  if (dq_dtype < 0 || dq_dtype > 1) return (int)cudaErrorInvalidValue;
+  auto kernel = dq_dtype == 1 ? dq_kernel<D, false> : dq_kernel<D, true>;
+  using L = DqLayout<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  if (int err = make_map(&tq, q, sh.b, sh.s, sh.h, D, L::kRows)) return err;
+  if (int err = make_map(&tk, k, sh.b, sh.s, sh.kv, D, kDqKeys)) return err;
+  if (int err = make_map(&tv, v, sh.b, sh.s, sh.kv, D, kDqKeys)) return err;
+  if (int err = make_map(&tdo, dout, sh.b, sh.s, sh.h, D, L::kRows)) return err;
+  if (int err = prepare(kernel, L::kBytes)) return err;
+  const dim3 grid(sh.b * sh.h, (sh.s + L::kRows - 1) / L::kRows);
+  kernel<<<grid, kThreads, L::kBytes, st>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                                            static_cast<const float*>(delta), dq, sh);
+  return (int)cudaGetLastError();
+}
+
 // Returns LAUNCH<D>(args...) for dtype 1 (bfloat16) and D in {64, 128, 256}.
 #define SM90_DISPATCH(LAUNCH, ...)                                  \
   do {                                                              \
@@ -867,6 +1062,18 @@ extern "C" int flash_gqa_sm90_fwd(const void* q, const void* k, const void* v, v
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SM90_DISPATCH(launch_fwd, q, k, v, o, lse, sh, st);
+}
+
+// dq (B, S, H, D): bf16 for dq_dtype 1, or for dq_dtype 0 the f32 sums before
+// that rounding (what the precision check reads).
+extern "C" int flash_gqa_sm90_bwd_dq(const void* q, const void* k, const void* v,
+                                     const void* dout, const void* lse, const void* delta,
+                                     void* dq, int dq_dtype, int dtype, int b, int s, int h,
+                                     int kv, int d, int window, float softcap, float scale,
+                                     void* stream) {
+  const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  SM90_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, dq_dtype, sh, st);
 }
 
 // dk/dv: bf16 (B, S, KV, D) when h == kv; otherwise f32 (B, S, H, D)

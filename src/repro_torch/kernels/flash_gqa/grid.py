@@ -6,9 +6,9 @@ as they are: the TPU kernels' window-pruned grids at their (512-default)
 tiles, kept so the tile census the benchmarks quote can be checked
 against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
 own tiles and compute the exact tile range a window needs themselves;
-``sm90_fwd_key_tiles`` and ``sm90_dkv_query_tiles`` are those ranges of
-the tensor-core kernels (``csrc/flash_gqa_sm90.cu``), written out so the
-CPU tests can hold them to the mask.  ``attention_pairs`` counts the
+``sm90_fwd_key_tiles``, ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles``
+are those ranges of the tensor-core kernels (``csrc/flash_gqa_sm90.cu``),
+written out so the CPU tests can hold them to the mask.  ``attention_pairs`` counts the
 (query, key) pairs causality and the window leave, the work any
 implementation must do (``chip_smoke.py``'s operation bounds).
 """
@@ -66,18 +66,29 @@ def attention_pairs(s: int, window=None) -> int:
 
 
 SM90_TILE = 64       # keys of a K5 K/V tile; keys and queries of a K7 tile
-SM90_FWD_ROWS = 128  # query rows of a K5 block (two warpgroups of 64)
+SM90_FWD_ROWS = 128  # query rows of a K5 or K6 block (two warpgroups of 64)
+SM90_DQ_KEYS = 32    # keys of a K6 K/V tile
+
+
+def _key_tiles(q0: int, rows: int, s: int, window, keys: int) -> range:
+    if q0 >= s:
+        return range(0)
+    first = max(0, q0 - window + 1) // keys if window else 0
+    last = (min(q0 + rows, s) - 1) // keys
+    return range(first, last + 1)
 
 
 def sm90_fwd_key_tiles(q0: int, rows: int, s: int, window=None) -> range:
     """Key tiles (of 64 keys) that query rows q0 .. q0 + rows - 1 visit in
     ``fwd_kernel``: a block's range at rows = 128, one warpgroup's (the
     tiles it computes) at rows = 64.  Rows that all lie past S visit none."""
-    if q0 >= s:
-        return range(0)
-    first = max(0, q0 - window + 1) // SM90_TILE if window else 0
-    last = (min(q0 + rows, s) - 1) // SM90_TILE
-    return range(first, last + 1)
+    return _key_tiles(q0, rows, s, window, SM90_TILE)
+
+
+def sm90_dq_key_tiles(q0: int, rows: int, s: int, window=None) -> range:
+    """Key tiles (of 32 keys) that query rows q0 .. q0 + rows - 1 visit in
+    ``dq_kernel``, as ``sm90_fwd_key_tiles`` for ``fwd_kernel``."""
+    return _key_tiles(q0, rows, s, window, SM90_DQ_KEYS)
 
 
 def sm90_dkv_query_tiles(kt: int, s: int, window=None) -> range:

@@ -11,11 +11,14 @@ its kernel for CUDA tensors and runs its plain PyTorch version
   ``flash_bwd_dkv``  K7: (dk, dv).
 
 Which kernel runs is a dispatch by dtype, not a fallback: bf16 (the LM
-slice's type) runs K5 and K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``;
+slice's type) runs K5-K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``;
 at G = H / KV > 1, K7 writes per-head f32 partials and
 ``flash_bwd_dkv_sum`` adds them in head order); f32 runs the SIMT kernels
-of ``csrc/flash_gqa.cu``, whose products stay in f32.  K6 is
-``flash_gqa.cu``'s in both types.  A failed build or launch raises.
+of ``csrc/flash_gqa.cu``, whose products stay in f32.  A failed build or
+launch raises.  The bf16 kernels round P, dS (K6) and P^T, dS^T (K7) to
+bf16 for the tensor cores; ``flash_bwd_dq_wide`` and
+``flash_bwd_dkv_partials`` return their f32 sums before the final
+rounding, so ``chip_smoke.py`` can hold that departure to a bound.
 
 ``flash_gqa(q, k, v, window, softcap, scale, impl)`` is the
 differentiable entry: an ``autograd.Function`` whose forward is K5 and
@@ -56,6 +59,7 @@ SIGNATURES = {
 }
 SM90_SIGNATURES = {
     "flash_gqa_sm90_fwd": ([_PTR] * 5 + _SHAPE, _INT),
+    "flash_gqa_sm90_bwd_dq": ([_PTR] * 7 + [_INT] + _SHAPE, _INT),  # + dq's dtype
     "flash_gqa_sm90_bwd_dkv": ([_PTR] * 8 + _SHAPE, _INT),
     "flash_gqa_sm90_dkv_sum": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
     "flash_gqa_sm90_error_string": ([_INT], ctypes.c_char_p),
@@ -115,13 +119,14 @@ def _check(q, k, v, window, *rows, **more):
     return b, s, h, kv, d
 
 
-def _launch(kind, *ptrs, dtype, b, s, h, kv, d, window, softcap, scale):
-    """Launch ``flash_gqa_<kind>`` (bf16 K5/K7: ``flash_gqa_sm90_<kind>``)
-    and count it under ``flash_<kind>``."""
-    sm90 = dtype == torch.bfloat16 and kind in ("fwd", "bwd_dkv")
-    lib, prefix = (_sm90_lib(), "flash_gqa_sm90") if sm90 else (_lib(), "flash_gqa")
+def _launch(kind, *args, dtype, b, s, h, kv, d, window, softcap, scale):
+    """Launch ``flash_gqa_<kind>`` (bf16: ``flash_gqa_sm90_<kind>``) on
+    ``args`` (the pointers, and the sm90 dq pass's output dtype) and count it
+    under ``flash_<kind>``."""
+    lib, prefix = ((_sm90_lib(), "flash_gqa_sm90") if dtype == torch.bfloat16
+                   else (_lib(), "flash_gqa"))
     name = f"{prefix}_{kind}"
-    err = getattr(lib, name)(*ptrs, _DTYPE_CODES[dtype], b, s, h, kv, d,
+    err = getattr(lib, name)(*args, _DTYPE_CODES[dtype], b, s, h, kv, d,
                              window or 0, softcap or 0.0, scale,
                              torch.cuda.current_stream().cuda_stream)
     check_launch(lib, err, name, prefix)
@@ -219,18 +224,37 @@ def flash_fwd(q, k, v, window=None, softcap=None, scale=None):
     return out, lse
 
 
-def flash_bwd_dq(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
-    """K6 on the card for CUDA tensors; the plain version for CPU ones."""
-    b, s, h, kv, d = _check(q, k, v, window, lse, delta, dout=dout)
-    if not q.is_cuda:
-        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, window, softcap, scale)
-    dq = torch.empty_like(q)
+def _dq(q, k, v, dout, lse, delta, window, softcap, scale, dq_dtype):
+    """Launch K6 into a new dq of ``dq_dtype`` (the bf16 kernel takes that
+    dtype as an argument; the f32 one writes f32)."""
+    b, s, h, d = q.shape
+    kv = k.shape[2]
+    dq = torch.empty(q.shape, dtype=dq_dtype, device=q.device)
+    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+            delta.data_ptr(), dq.data_ptr()]
+    if q.dtype == torch.bfloat16:
+        args.append(_DTYPE_CODES[dq_dtype])
     with torch.cuda.device(q.device):
-        _launch("bwd_dq", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-                dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
+        _launch("bwd_dq", *args, dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
                 softcap=softcap, scale=_scale(d, scale))
     return dq
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
+    """K6 on the card for CUDA tensors; the plain version for CPU ones."""
+    _check(q, k, v, window, lse, delta, dout=dout)
+    if not q.is_cuda:
+        return flash_bwd_dq_plain(q, k, v, dout, lse, delta, window, softcap, scale)
+    return _dq(q, k, v, dout, lse, delta, window, softcap, scale, q.dtype)
+
+
+def flash_bwd_dq_wide(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
+    """bf16 K6 on the card before its final rounding: dq (B,S,H,D) in f32."""
+    _check(q, k, v, window, lse, delta, dout=dout)
+    if not (q.is_cuda and q.dtype == torch.bfloat16):
+        raise ValueError(f"the wide dq comes from bf16 CUDA tensors, got {q.dtype} on "
+                         f"{q.device}")
+    return _dq(q, k, v, dout, lse, delta, window, softcap, scale, torch.float32)
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):

@@ -12,7 +12,10 @@ personalized round, and reports for the personalized round:
 - one local step under ``torch.profiler`` (no synchronizes added):
   device busy time (the union of the device events' intervals), the idle
   share of the step's wall time, and device time grouped by kernel family
-  (the port's kernels by name, cuBLAS matrix products, the rest).
+  (the port's kernels by name, cuBLAS matrix products, the rest), with the
+  kernels each of the port's families ran (``flash_gqa.cu`` and
+  ``flash_gqa_sm90.cu`` both name their dq pass ``dq_kernel``: the
+  tensor-core one takes ``CUtensorMap`` arguments).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_lm_step
 """
@@ -66,7 +69,8 @@ def _timed(times, name, fn):
 
 
 def device_profile(fn):
-    """(wall ms, device busy ms, {family: (ms, launches)}) of one fn() call."""
+    """(wall ms, device busy ms, {family: [ms, launches, kernel names]}) of
+    one fn() call."""
     torch.cuda.synchronize()
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -74,11 +78,12 @@ def device_profile(fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    fams = collections.defaultdict(lambda: [0.0, 0])
+    fams = collections.defaultdict(lambda: [0.0, 0, set()])
     for e in prof.key_averages():
         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0:
             fams[family(e.key)][0] += e.self_device_time_total / 1e3
             fams[family(e.key)][1] += e.count
+            fams[family(e.key)][2].add(e.key)
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
@@ -142,8 +147,11 @@ def main():
     print(f"[{cfg.name}] profiled local step: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms, idle share {1 - busy_ms / wall_ms:.3f}, summed kernel "
           f"self time {total:.3f} ms")
-    for fam, (ms, count) in sorted(fams.items(), key=lambda kv: -kv[1][0]):
+    for fam, (ms, count, names) in sorted(fams.items(), key=lambda kv: -kv[1][0]):
         print(f"[{cfg.name}]   {ms:10.3f} ms  {100 * ms / total:5.1f}%  x{count:<6d} {fam}")
+        if "(K" in fam:
+            for name in sorted(names):
+                print(f"[{cfg.name}]       {name[:120]}")
 
 
 if __name__ == "__main__":

@@ -217,27 +217,34 @@ def test_attention_pairs_counts_the_visible_pairs(s, window):
 
 
 @pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (200, 300),
-                                      (1000, 512), (1000, None)])
+                                      (1000, 512), (1000, None), (40, 16), (300, 1)])
 def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
     """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py): every
     visible (query, key) pair lies in a visited tile, and no visited tile
-    is fully masked -- for each K5 block (128 rows), each of its warpgroups
-    (64 rows), and each K7 key tile (64 keys)."""
+    is fully masked -- for each K5 and K6 block (128 rows; 64- and 32-key
+    tiles), each of its warpgroups (64 rows), and each K7 key tile (64
+    keys)."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    assert f"constexpr int kTile = {grid.SM90_TILE};" in src
+    assert f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};" in src
     mask = visible_mask(s, window, "cpu")
     t = grid.SM90_TILE
     pad = -s % t
     tiles = torch.nn.functional.pad(mask, (0, pad, 0, pad)).reshape(
         (s + pad) // t, t, (s + pad) // t, t).any(3).any(1)  # (query tile, key tile)
 
-    def key_tiles(q0, rows):
+    def key_tiles(q0, rows, keys):
         hit = mask[q0:q0 + rows].any(0)
-        return sorted({j // t for j in hit.nonzero().flatten().tolist()})
+        return sorted({j // keys for j in hit.nonzero().flatten().tolist()})
 
-    for q0 in range(0, s, grid.SM90_FWD_ROWS):
-        block = list(grid.sm90_fwd_key_tiles(q0, grid.SM90_FWD_ROWS, s, window))
-        assert block == key_tiles(q0, grid.SM90_FWD_ROWS), q0
-        for r0 in (q0, q0 + t):
-            assert list(grid.sm90_fwd_key_tiles(r0, t, s, window)) == key_tiles(r0, t), r0
+    rows = grid.SM90_FWD_ROWS
+    for tiles_of, keys in ((grid.sm90_fwd_key_tiles, t),
+                           (grid.sm90_dq_key_tiles, grid.SM90_DQ_KEYS)):
+        for q0 in range(0, s, rows):
+            assert list(tiles_of(q0, rows, s, window)) == key_tiles(q0, rows, keys), q0
+            for r0 in (q0, q0 + rows // 2):
+                want = key_tiles(r0, rows // 2, keys)
+                assert list(tiles_of(r0, rows // 2, s, window)) == want, (keys, r0)
     for kt in range(tiles.shape[1]):
         want = tiles[:, kt].nonzero().flatten().tolist()
         assert list(grid.sm90_dkv_query_tiles(kt, s, window)) == want, kt
@@ -284,6 +291,21 @@ def test_dkv_partials_come_only_from_the_bf16_kernel_at_several_heads(dtype, h, 
     assert flash_ops.LAUNCHES["flash_bwd_dkv"] == 0
 
 
+@pytest.mark.parametrize("bad", ["cpu", "float32", "dtype_mix"])
+def test_wide_dq_comes_only_from_the_bf16_kernel(bad):
+    """K6's f32 dq before its final rounding exists only where the
+    tensor-core kernel computes it (bf16 CUDA tensors); there is no plain
+    version of it, so CPU tensors, f32 and mixed types raise, and nothing is
+    launched."""
+    (_, _, _, _), (q, k, v, do) = _qkv(4, 1, "float32" if bad == "float32" else "bfloat16")
+    if bad == "dtype_mix":
+        do = do.float()
+    lse = delta = torch.zeros(B, 4, S)
+    with pytest.raises(ValueError, match="wide dq" if bad != "dtype_mix" else "bfloat16"):
+        flash_ops.flash_bwd_dq_wide(q, k, v, do, lse, delta)
+    assert flash_ops.LAUNCHES["flash_bwd_dq"] == 0
+
+
 # -- the C interface --------------------------------------------------------
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -308,16 +330,22 @@ def test_ctypes_signatures_match_the_cuda_source(source, signatures):
 
 
 def test_head_dims_match_the_source_dispatch():
+    """The SIMT source takes float32 (dtype 0) only, at every head_dim the
+    wrappers accept; bfloat16 runs flash_gqa_sm90.cu."""
     src = flash_ops.SOURCE.read_text()
     for d in flash_ops.HEAD_DIMS:
-        for dtype in (0, 1):
-            assert f"dtype == {dtype} && d == {d}" in src
+        assert f"dtype == 0 && d == {d}" in src
+    assert "dtype == 1" not in src
 
 
 def test_sm90_head_dims_match_the_source_dispatch():
     """The tensor-core source takes bf16 (dtype 1) only, at every head_dim
-    the wrappers accept; float32 stays on flash_gqa.cu."""
+    the wrappers accept, for all three passes; float32 stays on
+    flash_gqa.cu."""
     src = flash_ops.SM90_SOURCE.read_text()
     for d in flash_ops.HEAD_DIMS:
         assert f"dtype == 1 && d == {d}" in src
     assert "dtype == 0" not in src
+    for entry, launch in (("fwd", "fwd"), ("bwd_dq", "dq"), ("bwd_dkv", "dkv")):
+        body = re.search(r'extern "C" int flash_gqa_sm90_' + entry + r"\(.*?\n}", src, re.S)
+        assert body and f"SM90_DISPATCH(launch_{launch}," in body.group(0), entry
