@@ -47,6 +47,27 @@ Phases (any failure exits non-zero; nothing is caught):
                   exact launch counts asserted; then one forward of the
                   trained model with ``kernel_impl="reference"`` held
                   against the kernel path on the same batch.
+  7. methods     every method of the port (``METHODS`` plus pfedsop_nopc) at
+                  the ResNet slice's width and data, 2 rounds each, with the
+                  launch counters reset just before: per-method round times,
+                  one K1/K2 pair per pfedsop round;
+  8. sync/async   with cuDNN's deterministic algorithms from here on: the
+                  degenerate async driver (always online, uniform speed,
+                  buffer = concurrency = K') against the sync driver, 2
+                  rounds of pfedsop and of fedavg, histories, broadcast and
+                  client states bit for bit;
+  9. async        the heterogeneous async run (lognormal speeds, sigma 1.0,
+                  availability 0.3, buffer 4; ``examples/train_federated.py``'s
+                  async example) of pfedsop, 6 versions, with the launch
+                  counters reset just before: versions, sim_time, staleness,
+                  micro-cohort sizes, and K1 = K2 = the dispatches it made;
+                  the same run traced (obs level ``phase``) equal to it bit for
+                  bit, with its phase times; the same run under
+                  ``torch.profiler`` for the device's idle share;
+ 10. resume       the heterogeneous run checkpointed at version 4 (in-flight
+                  work and a partly filled buffer on disk), restored into a
+                  fresh driver and run on: the uninterrupted history bit for
+                  bit.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -57,9 +78,11 @@ import functools
 import json
 import math
 import re
+import shutil
 import subprocess
 import sys
 import time
+import types
 from pathlib import Path
 
 import numpy as np
@@ -79,7 +102,14 @@ from repro_torch.data import (  # noqa: E402
     dirichlet_partition,
     make_class_conditional_images,
 )
-from repro_torch.fl import Federation, FLRunConfig, masked_accuracy  # noqa: E402
+from repro_torch.fl import (  # noqa: E402
+    AsyncConfig,
+    AsyncFederation,
+    AvailabilityConfig,
+    Federation,
+    FLRunConfig,
+    masked_accuracy,
+)
 from repro_torch.kernels import build as kernel_build  # noqa: E402
 from repro_torch.kernels.flash_gqa import grid  # noqa: E402
 from repro_torch.kernels.flash_gqa import ops as flash_ops  # noqa: E402
@@ -87,8 +117,10 @@ from repro_torch.kernels.pfedsop_update import ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update.ref import coeff_from_sums, gompertz_beta  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.launch import train_lm_pfedsop as lm_driver  # noqa: E402
+from repro_torch.launch.train_federated import METHOD_NAMES, build_method  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
+from repro_torch.obs import ObsConfig, read_events  # noqa: E402
 from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
@@ -102,6 +134,11 @@ RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
 FLASH_SM90_SOURCE = "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa_sm90.cu"
 LM = dict(clients=4, rounds=3, local_iters=2, batch=2, seq_len=2048)  # the LM slice
 FLASH_SEEDS = (12, 21, 22, 23, 24, 25, 26, 27)  # check_flash: each case at each seed
+SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"  # gitignored
+# examples/train_federated.py's async example: lognormal speeds, 30 % availability
+HETERO = AsyncConfig(buffer_size=4, availability=AvailabilityConfig(
+    speed="lognormal", sigma=1.0, availability=0.3))
+ASYNC_VERSIONS = 6
 
 
 PROFILE_TRIES = 4  # device_ms: profiles taken before a short one fails the run
@@ -621,7 +658,8 @@ def small_parity():
     print(f"small parity: cuda loss {h_g['loss']} cpu loss {h_c['loss']}", flush=True)
 
 
-def slice_run():
+@functools.lru_cache(maxsize=None)
+def resnet_data():
     cfg = RESNET9_CIFAR100  # 32x32, 100 classes, (64, 128, 256) widths
     t0 = time.perf_counter()
     images, labels = make_class_conditional_images(20_000, cfg.n_classes,
@@ -629,6 +667,12 @@ def slice_run():
     parts = dirichlet_partition(labels, 100, 0.07, seed=0)
     data = FederatedData.from_partition(images, labels, parts, seed=0)
     print(f"slice: data {time.perf_counter() - t0:.1f}s", flush=True)
+    return data
+
+
+def slice_run():
+    cfg = RESNET9_CIFAR100
+    data = resnet_data()
     kw = dict(participation=0.2, batch=50)
     pcfg = PFedSOPConfig(eta1=0.05, eta2=0.05)  # the driver's default lr
 
@@ -729,6 +773,143 @@ def lm_slice():
     return launches
 
 
+def resnet_driver(method, rounds, mode="sync", async_cfg=None, **kw):
+    """A driver of the ResNet slice (its width, data and sampling) on the card."""
+    cfg, data = RESNET9_CIFAR100, resnet_data()
+    run_cfg = FLRunConfig(n_clients=data.n_clients, participation=0.2, batch=50,
+                          rounds=rounds, seed=0, **kw)
+    params = cnn.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
+    args = (method, lambda p, b: cnn.loss_fn(p, cfg, b),
+            masked_accuracy(lambda p, t: cnn.apply(p, cfg, t["images"])), params, data,
+            run_cfg)
+    if mode == "sync":
+        return Federation(*args, device="cuda")
+    return AsyncFederation(*args, async_cfg, device="cuda")
+
+
+def method(name):
+    # launch.train_federated's defaults
+    return build_method(name, 0.05, types.SimpleNamespace(rho=1.0, lam=1.0, mu=0.1,
+                                                          ditto_lam=0.1))
+
+
+def methods_run():
+    """Every method at the ResNet slice's width, 2 rounds each; returns the
+    launch counts (one K1/K2 pair per pfedsop round: the no-PC ablation
+    blends on the plain reference path, as in ``repro``)."""
+    reset_launches()
+    for name in METHOD_NAMES:
+        fed = resnet_driver(method(name), 2)
+        h = fed.run()
+        assert fed.layout.size == MAIN_N and fed.kprime == MAIN_C and fed.T == 4
+        assert all(math.isfinite(v) for v in h["loss"]), (name, h["loss"])
+        print(f"methods[{name}]: round_time {h['round_time'][0]:.4f} "
+              f"{h['round_time'][1]:.4f} s, loss {h['loss'][0]:.6f} "
+              f"{h['loss'][1]:.6f}, acc {h['acc'][0]:.6f} {h['acc'][1]:.6f}", flush=True)
+        del fed
+    launches = all_launches()
+    assert launches == {**{k: 0 for k in launches}, "reduce3": 2, "update": 2}, launches
+    return launches
+
+
+def _same_tensors(a, b):
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                      for x, y in zip(la, lb))
+
+
+def sync_vs_async():
+    """The degenerate async driver against the sync driver, bit for bit."""
+    for name in ("pfedsop", "fedavg"):
+        sync = resnet_driver(method(name), 2)
+        h_s = sync.run()
+        asyn = resnet_driver(method(name), 2, mode="async")
+        h_a = asyn.run()
+        for key in ("loss", "acc", "sim_time", "mean_best_acc"):
+            assert h_a[key] == h_s[key], (name, key, h_a[key], h_s[key])
+        assert h_a["staleness"] == [0.0, 0.0] and h_a["engine"]["cohort_sizes"] == [MAIN_C]
+        assert _same_tensors(asyn.broadcast, sync.broadcast), name
+        assert _same_tensors(asyn.client_states, sync.client_states), name
+        print(f"sync/async[{name}]: bitwise equal; loss {h_s['loss']}", flush=True)
+
+
+def _async_run(**kw):
+    fed = resnet_driver(method("pfedsop"), ASYNC_VERSIONS, "async", HETERO, **kw)
+    dispatched = []
+    dispatch = fed._dispatch
+    fed._dispatch = lambda ids: dispatched.append(len(ids)) or dispatch(ids)
+    t0 = time.perf_counter()
+    return fed, fed.run(), dispatched, time.perf_counter() - t0
+
+
+def async_run():
+    """The heterogeneous async run (its launch counts), then traced and
+    profiled; returns (launches, history)."""
+    shutil.rmtree(SCRATCH, ignore_errors=True)  # a fresh trace directory
+    reset_launches()
+    fed, h, dispatched, wall = _async_run()
+    launches = all_launches()
+    n = len(dispatched)
+    assert launches == {**{k: 0 for k in launches}, "reduce3": n, "update": n}, \
+        (launches, dispatched)
+    assert len(h["loss"]) == ASYNC_VERSIONS and all(math.isfinite(v) for v in h["loss"])
+    assert any(h["staleness"]) and len(set(dispatched)) > 1, (h["staleness"], dispatched)
+    print(f"async: {ASYNC_VERSIONS} versions in {wall:.4f} s, {n} dispatches of "
+          f"{dispatched} clients (K1/K2 {launches['reduce3']}/{launches['update']})",
+          flush=True)
+    for v in range(ASYNC_VERSIONS):
+        print(f"async version {v + 1}: sim_time={h['sim_time'][v]!r} "
+              f"staleness={h['staleness'][v]!r} loss={h['loss'][v]:.6f} "
+              f"acc={h['acc'][v]:.6f} round_time={h['round_time'][v]:.4f}s", flush=True)
+
+    trace_dir = SCRATCH / "trace"
+    _, h_t, _, wall_t = _async_run(obs=ObsConfig(trace_dir=str(trace_dir), level="phase"))
+    for key in ("loss", "acc", "sim_time", "staleness", "mean_best_acc"):
+        assert h_t[key] == h[key], (key, h_t[key], h[key])
+    phases = {}
+    for e in read_events(trace_dir):
+        if e.get("k") == "span" and "dur" in e:
+            phases[e["name"]] = phases.get(e["name"], 0) + e["dur"] / 1e3
+    print(f"async traced: bitwise equal to untraced; wall {wall_t:.4f} s; phase totals "
+          f"(ms, synchronized): " + ", ".join(f"{k}={v:.3f}" for k, v in phases.items()),
+          flush=True)
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        _, h_p, _, wall_p = _async_run()
+        torch.cuda.synchronize()
+    assert h_p["loss"] == h["loss"]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy_us, end = 0.0, float("-inf")
+    for lo, hi in spans:  # the union of the device events' intervals
+        if hi > end:
+            busy_us += hi - max(lo, end)
+            end = hi
+    assert busy_us > 0, "the profiler recorded no device event"
+    print(f"async profiled: wall {wall_p * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"idle share {1 - busy_us / 1e3 / (wall_p * 1e3):.4f}", flush=True)
+    return launches, h
+
+
+def async_resume(full):
+    """Checkpoint the heterogeneous run at version 4, restore into a fresh
+    driver, run on: ``full``'s history bit for bit."""
+    ckpt = SCRATCH / "ckpt"
+    _, h_c, _, _ = _async_run(ckpt_every=4, ckpt_dir=str(ckpt))
+    assert h_c["loss"] == full["loss"]
+    fed = resnet_driver(method("pfedsop"), ASYNC_VERSIONS, "async", HETERO,
+                        ckpt_every=4, ckpt_dir=str(ckpt))
+    assert fed.restore(step=4) == 4
+    pending, buffered = len(fed._pending), len(fed._buffer)
+    h_r = fed.run()
+    for key in ("loss", "acc", "sim_time", "staleness", "mean_best_acc"):
+        assert h_r[key] == full[key], (key, h_r[key], full[key])
+    print(f"async resume: restored at version 4 with {pending} in flight and "
+          f"{buffered} buffered; versions 5-{ASYNC_VERSIONS} bitwise equal", flush=True)
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
@@ -780,12 +961,20 @@ def main():
     lm_small_parity()
     resnet = slice_run()
     lm = lm_slice()
+    methods = methods_run()
+    torch.backends.cudnn.deterministic = True  # the bitwise phases below
+    sync_vs_async()
+    hetero, hist = async_run()
+    async_resume(hist)
+    shutil.rmtree(SCRATCH)
 
     def record(name, key, source, replaces):
         r = dict(rec[key])
         r.setdefault("library_ms", None)
-        launches = lm[key] + resnet[key]
-        extra = ({"launches_by_path": {"resnet9": resnet[key], "lm_gemma3_1b": lm[key]}}
+        launches = lm[key] + resnet[key] + methods[key] + hetero[key]
+        extra = ({"launches_by_path": {"resnet9": resnet[key], "lm_gemma3_1b": lm[key],
+                                       "resnet9_methods": methods[key],
+                                       "resnet9_async": hetero[key]}}
                  if resnet[key] else {})
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, **r, **extra}

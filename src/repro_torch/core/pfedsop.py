@@ -37,7 +37,7 @@ from typing import Any, Callable, NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.dispatch import check_impl
+from repro_torch.kernels.dispatch import check_impl, kernel_scope
 from repro_torch.kernels.pfedsop_update import ops
 from repro_torch.kernels.pfedsop_update.ref import gompertz_beta
 from repro_torch.optim.reduce import cohort_mean
@@ -55,6 +55,10 @@ class PFedSOPConfig:
     lam: float = 1.0  # Gompertz steepness (Eq. 14)
     use_pc: bool = True  # personalization component (ablation Table III)
     eps: float = 1e-12  # cosine-similarity guard
+    # async aggregation only: exponent of the polynomial staleness discount
+    # composed with the Gompertz weight in ``stale_blend`` (the synchronous
+    # driver never sees a stale upload)
+    staleness_exp: float = 0.5
     # round-start update implementation (repro_torch.kernels.dispatch):
     # "auto" = CUDA kernel pair on the card, its plain version on the CPU;
     # "reference" = the per-equation math below; "kernel" = CUDA only.
@@ -153,8 +157,9 @@ def personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
     if cfg.use_pc and impl != "reference":
         fused = (ops.pfedsop_update_batched if params.dim() == 2
                  else ops.pfedsop_update)
-        new, beta = fused(params, local_delta, global_delta, cfg.eta1,
-                          cfg.rho, cfg.lam, cfg.eps, impl=impl)
+        with kernel_scope("pfedsop_update", impl):
+            new, beta = fused(params, local_delta, global_delta, cfg.eta1,
+                              cfg.rho, cfg.lam, cfg.eps, impl=impl)
         return new, {"beta": beta}
     if cfg.use_pc:
         dp, aux = personalized_delta(local_delta, global_delta, cfg.lam, cfg.eps)
@@ -232,6 +237,38 @@ def server_aggregate(deltas):
 
 
 # ---------------------------------------------------------------------------
+# Staleness-weighted aggregation (the async driver, ``repro_torch.fl.async_``)
+# ---------------------------------------------------------------------------
+
+
+def staleness_discount(staleness, exponent):
+    """FedBuff-style polynomial discount s(tau) = (1 + tau)^(-exponent), f32.
+
+    tau = 0 gives exactly 1.0 (1^x == 1 in IEEE), so a buffer of fresh
+    uploads aggregates bit for bit as the synchronous path does."""
+    tau = torch.as_tensor(staleness).to(torch.float32)
+    return (1.0 + tau) ** torch.tensor(-exponent, dtype=torch.float32, device=tau.device)
+
+
+def stale_blend(upload, global_delta, discount, lam, eps=1e-12):
+    """Down-blend stale local deltas toward the current global delta.
+
+    ``upload``: one (N,) delta or a buffer's (B, N) rows; ``discount``: the
+    matching scalar or (B,) s(tau).  With beta Eq. 14's Gompertz weight:
+
+        c       = (1 - s) * (1 - beta)
+        blended = (1 - c) * upload + c * global_delta
+
+    A stale AND conflicting delta is pulled hardest toward the global
+    consensus; a fresh upload (s = 1 -> c = 0) passes through bit for bit
+    (the select keeps a -0.0 that ``-0.0 + 0 * g`` would turn into +0.0)."""
+    beta, _ = gompertz_weight(upload, global_delta, lam, eps)
+    c = ((1.0 - discount) * (1.0 - beta))[..., None]
+    blended = ((1.0 - c) * upload.float() + c * global_delta.float()).to(upload.dtype)
+    return torch.where(c == 0, upload, blended)
+
+
+# ---------------------------------------------------------------------------
 # One client's round on a parameter tree (the LM slice)
 # ---------------------------------------------------------------------------
 
@@ -255,9 +292,11 @@ def tree_personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
     impl = check_impl(cfg.update_impl, "pfedsop_update", leaf)
     if cfg.use_pc and impl != "reference":
         layout = FlatLayout(params)
-        new, beta = ops.pfedsop_update(
-            layout.flatten(params), layout.flatten(local_delta),
-            layout.flatten(global_delta), cfg.eta1, cfg.rho, cfg.lam, cfg.eps, impl=impl)
+        with kernel_scope("pfedsop_update", impl):
+            new, beta = ops.pfedsop_update(
+                layout.flatten(params), layout.flatten(local_delta),
+                layout.flatten(global_delta), cfg.eta1, cfg.rho, cfg.lam, cfg.eps,
+                impl=impl)
         return layout.unflatten(new), {"beta": beta}
     if cfg.use_pc:
         nl2, ng2 = _tree_dot(local_delta, local_delta), _tree_dot(global_delta, global_delta)

@@ -12,12 +12,51 @@ is selected by an impl knob:
 
 ``repro``'s "kernel_interpret" ran a Pallas body on the CPU.  A CUDA
 kernel has no interpreter, so it is rejected here with that reason.
+
+The registry maps each dispatched kernel to the config knob that selects
+it; ``kernel_scope`` names a kernel call site in profiles.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
+from repro_torch.obs import LEVEL_KERNEL, get_obs
+
 IMPLS = ("auto", "reference", "kernel")
+
+# kernel name -> the config-knob name callers select it with
+_REGISTRY: dict[str, str] = {}
+
+
+def register_kernel(name: str, knob: str = "kernel_impl") -> None:
+    """Register a dispatched kernel under the config knob that selects it."""
+    _REGISTRY[name] = knob
+
+
+def registered_kernels() -> tuple[str, ...]:
+    return tuple(_REGISTRY)
+
+
+@contextlib.contextmanager
+def kernel_scope(kernel: str, impl: str):
+    """Name a dispatched-kernel call site ``kernel[impl]`` in profiles.
+
+    Always a ``torch.profiler.record_function`` label (a no-op unless a
+    profiler is recording); at obs level ``kernel`` also an NVTX range on
+    the card and a ``kernel`` event on the obs timeline.  Names only: the
+    computation is unchanged."""
+    label = f"{kernel}[{impl}]"
+    with contextlib.ExitStack() as stack:
+        stack.enter_context(torch.profiler.record_function(label))
+        obs = get_obs()
+        if obs.level >= LEVEL_KERNEL:
+            obs.event("kernel", cat="kernel", kernel=kernel, impl=impl)
+            if torch.cuda.is_available():
+                torch.cuda.nvtx.range_push(label)
+                stack.callback(torch.cuda.nvtx.range_pop)
+        yield
 
 
 def check_impl_name(impl: str, kernel: str) -> str:
@@ -43,3 +82,11 @@ def check_impl(impl: str, kernel: str, tensor: torch.Tensor) -> str:
             f"{tensor.device}; use 'auto' or 'reference' on the CPU"
         )
     return impl
+
+
+register_kernel("pfedsop_update", knob="update_impl")
+register_kernel("rmsnorm")
+register_kernel("flash_gqa")
+# the attention backward (K6 + K7) runs under its own scope, launched by the
+# forward's autograd function
+register_kernel("flash_gqa_bwd")

@@ -40,7 +40,7 @@ from pathlib import Path
 import torch
 
 from repro_torch.kernels.build import bind, check_launch
-from repro_torch.kernels.dispatch import check_impl
+from repro_torch.kernels.dispatch import check_impl, kernel_scope
 from repro_torch.kernels.flash_gqa.ref import NEG_INF, flash_gqa_ref, visible_mask
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
@@ -343,8 +343,9 @@ class _FlashGQA(torch.autograd.Function):
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = row_delta(dout, out)
-        dq = flash_bwd_dq(q, k, v, dout, lse, delta, *ctx.args)
-        dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, *ctx.args)
+        with kernel_scope("flash_gqa_bwd", "kernel" if q.is_cuda else "auto"):
+            dq = flash_bwd_dq(q, k, v, dout, lse, delta, *ctx.args)
+            dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, *ctx.args)
         return dq, dk, dv, None, None, None
 
 

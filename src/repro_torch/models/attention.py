@@ -18,7 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from repro_torch.kernels.dispatch import check_impl_name
+from repro_torch.kernels.dispatch import check_impl_name, kernel_scope
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models.layers import dense_init, rmsnorm, rmsnorm_init, rope, softcap
 
@@ -73,8 +73,9 @@ def attention_fwd(p, cfg, x, positions, window, rope_base, q_block=512):
     q, k, v = _project_qkv(p, cfg, x, positions, rope_base)
 
     if check_impl_name(cfg.kernel_impl, "flash_gqa") != "reference":
-        o = flash_ops.flash_gqa(q, k, v, window=window, softcap=cfg.attn_softcap,
-                                impl=cfg.kernel_impl)
+        with kernel_scope("flash_gqa", cfg.kernel_impl):
+            o = flash_ops.flash_gqa(q, k, v, window=window, softcap=cfg.attn_softcap,
+                                    impl=cfg.kernel_impl)
         return torch.einsum("bshk,hkd->bsd", o.to(x.dtype), p["wo"])
 
     qb = min(q_block, s)

@@ -10,6 +10,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels.dispatch import kernel_scope
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
 
 
@@ -39,7 +40,10 @@ def rmsnorm(p, x, eps=1e-6, impl="reference"):
     "reference" runs the plain math, "auto"/"kernel" the fused forward
     kernel K4 (``repro_torch.kernels.rmsnorm``) with the reference's
     autograd for the backward."""
-    return rmsnorm_ops.rmsnorm(x, p["scale"], eps, impl=impl)
+    if impl == "reference":
+        return rmsnorm_ops.rmsnorm(x, p["scale"], eps, impl=impl)
+    with kernel_scope("rmsnorm", impl):
+        return rmsnorm_ops.rmsnorm(x, p["scale"], eps, impl=impl)
 
 
 def rmsnorm_noscale(x, eps=1e-6):

@@ -30,6 +30,12 @@ def ordered_axis_sum(x: torch.Tensor) -> torch.Tensor:
     return ordered_axis_sum(x[:h]) + ordered_axis_sum(x[h:])
 
 
+def cohort_sum(x: torch.Tensor) -> torch.Tensor:
+    """Ordered f32 sum over the leading (client) axis: the same halving
+    tree as ``cohort_mean``."""
+    return ordered_axis_sum(x.float())
+
+
 def cohort_mean(tree):
     """Eq. 13's mean over the leading client axis, canonically associated:
     per leaf, the f32 halving-tree sum divided by the cohort size."""

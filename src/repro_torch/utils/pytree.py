@@ -59,6 +59,38 @@ def tree_leaves(tree: Pytree) -> List[Any]:
     return tree_flatten(tree)[0]
 
 
+def tree_flatten_with_path(tree: Pytree) -> List[Tuple[tuple, Any]]:
+    """[(path, leaf)] in leaf order.  A path is a tuple of keys, each
+    ``("dict", key)``, ``("seq", index)`` or ``("attr", field)`` (a
+    NamedTuple field), as ``jax.tree_util``'s DictKey, SequenceKey and
+    GetAttrKey."""
+    out: List[Tuple[tuple, Any]] = []
+
+    def rec(x, path):
+        if isinstance(x, dict):
+            for k in sorted(x):
+                rec(x[k], path + (("dict", k),))
+        elif isinstance(x, tuple) and hasattr(x, "_fields"):
+            for f, v in zip(x._fields, x):
+                rec(v, path + (("attr", f),))
+        elif isinstance(x, (tuple, list)):
+            for i, v in enumerate(x):
+                rec(v, path + (("seq", i),))
+        else:
+            out.append((path, x))
+
+    rec(tree, ())
+    return out
+
+
+def keystr(path: tuple) -> str:
+    """A path joined with "/" as ``"/".join(str(k) for k in path)`` over
+    ``jax.tree_util`` keys reads: ``['name']``, ``[0]``, ``.field``."""
+    fmt = {"dict": lambda k: f"[{k!r}]", "seq": lambda i: f"[{i}]",
+           "attr": lambda f: f".{f}"}
+    return "/".join(fmt[kind](k) for kind, k in path)
+
+
 def tree_map(fn: Callable, tree: Pytree, *rest: Pytree) -> Pytree:
     """``fn`` over the leaves of ``tree`` (and, zipped, of same-structured
     ``rest`` trees)."""
@@ -88,10 +120,17 @@ class FlatLayout:
 
     def __init__(self, template: Pytree):
         leaves, self.treedef = tree_flatten(template)
+        self.paths = [keystr(p) for p, _ in tree_flatten_with_path(template)]
         self.shapes = [tuple(x.shape) for x in leaves]
         self.dtypes = [x.dtype for x in leaves]
         self.sizes = [int(x.numel()) for x in leaves]
         self.size = sum(self.sizes)
+
+    def leaf_mask(self, predicate: Callable[[str], bool], device=None) -> torch.Tensor:
+        """(N,) f32 0/1 vector: 1 over the leaves whose path string
+        (``keystr``, e.g. ``['fc_w']``) satisfies ``predicate``."""
+        return torch.cat([torch.full((n,), 1.0 if predicate(p) else 0.0, device=device)
+                          for p, n in zip(self.paths, self.sizes)])
 
     def flatten(self, tree: Pytree) -> torch.Tensor:
         return torch.cat([x.float().reshape(-1) for x in tree_leaves(tree)])

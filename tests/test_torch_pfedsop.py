@@ -209,9 +209,14 @@ def test_federation_slice_matches_repro(small_setup, method, monkeypatch):
 @pytest.mark.parametrize("knob", ["shards", "mesh", "output_sharding", "grad_chunks",
                                   "ckpt_every", "ckpt_dir", "async_cfg", "obs"])
 def test_unported_run_knobs_raise(knob):
+    """The multi-device knobs still raise; checkpointing, async and obs are
+    ported now and are accepted as given."""
     value = {"shards": 2, "mesh": "pods:2x2x2", "output_sharding": "sharded",
              "grad_chunks": 2, "ckpt_every": 5, "ckpt_dir": "ck",
              "async_cfg": object(), "obs": {"trace_dir": "t"}}[knob]
+    if knob in ("ckpt_every", "ckpt_dir", "async_cfg", "obs"):
+        assert getattr(TRunConfig(**{knob: value}), knob) is value
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         TRunConfig(**{knob: value})
 
@@ -229,7 +234,8 @@ def test_unported_federation_options_raise(small_setup, case):
         extra["availability"] = object()
     else:
         run["update_impl"] = "kernel_interpret"
-    err = ValueError if case == "impl" else NotImplementedError
+    # an availability model is ported now: an object that is none is refused
+    err = {"impl": ValueError, "availability": TypeError}.get(case, NotImplementedError)
     with pytest.raises(err):
         TFederation(t_bl.PFedSOP(), None, None, s["tp"], s["tdata"],
                     TRunConfig(**run), device="cpu", **extra)
