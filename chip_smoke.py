@@ -67,7 +67,35 @@ Phases (any failure exits non-zero; nothing is caught):
  10. resume       the heterogeneous run checkpointed at version 4 (in-flight
                   work and a partly filled buffer on disk), restored into a
                   fresh driver and run on: the uninterrupted history bit for
-                  bit.
+                  bit;
+ 11. stores       pfedsop at the ResNet slice's width on a fleet of K = 1,000
+                  clients (participation 0.02, so K' = 20; batch 50, T = 4,
+                  seed 0, 3 rounds; client i holds the 50 images from
+                  50 i mod 19,950), once on each store: device; host with
+                  ``mmap_threshold_bytes=0``; mmap under ``build/chip_smoke``;
+                  and the default host store (past its 4 GiB threshold, so
+                  promoted to memmaps) with an 80-client LRU cache.  Each
+                  history and every final client row (compared in client
+                  ranges, as checkpoint shards stream them) bit for bit
+                  against the device store's, K1 = K2 = 3 each; round times,
+                  bytes moved each way, at-rest bytes and peak device memory
+                  printed, and the cache's hit, miss and eviction counters.
+                  Then phase 9's run on the host store: its history bit for
+                  bit;
+ 12. serving      gemma3-1b at full width and depth (26 layers, bf16), batch
+                  4, a 1,024-token random prompt (seed 0; longer than the 512
+                  window, so the ring buffers wrap), 64 greedy decode steps,
+                  capacity 1,088: ``prefill_with_caches`` then ``decode_step``
+                  with every launch counter reset just before and the exact
+                  K4/K5 counts asserted; the first decode step against a full
+                  forward over prompt + token; the reference path
+                  (``kernel_impl="reference"``) teacher-forced on the kernel
+                  path's tokens, every step's logits within 2**-4 of the
+                  largest; prefill ms, decode ms per step, tokens/s, peak
+                  memory and the idle share over 16 profiled decode steps;
+                  then ``python -m repro_torch.launch.serve --full --arch
+                  gemma3-1b --batch 4 --steps 32`` once.  Each phase prints
+                  its seconds.
 
 Prints a ``{"kernels": [...]}`` line and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
@@ -75,8 +103,10 @@ Prints a ``{"kernels": [...]}`` line and ends with
 from __future__ import annotations
 
 import functools
+import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -108,6 +138,7 @@ from repro_torch.fl import (  # noqa: E402
     AvailabilityConfig,
     Federation,
     FLRunConfig,
+    StoreConfig,
     masked_accuracy,
 )
 from repro_torch.kernels import build as kernel_build  # noqa: E402
@@ -116,6 +147,7 @@ from repro_torch.kernels.flash_gqa import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update import ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update.ref import coeff_from_sums, gompertz_beta  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
+from repro_torch.launch import profile_store  # noqa: E402
 from repro_torch.launch import train_lm_pfedsop as lm_driver  # noqa: E402
 from repro_torch.launch.train_federated import METHOD_NAMES, build_method  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
@@ -139,6 +171,10 @@ SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"  # gitignored
 HETERO = AsyncConfig(buffer_size=4, availability=AvailabilityConfig(
     speed="lognormal", sigma=1.0, availability=0.3))
 ASYNC_VERSIONS = 6
+STORE_K = 1000  # phase 11's fleet: K' = 0.02 K = 20, as the ResNet slice's
+STORE_RANGE = 100  # clients per range of the final-row comparison
+SERVE = dict(batch=4, prompt=1024, steps=64, capacity=1088, profiled=16)  # phase 12
+SERVE_RTOL = 2.0 ** -4  # serving logits: kernel path against reference, in units of the largest
 
 
 PROFILE_TRIES = 4  # device_ms: profiles taken before a short one fails the run
@@ -659,15 +695,25 @@ def small_parity():
 
 
 @functools.lru_cache(maxsize=None)
-def resnet_data():
+def resnet_images():
     cfg = RESNET9_CIFAR100  # 32x32, 100 classes, (64, 128, 256) widths
+    return make_class_conditional_images(20_000, cfg.n_classes, cfg.cnn_image_size, seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def resnet_data():
     t0 = time.perf_counter()
-    images, labels = make_class_conditional_images(20_000, cfg.n_classes,
-                                                   cfg.cnn_image_size, seed=0)
+    images, labels = resnet_images()
     parts = dirichlet_partition(labels, 100, 0.07, seed=0)
     data = FederatedData.from_partition(images, labels, parts, seed=0)
     print(f"slice: data {time.perf_counter() - t0:.1f}s", flush=True)
     return data
+
+
+def fleet_data():
+    """Phase 11's fleet (``profile_store.fleet_data``): client i holds the 50
+    images from 50 i mod 19,950."""
+    return profile_store.fleet_data(*resnet_images(), STORE_K)
 
 
 def slice_run():
@@ -773,10 +819,11 @@ def lm_slice():
     return launches
 
 
-def resnet_driver(method, rounds, mode="sync", async_cfg=None, **kw):
+def resnet_driver(method, rounds, mode="sync", async_cfg=None, data=None, participation=0.2,
+                  **kw):
     """A driver of the ResNet slice (its width, data and sampling) on the card."""
-    cfg, data = RESNET9_CIFAR100, resnet_data()
-    run_cfg = FLRunConfig(n_clients=data.n_clients, participation=0.2, batch=50,
+    cfg, data = RESNET9_CIFAR100, data or resnet_data()
+    run_cfg = FLRunConfig(n_clients=data.n_clients, participation=participation, batch=50,
                           rounds=rounds, seed=0, **kw)
     params = cnn.init_params(torch.Generator().manual_seed(0), cfg, device="cuda")
     args = (method, lambda p, b: cnn.loss_fn(p, cfg, b),
@@ -874,23 +921,32 @@ def async_run():
           f"(ms, synchronized): " + ", ".join(f"{k}={v:.3f}" for k, v in phases.items()),
           flush=True)
 
+    h_p, wall_p, busy_us = profiled_run(lambda: _async_run()[1::2])
+    assert h_p["loss"] == h["loss"]
+    print(f"async profiled: wall {wall_p * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
+          f"idle share {1 - busy_us / 1e3 / (wall_p * 1e3):.4f}", flush=True)
+    return launches, h
+
+
+def profiled_run(body):
+    """``body()`` under torch.profiler; it returns (result, the wall seconds
+    of the part it times, ending in a synchronize).  Returns (result, wall,
+    the device's busy microseconds: the union of the device events'
+    intervals)."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
-        _, h_p, _, wall_p = _async_run()
+        out, wall = body()
         torch.cuda.synchronize()
-    assert h_p["loss"] == h["loss"]
     spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
     busy_us, end = 0.0, float("-inf")
-    for lo, hi in spans:  # the union of the device events' intervals
+    for lo, hi in spans:
         if hi > end:
             busy_us += hi - max(lo, end)
             end = hi
     assert busy_us > 0, "the profiler recorded no device event"
-    print(f"async profiled: wall {wall_p * 1e3:.3f} ms, device busy {busy_us / 1e3:.3f} ms, "
-          f"idle share {1 - busy_us / 1e3 / (wall_p * 1e3):.4f}", flush=True)
-    return launches, h
+    return out, wall, busy_us
 
 
 def async_resume(full):
@@ -908,6 +964,220 @@ def async_resume(full):
         assert h_r[key] == full[key], (key, h_r[key], full[key])
     print(f"async resume: restored at version 4 with {pending} in flight and "
           f"{buffered} buffered; versions 5-{ASYNC_VERSIONS} bitwise equal", flush=True)
+
+
+def _final_rows(store):
+    """The store's final client rows as host arrays, one per leaf, read in
+    ranges of ``STORE_RANGE`` clients as checkpoint shards stream them."""
+    out = None
+    for lo in range(0, store.k, STORE_RANGE):
+        hi = min(lo + STORE_RANGE, store.k)
+        block = [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
+                 for x in tree_leaves(store._host_block(lo, hi))]
+        if out is None:
+            out = [np.empty((store.k,) + b.shape[1:], b.dtype) for b in block]
+        for o, b in zip(out, block):
+            o[lo:hi] = b
+    return out
+
+
+def _same_rows(store, ref):
+    """Every client range of ``store`` bitwise equal to ``ref``'s; returns
+    the number of ranges compared."""
+    n = 0
+    for lo in range(0, store.k, STORE_RANGE):
+        hi = min(lo + STORE_RANGE, store.k)
+        for r, b in zip(ref, tree_leaves(store._host_block(lo, hi))):
+            assert np.array_equal(r[lo:hi], b), (store.describe(), lo, hi)
+        n += 1
+    return n
+
+
+def stores_run(async_hist):
+    """Phase 11: the ResNet slice on each store at K = 1,000, bitwise against
+    the device store; then phase 9's async run on the host store.  Returns
+    the launch counts of the two paths."""
+    t_phase = time.perf_counter()
+    data = fleet_data()
+    mmap_dir = SCRATCH / "store_mmap"
+    runs = [("device", "device"),
+            ("host", StoreConfig(kind="host", mmap_threshold_bytes=0)),
+            ("mmap", StoreConfig(kind="mmap", mmap_dir=str(mmap_dir))),
+            ("host+cache80", StoreConfig(kind="host", cache_clients=80,
+                                         mmap_dir=str(SCRATCH / "store_promoted")))]
+    ref, launches = None, {}
+    for label, store in runs:
+        if label in ("mmap", "host+cache80"):
+            SCRATCH.mkdir(parents=True, exist_ok=True)
+            free = shutil.disk_usage(SCRATCH).free
+            print(f"stores[{label}]: {free / 1e9:.1f} GB free on the disk of {SCRATCH}",
+                  flush=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()
+        t0 = time.perf_counter()
+        fed = resnet_driver(method("pfedsop"), 3, data=data, participation=0.02, local_iters=4,
+                            store=store)
+        built = time.perf_counter() - t0
+        h = fed.run()
+        peak = torch.cuda.max_memory_allocated()
+        got = all_launches()
+        assert got == {**{k: 0 for k in got}, "reduce3": 3, "update": 3}, (label, got)
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+        assert fed.kprime == 20 and fed.T == 4 and fed.layout.size == MAIN_N
+        assert all(math.isfinite(v) for v in h["loss"]), (label, h["loss"])
+        st = fed.store.stats()
+        at_rest = getattr(fed.store, "at_rest_bytes",
+                          sum(x.nbytes for x in tree_leaves(fed.client_states)))
+        if ref is None:
+            ref = (h, _final_rows(fed.store))
+            compared = "reference"
+        else:
+            for key in ("loss", "acc", "mean_best_acc"):
+                assert h[key] == ref[0][key], (label, key, h[key], ref[0][key])
+            compared = f"bitwise equal to the device store ({_same_rows(fed.store, ref[1])} " \
+                       f"ranges of {STORE_RANGE} clients)"
+        rounds = " ".join(f"{t:.4f}" for t in h["round_time"])
+        print(f"stores[{label}]: K={STORE_K} promoted={getattr(fed.store, 'promoted', False)} "
+              f"built {built:.2f}s, round_time {rounds} s, h2d {st['h2d_bytes']} B, "
+              f"d2h {st['d2h_bytes']} B, at rest {at_rest} B, peak device memory "
+              f"{peak / 2**30:.3f} GiB; loss {h['loss']}; {compared}", flush=True)
+        if store != "device" and store.cache_clients:
+            hits, misses = st["cache_hits"], st["cache_misses"]
+            print(f"stores[{label}]: cache hits {hits}, misses {misses}, evictions "
+                  f"{st['cache_evictions']}, hit rate {hits / (hits + misses):.4f}, "
+                  f"assembles {st['cache_assembles']}, insert rows "
+                  f"{st['cache_insert_rows']}", flush=True)
+        # a finished Federation can outlive its ``del`` until the cycle
+        # collector runs (ROADMAP.md queue 3): collect it, so the next
+        # store's peak memory is its own
+        del fed
+        gc.collect()
+        shutil.rmtree(mmap_dir, ignore_errors=True)
+        shutil.rmtree(SCRATCH / "store_promoted", ignore_errors=True)
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    reset_launches()
+    fed, h, dispatched, wall = _async_run(store="host")
+    hetero_host = all_launches()
+    n = len(dispatched)
+    assert hetero_host == {**{k: 0 for k in hetero_host}, "reduce3": n, "update": n}
+    for key in ("loss", "acc", "sim_time", "staleness", "mean_best_acc"):
+        assert h[key] == async_hist[key], (key, h[key], async_hist[key])
+    st = fed.store.stats()
+    print(f"stores[async host]: phase 9's run on the host store bit for bit, {n} "
+          f"dispatches, {wall:.4f} s, h2d {st['h2d_bytes']} B, d2h {st['d2h_bytes']} B",
+          flush=True)
+    print(f"stores: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches, hetero_host
+
+
+def serve_run():
+    """Phase 12: gemma3-1b prefill + greedy decode on the kernel path, held
+    against a full forward and the reference path; returns its launches."""
+    t_phase = time.perf_counter()
+    cfg = get_config("gemma3-1b")
+    b, s, steps, cap = SERVE["batch"], SERVE["prompt"], SERVE["steps"], SERVE["capacity"]
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    assert sum(x.numel() for x in tree_leaves(params)) == LM_N
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = tf.prefill_with_caches(params, cfg, {"tokens": prompt}, capacity=cap)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    tok = logits.argmax(-1)
+    toks, outs = [tok], []
+    timed = steps - SERVE["profiled"]
+
+    def step(t):
+        nonlocal tok, caches
+        out, caches = tf.decode_step(params, cfg, {"tokens": tok}, s + t, caches)
+        outs.append(out)
+        tok = out.argmax(-1)
+        toks.append(tok)
+
+    t0 = time.perf_counter()
+    step(0)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for t in range(1, timed):
+        step(t)
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+
+    def profiled_steps():
+        t1 = time.perf_counter()
+        for t in range(timed, steps):
+            step(t)
+        torch.cuda.synchronize()
+        return None, time.perf_counter() - t1
+
+    _, wall_p, busy_us = profiled_run(profiled_steps)
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    # per layer ln1, q-norm, k-norm and ln2, plus the final norm, at the
+    # prefill and at each decode step; one flash forward per prefill layer
+    want = {**{k: 0 for k in launches}, "rmsnorm": (4 * cfg.n_layers + 1) * (1 + steps),
+            "flash_fwd": cfg.n_layers}
+    assert launches == want, (launches, want)
+    assert caches["tail"][0]["pos"].shape == (512,)
+    assert sorted(caches["tail"][0]["pos"].tolist()) == list(range(s + steps - 512, s + steps))
+    ms = 1e3 * decode_s / (timed - 1)
+    print(f"serve: {cfg.name} N={LM_N} {cfg.dtype}, batch {b}, prompt {s}, {steps} decode "
+          f"steps, capacity {cap}: prefill {1e3 * prefill_s:.3f} ms, first decode step "
+          f"{1e3 * first_s:.3f} ms, decode {ms:.3f} ms/step over steps 1-{timed - 1}, "
+          f"{b * (timed - 1) / decode_s:.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB; {SERVE['profiled']} profiled steps: wall "
+          f"{1e3 * wall_p:.3f} ms, device busy {busy_us / 1e3:.3f} ms, idle share "
+          f"{1 - busy_us / 1e3 / (wall_p * 1e3):.4f}; launches {launches}", flush=True)
+
+    # the first decode step against a full forward over prompt + token
+    with torch.no_grad():
+        hidden, _ = tf.forward(params, cfg, {"tokens": torch.cat([prompt, toks[0]], 1)})
+        full = tf.lm_logits(params, cfg, hidden[:, -1:])
+    del hidden
+    err, rel = errors(outs[0], full)
+    assert rel <= SERVE_RTOL, ("first decode step vs full forward", err, rel)
+    print(f"serve: first decode step against the full forward: max_abs_err {err:.4g}, "
+          f"relative {rel:.4g} (tol {SERVE_RTOL:.4g})", flush=True)
+
+    # the reference path, teacher-forced on the kernel path's tokens
+    ref_cfg = cfg.replace(kernel_impl="reference")
+    r_logits, r_caches = tf.prefill_with_caches(params, ref_cfg, {"tokens": prompt}, capacity=cap)
+    worst = [errors(logits, r_logits)[1]]
+    agree = 0
+    for t in range(steps):
+        r_out, r_caches = tf.decode_step(params, ref_cfg, {"tokens": toks[t]}, s + t, r_caches)
+        worst.append(errors(outs[t], r_out)[1])
+        agree += int((r_out.argmax(-1) == toks[t + 1]).sum())
+    assert max(worst) <= SERVE_RTOL, ("kernel vs reference logits", worst)
+    print(f"serve: reference path teacher-forced: worst relative logit error "
+          f"{max(worst):.4g} over prefill + {steps} steps (tol {SERVE_RTOL:.4g}), greedy "
+          f"tokens agree {agree}/{b * steps}", flush=True)
+    del params, caches, r_caches, outs, full
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    cli = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--full", "--arch", "gemma3-1b",
+         "--batch", "4", "--steps", "32"],
+        cwd=Path(__file__).resolve().parent, capture_output=True, text=True, timeout=300,
+        env={**os.environ, "PYTHONPATH": str(Path(__file__).resolve().parent / "src")})
+    for line in cli.stdout.splitlines():
+        print(f"serve[cli]: {line}", flush=True)
+    assert cli.returncode == 0 and cli.stdout.rstrip().endswith("OK"), cli.stderr[-4000:]
+    print(f"serve: cli {time.perf_counter() - t0:.1f}s; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    return launches
 
 
 def print_ptxas(source):
@@ -966,18 +1236,19 @@ def main():
     sync_vs_async()
     hetero, hist = async_run()
     async_resume(hist)
+    stores, hetero_host = stores_run(hist)
+    serve = serve_run()
     shutil.rmtree(SCRATCH)
+    paths = {"resnet9": resnet, "lm_gemma3_1b": lm, "resnet9_methods": methods,
+             "resnet9_async": hetero, "resnet9_stores": stores,
+             "resnet9_async_host": hetero_host, "serve_gemma3_1b": serve}
 
     def record(name, key, source, replaces):
         r = dict(rec[key])
         r.setdefault("library_ms", None)
-        launches = lm[key] + resnet[key] + methods[key] + hetero[key]
-        extra = ({"launches_by_path": {"resnet9": resnet[key], "lm_gemma3_1b": lm[key],
-                                       "resnet9_methods": methods[key],
-                                       "resnet9_async": hetero[key]}}
-                 if resnet[key] else {})
+        by_path = {p: counts.get(key, 0) for p, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                "launches": launches, **r, **extra}
+                "launches": sum(by_path.values()), **r, "launches_by_path": by_path}
 
     kernels = [
         record("pfedsop_reduce3", "reduce3", SOURCE,

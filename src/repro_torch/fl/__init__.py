@@ -1,6 +1,6 @@
 """Federation runtime: the sync driver ``Federation`` and the buffered
 asynchronous ``AsyncFederation`` over one availability/scheduler model,
-``VmapBackend`` and the device cohort store."""
+``VmapBackend`` and the cohort stores (device, host, mmap)."""
 from repro_torch.fl.async_ import AsyncConfig, AsyncFederation  # noqa: F401
 from repro_torch.fl.availability import (  # noqa: F401
     AvailabilityConfig,
@@ -9,7 +9,14 @@ from repro_torch.fl.availability import (  # noqa: F401
     TraceAvailabilityConfig,
     make_availability,
 )
-from repro_torch.fl.cohort_store import DeviceStore, make_store  # noqa: F401
+from repro_torch.fl.cohort_store import (  # noqa: F401
+    STORE_KINDS,
+    DeviceStore,
+    HostStore,
+    StoreConfig,
+    as_store_config,
+    make_store,
+)
 from repro_torch.fl.engine import BACKENDS, VmapBackend, make_engine  # noqa: F401
 from repro_torch.fl.runtime import (  # noqa: F401
     Federation,

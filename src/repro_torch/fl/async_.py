@@ -54,7 +54,18 @@ _DISCOUNT_EDGES = tuple(i / 10 for i in range(1, 10))
 
 
 def _stack(trees):
-    return tree_map(lambda *xs: torch.stack(xs), *trees)
+    """Stack same-structured rows in their own kind: tensors with
+    ``torch.stack``, host rows (a host store's offloaded results) with
+    ``np.stack``."""
+    return tree_map(lambda *xs: torch.stack(xs) if isinstance(xs[0], torch.Tensor)
+                    else np.stack(xs), *trees)
+
+
+def _on_device(tree, device):
+    """``tree`` with its host leaves copied to ``device`` (one copy per
+    leaf); tensors pass through."""
+    return tree_map(lambda x: x if isinstance(x, torch.Tensor)
+                    else torch.from_numpy(np.ascontiguousarray(x)).to(device), tree)
 
 
 @dataclass(frozen=True)
@@ -219,8 +230,10 @@ class AsyncFederation(Federation):
             "client", self.programs.client, gathered, self.broadcast, batches,
             sim=self.sim_time)
         self._observe_client_metrics(metrics)
-        # in-flight results stay on the device (one device: repro's host
-        # offload of the sharded backends and host stores does not arise)
+        # in-flight results go through the store's offload policy: a host or
+        # mmap store always host-copies them (buffered results never pin
+        # device memory); the device store keeps them on the device
+        new_states, uploads = self.store.offload((new_states, uploads))
         losses = metrics["loss"].cpu().numpy().astype(np.float32)
         for j, i in enumerate(ids.tolist()):
             self._pending[i] = {
@@ -240,7 +253,8 @@ class AsyncFederation(Federation):
         obs.event("deliver", track="async", sim=self.sim_time,
                   cohort=len(done), version=self._round)
         items = [self._pending.pop(i) for i in done]
-        stacked = _stack([it["state"] for it in items])
+        # host rows go to the device once per delivery, before eval and scatter
+        stacked = _on_device(_stack([it["state"] for it in items]), self.device)
         dn = np.asarray(done, np.int64)
         tests = self._to_device(self.data.client_test_set(dn))
         accs = obs.timed("eval", self.programs.eval, stacked, self.broadcast,
@@ -277,7 +291,7 @@ class AsyncFederation(Federation):
         obs = self.obs
         items = self._buffer[: self.buffer_size]
         del self._buffer[: self.buffer_size]
-        uploads = _stack([it["upload"] for it in items])
+        uploads = _on_device(_stack([it["upload"] for it in items]), self.device)
         tau = np.asarray([self._round - it["version"] for it in items], np.int64)
         if tau.any():
             self.broadcast = obs.timed(
@@ -377,18 +391,21 @@ class AsyncFederation(Federation):
         return extra
 
     def _upload_struct(self):
-        """One upload's structure, dtypes and device, for the restore
-        templates of the stacked pending and buffered uploads (their
-        structure is the method's): one client's ``client_round`` on one
-        local iteration of a throwaway sample (the participation RNG is
-        not touched)."""
+        """One upload's structure and dtypes, in the kind the store's
+        ``offload`` gives, for the restore templates of the stacked pending
+        and buffered uploads (their structure is the method's): one
+        client's ``client_round`` on one local iteration of a throwaway
+        sample (the participation RNG is not touched).  Client 0's row is
+        copied from the at-rest stack, not gathered, so the store's stats
+        and LRU order are not touched either."""
         throwaway = np.random.RandomState(0)
         bt = self._to_device(self.data.sample_round_batches(
             throwaway, np.asarray([0]), 1, self.cfg.batch))
         bt = {k: v[0] for k, v in bt.items()}
-        state = tree_map(lambda x: x[0], self.client_states)
-        return self.method.client_round(self.programs.loss_fn, state,
-                                        self.broadcast, bt)[1]
+        state = tree_map(lambda x: x[0], _on_device(
+            tree_map(lambda x: x[:1], self.client_states), self.device))
+        return self.store.offload(self.method.client_round(
+            self.programs.loss_fn, state, self.broadcast, bt)[1])
 
     def restore(self, ckpt_dir=None, step=None) -> int:
         """Restore a checkpoint written by ``save`` (fresh, identically
@@ -450,7 +467,8 @@ class AsyncFederation(Federation):
                 tmpl["pending"] = {
                     "ids": zero, "versions": zero,
                     "loss": np.zeros(0, np.float32),
-                    "states": self.client_states,
+                    "states": self.store.offload(
+                        tree_map(lambda x: x[:0], self.client_states)),
                     "uploads": upload,
                 }
             if with_buffer:

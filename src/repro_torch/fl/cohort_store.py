@@ -1,85 +1,195 @@
-"""Cohort store (port of ``repro/fl/cohort_store.py``, ``DeviceStore`` only).
+"""Cohort store: where the K-stacked client states live at rest (port of
+``repro/fl/cohort_store.py``).
 
-Every client's state lives at rest as one ``(K, ...)``-stacked tensor per
-leaf on the device — for pFedSOP a ``(K, N)`` f32 parameter buffer and a
-``(K, N)`` delta buffer, so the round-start kernels read the gathered
-rows with no flatten or pad copy.  Each round ``gather`` copies the K'
-participants' rows out and ``scatter`` writes the new rows back in place
-(``index_copy_``: the store is updated in place, not rebuilt, to keep one
-copy of the K-stack in device memory).  A checkpoint streams the stack
+Every client's state is one ``(K, ...)``-stacked array per leaf; for
+pFedSOP a ``(K, N)`` f32 parameter buffer, a ``(K, N)`` delta buffer and
+two per-client scalars.  Each round touches only the K' participants:
+
+    gather(ids)  rows at rest -> (K', ...) cohort on ``device``   [h2d]
+    scatter(ids) (K', ...) cohort -> rows at rest                 [d2h, deferred]
+
+Two stores behind one interface, selected by ``StoreConfig.kind``:
+
+  DeviceStore  the stack resident on ``device``: gather is ``index_select``
+               and scatter ``index_copy_`` in place (one copy of the
+               K-stack in device memory).  kind="device".
+  HostStore    the stack at rest in host numpy (kind="host"), or in
+               ``np.memmap`` leaves under ``mmap_dir`` (kind="mmap"; a
+               "host" store past ``mmap_threshold_bytes`` spills to memmaps
+               and sets ``promoted``).  Gather fancy-indexes the rows into
+               one pinned staging buffer per leaf and makes one
+               ``non_blocking`` copy to the card.  Scatter copies each leaf
+               into a pinned host buffer on a side CUDA stream (after that
+               stream waits for the current one, which produced the
+               cohort), records an event, and defers the numpy write until
+               the next host access (gather, stacked, a checkpoint), which
+               waits on the event and writes the rows in FIFO order (the
+               last write wins).  So the copies overlap the next round's
+               host sampling, as ``repro``'s ``copy_to_host_async`` does.
+
+An optional LRU device cache (``cache_clients > 0``, host/mmap only) keeps
+the most recently touched clients' rows in one ``(cache_clients, ...)``
+slot buffer per leaf; a cohort is assembled by one ``index_select`` over
+[slot buffer ‖ fetched misses], and its bookkeeping is ``repro``'s line
+for line, so the hit, miss, eviction and insert counters equal
+``repro``'s for the same sequence of cohorts.
+
+Gather and scatter are pure data movement: a streamed federation gives
+the device store's history bit for bit.  A checkpoint streams the stack
 beside its ``arrays.npz`` in client-range shard files, ``repro``'s layout.
-The host and mmap stores and the LRU cache come later (ROADMAP.md queue
-1, item 12).
 """
 from __future__ import annotations
 
 import json
+import tempfile
+from collections import OrderedDict
+from dataclasses import dataclass
 from pathlib import Path
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
 from repro_torch.utils.checkpoint import flatten_with_names, leaf_like, leaf_to_numpy
-from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map
+from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
-CKPT_SHARD_CLIENTS = 65536  # clients per checkpoint shard file (repro's default)
+STORE_KINDS = ("device", "host", "mmap")
 
 
-class DeviceStore:
-    """The (K, ...) stack resident on ``device``."""
+@dataclass(frozen=True)
+class StoreConfig:
+    """Where the K-stacked client states live at rest.
 
-    def __init__(self, proto, k: int, device: torch.device):
-        self.device = device
+    ``kind``: "device" (resident stack), "host" (numpy at rest,
+    spilling to memmaps past ``mmap_threshold_bytes``) or "mmap" (always
+    disk-backed memmaps under ``mmap_dir``).
+
+    ``cache_clients``: LRU device cache capacity in clients (0 = off);
+    host/mmap stores only, since the device store is its own cache.
+
+    ``mmap_dir``: backing directory for memmapped leaves ("" = a fresh
+    ``tempfile.mkdtemp``; checkpoints never depend on it).
+
+    ``mmap_threshold_bytes``: a "host" store spills to memmaps when the
+    at-rest stack exceeds this many bytes (0 = never spill).
+
+    ``ckpt_shard_clients``: clients per checkpoint shard file, the
+    checkpoint path's working-memory bound.
+    """
+
+    kind: str = "device"
+    cache_clients: int = 0
+    mmap_dir: str = ""
+    mmap_threshold_bytes: int = 4 << 30  # 4 GiB
+    ckpt_shard_clients: int = 65536
+
+    def __post_init__(self):
+        if self.kind not in STORE_KINDS:
+            raise ValueError(f"store kind must be one of {STORE_KINDS}, got {self.kind!r}")
+        if self.cache_clients < 0:
+            raise ValueError(f"cache_clients must be >= 0, got {self.cache_clients}")
+        if self.cache_clients and self.kind == "device":
+            raise ValueError(
+                "cache_clients only applies to host/mmap stores (the device "
+                "store is already resident); drop the flag or pick store='host'")
+        if self.ckpt_shard_clients < 1:
+            raise ValueError(
+                f"ckpt_shard_clients must be >= 1, got {self.ckpt_shard_clients}")
+
+
+def as_store_config(store) -> StoreConfig:
+    """Resolve ``FLRunConfig.store``: None -> device, str -> kind, or a
+    full ``StoreConfig`` passed through."""
+    if store is None:
+        return StoreConfig()
+    if isinstance(store, str):
+        return StoreConfig(kind=store)
+    if isinstance(store, StoreConfig):
+        return store
+    raise TypeError(f"store must be None, a kind string {STORE_KINDS}, or a "
+                    f"StoreConfig; got {type(store).__name__}")
+
+
+def _tree_bytes(tree) -> int:
+    return sum(leaf.nbytes for leaf in tree_leaves(tree))
+
+
+def _torch_dtype(a: np.ndarray) -> torch.dtype:
+    return torch.from_numpy(np.empty(0, a.dtype)).dtype
+
+
+def _index(values, device) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(values, np.int64), device=device)
+
+
+def _host(x) -> np.ndarray:
+    """A numpy copy of a tensor (or array), never a view of it."""
+    if isinstance(x, torch.Tensor):
+        x = x.detach()
+        return x.cpu().numpy() if x.is_cuda else x.numpy().copy()
+    return np.array(x)
+
+
+class CohortStore:
+    """Interface and shared bookkeeping of the two stores.
+
+    ``proto`` is ONE client's state tree; the store broadcasts it to the
+    (K,)-stacked layout (every client starts from the same init).  Stats
+    keys are ``repro``'s: gathers/scatters, h2d/d2h bytes moved, and the
+    LRU cache's counters."""
+
+    def __init__(self, cfg: StoreConfig, k: int, device: torch.device):
+        self.cfg = cfg
         self.k = k
-        self._stack = tree_map(
-            lambda x: x.to(device).expand((k,) + tuple(x.shape)).clone(), proto)
-        # repro's stats keys; the device store moves no host bytes
+        self.device = torch.device(device)
         self._stats = {
             "gathers": 0, "scatters": 0, "h2d_bytes": 0, "d2h_bytes": 0,
             "cache_hits": 0, "cache_misses": 0, "cache_evictions": 0,
             "cache_assembles": 0, "cache_insert_rows": 0,
         }
 
-    def _ids(self, ids) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(ids, np.int64), device=self.device)
-
     def gather(self, ids):
-        """Stacked (K', ...) cohort for ``ids`` (row order = ids order)."""
-        self._stats["gathers"] += 1
-        idx = self._ids(ids)
-        return tree_map(lambda x: x.index_select(0, idx), self._stack)
+        """Stacked (K', ...) cohort for ``ids`` on ``device`` (row order =
+        ids order)."""
+        raise NotImplementedError
 
     def scatter(self, ids, new_states) -> None:
-        """Write the (K', ...) cohort back to rows ``ids`` (distinct)."""
-        self._stats["scatters"] += 1
-        idx = self._ids(ids)
-        for full, new in zip(tree_leaves(self._stack), tree_leaves(new_states)):
-            full.index_copy_(0, idx, new.to(full.dtype))
+        """Write the (K', ...) cohort back to rows ``ids``."""
+        raise NotImplementedError
+
+    def offload(self, tree, force_host: bool = False):
+        """Representation for results buffered outside the store (the async
+        driver's in-flight dispatches): host numpy copies whenever the store
+        is host-resident, or when the caller forces it."""
+        raise NotImplementedError
 
     def stacked(self):
-        return self._stack
+        """The full (K, ...) stacked tree in the at-rest representation."""
+        raise NotImplementedError
+
+    def load_stacked(self, tree) -> None:
+        """Replace the full stack (values copied into the at-rest layout)."""
+        raise NotImplementedError
 
     def stats(self) -> dict:
         return dict(self._stats)
 
     def describe(self) -> dict:
         """Store facets stamped into the checkpoint fingerprint."""
-        return {"kind": "device", "cache_clients": 0}
+        return {"kind": self.cfg.kind, "cache_clients": self.cfg.cache_clients}
 
     # -- checkpoint shard streaming ---------------------------------------
 
-    def _shard_ranges(self, s: int = CKPT_SHARD_CLIENTS):
+    def _shard_ranges(self, s: int):
         return [(lo, min(lo + s, self.k)) for lo in range(0, max(self.k, 1), s)]
-
-    def _host_block(self, lo: int, hi: int):
-        return tree_map(lambda x: x[lo:hi], self._stack)
 
     def save_shards(self, step_dir) -> None:
         """The stack as ``<step_dir>/store_<i>.npz`` client-range shards plus
-        a ``store_manifest.json`` naming the flattened leaves."""
+        a ``store_manifest.json`` naming the flattened leaves; working memory
+        is one shard, not K."""
         d = Path(step_dir)
         d.mkdir(parents=True, exist_ok=True)
-        ranges = self._shard_ranges()
+        ranges = self._shard_ranges(self.cfg.ckpt_shard_clients)
         names = None
         for i, (lo, hi) in enumerate(ranges):
             named = flatten_with_names(self._host_block(lo, hi))
@@ -87,13 +197,15 @@ class DeviceStore:
                 names = [n for n, _ in named]
             np.savez(d / f"store_{i:05d}.npz",
                      **{f"a{j}": leaf_to_numpy(leaf) for j, (_, leaf) in enumerate(named)})
-        manifest = {"k": self.k, "shard_clients": CKPT_SHARD_CLIENTS,
+        manifest = {"k": self.k, "shard_clients": self.cfg.ckpt_shard_clients,
                     "n_shards": len(ranges), "names": names or [],
                     "store": self.describe()}
         (d / "store_manifest.json").write_text(json.dumps(manifest, indent=1))
 
     def load_shards(self, step_dir) -> None:
-        """Inverse of ``save_shards`` (validates K and the leaf names)."""
+        """Inverse of ``save_shards`` (validates K and the leaf names).  The
+        ranges come from the writer's ``shard_clients``, so a reader with
+        another granularity restores exactly."""
         d = Path(step_dir)
         manifest = json.loads((d / "store_manifest.json").read_text())
         if manifest["k"] != self.k:
@@ -103,18 +215,304 @@ class DeviceStore:
         if manifest["names"] != want:
             raise ValueError(f"store shards at {d} hold leaves {manifest['names']}, "
                              f"but this method's client state flattens to {want}")
-        full, _ = tree_flatten(self._stack)
         for i, (lo, hi) in enumerate(self._shard_ranges(int(manifest["shard_clients"]))):
             data = np.load(d / f"store_{i:05d}.npz")
-            for j, leaf in enumerate(full):
-                leaf[lo:hi] = leaf_like(data[f"a{j}"], leaf)
+            self._load_host_block(lo, hi, [data[f"a{j}"] for j in range(len(want))])
+
+    # subclass hooks: the (lo, hi) client range as a tree, and its inverse
+    # taking flat numpy leaves in flatten_with_names order
+    def _host_block(self, lo: int, hi: int):
+        raise NotImplementedError
+
+    def _load_host_block(self, lo: int, hi: int, flat_leaves) -> None:
+        raise NotImplementedError
 
 
-def make_store(store, proto, k: int, device: torch.device) -> DeviceStore:
-    """Store factory (``FLRunConfig.store`` -> a store); device only."""
-    if store not in (None, "device"):
-        raise NotImplementedError(
-            f"store={store!r} is not ported to repro_torch yet (host/mmap "
-            "stores and the LRU cache: ROADMAP.md queue 1 item 12); use the "
-            "device store (store=None or 'device')")
-    return DeviceStore(proto, k, device)
+class DeviceStore(CohortStore):
+    """The (K, ...) stack resident on ``device``: the baseline the streamed
+    stores are held to bit for bit."""
+
+    def __init__(self, cfg: StoreConfig, proto, k: int, device):
+        super().__init__(cfg, k, device)
+        self._stack = tree_map(
+            lambda x: x.to(self.device).expand((k,) + tuple(x.shape)).clone(), proto)
+
+    def gather(self, ids):
+        self._stats["gathers"] += 1
+        idx = _index(ids, self.device)
+        return tree_map(lambda x: x.index_select(0, idx), self._stack)
+
+    def scatter(self, ids, new_states) -> None:
+        """Rows ``ids`` (distinct) updated in place."""
+        self._stats["scatters"] += 1
+        idx = _index(ids, self.device)
+        for full, new in zip(tree_leaves(self._stack), tree_leaves(new_states)):
+            new = torch.as_tensor(new, device=self.device)
+            full.index_copy_(0, idx, new.to(full.dtype))
+
+    def offload(self, tree, force_host=False):
+        return tree_map(_host, tree) if force_host else tree
+
+    def stacked(self):
+        return self._stack
+
+    def load_stacked(self, tree) -> None:
+        for full, src in zip(tree_leaves(self._stack), tree_leaves(tree)):
+            full.copy_(torch.as_tensor(src))
+
+    def _host_block(self, lo, hi):
+        return tree_map(lambda x: x[lo:hi], self._stack)
+
+    def _load_host_block(self, lo, hi, flat_leaves) -> None:
+        for leaf, arr in zip(tree_leaves(self._stack), flat_leaves):
+            leaf[lo:hi] = leaf_like(arr, leaf)
+
+
+class HostStore(CohortStore):
+    """Host-at-rest store: numpy (or memmap) stack plus the LRU device cache.
+    See the module docstring for the gather/scatter/overlap semantics."""
+
+    def __init__(self, cfg: StoreConfig, proto, k: int, device):
+        super().__init__(cfg, k, device)
+        named = flatten_with_names(tree_map(_host, proto))
+        total = k * sum(leaf.nbytes for _, leaf in named)
+        self.mmapped = cfg.kind == "mmap" or (
+            cfg.mmap_threshold_bytes > 0 and total > cfg.mmap_threshold_bytes)
+        if self.mmapped:
+            mmap_dir = Path(cfg.mmap_dir or tempfile.mkdtemp(prefix="cohort_store_"))
+            mmap_dir.mkdir(parents=True, exist_ok=True)
+
+        def alloc(name, leaf):
+            shape = (k,) + leaf.shape
+            if self.mmapped:
+                f = mmap_dir / (name.replace("/", ".") + ".mmap")
+                arr = np.memmap(f, dtype=leaf.dtype, mode="w+", shape=shape)
+            else:
+                arr = np.empty(shape, leaf.dtype)
+            arr[...] = leaf  # broadcast the shared init row-wise
+            return arr
+
+        _, self._treedef = tree_flatten(proto)
+        self._data = tree_unflatten(self._treedef, [alloc(n, leaf) for n, leaf in named])
+        self.at_rest_bytes = total
+        # a "host" store that crossed mmap_threshold_bytes spilled to disk
+        self.promoted = cfg.kind == "host" and self.mmapped
+        # deferred write-backs: (ids, pinned host leaves, event or None)
+        self._writeback: List[tuple] = []
+        self._d2h_stream: Optional[torch.cuda.Stream] = None
+        # LRU device cache as a slot buffer: one (cache_clients, ...) tree
+        # (allocated lazily), client id -> slot in LRU order, free slots
+        self._slots = None
+        self._lru: "OrderedDict[int, int]" = OrderedDict()
+        self._free: List[int] = []
+
+    # -- deferred write-back ----------------------------------------------
+
+    def _flush(self) -> None:
+        """Materialize pending scatters into the numpy stack (FIFO: last
+        write wins, matching the scatter order)."""
+        for ids, host, event in self._writeback:
+            if event is not None:
+                event.synchronize()
+            for a, h in zip(tree_leaves(self._data), host):
+                a[ids] = h.numpy()
+        self._writeback.clear()
+
+    # -- host <-> device ---------------------------------------------------
+
+    def _h2d(self, ids: np.ndarray):
+        """Rows ``ids`` of every leaf on the device: on the card fancy-indexed
+        straight into one pinned staging buffer per leaf and copied with
+        ``non_blocking`` (the caching host allocator keeps the buffer until
+        the copy is done); on the CPU a fresh copy of the rows."""
+        out = []
+        for a in tree_leaves(self._data):
+            if self.device.type == "cuda":
+                stage = torch.empty((len(ids),) + a.shape[1:],
+                                    dtype=_torch_dtype(a), pin_memory=True)
+                # mode="raise" would buffer ``out`` (a second copy of the
+                # rows); gather checked the ids, so "wrap" reads the same rows
+                np.take(a, ids, axis=0, out=stage.numpy(), mode="wrap")
+                out.append(stage.to(self.device, non_blocking=True))
+            else:
+                out.append(torch.from_numpy(np.asarray(a[ids])))
+            self._stats["h2d_bytes"] += out[-1].nbytes
+        return tree_unflatten(self._treedef, out)
+
+    def _d2h(self, leaves):
+        """Start the copies of ``leaves`` to pinned host buffers on a side
+        stream; returns (host leaves, event).  CPU tensors are kept as they
+        are: their values are read at the flush."""
+        if not leaves[0].is_cuda:
+            return [x.detach() for x in leaves], None
+        dev = leaves[0].device
+        if self._d2h_stream is None:
+            self._d2h_stream = torch.cuda.Stream(device=dev)
+        side = self._d2h_stream
+        side.wait_stream(torch.cuda.current_stream(dev))  # the cohort was made there
+        host = []
+        with torch.cuda.stream(side):
+            for x in leaves:
+                h = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+                h.copy_(x.detach(), non_blocking=True)
+                x.record_stream(side)  # not reused before the copy is done
+                host.append(h)
+            event = torch.cuda.Event()
+            event.record(side)
+        return host, event
+
+    # -- gather / scatter --------------------------------------------------
+
+    def gather(self, ids):
+        ids = np.asarray(ids, np.int64)
+        if ids.size and (ids.min() < -self.k or ids.max() >= self.k):
+            raise IndexError(f"client ids must lie in [-{self.k}, {self.k}), got "
+                             f"{ids.min()}..{ids.max()}")
+        self._flush()
+        self._stats["gathers"] += 1
+        if not self.cfg.cache_clients:
+            return self._h2d(ids)
+        return self._gather_cached(ids)
+
+    def _ensure_slots(self) -> None:
+        if self._slots is None:
+            cap = self.cfg.cache_clients
+            self._slots = tree_map(
+                lambda a: torch.zeros((cap,) + a.shape[1:],
+                                      dtype=_torch_dtype(a), device=self.device),
+                self._data)
+            self._free = list(range(cap - 1, -1, -1))  # pop() fills 0, 1, ...
+
+    def _slots_insert(self, src, jarr, sarr) -> None:
+        """Batched cache fill: slot[sarr[r]] = src[jarr[r]] for every row r."""
+        s_idx, j_idx = _index(sarr, self.device), _index(jarr, self.device)
+        for s, x in zip(tree_leaves(self._slots), tree_leaves(src)):
+            s.index_copy_(0, s_idx, x.index_select(0, j_idx).to(s.dtype))
+
+    def _gather_cached(self, ids):
+        """Cohort assembly through the LRU slot buffer: ONE index_select over
+        [slot buffer ‖ fetched miss block].
+
+        The output index map is computed BEFORE any cache bookkeeping:
+        filling a miss can evict a slot this same cohort still needs (a hit
+        older in LRU order, or an earlier miss when K' exceeds the
+        capacity), so assembly must see the pre-insertion slot layout."""
+        id_list = ids.tolist()
+        cap = self.cfg.cache_clients
+        lru = self._lru
+        # duplicate occurrences count per occurrence, and a duplicated miss
+        # fetches (and later writes) its row once per occurrence with the
+        # last one winning
+        miss = [i for i in id_list if i not in lru]
+        self._stats["cache_hits"] += len(id_list) - len(miss)
+        self._stats["cache_misses"] += len(miss)
+        self._stats["cache_assembles"] += 1
+        block = None
+        if miss:
+            self._ensure_slots()
+            block = self._h2d(np.asarray(miss, np.int64))
+        mpos = {i: j for j, i in enumerate(miss)}  # last occurrence wins
+        idx = _index([lru[i] if i in lru else cap + mpos[i] for i in id_list], self.device)
+        if block is None:
+            cohort = tree_map(lambda s: s.index_select(0, idx), self._slots)
+        else:
+            cohort = tree_map(lambda s, b: torch.cat([s, b]).index_select(0, idx),
+                              self._slots, block)
+        # LRU bookkeeping in the per-row cache's order: hits touch in cohort
+        # order, then misses insert (evicting from the front) in miss order
+        for i in id_list:
+            if i in lru:
+                lru.move_to_end(i)
+        pend: Dict[int, int] = {}
+        for j, i in enumerate(miss):
+            if i in lru:  # duplicated miss: already placed this cohort
+                lru.move_to_end(i)
+            else:
+                if len(lru) >= cap:
+                    _, slot = lru.popitem(last=False)
+                    self._free.append(slot)
+                    self._stats["cache_evictions"] += 1
+                lru[i] = self._free.pop()
+            pend[i] = j
+        # one batched fill for the misses that survived their own cohort's
+        # evictions
+        live = [(lru[i], j) for i, j in pend.items() if i in lru]
+        if live:
+            self._slots_insert(block, [j for _, j in live], [s for s, _ in live])
+            self._stats["cache_insert_rows"] += len(live)
+        return cohort
+
+    def scatter(self, ids, new_states) -> None:
+        self._stats["scatters"] += 1
+        ids = np.asarray(ids, np.int64)
+        leaves = tree_leaves(new_states)
+        if leaves and not isinstance(leaves[0], torch.Tensor):
+            # host rows (offloaded async results): write through directly,
+            # and drop their cached device rows as stale
+            for a, h in zip(tree_leaves(self._data), leaves):
+                a[ids] = np.asarray(h)
+            for i in ids.tolist():
+                slot = self._lru.pop(i, None)
+                if slot is not None:
+                    self._free.append(slot)
+            return
+        # start the d2h copies now, materialize at the next host access
+        host, event = self._d2h(leaves)
+        self._stats["d2h_bytes"] += _tree_bytes(new_states)
+        self._writeback.append((ids, host, event))
+        if self.cfg.cache_clients:
+            # write-through into the slot buffer, one batched fill: resident
+            # rows refresh in place; new rows only while free capacity
+            # remains (scatter never evicts)
+            self._ensure_slots()
+            lru, pend = self._lru, {}
+            for j, i in enumerate(ids.tolist()):
+                if i in lru:
+                    lru.move_to_end(i)
+                    pend[i] = j
+                elif len(lru) < self.cfg.cache_clients:
+                    lru[i] = self._free.pop()
+                    pend[i] = j
+            if pend:
+                self._slots_insert(new_states, list(pend.values()), [lru[i] for i in pend])
+                self._stats["cache_insert_rows"] += len(pend)
+
+    def offload(self, tree, force_host=False):
+        del force_host  # a host store's buffered results never pin device memory
+        return tree_map(_host, tree)
+
+    # -- whole-stack access -----------------------------------------------
+
+    def stacked(self):
+        self._flush()
+        return self._data
+
+    def _drop_cache(self) -> None:
+        self._slots = None  # reallocated lazily on the next cached access
+        self._lru.clear()
+        self._free = []
+
+    def load_stacked(self, tree) -> None:
+        self._writeback.clear()
+        self._drop_cache()
+        for a, src in zip(tree_leaves(self._data), tree_leaves(tree)):
+            a[...] = _host(src)
+
+    def _host_block(self, lo, hi):
+        self._flush()
+        return tree_map(lambda a: np.array(a[lo:hi]), self._data)
+
+    def _load_host_block(self, lo, hi, flat_leaves) -> None:
+        self._writeback.clear()
+        self._drop_cache()
+        for a, b in zip(tree_leaves(self._data), flat_leaves):
+            a[lo:hi] = b
+
+
+def make_store(store, proto, k: int, device) -> CohortStore:
+    """Store factory (``FLRunConfig.store`` -> a ``CohortStore``) on
+    ``device``."""
+    cfg = as_store_config(store)
+    if cfg.kind == "device":
+        return DeviceStore(cfg, proto, k, device)
+    return HostStore(cfg, proto, k, device)

@@ -1,9 +1,10 @@
 """Federation runtime: the synchronous round loop, its history, and the
 checkpoint core both drivers share.
 
-Port of ``repro/fl/runtime.py`` over ``VmapBackend`` and the device store.
-Per-client state lives at rest as ``(K, ...)``-stacked flat rows
-(``fl.cohort_store``); each round the K' participants are gathered, the
+Port of ``repro/fl/runtime.py`` over ``VmapBackend``.  Per-client state
+lives at rest as ``(K, ...)``-stacked flat rows in the cohort store
+(``fl.cohort_store``: on the device, in host RAM or in memmaps, with an
+optional LRU device cache); each round the K' participants are gathered, the
 method's cohort step (``round_start``: pFedSOP's batched kernel launch
 pair) and its mapped one-client phase run, per-client eval runs on the
 pre-update broadcast, uploads are aggregated and the new rows scattered
@@ -107,7 +108,11 @@ class FLRunConfig:
     backend: str = "vmap"  # repro_torch.fl.engine.BACKENDS
     # round-start update impl override ("" = the method's own config)
     update_impl: str = ""
-    # store: None/"device" only (repro_torch.fl.cohort_store)
+    # where the (K, ...)-stacked client states live at rest: None/"device"
+    # (resident on the device), "host" (numpy, participants gathered to the
+    # device each round), "mmap" (disk-backed memmaps), or a
+    # repro_torch.fl.cohort_store.StoreConfig for the cache and threshold
+    # knobs; every store gives the device store's history bit for bit
     store: Any = None
     # checkpoint the whole driver state every ``ckpt_every`` applied server
     # updates into ``ckpt_dir`` (0/"" = off); restart with ``restore``
@@ -250,7 +255,7 @@ class Federation:
             lambda v, t: acc_fn(layout.unflatten(v), t),
             self.engine)
         # same init for every client (paper: "same initialization for all
-        # methods"), stacked on a leading K axis in the device store
+        # methods"), stacked on a leading K axis in the cohort store
         self.store = make_store(run_cfg.store, method.init_client(flat), k,
                                 self.device)
         self.broadcast = method.init_server(flat)
@@ -262,8 +267,14 @@ class Federation:
 
     @property
     def client_states(self):
-        """The (K, ...)-stacked client states (flat rows) in the store."""
+        """The (K, ...)-stacked client states (flat rows) in the store's
+        at-rest representation: tensors on the device store, numpy on the
+        host and mmap stores."""
         return self.store.stacked()
+
+    @client_states.setter
+    def client_states(self, tree):
+        self.store.load_stacked(tree)
 
     def _to_device(self, arrays: Dict[str, np.ndarray]):
         return {k: torch.from_numpy(v).to(self.device) for k, v in arrays.items()}
@@ -282,6 +293,9 @@ class Federation:
         self.obs.open(self._obs_fingerprint())
         self.obs.event("run_start", engine=self.engine.describe(),
                        rounds=self.cfg.rounds)
+        if getattr(self.store, "promoted", False):
+            # the host store spilled to disk-backed memmaps past its threshold
+            self.obs.event("mmap_promote", store=self.store.describe())
 
     def _observe_client_metrics(self, metrics) -> None:
         """Per-client diagnostics -> histograms: the loss, pFedSOP's beta

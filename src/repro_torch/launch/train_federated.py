@@ -21,6 +21,12 @@ observability.
   PYTHONPATH=src python -m repro_torch.launch.train_federated --mode async \\
       --availability trace:examples/traces/device_trace_8.json
 
+  # fleet scale: client state at rest in host RAM (or on disk with
+  # --store mmap), gathered to the card per round; LRU-cache the 50
+  # hottest clients' rows on the card
+  PYTHONPATH=src python -m repro_torch.launch.train_federated --clients 2000 \\
+      --participation 0.01 --store host --cache-clients 50
+
   # checkpoint every 5 server updates, resume an interrupted run, trace it
   PYTHONPATH=src python -m repro_torch.launch.train_federated --mode async \\
       --ckpt-every 5 --ckpt-dir experiments/ckpt/demo --trace-dir experiments/trace
@@ -54,6 +60,7 @@ from repro_torch.fl import (
     AvailabilityConfig,
     Federation,
     FLRunConfig,
+    StoreConfig,
     TraceAvailabilityConfig,
     make_availability,
     masked_accuracy,
@@ -118,10 +125,19 @@ def parse_args(argv=None):
                          "20000 samples")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
-    # -- not ported yet: refused with the ROADMAP item --------------------
+    # -- cohort store -----------------------------------------------------
     ap.add_argument("--store", choices=["device", "host", "mmap"], default="device",
-                    help="client state at rest; only 'device' is ported "
-                         "(host/mmap: ROADMAP.md queue 1, item 12)")
+                    help="where per-client state lives at rest: 'device' = one "
+                         "stacked tensor on the card, 'host' = numpy in host RAM, "
+                         "'mmap' = disk-backed memmaps; host/mmap gather only "
+                         "each round's participants to the card, so --clients is "
+                         "a throughput knob instead of a device-memory limit "
+                         "(bitwise the same results either way)")
+    ap.add_argument("--cache-clients", type=int, default=0,
+                    help="host/mmap stores only: keep the rows of the N most "
+                         "recently sampled clients on the card in an LRU cache, "
+                         "skipping their host-to-device copy (0 = no cache)")
+    # -- not ported yet: refused with the ROADMAP item --------------------
     ap.add_argument("--backend", choices=["vmap", "shard_map", "mesh"], default="vmap",
                     help="only 'vmap' is ported (multi-device: ROADMAP.md "
                          "queue 1, item 16)")
@@ -182,10 +198,6 @@ def parse_args(argv=None):
     ap.add_argument("--tag", default="run")
     args = ap.parse_args(argv)
 
-    if args.store != "device":
-        raise NotImplementedError(
-            f"--store {args.store} is not ported to repro_torch yet (host/mmap "
-            "stores and the LRU cache: ROADMAP.md queue 1, item 12)")
     if args.backend != "vmap" or args.mesh or args.shards:
         raise NotImplementedError(
             "--backend shard_map/mesh, --mesh and --shards are not ported to "
@@ -202,6 +214,10 @@ def parse_args(argv=None):
     if args.obs_level == "off" and (args.trace_dir or args.metrics):
         ap.error("--obs-level off disables every sink, so --trace-dir/"
                  "--metrics would be silently ignored")
+    if args.cache_clients and args.store == "device":
+        ap.error("--cache-clients only applies to --store host/mmap (the device "
+                 "store keeps every client resident), so it would be silently "
+                 "ignored")
     if args.metrics and len(args.methods) > 1:
         ap.error("--metrics names a single file that each of the "
                  f"{len(args.methods)} --methods would clobber; use --trace-dir")
@@ -264,6 +280,7 @@ def main(argv=None):
         n_clients=args.clients, participation=args.participation,
         rounds=args.rounds, batch=args.batch, local_iters=args.local_iters,
         seed=args.seed, ckpt_every=args.ckpt_every,
+        store=StoreConfig(kind=args.store, cache_clients=args.cache_clients),
         async_cfg=AsyncConfig(buffer_size=args.buffer_size,
                               concurrency=args.concurrency,
                               availability=avail_cfg))

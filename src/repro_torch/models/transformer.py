@@ -11,9 +11,17 @@ backward recomputes each block's forward, kernels included.
 
 Embedding is tied to the LM head (logits = x @ embed.T) with the optional
 final-logit softcap.  MoE, SSM, shared-attention and modality-frontend
-archs, and the decode/prefill-with-cache entry points, raise
-``NotImplementedError`` until their slices are ported (ROADMAP.md queue 1,
-items 14 and 15).
+archs raise ``NotImplementedError`` until their slice is ported
+(ROADMAP.md queue 1, item 14).
+
+Serving: ``init_caches`` builds ``repro``'s cache tree (``caches["pattern"]``
+a tuple per pattern position of ring-buffer dicts whose leaves lead with
+``n_rep``, ``caches["tail"]`` a tuple), so a cache crosses packages through
+``weights.params_from_jax`` unchanged.  ``decode_step`` writes each
+layer's new k/v into ``unbind(0)`` views of the stacked caches, so the
+tree it returns is the one it was given, updated in place.
+``prefill_with_caches`` runs the prompt once and leaves the caches decode
+continues from.  Both run without autograd.
 """
 from __future__ import annotations
 
@@ -69,6 +77,37 @@ def _block_fwd(p, spec, cfg, x, positions):
     x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions, spec.window,
                                    spec.rope_base, q_block=cfg.attn_q_block)
     return x + mlp(p["mlp"], _norm(p["ln2"], cfg, x))
+
+
+def _block_decode(p, spec, cfg, x, pos, cache):
+    """Single-token sublayer; ``cache`` is updated in place."""
+    h = _norm(p["ln1"], cfg, x)
+    y, cache = attn_mod.attention_decode(p["attn"], cfg, h, pos, cache, spec.window,
+                                         spec.rope_base)
+    x = x + y
+    return x + mlp(p["mlp"], _norm(p["ln2"], cfg, x)), cache
+
+
+def _block_cache_init(spec, cfg, batch, seq_len, dtype, device):
+    cap = seq_len if spec.window is None else min(spec.window, seq_len)
+    return attn_mod.init_cache(cfg, batch, cap, dtype, device)
+
+
+def _block_prefill(p, spec, cfg, x, positions, capacity):
+    """Sublayer forward that also builds the decode cache it leaves behind.
+
+    ``capacity``: total sequence budget (prompt + planned decode steps);
+    full-attention layers allocate it outright, windowed layers
+    min(window, capacity).  The projections are computed once and feed
+    both the cache and the attention (``repro`` projects twice; the values
+    are the same)."""
+    h = _norm(p["ln1"], cfg, x)
+    q, k, v = attn_mod._project_qkv(p["attn"], cfg, h, positions, spec.rope_base)
+    cap = capacity if spec.window is None else min(spec.window, capacity)
+    cache = attn_mod.pack_prefill_cache(cfg, k, v, positions, cap, _dtype(cfg))
+    x = x + attn_mod._attend(p["attn"], cfg, q, k, v, positions, spec.window, h.dtype,
+                             cfg.attn_q_block)
+    return x + mlp(p["mlp"], _norm(p["ln2"], cfg, x)), cache
 
 
 def _unstack(tree):
@@ -171,15 +210,74 @@ def lm_loss(params, cfg, batch):
     return cross_entropy(lm_logits(params, cfg, hidden), batch["labels"]) + AUX_LOSS_COEF * aux
 
 
-def _unported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"transformer.{name}: the decode and KV-cache path comes with the "
-            "serving slice (ROADMAP.md queue 1, item 15)")
-    fn.__name__ = name
-    return fn
+# ---------------------------------------------------------------------------
+# Decode (single new token against caches) and the prefill handoff
+# ---------------------------------------------------------------------------
 
 
-init_caches = _unported("init_caches")
-decode_step = _unported("decode_step")
-prefill_with_caches = _unported("prefill_with_caches")
+def init_caches(cfg, batch, seq_len, device="cuda"):
+    """Empty decode caches for ``batch`` sequences of up to ``seq_len``
+    tokens, on ``device``."""
+    _check_dense(cfg)
+    dev = resolve_device(device)
+    dtype = _dtype(cfg)
+    caches: dict[str, Any] = {}
+    if cfg.pattern and cfg.n_rep:
+        caches["pattern"] = tuple(
+            {k: x.expand((cfg.n_rep,) + tuple(x.shape)).clone() for k, x in
+             _block_cache_init(s, cfg, batch, seq_len, dtype, dev).items()}
+            for s in cfg.pattern)
+    if cfg.tail:
+        caches["tail"] = tuple(_block_cache_init(s, cfg, batch, seq_len, dtype, dev)
+                               for s in cfg.tail)
+    return caches
+
+
+@torch.no_grad()
+def decode_step(params, cfg, batch, pos, caches):
+    """One token for every sequence in the batch.
+
+    ``batch["tokens"]``: (B, 1); ``pos``: the absolute position (a Python
+    int or a 0-d tensor).  Returns (logits (B,1,V), caches), the caches
+    updated in place."""
+    _check_dense(cfg)
+    x, _ = embed_inputs(params, cfg, batch)  # (B,1,D)
+    if cfg.pattern and cfg.n_rep:
+        reps = [_unstack(rp) for rp in params["pattern"]]  # [position][rep]
+        creps = [_unstack(c) for c in caches["pattern"]]  # views into the stacks
+        for r in range(cfg.n_rep):
+            for j, spec in enumerate(cfg.pattern):
+                x, _ = _block_decode(reps[j][r], spec, cfg, x, pos, creps[j][r])
+    for j, spec in enumerate(cfg.tail):
+        x, _ = _block_decode(params["tail"][j], spec, cfg, x, pos, caches["tail"][j])
+    x = _norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x), caches
+
+
+@torch.no_grad()
+def prefill_with_caches(params, cfg, batch, capacity=None):
+    """Full prompt forward returning (last-token logits, decode caches).
+
+    ``capacity``: total sequence budget (prompt + decode steps; defaults to
+    prompt_len + 64).  The caches have ``init_caches(cfg, B, capacity)``'s
+    structure, so ``decode_step(params, cfg, next_tok, S, caches)``
+    continues the sequence."""
+    _check_dense(cfg)
+    x, positions = embed_inputs(params, cfg, batch)
+    seq_len = capacity or (x.shape[1] + 64)
+    caches: dict[str, Any] = {}
+    if cfg.pattern and cfg.n_rep:
+        reps = [_unstack(rp) for rp in params["pattern"]]
+        made = [[None] * cfg.n_rep for _ in cfg.pattern]
+        for r in range(cfg.n_rep):
+            for j, spec in enumerate(cfg.pattern):
+                x, made[j][r] = _block_prefill(reps[j][r], spec, cfg, x, positions, seq_len)
+        caches["pattern"] = tuple(tree_stack(m) for m in made)
+    if cfg.tail:
+        tail = []
+        for j, spec in enumerate(cfg.tail):
+            x, c = _block_prefill(params["tail"][j], spec, cfg, x, positions, seq_len)
+            tail.append(c)
+        caches["tail"] = tuple(tail)
+    x = _norm(params["final_norm"], cfg, x)
+    return lm_logits(params, cfg, x[:, -1:, :]), caches

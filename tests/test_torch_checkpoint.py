@@ -224,5 +224,28 @@ def test_cli_async_checkpoint_resume_and_trace(tmp_path, capsys):
                                           (["--backend", "mesh"], "item 16"),
                                           (["--mesh", "pods:2x2x2"], "item 16")])
 def test_cli_unported_flags_name_their_roadmap_item(flags, item):
+    """The multi-device flags still raise naming item 16; the store flags
+    of item 12 are ported and parse."""
+    if item == "item 12":
+        assert train_federated.parse_args(["--device", "cpu"] + flags).store == flags[1]
+        return
     with pytest.raises(NotImplementedError, match=item):
         train_federated.parse_args(["--device", "cpu"] + flags)
+
+
+def test_cli_cache_clients_needs_a_host_store(capsys):
+    with pytest.raises(SystemExit):
+        train_federated.parse_args(["--device", "cpu", "--store", "device",
+                                    "--cache-clients", "4"])
+    assert "--cache-clients only applies" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("store", ["host", "mmap"])
+def test_cli_runs_on_a_host_store_with_the_cache(store):
+    """``--store host|mmap --cache-clients`` through the CLI: the device
+    store's history bit for bit."""
+    base = ["--device", "cpu", "--samples", "200", "--clients", "4", "--participation",
+            "0.5", "--local-iters", "1", "--rounds", "2", "--methods", "pfedsop"]
+    want = train_federated.main(base)["pfedsop"]
+    got = train_federated.main(base + ["--store", store, "--cache-clients", "1"])["pfedsop"]
+    assert got["loss"] == want["loss"] and got["acc"] == want["acc"]

@@ -33,6 +33,7 @@ from repro_torch.core import baselines as t_bl
 from repro_torch.core import pfedsop as t_pf
 from repro_torch.data import FederatedData as TData
 from repro_torch.fl import Federation as TFederation, FLRunConfig as TRunConfig
+from repro_torch.fl import HostStore
 from repro_torch.fl import masked_accuracy as t_masked_accuracy
 from repro_torch.kernels.pfedsop_update import ops
 from repro_torch.launch import train_federated
@@ -228,8 +229,12 @@ def test_unported_federation_options_raise(small_setup, case):
     extra = {}
     if case == "backend":
         run["backend"] = "shard_map"
-    elif case == "store":
-        run["store"] = "host"
+    elif case == "store":  # ported now: a host-store federation is built
+        fed = TFederation(t_bl.PFedSOP(), None, None, s["tp"], s["tdata"],
+                          TRunConfig(store="host", **run), device="cpu")
+        assert isinstance(fed.store, HostStore)
+        assert isinstance(fed.client_states.params, np.ndarray)
+        return
     elif case == "availability":
         extra["availability"] = object()
     else:
