@@ -19,7 +19,12 @@ Phases (any failure exits non-zero; nothing is caught):
                   and flash_gqa forward / dq / dk-dv (K5-K7) at the LM
                   slice's shapes (B = 2, S = 2048, D = 256), G = 1 and 4,
                   window on and off, softcap on and off, f32 and bf16, plus
-                  bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40 (bf16
+                  bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40, and
+                  zamba2's D = 80 (H = KV = 32, bf16 and f32, and a masked
+                  bf16 case; timed too, beside SDPA at D = 80), and phases
+                  13-14's shapes: granite-moe's training (H = 16 over KV =
+                  8, D = 64, and its sum pass), internvl2's and musicgen's
+                  prefill (B = 4, S = 1,024; D = 128 and 64) (bf16
                   K5-K7 run on the tensor cores, ``flash_gqa_sm90.cu``;
                   K6's dq and K7's dk/dv held bitwise across two launches,
                   in f32 before their final rounding within half an ulp,
@@ -94,10 +99,28 @@ Phases (any failure exits non-zero; nothing is caught):
                   largest; prefill ms, decode ms per step, tokens/s, peak
                   memory and the idle share over 16 profiled decode steps;
                   then ``python -m repro_torch.launch.serve --full --arch
-                  gemma3-1b --batch 4 --steps 32`` once.  Each phase prints
-                  its seconds.
+                  gemma3-1b --batch 4 --steps 32`` once;
+ 13. arch train   phase 6's loop at full width and depth on granite-moe-1b-
+                  a400m (MoE, 4 clients; K5-K7 and the sum pass at D = 64,
+                  G = 2) and zamba2-2.7b (SSM + shared attention, 2 clients,
+                  as many as its client state leaves room for; K5-K7 at D =
+                  80): N, the bytes of client state, peak memory, the exact
+                  launch counts; then on client 0's trained model the
+                  reference path against the kernel path: per-token logits
+                  within 2**-4 of the largest, the loss and its gradient
+                  within 4x the sound runs' readings;
+ 14. arch serve   zamba2-2.7b, internvl2-2b (256 random patch embeddings +
+                  768 text tokens) and musicgen-large (4 codebooks, int8 KV
+                  cache) at full width and depth, batch 4, a 1,024-position
+                  prompt, 32 greedy steps: phase 12's checks (exact K4/K5
+                  counts, the first step against a full forward, the
+                  reference path within 2**-4) and its prefill ms, decode ms
+                  per step, tokens/s and peak memory.  Each phase prints its
+                  seconds.
 
-Prints a ``{"kernels": [...]}`` line and ends with
+Prints a ``{"kernels": [...]}`` line (each flash record also holds its
+D = 80 readings under ``d80``; launches per path under
+``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -148,12 +171,18 @@ from repro_torch.kernels.pfedsop_update import ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update.ref import coeff_from_sums, gompertz_beta  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
 from repro_torch.launch import profile_store  # noqa: E402
+from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train_lm_pfedsop as lm_driver  # noqa: E402
 from repro_torch.launch.train_federated import METHOD_NAMES, build_method  # noqa: E402
 from repro_torch.models import cnn  # noqa: E402
 from repro_torch.models import transformer as tf  # noqa: E402
 from repro_torch.obs import ObsConfig, read_events  # noqa: E402
-from repro_torch.utils.pytree import tree_leaves, tree_map  # noqa: E402
+from repro_torch.utils.pytree import (  # noqa: E402
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
@@ -470,7 +499,14 @@ def check_flash(seeds=FLASH_SEEDS):
     over KV = 1, i.e. G = 4, and G = 1), window 512 and none, softcap 50 and
     none, bf16 and f32; in bf16 also at D = 64 and 128 (G = 4, window 512 and
     none), at a ragged S = 1,000 (D = 256, window 512), where the last tiles
-    are partial, and at S = 40 (D = 64, window 16), shorter than one tile.
+    are partial, and at S = 40 (D = 64, window 16), shorter than one tile;
+    and at zamba2's shared attention, D = 80 (H = KV = 32, no window, bf16
+    and f32; the tensor-core tiles pad D to 128 with zero columns), plus a
+    masked D = 80 case (G = 2, window 512, softcap 50, ragged S = 1,000).
+    Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
+    (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
+    internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
+    musicgen's (B = 4, S = 1024, H = KV = 32, D = 64).
     The backward kernels take the plain forward's LSE and delta, so each is
     checked alone.  Tolerance in units of the largest value: f32 1e-4 (sums
     of up to 8,192 f32 terms in another order, the online softmax against
@@ -500,17 +536,22 @@ def check_flash(seeds=FLASH_SEEDS):
     worst_rel = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     worst_pre = {"dq": 0.0, "dk/dv": 0.0}  # before the final rounding, bf16
     bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (G, window, softcap, dtype, S, D)
-        (4, 512, None, bf16, 2048, 256), (4, None, None, bf16, 2048, 256),
-        (1, 512, 50.0, bf16, 2048, 256), (4, None, 50.0, f32, 2048, 256),
-        (1, 512, None, f32, 2048, 256),
-        (4, 512, None, bf16, 2048, 64), (4, None, None, bf16, 2048, 64),
-        (4, 512, None, bf16, 2048, 128), (4, None, None, bf16, 2048, 128),
-        (4, 512, None, bf16, 1000, 256), (4, 16, None, bf16, 40, 64)]
+    cases = [  # (G, window, softcap, dtype, S, D, H, B)
+        (4, 512, None, bf16, 2048, 256, 4, 2), (4, None, None, bf16, 2048, 256, 4, 2),
+        (1, 512, 50.0, bf16, 2048, 256, 4, 2), (4, None, 50.0, f32, 2048, 256, 4, 2),
+        (1, 512, None, f32, 2048, 256, 4, 2),
+        (4, 512, None, bf16, 2048, 64, 4, 2), (4, None, None, bf16, 2048, 64, 4, 2),
+        (4, 512, None, bf16, 2048, 128, 4, 2), (4, None, None, bf16, 2048, 128, 4, 2),
+        (4, 512, None, bf16, 1000, 256, 4, 2), (4, 16, None, bf16, 40, 64, 4, 2),
+        (1, None, None, bf16, 2048, 80, 32, 2), (1, None, None, f32, 2048, 80, 32, 2),
+        (2, 512, 50.0, bf16, 1000, 80, 4, 2),
+        (2, None, None, bf16, 2048, 64, 16, 2),   # granite-moe-1b-a400m, phase 13
+        (2, None, None, bf16, 1024, 128, 16, 4),  # internvl2-2b prefill, phase 14
+        (1, None, None, bf16, 1024, 64, 32, 4)]   # musicgen-large prefill, phase 14
     for seed in seeds:
         g = torch.Generator(device="cuda").manual_seed(seed)
-        for gq, window, cap, dtype, s, d in cases:
-            q, k, v, do = _attention(g, 4, 4 // gq, dtype, s=s, d=d)
+        for gq, window, cap, dtype, s, d, h, b in cases:
+            q, k, v, do = _attention(g, h, h // gq, dtype, b=b, s=s, d=d)
             kw = dict(window=window, softcap=cap)
             out, lse = flash_ops.flash_fwd(q, k, v, **kw)
             pout, plse = flash_ops.flash_fwd_plain(q, k, v, **kw)
@@ -526,8 +567,8 @@ def check_flash(seeds=FLASH_SEEDS):
                          q, k, v, do, plse, delta, **kw))],
                      "flash_bwd_dkv": [errors(dk, pdk), errors(dv, pdv)]}
             torch.cuda.synchronize()
-            label = (f"seed={seed} G={gq} window={window} softcap={cap} {str(dtype)[6:]} "
-                     f"S={s} D={d}")
+            label = (f"seed={seed} B={b} H={h} G={gq} window={window} softcap={cap} "
+                     f"{str(dtype)[6:]} S={s} D={d}")
             assert torch.equal(dq, dq2), ("K6 not deterministic", label)
             assert torch.equal(dk, dk2) and torch.equal(dv, dv2), ("K7 not deterministic", label)
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
@@ -566,32 +607,38 @@ def check_flash(seeds=FLASH_SEEDS):
             f"K{6 if n == 'dq' else 7} {r:.6g} ({100 * r / 2.0 ** -8:.1f}% of 2**-8)"
             for n, r in worst_pre.items()), flush=True)
 
-    # K7's sum pass at the slice's shape: f32 partials (B, S, H, D) -> bf16
-    pk, pv = (_randn(g, 2, 2048, 4, 256) for _ in range(2))
-    got = flash_ops.flash_bwd_dkv_sum(pk, pv, 1)
-    want = flash_ops.flash_bwd_dkv_sum_plain(pk, pv, 1)
-    for a, b in zip(got, want):
-        assert torch.equal(a, b), "sum pass differs from its plain version"
-        worst["flash_bwd_dkv_sum"] = max(worst["flash_bwd_dkv_sum"],
-                                         (a.float() - b.float()).abs().max().item())
-    print("kernels[flash dk/dv sum pass (2, 2048, 4, 256) f32 -> bf16]: bitwise equal to "
-          "its plain version", flush=True)
+    # K7's sum pass at the LM slice's and granite-moe's shapes: f32 partials
+    # (B, S, H, D) -> bf16 (B, S, KV, D)
+    for shape, kv in (((2, 2048, 4, 256), 1), ((2, 2048, 16, 64), 8)):
+        pk, pv = (_randn(g, *shape) for _ in range(2))
+        got = flash_ops.flash_bwd_dkv_sum(pk, pv, kv)
+        want = flash_ops.flash_bwd_dkv_sum_plain(pk, pv, kv)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b), ("sum pass differs from its plain version", shape, kv)
+            worst["flash_bwd_dkv_sum"] = max(worst["flash_bwd_dkv_sum"],
+                                             (a.float() - b.float()).abs().max().item())
+        print(f"kernels[flash dk/dv sum pass {shape} KV={kv} f32 -> bf16]: bitwise equal to "
+              "its plain version", flush=True)
     return worst
 
 
-def time_flash(worst):
-    """Times at the LM slice's shapes, bf16, G = 4: the records at a
-    full-attention layer (4 of gemma3-1b's 26, where one PyTorch call,
-    ``F.scaled_dot_product_attention``, computes the same function), and
-    the 512-window layer (the other 22) printed beside them, and K6 + K7
-    timed as one backward beside SDPA's.  Bounds count the visible (query,
-    key) pairs: 4D flops each forward, 6D for the dq pass (scores, dO v^T,
-    dq), 8D for the dk/dv pass, at the bf16 peak."""
-    g = torch.Generator(device="cuda").manual_seed(13)
-    q, k, v, do = _attention(g, 4, 1, torch.bfloat16)
-    b, s, h, d = q.shape
+def time_flash(h, kv, d, windows, seed):
+    """Times at one attention shape, bf16, B = 2, S = 2048: the records at a
+    full-attention layer, where one PyTorch call,
+    ``F.scaled_dot_product_attention``, computes the same function, each
+    further window of ``windows`` printed beside them as ``window<w>``, and
+    K6 + K7 timed as one backward beside SDPA's; at G > 1 also K7's sum
+    pass alone.  Bounds count the visible (query, key) pairs: 4D flops each
+    forward, 6D for the dq pass (scores, dO v^T, dq), 8D for the dk/dv pass,
+    at the bf16 peak, over the useful D columns.  At D = 80 the kernels'
+    products whose N is D run 128 columns (TMA's zero fill), so they do
+    (2D + 2*128) / 4D = 1.30x (K5), (4D + 2*128) / 6D = 1.20x (K6) and
+    (4D + 4*128) / 8D = 1.30x (K7) of the counted work."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = _attention(g, h, kv, torch.bfloat16, d=d)
+    b, s, _, _ = q.shape
     recs = {}
-    for window in (None, 512):
+    for window in windows:
         out, lse = flash_ops.flash_fwd(q, k, v, window=window)
         delta = flash_ops.row_delta(do, out)
         pairs = b * h * grid.attention_pairs(s, window)
@@ -615,11 +662,11 @@ def time_flash(worst):
             # K7's time includes its sum pass over the f32 head partials
             r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, calls=5, warmup=1),
                      bound_ms=bnd, bound_by=by)
-            _print_time(f"{name} window={window} B={b} S={s} H={h} KV=1 D={d} bf16", r)
+            _print_time(f"{name} window={window} B={b} S={s} H={h} KV={kv} D={d} bf16", r)
             if window is None:
                 recs[name] = r
             else:
-                recs[name]["window512"] = r
+                recs[name][f"window{window}"] = r
 
     # the library yardstick at the full-attention layer; before PyTorch 2.5
     # SDPA has no enable_gqa, and the KV head is repeated for it beforehand
@@ -640,31 +687,31 @@ def time_flash(worst):
     bwd = device_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
     # one call computes dq, dk and dv: the yardstick of both passes together
     recs["flash_bwd_dq"]["library_ms"] = recs["flash_bwd_dkv"]["library_ms"] = bwd
-    print(f"kernels[time sdpa full-attention bf16]: forward "
+    print(f"kernels[time sdpa full-attention D={d} bf16]: forward "
           f"{recs['flash_fwd']['library_ms']:.4f} ms, backward (dq, dk, dv) {bwd:.4f} ms",
           flush=True)
     delta = flash_ops.row_delta(do, want)
     pair = device_ms(lambda: (flash_ops.flash_bwd_dq(q, k, v, do, lse, delta),
                               flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta)))
     recs["flash_bwd_dq"]["with_dkv_ms"] = pair
-    print(f"kernels[time K6 + K7 full-attention bf16]: {pair:.4f} ms, SDPA's backward "
+    print(f"kernels[time K6 + K7 full-attention D={d} bf16]: {pair:.4f} ms, SDPA's backward "
           f"{bwd:.4f} ms ({pair / bwd:.2f}x)", flush=True)
+    if h == kv:
+        return recs
 
     # K7's sum pass alone: reads G f32 partials of dk and of dv, writes both
     pk, pv = (torch.empty((b, s, h, d), device="cuda") for _ in range(2))
     pk.normal_(generator=g)
     pv.normal_(generator=g)
-    outs = flash_ops.flash_bwd_dkv_sum(pk, pv, 1)
-    bnd, by = bound(pk.nbytes + pv.nbytes + 2 * outs[0].nbytes, 2 * (h - 1) * outs[0].numel(),
-                    F32_OPS_PER_S)
+    outs = flash_ops.flash_bwd_dkv_sum(pk, pv, kv)
+    bnd, by = bound(pk.nbytes + pv.nbytes + 2 * outs[0].nbytes,
+                    2 * (h // kv - 1) * outs[0].numel(), F32_OPS_PER_S)
     recs["flash_bwd_dkv_sum"] = dict(
-        ms=device_ms(lambda: flash_ops.flash_bwd_dkv_sum(pk, pv, 1)),
-        plain_ms=device_ms(lambda: flash_ops.flash_bwd_dkv_sum_plain(pk, pv, 1)),
+        ms=device_ms(lambda: flash_ops.flash_bwd_dkv_sum(pk, pv, kv)),
+        plain_ms=device_ms(lambda: flash_ops.flash_bwd_dkv_sum_plain(pk, pv, kv)),
         bound_ms=bnd, bound_by=by, library_ms=None)
-    _print_time(f"flash_bwd_dkv_sum B={b} S={s} H={h} KV=1 D={d} f32 -> bf16",
+    _print_time(f"flash_bwd_dkv_sum B={b} S={s} H={h} KV={kv} D={d} f32 -> bf16",
                 recs["flash_bwd_dkv_sum"])
-    for name in recs:
-        recs[name]["max_abs_err"] = worst[name]
     return recs
 
 
@@ -1180,6 +1227,210 @@ def serve_run():
     return launches
 
 
+# Phase 13's archs and client counts.  In bf16 trees of N: a client holds 2
+# (params and delta), the global delta 2 (f32), and the round start adds 8
+# (three flat f32 inputs and the update's output): 10 + 2 C at the peak.
+# zamba2 (N = 1,981,756,080, 3.69 GiB a tree) peaked at 51.762 GiB allocated
+# with 2 clients (14 trees); each further client adds 7.38 GiB, and the caching
+# allocator held up to 21.8 GiB reserved but unallocated in this phase after
+# the earlier ones (79.2 GiB usable): 2 clients reckon 51.8 + 21.8 = 73.6
+# GiB, 3 clients 59.1 + 21.8 = 80.9 GiB (a 3-client run ran out), so 2.
+ARCH_TRAIN = {"granite-moe-1b-a400m": (4, 1_334_628_352), "zamba2-2.7b": (2, 1_981_756_080)}
+# Phase 13's kernel path against the reference path on the trained model:
+# the loss's relative gap and the gradient's |g_k - g_r| / |g_r| (all
+# leaves).  The sound runs on an H100 read 2.324e-6 / 2.498e-6 and 1.211e-3
+# / 4.079e-3 (zamba2 / granite-moe; PERF.md, Findings): the limits
+# are 4x the larger reading.
+TRAIN_LOSS_RTOL = 1e-5
+TRAIN_GRAD_RTOL = 1.6e-2
+# Phase 14: batch 4, a 1,024-position prompt, 32 greedy steps
+ARCH_SERVE = dict(batch=4, prompt=1024, steps=32)
+ARCH_SERVE_N = {"zamba2-2.7b": 1_981_756_080, "internvl2-2b": 1_701_695_488,
+                "musicgen-large": 3_254_978_560}
+
+
+def arch_train_run(arch):
+    """Phase 13: ``train_lm_pfedsop`` at ``arch``'s full width and depth,
+    ``LM``'s loop (3 rounds, batch 2, seq_len 2048, 2 local iterations, eta
+    0.1, seed 0) with ``ARCH_TRAIN``'s clients and the exact launch counts;
+    then one forward of client 0's trained model on the reference path
+    against the kernel path.  Returns the launches."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()  # the earlier phases' cached blocks, fragmented
+    cfg = get_config(arch)
+    clients, n_want = ARCH_TRAIN[arch]
+    run = dict(LM, clients=clients)
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n = sum(x.numel() for x in tree_leaves(params))
+    assert n == n_want, (arch, n)
+    tree_bytes = sum(x.nbytes for x in tree_leaves(params))
+    torch.cuda.synchronize()
+    print(f"train[{arch}]: N={n}, {tree_bytes} bytes a tree ({cfg.dtype}; the SSM's A_log, "
+          f"dt_bias and D in f32), {clients} clients: {2 * clients * tree_bytes} bytes of "
+          f"client state", flush=True)
+
+    def log(t, loss, beta, dt):
+        print(f"train[{arch}] round {t}: loss={loss:.6f} beta={beta:.6f} round_time={dt:.4f}s",
+              flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    init, params = [params], None  # the driver's reference is the last one
+    hist, states = lm_driver.train(cfg, init.pop(), pcfg, on_round=log, **run)
+    launches = all_launches()
+    steps = clients * run["local_iters"] * run["rounds"]
+    want = {**{k: 0 for k in launches},
+            **{k: steps * v for k, v in lm_driver.launches_per_step(cfg).items()},
+            "reduce3": clients * (run["rounds"] - 1), "update": clients * (run["rounds"] - 1)}
+    assert launches == want, (arch, launches, want)
+    assert all(math.isfinite(v) for v in hist["loss"]), hist["loss"]
+    print(f"train[{arch}]: launches {launches}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+
+    trained = states[0].params
+    states = None
+    batch = next(lm_driver.client_streams(cfg, 1, run["batch"], run["seq_len"])[0])
+    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    ref_cfg = cfg.replace(kernel_impl="reference")
+    leaves, treedef = tree_flatten(trained)
+
+    def loss_and_grads(c):
+        ps = [x.detach().requires_grad_() for x in leaves]
+        loss = tf.lm_loss(tree_unflatten(treedef, ps), c, batch)
+        return loss.item(), torch.autograd.grad(loss, ps)
+
+    def logits(c):
+        with torch.no_grad():
+            return tf.lm_logits(trained, c, tf.forward(trained, c, batch)[0])
+
+    # per-token logits, as phase 12 holds them: within 2**-4 of the largest
+    err, rel = errors(logits(cfg), logits(ref_cfg))
+    assert rel <= SERVE_RTOL, (arch, "kernel vs reference logits", err, rel)
+    # the loss and its gradient, within 4x the sound runs' readings
+    loss_k, grads_k = loss_and_grads(cfg)
+    loss_r, grads_r = loss_and_grads(ref_cfg)
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    diff = math.sqrt(sum(((a.float() - b.float()) ** 2).sum().item()
+                         for a, b in zip(grads_k, grads_r)))
+    norm = math.sqrt(sum((b.float() ** 2).sum().item() for b in grads_r))
+    assert norm > 0 and math.isfinite(norm), norm
+    grad_rel = diff / norm
+    print(f"train[{arch}]: client 0's trained model, kernel path against the reference "
+          f"path: logits max_abs_err {err:.4g}, relative {rel:.4g} (tol {SERVE_RTOL:.4g}); "
+          f"loss {loss_k:.6f} / {loss_r:.6f} (rel diff {loss_rel:.4g}, tol "
+          f"{TRAIN_LOSS_RTOL:.4g}); gradient |g_k - g_r| / |g_r| {grad_rel:.4g} (tol "
+          f"{TRAIN_GRAD_RTOL:.4g}) over {len(leaves)} leaves; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    assert loss_rel <= TRAIN_LOSS_RTOL, (arch, loss_k, loss_r, loss_rel)
+    assert grad_rel <= TRAIN_GRAD_RTOL, (arch, "gradient", grad_rel)
+    del trained, batch, leaves, grads_k, grads_r
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def serve_launches(cfg, steps):
+    """K4 and K5 launches of a prefill and ``steps`` decode steps: per pass
+    ln1 and ln2 (and q/k-norm) of every attention sublayer, ln1 of every SSM
+    sublayer and the final norm; one flash forward per attention sublayer of
+    the prefill."""
+    norms = sum(1 if s.kind == "ssm" else (4 if cfg.use_qk_norm else 2)
+                for s in cfg.layers) + 1
+    return {"rmsnorm": norms * (1 + steps),
+            "flash_fwd": sum(s.kind != "ssm" for s in cfg.layers)}
+
+
+def arch_serve_run(arch):
+    """Phase 14: ``arch`` at full width and depth, batch 4, a 1,024-position
+    random prompt (internvl2: 256 patch embeddings + 768 text tokens;
+    musicgen: 4 codebooks, the int8 KV cache), 32 greedy steps through
+    ``prefill_with_caches`` and ``decode_step`` with the exact K4/K5
+    counts; the first decode step against a full forward over prompt +
+    token; the reference path teacher-forced, every step within 2**-4 of
+    the largest logit.  Returns the launches."""
+    t_phase = time.perf_counter()
+    cfg = get_config(arch)
+    b, s_all, steps = ARCH_SERVE["batch"], ARCH_SERVE["prompt"], ARCH_SERVE["steps"]
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    n = sum(x.numel() for x in tree_leaves(params))
+    assert n == ARCH_SERVE_N[arch], (arch, n)
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = {}
+    for name, (shape, dtype) in lm_steps.token_batch(cfg, b, s_all).items():
+        if name == "tokens":
+            prompt[name] = torch.randint(0, cfg.vocab_size, shape, generator=g, device="cuda")
+        elif name == "patch_embeds":
+            prompt[name] = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    step_batch = {k: torch.zeros(shape, dtype=dt, device="cuda")
+                  for k, (shape, dt) in lm_steps.decode_batch(cfg, b).items()}
+    cap = s_all + steps
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    reset_launches()
+    t0 = time.perf_counter()
+    logits, caches = tf.prefill_with_caches(params, cfg, prompt, capacity=cap)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    toks, outs = [logits.argmax(-1)], []
+    t0 = time.perf_counter()
+    for t in range(steps):
+        step_batch["tokens"] = lm_steps.next_tokens(cfg, toks[-1])
+        out, caches = tf.decode_step(params, cfg, step_batch, s_all + t, caches)
+        outs.append(out)
+        toks.append(out.argmax(-1))
+        if t == 0:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t1
+    first_s = t1 - t0
+    launches = all_launches()
+    peak = torch.cuda.max_memory_allocated()
+    want = {**{k: 0 for k in launches}, **serve_launches(cfg, steps)}
+    assert launches == want, (arch, launches, want)
+    ms = 1e3 * decode_s / (steps - 1)
+    print(f"serve[{arch}]: N={n} {cfg.dtype}, batch {b}, prompt {s_all} positions, {steps} "
+          f"decode steps, capacity {cap}: prefill {1e3 * prefill_s:.3f} ms, first decode "
+          f"step {1e3 * first_s:.3f} ms, decode {ms:.3f} ms/step over steps 1-{steps - 1}, "
+          f"{b * (steps - 1) / decode_s:.1f} tokens/s; peak device memory "
+          f"{peak / 2**30:.3f} GiB; launches {launches}", flush=True)
+
+    # the first decode step against a full forward over prompt + token
+    full_in = dict(prompt, tokens=torch.cat([prompt["tokens"],
+                                             lm_steps.next_tokens(cfg, toks[0])], -1))
+    with torch.no_grad():
+        hidden, _ = tf.forward(params, cfg, full_in)
+        full = tf.lm_logits(params, cfg, hidden[:, -1:])
+    del hidden
+    err, rel = errors(outs[0], full)
+    assert rel <= SERVE_RTOL, (arch, "first decode step vs full forward", err, rel)
+    print(f"serve[{arch}]: first decode step against the full forward: max_abs_err "
+          f"{err:.4g}, relative {rel:.4g} (tol {SERVE_RTOL:.4g})", flush=True)
+
+    # the reference path, teacher-forced on the kernel path's tokens
+    ref_cfg = cfg.replace(kernel_impl="reference")
+    r_logits, r_caches = tf.prefill_with_caches(params, ref_cfg, prompt, capacity=cap)
+    worst = [errors(logits, r_logits)[1]]
+    agree = 0
+    for t in range(steps):
+        step_batch["tokens"] = lm_steps.next_tokens(cfg, toks[t])
+        r_out, r_caches = tf.decode_step(params, ref_cfg, step_batch, s_all + t, r_caches)
+        worst.append(errors(outs[t], r_out)[1])
+        agree += int((r_out.argmax(-1) == toks[t + 1]).sum())
+    assert max(worst) <= SERVE_RTOL, (arch, "kernel vs reference logits", worst)
+    print(f"serve[{arch}]: reference path teacher-forced: worst relative logit error "
+          f"{max(worst):.4g} over prefill + {steps} steps (tol {SERVE_RTOL:.4g}), greedy "
+          f"tokens agree {agree}/{toks[1].numel() * steps}; phase "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+    del params, caches, r_caches, outs, full, prompt
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
@@ -1224,7 +1475,14 @@ def main():
     for k, r in check_update_c1().items():
         rec[k].update(r)
     rec["rmsnorm"] = check_rmsnorm()
-    rec.update(time_flash(check_flash()))
+    worst = check_flash()
+    # the LM slice's gemma3-1b (H = 4 over KV = 1, D = 256; 4 full-attention
+    # layers, 22 at window 512), then zamba2's shared attention at D = 80
+    rec.update(time_flash(4, 1, 256, (None, 512), seed=13))
+    for name, r in time_flash(32, 32, 80, (None,), seed=14).items():
+        rec[name]["d80"] = r
+    for name, err in worst.items():
+        rec[name]["max_abs_err"] = err
     l2_flush.cache_clear()  # the timing phases are over: free the flush buffer
     torch.cuda.empty_cache()
     small_parity()
@@ -1242,6 +1500,10 @@ def main():
     paths = {"resnet9": resnet, "lm_gemma3_1b": lm, "resnet9_methods": methods,
              "resnet9_async": hetero, "resnet9_stores": stores,
              "resnet9_async_host": hetero_host, "serve_gemma3_1b": serve}
+    for arch in ARCH_TRAIN:
+        paths["lm_" + arch.replace("-", "_").replace(".", "_")] = arch_train_run(arch)
+    for arch in ARCH_SERVE_N:
+        paths["serve_" + arch.replace("-", "_").replace(".", "_")] = arch_serve_run(arch)
 
     def record(name, key, source, replaces):
         r = dict(rec[key])

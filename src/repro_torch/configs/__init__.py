@@ -3,9 +3,7 @@ for byte; each arch module differs only in its import line).
 
 ``get_config("gemma3-1b")`` returns the full config and
 ``get_config("gemma3-1b", reduced=True)`` the CPU-smoke variant, as in
-``repro``.  The port serves the dense text archs; the MoE, SSM, hybrid
-and frontend archs keep their names in ``ARCH_NAMES`` and raise
-``NotImplementedError`` until their slice is ported.
+``repro``: the dense, MoE, SSM, hybrid and modality-frontend archs alike.
 """
 from __future__ import annotations
 
@@ -24,29 +22,24 @@ from repro_torch.configs.base import (  # noqa: F401
 
 _MODULES = {
     "gemma3-1b": "repro_torch.configs.gemma3_1b",
-    "musicgen-large": None,
+    "musicgen-large": "repro_torch.configs.musicgen_large",
     "granite-3-2b": "repro_torch.configs.granite_3_2b",
     "granite-3-8b": "repro_torch.configs.granite_3_8b",
-    "mamba2-2.7b": None,
-    "zamba2-2.7b": None,
-    "olmoe-1b-7b": None,
+    "mamba2-2.7b": "repro_torch.configs.mamba2_2_7b",
+    "zamba2-2.7b": "repro_torch.configs.zamba2_2_7b",
+    "olmoe-1b-7b": "repro_torch.configs.olmoe_1b_7b",
     "gemma2-9b": "repro_torch.configs.gemma2_9b",
-    "granite-moe-1b-a400m": None,
-    "internvl2-2b": None,
+    "granite-moe-1b-a400m": "repro_torch.configs.granite_moe_1b_a400m",
+    "internvl2-2b": "repro_torch.configs.internvl2_2b",
     "resnet-cifar": "repro_torch.configs.resnet_cifar",
 }
 
 ARCH_NAMES = tuple(n for n in _MODULES if n != "resnet-cifar")
-DENSE_ARCH_NAMES = tuple(n for n in ARCH_NAMES if _MODULES[n] is not None)
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown architecture {name!r}; known: {sorted(_MODULES)}")
-    if _MODULES[name] is None:
-        raise NotImplementedError(
-            f"{name}: only the dense text archs {DENSE_ARCH_NAMES} are ported; "
-            "MoE, SSM, hybrid and frontend archs are ROADMAP.md queue 1, item 14")
     cfg = importlib.import_module(_MODULES[name]).CONFIG
     return cfg.reduced() if reduced else cfg
 

@@ -504,10 +504,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// Returns LAUNCH<D>(args...) for dtype 0 (float32) and D in {64, 128, 256}.
+// Returns LAUNCH<D>(args...) for dtype 0 (float32) and D in {64, 80, 128, 256}
+// (D a multiple of 16: NC = D / 16 output columns a thread).
 #define FLASH_DISPATCH(LAUNCH, ...)                                \
   do {                                                             \
     if (dtype == 0 && d == 64) return LAUNCH<64>(__VA_ARGS__);     \
+    if (dtype == 0 && d == 80) return LAUNCH<80>(__VA_ARGS__);     \
     if (dtype == 0 && d == 128) return LAUNCH<128>(__VA_ARGS__);   \
     if (dtype == 0 && d == 256) return LAUNCH<256>(__VA_ARGS__);   \
     return (int)cudaErrorInvalidValue;                             \

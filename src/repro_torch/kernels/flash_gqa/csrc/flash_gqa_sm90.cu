@@ -63,6 +63,17 @@
 //    block owns its dq rows.  Every sum has one order, so results are
 //    bitwise run to run.
 //
+// A head_dim that is not a multiple of 64 (zamba2's D = 80) keeps the tensor
+// maps at the true D and pads every shared tile to DP = 64 * ceil(D / 64)
+// columns: the last 64-column box reaches past D, and TMA fills the columns
+// D .. DP - 1 with zeros.  The products that reduce over D (S = Q K^T,
+// dP = dO V^T and their transposes) stop at D, so they are exact and do no
+// padded work; the products whose N is D (O += P V, dQ += dS K, dV += P^T dO,
+// dK += dS^T Q) run at N = DP, since a 128-byte-swizzled MN-major operand
+// comes in 64-column blocks, and their columns past D are zeros that no
+// store writes (every global row offset and store loop uses the true D).  At
+// D = 80 those products do 128 columns of work for 80 useful ones.
+//
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // from the CUDA driver through cudaGetDriverEntryPoint, so the library links
 // against the runtime only.
@@ -82,6 +93,9 @@ constexpr int kThreads = kConsumers + 128;    // and the producer warpgroup
 constexpr int kTile = 64;  // rows of a K/V or streamed Q/dO tile; wgmma's M
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
+
+// Columns of a shared tile for head_dim D: whole 64-column swizzle blocks.
+__host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 struct Shape {
   int b, s, h, kv;
@@ -134,12 +148,13 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
 }
 
 // A (rows, D) tile of a (B, S, heads, D) tensor: rows row0 .. row0 + rows - 1
-// of head `head`, as D/64 boxes of 64 columns into the swizzled column blocks.
+// of head `head`, as padded(D)/64 boxes of 64 columns into the swizzled
+// column blocks (columns past D arrive as zeros).
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int head, int row0, int b) {
 #pragma unroll
-  for (int cb = 0; cb < D / 64; ++cb) tma_load(dst + cb * ROWS * 128, map, bar, cb * 64, head, row0, b);
+  for (int cb = 0; cb < padded(D) / 64; ++cb) tma_load(dst + cb * ROWS * 128, map, bar, cb * 64, head, row0, b);
 }
 
 __device__ __forceinline__ void fence_async_shared() {
@@ -401,8 +416,8 @@ __device__ __forceinline__ uint32_t smem_base(uint8_t* raw) {
 template <int D>
 struct FwdLayout {
   static constexpr int kQRows = 2 * kTile;   // one query tile: two warpgroups' rows
-  static constexpr int kQ = kQRows * D * 2;
-  static constexpr int kKV = kTile * D * 2;  // one K or V tile
+  static constexpr int kQ = kQRows * padded(D) * 2;
+  static constexpr int kKV = kTile * padded(D) * 2;  // one K or V tile
   static constexpr int kBars = kQ + 4 * kKV;  // q_full, kv_full[2], kv_empty[2]
   static constexpr int kBytes = kBars + 5 * 8 + 1024;  // + alignment slack
 };
@@ -413,6 +428,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, Shape sh) {
   using L = FwdLayout<D>;
+  constexpr int DP = padded(D);
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sKV = base + L::kQ;  // stage st: K at sKV + 2 st kKV, V after
@@ -466,9 +483,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const bool capped = sh.softcap > 0.f;
   const float score_mul = capped ? sh.scale / sh.softcap : sh.scale * kLog2e;
   const float cap_mul = sh.softcap * kLog2e;
-  float acc[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[DP / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
@@ -529,14 +546,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
       for (int j = 0; j < 16; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
 #pragma unroll
-      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
 
       // O += P V: P from registers, V MN-major
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk)
-        wgmma_rs<D>(acc, pa + 4 * kk, desc(st + L::kKV + kk * 2048, kTile * 128, 1024), 1);
+        wgmma_rs<DP>(acc, pa + 4 * kk, desc(st + L::kKV + kk * 2048, kTile * 128, 1024), 1);
       wgmma_commit_and_wait();
       fence_regs(acc);
     }
@@ -567,7 +584,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 
 template <int D>
 struct DkvLayout {
-  static constexpr int kT = kTile * D * 2;       // one 64-row bf16 tile
+  static constexpr int kT = kTile * padded(D) * 2;  // one 64-row bf16 tile
   static constexpr int kPT = kTile * kTile * 2;  // P^T or dS^T
   static constexpr int kStages = 2 * kT;         // + Q, dO of stage 1 after stage 0
   static constexpr int kP = 2 * kT + 2 * kStages;  // P^T[2], dS^T[2] after K, V, stages
@@ -584,6 +601,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            const float* __restrict__ lse, const float* __restrict__ delta,
            void* __restrict__ dk, void* __restrict__ dv, Shape sh) {
   using L = DkvLayout<D>;
+  constexpr int DP = padded(D);
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -634,9 +653,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const bool capped = sh.softcap > 0.f;
   const float score_mul = capped ? sh.scale / sh.softcap : sh.scale;
   const int key[2] = {k0 + acc_row(0, warp, lane), k0 + acc_row(2, warp, lane)};
-  float acc[D / 2];  // warpgroup 0: dV, warpgroup 1: dK (unscaled)
+  float acc[DP / 2];  // warpgroup 0: dV, warpgroup 1: dK (unscaled)
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int qt = qt_first; qt <= qt_last; ++qt) {
@@ -708,7 +727,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_ss<D, 1>(acc, desc(a_tile + kk * 32, 16, 1024),
+      wgmma_ss<DP, 1>(acc, desc(a_tile + kk * 32, 16, 1024),
                      desc(b_tile + kk * 2048, kTile * 128, 1024), 1);
     wgmma_commit_and_wait();
     fence_regs(acc);
@@ -744,8 +763,8 @@ constexpr int kDqKeys = 32;  // keys of a K6 K/V tile
 template <int D>
 struct DqLayout {
   static constexpr int kRows = 2 * kTile;          // one query tile: two warpgroups' rows
-  static constexpr int kQ = kRows * D * 2;         // the Q or the dO tile
-  static constexpr int kKV = kDqKeys * D * 2;      // one K or V tile
+  static constexpr int kQ = kRows * padded(D) * 2;     // the Q or the dO tile
+  static constexpr int kKV = kDqKeys * padded(D) * 2;  // one K or V tile
   static constexpr int kBars = 2 * kQ + 4 * kKV;   // qd_full, kv_full[2], kv_empty[2]
   static constexpr int kBytes = kBars + 5 * 8 + 1024;
 };
@@ -758,6 +777,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
           const float* __restrict__ lse, const float* __restrict__ delta,
           void* __restrict__ dq, Shape sh) {
   using L = DqLayout<D>;
+  constexpr int DP = padded(D);
+  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sdO = base + L::kQ;
@@ -818,9 +839,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
 
   const bool capped = sh.softcap > 0.f;
   const float score_mul = capped ? sh.scale / sh.softcap : sh.scale;
-  float acc[D / 2];  // dq / scale
+  float acc[DP / 2];  // dq / scale
 #pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(qd_full, 0);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
@@ -878,7 +899,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk)
-        wgmma_rs<D>(acc, da + 4 * kk, desc(sK + kk * 2048, kDqKeys * 128, 1024), 1);
+        wgmma_rs<DP>(acc, da + 4 * kk, desc(sK + kk * 2048, kDqKeys * 128, 1024), 1);
       wgmma_commit_and_wait();
       fence_regs(acc);
     }
@@ -1031,10 +1052,11 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// Returns LAUNCH<D>(args...) for dtype 1 (bfloat16) and D in {64, 128, 256}.
+// Returns LAUNCH<D>(args...) for dtype 1 (bfloat16) and D in {64, 80, 128, 256}.
 #define SM90_DISPATCH(LAUNCH, ...)                                  \
   do {                                                              \
     if (dtype == 1 && d == 64) return LAUNCH<64>(__VA_ARGS__);      \
+    if (dtype == 1 && d == 80) return LAUNCH<80>(__VA_ARGS__);      \
     if (dtype == 1 && d == 128) return LAUNCH<128>(__VA_ARGS__);    \
     if (dtype == 1 && d == 256) return LAUNCH<256>(__VA_ARGS__);    \
     return (int)cudaErrorInvalidValue;                              \

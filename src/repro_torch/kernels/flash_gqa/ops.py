@@ -46,7 +46,7 @@ from repro_torch.kernels.flash_gqa.ref import NEG_INF, flash_gqa_ref, visible_ma
 SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
 SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
-HEAD_DIMS = (64, 128, 256)
+HEAD_DIMS = (64, 80, 128, 256)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

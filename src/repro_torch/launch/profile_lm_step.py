@@ -1,9 +1,10 @@
 """Where an LM client round's time goes on the card.
 
 Runs one client of the LM slice (``train_lm_pfedsop``'s loop at the
-slice ``chip_smoke.py`` runs: gemma3-1b at full width, batch 2, seq_len
-2048, 2 local iterations, eta 0.1, seed 0) for one warm-up round and one
-personalized round, and reports for the personalized round:
+slice ``chip_smoke.py`` runs: gemma3-1b, or ``--arch``, at full width,
+batch 2, seq_len 2048, 2 local iterations, eta 0.1, seed 0) for one
+warm-up round and one personalized round, and reports for the
+personalized round:
 
 - phase times on the host clock with a device synchronize around each
   phase: the round-start update (flatten, the C = 1 kernel pair,
@@ -18,9 +19,11 @@ personalized round, and reports for the personalized round:
   tensor-core one takes ``CUtensorMap`` arguments).
 
   PYTHONPATH=src python -m repro_torch.launch.profile_lm_step
+  PYTHONPATH=src python -m repro_torch.launch.profile_lm_step --arch zamba2-2.7b
 """
 from __future__ import annotations
 
+import argparse
 import collections
 import subprocess
 import time
@@ -29,14 +32,14 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-from repro_torch.configs import get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import pfedsop as pf
 from repro_torch.launch.train_lm_pfedsop import client_streams
 from repro_torch.models import transformer as tf
 from repro_torch.optim import sgd
 from repro_torch.utils.pytree import tree_stack
 
-ARCH, BATCH, SEQ_LEN, LOCAL_ITERS, ETA = "gemma3-1b", 2, 2048, 2, 0.1
+BATCH, SEQ_LEN, LOCAL_ITERS, ETA = 2, 2048, 2, 0.1
 
 # kernel-name fragments -> family, first match wins
 FAMILIES = [
@@ -94,11 +97,14 @@ def device_profile(fn):
     return wall * 1e3, busy_us / 1e3, dict(fams)
 
 
-def main():
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=list(ARCH_NAMES), default="gemma3-1b")
+    args = ap.parse_args(argv)
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip())
-    cfg = get_config(ARCH)
+    cfg = get_config(args.arch)
     pcfg = pf.PFedSOPConfig(eta1=ETA, eta2=ETA)
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     stream = client_streams(cfg, 1, BATCH, SEQ_LEN)[0]

@@ -6,11 +6,14 @@ Port of ``repro/launch/serve.py`` with its flags (``--arch --batch --steps
 CPU-smoke variant), and ``--prompt-len N``, which takes
 ``examples/serve_decode.py``'s path: N random prompt tokens fed one by one
 through the decode step, then greedy decode.  Without it the sessions
-start from token 0 at position 0, as ``repro``'s driver does.  Prints the
-prompt time, the first decode call and the decode rate after it.
+start from token 0 at position 0, as ``repro``'s driver does.  Every arch
+serves: the codebook archs feed one token per codebook a step, the vision
+arch tokens beside zero patch embeddings (``steps.decode_batch``).  Prints
+the prompt time, the first decode call and the decode rate after it.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --prompt-len 8 --steps 16
+  PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch musicgen-large
   PYTHONPATH=src python -m repro_torch.launch.serve --full --arch gemma3-1b --batch 4 --steps 32
 """
 from __future__ import annotations
@@ -21,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import DENSE_ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels.dispatch import check_impl_name
 from repro_torch.launch import steps as st
@@ -36,7 +39,7 @@ def _sync(dev):
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=list(DENSE_ARCH_NAMES), default="gemma3-1b")
+    ap.add_argument("--arch", choices=list(ARCH_NAMES), default="gemma3-1b")
     ap.add_argument("--batch", type=int, default=4)
     ap.add_argument("--steps", type=int, default=8)
     ap.add_argument("--capacity", type=int, default=64,
@@ -75,14 +78,17 @@ def main(argv=None):
     caches = tf.init_caches(cfg, b, args.capacity, device=dev)
 
     pos = 0
-    tok = torch.zeros((b, 1), dtype=torch.int64, device=dev)
+    batch = {k: torch.zeros(shape, dtype=dt, device=dev)
+             for k, (shape, dt) in st.decode_batch(cfg, b).items()}
     t0 = time.perf_counter()
     if args.prompt_len:
         g = torch.Generator(device=dev).manual_seed(args.seed + 1)
-        prompts = torch.randint(0, cfg.vocab_size, (b, args.prompt_len), generator=g,
-                                device=dev)
+        prompts = torch.randint(0, cfg.vocab_size, batch["tokens"].shape[:-1]
+                                + (args.prompt_len,), generator=g, device=dev)
         for pos in range(args.prompt_len):
-            tok, caches = serve_step(params, {"tokens": prompts[:, pos:pos + 1]}, pos, caches)
+            batch["tokens"] = prompts[..., pos:pos + 1]
+            tok, caches = serve_step(params, batch, pos, caches)
+            batch["tokens"] = st.next_tokens(cfg, tok)
         pos += 1
         _sync(dev)
         print(f"prompt: {args.prompt_len} tokens x {b} sequences fed token by token in "
@@ -91,7 +97,8 @@ def main(argv=None):
     out = []
     t1 = time.perf_counter()
     for t in range(args.steps):
-        tok, caches = serve_step(params, {"tokens": tok.long()}, pos + t, caches)
+        tok, caches = serve_step(params, batch, pos + t, caches)
+        batch["tokens"] = st.next_tokens(cfg, tok)
         out.append(tok)
         if t == 0:
             _sync(dev)

@@ -1,4 +1,4 @@
-"""Federated LM training with pFedSOP over the dense text archs, on the card.
+"""Federated LM training with pFedSOP over the text archs, on the card.
 
 Port of ``examples/train_lm_pfedsop.py`` with the same flags and loop:
 simulated organizations, each with its own Markov token stream
@@ -6,7 +6,9 @@ simulated organizations, each with its own Markov token stream
 another; each round prints ``round {t} loss=... beta=...``.  Two flags
 are the port's: ``--device`` (default ``cuda``) and ``--full``, which
 takes the arch's full config (``get_config(arch)``) instead of the
-reduced CPU-smoke variant the example uses.
+reduced CPU-smoke variant the example uses.  Dense, MoE, SSM and hybrid
+archs train; the modality-frontend archs are refused, as the example
+refuses them.
 
   PYTHONPATH=src python -m repro_torch.launch.train_lm_pfedsop --device cpu --rounds 3
   PYTHONPATH=src python -m repro_torch.launch.train_lm_pfedsop --full --arch gemma3-1b \\
@@ -20,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import DENSE_ARCH_NAMES, get_config
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import pfedsop as pf
 from repro_torch.data import lm_batch_iterator, synthetic_lm_stream
 from repro_torch.models import transformer as tf
@@ -30,18 +32,22 @@ from repro_torch.utils.pytree import tree_leaves, tree_stack
 
 def launches_per_step(cfg):
     """Kernel launches of one local SGD step (forward + backward) of
-    ``tf.lm_loss`` on the kernel path: per sublayer, the rmsnorms ln1, ln2
-    and (with qk-norm) q/k-norm and one flash forward, all launched again
-    when ``remat="block"`` recomputes the sublayer in the backward; one dq
-    and one dk/dv pass per sublayer (in bf16 with G > 1 query heads per KV
-    head, also the dk/dv sum pass); and the final norm once."""
-    n = cfg.n_layers
+    ``tf.lm_loss`` on the kernel path.  Per attention sublayer (``attn``,
+    ``moe``, ``shared_attn``): the rmsnorms ln1, ln2 and (with qk-norm)
+    q/k-norm and one flash forward, all launched again when
+    ``remat="block"`` recomputes the sublayer in the backward, and one dq
+    and one dk/dv pass (in bf16 with G > 1 query heads per KV head, also
+    the dk/dv sum pass).  Per ``ssm`` sublayer: its ln1 (again under remat)
+    and no flash kernel.  The final norm once."""
+    n_attn = sum(s.kind != "ssm" for s in cfg.layers)
+    n_ssm = cfg.n_layers - n_attn
     norms = 4 if cfg.use_qk_norm else 2
     again = 2 if cfg.remat == "block" else 1
-    out = {"rmsnorm": norms * n * again + 1, "flash_fwd": n * again,
-           "flash_bwd_dq": n, "flash_bwd_dkv": n}
-    if cfg.dtype == "bfloat16" and cfg.n_heads > cfg.n_kv_heads:
-        out["flash_bwd_dkv_sum"] = n
+    out = {"rmsnorm": (norms * n_attn + n_ssm) * again + 1}
+    if n_attn:
+        out.update(flash_fwd=n_attn * again, flash_bwd_dq=n_attn, flash_bwd_dkv=n_attn)
+        if cfg.dtype == "bfloat16" and cfg.n_heads > cfg.n_kv_heads:
+            out["flash_bwd_dkv_sum"] = n_attn
     return out
 
 
@@ -54,7 +60,8 @@ def client_streams(cfg, clients, batch, seq_len):
 
 def train(cfg, params, pcfg, *, clients=4, rounds=10, local_iters=4, batch=4,
           seq_len=64, on_round=None):
-    """The example's loop from ``params`` (a tree on its device).  Returns
+    """The example's loop from ``params`` (a tree on its device; a caller
+    that keeps no reference of its own lets it go after round 0).  Returns
     {"loss", "beta", "round_time"} per round (means over the clients) and
     the final client states.  ``on_round(t, loss, beta, seconds)`` is
     called after each round."""
@@ -62,6 +69,7 @@ def train(cfg, params, pcfg, *, clients=4, rounds=10, local_iters=4, batch=4,
     iters = client_streams(cfg, clients, batch, seq_len)
     loss_fn = lambda p, b: tf.lm_loss(p, cfg, b)  # noqa: E731
     states = [pf.init_client_state(params) for _ in range(clients)]
+    del params  # the states hold it until round 0 replaces it
     global_delta = states[0].delta  # zeros, as the example's tree_map(zeros_like)
     has_global = torch.zeros((), dtype=torch.bool, device=device)
     hist = {"loss": [], "beta": [], "round_time": []}
@@ -93,7 +101,7 @@ def train(cfg, params, pcfg, *, clients=4, rounds=10, local_iters=4, batch=4,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--arch", choices=list(DENSE_ARCH_NAMES), default="granite-3-2b")
+    ap.add_argument("--arch", choices=list(ARCH_NAMES), default="granite-3-2b")
     ap.add_argument("--clients", type=int, default=4)
     ap.add_argument("--rounds", type=int, default=10)
     ap.add_argument("--local-iters", type=int, default=4)
@@ -112,6 +120,9 @@ def main(argv=None):
 
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full).replace(kernel_impl=args.kernel_impl)
+    if cfg.frontend != "none":
+        raise SystemExit(f"{args.arch} needs a modality frontend; this example "
+                         "covers the text archs (see serve_decode.py for the rest)")
     pcfg = pf.PFedSOPConfig(eta1=args.eta, eta2=args.eta, rho=1.0, lam=1.0)
     print(f"pFedSOP x {cfg.name}: {args.clients} clients, {args.rounds} rounds, "
           f"kernel_impl={cfg.kernel_impl}, device={dev}")

@@ -1,4 +1,6 @@
-"""Decoder stack, dense text path (port of ``repro/models/transformer.py``).
+"""Decoder stack (port of ``repro/models/transformer.py``): dense
+(gemma/granite), MoE (olmoe, granite-moe), SSM (mamba2), hybrid (zamba2),
+VLM (internvl2) and audio (musicgen) through one code path.
 
 The layer schedule is ``cfg.pattern * n_rep + tail``.  Parameters are the
 same nested dicts as ``repro``'s: ``params["pattern"]`` is a tuple (one
@@ -9,17 +11,28 @@ is a loop over ``unbind(0)`` views here, and ``remat="block"`` is
 ``torch.utils.checkpoint`` (non-reentrant) around every sublayer: the
 backward recomputes each block's forward, kernels included.
 
-Embedding is tied to the LM head (logits = x @ embed.T) with the optional
-final-logit softcap.  MoE, SSM, shared-attention and modality-frontend
-archs raise ``NotImplementedError`` until their slice is ported
-(ROADMAP.md queue 1, item 14).
+Sublayer kinds: ``attn`` (attention + gated MLP), ``moe`` (attention +
+``models/moe.py``'s FFN, whose load-balance aux loss ``forward`` sums and
+``lm_loss`` adds times ``AUX_LOSS_COEF``), ``ssm`` (``models/ssm.py``'s
+Mamba2 mixer, no FFN) and ``shared_attn`` (Zamba2): ONE block,
+``params["shared"]``, used at every repetition, while ``params["pattern"]``
+holds an empty dict at its position, as ``repro``'s tree does; its KV
+caches are per repetition, stacked like the rest.
+
+Frontends: ``vision_stub`` projects ``batch["patch_embeds"]`` (B, n_patches,
+d_vision) with ``vis_proj`` and prepends them to the token embeddings (the
+loss reads the text region only); ``audio_codebooks`` sums the per-codebook
+embeddings of ``batch["tokens"]`` (B, K, S) and has one head per codebook,
+logits (B, S, K, V).  Otherwise the embedding is tied to the LM head
+(logits = x @ embed.T) with the optional final-logit softcap.
 
 Serving: ``init_caches`` builds ``repro``'s cache tree (``caches["pattern"]``
 a tuple per pattern position of ring-buffer dicts whose leaves lead with
 ``n_rep``, ``caches["tail"]`` a tuple), so a cache crosses packages through
 ``weights.params_from_jax`` unchanged.  ``decode_step`` writes each
-layer's new k/v into ``unbind(0)`` views of the stacked caches, so the
-tree it returns is the one it was given, updated in place.
+layer's new k/v (and each SSM layer's conv window and state) into
+``unbind(0)`` views of the stacked caches, so the tree it returns is the
+one it was given, updated in place.
 ``prefill_with_caches`` runs the prompt once and leaves the caches decode
 continues from.  Both run without autograd.
 """
@@ -33,24 +46,25 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
-from repro_torch.models.layers import embed_init, mlp, mlp_init, rmsnorm, rmsnorm_init, softcap
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import ssm as ssm_mod
+from repro_torch.models.layers import (
+    dense_init,
+    embed_init,
+    mlp,
+    mlp_init,
+    rmsnorm,
+    rmsnorm_init,
+    softcap,
+)
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_flatten, tree_stack, tree_unflatten
 
-AUX_LOSS_COEF = 0.01  # MoE load-balance coefficient (repro's; zero aux here)
+AUX_LOSS_COEF = 0.01  # MoE load-balance coefficient (Switch / OLMoE default)
 
 
 def _dtype(cfg):
     return getattr(torch, cfg.dtype)
-
-
-def _check_dense(cfg):
-    kinds = {s.kind for s in cfg.layers}
-    if cfg.frontend != "none" or kinds - {"attn"}:
-        raise NotImplementedError(
-            f"{cfg.name}: sublayer kinds {sorted(kinds)}, frontend {cfg.frontend!r}; "
-            "only the dense text path ('attn' sublayers, no frontend) is ported — "
-            "MoE, SSM, hybrid and frontends are ROADMAP.md queue 1, item 14")
 
 
 def _norm(p, cfg, x):
@@ -58,37 +72,85 @@ def _norm(p, cfg, x):
 
 
 # ---------------------------------------------------------------------------
-# Block init / apply
+# Long-context variant (the one documented carve-in for dense archs)
+# ---------------------------------------------------------------------------
+
+
+def apply_long_context(cfg):
+    """For ``long_500k`` on window-mode archs: cap every attention window
+    at ``cfg.long_context_window``.  SSM and hybrid archs
+    (``long_context_mode="native"``) come back unchanged: their recurrence
+    is already O(1) in context."""
+    if cfg.long_context_mode != "window":
+        return cfg
+    w = cfg.long_context_window
+
+    def capw(spec):
+        if spec.kind in ("attn", "moe", "shared_attn"):
+            return spec.replace(window=w if spec.window is None else min(spec.window, w))
+        return spec
+
+    return cfg.replace(pattern=tuple(capw(s) for s in cfg.pattern),
+                       tail=tuple(capw(s) for s in cfg.tail))
+
+
+# ---------------------------------------------------------------------------
+# Block init / apply (one sublayer of the schedule)
 # ---------------------------------------------------------------------------
 
 
 def _block_init(gen, spec, cfg, dtype):
-    return {
-        "ln1": rmsnorm_init(cfg.d_model, dtype, gen.device),
+    dev = gen.device
+    if spec.kind == "ssm":
+        return {"ln1": rmsnorm_init(cfg.d_model, dtype, dev),
+                "ssm": ssm_mod.ssm_init(gen, cfg, dtype)}
+    p = {
+        "ln1": rmsnorm_init(cfg.d_model, dtype, dev),
         "attn": attn_mod.attn_init(gen, cfg, dtype),
-        "ln2": rmsnorm_init(cfg.d_model, dtype, gen.device),
-        "mlp": mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype),
+        "ln2": rmsnorm_init(cfg.d_model, dtype, dev),
     }
+    if spec.kind == "moe":
+        p["moe"] = moe_mod.moe_init(gen, cfg, dtype)
+    else:  # attn / shared_attn
+        p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.n_layers, dtype)
+    return p
+
+
+def _ffn(p, spec, cfg, x):
+    """The sublayer's second half on the residual ``x``: (x, aux)."""
+    h = _norm(p["ln2"], cfg, x)
+    if spec.kind == "moe":
+        y, aux = moe_mod.moe_ffn(p["moe"], cfg, h, cfg.moe_impl)
+        return x + y, aux
+    return x + mlp(p["mlp"], h), None
 
 
 def _block_fwd(p, spec, cfg, x, positions):
-    """Full-sequence (train/prefill) sublayer."""
+    """Full-sequence (train/prefill) sublayer.  Returns (x, aux_loss f32)."""
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if spec.kind == "ssm":
+        return x + ssm_mod.ssm_forward(p["ssm"], cfg, _norm(p["ln1"], cfg, x)), zero
     h = _norm(p["ln1"], cfg, x)
     x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions, spec.window,
                                    spec.rope_base, q_block=cfg.attn_q_block)
-    return x + mlp(p["mlp"], _norm(p["ln2"], cfg, x))
+    x, aux = _ffn(p, spec, cfg, x)
+    return x, zero if aux is None else aux
 
 
 def _block_decode(p, spec, cfg, x, pos, cache):
     """Single-token sublayer; ``cache`` is updated in place."""
+    if spec.kind == "ssm":
+        y, cache = ssm_mod.ssm_decode(p["ssm"], cfg, _norm(p["ln1"], cfg, x), cache)
+        return x + y, cache
     h = _norm(p["ln1"], cfg, x)
     y, cache = attn_mod.attention_decode(p["attn"], cfg, h, pos, cache, spec.window,
                                          spec.rope_base)
-    x = x + y
-    return x + mlp(p["mlp"], _norm(p["ln2"], cfg, x)), cache
+    return _ffn(p, spec, cfg, x + y)[0], cache
 
 
 def _block_cache_init(spec, cfg, batch, seq_len, dtype, device):
+    if spec.kind == "ssm":
+        return ssm_mod.ssm_init_cache(cfg, batch, dtype, device)
     cap = seq_len if spec.window is None else min(spec.window, seq_len)
     return attn_mod.init_cache(cfg, batch, cap, dtype, device)
 
@@ -100,21 +162,42 @@ def _block_prefill(p, spec, cfg, x, positions, capacity):
     full-attention layers allocate it outright, windowed layers
     min(window, capacity).  The projections are computed once and feed
     both the cache and the attention (``repro`` projects twice; the values
-    are the same)."""
+    are the same).  An SSM sublayer leaves its conv window and state."""
+    if spec.kind == "ssm":
+        y, cache = ssm_mod.ssm_forward_with_cache(p["ssm"], cfg, _norm(p["ln1"], cfg, x))
+        return x + y, cache
     h = _norm(p["ln1"], cfg, x)
     q, k, v = attn_mod._project_qkv(p["attn"], cfg, h, positions, spec.rope_base)
     cap = capacity if spec.window is None else min(spec.window, capacity)
     cache = attn_mod.pack_prefill_cache(cfg, k, v, positions, cap, _dtype(cfg))
     x = x + attn_mod._attend(p["attn"], cfg, q, k, v, positions, spec.window, h.dtype,
                              cfg.attn_q_block)
-    return x + mlp(p["mlp"], _norm(p["ln2"], cfg, x)), cache
+    return _ffn(p, spec, cfg, x)[0], cache
 
 
-def _unstack(tree):
-    """A tree with a leading n_rep axis on every leaf -> n_rep trees of views."""
+def _unstack(tree, n):
+    """A tree with a leading n-long axis on every leaf -> n trees of views
+    (an empty tree, a ``shared_attn`` position, -> n empty trees)."""
     leaves, treedef = tree_flatten(tree)
     parts = [x.unbind(0) for x in leaves]
-    return [tree_unflatten(treedef, [p[r] for p in parts]) for r in range(len(parts[0]))]
+    return [tree_unflatten(treedef, [p[r] for p in parts]) for r in range(n)]
+
+
+def _layers(tree, n_rep):
+    """``params`` or ``caches`` per layer, in layer order: views into the
+    pattern's stacked trees (one per pattern position, leaves leading with
+    ``n_rep``), repetition by repetition, then the tail's trees."""
+    stacked = tree.get("pattern", ())
+    reps = [_unstack(t, n_rep) for t in stacked]  # [position][rep]
+    return ([reps[j][r] for r in range(n_rep) for j in range(len(stacked))]
+            + list(tree.get("tail", ())))
+
+
+def _schedule(params, cfg):
+    """[(block params, spec)] in layer order; ``shared_attn`` sublayers get
+    ``params["shared"]``."""
+    return [(params.get("shared") if s.kind == "shared_attn" else p, s)
+            for p, s in zip(_layers(params, cfg.n_rep), cfg.layers)]
 
 
 # ---------------------------------------------------------------------------
@@ -126,13 +209,23 @@ def init_params(gen, cfg, device="cuda"):
     """Random init drawn from ``gen`` on its device, returned on ``device``
     (``repro``'s init bits cannot be reproduced in torch: parity tests carry
     ``repro``'s tree across instead)."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
-    params: dict[str, Any] = {"embed": embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)}
+    params: dict[str, Any] = {}
+    if cfg.frontend == "audio_codebooks":
+        params["embed"] = embed_init(gen, (cfg.n_codebooks, cfg.vocab_size, cfg.d_model), dtype)
+        params["heads"] = dense_init(gen, (cfg.n_codebooks, cfg.d_model, cfg.vocab_size),
+                                     cfg.d_model, dtype)
+    else:
+        params["embed"] = embed_init(gen, (cfg.vocab_size, cfg.d_model), dtype)
+    if cfg.frontend == "vision_stub":
+        params["vis_proj"] = dense_init(gen, (cfg.d_vision, cfg.d_model), cfg.d_vision, dtype)
+    shared = next((s for s in cfg.layers if s.kind == "shared_attn"), None)
+    if shared is not None:
+        params["shared"] = _block_init(gen, shared, cfg, dtype)
     if cfg.pattern and cfg.n_rep:
-        reps = [[_block_init(gen, s, cfg, dtype) for s in cfg.pattern]
-                for _ in range(cfg.n_rep)]
+        reps = [[{} if s.kind == "shared_attn" else _block_init(gen, s, cfg, dtype)
+                 for s in cfg.pattern] for _ in range(cfg.n_rep)]
         params["pattern"] = tuple(tree_stack([rep[j] for rep in reps])
                                   for j in range(len(cfg.pattern)))
         del reps
@@ -153,19 +246,32 @@ def _to(tree, dev):
 
 
 def embed_inputs(params, cfg, batch):
-    """Returns (x (B,S,D), positions (B,S))."""
-    _check_dense(cfg)
+    """Returns (x (B,S,D), positions (B,S)).  ``batch["tokens"]`` is (B, S),
+    or (B, K, S) for ``audio_codebooks``; ``vision_stub`` also takes
+    ``batch["patch_embeds"]`` (B, n_patches, d_vision), n_patches >= 0."""
     toks = batch["tokens"]
     emb = params["embed"]
     scale = torch.tensor(np.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
-    x = F.embedding(toks, emb) * scale
-    b, s = toks.shape
+    if cfg.frontend == "audio_codebooks":
+        x = 0  # repro's sum(...) order
+        for k in range(cfg.n_codebooks):
+            x = x + F.embedding(toks[:, k], emb[k])
+        x = x * scale
+    else:
+        x = F.embedding(toks, emb) * scale
+    if cfg.frontend == "vision_stub":
+        patches = batch["patch_embeds"].to(emb.dtype) @ params["vis_proj"]
+        x = torch.cat([patches, x], dim=1)
+    b, s = x.shape[0], x.shape[1]
     pos = torch.arange(s, dtype=torch.int32, device=toks.device)[None].expand(b, s)
     return x, pos
 
 
 def lm_logits(params, cfg, x):
-    """Tied LM head with the optional final-logit softcap (f32)."""
+    """Tied LM head with the optional final-logit softcap (f32); the audio
+    frontend's per-codebook heads give (B, S, K, V)."""
+    if cfg.frontend == "audio_codebooks":
+        return torch.einsum("bsd,kdv->bskv", x, params["heads"])
     logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
     if cfg.final_softcap is not None:
         logits = softcap(logits.float(), cfg.final_softcap)
@@ -173,24 +279,17 @@ def lm_logits(params, cfg, x):
 
 
 def forward(params, cfg, batch):
-    """Returns (hidden (B,S,D), aux_loss scalar f32 — zero on the dense path)."""
-    _check_dense(cfg)
+    """Returns (hidden (B,S,D), aux_loss scalar f32: the MoE sublayers'
+    load-balance losses summed in layer order, zero without them)."""
     x, positions = embed_inputs(params, cfg, batch)
-
-    def apply_block(p, spec, x):
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in _schedule(params, cfg):
         if cfg.remat == "block":
-            return checkpoint(_block_fwd, p, spec, cfg, x, positions, use_reentrant=False)
-        return _block_fwd(p, spec, cfg, x, positions)
-
-    if cfg.pattern and cfg.n_rep:
-        reps = [_unstack(rp) for rp in params["pattern"]]  # [position][rep]
-        for r in range(cfg.n_rep):
-            for j, spec in enumerate(cfg.pattern):
-                x = apply_block(reps[j][r], spec, x)
-    for j, spec in enumerate(cfg.tail):
-        x = apply_block(params["tail"][j], spec, x)
-    x = _norm(params["final_norm"], cfg, x)
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = checkpoint(_block_fwd, p, spec, cfg, x, positions, use_reentrant=False)
+        else:
+            x, a = _block_fwd(p, spec, cfg, x, positions)
+        aux_total = aux_total + a
+    return _norm(params["final_norm"], cfg, x), aux_total
 
 
 def cross_entropy(logits, labels, mask=None):
@@ -205,9 +304,16 @@ def cross_entropy(logits, labels, mask=None):
 
 
 def lm_loss(params, cfg, batch):
-    """Next-token CE.  batch["labels"] aligned with positions."""
+    """Next-token CE (+ the MoE aux loss).  ``batch["labels"]`` is aligned
+    with the text positions: (B, S), or (B, K, S) for the codebooks; the
+    vision frontend's patches carry no labels."""
     hidden, aux = forward(params, cfg, batch)
-    return cross_entropy(lm_logits(params, cfg, hidden), batch["labels"]) + AUX_LOSS_COEF * aux
+    if cfg.frontend == "vision_stub":
+        hidden = hidden[:, cfg.n_patches:, :]  # the text region only
+    labels = batch["labels"]
+    if cfg.frontend == "audio_codebooks":
+        labels = labels.movedim(1, 2)  # (B, S, K), as the logits
+    return cross_entropy(lm_logits(params, cfg, hidden), labels) + AUX_LOSS_COEF * aux
 
 
 # ---------------------------------------------------------------------------
@@ -218,7 +324,6 @@ def lm_loss(params, cfg, batch):
 def init_caches(cfg, batch, seq_len, device="cuda"):
     """Empty decode caches for ``batch`` sequences of up to ``seq_len``
     tokens, on ``device``."""
-    _check_dense(cfg)
     dev = resolve_device(device)
     dtype = _dtype(cfg)
     caches: dict[str, Any] = {}
@@ -237,19 +342,13 @@ def init_caches(cfg, batch, seq_len, device="cuda"):
 def decode_step(params, cfg, batch, pos, caches):
     """One token for every sequence in the batch.
 
-    ``batch["tokens"]``: (B, 1); ``pos``: the absolute position (a Python
-    int or a 0-d tensor).  Returns (logits (B,1,V), caches), the caches
-    updated in place."""
-    _check_dense(cfg)
+    ``batch["tokens"]``: (B, 1), or (B, K, 1) for the codebooks (the vision
+    frontend's ``patch_embeds`` hold 0 patches here); ``pos``: the absolute
+    position (a Python int or a 0-d tensor).  Returns (logits (B,1,V), or
+    (B,1,K,V), caches), the caches updated in place."""
     x, _ = embed_inputs(params, cfg, batch)  # (B,1,D)
-    if cfg.pattern and cfg.n_rep:
-        reps = [_unstack(rp) for rp in params["pattern"]]  # [position][rep]
-        creps = [_unstack(c) for c in caches["pattern"]]  # views into the stacks
-        for r in range(cfg.n_rep):
-            for j, spec in enumerate(cfg.pattern):
-                x, _ = _block_decode(reps[j][r], spec, cfg, x, pos, creps[j][r])
-    for j, spec in enumerate(cfg.tail):
-        x, _ = _block_decode(params["tail"][j], spec, cfg, x, pos, caches["tail"][j])
+    for (p, spec), cache in zip(_schedule(params, cfg), _layers(caches, cfg.n_rep)):
+        x, _ = _block_decode(p, spec, cfg, x, pos, cache)
     x = _norm(params["final_norm"], cfg, x)
     return lm_logits(params, cfg, x), caches
 
@@ -262,22 +361,18 @@ def prefill_with_caches(params, cfg, batch, capacity=None):
     prompt_len + 64).  The caches have ``init_caches(cfg, B, capacity)``'s
     structure, so ``decode_step(params, cfg, next_tok, S, caches)``
     continues the sequence."""
-    _check_dense(cfg)
     x, positions = embed_inputs(params, cfg, batch)
     seq_len = capacity or (x.shape[1] + 64)
+    made = []
+    for p, spec in _schedule(params, cfg):
+        x, c = _block_prefill(p, spec, cfg, x, positions, seq_len)
+        made.append(c)
     caches: dict[str, Any] = {}
+    npat = len(cfg.pattern) * cfg.n_rep
     if cfg.pattern and cfg.n_rep:
-        reps = [_unstack(rp) for rp in params["pattern"]]
-        made = [[None] * cfg.n_rep for _ in cfg.pattern]
-        for r in range(cfg.n_rep):
-            for j, spec in enumerate(cfg.pattern):
-                x, made[j][r] = _block_prefill(reps[j][r], spec, cfg, x, positions, seq_len)
-        caches["pattern"] = tuple(tree_stack(m) for m in made)
+        caches["pattern"] = tuple(tree_stack(made[j:npat:len(cfg.pattern)])
+                                  for j in range(len(cfg.pattern)))
     if cfg.tail:
-        tail = []
-        for j, spec in enumerate(cfg.tail):
-            x, c = _block_prefill(params["tail"][j], spec, cfg, x, positions, seq_len)
-            tail.append(c)
-        caches["tail"] = tuple(tail)
+        caches["tail"] = tuple(made[npat:])
     x = _norm(params["final_norm"], cfg, x)
     return lm_logits(params, cfg, x[:, -1:, :]), caches

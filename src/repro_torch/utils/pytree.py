@@ -22,37 +22,43 @@ import torch
 Pytree = Any
 
 
+# The recursions below are module-level functions that take their
+# accumulator as an argument: a nested function that calls itself refers
+# to itself through its closure, a reference cycle that would keep the
+# leaves it collected alive until the cyclic collector runs (on the card,
+# whole parameter trees).
+
+
+def _flatten(x, leaves):
+    if isinstance(x, dict):
+        keys = sorted(x)
+        return (dict, keys, [_flatten(x[k], leaves) for k in keys])
+    if isinstance(x, (tuple, list)):  # NamedTuples included
+        return (type(x), None, [_flatten(v, leaves) for v in x])
+    leaves.append(x)
+    return None
+
+
 def tree_flatten(tree: Pytree) -> Tuple[List[Any], Any]:
     """(leaves in jax order, treedef)."""
     leaves: List[Any] = []
+    return leaves, _flatten(tree, leaves)
 
-    def rec(x):
-        if isinstance(x, dict):
-            keys = sorted(x)
-            return (dict, keys, [rec(x[k]) for k in keys])
-        if isinstance(x, (tuple, list)):  # NamedTuples included
-            return (type(x), None, [rec(v) for v in x])
-        leaves.append(x)
-        return None
 
-    return leaves, rec(tree)
+def _unflatten(node, it):
+    if node is None:
+        return next(it)
+    kind, keys, children = node
+    if kind is dict:
+        return {k: _unflatten(c, it) for k, c in zip(keys, children)}
+    vals = [_unflatten(c, it) for c in children]
+    if issubclass(kind, tuple) and hasattr(kind, "_fields"):
+        return kind(*vals)
+    return kind(vals)
 
 
 def tree_unflatten(treedef, leaves: Sequence[Any]) -> Pytree:
-    it = iter(leaves)
-
-    def rec(node):
-        if node is None:
-            return next(it)
-        kind, keys, children = node
-        if kind is dict:
-            return {k: rec(c) for k, c in zip(keys, children)}
-        vals = [rec(c) for c in children]
-        if issubclass(kind, tuple) and hasattr(kind, "_fields"):
-            return kind(*vals)
-        return kind(vals)
-
-    return rec(treedef)
+    return _unflatten(treedef, iter(leaves))
 
 
 def tree_leaves(tree: Pytree) -> List[Any]:
@@ -65,22 +71,22 @@ def tree_flatten_with_path(tree: Pytree) -> List[Tuple[tuple, Any]]:
     NamedTuple field), as ``jax.tree_util``'s DictKey, SequenceKey and
     GetAttrKey."""
     out: List[Tuple[tuple, Any]] = []
-
-    def rec(x, path):
-        if isinstance(x, dict):
-            for k in sorted(x):
-                rec(x[k], path + (("dict", k),))
-        elif isinstance(x, tuple) and hasattr(x, "_fields"):
-            for f, v in zip(x._fields, x):
-                rec(v, path + (("attr", f),))
-        elif isinstance(x, (tuple, list)):
-            for i, v in enumerate(x):
-                rec(v, path + (("seq", i),))
-        else:
-            out.append((path, x))
-
-    rec(tree, ())
+    _with_path(tree, (), out)
     return out
+
+
+def _with_path(x, path, out):
+    if isinstance(x, dict):
+        for k in sorted(x):
+            _with_path(x[k], path + (("dict", k),), out)
+    elif isinstance(x, tuple) and hasattr(x, "_fields"):
+        for f, v in zip(x._fields, x):
+            _with_path(v, path + (("attr", f),), out)
+    elif isinstance(x, (tuple, list)):
+        for i, v in enumerate(x):
+            _with_path(v, path + (("seq", i),), out)
+    else:
+        out.append((path, x))
 
 
 def keystr(path: tuple) -> str:
@@ -133,7 +139,13 @@ class FlatLayout:
                           for p, n in zip(self.paths, self.sizes)])
 
     def flatten(self, tree: Pytree) -> torch.Tensor:
-        return torch.cat([x.float().reshape(-1) for x in tree_leaves(tree)])
+        """The leaves as one f32 (N,) vector, each copied into its slice (no
+        f32 copy of a leaf beside the vector: at LM width a tree is GBs)."""
+        leaves = tree_leaves(tree)
+        out = torch.empty(self.size, dtype=torch.float32, device=leaves[0].device)
+        for part, x in zip(out.split(self.sizes), leaves):
+            part.copy_(x.reshape(-1))
+        return out
 
     def unflatten(self, vec: torch.Tensor) -> Pytree:
         lead = tuple(vec.shape[:-1])

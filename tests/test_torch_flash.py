@@ -104,21 +104,22 @@ def test_rmsnorm_wrapper_rejects_what_the_kernel_does_not_take(bad):
 B, S, D, BLK = 2, 64, 64, 16
 
 
-def _qkv(h, kv, dtype, seed=0):
+def _qkv(h, kv, dtype, seed=0, d=D):
     rng = np.random.RandomState(seed)
-    arrays = (rng.randn(B, S, h, D), rng.randn(B, S, kv, D), rng.randn(B, S, kv, D),
-              rng.randn(B, S, h, D))
+    arrays = (rng.randn(B, S, h, d), rng.randn(B, S, kv, d), rng.randn(B, S, kv, d),
+              rng.randn(B, S, h, d))
     return zip(*(_pair(a, dtype) for a in arrays))
 
 
-@pytest.mark.parametrize("softcap", [None, 50.0])
-@pytest.mark.parametrize("window", [None, 16])
-@pytest.mark.parametrize("g", [1, 4])
-def test_flash_forward_lse_and_grads_match_repro_interpret(g, window, softcap):
+@pytest.mark.parametrize("g,window,softcap,d", [
+    pytest.param(g, window, softcap, d, id=f"{g}-{window}-{softcap}" + ("" if d == D else f"-d{d}"))
+    for d in (D, 80) for g in (1, 4) for window in (None, 16) for softcap in (None, 50.0)])
+def test_flash_forward_lse_and_grads_match_repro_interpret(g, window, softcap, d):
     """Forward, LSE and (dq, dk, dv); at window 16 with 16-blocks the Pallas
-    grid is pruned (3 of 4 k-blocks per q row)."""
+    grid is pruned (3 of 4 k-blocks per q row).  Also at head_dim 80,
+    zamba2's shared attention, which the wrappers take as they take 64."""
     h, kv = 4, 4 // g
-    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkv(h, kv, "float32")
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkv(h, kv, "float32", d=d)
     if window is not None:
         assert j_kernel.flash_gqa_grid(S, BLK, BLK, window) == (4, 3)
     kw = dict(window=window, softcap=softcap)

@@ -25,7 +25,7 @@ import torch
 from repro.configs import get_config as j_get_config
 from repro.core import pfedsop as j_pf
 from repro.models import transformer as j_tf
-from repro_torch.configs import ARCH_NAMES, DENSE_ARCH_NAMES, get_config
+from repro_torch.configs import get_config
 from repro_torch.core import pfedsop as t_pf
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.kernels.pfedsop_update import ops as update_ops
@@ -36,6 +36,8 @@ from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_unflatten
 from repro_torch.weights import params_from_jax, params_to_numpy
 
 SRC = Path(__file__).resolve().parents[1] / "src"
+# the dense archs; tests/test_torch_archs.py holds the other six
+DENSE_ARCHS = ("gemma3-1b", "granite-3-2b", "granite-3-8b", "gemma2-9b")
 
 
 # -- copies and registry ---------------------------------------------------
@@ -52,26 +54,11 @@ def test_arch_config_copies_differ_only_in_the_import_line(mod):
     assert b == a.replace("from repro.configs.base import", "from repro_torch.configs.base import")
 
 
-@pytest.mark.parametrize("arch", DENSE_ARCH_NAMES)
+@pytest.mark.parametrize("arch", DENSE_ARCHS)
 @pytest.mark.parametrize("reduced", [False, True])
 def test_dense_configs_equal_repro(arch, reduced):
     assert (dataclasses.asdict(get_config(arch, reduced=reduced))
             == dataclasses.asdict(j_get_config(arch, reduced=reduced)))
-
-
-def test_unported_archs_raise():
-    rest = set(ARCH_NAMES) - set(DENSE_ARCH_NAMES)
-    assert rest == {"musicgen-large", "mamba2-2.7b", "zamba2-2.7b", "olmoe-1b-7b",
-                    "granite-moe-1b-a400m", "internvl2-2b"}
-    for arch in rest:
-        with pytest.raises(NotImplementedError, match="queue 1, item 14"):
-            get_config(arch)
-    moe = j_get_config("olmoe-1b-7b", reduced=True)
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_tf.forward({}, moe, {})
-    # serving is ported for the dense archs; decode refuses the others
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_tf.decode_step({}, moe, {}, 0, {})
 
 
 # -- weights ---------------------------------------------------------------

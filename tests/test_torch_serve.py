@@ -313,10 +313,18 @@ def test_serve_and_prefill_steps_match_repro(arch):
 
 
 def test_long_context_shape_names_its_roadmap_item():
+    """``long_500k`` serves through ``apply_long_context`` (ROADMAP.md queue
+    1, item 14): every window capped at 4,096, and the decode step runs."""
     cfg = get_config("gemma3-1b", reduced=True)
     assert t_steps.resolve_cfg(cfg, DECODE_32K) is cfg
-    with pytest.raises(NotImplementedError, match="item 14"):
-        t_steps.make_serve_step(cfg, LONG_500K)
+    long = t_steps.resolve_cfg(cfg, LONG_500K)
+    assert long == t_tf.apply_long_context(cfg)
+    assert [s.window for s in long.layers] == [512, 4096]
+    caches = t_tf.init_caches(long, 1, 8, device="cpu")
+    tp = t_tf.init_params(torch.Generator().manual_seed(0), long, device="cpu")
+    tok, _ = t_steps.make_serve_step(cfg, LONG_500K)(
+        tp, {"tokens": torch.zeros((1, 1), dtype=torch.int64)}, 0, caches)
+    assert tok.shape == (1, 1)
 
 
 @pytest.mark.parametrize("extra", [[], ["--prompt-len", "6"]])

@@ -24,6 +24,10 @@ against ``repro``'s and against each other.
   order); an async checkpoint/resume on the host store bit for bit.
 """
 import dataclasses
+import os
+import subprocess
+import sys
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -532,3 +536,49 @@ def test_async_resume_on_the_host_store_is_bitwise(fed_setup, tmp_path, store):
     resumed = fed.run()
     for key in ("loss", "acc", "sim_time", "staleness", "mean_best_acc"):
         assert resumed[key] == full[key], key
+
+
+# A fresh process: the first training call of a process is where a lazy
+# import once left a reference cycle through the caller's frames.
+_LIFETIME = """
+import gc, weakref, torch
+torch.set_num_threads(1)
+from repro_torch.configs.resnet_cifar import SMALL_CNN as cfg
+from repro_torch.core.baselines import PFedSOP
+from repro_torch.data import FederatedData, dirichlet_partition, make_class_conditional_images
+from repro_torch.fl import Federation, FLRunConfig, masked_accuracy
+from repro_torch.models import cnn
+
+def make():
+    images, labels = make_class_conditional_images(160, 10, 16, seed=0)
+    data = FederatedData.from_partition(
+        images, labels, dirichlet_partition(labels, 4, 0.3, seed=0), seed=0)
+    params = cnn.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    fed = Federation(PFedSOP(), lambda p, b: cnn.loss_fn(p, cfg, b),
+                     masked_accuracy(lambda p, t: cnn.apply(p, cfg, t["images"])), params,
+                     data, FLRunConfig(n_clients=4, rounds=1, seed=0, participation=0.5,
+                                       batch=8, local_iters=1), device="cpu")
+    fed.run()
+    return fed
+
+gc.disable()
+for i in range(2):
+    fed = make()
+    refs = weakref.ref(fed), weakref.ref(fed.store)
+    del fed
+    assert [r() is None for r in refs] == [True, True], ("alive after del", i)
+    gc.collect()
+    assert [r() is None for r in refs] == [True, True], ("alive after gc.collect", i)
+print("dead")
+"""
+
+
+def test_a_finished_federation_dies_with_its_last_reference():
+    """The first and the second federation of a process, and their device
+    stores, are freed by ``del`` alone (the cyclic collector off), and stay
+    freed after one ``gc.collect()``: nothing holds a finished run."""
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", _LIFETIME], capture_output=True, text=True,
+                         timeout=300, cwd=root,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    assert out.returncode == 0 and out.stdout.strip() == "dead", out.stderr[-3000:]

@@ -103,6 +103,33 @@ def test_flat_layout_matches_jax_leaf_order():
     assert torch.equal(stacked["stem"][1], 2 * tp["stem"])
 
 
+def test_tree_helpers_leave_no_reference_cycle():
+    """Flattening, unflattening and mapping a tree hold its leaves only as
+    long as their results: with the cyclic collector off, a leaf dies with
+    its last reference (at LM width a tree is GBs of device memory)."""
+    import gc
+    import weakref
+
+    from repro_torch.utils.pytree import (tree_flatten, tree_flatten_with_path, tree_map,
+                                          tree_unflatten)
+
+    tree = {"a": (torch.ones(3), {"b": torch.zeros(2)}), "c": [torch.ones(4)]}
+    refs = [weakref.ref(x) for x in tree_leaves(tree)]
+    enabled = gc.isenabled()
+    gc.disable()
+    try:
+        leaves, treedef = tree_flatten(tree)
+        back = tree_unflatten(treedef, leaves)
+        tree_flatten_with_path(back)
+        layout = FlatLayout(back)
+        layout.unflatten(layout.flatten(tree_map(lambda x: x * 2, back)))
+        del tree, leaves, back
+        assert all(r() is None for r in refs)
+    finally:
+        if enabled:
+            gc.enable()
+
+
 def _imports(path: Path):
     for node in ast.walk(ast.parse(path.read_text())):
         if isinstance(node, ast.Import):
