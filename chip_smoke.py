@@ -33,7 +33,7 @@ Phases (any failure exits non-zero; nothing is caught):
                   SDPA's backward.  Device times (torch.profiler; host time
                   and an L2 flush before each call left out) beside
                   the bound (bytes over 3.35 TB/s, or operations over the
-                  type's peak), the plain version's time and, where one
+                  type's peak; ``launch/roofline.py``), the plain version's time and, where one
                   PyTorch call computes the same function, that call's
                   time (never used by the port);
   4. small parity the port on the card against the same run on the CPU
@@ -115,8 +115,23 @@ Phases (any failure exits non-zero; nothing is caught):
                   prompt, 32 greedy steps: phase 12's checks (exact K4/K5
                   counts, the first step against a full forward, the
                   reference path within 2**-4) and its prefill ms, decode ms
-                  per step, tokens/s and peak memory.  Each phase prints its
-                  seconds.
+                  per step, tokens/s and peak memory;
+ 15. launch       ``launch/dryrun.py``'s prediction for ``steps.make_train_step``
+                  at phase 6's shape (gemma3-1b, one client, B = 2, S = 2048,
+                  T = 2), counted on the meta device, then the step on the
+                  card at full width and depth: the launches equal the
+                  prediction's, the peak device memory within 10 % of the
+                  predicted peak, the loss within phase 13's limit of the
+                  reference path's; the first local step's gradient per leaf
+                  against the reference path and an f32 run of it (scale
+                  drift and error ratio, ``grad_gaps``), and 7 planted
+                  kernel faults each failing that check; the wall and
+                  device time, counted FLOPs against ``model_flops``, the
+                  roofline terms and the new global delta's gap printed.  Then K1/K2 at C = 1, N = 4 against
+                  their plain versions, and ``scripts/torch_smoke_models.py``,
+                  ``scripts/torch_smoke_fl.py`` and
+                  ``examples/torch_quickstart.py`` on the card.  Each phase
+                  prints its seconds.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
 D = 80 readings under ``d80``; launches per path under
@@ -147,6 +162,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs.base import InputShape  # noqa: E402
 from repro_torch.configs.resnet_cifar import RESNET9_CIFAR100, SMALL_CNN  # noqa: E402
 from repro_torch.core.baselines import FedAvg, PFedSOP  # noqa: E402
 from repro_torch.core.pfedsop import PFedSOPConfig  # noqa: E402
@@ -165,12 +181,11 @@ from repro_torch.fl import (  # noqa: E402
     masked_accuracy,
 )
 from repro_torch.kernels import build as kernel_build  # noqa: E402
-from repro_torch.kernels.flash_gqa import grid  # noqa: E402
 from repro_torch.kernels.flash_gqa import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update import ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update.ref import coeff_from_sums, gompertz_beta  # noqa: E402
 from repro_torch.kernels.rmsnorm import ops as rms_ops  # noqa: E402
-from repro_torch.launch import profile_store  # noqa: E402
+from repro_torch.launch import dryrun, profile_store, roofline  # noqa: E402
 from repro_torch.launch import steps as lm_steps  # noqa: E402
 from repro_torch.launch import train_lm_pfedsop as lm_driver  # noqa: E402
 from repro_torch.launch.train_federated import METHOD_NAMES, build_method  # noqa: E402
@@ -184,9 +199,6 @@ from repro_torch.utils.pytree import (  # noqa: E402
     tree_unflatten,
 )
 
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_OPS_PER_S = 67e12  # H100 SXM f32 outside the tensor cores
-BF16_OPS_PER_S = 989e12  # H100 SXM dense bf16 tensor cores
 L2_FLUSH_BYTES = 256 * 2**20  # 5x the H100's 50 MB L2
 MAIN_C, MAIN_N = 20, 1_249_956  # K' = 0.2 * 100 clients; RESNET9_CIFAR100 params
 LM_N = 999_826_048  # gemma3-1b parameters (the LM path's C = 1 update)
@@ -289,11 +301,6 @@ def device_ms(fn, calls=10, warmup=2):
                          f"for {calls} calls, {ragged}, {us} us, flush {sorted(flush)}")
 
 
-def bound(nbytes, nops, ops_per_s=F32_OPS_PER_S):
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, nops / ops_per_s
-    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
-
-
 def reset_launches():
     for counts in (ops.LAUNCHES, rms_ops.LAUNCHES, flash_ops.LAUNCHES):
         for k in counts:
@@ -374,9 +381,9 @@ def check_kernels():
     dot, nl2, ng2 = partials.sum(1).unbind(-1)
     beta = gompertz_beta(dot, nl2, ng2, 1.0).contiguous()
     ec = (0.01 * coeff_from_sums(dot, nl2, ng2, beta, 1.0)).contiguous()
-    elems = MAIN_C * MAIN_N
-    b1, by1 = bound(di.nbytes + dg.nbytes + partials.nbytes, 6 * elems)
-    b2, by2 = bound(3 * x.nbytes + dg.nbytes + beta.nbytes + ec.nbytes, 5 * elems)
+    b1, by1 = roofline.bound_ms(
+        roofline.reduce3_cost(MAIN_C, MAIN_N, partials.shape[1], x.element_size()))
+    b2, by2 = roofline.bound_ms(roofline.update_cost(MAIN_C, MAIN_N, x.element_size()))
     rec = {
         "reduce3": dict(
             ms=device_ms(lambda: ops.reduce3_batched(di, dg)),
@@ -414,8 +421,9 @@ def check_update_c1():
     assert err2 <= 2.0 ** -23 * ref.abs().max().item(), err2
     del got, want, out, ref
     torch.cuda.empty_cache()
-    b1, _ = bound(di.nbytes + dg.nbytes + ops.n_tiles(LM_N) * 12, 6 * LM_N)
-    b2, _ = bound(3 * x.nbytes + dg.nbytes + 8, 5 * LM_N)
+    b1, _ = roofline.bound_ms(
+        roofline.reduce3_cost(1, LM_N, ops.n_tiles(LM_N), x.element_size()))
+    b2, _ = roofline.bound_ms(roofline.update_cost(1, LM_N, x.element_size()))
     rec = {
         "reduce3": dict(c1_ms=device_ms(lambda: ops.reduce3_batched(di, dg), calls=10),
                         c1_plain_ms=device_ms(lambda: ops.reduce3_batched_plain(di, dg),
@@ -470,7 +478,7 @@ def check_rmsnorm():
         torch.testing.assert_close(F.rms_norm(x, (1152,), weight=w, eps=1e-6),
                                    rms_ops.rmsnorm_fwd(x, sc), rtol=2.0 ** -5,
                                    atol=2.0 ** -5)
-    b, by = bound(2 * x.nbytes + sc.nbytes, 4 * x.numel(), BF16_OPS_PER_S)
+    b, by = roofline.bound_ms(roofline.rmsnorm_cost(*x.shape, x.element_size()))
     rec = dict(ms=device_ms(lambda: rms_ops.rmsnorm_fwd(x, sc)),
                plain_ms=device_ms(lambda: rms_ops.rmsnorm_plain(x, sc)),
                bound_ms=b, bound_by=by, library_ms=lib, max_abs_err=worst)
@@ -641,24 +649,22 @@ def time_flash(h, kv, d, windows, seed):
     for window in windows:
         out, lse = flash_ops.flash_fwd(q, k, v, window=window)
         delta = flash_ops.row_delta(do, out)
-        pairs = b * h * grid.attention_pairs(s, window)
-        io = q.nbytes + k.nbytes + v.nbytes
-        rows = lse.nbytes
+        shape = (b, s, h, kv, d, window, q.element_size())
         fns = {
             "flash_fwd": (lambda: flash_ops.flash_fwd(q, k, v, window=window),
                           lambda: flash_ops.flash_fwd_plain(q, k, v, window=window),
-                          io + out.nbytes + rows, 4 * d * pairs),
+                          roofline.flash_fwd_cost(*shape)),
             "flash_bwd_dq": (
                 lambda: flash_ops.flash_bwd_dq(q, k, v, do, lse, delta, window=window),
                 lambda: flash_ops.flash_bwd_dq_plain(q, k, v, do, lse, delta, window=window),
-                io + 2 * do.nbytes + 2 * rows, 6 * d * pairs),
+                roofline.flash_dq_cost(*shape)),
             "flash_bwd_dkv": (
                 lambda: flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta, window=window),
                 lambda: flash_ops.flash_bwd_dkv_plain(q, k, v, do, lse, delta, window=window),
-                io + do.nbytes + 2 * rows + k.nbytes + v.nbytes, 8 * d * pairs),
+                roofline.flash_dkv_cost(*shape)),
         }
-        for name, (kern, plain, nbytes, nops) in fns.items():
-            bnd, by = bound(nbytes, nops, BF16_OPS_PER_S)
+        for name, (kern, plain, cost) in fns.items():
+            bnd, by = roofline.bound_ms(cost)
             # K7's time includes its sum pass over the f32 head partials
             r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, calls=5, warmup=1),
                      bound_ms=bnd, bound_by=by)
@@ -704,8 +710,7 @@ def time_flash(h, kv, d, windows, seed):
     pk.normal_(generator=g)
     pv.normal_(generator=g)
     outs = flash_ops.flash_bwd_dkv_sum(pk, pv, kv)
-    bnd, by = bound(pk.nbytes + pv.nbytes + 2 * outs[0].nbytes,
-                    2 * (h // kv - 1) * outs[0].numel(), F32_OPS_PER_S)
+    bnd, by = roofline.bound_ms(roofline.flash_dkv_sum_cost(b, s, h, kv, d))
     recs["flash_bwd_dkv_sum"] = dict(
         ms=device_ms(lambda: flash_ops.flash_bwd_dkv_sum(pk, pv, kv)),
         plain_ms=device_ms(lambda: flash_ops.flash_bwd_dkv_sum_plain(pk, pv, kv)),
@@ -1249,6 +1254,22 @@ ARCH_SERVE_N = {"zamba2-2.7b": 1_981_756_080, "internvl2-2b": 1_701_695_488,
                 "musicgen-large": 3_254_978_560}
 
 
+def loss_and_grads(cfg, leaves, treedef, batch, f32=False):
+    """(loss, gradient leaves) of ``tf.lm_loss`` at ``leaves`` (cast to f32
+    with ``f32``)."""
+    ps = [(x.float() if f32 else x).detach().requires_grad_() for x in leaves]
+    loss = tf.lm_loss(tree_unflatten(treedef, ps), cfg, batch)
+    return loss.item(), torch.autograd.grad(loss, ps)
+
+
+def _tree_gap(got, want):
+    """|got - want| / |want| over every leaf, in f32."""
+    diff = sum(((a.float() - b.float()) ** 2).sum().item() for a, b in zip(got, want))
+    norm = sum((b.float() ** 2).sum().item() for b in want)
+    assert norm > 0 and math.isfinite(norm), norm
+    return math.sqrt(diff / norm)
+
+
 def arch_train_run(arch):
     """Phase 13: ``train_lm_pfedsop`` at ``arch``'s full width and depth,
     ``LM``'s loop (3 rounds, batch 2, seq_len 2048, 2 local iterations, eta
@@ -1296,11 +1317,6 @@ def arch_train_run(arch):
     ref_cfg = cfg.replace(kernel_impl="reference")
     leaves, treedef = tree_flatten(trained)
 
-    def loss_and_grads(c):
-        ps = [x.detach().requires_grad_() for x in leaves]
-        loss = tf.lm_loss(tree_unflatten(treedef, ps), c, batch)
-        return loss.item(), torch.autograd.grad(loss, ps)
-
     def logits(c):
         with torch.no_grad():
             return tf.lm_logits(trained, c, tf.forward(trained, c, batch)[0])
@@ -1309,14 +1325,10 @@ def arch_train_run(arch):
     err, rel = errors(logits(cfg), logits(ref_cfg))
     assert rel <= SERVE_RTOL, (arch, "kernel vs reference logits", err, rel)
     # the loss and its gradient, within 4x the sound runs' readings
-    loss_k, grads_k = loss_and_grads(cfg)
-    loss_r, grads_r = loss_and_grads(ref_cfg)
+    loss_k, grads_k = loss_and_grads(cfg, leaves, treedef, batch)
+    loss_r, grads_r = loss_and_grads(ref_cfg, leaves, treedef, batch)
     loss_rel = abs(loss_k - loss_r) / abs(loss_r)
-    diff = math.sqrt(sum(((a.float() - b.float()) ** 2).sum().item()
-                         for a, b in zip(grads_k, grads_r)))
-    norm = math.sqrt(sum((b.float() ** 2).sum().item() for b in grads_r))
-    assert norm > 0 and math.isfinite(norm), norm
-    grad_rel = diff / norm
+    grad_rel = _tree_gap(grads_k, grads_r)
     print(f"train[{arch}]: client 0's trained model, kernel path against the reference "
           f"path: logits max_abs_err {err:.4g}, relative {rel:.4g} (tol {SERVE_RTOL:.4g}); "
           f"loss {loss_k:.6f} / {loss_r:.6f} (rel diff {loss_rel:.4g}, tol "
@@ -1431,6 +1443,264 @@ def arch_serve_run(arch):
     return launches
 
 
+# phase 15: phase 6's local work for one client, as a train step
+LAUNCH_SHAPE = InputShape("lm_slice", seq_len=LM["seq_len"],
+                          global_batch=LM["local_iters"] * LM["batch"], kind="train")
+PEAK_RTOL = 0.10  # predicted against measured peak device memory
+ROOT = Path(__file__).resolve().parent
+SCRIPTS = (  # (path, launches of K1 and of K2 it must make, or None)
+    ("scripts/torch_smoke_models.py", None),
+    ("scripts/torch_smoke_fl.py", None),
+    ("examples/torch_quickstart.py", 48),  # 2 clients x the 24 rounds after round 0
+)
+
+
+# Phase 15's check that the kernel path is right, on the first local step's
+# gradient at the random init (bf16).  There the kernel path and the reference
+# path (``kernel_impl="reference"``) each sit ~2e-2 from the gradient an f32
+# run of the reference path gives, so |g_k - g_r| / |g_r| reads 1.8e-2 on a
+# sound run, and the step's new global delta, (x0 - xT) / eta of bf16
+# parameters whose updates are mostly below an ulp, reads 5.7e-2: both are
+# bf16 noise, too coarse to tell a kernel fault.  Two numbers per leaf do
+# (PERF.md, Findings, PR 18): the scale drift
+# <g_k - g_r, g_r> / |g_r|^2 and, on the leaves of at least
+# GRAD_RATIO_NUMEL elements (a norm's scale is too small a sample), the kernel
+# path's error against the f32 gradient over the reference path's.  On an
+# H100 the sound run reads 8.4e-4 and 1.005, and each planted fault of
+# ``GRAD_FAULTS`` reads above 1e-2 or 1.05 (the window faults: 2.7e-3 and
+# 1.30, 2.4e-3 and 1.52): the limits sit between.
+GRAD_SCALE_TOL = 5e-3
+GRAD_RATIO_TOL = 1.03
+GRAD_RATIO_NUMEL = 2 ** 16
+
+
+def _times(fn, factor, first_only=False):
+    """``fn`` with each tensor it returns (only the first, with
+    ``first_only``) multiplied by ``factor``."""
+    def wrapped(*a):
+        out = fn(*a)
+        if not isinstance(out, tuple):
+            return out * factor
+        return tuple(t * factor if i == 0 or not first_only else t for i, t in enumerate(out))
+    return wrapped
+
+
+def _window_less_one(fn, n_before):
+    """``fn`` with its ``window`` argument (after ``n_before`` tensors) one
+    smaller."""
+    def wrapped(*a):
+        a = list(a)
+        if a[n_before] is not None:
+            a[n_before] -= 1
+        return fn(*a)
+    return wrapped
+
+
+# planted faults: (module, attribute, wrapper), each wrapper a kernel of the
+# step slightly off, as a wrong constant, operand or mask in its wiring would be
+GRAD_FAULTS = {
+    "K5 output x1.01": ((flash_ops, "flash_fwd", lambda f: _times(f, 1.01, first_only=True)),),
+    "K5 window - 1": ((flash_ops, "flash_fwd", lambda f: _window_less_one(f, 3)),),
+    "K6 dq x1.01": ((flash_ops, "flash_bwd_dq", lambda f: _times(f, 1.01)),),
+    "K7 dk, dv x1.01": ((flash_ops, "flash_bwd_dkv", lambda f: _times(f, 1.01)),),
+    "K7 sum pass x1.01": ((flash_ops, "flash_bwd_dkv_sum", lambda f: _times(f, 1.01)),),
+    "K6, K7 window - 1": ((flash_ops, "flash_bwd_dq", lambda f: _window_less_one(f, 6)),
+                          (flash_ops, "flash_bwd_dkv", lambda f: _window_less_one(f, 6))),
+    "K4 output x1.01": ((rms_ops, "rmsnorm_fwd", lambda f: _times(f, 1.01)),),
+}
+
+
+def grad_gaps(g_k, g_r, g_t):
+    """The kernel path's gradient ``g_k`` against the reference path's ``g_r``
+    and the f32 one ``g_t``: (the largest |<g_k - g_r, g_r>| / |g_r|^2 over the
+    leaves, the largest |g_k - g_t| / |g_r - g_t| over the leaves of at least
+    ``GRAD_RATIO_NUMEL`` elements)."""
+    scale = ratio = 0.0
+    for k, r, t in zip(g_k, g_r, g_t):
+        k, r, t = k.float(), r.float(), t.float()
+        scale = max(scale, abs(((k - r) * r).sum().item()) / (r * r).sum().item())
+        if r.numel() >= GRAD_RATIO_NUMEL:
+            ratio = max(ratio, ((k - t).norm() / (r - t).norm()).item())
+    return scale, ratio
+
+
+def launch_tooling_run():
+    """Phase 15: the dry run's prediction for ``steps.make_train_step`` at
+    phase 6's shape (gemma3-1b, one client, B = 2, S = 2048, T = 2, bf16,
+    remat "block"), then the step on the card at full width and depth: the
+    launches must equal the prediction's, the peak device memory be within
+    ``PEAK_RTOL`` of the predicted peak, and the loss within phase 13's limit
+    of the reference path's.  The first local step's gradient is held per
+    leaf (``grad_gaps``), and each planted fault of ``GRAD_FAULTS`` must fail
+    that check.  Prints the wall and device time, the counted FLOPs against
+    ``model_flops``, the roofline terms and the new global delta's gap.
+    Returns the step's launches."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    assert cfg.remat == "block" and cfg.dtype == "bfloat16", (cfg.remat, cfg.dtype)
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
+    t0 = time.perf_counter()
+    rec = dryrun.run_one("gemma3-1b", LAUNCH_SHAPE, micro_batch=LM["batch"], save=False,
+                         verbose=False)
+    mem = rec["memory_analysis"]
+    predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+    print(f"launch[dryrun]: {rec['ops']} ops counted on the meta device in "
+          f"{time.perf_counter() - t0:.1f}s: launches {rec['launches']}; memory {mem}, "
+          f"peak {predicted} bytes ({predicted / 2**30:.3f} GiB), fits={rec['fits']}; "
+          f"flops {rec['cost_analysis']['flops']:.6g}, bytes "
+          f"{rec['cost_analysis']['bytes accessed']:.6g}", flush=True)
+
+    base = torch.cuda.memory_allocated()
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    assert sum(x.numel() for x in tree_leaves(params)) == LM_N
+    state = {"params": tree_map(lambda x: x.unsqueeze(0), params),
+             "delta": tree_map(lambda x: torch.zeros_like(x).unsqueeze(0), params)}
+    global_delta = tree_map(torch.zeros_like, params)
+    del params
+    stream = lm_driver.client_streams(cfg, 1, LM["batch"], LM["seq_len"])[0]
+    bs = [next(stream) for _ in range(LM["local_iters"])]
+    batches = {k: torch.from_numpy(np.stack([b[k] for b in bs])[None]).to(
+        device="cuda", dtype=torch.int32) for k in bs[0]}
+    args = (state, global_delta, batches)
+    held = sum(x.untyped_storage().nbytes() for x in tree_leaves(args))
+    assert held == mem["argument_size_in_bytes"], (held, mem)
+    step = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg)
+    del bs, stream
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    t0 = time.perf_counter()
+    new_state, new_global, loss = step(*args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = all_launches()
+    measured = torch.cuda.max_memory_allocated() - base
+    want = {**{k: 0 for k in launches}, **rec["launches"]}
+    print(f"launch[step]: wall {1e3 * wall:.3f} ms; launches {launches} (predicted "
+          f"{rec['launches']}); peak device memory {measured} bytes ({measured / 2**30:.3f} "
+          f"GiB) against the predicted {predicted} ({predicted / 2**30:.3f} GiB): "
+          f"{100 * (predicted - measured) / measured:+.2f}% (tol "
+          f"{100 * PEAK_RTOL:.0f}%)", flush=True)
+    assert launches == want, (launches, want)
+    assert abs(predicted - measured) <= PEAK_RTOL * measured, (predicted, measured)
+
+    def again():
+        step(*args)
+
+    busy = sum(e.self_device_time_total for e in profiled(
+        again, [torch.profiler.ProfilerActivity.CUDA])) / 1e3
+    rl = rec["roofline"]
+    mf = roofline.model_flops(cfg, LAUNCH_SHAPE)
+    print(f"launch[roofline]: device busy {busy:.3f} ms of the step (profiled run); counted "
+          f"FLOPs {rl['total_flops']:.6g} against model_flops {mf:.6g} (useful "
+          f"{mf / rl['total_flops']:.3f}); counted bytes {rl['total_bytes']:.6g}; terms "
+          f"compute {1e3 * rl['compute_s']:.3f} ms, memory {1e3 * rl['memory_s']:.3f} ms, "
+          f"dominant {rl['dominant']}; the compute term is "
+          f"{100 * 1e3 * rl['compute_s'] / busy:.1f}% of the step's device time and the memory "
+          f"term {100 * 1e3 * rl['memory_s'] / busy:.1f}%", flush=True)
+
+    ref_cfg = cfg.replace(kernel_impl="reference")
+    ref_pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0, update_impl="reference")
+    _, ref_global, ref_loss = lm_steps.make_train_step(ref_cfg, LAUNCH_SHAPE, ref_pcfg)(*args)
+    loss_k, loss_r = loss.item(), ref_loss.item()
+    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    delta_rel = _tree_gap(tree_leaves(new_global), tree_leaves(ref_global))
+    print(f"launch[step]: kernel path against the reference path: loss {loss_k:.6f} / "
+          f"{loss_r:.6f} (rel diff {loss_rel:.4g}, tol {TRAIN_LOSS_RTOL:.4g}); new global "
+          f"delta |d_k - d_r| / |d_r| {delta_rel:.4g} (printed only: bf16 rounding of "
+          f"sub-ulp updates)", flush=True)
+    assert math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_RTOL, (loss_k, loss_r)
+    del new_state, new_global, ref_global
+
+    # the first local step's gradient, per leaf, against the reference path
+    # and an f32 run of it (``grad_gaps``); then each planted fault of
+    # ``GRAD_FAULTS`` must fail the same check
+    leaves, treedef = tree_flatten(tree_map(lambda x: x[0], state["params"]))
+    first = {k: v[0, 0] for k, v in batches.items()}
+    del state, global_delta, args
+    l_t, g_t = loss_and_grads(ref_cfg.replace(dtype="float32"), leaves, treedef, first,
+                                f32=True)
+    l_r, g_r = loss_and_grads(ref_cfg, leaves, treedef, first)
+    l_k, g_k = loss_and_grads(cfg, leaves, treedef, first)
+    scale, ratio = grad_gaps(g_k, g_r, g_t)
+    print(f"launch[step]: its first local step, kernel / reference / f32 path: loss {l_k:.6f} "
+          f"/ {l_r:.6f} / {l_t:.6f}; gradient |g_k - g_r| / |g_r| {_tree_gap(g_k, g_r):.4g}, "
+          f"against f32 {_tree_gap(g_k, g_t):.4g} / {_tree_gap(g_r, g_t):.4g} (printed "
+          f"only); per leaf: scale drift {scale:.4g} (tol {GRAD_SCALE_TOL:.4g}), error "
+          f"against f32 over the reference path's {ratio:.4g} (tol {GRAD_RATIO_TOL:.4g})",
+          flush=True)
+    assert scale <= GRAD_SCALE_TOL and ratio <= GRAD_RATIO_TOL, (scale, ratio)
+    del g_k
+    for name, plants in GRAD_FAULTS.items():
+        kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in plants]
+        try:
+            for mod, attr, wrap in plants:
+                setattr(mod, attr, wrap(getattr(mod, attr)))
+            _, g_f = loss_and_grads(cfg, leaves, treedef, first)
+        finally:
+            for mod, attr, fn in kept:
+                setattr(mod, attr, fn)
+        f_scale, f_ratio = grad_gaps(g_f, g_r, g_t)
+        print(f"launch[step]: planted fault {name}: scale drift {f_scale:.4g}, error ratio "
+              f"{f_ratio:.4g}", flush=True)
+        assert f_scale > GRAD_SCALE_TOL or f_ratio > GRAD_RATIO_TOL, (name, f_scale, f_ratio)
+        del g_f
+    print(f"launch[step]: the check fails each of the {len(GRAD_FAULTS)} planted faults; "
+          f"phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    del batches, leaves, g_r, g_t
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def check_tiny_update():
+    """K1/K2 at the quickstart's C = 1, N = 4 (one tile of 4,096 holds the
+    whole row) against their plain versions, f32 and bf16."""
+    for dtype in (torch.float32, torch.bfloat16):
+        x, di, dg = make_operands(1, 4, dtype, True, seed=5)
+        got, want = ops.reduce3_batched(di, dg), ops.reduce3_batched_plain(di, dg)
+        assert got.shape == (1, ops.n_tiles(4), 3) == (1, 1, 3), got.shape
+        torch.testing.assert_close(got, want, rtol=1e-6, atol=0)
+        dot, nl2, ng2 = want.sum(1).unbind(-1)
+        beta = gompertz_beta(dot, nl2, ng2, 1.0).contiguous()
+        ec = (0.8 * coeff_from_sums(dot, nl2, ng2, beta, 1.0)).contiguous()
+        out = ops.update_batched(x, di, dg, beta, ec)
+        assert torch.equal(out, ops.update_batched_plain(x, di, dg, beta, ec)), dtype
+    print("scripts[K1/K2 at C=1, N=4]: equal to their plain versions, f32 and bf16", flush=True)
+
+
+def scripts_run():
+    """Phase 15's scripts, each on the card with the counters reset just
+    before: ``torch_smoke_models`` (the 10 reduced archs: f32 K4 and K5 at
+    D = 64, forward, loss and one decode step), ``torch_smoke_fl`` and the
+    quickstart (K1/K2 at C = 1, N = 4).  Each asserts finiteness as its
+    original does.  Returns {script: launches}."""
+    import importlib.util
+
+    check_tiny_update()
+    out = {}
+    for rel, k12 in SCRIPTS:
+        t0 = time.perf_counter()
+        spec = importlib.util.spec_from_file_location(Path(rel).stem, ROOT / rel)
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        reset_launches()
+        mod.main(["--device", "cuda"])
+        torch.cuda.synchronize()
+        out[Path(rel).stem] = launches = all_launches()
+        print(f"scripts[{rel}]: passed in {time.perf_counter() - t0:.1f}s; launches "
+              f"{launches}", flush=True)
+        if k12 is not None:
+            assert launches["reduce3"] == launches["update"] == k12, (rel, launches)
+        assert any(launches.values()), (rel, launches)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
@@ -1504,6 +1774,8 @@ def main():
         paths["lm_" + arch.replace("-", "_").replace(".", "_")] = arch_train_run(arch)
     for arch in ARCH_SERVE_N:
         paths["serve_" + arch.replace("-", "_").replace(".", "_")] = arch_serve_run(arch)
+    paths["train_step_gemma3_1b"] = launch_tooling_run()
+    paths.update(scripts_run())
 
     def record(name, key, source, replaces):
         r = dict(rec[key])

@@ -27,6 +27,12 @@ whose backward is K6 + K7, with delta a torch op between them as
 (``ref.flash_gqa_ref``) under plain autograd.  ``LAUNCHES`` counts kernel
 launches (never plain calls); the K7 sum pass has its own key.
 
+A meta tensor takes the CUDA path up to each launch: the same checks, the
+same outputs and scratch (the LSE; K7's f32 head partials and its sum pass
+at G > 1 in bf16), and in place of the launch a record of it, with its cost,
+in ``repro_torch.kernels.meta`` (the dry run's shape-and-cost model; never
+in ``LAUNCHES``).
+
 The kernels take the canonical positions arange(S): key j is visible to
 query i iff j <= i and i - j < window.  Masked scores are NEG_INF in the
 plain versions, as in ``repro``; the CUDA kernels keep them out of exp.
@@ -39,6 +45,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import costs, meta
 from repro_torch.kernels.build import bind, check_launch
 from repro_torch.kernels.dispatch import check_impl, kernel_scope
 from repro_torch.kernels.flash_gqa.ref import NEG_INF, flash_gqa_ref, visible_mask
@@ -114,21 +121,30 @@ def _check(q, k, v, window, *rows, **more):
             raise ValueError(f"operands on {t.device} and {q.device}")
         if not t.is_contiguous():
             raise ValueError("operands must be contiguous")
-    if q.is_cuda and d not in HEAD_DIMS:
+    if (q.is_cuda or q.is_meta) and d not in HEAD_DIMS:
         raise ValueError(f"the CUDA kernels take head_dim in {HEAD_DIMS}, got {d}")
     return b, s, h, kv, d
 
 
-def _launch(kind, *args, dtype, b, s, h, kv, d, window, softcap, scale):
-    """Launch ``flash_gqa_<kind>`` (bf16: ``flash_gqa_sm90_<kind>``) on
-    ``args`` (the pointers, and the sm90 dq pass's output dtype) and count it
-    under ``flash_<kind>``."""
+_COSTS = {"fwd": costs.flash_fwd_cost, "bwd_dq": costs.flash_dq_cost,
+          "bwd_dkv": costs.flash_dkv_cost}
+
+
+def _launch(kind, tensors, *extra, dtype, b, s, h, kv, d, window, softcap, scale):
+    """Launch ``flash_gqa_<kind>`` (bf16: ``flash_gqa_sm90_<kind>``) on the
+    pointers of ``tensors`` and ``extra`` (the sm90 dq pass's output dtype)
+    and count it under ``flash_<kind>``; on meta tensors record it with its
+    cost instead."""
+    if tensors[0].is_meta:
+        meta.launch(f"flash_{kind}", _COSTS[kind](b, s, h, kv, d, window, dtype.itemsize))
+        return
     lib, prefix = ((_sm90_lib(), "flash_gqa_sm90") if dtype == torch.bfloat16
                    else (_lib(), "flash_gqa"))
     name = f"{prefix}_{kind}"
-    err = getattr(lib, name)(*args, _DTYPE_CODES[dtype], b, s, h, kv, d,
-                             window or 0, softcap or 0.0, scale,
-                             torch.cuda.current_stream().cuda_stream)
+    with torch.cuda.device(tensors[0].device):
+        err = getattr(lib, name)(*(t.data_ptr() for t in tensors), *extra,
+                                 _DTYPE_CODES[dtype], b, s, h, kv, d, window or 0,
+                                 softcap or 0.0, scale, torch.cuda.current_stream().cuda_stream)
     check_launch(lib, err, name, prefix)
     LAUNCHES[f"flash_{kind}"] += 1
 
@@ -213,14 +229,12 @@ def flash_bwd_dkv_sum_plain(pk, pv, kv):
 def flash_fwd(q, k, v, window=None, softcap=None, scale=None):
     """K5 on the card for CUDA tensors; the plain version for CPU ones."""
     b, s, h, kv, d = _check(q, k, v, window)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return flash_fwd_plain(q, k, v, window, softcap, scale)
     out = torch.empty_like(q)
     lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("fwd", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                out.data_ptr(), lse.data_ptr(), dtype=q.dtype, b=b, s=s, h=h, kv=kv,
-                d=d, window=window, softcap=softcap, scale=_scale(d, scale))
+    _launch("fwd", (q, k, v, out, lse), dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d,
+            window=window, softcap=softcap, scale=_scale(d, scale))
     return out, lse
 
 
@@ -230,20 +244,16 @@ def _dq(q, k, v, dout, lse, delta, window, softcap, scale, dq_dtype):
     b, s, h, d = q.shape
     kv = k.shape[2]
     dq = torch.empty(q.shape, dtype=dq_dtype, device=q.device)
-    args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
-            delta.data_ptr(), dq.data_ptr()]
-    if q.dtype == torch.bfloat16:
-        args.append(_DTYPE_CODES[dq_dtype])
-    with torch.cuda.device(q.device):
-        _launch("bwd_dq", *args, dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
-                softcap=softcap, scale=_scale(d, scale))
+    extra = (_DTYPE_CODES[dq_dtype],) if q.dtype == torch.bfloat16 else ()
+    _launch("bwd_dq", (q, k, v, dout, lse, delta, dq), *extra, dtype=q.dtype, b=b, s=s,
+            h=h, kv=kv, d=d, window=window, softcap=softcap, scale=_scale(d, scale))
     return dq
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
     """K6 on the card for CUDA tensors; the plain version for CPU ones."""
     _check(q, k, v, window, lse, delta, dout=dout)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return flash_bwd_dq_plain(q, k, v, dout, lse, delta, window, softcap, scale)
     return _dq(q, k, v, dout, lse, delta, window, softcap, scale, q.dtype)
 
@@ -251,7 +261,7 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, window=None, softcap=None, scale=Non
 def flash_bwd_dq_wide(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
     """bf16 K6 on the card before its final rounding: dq (B,S,H,D) in f32."""
     _check(q, k, v, window, lse, delta, dout=dout)
-    if not (q.is_cuda and q.dtype == torch.bfloat16):
+    if not ((q.is_cuda or q.is_meta) and q.dtype == torch.bfloat16):
         raise ValueError(f"the wide dq comes from bf16 CUDA tensors, got {q.dtype} on "
                          f"{q.device}")
     return _dq(q, k, v, dout, lse, delta, window, softcap, scale, torch.float32)
@@ -260,7 +270,7 @@ def flash_bwd_dq_wide(q, k, v, dout, lse, delta, window=None, softcap=None, scal
 def flash_bwd_dkv(q, k, v, dout, lse, delta, window=None, softcap=None, scale=None):
     """K7 on the card for CUDA tensors; the plain version for CPU ones."""
     b, s, h, kv, d = _check(q, k, v, window, lse, delta, dout=dout)
-    if not q.is_cuda:
+    if not (q.is_cuda or q.is_meta):
         return flash_bwd_dkv_plain(q, k, v, dout, lse, delta, window, softcap, scale)
     # bf16 at G > 1: the tensor-core kernel writes f32 per-query-head
     # partials, which the sum pass adds in head order (no atomics)
@@ -268,11 +278,8 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, window=None, softcap=None, scale=No
         return flash_bwd_dkv_sum(*flash_bwd_dkv_partials(q, k, v, dout, lse, delta, window,
                                                          softcap, scale), kv)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        _launch("bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
-                softcap=softcap, scale=_scale(d, scale))
+    _launch("bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), dtype=q.dtype, b=b, s=s, h=h,
+            kv=kv, d=d, window=window, softcap=softcap, scale=_scale(d, scale))
     return dk, dv
 
 
@@ -280,16 +287,13 @@ def flash_bwd_dkv_partials(q, k, v, dout, lse, delta, window=None, softcap=None,
     """bf16 K7 at G > 1 on the card, before its sum pass: the f32 dk and dv
     partials of each query head, (B,S,H,D) each."""
     b, s, h, kv, d = _check(q, k, v, window, lse, delta, dout=dout)
-    if not (q.is_cuda and q.dtype == torch.bfloat16 and h > kv):
+    if not ((q.is_cuda or q.is_meta) and q.dtype == torch.bfloat16 and h > kv):
         raise ValueError(f"per-head partials come from bf16 CUDA tensors with H > KV, got "
                          f"{q.dtype} on {q.device}, H={h} KV={kv}")
     dk = torch.empty(q.shape, dtype=torch.float32, device=q.device)
     dv = torch.empty(q.shape, dtype=torch.float32, device=q.device)
-    with torch.cuda.device(q.device):
-        _launch("bwd_dkv", q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-                dv.data_ptr(), dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d, window=window,
-                softcap=softcap, scale=_scale(d, scale))
+    _launch("bwd_dkv", (q, k, v, dout, lse, delta, dk, dv), dtype=q.dtype, b=b, s=s, h=h,
+            kv=kv, d=d, window=window, softcap=softcap, scale=_scale(d, scale))
     return dk, dv
 
 
@@ -303,11 +307,14 @@ def flash_bwd_dkv_sum(pk, pv, kv):
         raise ValueError(f"need contiguous f32 partials (B,S,H,D) with H a multiple "
                          f"of {kv} and D of 4, got {tuple(pk.shape)} {pk.dtype}, "
                          f"{tuple(pv.shape)} {pv.dtype}")
-    if not pk.is_cuda:
+    if not (pk.is_cuda or pk.is_meta):
         return flash_bwd_dkv_sum_plain(pk, pv, kv)
     b, s, h, d = pk.shape
     dk = torch.empty((b, s, kv, d), dtype=torch.bfloat16, device=pk.device)
     dv = torch.empty_like(dk)
+    if pk.is_meta:
+        meta.launch("flash_bwd_dkv_sum", costs.flash_dkv_sum_cost(b, s, h, kv, d))
+        return dk, dv
     with torch.cuda.device(pk.device):
         lib = _sm90_lib()
         err = lib.flash_gqa_sm90_dkv_sum(pk.data_ptr(), pv.data_ptr(), dk.data_ptr(),

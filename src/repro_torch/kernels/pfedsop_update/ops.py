@@ -14,7 +14,10 @@ flat parameter rows ``x``/``delta_i`` ``(C, N)`` and the server delta
 ``pfedsop_update`` is the one-client (C = 1) case.  Each wrapper launches
 its CUDA kernel (``csrc/pfedsop_update.cu``) for a CUDA tensor and runs
 its plain PyTorch version (``*_plain``) for a CPU tensor; there is no
-other fallback.  ``LAUNCHES`` counts kernel launches (never plain calls).
+other fallback.  A meta tensor takes the CUDA path's allocations and
+records its launch with ``repro_torch.kernels.meta`` in place of launching
+(the dry run's shape-and-cost model).  ``LAUNCHES`` counts kernel launches
+(never plain calls, never meta ones).
 
 Operands are used in place: no flatten, pad or copy.  The tile count T
 depends on N alone (``n_tiles``), so the partials, and the sums made
@@ -29,6 +32,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import costs, meta
 from repro_torch.kernels.build import bind, check_launch
 from repro_torch.kernels.dispatch import check_impl
 from repro_torch.kernels.pfedsop_update.ref import (
@@ -121,11 +125,15 @@ def reduce3_batched_plain(delta_i, delta_g):
 def reduce3_batched(delta_i, delta_g):
     """K1 on the card for CUDA tensors; the plain version for CPU ones."""
     c, n, dg_stride = _operands(delta_i, delta_g)
-    if not delta_i.is_cuda:
+    if not (delta_i.is_cuda or delta_i.is_meta):
         return reduce3_batched_plain(delta_i, delta_g)
     tiles = n_tiles(n)
     partials = torch.empty((c, tiles, 3), dtype=torch.float32,
                            device=delta_i.device)
+    if delta_i.is_meta:
+        meta.launch("reduce3", costs.reduce3_cost(c, n, tiles, delta_i.element_size(),
+                                                     shared=dg_stride == 0))
+        return partials
     with torch.cuda.device(delta_i.device):
         err = _lib().pfedsop_reduce3(
             delta_i.data_ptr(), delta_g.data_ptr(), _DTYPE_CODES[delta_i.dtype],
@@ -153,9 +161,13 @@ def update_batched(x, delta_i, delta_g, beta, eta_coeff):
     if x.shape != delta_i.shape:
         raise ValueError(f"x {tuple(x.shape)} != delta_i {tuple(delta_i.shape)}")
     _scalars(c, x.device, beta, eta_coeff)
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return update_batched_plain(x, delta_i, delta_g, beta, eta_coeff)
     out = torch.empty_like(x)
+    if x.is_meta:
+        meta.launch("update", costs.update_cost(c, n, x.element_size(),
+                                                   shared=dg_stride == 0))
+        return out
     with torch.cuda.device(x.device):
         err = _lib().pfedsop_update(
             x.data_ptr(), delta_i.data_ptr(), delta_g.data_ptr(),

@@ -10,8 +10,10 @@ and its backward is autograd of the oracle (``ref.rmsnorm_ref``) on the
 saved inputs, as ``repro``'s VJP of its oracle: there is no backward
 kernel.  ``impl`` follows ``repro_torch.kernels.dispatch``: "auto" and
 "kernel" go through ``rmsnorm_fwd`` ("kernel" refuses CPU tensors),
-"reference" runs the oracle with plain autograd.  ``LAUNCHES`` counts
-kernel launches (never plain calls).
+"reference" runs the oracle with plain autograd.  A meta tensor gets K4's
+output and records its launch with ``repro_torch.kernels.meta`` (the dry
+run's shape-and-cost model).  ``LAUNCHES`` counts kernel launches (never
+plain calls, never meta ones).
 """
 from __future__ import annotations
 
@@ -21,6 +23,7 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.kernels import costs, meta
 from repro_torch.kernels.build import bind, check_launch
 from repro_torch.kernels.dispatch import check_impl
 from repro_torch.kernels.rmsnorm.ref import rmsnorm_ref
@@ -63,11 +66,14 @@ def rmsnorm_fwd(x, scale, eps: float = 1e-6):
         raise ValueError(f"x on {x.device}, scale on {scale.device}")
     if not (x.is_contiguous() and scale.is_contiguous()):
         raise ValueError("x and scale must be contiguous")
-    if not x.is_cuda:
+    if not (x.is_cuda or x.is_meta):
         return rmsnorm_plain(x, scale, eps)
     y = torch.empty_like(x)
     rows, d = x.shape
     if rows == 0:
+        return y
+    if x.is_meta:
+        meta.launch("rmsnorm", costs.rmsnorm_cost(rows, d, x.element_size()))
         return y
     with torch.cuda.device(x.device):
         err = _lib().rmsnorm_fwd(x.data_ptr(), scale.data_ptr(), _DTYPE_CODES[x.dtype],

@@ -1,0 +1,289 @@
+"""Dry run at one device: count a whole step on the meta device.
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --all
+
+Port of ``repro/launch/dryrun.py`` at one device.  ``repro`` lowers the step
+with ``ShapeDtypeStruct`` stand-ins and reads XLA's analyses; the port runs
+the real step once on meta tensors (``steps.input_specs``), which have
+shapes, dtypes and storage sizes and no data, so nothing is allocated and
+every op of the step is seen.  The kernels take their meta path
+(``repro_torch.kernels.meta``): the CUDA path's outputs and scratch, and a
+record of each launch with its cost.  Per (arch x shape) it writes
+``experiments/dryrun_torch/<arch>__<shape>__1.json`` with ``repro``'s keys:
+
+  memory_analysis  argument bytes (the inputs' storages), output bytes (the
+                   result's new storages) and temp bytes (the peak of the
+                   live meta storages minus the arguments): the step's peak
+                   device memory is argument + temp;
+  cost_analysis    flops (``torch.utils.flop_counter.FlopCounterMode`` plus
+                   the kernels' counted FLOPs) and bytes accessed (every
+                   op's operand and result bytes, the unfused eager traffic
+                   the card pays, plus the kernels' counted bytes);
+  collectives      {} (one device; ROADMAP.md queue 1, item 16);
+  roofline         ``roofline.roofline_terms`` on the H100's rates;
+
+and the port's own ``launches`` (per kernel), ``kernels`` (their FLOPs and
+bytes) and ``fits`` (the peak against the card's 80 GB).  ``--mesh single``
+is the only layout; the mesh layouts and the ``seqshard`` variant come with
+item 16.  ``moe_dispatch`` / ``moe_grouped`` run the capacity-based MoE
+dispatch, whose shapes are static (set by the capacity, not the routing).
+
+The live-bytes tracker (``MemoryCounter``) follows each storage an op
+returns until its last reference goes: the peak it reads is the caching
+allocator's ``max_memory_allocated`` on the card, less the allocator's
+rounding (512 bytes a block), the cuBLAS workspace and the scratch of ATen
+kernels that the dispatcher does not see.  The largest such scratch on the
+train path is ``logsumexp``'s, which ATen's kernel computes as
+``sum(exp(x - max))`` into a temporary of its input's size (the f32 logits
+of the cross-entropy); ``SCRATCH`` adds it.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+import traceback
+import weakref
+from pathlib import Path
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
+from torch.utils.flop_counter import FlopCounterMode
+
+from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
+from repro_torch.configs.base import InputShape
+from repro_torch.kernels import meta
+from repro_torch.launch import steps as st
+from repro_torch.launch.roofline import HBM_CAPACITY, roofline_terms
+from repro_torch.utils.pytree import tree_leaves
+
+ART_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
+VARIANTS = {"baseline": None, "moe_dispatch": "dispatch", "moe_grouped": "dispatch_grouped"}
+
+aten = torch.ops.aten
+# ops that allocate or alias without moving data
+_NO_TRAFFIC = {aten.empty.memory_format, aten.empty_strided.default, aten.empty_like.default,
+               aten.new_empty.default, aten.new_empty_strided.default,
+               aten._unsafe_view.default, aten.lift_fresh.default}
+# scratch an ATen kernel allocates inside one op, in bytes, from its inputs
+SCRATCH = {aten.logsumexp.default: lambda x, *_: x.numel() * x.element_size()}
+
+
+def _tensors(tree):
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def _is_view(func) -> bool:
+    rets = func._schema.returns
+    return bool(rets) and all(r.alias_info is not None and not r.alias_info.is_write
+                              for r in rets)
+
+
+class MemoryCounter(TorchDispatchMode):
+    """Live bytes of the storages that ops return, from each op until its
+    storage's last reference goes (a finalizer on the storage), and the bytes
+    every op reads and writes.
+
+    ``held``: tensors alive before the count starts (the step's arguments);
+    their storages count as live throughout.  ``peak`` is the most bytes
+    live at once, ``traffic`` the sum over ops of operand and result bytes
+    (views, allocations and aliases move nothing)."""
+
+    def __init__(self, held=()):
+        super().__init__()
+        self._live = {}  # storage key -> bytes
+        for t in _tensors(held):
+            s = t.untyped_storage()
+            self._live[s._cdata] = s.nbytes()
+        self._held = set(self._live)
+        self.held = self.live = self.peak = sum(self._live.values())
+        self.traffic = 0
+        self.ops = 0
+
+    def _free(self, key, n):
+        if self._live.pop(key, None) is not None:
+            self.live -= n
+
+    def _track(self, t):
+        s = t.untyped_storage()
+        key = s._cdata
+        if key not in self._live:
+            n = self._live[key] = s.nbytes()
+            self.live += n
+            weakref.finalize(s, self._free, key, n)
+
+    def storage_bytes(self, tree) -> int:
+        """Bytes of the distinct storages under ``tree`` not held at the start."""
+        seen = {t.untyped_storage()._cdata: t.untyped_storage().nbytes()
+                for t in _tensors(tree)}
+        return sum(n for k, n in seen.items() if k not in self._held)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        outs = _tensors(out)
+        for t in outs:
+            self._track(t)
+        scratch = SCRATCH[func](*args, **kwargs) if func in SCRATCH else 0
+        self.peak = max(self.peak, self.live + scratch)
+        self.ops += 1
+        if func not in _NO_TRAFFIC and not _is_view(func):
+            self.traffic += sum(t.numel() * t.element_size()
+                                for t in _tensors((args, kwargs)) + outs)
+        return out
+
+
+def count(step, args):
+    """Run ``step(*args)`` once on meta tensors and count it: returns (the
+    result, {"flops", "bytes", "launches", "kernels", "argument", "output",
+    "temp", "peak", "ops"})."""
+    with FlopCounterMode(display=False) as flops, meta.census() as census, \
+            MemoryCounter(args) as mem:
+        out = step(*args)
+    return out, {
+        "flops": flops.get_total_flops() + sum(census.flops.values()),
+        "bytes": mem.traffic + sum(census.bytes.values()),
+        "launches": dict(census.launches),
+        "kernels": {k: {"launches": n, "flops": census.flops[k], "bytes": census.bytes[k]}
+                    for k, n in census.launches.items()},
+        "argument": mem.held, "output": mem.storage_bytes(out),
+        "temp": mem.peak - mem.held, "peak": mem.peak, "ops": mem.ops,
+    }
+
+
+def _per_client(step, client_args):
+    """A serving step (one client's trees) over the leading client axis of
+    the arguments at the positions ``client_args``."""
+    def run(*args):
+        n = tree_leaves(args[0])[0].shape[0]
+        return st.stack_clients([
+            step(*(st.client_tree(a, i) if j in client_args else a for j, a in enumerate(args)))
+            for i in range(n)])
+    return run
+
+
+def resolve_shape(shape) -> InputShape:
+    return INPUT_SHAPES[shape] if isinstance(shape, str) else shape
+
+
+def micro_batch_for(cfg, micro_batch: int) -> int:
+    """The train micro batch: the arch's own when the default is asked for."""
+    return min(micro_batch, cfg.train_micro_batch) if micro_batch == st.MICRO_BATCH else micro_batch
+
+
+def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
+                 variant: str = "baseline", t_override=None, cfg=None, n_clients: int = 1):
+    """The step and its meta inputs for one (arch, shape): (step, args, meta)."""
+    cfg = cfg or get_config(arch)
+    if variant == "seqshard":
+        raise NotImplementedError(
+            "variant 'seqshard' shards the sequence over a mesh; see ROADMAP.md "
+            "queue 1, item 16")
+    if variant not in VARIANTS:
+        raise ValueError(f"unknown variant {variant!r}; choose from {tuple(VARIANTS)}")
+    if VARIANTS[variant]:
+        cfg = cfg.replace(moe_impl=VARIANTS[variant])
+    shape = resolve_shape(shape)
+    micro_batch = micro_batch_for(cfg, micro_batch)
+    specs = st.input_specs(cfg, shape, n_clients=n_clients, micro_batch=micro_batch,
+                           t_override=t_override)
+    rcfg = st.resolve_cfg(cfg, shape)
+    if shape.kind == "train":
+        step = st.make_train_step(cfg, shape)
+        args = (specs["state"], specs["global_delta"], specs["batches"])
+    elif shape.kind == "prefill":
+        step = _per_client(st.make_prefill_step(cfg, shape), (0, 1))
+        args = (specs["params"], specs["batch"])
+    else:
+        step = _per_client(st.make_serve_step(cfg, shape), (0, 1, 3))
+        args = (specs["params"], specs["batch"], specs["pos"], specs["caches"])
+    info = {
+        "arch": arch, "shape": shape.name, "mesh": "1", "variant": variant, "n_devices": 1,
+        "kind": shape.kind,
+        "micro_batch": micro_batch if shape.kind == "train" else None,
+        "long_context_mode": rcfg.long_context_mode if shape.name == "long_500k" else None,
+        "cfg_name": rcfg.name,
+    }
+    return step, args, info
+
+
+def run_one(arch: str, shape, save: bool = True, verbose: bool = True,
+            variant: str = "baseline", micro_batch: int = st.MICRO_BATCH,
+            mesh: str = "single", cfg=None, t_override=None):
+    """Count one (arch, shape) step on the meta device; returns the record.
+
+    ``shape``: a name of ``INPUT_SHAPES`` or an ``InputShape``; ``cfg``
+    replaces ``get_config(arch)`` (the calibration's unrolled configs)."""
+    if mesh != "single":
+        raise NotImplementedError(
+            f"mesh {mesh!r}: only the one-device layout is ported; the mesh "
+            "layouts come with ROADMAP.md queue 1, item 16")
+    t0 = time.time()
+    step, args, record = build_inputs(arch, shape, micro_batch, variant, t_override, cfg)
+    _, c = count(step, args)
+    record["count_s"] = round(time.time() - t0, 2)
+    record["memory_analysis"] = {"argument_size_in_bytes": c["argument"],
+                                 "output_size_in_bytes": c["output"],
+                                 "temp_size_in_bytes": c["temp"]}
+    record["cost_analysis"] = {"flops": float(c["flops"]), "bytes accessed": float(c["bytes"])}
+    record["collectives"] = {}
+    record["launches"] = c["launches"]
+    record["kernels"] = c["kernels"]
+    record["ops"] = c["ops"]
+    record["peak_bytes"] = c["peak"]
+    record["fits"] = c["peak"] <= HBM_CAPACITY
+    record["roofline"] = roofline_terms(record, n_devices=1)
+
+    if verbose:
+        print(f"== {arch} x {record['shape']} [1] ({variant}) ==")
+        print(f"   counted {c['ops']} ops in {record['count_s']:.1f}s")
+        print(f"   memory_analysis: {record['memory_analysis']}; peak "
+              f"{c['peak'] / 2**30:.3f} GiB, fits={record['fits']}")
+        print(f"   cost: flops={record['cost_analysis']['flops']:.6g} "
+              f"bytes={record['cost_analysis']['bytes accessed']:.6g}")
+        print(f"   launches: {record['launches']}")
+        print(f"   roofline: {record['roofline']}")
+    if save:
+        ART_DIR.mkdir(parents=True, exist_ok=True)
+        tag = f"{arch}__{record['shape']}__1"
+        if variant != "baseline":
+            tag += f"__{variant}"
+        (ART_DIR / f"{tag}.json").write_text(json.dumps(record, indent=1))
+    return record
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--arch", choices=list(ARCH_NAMES), default=None)
+    ap.add_argument("--shape", choices=list(INPUT_SHAPES), default=None)
+    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    ap.add_argument("--all", action="store_true")
+    ap.add_argument("--variant", default="baseline")
+    ap.add_argument("--micro-batch", type=int, default=st.MICRO_BATCH)
+    args = ap.parse_args(argv)
+
+    archs = list(ARCH_NAMES) if (args.all or args.arch is None) else [args.arch]
+    shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
+    failures = []
+    for arch in archs:
+        for shape in shapes:
+            try:
+                run_one(arch, shape, variant=args.variant, micro_batch=args.micro_batch,
+                        mesh=args.mesh)
+            except NotImplementedError:
+                raise
+            except Exception as e:  # noqa: BLE001 - report, keep sweeping
+                failures.append((arch, shape, repr(e)))
+                print(f"!! FAIL {arch} x {shape}: {e}")
+                traceback.print_exc()
+    if failures:
+        print(f"\n{len(failures)} FAILURES:")
+        for f in failures:
+            print("  ", f)
+        raise SystemExit(1)
+    print("\nALL DRY-RUNS PASSED")
+
+
+if __name__ == "__main__":
+    main()

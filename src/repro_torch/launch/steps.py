@@ -1,26 +1,50 @@
-"""Serving steps (port of the single-device half of
-``repro/launch/steps.py``).
+"""Step definitions: the one-device half of ``repro/launch/steps.py``.
 
+The pFedSOP train step (the paper's Algorithm 3 over a leading client axis):
+
+  per client (a loop over the leading axis):
+    1. personalize: Gompertz-weighted aggregation of (local delta, global
+       delta) + Sherman-Morrison FIM step  (``core/pfedsop.py::
+       tree_personalize``: one C = 1 launch pair of K1/K2 on the card)
+    2. T local SGD iterations, one per microbatch (``optim/sgd.py::
+       tree_sgd_loop``)
+    3. new local delta = (x0 - xT) / eta2
+  server:
+    4. global delta = the canonical cohort mean over the client axis (Eq. 13)
+
+Serving:
   make_prefill_step  full forward, last-position logits
   make_serve_step    one new token against the KV caches; greedy sampling
                      (``argmax``: ties go to the first index, as in JAX)
 
-and the batch layouts they take, per modality frontend (``repro``'s
-``_token_batch`` / ``_decode_batch``), as ``{name: (shape, dtype)}``
-specs.
+``input_specs(cfg, shape)`` builds meta-device stand-ins for every input,
+leaf for leaf ``repro``'s ``ShapeDtypeStruct``s (a leading client axis on
+the per-client inputs): no allocation, no draw.  ``abstract_params`` and
+``abstract_caches`` are the model's trees on the meta device.  The batch
+layouts per modality frontend (``repro``'s ``_token_batch`` /
+``_decode_batch``) are ``{name: (shape, dtype)}`` specs.
 
-``repro``'s steps carry a leading pod axis and ``vmap`` over it; that axis
-belongs to the multi-device mesh (ROADMAP.md queue 1, item 16), so these
-take the unbatched tree of one pod.  The pFedSOP train step and
-``input_specs`` (the stacked per-client specs) come with that item too.
+The serving steps take the unbatched tree of one client; the train step
+takes the client axis.  ``repro``'s ``engine=`` (the mesh backends) and its
+pod axis belong to the multi-device slice (ROADMAP.md queue 1, item 16).
 """
 from __future__ import annotations
 
+from typing import Any, Dict, Optional
+
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import InputShape, ModelConfig
+from repro_torch.core import pfedsop as pf
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import apply_long_context
+from repro_torch.optim.reduce import cohort_mean
+from repro_torch.optim.sgd import tree_sgd_loop
+from repro_torch.utils.pytree import tree_map, tree_stack
+
+MICRO_BATCH = 32  # per-SGD-iteration batch for train_4k (T = 256/32 = 8)
+META = torch.device("meta")
 
 
 def resolve_cfg(cfg: ModelConfig, shape: InputShape) -> ModelConfig:
@@ -85,3 +109,161 @@ def make_serve_step(cfg: ModelConfig, shape: InputShape):
         return logits.argmax(-1).to(torch.int32), caches
 
     return serve_step
+
+
+# ---------------------------------------------------------------------------
+# Meta-device input builders
+# ---------------------------------------------------------------------------
+
+
+class _OnMeta(TorchDispatchMode):
+    """Every op that names a device runs on the meta device instead: the
+    initializers' draws (``torch.randn(..., generator=g, device=g.device)``)
+    make meta tensors of their shape and dtype and draw nothing."""
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = dict(kwargs or {})
+        if "device" in kwargs:
+            kwargs["device"] = META
+        return func(*args, **kwargs)
+
+
+def _meta_leaves(specs: dict) -> dict:
+    return {k: torch.empty(shape, dtype=dtype, device=META) for k, (shape, dtype) in specs.items()}
+
+
+def abstract_params(cfg: ModelConfig) -> Any:
+    """``tf.init_params``'s tree on the meta device (a full olmoe-1b-7b tree
+    is 6.8 G elements, which a draw on the CPU cannot afford)."""
+    with _OnMeta():
+        return tf.init_params(torch.Generator(), cfg, device=META)
+
+
+def abstract_caches(cfg: ModelConfig, batch: int, seq_len: int) -> Any:
+    """``tf.init_caches``'s tree on the meta device."""
+    return tf.init_caches(cfg, batch, seq_len, device=META)
+
+
+def _stack_client(tree, n_clients: int):
+    """A new meta tree whose leaves lead with the client axis."""
+    return tree_map(lambda x: torch.empty((n_clients,) + tuple(x.shape), dtype=x.dtype,
+                                          device=META), tree)
+
+
+def input_specs(cfg: ModelConfig, shape: InputShape, n_clients: int = 1,
+                micro_batch: int = MICRO_BATCH,
+                t_override: Optional[int] = None) -> Dict[str, Any]:
+    """Meta-device stand-ins for the step inputs of (arch x shape), each leaf
+    its own storage.
+
+    ``t_override`` pins the local-SGD iteration count (the roofline
+    calibration counts T=1)."""
+    cfg = resolve_cfg(cfg, shape)
+    params = abstract_params(cfg)
+
+    if shape.kind == "train":
+        mb = min(micro_batch, shape.global_batch)
+        t = t_override or max(1, shape.global_batch // mb)
+        batches = {k: ((t,) + sh, dt) for k, (sh, dt) in
+                   token_batch(cfg, mb, shape.seq_len).items()}
+        return {
+            "state": {"params": _stack_client(params, n_clients),
+                      "delta": _stack_client(params, n_clients)},
+            "global_delta": params,  # broadcast from the server
+            "batches": _stack_client(_meta_leaves(batches), n_clients),
+        }
+
+    if shape.kind == "prefill":
+        return {
+            "params": _stack_client(params, n_clients),
+            "batch": _stack_client(
+                _meta_leaves(token_batch(cfg, shape.global_batch, shape.seq_len)), n_clients),
+        }
+
+    # decode
+    caches = abstract_caches(cfg, shape.global_batch, shape.seq_len)
+    return {
+        "params": _stack_client(params, n_clients),
+        "batch": _stack_client(_meta_leaves(decode_batch(cfg, shape.global_batch)), n_clients),
+        "pos": torch.empty((), dtype=torch.int32, device=META),
+        "caches": _stack_client(caches, n_clients),
+    }
+
+
+# ---------------------------------------------------------------------------
+# The train step
+# ---------------------------------------------------------------------------
+
+
+def client_tree(tree, i):
+    """Client ``i``'s slice of a tree whose leaves lead with the client axis."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def stack_clients(trees):
+    """Stack per-client trees on a new leading axis (one client: a view)."""
+    if len(trees) == 1:
+        return tree_map(lambda x: x.unsqueeze(0), trees[0])
+    return tree_stack(trees)
+
+
+def make_train_step(cfg: ModelConfig, shape: InputShape,
+                    pcfg: Optional[pf.PFedSOPConfig] = None,
+                    use_pfedsop: bool = True, engine=None):
+    """Returns train_step(state, global_delta, batches) -> (state', gd', loss).
+
+    ``state`` ({"params", "delta"}) and ``batches`` carry a leading client
+    axis; ``global_delta`` is one tree.  ``use_pfedsop=False`` gives the
+    plain-FedAvg round (no personalization).  The step reads nothing back to
+    the host, so it runs on meta tensors too (``launch/dryrun.py``).
+
+    This is a second client round beside ``core/pfedsop.py::
+    tree_client_round``, which ``launch/train_lm_pfedsop.py::train`` runs.
+    The two stay separate because their references differ: ``repro``'s
+    ``make_train_step`` always personalizes and divides the f32 difference
+    by eta2, while its federated LM loop skips the personalization until a
+    client and the server hold a delta (a host-side choice) and multiplies
+    the leaf-dtype difference by 1/eta2.  Each is held to its own
+    reference (``tests/test_torch_dryrun.py``, ``tests/test_torch_lm.py``);
+    the dry run and phase 15 of ``chip_smoke.py`` cover this one, and the
+    driver's peak at C > 1 is not predicted by them."""
+    if engine is not None:
+        raise NotImplementedError(
+            "make_train_step(engine=...): the mesh backends are not ported yet; "
+            "see ROADMAP.md queue 1, item 16")
+    cfg = resolve_cfg(cfg, shape)
+    pcfg = pcfg or pf.PFedSOPConfig()
+
+    def loss_fn(p, batch):
+        return tf.lm_loss(p, cfg, batch)
+
+    def client_step(params, delta, global_delta, batches):
+        if use_pfedsop:
+            params, _ = pf.tree_personalize(params, delta, global_delta, pcfg)
+        final, loss = tree_sgd_loop(loss_fn, params, batches, pcfg.eta2)
+        # repro's step divides the f32 difference by eta2, where
+        # tree_local_sgd_delta (repro's local_sgd_delta, the federated LM
+        # loop's) subtracts in the leaf dtype and multiplies by the
+        # reciprocal: another rounding, so it is not reused here
+        new_delta = tree_map(lambda a, b: ((a.float() - b.float()) / pcfg.eta2).to(a.dtype),
+                             params, final)
+        return final, new_delta, loss
+
+    def train_step(state, global_delta, batches):
+        n_clients = batches[next(iter(batches))].shape[0]
+        finals, deltas, losses = [], [], []
+        for i in range(n_clients):
+            final, delta, loss = client_step(client_tree(state["params"], i),
+                                             client_tree(state["delta"], i), global_delta,
+                                             client_tree(batches, i))
+            finals.append(final)
+            deltas.append(delta)
+            losses.append(loss)
+        new_state = {"params": stack_clients(finals), "delta": stack_clients(deltas)}
+        del finals, deltas
+        # Eq. 13's server aggregation: the canonical cohort mean
+        new_global = tree_map(lambda d, m: m.to(d.dtype), new_state["delta"],
+                              cohort_mean(new_state["delta"]))
+        return new_state, new_global, cohort_mean(torch.stack(losses))
+
+    return train_step
