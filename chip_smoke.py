@@ -15,7 +15,8 @@ Phases (any failure exits non-zero; nothing is caught):
                   the update pair (K1/K2) at the ResNet path's shape (C = 20
                   clients, N = 1,249,956, shared server delta), at
                   per-client delta, C = 1, ragged N and bf16, and at the LM
-                  path's C = 1, N = 999,826,048 (gemma3-1b); rmsnorm (K4)
+                  path's C = 1, N = 999,826,048 (gemma3-1b), and rank 0's
+                  tile range of m = 2 and 4 model ranks (timed); rmsnorm (K4)
                   and flash_gqa forward / dq / dk-dv (K5-K7) at the LM
                   slice's shapes (B = 2, S = 2048, D = 256), G = 1 and 4,
                   window on and off, softcap on and off, f32 and bf16, plus
@@ -130,8 +131,25 @@ Phases (any failure exits non-zero; nothing is caught):
                   roofline terms and the new global delta's gap printed.  Then K1/K2 at C = 1, N = 4 against
                   their plain versions, and ``scripts/torch_smoke_models.py``,
                   ``scripts/torch_smoke_fl.py`` and
-                  ``examples/torch_quickstart.py`` on the card.  Each phase
-                  prints its seconds.
+                  ``examples/torch_quickstart.py`` on the card.
+ 16. mesh         a one-rank NCCL group (file store under
+                  ``build/chip_smoke``) and the ``clients:1`` and
+                  ``pods:1x1x1`` meshes; phase 5's ResNet slice, 3 rounds of
+                  pfedsop and of fedavg, under ``shard_map`` (1 shard) and
+                  ``mesh pods:1x1x1``, each with ``output_sharding``
+                  replicated and sharded: histories, broadcast and client
+                  rows bitwise the vmap run's, round times beside the vmap
+                  ones, the collective census; before the group, the
+                  model-sharded update emulated at m = 2, 4, 8 ranks (each rank's K1/K2 on its
+                  tile range in turn, the zero-padded partials summed in
+                  rank order) at C = 20, N = 1,249,956 f32 (shared and
+                  per-client d_g), bf16 at a ragged N, and C = 1, N =
+                  999,826,048: bitwise the whole-row pair and the whole-row
+                  plain pair, each range's K2 bitwise its plain version and
+                  its K1 within K1's limit, K1 = K2 = m launches a call
+                  (rank 0's tile-range launches at m = 2 and 4 are timed in
+                  phase 3, beside their bounds).
+                  Each phase prints its seconds.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
 D = 80 readings under ``d80``; launches per path under
@@ -1701,6 +1719,187 @@ def scripts_run():
     return out
 
 
+# phase 16: the multi-device engines at one rank on NCCL, and the
+# model-sharded update's tile ranges emulated rank by rank
+MESH_LAYOUTS = [dict(backend="shard_map"), dict(backend="shard_map", output_sharding="sharded"),
+                dict(backend="mesh", mesh="pods:1x1x1"),
+                dict(backend="mesh", mesh="pods:1x1x1", output_sharding="sharded")]
+MESH_M = (2, 4, 8)  # emulated model ranks
+MESH_TIMED_M = (2, 4)
+MESH_CASES = [  # (label, C, N, dtype, shared d_g)
+    ("main", MAIN_C, MAIN_N, torch.float32, True),
+    ("per-client d_g", MAIN_C, MAIN_N, torch.float32, False),
+    ("bf16 ragged N", MAIN_C, 1_000_003, torch.bfloat16, True),
+    ("C=1 (LM)", 1, LM_N, torch.float32, True),
+]
+
+
+def _emulated_update(x, di, dg, m, impl="auto"):
+    """The model-sharded update of ``m`` ranks on one card: each rank's K1
+    and K2 on its tile range in turn, the zero-padded partial buffers summed
+    in rank order (what the all_reduce computes: disjoint supports) and the
+    ranges written into one output (what the all_gather assembles)."""
+    t = ops.n_tiles(x.shape[1])
+    full = ops.reduce3_range(di, dg, m, 0, impl=impl)
+    for s in range(1, m):
+        full = full + ops.reduce3_range(di, dg, m, s, impl=impl)
+    beta, ec = ops.scalars_from_partials(full[:, :t].contiguous(), 0.01, 1.0, 1.0, 1e-12)
+    out = torch.empty_like(x)
+    for s in range(m):
+        ops.update_range(x, di, dg, beta, ec, out, m, s, impl=impl)
+    return out, beta
+
+
+def _range_views(x, di, dg, m, s):
+    t0, t1, _ = ops.tile_range(x.shape[1], m, s)
+    lo, hi = t0 * ops.TILE, min(t1 * ops.TILE, x.shape[1])
+    return x[:, lo:hi], di[:, lo:hi], dg[..., lo:hi], t1 - t0
+
+
+def mesh_update_run():
+    """The tile-range K1/K2 at m in ``MESH_M`` emulated ranks on each case,
+    bitwise against the whole-row pair (kernels) and the whole-row plain
+    pair (plain versions); each range's K2 bitwise against its plain
+    version on the same scalars and its K1 within K1's limit (another
+    summation order); K1 = K2 = m launches a call.  Returns (the
+    emulation's launch counts, the worst K1/K2 error against plain)."""
+    counts = {"reduce3": 0, "update": 0}
+    worst = {"reduce3": 0.0, "update": 0.0}
+    for i, (label, c, n, dtype, shared) in enumerate(MESH_CASES):
+        x, di, dg = make_operands(c, n, dtype, shared, seed=40 + i)
+        saved = dict(ops.LAUNCHES)  # the comparison launches do not count
+        want = ops.pfedsop_update_batched(x, di, dg, 0.01, 1.0, 1.0, impl="kernel")
+        ops.LAUNCHES.update(saved)
+        for m in MESH_M:
+            before = dict(ops.LAUNCHES)
+            got = _emulated_update(x, di, dg, m)
+            made = {k: ops.LAUNCHES[k] - before[k] for k in before}
+            assert made == {"reduce3": m, "update": m}, (label, m, made)
+            for k in counts:
+                counts[k] += made[k]
+            assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), (label, m)
+            del got
+            saved = dict(ops.LAUNCHES)
+            plain = _emulated_update(x, di, dg, m, impl="plain")
+            whole = ops.update_batched_plain(
+                x, di, dg, *ops.scalars_from_partials(ops.reduce3_batched_plain(di, dg),
+                                                      0.01, 1.0, 1.0, 1e-12))
+            assert torch.equal(plain[0], whole), (label, m, "plain")
+            del plain, whole
+            for s in range(m):
+                xs, ds, gs, tiles = _range_views(x, di, dg, m, s)
+                if not tiles:
+                    continue
+                k1, p1 = ops.reduce3_batched(ds, gs), ops.reduce3_batched_plain(ds, gs)
+                err1 = (k1 - p1).abs().max().item()
+                assert err1 <= 1e-5 * p1.abs().max().item(), (label, m, s, err1)
+                beta, ec = ops.scalars_from_partials(p1, 0.01, 1.0, 1.0, 1e-12)
+                k2 = ops.update_batched(xs, ds, gs, beta, ec)
+                assert torch.equal(k2, ops.update_batched_plain(xs, ds, gs, beta, ec)), \
+                    (label, m, s)
+                worst["reduce3"] = max(worst["reduce3"], err1)
+                del k1, p1, k2
+            ops.LAUNCHES.update(saved)
+        print(f"mesh update[{label}]: C={c} N={n} {str(dtype)[6:]} shared={shared}: "
+              f"m = {MESH_M} bitwise equal to the whole-row pair, kernel and plain; "
+              f"K1 = K2 = m launches a call", flush=True)
+        del x, di, dg, want
+        torch.cuda.empty_cache()
+    return counts, worst
+
+
+def time_ranges():
+    """Rank 0's K1 and K2 launch on its tile range at the ResNet path's
+    shape, at ``MESH_TIMED_M`` model ranks, beside their bounds
+    (``kernels/costs.py``) and the plain versions' times; phase 3 runs it
+    (in phase 16, after phases 9-15's profiler sessions, torch.profiler saw
+    no device event at all on the card).  Returns the range records'
+    measured fields (m = 2's at the top, each m's under ``by_m``)."""
+    x, di, dg = make_operands(MAIN_C, MAIN_N, torch.float32, True, seed=40)
+    beta, ec = ops.scalars_from_partials(ops.reduce3_batched_plain(di, dg), 0.01, 1.0, 1.0,
+                                         1e-12)
+    out = torch.empty_like(x)
+    rec = {"reduce3": {}, "update": {}}
+    for m in MESH_TIMED_M:
+        xs, ds, gs, tiles = _range_views(x, di, dg, m, 0)
+        n_local = xs.shape[1]
+        b1, by1 = roofline.bound_ms(roofline.reduce3_cost(MAIN_C, n_local, tiles, 4))
+        b2, by2 = roofline.bound_ms(roofline.update_cost(MAIN_C, n_local, 4))
+        ys = out[:, :n_local]
+        r1 = dict(ms=device_ms(lambda: ops.reduce3_batched(ds, gs)),
+                  plain_ms=device_ms(lambda: ops.reduce3_batched_plain(ds, gs)),
+                  bound_ms=b1, bound_by=by1)
+        r2 = dict(ms=device_ms(lambda: ops.update_batched(xs, ds, gs, beta, ec, ys)),
+                  plain_ms=device_ms(lambda: ops.update_batched_plain(xs, ds, gs, beta, ec, ys)),
+                  bound_ms=b2, bound_by=by2)
+        for k, r in (("reduce3", r1), ("update", r2)):
+            rec[k][m] = r
+            print(f"kernels[time {k} tile range, rank 0 of m={m}]: C={MAIN_C} "
+                  f"N_local={n_local} f32 kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']}), "
+                  f"kernel at {100 * r['bound_ms'] / r['ms']:.1f}% of bound", flush=True)
+    del x, di, dg, out
+    torch.cuda.empty_cache()
+    return {k: {**r[MESH_TIMED_M[0]], "by_m": {str(m): v for m, v in r.items()}}
+            for k, r in rec.items()}
+
+
+def mesh_run():
+    """Phase 16: ``mesh_update_run``; then a one-rank NCCL group (file store
+    under ``SCRATCH``), the ``clients:1`` and ``pods:1x1x1`` meshes, and the
+    ResNet slice's pfedsop and fedavg for 3 rounds on every layout of
+    ``MESH_LAYOUTS``, each history, broadcast and client rows bitwise the
+    vmap run's.  Returns (path launch counts, the ranges' worst errors)."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    emulated, worst = mesh_update_run()
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    store = SCRATCH / "nccl_store"
+    store.unlink(missing_ok=True)
+    collectives.init_world("cuda", store_path=str(store))
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        for text in ("clients:1", "pods:1x1x1"):
+            mesh = mesh_lib.resolve_mesh(mesh_lib.parse_mesh(text))
+            print(f"mesh[{text}]: {mesh}", flush=True)
+        torch.backends.cudnn.deterministic = True
+        counts = {"reduce3": 0, "update": 0}
+        for name in ("pfedsop", "fedavg"):
+            ref = resnet_driver(method(name), 3)
+            h_ref = ref.run()
+            for kw in MESH_LAYOUTS:
+                reset_launches()
+                collectives.reset_census()
+                fed = resnet_driver(method(name), 3, **kw)
+                h = fed.run()
+                for k in counts:
+                    counts[k] += ops.LAUNCHES[k]
+                for key in ("loss", "acc", "sim_time", "mean_best_acc"):
+                    assert h[key] == h_ref[key], (name, kw, key, h[key], h_ref[key])
+                assert _same_tensors(fed.broadcast, ref.broadcast), (name, kw)
+                assert _same_tensors(fed.client_states, ref.client_states), (name, kw)
+                census = collectives.census()
+                assert census["all-gather"]["count"] > 0, census
+                print(f"mesh[{name} {kw}]: bitwise equal to vmap; round_time "
+                      f"{[round(t, 4) for t in h['round_time']]} s (vmap "
+                      f"{[round(t, 4) for t in h_ref['round_time']]} s); census {census}",
+                      flush=True)
+                del fed
+            del ref
+        want = {"reduce3": 3 * len(MESH_LAYOUTS), "update": 3 * len(MESH_LAYOUTS)}
+        assert counts == want, (counts, want)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    print(f"mesh: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    emulated.update(reduce3_range=emulated["reduce3"], update_range=emulated["update"])
+    return {"resnet9_mesh": counts, "mesh_update_ranges": emulated}, worst
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
@@ -1744,6 +1943,7 @@ def main():
     rec = check_kernels()
     for k, r in check_update_c1().items():
         rec[k].update(r)
+    ranges = time_ranges()
     rec["rmsnorm"] = check_rmsnorm()
     worst = check_flash()
     # the LM slice's gemma3-1b (H = 4 over KV = 1, D = 256; 4 full-attention
@@ -1776,6 +1976,10 @@ def main():
         paths["serve_" + arch.replace("-", "_").replace(".", "_")] = arch_serve_run(arch)
     paths["train_step_gemma3_1b"] = launch_tooling_run()
     paths.update(scripts_run())
+    mesh_paths, worst = mesh_run()
+    paths.update(mesh_paths)
+    for k in ("reduce3", "update"):
+        rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 
     def record(name, key, source, replaces):
         r = dict(rec[key])
@@ -1798,7 +2002,14 @@ def main():
                "src/repro/kernels/flash_gqa/kernel.py:436"),
         record("flash_bwd_dkv_sum", "flash_bwd_dkv_sum", FLASH_SM90_SOURCE,
                "src/repro/kernels/flash_gqa/kernel.py:436"),
+        # K1/K2 on one model rank's tile range (repro's
+        # pfedsop_update_batched_sharded, ops.py:112): rank 0 of m = 2
+        record("pfedsop_reduce3_tile_range", "reduce3_range", SOURCE,
+               "src/repro/kernels/pfedsop_update/kernel.py:132"),
+        record("pfedsop_update_tile_range", "update_range", SOURCE,
+               "src/repro/kernels/pfedsop_update/kernel.py:163"),
     ]
+    assert all(k["launches"] > 0 for k in kernels), [(k["name"], k["launches"]) for k in kernels]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

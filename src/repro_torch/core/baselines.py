@@ -16,7 +16,7 @@ from typing import Any, Callable, Optional, Protocol, runtime_checkable
 import torch
 
 from repro_torch.core import pfedsop as pf
-from repro_torch.optim.reduce import cohort_mean, cohort_sum
+from repro_torch.optim.reduce import cohort_mean, cohort_size, cohort_sum
 from repro_torch.optim.sgd import chunked_value_and_grad, sgd_loop
 from repro_torch.utils.pytree import tree_leaves, tree_map
 
@@ -395,7 +395,7 @@ class FedExP(FedAvg):
         mean_d = cohort_mean(uploads)
         u = uploads.float()
         per_client_sq = (u * u).sum(-1)
-        kprime = uploads.shape[0]
+        kprime = cohort_size(uploads.shape[0])
         mean_sq = (mean_d * mean_d).sum()
         eta_g = (cohort_sum(per_client_sq)
                  / (2.0 * kprime * (mean_sq + self.eps))).clamp_min(1.0)

@@ -31,15 +31,17 @@ over the cohort with ``torch.func.vmap``.
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Callable, NamedTuple
 
 import numpy as np
 import torch
 
-from repro_torch.kernels.dispatch import check_impl, kernel_scope
+from repro_torch.kernels.dispatch import check_impl, current_model_shard, kernel_scope
 from repro_torch.kernels.pfedsop_update import ops
 from repro_torch.kernels.pfedsop_update.ref import gompertz_beta
+from repro_torch.launch import collectives
 from repro_torch.optim.reduce import cohort_mean
 from repro_torch.optim.sgd import sgd_loop, tree_sgd_loop
 from repro_torch.utils.pytree import FlatLayout, tree_leaves, tree_map
@@ -151,15 +153,24 @@ def personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
 
     ``params``/``local_delta``: (N,) or a cohort's (C, N); ``global_delta``
     (N,).  With ``use_pc`` the fused kernel pair covers the blend and the
-    Sherman-Morrison step ("auto"/"kernel"); "reference" and the no-PC
+    Sherman-Morrison step ("auto"/"kernel"), over the model group's tile
+    ranges inside a ``model_shard_axis`` context; "reference" and the no-PC
     ablation run the per-equation math above."""
     impl = check_impl(cfg.update_impl, "pfedsop_update", params)
     if cfg.use_pc and impl != "reference":
-        fused = (ops.pfedsop_update_batched if params.dim() == 2
-                 else ops.pfedsop_update)
+        shard = current_model_shard()
+        if shard is not None and params.dim() == 2:
+            # the engine's model group splits the tiles (cohort-level, outside
+            # the vmap, so the collectives are legal)
+            fused = functools.partial(ops.pfedsop_update_batched_sharded, group=shard[0],
+                                      m=shard[1], comm=collectives)
+        elif params.dim() == 2:
+            fused = ops.pfedsop_update_batched
+        else:
+            fused = ops.pfedsop_update
         with kernel_scope("pfedsop_update", impl):
-            new, beta = fused(params, local_delta, global_delta, cfg.eta1,
-                              cfg.rho, cfg.lam, cfg.eps, impl=impl)
+            new, beta = fused(params, local_delta, global_delta, eta1=cfg.eta1,
+                              rho=cfg.rho, lam=cfg.lam, eps=cfg.eps, impl=impl)
         return new, {"beta": beta}
     if cfg.use_pc:
         dp, aux = personalized_delta(local_delta, global_delta, cfg.lam, cfg.eps)

@@ -1,6 +1,8 @@
 """Federation runtime: the sync driver ``Federation`` and the buffered
 asynchronous ``AsyncFederation`` over one availability/scheduler model,
-``VmapBackend`` and the cohort stores (device, host, mmap)."""
+the engines (``VmapBackend`` on one device; ``ShardMapBackend`` and
+``MeshBackend`` over the ranks of a ``torch.distributed`` group) and the
+cohort stores (device, host, mmap)."""
 from repro_torch.fl.async_ import AsyncConfig, AsyncFederation  # noqa: F401
 from repro_torch.fl.availability import (  # noqa: F401
     AvailabilityConfig,
@@ -17,7 +19,15 @@ from repro_torch.fl.cohort_store import (  # noqa: F401
     as_store_config,
     make_store,
 )
-from repro_torch.fl.engine import BACKENDS, VmapBackend, make_engine  # noqa: F401
+from repro_torch.fl.engine import (  # noqa: F401
+    BACKENDS,
+    MeshBackend,
+    ShardMapBackend,
+    VmapBackend,
+    make_engine,
+    resolve_client_split,
+    resolve_shards,
+)
 from repro_torch.fl.runtime import (  # noqa: F401
     Federation,
     FLRunConfig,

@@ -23,8 +23,13 @@ Availability, scheduling and sampling are host numpy, consumed in
 always online at uniform speed, ``concurrency = buffer_size = K'``) the
 event loop collapses to lockstep rounds that feed identical operands to
 identical phases, and the history equals the synchronous driver's bit for
-bit.  With ``VmapBackend`` there is one pod: the per-pod drain below runs
-its one-pod case (multi-pod: ROADMAP.md queue 1, item 16).
+bit.  ``n_pods`` comes from the engine: a multi-pod mesh
+(``pods:PxDxM``) maps micro-cohorts onto its P pods and each pod drains
+its own completion stream (``scheduler.pop_pod_completions``); a
+micro-cohort the pod count does not divide runs unsharded (``strict=False``).
+On a mesh every dispatch's outputs are all-gathered to every rank (its
+in-flight results are delivered in other cohorts), and the in-flight
+results are host copies (``offload(force_host=True)``).
 
 History: one entry per *applied server update* (version); ``sim_time`` is
 the simulated clock at which each update was applied.
@@ -89,6 +94,9 @@ class AsyncFederation(Federation):
     explicitly or nested as ``run_cfg.async_cfg``.  ``run()`` executes
     until ``run_cfg.rounds`` server updates have been applied."""
 
+    # micro-cohorts an explicit split does not divide fall back (engine.py)
+    _strict_shards = False
+
     def __init__(self, method, loss_fn, acc_fn, init_params, data,
                  run_cfg: FLRunConfig, async_cfg: Optional[AsyncConfig] = None,
                  device="cuda"):
@@ -105,7 +113,8 @@ class AsyncFederation(Federation):
             raise ValueError(f"buffer_size must be >= 1, got {self.buffer_size}")
         self.availability = make_availability(acfg.availability, run_cfg.n_clients,
                                               run_cfg.seed)
-        self.n_pods = 1  # VmapBackend: one device
+        # multi-pod mesh: micro-cohorts map onto the pods; 1 elsewhere
+        self.n_pods = getattr(self.engine, "n_pods", 1)
         self.scheduler = RoundScheduler(self.availability, self.concurrency,
                                         n_pods=self.n_pods)
         self.scheduler.obs = self.obs
@@ -160,8 +169,11 @@ class AsyncFederation(Federation):
                     acc=self._history["acc"][-1], sim_time=self.sim_time,
                     tau=self._history["staleness"][-1])
         history = self._finalize_history()
+        # describe an engine that ran (the largest cohort seen): with
+        # concurrency < K' a K'-sized engine never runs
+        seen = self.programs.seen_cohorts()
         history["engine"] = {
-            **self.engine.describe(),
+            **self.programs.engine(seen[-1] if seen else self.kprime).describe(),
             "mode": "async",
             "cohort_sizes": self.programs.seen_cohorts(),
             "buffer_size": self.buffer_size,
@@ -225,15 +237,22 @@ class AsyncFederation(Federation):
                   cohort=len(ids), version=self._round)
         batches = self._to_device(
             self.data.sample_round_batches(self.rng, ids, self.T, self.cfg.batch))
-        gathered = obs.timed("gather", self.store.gather, ids, sim=self.sim_time)
-        new_states, uploads, metrics = obs.timed(
-            "client", self.programs.client, gathered, self.broadcast, batches,
-            sim=self.sim_time)
+        shardings = self.programs.input_shardings(len(ids), self._store_struct)
+        gathered = obs.timed("gather", self.store.gather, ids, shardings,
+                             sim=self.sim_time)
+        out = obs.timed("client", self.programs.client, gathered, self.broadcast,
+                        batches, shardings, sim=self.sim_time)
+        replicate = getattr(self.programs.engine(len(ids)), "replicate", None)
+        if replicate is not None:
+            out = obs.timed("all_gather", replicate, out, sim=self.sim_time)
+        new_states, uploads, metrics = out
         self._observe_client_metrics(metrics)
         # in-flight results go through the store's offload policy: a host or
         # mmap store always host-copies them (buffered results never pin
-        # device memory); the device store keeps them on the device
-        new_states, uploads = self.store.offload((new_states, uploads))
+        # device memory); the device store keeps them on the device on vmap
+        # and host-copies them on a mesh, as repro does
+        new_states, uploads = self.store.offload(
+            (new_states, uploads), force_host=self.cfg.backend != "vmap")
         losses = metrics["loss"].cpu().numpy().astype(np.float32)
         for j, i in enumerate(ids.tolist()):
             self._pending[i] = {
@@ -262,8 +281,9 @@ class AsyncFederation(Federation):
         accs = accs.cpu().numpy().astype(np.float64)
         self.best_acc[dn] = np.maximum(self.best_acc[dn], accs)
         self.participated[dn] = True
-        obs.timed("scatter", self.store.scatter, dn, stacked, sync=False,
-                  sim=self.sim_time)
+        obs.timed("scatter", self.store.scatter, dn, stacked,
+                  self.programs.input_shardings(len(dn), self._store_struct),
+                  sync=False, sim=self.sim_time)
         # append the whole cohort before flushing: a checkpoint written by
         # a flush must see every delivered upload in the buffer (or already
         # aggregated).  ``sim_t`` feeds the buffered-wait track only;

@@ -37,6 +37,16 @@ for line, so the hit, miss, eviction and insert counters equal
 Gather and scatter are pure data movement: a streamed federation gives
 the device store's history bit for bit.  A checkpoint streams the stack
 beside its ``arrays.npz`` in client-range shard files, ``repro``'s layout.
+
+On a mesh engine (``fl/engine.py``) the gather takes the engine's
+``input_shardings``: each rank gathers only its rows of the cohort, and
+its model slice of a model-sharded leaf, bypassing the LRU cache as
+``repro`` does.  Across the ranks of one host the host and mmap stores
+are ONE copy (``shared``: memmaps in a directory rank 0 picks) and each
+rank writes back only its own rows, synchronously, between two barriers
+(after its writes, after its reads) so no rank reads a row while another
+writes it.  The device store is one replica per rank and takes every
+rank's rows.
 """
 from __future__ import annotations
 
@@ -50,6 +60,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from repro_torch.launch import collectives
 from repro_torch.utils.checkpoint import flatten_with_names, leaf_like, leaf_to_numpy
 from repro_torch.utils.pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
@@ -130,13 +141,43 @@ def _host(x) -> np.ndarray:
     return np.array(x)
 
 
+def _shard_ids(ids: np.ndarray, shard) -> np.ndarray:
+    """The client ids of this rank's rows of a leaf (all ids without a
+    placement)."""
+    return ids if shard is None else ids[shard.rows]
+
+
+def _narrow(x, shard):
+    """This rank's model slice of a gathered leaf (the leaf itself when
+    the leaf is not model-sharded)."""
+    if shard is None or shard.model is None:
+        return x
+    d, sl = shard.model
+    return x.narrow(d, sl.start, sl.stop - sl.start).contiguous()
+
+
+def _own(ids: np.ndarray, new_states, shardings):
+    """(client ids, row tree) this rank writes back: its rows of the
+    cohort, whether ``new_states`` holds the whole cohort or just them."""
+    leaves = tree_leaves(new_states)
+    if not leaves:  # a stateless method (FedAvg)
+        return ids[:0], new_states
+    rows = tree_leaves(shardings)[0].rows
+    if leaves[0].shape[0] == len(ids):
+        new_states = tree_map(lambda x: x[rows], new_states)
+    return ids[rows], new_states
+
+
 class CohortStore:
     """Interface and shared bookkeeping of the two stores.
 
     ``proto`` is ONE client's state tree; the store broadcasts it to the
     (K,)-stacked layout (every client starts from the same init).  Stats
     keys are ``repro``'s: gathers/scatters, h2d/d2h bytes moved, and the
-    LRU cache's counters."""
+    LRU cache's counters.  ``shared``: the ranks of one host hold one
+    copy (the host stores on a mesh)."""
+
+    shared = False
 
     def __init__(self, cfg: StoreConfig, k: int, device: torch.device):
         self.cfg = cfg
@@ -148,13 +189,15 @@ class CohortStore:
             "cache_assembles": 0, "cache_insert_rows": 0,
         }
 
-    def gather(self, ids):
+    def gather(self, ids, shardings=None):
         """Stacked (K', ...) cohort for ``ids`` on ``device`` (row order =
-        ids order)."""
+        ids order); with ``shardings`` (a mesh engine's
+        ``input_shardings``) this rank's part of it."""
         raise NotImplementedError
 
-    def scatter(self, ids, new_states) -> None:
-        """Write the (K', ...) cohort back to rows ``ids``."""
+    def scatter(self, ids, new_states, shardings=None) -> None:
+        """Write the (K', ...) cohort back to rows ``ids``; a shared store
+        writes only this rank's rows (``shardings``) of it."""
         raise NotImplementedError
 
     def offload(self, tree, force_host: bool = False):
@@ -237,13 +280,23 @@ class DeviceStore(CohortStore):
         self._stack = tree_map(
             lambda x: x.to(self.device).expand((k,) + tuple(x.shape)).clone(), proto)
 
-    def gather(self, ids):
+    def gather(self, ids, shardings=None):
         self._stats["gathers"] += 1
-        idx = _index(ids, self.device)
-        return tree_map(lambda x: x.index_select(0, idx), self._stack)
+        ids = np.asarray(ids, np.int64)
+        if shardings is None:
+            idx = _index(ids, self.device)
+            return tree_map(lambda x: x.index_select(0, idx), self._stack)
+        return tree_map(
+            lambda x, sh: _narrow(x.index_select(0, _index(_shard_ids(ids, sh), self.device)),
+                                  sh),
+            self._stack, shardings)
 
-    def scatter(self, ids, new_states) -> None:
-        """Rows ``ids`` (distinct) updated in place."""
+    def scatter(self, ids, new_states, shardings=None) -> None:
+        """Rows ``ids`` (distinct) updated in place, from the whole cohort:
+        this store is one replica per rank."""
+        if any(x.shape[0] != len(ids) for x in tree_leaves(new_states)):
+            raise ValueError("the device store is one replica per rank: scatter "
+                             "takes every rank's rows of the cohort")
         self._stats["scatters"] += 1
         idx = _index(ids, self.device)
         for full, new in zip(tree_leaves(self._stack), tree_leaves(new_states)):
@@ -272,31 +325,47 @@ class HostStore(CohortStore):
     """Host-at-rest store: numpy (or memmap) stack plus the LRU device cache.
     See the module docstring for the gather/scatter/overlap semantics."""
 
-    def __init__(self, cfg: StoreConfig, proto, k: int, device):
+    def __init__(self, cfg: StoreConfig, proto, k: int, device, shared: bool = False):
         super().__init__(cfg, k, device)
         named = flatten_with_names(tree_map(_host, proto))
         total = k * sum(leaf.nbytes for _, leaf in named)
-        self.mmapped = cfg.kind == "mmap" or (
+        # shared: one copy for the ranks of a host, in memmaps every rank maps
+        self.shared = shared
+        self.mmapped = shared or cfg.kind == "mmap" or (
             cfg.mmap_threshold_bytes > 0 and total > cfg.mmap_threshold_bytes)
+        first = not shared or collectives.world_rank() == 0
         if self.mmapped:
-            mmap_dir = Path(cfg.mmap_dir or tempfile.mkdtemp(prefix="cohort_store_"))
+            mmap_dir = cfg.mmap_dir or (tempfile.mkdtemp(prefix="cohort_store_")
+                                        if first else None)
+            if shared:
+                mmap_dir = collectives.broadcast_object(mmap_dir)
+            mmap_dir = Path(mmap_dir)
             mmap_dir.mkdir(parents=True, exist_ok=True)
 
         def alloc(name, leaf):
             shape = (k,) + leaf.shape
-            if self.mmapped:
+            if not self.mmapped:
+                arr = np.empty(shape, leaf.dtype)
+            elif not first:  # rank 0 made and filled the file
+                return np.memmap(mmap_dir / (name.replace("/", ".") + ".mmap"),
+                                 dtype=leaf.dtype, mode="r+", shape=shape)
+            else:
                 f = mmap_dir / (name.replace("/", ".") + ".mmap")
                 arr = np.memmap(f, dtype=leaf.dtype, mode="w+", shape=shape)
-            else:
-                arr = np.empty(shape, leaf.dtype)
             arr[...] = leaf  # broadcast the shared init row-wise
+            if shared:
+                arr.flush()
             return arr
 
         _, self._treedef = tree_flatten(proto)
+        if shared and not first:
+            collectives.barrier()  # wait for rank 0's files
         self._data = tree_unflatten(self._treedef, [alloc(n, leaf) for n, leaf in named])
+        if shared and first:
+            collectives.barrier()
         self.at_rest_bytes = total
         # a "host" store that crossed mmap_threshold_bytes spilled to disk
-        self.promoted = cfg.kind == "host" and self.mmapped
+        self.promoted = cfg.kind == "host" and self.mmapped and not shared
         # deferred write-backs: (ids, pinned host leaves, event or None)
         self._writeback: List[tuple] = []
         self._d2h_stream: Optional[torch.cuda.Stream] = None
@@ -320,22 +389,27 @@ class HostStore(CohortStore):
 
     # -- host <-> device ---------------------------------------------------
 
-    def _h2d(self, ids: np.ndarray):
-        """Rows ``ids`` of every leaf on the device: on the card fancy-indexed
-        straight into one pinned staging buffer per leaf and copied with
+    def _h2d(self, ids: np.ndarray, shardings=None):
+        """Rows ``ids`` of every leaf (this rank's rows and model slice with
+        ``shardings``) on the device: on the card fancy-indexed straight
+        into one pinned staging buffer per leaf and copied with
         ``non_blocking`` (the caching host allocator keeps the buffer until
         the copy is done); on the CPU a fresh copy of the rows."""
         out = []
-        for a in tree_leaves(self._data):
+        shards = ([None] * len(tree_leaves(self._data)) if shardings is None
+                  else tree_leaves(shardings))
+        for a, sh in zip(tree_leaves(self._data), shards):
+            rows = _shard_ids(ids, sh)
             if self.device.type == "cuda":
-                stage = torch.empty((len(ids),) + a.shape[1:],
+                stage = torch.empty((len(rows),) + a.shape[1:],
                                     dtype=_torch_dtype(a), pin_memory=True)
                 # mode="raise" would buffer ``out`` (a second copy of the
                 # rows); gather checked the ids, so "wrap" reads the same rows
-                np.take(a, ids, axis=0, out=stage.numpy(), mode="wrap")
+                np.take(a, rows, axis=0, out=stage.numpy(), mode="wrap")
                 out.append(stage.to(self.device, non_blocking=True))
             else:
-                out.append(torch.from_numpy(np.asarray(a[ids])))
+                out.append(torch.from_numpy(np.asarray(a[rows])))
+            out[-1] = _narrow(out[-1], sh)
             self._stats["h2d_bytes"] += out[-1].nbytes
         return tree_unflatten(self._treedef, out)
 
@@ -343,7 +417,7 @@ class HostStore(CohortStore):
         """Start the copies of ``leaves`` to pinned host buffers on a side
         stream; returns (host leaves, event).  CPU tensors are kept as they
         are: their values are read at the flush."""
-        if not leaves[0].is_cuda:
+        if not leaves or not leaves[0].is_cuda:  # no leaves: a stateless method
             return [x.detach() for x in leaves], None
         dev = leaves[0].device
         if self._d2h_stream is None:
@@ -363,13 +437,19 @@ class HostStore(CohortStore):
 
     # -- gather / scatter --------------------------------------------------
 
-    def gather(self, ids):
+    def gather(self, ids, shardings=None):
         ids = np.asarray(ids, np.int64)
         if ids.size and (ids.min() < -self.k or ids.max() >= self.k):
             raise IndexError(f"client ids must lie in [-{self.k}, {self.k}), got "
                              f"{ids.min()}..{ids.max()}")
         self._flush()
         self._stats["gathers"] += 1
+        if shardings is not None:
+            # a mesh engine's placement: this rank's part, past the cache
+            out = self._h2d(ids, shardings)
+            if self.shared:
+                collectives.barrier()  # every rank has read before any writes
+            return out
         if not self.cfg.cache_clients:
             return self._h2d(ids)
         return self._gather_cached(ids)
@@ -442,9 +522,19 @@ class HostStore(CohortStore):
             self._stats["cache_insert_rows"] += len(live)
         return cohort
 
-    def scatter(self, ids, new_states) -> None:
+    def scatter(self, ids, new_states, shardings=None) -> None:
         self._stats["scatters"] += 1
         ids = np.asarray(ids, np.int64)
+        if self.shared:
+            # this rank's rows, written now; the barrier makes every rank's
+            # rows visible before the next gather reads
+            own, rows = _own(ids, new_states, shardings)
+            for a, x in zip(tree_leaves(self._data), tree_leaves(rows)):
+                h = _host(x)
+                a[own] = h
+                self._stats["d2h_bytes"] += h.nbytes
+            collectives.barrier()
+            return
         leaves = tree_leaves(new_states)
         if leaves and not isinstance(leaves[0], torch.Tensor):
             # host rows (offloaded async results): write through directly,
@@ -492,11 +582,22 @@ class HostStore(CohortStore):
         self._lru.clear()
         self._free = []
 
+    def _first_writes(self) -> bool:
+        """Whole-stack writes (checkpoint restore): rank 0 of a shared
+        store writes, the others wait for it (``_done_writing``)."""
+        return not self.shared or collectives.world_rank() == 0
+
+    def _done_writing(self) -> None:
+        if self.shared:
+            collectives.barrier()
+
     def load_stacked(self, tree) -> None:
         self._writeback.clear()
         self._drop_cache()
-        for a, src in zip(tree_leaves(self._data), tree_leaves(tree)):
-            a[...] = _host(src)
+        if self._first_writes():
+            for a, src in zip(tree_leaves(self._data), tree_leaves(tree)):
+                a[...] = _host(src)
+        self._done_writing()
 
     def _host_block(self, lo, hi):
         self._flush()
@@ -505,14 +606,17 @@ class HostStore(CohortStore):
     def _load_host_block(self, lo, hi, flat_leaves) -> None:
         self._writeback.clear()
         self._drop_cache()
-        for a, b in zip(tree_leaves(self._data), flat_leaves):
-            a[lo:hi] = b
+        if self._first_writes():
+            for a, b in zip(tree_leaves(self._data), flat_leaves):
+                a[lo:hi] = b
+        self._done_writing()
 
 
-def make_store(store, proto, k: int, device) -> CohortStore:
+def make_store(store, proto, k: int, device, shared: bool = False) -> CohortStore:
     """Store factory (``FLRunConfig.store`` -> a ``CohortStore``) on
-    ``device``."""
+    ``device``; ``shared``: a host store is one copy for the ranks of a
+    host (a mesh engine over several ranks)."""
     cfg = as_store_config(store)
     if cfg.kind == "device":
         return DeviceStore(cfg, proto, k, device)
-    return HostStore(cfg, proto, k, device)
+    return HostStore(cfg, proto, k, device, shared=shared)

@@ -1,14 +1,20 @@
 """Federation runtime: the synchronous round loop, its history, and the
 checkpoint core both drivers share.
 
-Port of ``repro/fl/runtime.py`` over ``VmapBackend``.  Per-client state
+Port of ``repro/fl/runtime.py``, over any engine of ``fl/engine.py``:
+``VmapBackend`` on one device, or ``ShardMapBackend``/``MeshBackend`` over
+the ranks of a ``torch.distributed`` group, where every rank runs this
+driver on the same host sampling and takes its part of each phase; only
+rank 0 prints, traces and writes checkpoints.  Per-client state
 lives at rest as ``(K, ...)``-stacked flat rows in the cohort store
 (``fl.cohort_store``: on the device, in host RAM or in memmaps, with an
 optional LRU device cache); each round the K' participants are gathered, the
 method's cohort step (``round_start``: pFedSOP's batched kernel launch
 pair) and its mapped one-client phase run, per-client eval runs on the
 pre-update broadcast, uploads are aggregated and the new rows scattered
-back.  ``RoundPrograms`` holds these phases; the asynchronous driver
+back.  ``RoundPrograms`` holds these phases, with one engine per cohort
+size (the async driver's micro-cohorts may fall back to another split);
+the asynchronous driver
 (``repro_torch.fl.async_``) runs the same phases on its micro-cohorts,
 which is what makes its degenerate configuration equal to this driver
 bit for bit.
@@ -34,8 +40,10 @@ from repro_torch.core.pfedsop import theta_from_beta
 from repro_torch.data.federated import FederatedData
 from repro_torch.fl.cohort_store import make_store
 from repro_torch.fl.engine import make_engine
-from repro_torch.kernels.dispatch import check_impl_name
-from repro_torch.obs import make_obs
+from repro_torch.kernels.dispatch import check_impl_name, grad_chunk_count
+from repro_torch.launch import collectives
+from repro_torch.obs import ObsConfig, make_obs
+from repro_torch.optim.reduce import is_pow2
 from repro_torch.utils.checkpoint import (
     load_checkpoint,
     read_manifest,
@@ -44,7 +52,7 @@ from repro_torch.utils.checkpoint import (
     save_checkpoint,
 )
 from repro_torch.utils.device import resolve_device
-from repro_torch.utils.pytree import FlatLayout, tree_map
+from repro_torch.utils.pytree import FlatLayout, tree_leaves, tree_map
 
 _METHOD_INTERFACE = tuple(
     a for a, v in vars(FLMethod).items() if callable(v) and not a.startswith("_")
@@ -52,12 +60,6 @@ _METHOD_INTERFACE = tuple(
 # the staleness hook is called by the async driver alone: a sync-only
 # method may omit it (AsyncFederation validates with the hook)
 _SYNC_METHOD_INTERFACE = tuple(a for a in _METHOD_INTERFACE if a != "server_update_stale")
-
-# FLRunConfig knobs of ``repro`` that the port does not have yet, with the
-# only value accepted: anything else raises instead of being ignored.
-_UNPORTED = {
-    "shards": 0, "mesh": "", "output_sharding": "replicated", "grad_chunks": 1,
-}
 
 
 def validate_method(method, require_stale_hook: bool = False) -> None:
@@ -125,61 +127,127 @@ class FLRunConfig:
     # ``repro_torch.obs.ObsConfig`` or a kwargs dict for one; not part of
     # the checkpoint fingerprint
     obs: Any = None
-    # not ported yet (ROADMAP.md queue 1, item 16); only the defaults
+    # backend="shard_map" only: client shards, 0 = auto (largest divisor of
+    # K' that divides the world size)
     shards: int = 0
+    # backend="mesh" only: a launch.mesh.parse_mesh spec ("pods:PxDxM", ...)
     mesh: str = ""
+    # "replicated": the client phase's outputs are all-gathered to every
+    # rank; "sharded" (the mesh engines, at a power-of-two split): uploads
+    # stay rank-local into the engine's aggregate_phase, which reduces them
+    # in rank order, bitwise the replicated result; a layout knob, not in
+    # the checkpoint fingerprint
     output_sharding: str = "replicated"
+    # each SGD step's gradient is the halving-tree mean over this many
+    # equal batch chunks (optim.sgd.chunked_value_and_grad); it changes the
+    # numbers, so it is in the checkpoint fingerprint
     grad_chunks: int = 1
 
-    def __post_init__(self):
-        for name, only in _UNPORTED.items():
-            if getattr(self, name) != only:
-                raise NotImplementedError(
-                    f"FLRunConfig.{name}={getattr(self, name)!r} is not ported "
-                    f"to repro_torch yet (only {only!r}); see ROADMAP.md "
-                    "queue 1")
+
+def _rows(tree) -> int:
+    return int(tree_leaves(tree)[0].shape[0])
 
 
 class RoundPrograms:
     """The per-phase round programs: client phase (cohort step + mapped
-    one-client phase), per-client eval, server aggregation (plain and
-    staleness-weighted).  PyTorch runs eagerly, so nothing is compiled or
-    cached per cohort size; ``seen_cohorts`` records the sizes run."""
+    one-client phase), the round-boundary all-gather, per-client eval,
+    server aggregation (plain, sharded and staleness-weighted).  PyTorch
+    runs eagerly, so nothing is compiled; the engine is built once per
+    cohort size (``engine``), and ``seen_cohorts`` records the sizes the
+    client phase ran at.
 
-    def __init__(self, method, loss_fn, acc_fn, engine):
+    ``strict_shards=False`` (the async driver) lets a micro-cohort that an
+    explicitly requested split does not divide fall back: to the largest
+    dividing shard count on the 1-D client mesh, to an unsharded client
+    axis on a multi-pod mesh."""
+
+    def __init__(self, method, loss_fn, acc_fn, backend: str = "vmap",
+                 shards: int = 0, mesh: str = "", strict_shards: bool = True,
+                 output_sharding: str = "replicated", grad_chunks: int = 1):
         self.method = method
         self.loss_fn = loss_fn
         self.acc_fn = acc_fn
-        self.engine = engine
+        self.backend = backend
+        self.shards = shards
+        self.mesh = mesh
+        self.strict_shards = strict_shards
+        self.output_sharding = output_sharding
+        self.grad_chunks = grad_chunks
+        self._engines: Dict[int, Any] = {}
+        self._shardings: Dict[int, Any] = {}
         self._seen = set()
 
     def seen_cohorts(self):
         """Cohort sizes the client phase ran at (sorted)."""
         return sorted(self._seen)
 
-    def client(self, gathered_states, broadcast, batches):
-        """-> (new_states, uploads, metrics), all (K', ...)-stacked."""
+    def engine(self, cohort: int):
+        eng = self._engines.get(cohort)
+        if eng is None:
+            eng = make_engine(self.backend, cohort, self.shards, mesh=self.mesh,
+                              strict=self.strict_shards, data_chunks=self.grad_chunks)
+            self._engines[cohort] = eng
+        return eng
+
+    def sharded_outputs(self, cohort: int) -> bool:
+        """Whether this cohort's round keeps its outputs rank-local into
+        the sharded aggregation: the run asked for it, the engine lays its
+        outputs over the client group, and the split is a power of two
+        (the halving tree's boundary condition).  Other cohorts take the
+        replicated path, bitwise the same."""
+        if self.output_sharding != "sharded":
+            return False
+        eng = self.engine(cohort)
+        return bool(getattr(eng, "laid_out", False)) and is_pow2(eng.client_shards)
+
+    def input_shardings(self, cohort: int, struct):
+        """The engine's at-rest placement of a gathered cohort (None on
+        vmap), for the store's gather; ``struct`` is any cohort-stacked tree
+        of the state's structure and shapes."""
+        if cohort not in self._shardings:
+            self._shardings[cohort] = self.engine(cohort).input_shardings(struct)
+        return self._shardings[cohort]
+
+    def client(self, gathered_states, broadcast, batches, shardings=None):
+        """-> (new_states, uploads, metrics): this rank's rows on a mesh
+        engine (``replicate_fn`` makes them whole), all K' on vmap.
+        ``gathered_states`` are at rest as ``shardings`` lays them out."""
         method, loss_fn = self.method, self.loss_fn
-        self._seen.add(int(next(iter(batches.values())).shape[0]))
-        states, cohort_metrics = method.round_start(gathered_states, broadcast)
+        cohort = _rows(batches)
+        self._seen.add(cohort)
 
         def one_client(state, broadcast_, batch_seq):
             return method.client_round(loss_fn, state, broadcast_, batch_seq)
 
-        new_states, uploads, metrics = self.engine.client_phase(
-            one_client, states, broadcast, batches)
-        return new_states, uploads, {**metrics, **cohort_metrics}
+        with grad_chunk_count(self.grad_chunks):
+            return self.engine(cohort).client_phase_sharded(
+                one_client, gathered_states, broadcast, batches,
+                cohort_step=method.round_start, shardings=shardings)
+
+    def replicate_fn(self, cohort: int):
+        """The round-boundary all-gather (None on vmap, whose outputs are
+        born whole, and under the sharded round loop)."""
+        if self.sharded_outputs(cohort):
+            return None
+        return getattr(self.engine(cohort), "replicate", None)
 
     def eval(self, states, broadcast, test_sets):
-        """-> per-client accuracies (K',)."""
+        """-> per-client accuracies (K',) on every rank."""
         method, acc_fn = self.method, self.acc_fn
 
         def one_eval(state, broadcast_, test):
             return acc_fn(method.eval_params(state, broadcast_), test)
 
-        return self.engine.eval_phase(one_eval, states, broadcast, test_sets)
+        return self.engine(_rows(test_sets)).eval_phase(one_eval, states, broadcast,
+                                                         test_sets)
 
-    def aggregate(self, broadcast, uploads):
+    def aggregate(self, broadcast, uploads, cohort=None):
+        """The method's ``server_update``; over rank-local uploads through
+        the engine's ``aggregate_phase`` when ``cohort`` runs the sharded
+        round loop."""
+        if cohort is not None and self.sharded_outputs(cohort):
+            return self.engine(cohort).aggregate_phase(self.method.server_update,
+                                                       broadcast, uploads)
         return self.method.server_update(broadcast, uploads)
 
     def aggregate_stale(self, broadcast, uploads, staleness):
@@ -229,9 +297,21 @@ class Federation:
         self.availability = availability
         self._obs_open()
 
+    _strict_shards = True
+
     def _init_core(self, method, loss_fn, acc_fn, init_params, data, run_cfg, device):
         self.device = resolve_device(device)
         validate_method(method)
+        if run_cfg.output_sharding not in ("replicated", "sharded"):
+            raise ValueError(f"unknown output_sharding {run_cfg.output_sharding!r}; "
+                             "choose 'replicated' or 'sharded'")
+        if run_cfg.output_sharding == "sharded" and run_cfg.backend == "vmap":
+            raise ValueError(
+                "output_sharding='sharded' is the mesh engines' layout opt-out "
+                "(backend='shard_map'/'mesh'); vmap outputs are born whole, so "
+                "the request would be silently ignored")
+        if run_cfg.grad_chunks < 1:
+            raise ValueError(f"grad_chunks must be >= 1, got {run_cfg.grad_chunks}")
         if run_cfg.update_impl:
             method = override_update_impl(method, run_cfg.update_impl)
         k = run_cfg.n_clients
@@ -242,22 +322,31 @@ class Federation:
         self.method = method
         self.data = data
         self.cfg = run_cfg
-        self.obs = make_obs(run_cfg.obs)
+        # one rank speaks for the group: the others log nothing and trace
+        # nothing (their phases are the same)
+        self.rank = collectives.world_rank()
+        self.obs = make_obs(run_cfg.obs if self.rank == 0 else ObsConfig(quiet=True))
         self.rng = np.random.RandomState(run_cfg.seed)
         self.kprime = max(1, int(round(run_cfg.participation * k)))
         self.T = run_cfg.local_iters or data.local_iters(run_cfg.batch)
-        self.engine = make_engine(run_cfg.backend)
 
         flat = layout.flatten(tree_map(lambda x: x.to(self.device), init_params))
         self.programs = RoundPrograms(
             method,
             lambda v, b: loss_fn(layout.unflatten(v), b),
             lambda v, t: acc_fn(layout.unflatten(v), t),
-            self.engine)
+            run_cfg.backend, run_cfg.shards, mesh=run_cfg.mesh,
+            strict_shards=self._strict_shards,
+            output_sharding=run_cfg.output_sharding, grad_chunks=run_cfg.grad_chunks)
+        # built eagerly: validates backend/shards/mesh at construction
+        self.engine = self.programs.engine(self.kprime)
         # same init for every client (paper: "same initialization for all
-        # methods"), stacked on a leading K axis in the cohort store
+        # methods"), stacked on a leading K axis in the cohort store; on a
+        # mesh the host stores hold one copy for all the ranks
+        shared = run_cfg.backend != "vmap" and collectives.world_size() > 1
         self.store = make_store(run_cfg.store, method.init_client(flat), k,
-                                self.device)
+                                self.device, shared=shared)
+        self._store_struct = self.store.stacked()
         self.broadcast = method.init_server(flat)
         self.best_acc = np.zeros(k, np.float64)  # per-client best (Table II)
         self.participated = np.zeros(k, bool)
@@ -333,19 +422,34 @@ class Federation:
 
     def run_round(self):
         obs = self.obs
-        ids = self.rng.choice(self.cfg.n_clients, self.kprime, replace=False)
+        k = self.kprime
+        ids = self.rng.choice(self.cfg.n_clients, k, replace=False)
         batches = self._to_device(
             self.data.sample_round_batches(self.rng, ids, self.T, self.cfg.batch))
         tests = self._to_device(self.data.client_test_set(ids))
-        gathered = obs.timed("gather", self.store.gather, ids)
-        new_states, uploads, metrics = obs.timed(
-            "client", self.programs.client, gathered, self.broadcast, batches)
+        shardings = self.programs.input_shardings(k, self._store_struct)
+        gathered = obs.timed("gather", self.store.gather, ids, shardings)
+        out = obs.timed("client", self.programs.client, gathered, self.broadcast,
+                        batches, shardings)
+        # the round-boundary all-gather: its own span (None on vmap and in
+        # the sharded round loop)
+        rep = self.programs.replicate_fn(k)
+        if rep is not None:
+            out = obs.timed("all_gather", rep, out)
+        new_states, uploads, metrics = out
         # personalized eval against the pre-update broadcast (the model a
         # client would deploy this round)
         accs = obs.timed("eval", self.programs.eval, new_states, self.broadcast, tests)
         self.broadcast = obs.timed("aggregate", self.programs.aggregate,
-                                   self.broadcast, uploads)
-        obs.timed("scatter", self.store.scatter, ids, new_states, sync=False)
+                                   self.broadcast, uploads, k)
+        if metrics["loss"].shape[0] != k:
+            # the sharded round loop: the per-client metrics come to every
+            # rank for the history, and a store that is one replica per rank
+            # (the device store) takes every rank's rows
+            metrics = self.engine.replicate(metrics)
+            if not self.store.shared:
+                new_states = obs.timed("all_gather", self.engine.replicate, new_states)
+        obs.timed("scatter", self.store.scatter, ids, new_states, shardings, sync=False)
 
         # the host reads below wait for every launch of the round
         accs = accs.cpu().numpy().astype(np.float64)
@@ -442,10 +546,14 @@ class Federation:
                 "driver": "sync", "run_cfg": self._run_fingerprint()}
 
     def save(self, ckpt_dir) -> str:
-        """Checkpoint the whole driver state after ``self._round`` rounds."""
-        path = save_checkpoint(ckpt_dir, self._round, self._ckpt_tree(),
-                               extra=self._ckpt_extra())
-        self.store.save_shards(path)
+        """Checkpoint the whole driver state after ``self._round`` rounds
+        (rank 0 writes it; on a mesh every rank's state is the same)."""
+        if self.rank == 0:
+            path = save_checkpoint(ckpt_dir, self._round, self._ckpt_tree(),
+                                   extra=self._ckpt_extra())
+            self.store.save_shards(path)
+        if collectives.world_size() > 1:
+            path = collectives.broadcast_object(path if self.rank == 0 else None)
         self.obs.event("checkpoint_save", cat="checkpoint", round=self._round)
         return path
 

@@ -15,10 +15,25 @@ kernel has no interpreter, so it is rejected here with that reason.
 
 The registry maps each dispatched kernel to the config knob that selects
 it; ``kernel_scope`` names a kernel call site in profiles.
+
+Shard contexts (``repro``'s, with a ``(ProcessGroup, size)`` pair where
+``repro`` names a mesh axis): the federation engines announce the groups
+they split work over around the code that reads them:
+
+  ``model_shard_axis``   the round-start update splits its tiles over the
+                         model group (``pfedsop_update_batched_sharded``);
+  ``client_shard_axis``  cohort reductions (``optim/reduce.py``) combine
+                         rank-local halving-tree partials in rank order;
+  ``data_shard_axis``    the data group of a mesh (the data split of the
+                         gradient chunks reads it; ROADMAP.md item 16).
+
+``grad_chunk_count`` declares ``FLRunConfig.grad_chunks`` around the
+client phase; ``optim.sgd.chunked_value_and_grad`` reads it.
 """
 from __future__ import annotations
 
 import contextlib
+from typing import Optional, Tuple
 
 import torch
 
@@ -82,6 +97,51 @@ def check_impl(impl: str, kernel: str, tensor: torch.Tensor) -> str:
             f"{tensor.device}; use 'auto' or 'reference' on the CPU"
         )
     return impl
+
+
+def _axis_context(stack: list):
+    @contextlib.contextmanager
+    def ctx(group, n_shards: int):
+        stack.append((group, int(n_shards)))
+        try:
+            yield
+        finally:
+            stack.pop()
+
+    def current() -> Optional[Tuple[object, int]]:
+        return stack[-1] if stack else None
+
+    return ctx, current
+
+
+_MODEL_SHARD_STACK: list = []
+_CLIENT_SHARD_STACK: list = []
+_DATA_SHARD_STACK: list = []
+
+model_shard_axis, current_model_shard = _axis_context(_MODEL_SHARD_STACK)
+client_shard_axis, current_client_shard = _axis_context(_CLIENT_SHARD_STACK)
+data_shard_axis, current_data_shard = _axis_context(_DATA_SHARD_STACK)
+
+model_shard_axis.__name__ = "model_shard_axis"
+client_shard_axis.__name__ = "client_shard_axis"
+data_shard_axis.__name__ = "data_shard_axis"
+
+_GRAD_CHUNK_STACK: list = []
+
+
+@contextlib.contextmanager
+def grad_chunk_count(n: int):
+    """Declare the run-level gradient chunk count around the client phase."""
+    _GRAD_CHUNK_STACK.append(int(n))
+    try:
+        yield
+    finally:
+        _GRAD_CHUNK_STACK.pop()
+
+
+def current_grad_chunks() -> int:
+    """The active gradient chunk count (1 outside any context)."""
+    return _GRAD_CHUNK_STACK[-1] if _GRAD_CHUNK_STACK else 1
 
 
 register_kernel("pfedsop_update", knob="update_impl")

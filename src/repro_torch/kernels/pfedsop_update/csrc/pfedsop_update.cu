@@ -10,7 +10,10 @@
 // K2: x_new[c] = x[c] - ec[c] * ((1 - beta[c]) * d_i[c] + beta[c] * d_g),
 //     f32 math, output in x's type.
 // d_g is either one row shared by every client (row stride 0) or one row per
-// client (row stride n).  x, d_i and d_g are all f32 or all bf16.
+// client (row stride dg_stride).  x, d_i and out share the row stride `ld`
+// (>= n): a model-sharded launch passes views of its contiguous tile range,
+// [t0*tile, t0*tile + n) of each row of the full (C, N) buffers, with
+// ld = N and no copy.  x, d_i and d_g are all f32 or all bf16.
 //
 // What bounds it on an H100 SXM (80 GB HBM3 at 3.35 TB/s): both kernels are
 // one streaming pass doing 1-2 flops per byte moved, far under the card's f32
@@ -92,10 +95,11 @@ __device__ __forceinline__ float warp_sum(float v) {
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 reduce3_kernel(const T* __restrict__ di, const T* __restrict__ dg, long long n,
-               long long dg_stride, long long tile, float* __restrict__ partials) {
+               long long ld, long long dg_stride, long long tile,
+               float* __restrict__ partials) {
   const long long c = blockIdx.y;
   const long long t = blockIdx.x;
-  const T* dic = di + c * n;
+  const T* dic = di + c * ld;
   const T* dgc = dg + c * dg_stride;
   const long long lo = t * tile;
   const long long hi = lo + tile < n ? lo + tile : n;
@@ -161,16 +165,16 @@ __device__ __forceinline__ float update_one(float x, float d, float g, float b,
 template <typename T, bool kVec>
 __global__ void __launch_bounds__(kThreads)
 update_kernel(const T* __restrict__ x, const T* __restrict__ di,
-              const T* __restrict__ dg, long long n, long long dg_stride,
-              long long tile, const float* __restrict__ beta,
+              const T* __restrict__ dg, long long n, long long ld,
+              long long dg_stride, long long tile, const float* __restrict__ beta,
               const float* __restrict__ ec, T* __restrict__ out) {
   const long long c = blockIdx.y;
   const long long lo = (long long)blockIdx.x * tile;
   const long long hi = lo + tile < n ? lo + tile : n;
-  const T* xc = x + c * n;
-  const T* dic = di + c * n;
+  const T* xc = x + c * ld;
+  const T* dic = di + c * ld;
   const T* dgc = dg + c * dg_stride;
-  T* oc = out + c * n;
+  T* oc = out + c * ld;
   const float b = beta[c];
   const float one_minus_b = __fsub_rn(1.0f, b);
   const float e = ec[c];
@@ -200,34 +204,36 @@ update_kernel(const T* __restrict__ x, const T* __restrict__ di,
 bool aligned16(const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; }
 
 // 16-byte accesses need every row start and every tile start 16-byte aligned.
+// A tile range's views start at a multiple of `tile` elements, so a range
+// launch takes the vector path exactly when the whole-row launch does.
 template <typename T>
-bool vector_ok(long long n, long long dg_stride, long long tile,
+bool vector_ok(long long ld, long long dg_stride, long long tile,
                std::initializer_list<const void*> ptrs) {
   for (const void* p : ptrs)
     if (!aligned16(p)) return false;
-  return (n * (long long)sizeof(T)) % 16 == 0 &&
+  return (ld * (long long)sizeof(T)) % 16 == 0 &&
          (dg_stride * (long long)sizeof(T)) % 16 == 0 &&
          (tile * (long long)sizeof(T)) % 16 == 0;
 }
 
 template <typename T>
 int launch_reduce3(const void* di, const void* dg, long long c, long long n,
-                   long long dg_stride, long long tile, long long tiles,
+                   long long ld, long long dg_stride, long long tile, long long tiles,
                    void* partials, cudaStream_t s) {
   const dim3 grid((unsigned)tiles, (unsigned)c);
   const T* a = static_cast<const T*>(di);
   const T* g = static_cast<const T*>(dg);
   float* p = static_cast<float*>(partials);
-  if (vector_ok<T>(n, dg_stride, tile, {di, dg}))
-    reduce3_kernel<T, true><<<grid, kThreads, 0, s>>>(a, g, n, dg_stride, tile, p);
+  if (vector_ok<T>(ld, dg_stride, tile, {di, dg}))
+    reduce3_kernel<T, true><<<grid, kThreads, 0, s>>>(a, g, n, ld, dg_stride, tile, p);
   else
-    reduce3_kernel<T, false><<<grid, kThreads, 0, s>>>(a, g, n, dg_stride, tile, p);
+    reduce3_kernel<T, false><<<grid, kThreads, 0, s>>>(a, g, n, ld, dg_stride, tile, p);
   return (int)cudaGetLastError();
 }
 
 template <typename T>
 int launch_update(const void* x, const void* di, const void* dg, long long c,
-                  long long n, long long dg_stride, long long tile,
+                  long long n, long long ld, long long dg_stride, long long tile,
                   const void* beta, const void* ec, void* out, cudaStream_t s) {
   const dim3 grid((unsigned)((n + tile - 1) / tile), (unsigned)c);
   const T* xp = static_cast<const T*>(x);
@@ -236,36 +242,40 @@ int launch_update(const void* x, const void* di, const void* dg, long long c,
   const float* b = static_cast<const float*>(beta);
   const float* e = static_cast<const float*>(ec);
   T* o = static_cast<T*>(out);
-  if (vector_ok<T>(n, dg_stride, tile, {x, di, dg, out}))
-    update_kernel<T, true><<<grid, kThreads, 0, s>>>(xp, a, g, n, dg_stride, tile, b, e, o);
+  if (vector_ok<T>(ld, dg_stride, tile, {x, di, dg, out}))
+    update_kernel<T, true><<<grid, kThreads, 0, s>>>(xp, a, g, n, ld, dg_stride, tile, b, e, o);
   else
-    update_kernel<T, false><<<grid, kThreads, 0, s>>>(xp, a, g, n, dg_stride, tile, b, e, o);
+    update_kernel<T, false><<<grid, kThreads, 0, s>>>(xp, a, g, n, ld, dg_stride, tile, b, e, o);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns a cudaError_t (0 = launched).
+// dtype: 0 = float32, 1 = bfloat16.  ld: the row stride of d_i (and of x and
+// out in pfedsop_update), in elements.  Returns a cudaError_t (0 = launched).
 extern "C" int pfedsop_reduce3(const void* di, const void* dg, int dtype,
-                               long long c, long long n, long long dg_stride,
-                               long long tile, long long tiles, void* partials,
-                               void* stream) {
+                               long long c, long long n, long long ld,
+                               long long dg_stride, long long tile, long long tiles,
+                               void* partials, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_reduce3<float>(di, dg, c, n, dg_stride, tile, tiles, partials, s);
+  if (ld < n) return (int)cudaErrorInvalidValue;
+  if (dtype == 0)
+    return launch_reduce3<float>(di, dg, c, n, ld, dg_stride, tile, tiles, partials, s);
   if (dtype == 1)
-    return launch_reduce3<__nv_bfloat16>(di, dg, c, n, dg_stride, tile, tiles, partials, s);
+    return launch_reduce3<__nv_bfloat16>(di, dg, c, n, ld, dg_stride, tile, tiles, partials, s);
   return (int)cudaErrorInvalidValue;
 }
 
 extern "C" int pfedsop_update(const void* x, const void* di, const void* dg, int dtype,
-                              long long c, long long n, long long dg_stride,
-                              long long tile, const void* beta, const void* ec,
-                              void* out, void* stream) {
+                              long long c, long long n, long long ld,
+                              long long dg_stride, long long tile, const void* beta,
+                              const void* ec, void* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ld < n) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
-    return launch_update<float>(x, di, dg, c, n, dg_stride, tile, beta, ec, out, s);
+    return launch_update<float>(x, di, dg, c, n, ld, dg_stride, tile, beta, ec, out, s);
   if (dtype == 1)
-    return launch_update<__nv_bfloat16>(x, di, dg, c, n, dg_stride, tile, beta, ec, out, s);
+    return launch_update<__nv_bfloat16>(x, di, dg, c, n, ld, dg_stride, tile, beta, ec, out, s);
   return (int)cudaErrorInvalidValue;
 }
 

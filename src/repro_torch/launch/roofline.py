@@ -8,12 +8,12 @@ in place of the TPU's.  Three terms per step record (``launch/dryrun.py``):
   collective = collective bytes / 450e9 B/s   (NVLink, one direction)
 
 ``repro`` reads its collective bytes from the post-SPMD HLO
-(``collective_bytes_from_hlo``).  The port has no HLO, so that parse has no
-counterpart here: at one device a step makes no collective, its census is
-``{}`` and ``collective_s`` is 0.  The multi-device slice (ROADMAP.md queue
-1, item 16) brings a census of the port's own ``torch.distributed`` calls in
-the same ``{op: {bytes, count}}`` schema, which ``roofline_terms`` already
-reads.
+(``collective_bytes_from_hlo``).  The port has no HLO: its census is the
+one ``launch/collectives.py`` keeps of its own ``torch.distributed`` calls,
+in the same ``{op: {bytes, count}}`` schema (result bytes per rank), which
+``roofline_terms`` reads.  The dry run counts one device's step, which
+makes no collective: its census is ``{}`` and ``collective_s`` is 0 (the
+dry run's mesh layouts are ROADMAP.md item 16's remainder).
 
 ``model_flops`` and ``active_param_count`` are plain Python over the config,
 as in ``repro``.  The kernels' rates and their ``*_cost`` functions live

@@ -25,8 +25,10 @@ layouts per modality frontend (``repro``'s ``_token_batch`` /
 ``_decode_batch``) are ``{name: (shape, dtype)}`` specs.
 
 The serving steps take the unbatched tree of one client; the train step
-takes the client axis.  ``repro``'s ``engine=`` (the mesh backends) and its
-pod axis belong to the multi-device slice (ROADMAP.md queue 1, item 16).
+takes the client axis.  ``repro``'s ``engine=`` (this step on a mesh
+engine) and its pod axis are what is left of the multi-device slice
+(ROADMAP.md queue 1, item 16); the federation's mesh engines are
+``fl/engine.py``'s.
 """
 from __future__ import annotations
 
@@ -229,8 +231,9 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     driver's peak at C > 1 is not predicted by them."""
     if engine is not None:
         raise NotImplementedError(
-            "make_train_step(engine=...): the mesh backends are not ported yet; "
-            "see ROADMAP.md queue 1, item 16")
+            "make_train_step(engine=...): the LM train step on a mesh engine (and "
+            "its leading pod axis) is not ported yet; see ROADMAP.md queue 1, "
+            "item 16")
     cfg = resolve_cfg(cfg, shape)
     pcfg = pcfg or pf.PFedSOPConfig()
 

@@ -1,7 +1,7 @@
 """End-to-end driver of the port: the paper's experiment on the card.
 
-``examples/train_federated.py``'s single-device surface with the same
-defaults: heterogeneously partitioned synthetic image classification
+``examples/train_federated.py``'s surface with the same defaults:
+heterogeneously partitioned synthetic image classification
 across K clients with partial participation, pFedSOP against the
 baselines (FedAvg, FedProx, the fine-tuning variants, Ditto, FedRep,
 local-only, SCAFFOLD, FedExP) under identical initialization (pFedSOP
@@ -27,6 +27,14 @@ observability.
   PYTHONPATH=src python -m repro_torch.launch.train_federated --clients 2000 \\
       --participation 0.01 --store host --cache-clients 50
 
+  # one rank per device, the cohort split over pods, the round-start update's
+  # tiles over the model axis (gloo on the CPU; NCCL on cards); without
+  # torchrun a sharded backend runs as one rank
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train_federated --device cpu \\
+      --backend mesh --mesh pods:2x1x2 --clients 8 --participation 0.5
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train_federated --device cpu \\
+      --backend shard_map --output-sharding sharded --grad-chunks 2
+
   # checkpoint every 5 server updates, resume an interrupted run, trace it
   PYTHONPATH=src python -m repro_torch.launch.train_federated --mode async \\
       --ckpt-every 5 --ckpt-dir experiments/ckpt/demo --trace-dir experiments/trace
@@ -39,6 +47,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 from dataclasses import replace
 from pathlib import Path
 
@@ -65,6 +74,7 @@ from repro_torch.fl import (
     make_availability,
     masked_accuracy,
 )
+from repro_torch.launch import collectives
 from repro_torch.models import cnn
 from repro_torch.obs import ObsConfig
 from repro_torch.utils.checkpoint import latest_step
@@ -137,13 +147,24 @@ def parse_args(argv=None):
                     help="host/mmap stores only: keep the rows of the N most "
                          "recently sampled clients on the card in an LRU cache, "
                          "skipping their host-to-device copy (0 = no cache)")
-    # -- not ported yet: refused with the ROADMAP item --------------------
+    # -- federation engine ------------------------------------------------
     ap.add_argument("--backend", choices=["vmap", "shard_map", "mesh"], default="vmap",
-                    help="only 'vmap' is ported (multi-device: ROADMAP.md "
-                         "queue 1, item 16)")
-    ap.add_argument("--mesh", default="", help="not ported (ROADMAP.md item 16)")
+                    help="vmap: the cohort on one device; shard_map: the cohort "
+                         "split over the ranks of the process group (torchrun); "
+                         "mesh: the --mesh layout over the ranks")
+    ap.add_argument("--mesh", default="",
+                    help="backend mesh: 'clients[:N]' | 'host' | 'pod:DxM' | "
+                         "'pods:PxDxM' (one rank per device)")
     ap.add_argument("--shards", type=int, default=0,
-                    help="not ported (ROADMAP.md item 16)")
+                    help="backend shard_map: client shards (0 = auto: the largest "
+                         "divisor of K' that divides the world size)")
+    ap.add_argument("--output-sharding", choices=["replicated", "sharded"],
+                    default="replicated",
+                    help="sharded: uploads stay rank-local into the sharded "
+                         "aggregation (mesh backends; bitwise the same history)")
+    ap.add_argument("--grad-chunks", type=int, default=1,
+                    help="each SGD step's gradient as the ordered mean over this "
+                         "many equal batch chunks (changes the numbers)")
     # -- async federation -------------------------------------------------
     ap.add_argument("--mode", choices=["sync", "async"], default="sync",
                     help="sync: bulk-synchronous rounds (the paper's setup); "
@@ -198,10 +219,10 @@ def parse_args(argv=None):
     ap.add_argument("--tag", default="run")
     args = ap.parse_args(argv)
 
-    if args.backend != "vmap" or args.mesh or args.shards:
-        raise NotImplementedError(
-            "--backend shard_map/mesh, --mesh and --shards are not ported to "
-            "repro_torch yet (multi-device: ROADMAP.md queue 1, item 16)")
+    if args.output_sharding == "sharded" and args.backend == "vmap":
+        ap.error("--output-sharding sharded applies to --backend shard_map/mesh")
+    if args.grad_chunks < 1:
+        ap.error(f"--grad-chunks must be >= 1, got {args.grad_chunks}")
     if args.resume and not args.ckpt_dir:
         ap.error("--resume requires --ckpt-dir")
     if args.ckpt_every and not args.ckpt_dir:
@@ -253,14 +274,31 @@ def availability_config(args):
 
 def main(argv=None):
     args = parse_args(argv)
-    if resolve_device(args.device).type == "cuda":
+    device = resolve_device(args.device)
+    if device.type == "cuda":
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
+    # join torchrun's group, or start a one-rank group for a sharded backend;
+    # the device picks NCCL or gloo, never the other on failure
+    own_group = not torch.distributed.is_initialized() and (
+        args.backend != "vmap" or "RANK" in os.environ)
+    if own_group:
+        collectives.init_world(device)
+    try:
+        return _run(args)
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
+
+
+def _run(args):
+    rank = collectives.world_rank()
+    say = print if rank == 0 else (lambda *a, **k: None)
 
     cfg = SMALL_CNN if args.model == "small" else RESNET9_CIFAR100
     cfg = cfg.replace(n_classes=args.classes, cnn_image_size=args.image_size)
 
-    print(f"dataset: {args.samples} samples, {args.classes} classes, "
+    say(f"dataset: {args.samples} samples, {args.classes} classes, "
           f"{args.partition} partition across {args.clients} clients")
     images, labels = make_class_conditional_images(
         args.samples, args.classes, args.image_size, seed=args.seed)
@@ -279,7 +317,9 @@ def main(argv=None):
     run_cfg = FLRunConfig(
         n_clients=args.clients, participation=args.participation,
         rounds=args.rounds, batch=args.batch, local_iters=args.local_iters,
-        seed=args.seed, ckpt_every=args.ckpt_every,
+        seed=args.seed, ckpt_every=args.ckpt_every, backend=args.backend,
+        shards=args.shards, mesh=args.mesh, output_sharding=args.output_sharding,
+        grad_chunks=args.grad_chunks,
         store=StoreConfig(kind=args.store, cache_clients=args.cache_clients),
         async_cfg=AsyncConfig(buffer_size=args.buffer_size,
                               concurrency=args.concurrency,
@@ -322,6 +362,8 @@ def main(argv=None):
             event="method_summary", method=name,
             mean_best_acc=float(hist["mean_best_acc"]))
 
+    if rank != 0:  # rank 0 writes the histories for the group
+        return results
     out_dir = Path("experiments/fl")
     out_dir.mkdir(parents=True, exist_ok=True)
     tag = f"{args.tag}_{args.partition}_{args.clients}c_{args.rounds}r"

@@ -1,8 +1,9 @@
 """Gradient entry point of the federated local-SGD phase, and the
 first-order optimizers.
 
-Port of ``repro/optim/sgd.py``: ``chunked_value_and_grad`` at
-``grad_chunks = 1``, which is plain value-and-grad; the optimizers as
+Port of ``repro/optim/sgd.py``: ``chunked_value_and_grad`` (the
+gradient of ``grad_chunks`` batch chunks, combined by the halving tree;
+plain value-and-grad at one chunk); the optimizers as
 ``(init_fn, update_fn)`` pairs over tensors or trees of tensors
 (``update_fn(grads, state, params) -> (updates, new_state)``, applied with
 ``apply_updates``; moments in f32 whatever the parameter dtype, updates
@@ -18,9 +19,6 @@ and ``core.pfedsop.local_sgd_delta``.  The loop has two forms:
                      ``torch.func``'s wrapped tensors refuse, and
                      ``torch.utils.checkpoint`` does not run under
                      ``torch.func``).
-
-The chunk-tree reduction (``grad_chunks > 1``) and the data-axis layout
-come with the multi-device slice (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -30,26 +28,54 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 import torch.func
 
+from repro_torch.kernels.dispatch import current_grad_chunks
+from repro_torch.optim.reduce import chunk_mean
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
 Optimizer = Tuple[Callable, Callable]
 
 
-def chunked_value_and_grad(loss_fn: Callable, grad_chunks: int = 1) -> Callable:
+def chunked_value_and_grad(loss_fn: Callable) -> Callable:
     """``fn(params, batch) -> (loss, grad)`` through ``torch.func``, so it
-    composes with ``torch.func.vmap`` over the cohort."""
-    if grad_chunks != 1:
-        raise NotImplementedError(
-            f"grad_chunks={grad_chunks}: only the plain gradient "
-            "(grad_chunks=1) is ported; see ROADMAP.md queue 1"
-        )
+    composes with ``torch.func.vmap`` over the cohort.
+
+    The run-level ``grad_chunks = n`` (``FLRunConfig``, announced around
+    the client phase by ``repro_torch.kernels.dispatch.grad_chunk_count``
+    and read here at call time) defines each SGD step's gradient as: split
+    the batch into n equal leading-axis chunks, take the gradient of each,
+    and combine loss and gradient with the canonical halving tree
+    (``optim.reduce.chunk_mean``) in f32, cast back to the leaf dtype.  The
+    chunks run in the body, one after another: no collective, so it is
+    legal inside the engine's ``vmap``.  n = 1 is plain value-and-grad.
+    (``repro`` can also compute the chunks one per rank of a mesh's data
+    axis; that layout is ROADMAP.md item 16's remainder.)"""
     grad_and_value = torch.func.grad_and_value(loss_fn)
 
-    def fn(params, batch):
+    def base(params, batch):
         grad, loss = grad_and_value(params, batch)
         return loss, grad
 
+    def fn(params, batch):
+        n = current_grad_chunks()
+        if n <= 1:
+            return base(params, batch)
+        outs = [base(params, tree_map(lambda x: _chunk_slice(x, n, i), batch))
+                for i in range(n)]
+        losses = torch.stack([loss.float() for loss, _ in outs])
+        grads = tree_map(lambda *xs: torch.stack([x.float() for x in xs]),
+                         *[g for _, g in outs])
+        loss = chunk_mean(losses)
+        return loss, tree_map(lambda g, p: g.to(p.dtype), chunk_mean(grads), params)
+
     return fn
+
+
+def _chunk_slice(x, n: int, i: int):
+    if x.shape[0] % n:
+        raise ValueError(
+            f"grad_chunks={n} must divide the local batch size {x.shape[0]} "
+            "(leading batch axis of every leaf; no padding)")
+    return x.reshape((n, x.shape[0] // n) + tuple(x.shape[1:]))[i]
 
 
 def sgd_loop(loss_fn: Callable, params, batches: Any, lr: float, mask=None, prox=None):

@@ -224,13 +224,10 @@ def test_cli_async_checkpoint_resume_and_trace(tmp_path, capsys):
                                           (["--backend", "mesh"], "item 16"),
                                           (["--mesh", "pods:2x2x2"], "item 16")])
 def test_cli_unported_flags_name_their_roadmap_item(flags, item):
-    """The multi-device flags still raise naming item 16; the store flags
-    of item 12 are ported and parse."""
-    if item == "item 12":
-        assert train_federated.parse_args(["--device", "cpu"] + flags).store == flags[1]
-        return
-    with pytest.raises(NotImplementedError, match=item):
-        train_federated.parse_args(["--device", "cpu"] + flags)
+    """The store flags of item 12 and the multi-device flags of item 16 are
+    ported and parse."""
+    args = train_federated.parse_args(["--device", "cpu"] + flags)
+    assert getattr(args, flags[0][2:]) == flags[1]
 
 
 def test_cli_cache_clients_needs_a_host_store(capsys):

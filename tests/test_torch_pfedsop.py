@@ -36,7 +36,7 @@ from repro_torch.fl import Federation as TFederation, FLRunConfig as TRunConfig
 from repro_torch.fl import HostStore
 from repro_torch.fl import masked_accuracy as t_masked_accuracy
 from repro_torch.kernels.pfedsop_update import ops
-from repro_torch.launch import train_federated
+from repro_torch.launch import collectives, train_federated
 from repro_torch.models import cnn as t_cnn
 from repro_torch.utils.pytree import FlatLayout
 from repro_torch.weights import params_from_jax
@@ -210,16 +210,13 @@ def test_federation_slice_matches_repro(small_setup, method, monkeypatch):
 @pytest.mark.parametrize("knob", ["shards", "mesh", "output_sharding", "grad_chunks",
                                   "ckpt_every", "ckpt_dir", "async_cfg", "obs"])
 def test_unported_run_knobs_raise(knob):
-    """The multi-device knobs still raise; checkpointing, async and obs are
-    ported now and are accepted as given."""
+    """Every run knob is ported now (the multi-device ones with the mesh
+    engines) and is accepted as given; the federation validates the
+    values."""
     value = {"shards": 2, "mesh": "pods:2x2x2", "output_sharding": "sharded",
              "grad_chunks": 2, "ckpt_every": 5, "ckpt_dir": "ck",
              "async_cfg": object(), "obs": {"trace_dir": "t"}}[knob]
-    if knob in ("ckpt_every", "ckpt_dir", "async_cfg", "obs"):
-        assert getattr(TRunConfig(**{knob: value}), knob) is value
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TRunConfig(**{knob: value})
+    assert getattr(TRunConfig(**{knob: value}), knob) is value
 
 
 @pytest.mark.parametrize("case", ["backend", "store", "availability", "impl"])
@@ -227,8 +224,20 @@ def test_unported_federation_options_raise(small_setup, case):
     s = small_setup
     run = dict(n_clients=8, rounds=1)
     extra = {}
-    if case == "backend":
+    if case == "backend":  # ported now: it needs a process group, and runs in one
         run["backend"] = "shard_map"
+        with pytest.raises(RuntimeError, match="process group"):
+            TFederation(t_bl.PFedSOP(), None, None, s["tp"], s["tdata"],
+                        TRunConfig(**run), device="cpu")
+        collectives.init_world("cpu")
+        try:
+            fed = TFederation(t_bl.PFedSOP(), None, None, s["tp"], s["tdata"],
+                              TRunConfig(**run), device="cpu")
+            assert fed.engine.describe() == {"backend": "shard_map", "shards": 1,
+                                             "ranks": 1}
+        finally:
+            torch.distributed.destroy_process_group()
+        return
     elif case == "store":  # ported now: a host-store federation is built
         fed = TFederation(t_bl.PFedSOP(), None, None, s["tp"], s["tdata"],
                           TRunConfig(store="host", **run), device="cpu")

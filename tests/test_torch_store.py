@@ -6,8 +6,8 @@ against ``repro``'s and against each other.
   the deferred write-back, host rows written through; the LRU's eviction
   order, hit accounting, a cohort larger than the cache, write-allocate
   on scatter; memmaps on disk and the shard save/load round trip with
-  its refusals; ``offload``.  (The sharded-gather bypass is multi-device,
-  ROADMAP.md queue 1, item 16.)
+  its refusals; ``offload``.  (The sharded gather and the stores shared
+  by the ranks of a mesh: ``tests/test_torch_multidevice.py``.)
 - Across packages: one random sequence of gathers (duplicates included)
   and scatters (device rows and host rows) through ``repro``'s
   ``HostStore`` and the port's, with and without the cache: every gathered
