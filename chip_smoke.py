@@ -148,7 +148,17 @@ Phases (any failure exits non-zero; nothing is caught):
                   plain pair, each range's K2 bitwise its plain version and
                   its K1 within K1's limit, K1 = K2 = m launches a call
                   (rank 0's tile-range launches at m = 2 and 4 are timed in
-                  phase 3, beside their bounds).
+                  phase 3, beside their bounds);
+ 17. mesh train   a one-rank NCCL group again: ``make_train_step`` at phase
+                  15's shape through ``MeshBackend(1, pods:1x1x1)`` bit for
+                  bit the engine-less step at ``grad_chunks`` 1 and 2 (exact
+                  launches, peak device memory under 80 GB, at 2 chunks
+                  beside the dry run's prediction); the 2-chunk step as a
+                  data split over two processes on the card (gloo: NCCL
+                  refuses two ranks on one device), each rank's result
+                  bitwise (by digest) the in-body one; then
+                  ``launch/train.py``'s round loop at gemma3-1b's full width,
+                  3 rounds, replicated and sharded: equal losses.
                   Each phase prints its seconds.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
@@ -1542,6 +1552,22 @@ def grad_gaps(g_k, g_r, g_t):
     return scale, ratio
 
 
+def launch_step_args(cfg):
+    """``make_train_step``'s inputs at phase 6's shape on the card: one
+    client's params from seed 0 and zero local and global deltas, and
+    client 0's first ``LM["local_iters"]`` batches of phase 6's stream."""
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    assert sum(x.numel() for x in tree_leaves(params)) == LM_N
+    state = {"params": tree_map(lambda x: x.unsqueeze(0), params),
+             "delta": tree_map(lambda x: torch.zeros_like(x).unsqueeze(0), params)}
+    global_delta = tree_map(torch.zeros_like, params)
+    stream = lm_driver.client_streams(cfg, 1, LM["batch"], LM["seq_len"])[0]
+    bs = [next(stream) for _ in range(LM["local_iters"])]
+    batches = {k: torch.from_numpy(np.stack([b[k] for b in bs])[None]).to(
+        device="cuda", dtype=torch.int32) for k in bs[0]}
+    return state, global_delta, batches
+
+
 def launch_tooling_run():
     """Phase 15: the dry run's prediction for ``steps.make_train_step`` at
     phase 6's shape (gemma3-1b, one client, B = 2, S = 2048, T = 2, bf16,
@@ -1571,21 +1597,11 @@ def launch_tooling_run():
           f"{rec['cost_analysis']['bytes accessed']:.6g}", flush=True)
 
     base = torch.cuda.memory_allocated()
-    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-    assert sum(x.numel() for x in tree_leaves(params)) == LM_N
-    state = {"params": tree_map(lambda x: x.unsqueeze(0), params),
-             "delta": tree_map(lambda x: torch.zeros_like(x).unsqueeze(0), params)}
-    global_delta = tree_map(torch.zeros_like, params)
-    del params
-    stream = lm_driver.client_streams(cfg, 1, LM["batch"], LM["seq_len"])[0]
-    bs = [next(stream) for _ in range(LM["local_iters"])]
-    batches = {k: torch.from_numpy(np.stack([b[k] for b in bs])[None]).to(
-        device="cuda", dtype=torch.int32) for k in bs[0]}
-    args = (state, global_delta, batches)
+    args = launch_step_args(cfg)
+    state, global_delta, batches = args
     held = sum(x.untyped_storage().nbytes() for x in tree_leaves(args))
     assert held == mem["argument_size_in_bytes"], (held, mem)
     step = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg)
-    del bs, stream
     torch.cuda.synchronize()
 
     torch.cuda.reset_peak_memory_stats()
@@ -1900,6 +1916,229 @@ def mesh_run():
     return {"resnet9_mesh": counts, "mesh_update_ranges": emulated}, worst
 
 
+# phase 17: the LM train step on a mesh engine, and launch/train.py's loop
+MESH_TRAIN_CHUNKS = (1, 2)
+TRAIN_ROUNDS = 3
+SPLIT_JOIN_S = 150  # the two data ranks' answers, then they are killed
+
+
+def tree_digest(tree):
+    """Per leaf, the position-weighted sum of its bit patterns (int64,
+    wrapping, on the card): equal trees give equal digests, and a changed
+    bit changes its leaf's."""
+    out = []
+    for x in tree_leaves(tree):
+        bits = x.contiguous().view({2: torch.int16, 4: torch.int32}[x.element_size()]).reshape(-1)
+        total = 0
+        for lo in range(0, bits.numel(), 1 << 26):
+            part = bits[lo:lo + (1 << 26)].long()
+            w = (torch.arange(lo, lo + part.numel(), device=part.device) % 65521) + 1
+            total += int((part * w).sum())
+        out.append(total)
+    return out
+
+
+def _split_rank(rank, port, answers):
+    """One of two processes on the one card, a gloo group (NCCL refuses a
+    second rank on a device): phase 17's step on ``pods:1x2x1`` at
+    ``grad_chunks`` 2, each rank one sequence of every batch."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.fl.engine import MeshBackend
+    from repro_torch.kernels.dispatch import grad_chunk_count
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import parse_mesh
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=60))
+        try:
+            cfg = get_config("gemma3-1b")
+            args = launch_step_args(cfg)
+            engine = MeshBackend(1, parse_mesh("pods:1x2x1"), data_chunks=2)
+            step = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, PFedSOPConfig(
+                eta1=0.1, eta2=0.1, rho=1.0, lam=1.0), engine=engine)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            collectives.reset_census()
+            reset_launches()
+            t0 = time.perf_counter()
+            with grad_chunk_count(2):
+                out = step(*args)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            answers.put((rank, True, dict(
+                digest=tree_digest(out), wall=wall, launches=all_launches(),
+                census=collectives.census(), data_split=engine.data_split,
+                peak=torch.cuda.max_memory_allocated())))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the parent fails the phase with this traceback
+        answers.put((rank, False, traceback.format_exc()))
+
+
+def split_on_one_card(want):
+    """``_split_rank`` on 2 processes; each rank's result must have the
+    digest ``want`` (the in-body 2-chunk step's).  Returns rank 0's answer."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    ctx = mp.get_context("spawn")
+    answers = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=_split_rank, args=(r, port, answers), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + SPLIT_JOIN_S
+    try:
+        while len(got) < 2 and time.monotonic() < deadline:
+            try:
+                rank, ok, value = answers.get(timeout=1.0)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            assert ok, f"data rank {rank}:\n{value}"
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.1, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+    assert len(got) == 2, (f"data ranks answered {sorted(got)} of 2 within {SPLIT_JOIN_S} s; "
+                           f"exit codes {[p.exitcode for p in procs]}")
+    for rank, r in sorted(got.items()):
+        print(f"mesh train[pods:1x2x1 data split, 2 processes on one card, gloo, rank {rank}]: "
+              f"bitwise the in-body 2-chunk step: {r['digest'] == want}; data split "
+              f"{r['data_split']}; wall {1e3 * r['wall']:.3f} ms; peak device memory "
+              f"{r['peak']} bytes ({r['peak'] / 2**30:.3f} GiB); census {r['census']}; "
+              f"launches {r['launches']}", flush=True)
+        assert r["digest"] == want and r["data_split"] is True, rank
+    return got[0]
+
+
+def mesh_train_run():
+    """Phase 17, at world 1 on NCCL (a one-rank group, file store under
+    ``SCRATCH``): ``make_train_step`` at phase 15's shape (gemma3-1b, one
+    client, B = 2, S = 2048, T = 2) through ``MeshBackend(1, pods:1x1x1)``,
+    bit for bit the engine-less step, at ``grad_chunks`` 1 and 2, with the
+    launch counters reset just before the engine step and its launches
+    asserted (the per-step launches times the chunks, one K1/K2 pair), its
+    peak device memory (below the card's 80 GB; at 2 chunks beside the dry
+    run's prediction) and wall; the same 2-chunk step on ``pods:1x2x1`` in
+    two processes sharing the card over gloo (``split_on_one_card``: the
+    data split, each rank one chunk), bitwise by digest; then
+    ``launch/train.py``'s round loop
+    (``train.run``) at gemma3-1b's full width, ``TRAIN_ROUNDS`` rounds,
+    replicated and sharded, with equal losses.  Returns {path: launches}."""
+    import torch.distributed as dist
+
+    from repro_torch.fl.engine import MeshBackend
+    from repro_torch.kernels.dispatch import grad_chunk_count
+    from repro_torch.launch import collectives
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import parse_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
+    with grad_chunk_count(2):
+        rec = dryrun.run_one("gemma3-1b", LAUNCH_SHAPE, micro_batch=LM["batch"], save=False,
+                             verbose=False)
+    predicted2 = (rec["memory_analysis"]["argument_size_in_bytes"]
+                  + rec["memory_analysis"]["temp_size_in_bytes"])
+    per_step = lm_driver.launches_per_step(cfg)
+    SCRATCH.mkdir(parents=True, exist_ok=True)
+    store = SCRATCH / "nccl_store"
+    store.unlink(missing_ok=True)
+    collectives.init_world("cuda", store_path=str(store))
+    paths = {}
+    try:
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        engine = MeshBackend(1, parse_mesh("pods:1x1x1"))
+        base = torch.cuda.memory_allocated()
+        args = launch_step_args(cfg)
+        plain = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg)
+        meshed = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg, engine=engine)
+        for n in MESH_TRAIN_CHUNKS:
+            with grad_chunk_count(n):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                collectives.reset_census()
+                reset_launches()
+                t0 = time.perf_counter()
+                got = meshed(*args)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                launches = all_launches()
+                peak = torch.cuda.max_memory_allocated() - base
+                want = plain(*args)
+            same = _same_tensors(got, want)
+            loss = got[2].item()
+            pred = (f"; the dry run predicted {predicted2} bytes ({predicted2 / 2**30:.3f} "
+                    f"GiB): {100 * (predicted2 - peak) / peak:+.2f}%" if n == 2 else "")
+            print(f"mesh train[pods:1x1x1, grad_chunks={n}]: bitwise the engine-less step: "
+                  f"{same}; loss {loss:.6f}; wall {1e3 * wall:.3f} ms; peak device memory "
+                  f"{peak} bytes ({peak / 2**30:.3f} GiB){pred}; data split "
+                  f"{engine.data_split}; census {collectives.census()}; launches {launches}",
+                  flush=True)
+            assert same and math.isfinite(loss), (n, loss)
+            assert peak < roofline.HBM_CAPACITY, peak
+            expect = {**{k: 0 for k in launches}, "reduce3": 1, "update": 1,
+                      **{k: v * n * LM["local_iters"] for k, v in per_step.items()}}
+            assert launches == expect, (launches, expect)
+            paths[f"mesh_train_step_gemma3_1b_chunks{n}"] = launches
+            digest = tree_digest(got)
+            del got, want
+        del args, plain, meshed
+        gc.collect()
+        torch.cuda.empty_cache()
+        split = split_on_one_card(digest)
+        expect = {**{k: 0 for k in split["launches"]}, "reduce3": 1, "update": 1,
+                  **{k: v * LM["local_iters"] for k, v in per_step.items()}}
+        assert split["launches"] == expect, (split["launches"], expect)
+        paths["mesh_train_step_gemma3_1b_data_split_rank0"] = split["launches"]
+
+        losses = {}
+        for out in ("replicated", "sharded"):
+            reset_launches()
+            t0 = time.perf_counter()
+            hist, final = train_cli.run(cfg, rounds=TRAIN_ROUNDS, local_iters=LM["local_iters"],
+                                        micro_batch=LM["batch"], seq_len=LM["seq_len"], seed=0,
+                                        output_sharding=out, device="cuda")
+            torch.cuda.synchronize()
+            launches = all_launches()
+            losses[out] = hist["loss"]
+            print(f"mesh train[launch/train.py, {out}]: {TRAIN_ROUNDS} rounds in "
+                  f"{time.perf_counter() - t0:.1f}s: loss {hist['loss']}, round_time "
+                  f"{[round(t, 4) for t in hist['round_time']]} s; launches {launches}",
+                  flush=True)
+            assert all(math.isfinite(v) for v in hist["loss"]), hist["loss"]
+            assert launches["reduce3"] == launches["update"] == TRAIN_ROUNDS, launches
+            paths[f"train_py_gemma3_1b_{out}"] = launches
+            del final
+            gc.collect()
+            torch.cuda.empty_cache()
+        assert losses["replicated"] == losses["sharded"], losses
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(SCRATCH, ignore_errors=True)
+    print(f"mesh train: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return paths
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
@@ -1978,6 +2217,7 @@ def main():
     paths.update(scripts_run())
     mesh_paths, worst = mesh_run()
     paths.update(mesh_paths)
+    paths.update(mesh_train_run())
     for k in ("reduce3", "update"):
         rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 

@@ -296,18 +296,30 @@ def tree_personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
 
     With ``use_pc`` and "auto"/"kernel", ``repro``'s ``_personalize_fused``:
     flatten the three trees once to f32 vectors, one C = 1 launch pair of
-    the fused update, unflatten back to each leaf's dtype.  "reference" and
-    the no-PC ablation run ``repro``'s per-leaf math, rounding the blend and
+    the fused update, unflatten back to each leaf's dtype.  Inside a
+    ``model_shard_axis`` context (a mesh engine's loop-form client phase,
+    outside any vmap) the pair runs on this rank's tile range of the one
+    row (``pfedsop_update_batched_sharded``, bitwise the whole row's), as
+    ``repro`` passes ``shard=current_model_shard()``.  "reference" and the
+    no-PC ablation run ``repro``'s per-leaf math, rounding the blend and
     the step to each leaf's dtype as it does."""
     leaf = tree_leaves(params)[0]
     impl = check_impl(cfg.update_impl, "pfedsop_update", leaf)
     if cfg.use_pc and impl != "reference":
         layout = FlatLayout(params)
+        xv, dv, gv = (layout.flatten(params), layout.flatten(local_delta),
+                      layout.flatten(global_delta))
+        shard = current_model_shard()
         with kernel_scope("pfedsop_update", impl):
-            new, beta = ops.pfedsop_update(
-                layout.flatten(params), layout.flatten(local_delta),
-                layout.flatten(global_delta), cfg.eta1, cfg.rho, cfg.lam, cfg.eps,
-                impl=impl)
+            if shard is None:
+                new, beta = ops.pfedsop_update(xv, dv, gv, cfg.eta1, cfg.rho, cfg.lam,
+                                               cfg.eps, impl=impl)
+            else:
+                new, beta = ops.pfedsop_update_batched_sharded(
+                    xv[None], dv[None], gv, group=shard[0], m=shard[1], comm=collectives,
+                    eta1=cfg.eta1, rho=cfg.rho, lam=cfg.lam, eps=cfg.eps, impl=impl)
+                new, beta = new[0], beta[0]
+        del xv, dv, gv
         return layout.unflatten(new), {"beta": beta}
     if cfg.use_pc:
         nl2, ng2 = _tree_dot(local_delta, local_delta), _tree_dot(global_delta, global_delta)

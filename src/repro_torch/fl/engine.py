@@ -24,27 +24,39 @@ one fixed shape:
 
   1. each rank takes its client rows (the store gathers only those);
      model-sharded-at-rest leaves are all-gathered over the model group;
+     with the data split (below), each per-step batch is cut to this data
+     rank's chunk;
   2. the method's cohort step (pFedSOP's round start: one launch pair of
      the update kernels, collectives allowed) runs on the local rows
      under the model-shard context;
   3. one ``torch.func.vmap`` of the one-client function over the local
      clients, with no collective inside it (``launch/collectives.py``
-     refuses one there: under vmap a gloo all_gather returns zeros);
+     refuses one there: under vmap a gloo all_gather returns zeros) but
+     the data split's ``gather_chunks``, a custom op with a vmap rule;
+     or, in the loop form (``loop=True``: the LM train step, whose kernels
+     read ``data_ptr()`` and whose remat refuses ``torch.func``), the
+     local clients one after another under the model-shard context, their
+     outputs stacked: the same shapes and the same collectives;
   4. ``replicate``: an ``all_gather`` over the client group in rank order
      returns every output to every rank (skipped by
      ``output_sharding="sharded"``, where ``aggregate_phase`` reduces the
      rank-local uploads in rank order instead).
+
+The data split (``repro``'s ``_data_split``): when the run's gradient
+chunk count (``data_chunks``, ``FLRunConfig.grad_chunks``) equals the
+data axis's size (> 1) and every batch leaf is stacked (client, step,
+batch, ...) with a batch dim the data size divides, each data rank takes
+its contiguous chunk of every per-step batch and the client phase runs in
+``data_shard_axis(data group, data size)``: each rank computes one
+gradient chunk and gathers the n partials (``optim/sgd.py``).  Otherwise
+the chunks run in the body on every data rank, with the same numbers;
+``data_split`` records which layout the last client phase took.
 
 Pure data movement around the same per-client computation, so a mesh
 history is bitwise the vmap history wherever the local vmap computes
 bitwise what the whole-cohort vmap does (one rank; on the CPU a vmapped
 convolution's gradient differs in the last bits between 4 clients and
 2 + 2, so a 2-rank CNN history drifts by ~1e-6 from the 4-client vmap's).
-
-Not in this slice (ROADMAP.md item 16): the data-axis split of the
-gradient chunks.  A mesh whose ``grad_chunks`` equals its data size
-computes the chunks in the body on every data rank, which gives the same
-numbers.
 """
 from __future__ import annotations
 
@@ -56,11 +68,17 @@ from typing import Optional, Union
 import torch.distributed as dist
 import torch.func
 
-from repro_torch.kernels.dispatch import client_shard_axis, model_shard_axis
+from repro_torch.kernels.dispatch import client_shard_axis, data_shard_axis, model_shard_axis
 from repro_torch.launch import collectives
 from repro_torch.launch.mesh import MeshSpec, is_auto_clients, parse_mesh, resolve_mesh
 from repro_torch.launch.sharding import client_stacked_specs
-from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
+from repro_torch.utils.pytree import (
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_stack,
+    tree_unflatten,
+)
 
 CLIENT_AXIS = "clients"
 REPLICA_AXIS = "replicas"
@@ -69,6 +87,26 @@ BACKENDS = ("vmap", "shard_map", "mesh")
 
 def _run_vmap(fn, states, broadcast, rest):
     return torch.func.vmap(fn, in_dims=(0, None, 0))(states, broadcast, rest)
+
+
+def client_tree(tree, i):
+    """Client ``i``'s slice of a tree whose leaves lead with the client axis."""
+    return tree_map(lambda x: x[i], tree)
+
+
+def stack_clients(trees):
+    """Stack per-client trees on a new leading axis (one client: a view)."""
+    if len(trees) == 1:
+        return tree_map(lambda x: x.unsqueeze(0), trees[0])
+    return tree_stack(trees)
+
+
+def _run_loop(fn, states, broadcast, rest):
+    """The loop form of ``_run_vmap``: ``fn`` on each client in turn, the
+    outputs stacked on a new leading axis."""
+    n = tree_leaves(rest)[0].shape[0]
+    return stack_clients([fn(client_tree(states, i), broadcast, client_tree(rest, i))
+                          for i in range(n)])
 
 
 def _cohort_step(cohort_step, states, broadcast):
@@ -91,12 +129,14 @@ class VmapBackend:
         return "vmap"
 
     def client_phase(self, one_client, states, broadcast, batches,
-                     cohort_step=None, shardings=None):
+                     cohort_step=None, shardings=None, loop=False):
         """(states, broadcast, batches) -> (new_states, uploads, metrics);
         ``cohort_step(states, broadcast) -> (states, cohort_metrics)`` runs
-        first on the whole cohort (pFedSOP's round start)."""
+        first on the whole cohort (pFedSOP's round start); ``loop`` runs the
+        clients one after another instead of under ``vmap``."""
         states, cohort_metrics = _cohort_step(cohort_step, states, broadcast)
-        new_states, uploads, metrics = _run_vmap(one_client, states, broadcast, batches)
+        run = _run_loop if loop else _run_vmap
+        new_states, uploads, metrics = run(one_client, states, broadcast, batches)
         return new_states, uploads, {**metrics, **cohort_metrics}
 
     client_phase_sharded = client_phase
@@ -181,9 +221,11 @@ class MeshBackend:
         self.spec = spec
         self.client_sharded = resolve_client_split(kprime, spec, strict)
         self.mesh = resolve_mesh(spec)
-        # FLRunConfig.grad_chunks: in the signature only; the chunks run in
-        # the body (the data-axis split is ROADMAP.md item 16's remainder)
+        # FLRunConfig.grad_chunks: the data split engages when it equals the
+        # data axis's size (module docstring); ``data_split`` records the
+        # layout the last client phase took (None before the first)
         self.data_chunks = int(data_chunks)
+        self.data_split = None
 
     @property
     def client_shards(self) -> int:
@@ -251,6 +293,25 @@ class MeshBackend:
             return contextlib.nullcontext()
         return model_shard_axis(self._group(self.spec.model_axis), msize)
 
+    def _data_split(self, batches) -> bool:
+        """Whether this call's batch tree splits over the data axis: the
+        chunk count equals the data size (> 1), so this rank's slice IS one
+        chunk, and every leaf is stacked (client, step, batch, ...) with a
+        batch dim (index 2) the data size divides.  Otherwise the chunks
+        run in the body, with the same numbers."""
+        dsize = self.spec.data_size
+        if self.spec.data_axis is None or dsize <= 1 or self.data_chunks != dsize:
+            return False
+        leaves = tree_leaves(batches)
+        return bool(leaves) and all(x.dim() >= 3 and x.shape[2] % dsize == 0 for x in leaves)
+
+    def _data_chunk(self, batches):
+        """This data rank's contiguous chunk of every per-step batch."""
+        dsize = self.spec.data_size
+        r = self._local_rank(self.spec.data_axis)
+        return tree_map(lambda x: x.narrow(2, r * (x.shape[2] // dsize), x.shape[2] // dsize),
+                        batches)
+
     def input_shardings(self, tree):
         """Per-leaf ``LeafShard`` of a client-stacked cohort tree (only the
         shapes are read): this rank's rows, and its model slice of the
@@ -287,24 +348,36 @@ class MeshBackend:
     # -- phases ------------------------------------------------------------
 
     def client_phase_sharded(self, one_client, states, broadcast, batches,
-                             cohort_step=None, shardings=None):
+                             cohort_step=None, shardings=None, loop=False):
         """The client phase WITHOUT the closing all-gather: outputs hold
         this rank's rows.  ``states`` are at rest as ``shardings`` lays
-        them out (the store's gather), or the whole cohort when None."""
+        them out (the store's gather), or the whole cohort when None;
+        ``loop`` runs the local clients one after another (the module
+        docstring's step 3)."""
         if shardings is None:
             states = self._local_rows(states)
         else:
             states = self._gather_model(states, shardings)
         batches = self._local_rows(batches)
-        with self._model_context():
-            states, cohort_metrics = _cohort_step(cohort_step, states, broadcast)
-        new_states, uploads, metrics = _run_vmap(one_client, states, broadcast, batches)
+        self.data_split = self._data_split(batches)
+        with contextlib.ExitStack() as ctx:
+            if self.data_split:
+                batches = self._data_chunk(batches)
+                ctx.enter_context(data_shard_axis(self._group(self.spec.data_axis),
+                                                  self.spec.data_size))
+            with self._model_context():
+                states, cohort_metrics = _cohort_step(cohort_step, states, broadcast)
+                if loop:
+                    out = _run_loop(one_client, states, broadcast, batches)
+            if not loop:
+                out = _run_vmap(one_client, states, broadcast, batches)
+        new_states, uploads, metrics = out
         return new_states, uploads, {**metrics, **cohort_metrics}
 
     def client_phase(self, one_client, states, broadcast, batches,
-                     cohort_step=None, shardings=None):
+                     cohort_step=None, shardings=None, loop=False):
         return self.replicate(self.client_phase_sharded(
-            one_client, states, broadcast, batches, cohort_step, shardings))
+            one_client, states, broadcast, batches, cohort_step, shardings, loop))
 
     def replicate(self, out):
         """The round-boundary all-gather: every rank's rows of every leaf,
@@ -393,7 +466,9 @@ def make_engine(backend: str, kprime: int, shards: int = 0,
     elsewhere; like ``shards``, a layout request is never silently
     ignored.  ``strict=False`` (the async driver's micro-cohorts) lets a
     non-divisor cohort fall back instead of erroring.  ``data_chunks`` is
-    ``FLRunConfig.grad_chunks``, recorded in the mesh engines' signature."""
+    ``FLRunConfig.grad_chunks``: the mesh engines' data split engages when
+    it equals the data axis's size (the vmap backend computes its chunks in
+    the body, so it takes no engine knob)."""
     if backend == "vmap":
         if shards or mesh:
             raise ValueError(

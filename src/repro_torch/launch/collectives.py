@@ -7,6 +7,9 @@ the model-sharded update reach the other ranks through these functions:
   ``all_gather``   every rank's tensor, concatenated along ``dim`` in the
                    group's rank order (the order the halving trees of
                    ``optim/reduce.py`` rely on);
+  ``gather_chunks`` every rank's tensor stacked on a new leading axis in
+                   rank order (JAX's non-tiled ``all_gather(..., axis=0)``):
+                   the data split's gradient chunks (``optim/sgd.py``);
   ``all_reduce``   an in-place SUM;
   ``broadcast``    from a group rank;
   ``barrier``.
@@ -23,7 +26,12 @@ A collective refuses to run under a ``torch.func`` transform (``vmap``,
 ``grad``): a gloo ``all_gather`` of a vmapped tensor returned zeros with
 no error but a ``wait_tensor`` warning (torch 2.13, world 2), so a
 collective inside the engine's vmap would corrupt a history silently.
-The engines run every collective outside their ``vmap``.
+The engines run every collective outside their ``vmap``, except
+``gather_chunks``: it is a ``torch.library`` custom op whose vmap rule
+gathers the physical batched tensor once, vmap dim first, so the
+collective itself never sees a transform's wrapper.  Its fake kernel
+gives the dry run's meta path (and counts the gather there, as the card
+would).
 
 ``init_world`` joins the process group a launcher (``torchrun``) set up,
 or starts a one-rank group in-process; the device picks the backend,
@@ -85,6 +93,48 @@ def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
     out = torch.cat(parts, dim=dim)
     _count("all-gather", out.nbytes)
     return out.bool() if flag else out
+
+
+# the groups gather_chunks was called with, by name: a custom op's arguments
+# are tensors and plain values, not process groups
+_GATHER_GROUPS: dict = {}
+
+
+def gather_chunks(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Every rank's ``x`` stacked on a new leading axis in the group's rank
+    order: ``(n, *x.shape)``.  Legal under ``torch.func.vmap`` (see the
+    module docstring); counted as an "all-gather" of its result bytes."""
+    group = group if group is not None else dist.group.WORLD
+    _GATHER_GROUPS[group.group_name] = group
+    return _gather_chunks_op(x, group.group_name)
+
+
+@torch.library.custom_op("repro_torch::gather_chunks", mutates_args=())
+def _gather_chunks_op(x: torch.Tensor, group_name: str) -> torch.Tensor:
+    group = _GATHER_GROUPS[group_name]
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x, group=group)
+    out = torch.stack(parts)
+    _count("all-gather", out.nbytes)
+    return out
+
+
+@_gather_chunks_op.register_fake
+def _(x, group_name):
+    out = x.new_empty((dist.get_world_size(_GATHER_GROUPS[group_name]),) + tuple(x.shape))
+    if x.is_meta:  # the dry run: counted as the card's gather would be
+        _count("all-gather", out.nbytes)
+    return out
+
+
+@_gather_chunks_op.register_vmap
+def _(info, in_dims, x, group_name):
+    if in_dims[0] is None:
+        return _gather_chunks_op(x, group_name), None
+    # the physical tensor, vmap dim first: one gather of every mapped slice,
+    # whose result holds the vmap dim at 1
+    return _gather_chunks_op(x.movedim(in_dims[0], 0), group_name), 1
 
 
 def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:

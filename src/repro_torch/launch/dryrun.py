@@ -1,33 +1,66 @@
-"""Dry run at one device: count a whole step on the meta device.
+"""Dry run: count a whole step on the meta device, at one device or as
+rank 0 of the production meshes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k \
+        --mesh both
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 
-Port of ``repro/launch/dryrun.py`` at one device.  ``repro`` lowers the step
-with ``ShapeDtypeStruct`` stand-ins and reads XLA's analyses; the port runs
-the real step once on meta tensors (``steps.input_specs``), which have
-shapes, dtypes and storage sizes and no data, so nothing is allocated and
-every op of the step is seen.  The kernels take their meta path
+Port of ``repro/launch/dryrun.py``.  ``repro`` lowers the step with
+``ShapeDtypeStruct`` stand-ins and reads XLA's analyses; the port runs the
+real step once on meta tensors (``steps.input_specs``), which have shapes,
+dtypes and storage sizes and no data, so nothing is allocated and every op
+of the step is seen.  The kernels take their meta path
 (``repro_torch.kernels.meta``): the CUDA path's outputs and scratch, and a
-record of each launch with its cost.  Per (arch x shape) it writes
-``experiments/dryrun_torch/<arch>__<shape>__1.json`` with ``repro``'s keys:
+record of each launch with its cost.
+
+``--mesh`` (``run_one``'s ``mesh``):
+
+  one     one device (the default; what ``launch/calibrate.py`` and
+          ``chip_smoke.py`` phase 15 read): records ``<arch>__<shape>__1.json``;
+  single  ``repro``'s 16x16 single-pod mesh, ``MeshSpec.single_pod(16, 16)``:
+          256 ranks, one client; ``__16x16.json``;
+  multi   ``repro``'s 2x16x16 multi-pod mesh, ``MeshSpec.multi_pod(2, 16, 16)``:
+          512 ranks, 2 clients (one a pod); ``__2x16x16.json``;
+  both    single, then multi.
+
+On a mesh the count runs rank 0's program inside a one-process
+``torch.distributed`` group of the mesh's world size on the ``fake``
+backend (``torch.testing._internal.distributed.fake_pg``: collectives
+complete without moving data), through a ``MeshBackend`` with
+``data_chunks = 16`` as ``repro``'s does.  A train step runs
+``make_train_step(engine=)``: rank 0's client state at rest is its rows
+with the Megatron-eligible leaves cut to its model slice
+(``launch/sharding.py``'s rules, ``MeshBackend.input_shardings``) and the
+engine gathers them; its per-step batch is its data rank's chunk (2 of
+the micro batch's 32 sequences), whose gradient it gathers with the 15
+others' (``optim/sgd.py``'s data split); the round start runs K1/K2 on
+its tile range; multi-pod, Eq. 13 gathers the two pods' partial sums.
+The global delta is whole on every rank.  The port has no tensor- or
+sequence-parallel forward (the ``seqshard`` item of ROADMAP.md), so every
+rank of a model group computes the same chunk, and a prefill or decode
+step on a mesh is rank 0's pod's client served whole, with no collective.
+Per (arch x shape x mesh) the record under ``experiments/dryrun_torch/``
+has ``repro``'s keys:
 
   memory_analysis  argument bytes (the inputs' storages), output bytes (the
                    result's new storages) and temp bytes (the peak of the
-                   live meta storages minus the arguments): the step's peak
-                   device memory is argument + temp;
+                   live meta storages minus the arguments), per rank: the
+                   step's peak device memory is argument + temp;
   cost_analysis    flops (``torch.utils.flop_counter.FlopCounterMode`` plus
                    the kernels' counted FLOPs) and bytes accessed (every
                    op's operand and result bytes, the unfused eager traffic
-                   the card pays, plus the kernels' counted bytes);
-  collectives      {} (one device; ROADMAP.md queue 1, item 16);
-  roofline         ``roofline.roofline_terms`` on the H100's rates;
+                   the card pays, plus the kernels' counted bytes), per rank;
+  collectives      ``launch/collectives.py``'s census of rank 0's calls,
+                   ``{op: {bytes, count}}`` with each op's result bytes;
+  roofline         ``roofline.roofline_terms`` on the H100's rates, with
+                   ``n_devices`` 1, 256 or 512;
 
 and the port's own ``launches`` (per kernel), ``kernels`` (their FLOPs and
-bytes) and ``fits`` (the peak against the card's 80 GB).  ``--mesh single``
-is the only layout; the mesh layouts and the ``seqshard`` variant come with
-item 16.  ``moe_dispatch`` / ``moe_grouped`` run the capacity-based MoE
-dispatch, whose shapes are static (set by the capacity, not the routing).
+bytes), ``peak_bytes`` and ``fits`` (the peak against the card's 80 GB).
+``moe_dispatch`` / ``moe_grouped`` run the capacity-based MoE dispatch,
+whose shapes are static (set by the capacity, not the routing);
+``seqshard`` is refused (ROADMAP.md queue 1, item 16's last part).
 
 The live-bytes tracker (``MemoryCounter``) follows each storage an op
 returns until its last reference goes: the peak it reads is the caching
@@ -41,6 +74,8 @@ of the cross-entropy); ``SCRATCH`` adds it.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import functools
 import json
 import time
 import traceback
@@ -48,18 +83,25 @@ import weakref
 from pathlib import Path
 
 import torch
+import torch.distributed as dist
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import FlopCounterMode
 
 from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
+from repro_torch.fl.engine import MeshBackend, client_tree, stack_clients
 from repro_torch.kernels import meta
+from repro_torch.launch import collectives
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import MeshSpec
 from repro_torch.launch.roofline import HBM_CAPACITY, roofline_terms
-from repro_torch.utils.pytree import tree_leaves
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 ART_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 VARIANTS = {"baseline": None, "moe_dispatch": "dispatch", "moe_grouped": "dispatch_grouped"}
+# --mesh name -> (its MeshSpec, None for one device; the records' mesh tag)
+MESHES = {"one": (None, "1"), "single": (MeshSpec.single_pod(16, 16), "16x16"),
+          "multi": (MeshSpec.multi_pod(2, 16, 16), "2x16x16")}
 
 aten = torch.ops.aten
 # ops that allocate or alias without moving data
@@ -157,8 +199,8 @@ def _per_client(step, client_args):
     the arguments at the positions ``client_args``."""
     def run(*args):
         n = tree_leaves(args[0])[0].shape[0]
-        return st.stack_clients([
-            step(*(st.client_tree(a, i) if j in client_args else a for j, a in enumerate(args)))
+        return stack_clients([
+            step(*(client_tree(a, i) if j in client_args else a for j, a in enumerate(args)))
             for i in range(n)])
     return run
 
@@ -172,35 +214,68 @@ def micro_batch_for(cfg, micro_batch: int) -> int:
     return min(micro_batch, cfg.train_micro_batch) if micro_batch == st.MICRO_BATCH else micro_batch
 
 
+def _at_rest(tree, shardings):
+    """New meta leaves of this rank's part of a client-stacked tree at rest:
+    its rows and, for a model-sharded leaf, its model slice."""
+    def cut(x, sh):
+        shape = list(x.shape)
+        shape[0] = sh.rows.stop - sh.rows.start
+        if sh.model is not None:
+            d, cols = sh.model
+            shape[d] = cols.stop - cols.start
+        return torch.empty(shape, dtype=x.dtype, device=x.device)
+
+    return tree_map(cut, tree, shardings)
+
+
 def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
-                 variant: str = "baseline", t_override=None, cfg=None, n_clients: int = 1):
-    """The step and its meta inputs for one (arch, shape): (step, args, meta)."""
+                 variant: str = "baseline", t_override=None, cfg=None, n_clients: int = 1,
+                 engine=None):
+    """The step and its meta inputs for one (arch, shape): (step, args, meta).
+    With a mesh ``engine`` (inside its process group), rank 0's step and
+    its inputs at rest, one client a pod (the module docstring)."""
     cfg = cfg or get_config(arch)
     if variant == "seqshard":
         raise NotImplementedError(
-            "variant 'seqshard' shards the sequence over a mesh; see ROADMAP.md "
-            "queue 1, item 16")
+            "variant 'seqshard' shards the sequence over the model group, a "
+            "sequence-parallel forward the port does not have; see ROADMAP.md "
+            "queue 1, item 16 (its last part, seqshard)")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; choose from {tuple(VARIANTS)}")
     if VARIANTS[variant]:
         cfg = cfg.replace(moe_impl=VARIANTS[variant])
     shape = resolve_shape(shape)
     micro_batch = micro_batch_for(cfg, micro_batch)
+    if engine is not None:
+        n_clients = engine.kprime
     specs = st.input_specs(cfg, shape, n_clients=n_clients, micro_batch=micro_batch,
                            t_override=t_override)
     rcfg = st.resolve_cfg(cfg, shape)
     if shape.kind == "train":
-        step = st.make_train_step(cfg, shape)
-        args = (specs["state"], specs["global_delta"], specs["batches"])
-    elif shape.kind == "prefill":
-        step = _per_client(st.make_prefill_step(cfg, shape), (0, 1))
-        args = (specs["params"], specs["batch"])
+        step = st.make_train_step(cfg, shape, engine=engine)
+        state = specs["state"]
+        if engine is not None:
+            shardings = {k: engine.input_shardings(v) for k, v in state.items()}
+            state = {k: _at_rest(v, shardings[k]) for k, v in state.items()}
+            step = functools.partial(step, shardings=shardings)
+        args = (state, specs["global_delta"], specs["batches"])
     else:
-        step = _per_client(st.make_serve_step(cfg, shape), (0, 1, 3))
-        args = (specs["params"], specs["batch"], specs["pos"], specs["caches"])
+        if shape.kind == "prefill":
+            client_args = (0, 1)
+            step = _per_client(st.make_prefill_step(cfg, shape), client_args)
+            args = (specs["params"], specs["batch"])
+        else:
+            client_args = (0, 1, 3)
+            step = _per_client(st.make_serve_step(cfg, shape), client_args)
+            args = (specs["params"], specs["batch"], specs["pos"], specs["caches"])
+        if engine is not None:  # rank 0's pod's rows, each leaf its own storage
+            rows = engine._rows()
+            args = tuple(tree_map(lambda x: x[rows].clone(), a) if j in client_args else a
+                         for j, a in enumerate(args))
+    spec = engine.spec if engine is not None else None
     info = {
-        "arch": arch, "shape": shape.name, "mesh": "1", "variant": variant, "n_devices": 1,
-        "kind": shape.kind,
+        "arch": arch, "shape": shape.name, "mesh": "1", "variant": variant,
+        "n_devices": spec.n_devices if spec else 1, "kind": shape.kind,
         "micro_batch": micro_batch if shape.kind == "train" else None,
         "long_context_mode": rcfg.long_context_mode if shape.name == "long_500k" else None,
         "cfg_name": rcfg.name,
@@ -208,48 +283,83 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
     return step, args, info
 
 
+@contextlib.contextmanager
+def fake_world(n: int):
+    """A one-process ``torch.distributed`` group of ``n`` ranks on the
+    ``fake`` backend, this process rank 0; destroyed on exit.  Refuses to
+    start inside another group."""
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    if dist.is_initialized():
+        raise RuntimeError("the dry run's mesh count starts its own fake process group of "
+                           "the mesh's world size; a group is already initialized")
+    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    try:
+        yield
+    finally:
+        dist.destroy_process_group()
+
+
 def run_one(arch: str, shape, save: bool = True, verbose: bool = True,
             variant: str = "baseline", micro_batch: int = st.MICRO_BATCH,
-            mesh: str = "single", cfg=None, t_override=None):
+            mesh: str = "one", cfg=None, t_override=None):
     """Count one (arch, shape) step on the meta device; returns the record.
 
-    ``shape``: a name of ``INPUT_SHAPES`` or an ``InputShape``; ``cfg``
-    replaces ``get_config(arch)`` (the calibration's unrolled configs)."""
-    if mesh != "single":
-        raise NotImplementedError(
-            f"mesh {mesh!r}: only the one-device layout is ported; the mesh "
-            "layouts come with ROADMAP.md queue 1, item 16")
+    ``shape``: a name of ``INPUT_SHAPES`` or an ``InputShape``; ``mesh``: a
+    key of ``MESHES`` (the module docstring) or a ``MeshSpec`` (tagged by
+    its shape, e.g. ``2x2x2``); ``cfg`` replaces ``get_config(arch)`` (the
+    calibration's unrolled configs)."""
+    if isinstance(mesh, MeshSpec):
+        spec, tag = mesh, "x".join(map(str, mesh.shape))
+    elif mesh in MESHES:
+        spec, tag = MESHES[mesh]
+    else:
+        raise ValueError(f"mesh {mesh!r}: choose from {tuple(MESHES)} ('both' is the "
+                         "CLI's single + multi) or pass a MeshSpec")
     t0 = time.time()
-    step, args, record = build_inputs(arch, shape, micro_batch, variant, t_override, cfg)
-    _, c = count(step, args)
+    with fake_world(spec.n_devices) if spec else contextlib.nullcontext():
+        engine = None
+        if spec is not None:
+            engine = MeshBackend(spec.client_size if spec.client_axis else 1, spec,
+                                 strict=False, data_chunks=spec.data_size)
+        step, args, record = build_inputs(arch, shape, micro_batch, variant, t_override, cfg,
+                                          engine=engine)
+        collectives.reset_census()
+        _, c = count(step, args)
+        census = collectives.census() if spec else {}
+        if engine is not None and record["kind"] == "train":
+            record["data_split"] = engine.data_split
+    record["mesh"] = tag
     record["count_s"] = round(time.time() - t0, 2)
     record["memory_analysis"] = {"argument_size_in_bytes": c["argument"],
                                  "output_size_in_bytes": c["output"],
                                  "temp_size_in_bytes": c["temp"]}
     record["cost_analysis"] = {"flops": float(c["flops"]), "bytes accessed": float(c["bytes"])}
-    record["collectives"] = {}
+    record["collectives"] = census
     record["launches"] = c["launches"]
     record["kernels"] = c["kernels"]
     record["ops"] = c["ops"]
     record["peak_bytes"] = c["peak"]
     record["fits"] = c["peak"] <= HBM_CAPACITY
-    record["roofline"] = roofline_terms(record, n_devices=1)
+    record["roofline"] = roofline_terms(record, n_devices=record["n_devices"])
 
     if verbose:
-        print(f"== {arch} x {record['shape']} [1] ({variant}) ==")
+        print(f"== {arch} x {record['shape']} [{tag}] ({variant}) ==")
         print(f"   counted {c['ops']} ops in {record['count_s']:.1f}s")
         print(f"   memory_analysis: {record['memory_analysis']}; peak "
               f"{c['peak'] / 2**30:.3f} GiB, fits={record['fits']}")
         print(f"   cost: flops={record['cost_analysis']['flops']:.6g} "
               f"bytes={record['cost_analysis']['bytes accessed']:.6g}")
         print(f"   launches: {record['launches']}")
+        print("   collectives: " + (", ".join(
+            f"{k}={v['bytes']:.3e}B x{v['count']}" for k, v in census.items()) or "none"))
         print(f"   roofline: {record['roofline']}")
     if save:
         ART_DIR.mkdir(parents=True, exist_ok=True)
-        tag = f"{arch}__{record['shape']}__1"
+        name = f"{arch}__{record['shape']}__{tag}"
         if variant != "baseline":
-            tag += f"__{variant}"
-        (ART_DIR / f"{tag}.json").write_text(json.dumps(record, indent=1))
+            name += f"__{variant}"
+        (ART_DIR / f"{name}.json").write_text(json.dumps(record, indent=1))
     return record
 
 
@@ -257,7 +367,7 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--arch", choices=list(ARCH_NAMES), default=None)
     ap.add_argument("--shape", choices=list(INPUT_SHAPES), default=None)
-    ap.add_argument("--mesh", choices=["single", "multi", "both"], default="single")
+    ap.add_argument("--mesh", choices=[*MESHES, "both"], default="one")
     ap.add_argument("--all", action="store_true")
     ap.add_argument("--variant", default="baseline")
     ap.add_argument("--micro-batch", type=int, default=st.MICRO_BATCH)
@@ -265,18 +375,20 @@ def main(argv=None):
 
     archs = list(ARCH_NAMES) if (args.all or args.arch is None) else [args.arch]
     shapes = list(INPUT_SHAPES) if (args.all or args.shape is None) else [args.shape]
+    meshes = ("single", "multi") if args.mesh == "both" else (args.mesh,)
     failures = []
     for arch in archs:
         for shape in shapes:
-            try:
-                run_one(arch, shape, variant=args.variant, micro_batch=args.micro_batch,
-                        mesh=args.mesh)
-            except NotImplementedError:
-                raise
-            except Exception as e:  # noqa: BLE001 - report, keep sweeping
-                failures.append((arch, shape, repr(e)))
-                print(f"!! FAIL {arch} x {shape}: {e}")
-                traceback.print_exc()
+            for mesh in meshes:
+                try:
+                    run_one(arch, shape, variant=args.variant, micro_batch=args.micro_batch,
+                            mesh=mesh)
+                except NotImplementedError:
+                    raise
+                except Exception as e:  # noqa: BLE001 - report, keep sweeping
+                    failures.append((arch, shape, mesh, repr(e)))
+                    print(f"!! FAIL {arch} x {shape} [{mesh}]: {e}")
+                    traceback.print_exc()
     if failures:
         print(f"\n{len(failures)} FAILURES:")
         for f in failures:

@@ -11,9 +11,9 @@ in place of the TPU's.  Three terms per step record (``launch/dryrun.py``):
 (``collective_bytes_from_hlo``).  The port has no HLO: its census is the
 one ``launch/collectives.py`` keeps of its own ``torch.distributed`` calls,
 in the same ``{op: {bytes, count}}`` schema (result bytes per rank), which
-``roofline_terms`` reads.  The dry run counts one device's step, which
-makes no collective: its census is ``{}`` and ``collective_s`` is 0 (the
-dry run's mesh layouts are ROADMAP.md item 16's remainder).
+``roofline_terms`` reads.  The dry run's one-device step makes no
+collective (census ``{}``, ``collective_s`` 0); on the 16x16 and 2x16x16
+meshes it counts rank 0's calls (``launch/dryrun.py``).
 
 ``model_flops`` and ``active_param_count`` are plain Python over the config,
 as in ``repro``.  The kernels' rates and their ``*_cost`` functions live

@@ -1,13 +1,16 @@
-"""Step definitions: the one-device half of ``repro/launch/steps.py``.
+"""Step definitions: the port of ``repro/launch/steps.py``.
 
 The pFedSOP train step (the paper's Algorithm 3 over a leading client axis):
 
-  per client (a loop over the leading axis):
+  per client (the loop form of a federation engine's client phase,
+  ``fl/engine.py``: one client after another):
     1. personalize: Gompertz-weighted aggregation of (local delta, global
        delta) + Sherman-Morrison FIM step  (``core/pfedsop.py::
-       tree_personalize``: one C = 1 launch pair of K1/K2 on the card)
+       tree_personalize``: one C = 1 launch pair of K1/K2 on the card, on
+       this rank's tile range inside a model-split mesh)
     2. T local SGD iterations, one per microbatch (``optim/sgd.py::
-       tree_sgd_loop``)
+       tree_sgd_loop``; ``grad_chunks`` chunks a step, in the body or one
+       per rank of a mesh's data axis)
     3. new local delta = (x0 - xT) / eta2
   server:
     4. global delta = the canonical cohort mean over the client axis (Eq. 13)
@@ -25,10 +28,8 @@ layouts per modality frontend (``repro``'s ``_token_batch`` /
 ``_decode_batch``) are ``{name: (shape, dtype)}`` specs.
 
 The serving steps take the unbatched tree of one client; the train step
-takes the client axis.  ``repro``'s ``engine=`` (this step on a mesh
-engine) and its pod axis are what is left of the multi-device slice
-(ROADMAP.md queue 1, item 16); the federation's mesh engines are
-``fl/engine.py``'s.
+takes the client axis: one client per pod rank on ``pods:PxDxM``, 1 on a
+single pod (``make_train_step``'s ``engine``).
 """
 from __future__ import annotations
 
@@ -39,11 +40,12 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import pfedsop as pf
+from repro_torch.fl.engine import VmapBackend
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import apply_long_context
 from repro_torch.optim.reduce import cohort_mean
 from repro_torch.optim.sgd import tree_sgd_loop
-from repro_torch.utils.pytree import tree_map, tree_stack
+from repro_torch.utils.pytree import tree_map
 
 MICRO_BATCH = 32  # per-SGD-iteration batch for train_4k (T = 256/32 = 8)
 META = torch.device("meta")
@@ -197,18 +199,6 @@ def input_specs(cfg: ModelConfig, shape: InputShape, n_clients: int = 1,
 # ---------------------------------------------------------------------------
 
 
-def client_tree(tree, i):
-    """Client ``i``'s slice of a tree whose leaves lead with the client axis."""
-    return tree_map(lambda x: x[i], tree)
-
-
-def stack_clients(trees):
-    """Stack per-client trees on a new leading axis (one client: a view)."""
-    if len(trees) == 1:
-        return tree_map(lambda x: x.unsqueeze(0), trees[0])
-    return tree_stack(trees)
-
-
 def make_train_step(cfg: ModelConfig, shape: InputShape,
                     pcfg: Optional[pf.PFedSOPConfig] = None,
                     use_pfedsop: bool = True, engine=None):
@@ -219,6 +209,16 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     plain-FedAvg round (no personalization).  The step reads nothing back to
     the host, so it runs on meta tensors too (``launch/dryrun.py``).
 
+    ``engine`` (a ``fl/engine.py`` engine; ``VmapBackend`` when None) runs
+    the client step through the loop form of its ``client_phase_sharded``
+    and, when it splits the cohort over a client axis, Eq. 13 through its
+    ``aggregate_phase``: the mesh code path the federation drivers run
+    (``repro``'s ``make_train_step(engine=)``).  On a mesh the step returns
+    this rank's client rows of ``state'`` (the whole cohort when the cohort
+    is not split) and the same ``gd'`` and loss on every rank; both paths
+    reduce with the halving-tree ``cohort_mean``, so they agree bit for bit
+    (and with the engine-less step, over the same clients).
+
     This is a second client round beside ``core/pfedsop.py::
     tree_client_round``, which ``launch/train_lm_pfedsop.py::train`` runs.
     The two stay separate because their references differ: ``repro``'s
@@ -227,22 +227,22 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     client and the server hold a delta (a host-side choice) and multiplies
     the leaf-dtype difference by 1/eta2.  Each is held to its own
     reference (``tests/test_torch_dryrun.py``, ``tests/test_torch_lm.py``);
-    the dry run and phase 15 of ``chip_smoke.py`` cover this one, and the
-    driver's peak at C > 1 is not predicted by them."""
-    if engine is not None:
-        raise NotImplementedError(
-            "make_train_step(engine=...): the LM train step on a mesh engine (and "
-            "its leading pod axis) is not ported yet; see ROADMAP.md queue 1, "
-            "item 16")
+    the dry run and phases 15 and 17 of ``chip_smoke.py`` cover this one,
+    and the driver's peak at C > 1 is not predicted by them."""
+    if engine is not None and not callable(getattr(engine, "client_phase_sharded", None)):
+        raise TypeError(f"make_train_step(engine=...): {type(engine).__name__} is not a "
+                        "federation engine (repro_torch.fl.engine)")
     cfg = resolve_cfg(cfg, shape)
     pcfg = pcfg or pf.PFedSOPConfig()
+    engine = engine if engine is not None else VmapBackend()
 
     def loss_fn(p, batch):
         return tf.lm_loss(p, cfg, batch)
 
-    def client_step(params, delta, global_delta, batches):
+    def client_step(state, global_delta, batches):
+        params = state["params"]
         if use_pfedsop:
-            params, _ = pf.tree_personalize(params, delta, global_delta, pcfg)
+            params, _ = pf.tree_personalize(params, state["delta"], global_delta, pcfg)
         final, loss = tree_sgd_loop(loss_fn, params, batches, pcfg.eta2)
         # repro's step divides the f32 difference by eta2, where
         # tree_local_sgd_delta (repro's local_sgd_delta, the federated LM
@@ -250,23 +250,22 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
         # reciprocal: another rounding, so it is not reused here
         new_delta = tree_map(lambda a, b: ((a.float() - b.float()) / pcfg.eta2).to(a.dtype),
                              params, final)
-        return final, new_delta, loss
+        return {"params": final, "delta": new_delta}, {}, {"loss": loss}
 
-    def train_step(state, global_delta, batches):
-        n_clients = batches[next(iter(batches))].shape[0]
-        finals, deltas, losses = [], [], []
-        for i in range(n_clients):
-            final, delta, loss = client_step(client_tree(state["params"], i),
-                                             client_tree(state["delta"], i), global_delta,
-                                             client_tree(batches, i))
-            finals.append(final)
-            deltas.append(delta)
-            losses.append(loss)
-        new_state = {"params": stack_clients(finals), "delta": stack_clients(deltas)}
-        del finals, deltas
-        # Eq. 13's server aggregation: the canonical cohort mean
-        new_global = tree_map(lambda d, m: m.to(d.dtype), new_state["delta"],
-                              cohort_mean(new_state["delta"]))
-        return new_state, new_global, cohort_mean(torch.stack(losses))
+    def server(global_delta_, deltas, losses):
+        # Eq. 13's server aggregation: the canonical cohort mean, over the
+        # ranks' rows in rank order inside ``aggregate_phase``
+        new_global = tree_map(lambda d, m: m.to(d.dtype), deltas, cohort_mean(deltas))
+        return new_global, cohort_mean(losses)
+
+    def train_step(state, global_delta, batches, shardings=None):
+        new_state, _, metrics = engine.client_phase_sharded(
+            client_step, state, global_delta, batches, shardings=shardings, loop=True)
+        if engine.client_sharded:
+            new_global, loss = engine.aggregate_phase(server, global_delta,
+                                                      new_state["delta"], metrics["loss"])
+        else:  # the whole cohort on every rank
+            new_global, loss = server(global_delta, new_state["delta"], metrics["loss"])
+        return new_state, new_global, loss
 
     return train_step

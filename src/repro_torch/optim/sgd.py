@@ -19,6 +19,23 @@ and ``core.pfedsop.local_sgd_delta``.  The loop has two forms:
                      ``torch.func``'s wrapped tensors refuse, and
                      ``torch.utils.checkpoint`` does not run under
                      ``torch.func``).
+
+Both forms take each step's gradient with the same semantics: the
+run-level ``grad_chunks = n`` (``FLRunConfig``, announced around the
+client phase by ``repro_torch.kernels.dispatch.grad_chunk_count``) splits
+the batch into n equal leading-axis chunks, takes the gradient of each,
+and combines loss and gradient with the canonical halving tree
+(``optim.reduce.chunk_mean``) in f32, cast back to the leaf dtype (n = 1:
+plain value-and-grad).  Two layouts give those numbers bit for bit:
+
+  in the body    the n chunks one after another on this rank;
+  data split     inside a mesh engine's ``data_shard_axis`` (the engine
+                 cut each per-step batch to this data rank's contiguous
+                 chunk), this rank's chunk, then the n f32 partials
+                 gathered in data-rank order
+                 (``launch/collectives.py::gather_chunks``, a custom op
+                 with a vmap rule, so the CNN's vmapped loop may hold it)
+                 and the same tree.
 """
 from __future__ import annotations
 
@@ -28,7 +45,8 @@ from typing import Any, Callable, NamedTuple, Tuple
 import torch
 import torch.func
 
-from repro_torch.kernels.dispatch import current_grad_chunks
+from repro_torch.kernels.dispatch import current_data_shard, current_grad_chunks
+from repro_torch.launch.collectives import gather_chunks
 from repro_torch.optim.reduce import chunk_mean
 from repro_torch.utils.pytree import tree_flatten, tree_map, tree_unflatten
 
@@ -37,18 +55,9 @@ Optimizer = Tuple[Callable, Callable]
 
 def chunked_value_and_grad(loss_fn: Callable) -> Callable:
     """``fn(params, batch) -> (loss, grad)`` through ``torch.func``, so it
-    composes with ``torch.func.vmap`` over the cohort.
-
-    The run-level ``grad_chunks = n`` (``FLRunConfig``, announced around
-    the client phase by ``repro_torch.kernels.dispatch.grad_chunk_count``
-    and read here at call time) defines each SGD step's gradient as: split
-    the batch into n equal leading-axis chunks, take the gradient of each,
-    and combine loss and gradient with the canonical halving tree
-    (``optim.reduce.chunk_mean``) in f32, cast back to the leaf dtype.  The
-    chunks run in the body, one after another: no collective, so it is
-    legal inside the engine's ``vmap``.  n = 1 is plain value-and-grad.
-    (``repro`` can also compute the chunks one per rank of a mesh's data
-    axis; that layout is ROADMAP.md item 16's remainder.)"""
+    composes with ``torch.func.vmap`` over the cohort; each step's gradient
+    as the module docstring sets out (read at call time: the data shard
+    first, then the chunk count)."""
     grad_and_value = torch.func.grad_and_value(loss_fn)
 
     def base(params, batch):
@@ -56,6 +65,12 @@ def chunked_value_and_grad(loss_fn: Callable) -> Callable:
         return loss, grad
 
     def fn(params, batch):
+        shard = current_data_shard()
+        if shard is not None:
+            loss, g = base(params, batch)  # the local batch IS this rank's chunk
+            losses = gather_chunks(loss.float(), shard[0])
+            return _combine(losses, tree_map(lambda x: gather_chunks(x.float(), shard[0]), g),
+                            params)
         n = current_grad_chunks()
         if n <= 1:
             return base(params, batch)
@@ -64,10 +79,15 @@ def chunked_value_and_grad(loss_fn: Callable) -> Callable:
         losses = torch.stack([loss.float() for loss, _ in outs])
         grads = tree_map(lambda *xs: torch.stack([x.float() for x in xs]),
                          *[g for _, g in outs])
-        loss = chunk_mean(losses)
-        return loss, tree_map(lambda g, p: g.to(p.dtype), chunk_mean(grads), params)
+        return _combine(losses, grads, params)
 
     return fn
+
+
+def _combine(losses, grads, params):
+    """The halving-tree mean of the stacked f32 chunk partials; gradients
+    cast back to the parameter leaf dtype (``repro``'s ``_combine``)."""
+    return chunk_mean(losses), tree_map(lambda g, p: g.to(p.dtype), chunk_mean(grads), params)
 
 
 def _chunk_slice(x, n: int, i: int):
@@ -108,22 +128,58 @@ def sgd_loop(loss_fn: Callable, params, batches: Any, lr: float, mask=None, prox
 
 def tree_sgd_loop(loss_fn: Callable, params, batches: Any, lr: float):
     """T plain-SGD steps on one parameter tree, each leaf updated as
-    ``(x.f32 - lr * g.f32)`` cast back to its dtype, as ``repro`` does.
+    ``(x.f32 - lr * g.f32)`` cast back to its dtype, as ``repro`` does;
+    each step's gradient as the module docstring sets out (``_tree_grad``).
 
     ``batches``: dict of tensors with a leading local-iteration axis T.
-    Returns (final_params, mean_loss)."""
+    Returns (final_params, mean_loss).
+
+    At n = ``grad_chunks`` > 1 a step holds the n chunks' gradient trees
+    in the leaf dtype until they are combined, leaf by leaf: n - 1 more
+    gradient trees than one chunk (2 GB each at gemma3-1b's bf16), plus
+    one leaf's f32 stack of n (1.2 GB a chunk for its 302 M-element
+    embedding).  The data split holds one leaf's gathered f32 partials."""
     leaves, treedef = tree_flatten(params)
     n_iters = next(iter(batches.values())).shape[0]
     losses = []
     for t in range(n_iters):
         req = [x.detach().requires_grad_() for x in leaves]
-        loss = loss_fn(tree_unflatten(treedef, req), {k: v[t] for k, v in batches.items()})
-        grads = torch.autograd.grad(loss, req)
+        loss, grads = _tree_grad(loss_fn, treedef, req, {k: v[t] for k, v in batches.items()})
         with torch.no_grad():
             leaves = [(x.float() - lr * g.float()).to(x.dtype) for x, g in zip(req, grads)]
-        losses.append(loss.detach())
+        losses.append(loss)
         del req, grads, loss
     return tree_unflatten(treedef, leaves), torch.stack(losses).mean()
+
+
+def _tree_grad(loss_fn: Callable, treedef, req: list, batch: dict):
+    """(loss, gradient per leaf of ``req``) of one step of ``tree_sgd_loop``."""
+
+    def value_and_grad(b):
+        loss = loss_fn(tree_unflatten(treedef, req), b)
+        return loss.detach(), list(torch.autograd.grad(loss, req))
+
+    shard = current_data_shard()
+    if shard is not None:
+        loss, grads = value_and_grad(batch)  # the local batch IS this rank's chunk
+        with torch.no_grad():
+            # gathered and combined leaf by leaf: one leaf's partials at a time
+            return (chunk_mean(gather_chunks(loss.float(), shard[0])),
+                    [chunk_mean(gather_chunks(g.float(), shard[0])).to(x.dtype)
+                     for g, x in zip(grads, req)])
+    n = current_grad_chunks()
+    if n <= 1:
+        return value_and_grad(batch)
+    outs = [value_and_grad({k: _chunk_slice(v, n, i) for k, v in batch.items()})
+            for i in range(n)]
+    with torch.no_grad():
+        loss = chunk_mean(torch.stack([loss.float() for loss, _ in outs]))
+        grads = []
+        for j, x in enumerate(req):
+            grads.append(chunk_mean(torch.stack([g[j].float() for _, g in outs])).to(x.dtype))
+            for _, g in outs:  # this leaf's chunk gradients are combined
+                g[j] = None
+    return loss, grads
 
 
 def apply_updates(params, updates):

@@ -133,7 +133,9 @@ def test_make_train_step_equals_repro(arch):
 
 
 def test_make_train_step_refuses_an_engine():
-    with pytest.raises(NotImplementedError, match="item 16"):
+    """An engine that is not a federation engine is refused (the step on a
+    mesh engine is ``tests/test_torch_mesh_train.py``'s)."""
+    with pytest.raises(TypeError, match="not a federation engine"):
         t_steps.make_train_step(get_config("gemma3-1b"), SMALL, engine=object())
 
 
@@ -219,9 +221,15 @@ def test_moe_dispatch_variants_run_on_meta():
 
 
 def test_mesh_layouts_and_seqshard_are_item_16():
-    for kw in ({"mesh": "multi"}, {"mesh": "both"}, {"variant": "seqshard"}):
+    """The mesh layouts are item 16's done part (their counts are
+    ``tests/test_torch_mesh_train.py``'s); ``seqshard``, its last part, is
+    refused on every mesh, and ``both`` is the CLI's, not a layout."""
+    for mesh in ("one", "single", "multi"):
         with pytest.raises(NotImplementedError, match="item 16"):
-            dryrun.run_one("gemma3-1b", SMALL, save=False, verbose=False, **kw)
+            dryrun.run_one("gemma3-1b", SMALL, save=False, verbose=False, mesh=mesh,
+                           variant="seqshard")
+    with pytest.raises(ValueError, match="single \\+ multi"):
+        dryrun.run_one("gemma3-1b", SMALL, save=False, verbose=False, mesh="both")
 
 
 def test_cli_writes_records_under_the_torch_artifact_dirs(tmp_path, monkeypatch):

@@ -21,6 +21,15 @@ world sizes 2, 4 and 8.
   the port's driver on ``repro``'s ``RoundScheduler(n_pods=2)`` over
   ``repro``'s availability model (both numpy, seeded alike).
 - The CLI under ``torchrun`` at 4 ranks (``pods:2x1x2``).
+- The data split of the gradient chunks (each data rank computes one
+  chunk and gathers the others in rank order), bitwise against the
+  in-body chunks at ``grad_chunks`` 2: the CNN's pfedsop and fedavg on
+  ``pods:1x2x1`` against the vmap history, and pfedsop on ``pods:2x2x2``
+  (world 8) against ``pods:2x1x2`` (world 4: the same 2 + 2 client split),
+  replicated and sharded; the LM train step (``launch/steps.py``) on
+  ``pods:1x2x1``.  The LM step on ``pods:2x1x1`` (one client a rank) and
+  ``pods:1x1x2`` (the round start on tile ranges) bitwise the engine-less
+  step; a batch the data size does not divide takes the in-body path.
 
 Each world is one spawn (a module fixture) that runs all of its cases.
 """
@@ -72,7 +81,16 @@ def vmap_refs():
     """The port's vmap histories: (history, rows, broadcast) per method."""
     refs = {m: final(federation(m)) for m in ("pfedsop", "fedavg", "fedexp")}
     refs["pfedsop/chunks2"] = final(federation("pfedsop", grad_chunks=2))
+    refs["fedavg/chunks2"] = final(federation("fedavg", grad_chunks=2))
     return refs
+
+
+def _data_runs(mesh, methods, **kw):
+    """(label, method, kwargs) at ``grad_chunks`` 2 on ``mesh``, replicated
+    and sharded; labels ``<mesh>/<output>/chunks2/<method>``."""
+    return [(f"{mesh}/{out}/chunks2/{m}", m,
+             dict(backend="mesh", mesh=mesh, grad_chunks=2, output_sharding=out, **kw))
+            for out in ("replicated", "sharded") for m in methods]
 
 
 @pytest.fixture(scope="module")
@@ -81,7 +99,8 @@ def world2(tmp_path_factory):
     sync = _runs({"shard_map": dict(backend="shard_map")}, ("pfedsop", "fedavg"), tmp)
     sync += [("pods:1x1x2/pfedsop", "pfedsop", dict(backend="mesh", mesh="pods:1x1x2")),
              ("shard_map/chunks2", "pfedsop", dict(backend="shard_map", grad_chunks=2))]
-    return spawn(everything, 2, {"layout": True, "sync": sync, "async": ASYNC})
+    sync += _data_runs("pods:1x2x1", ("pfedsop", "fedavg"))
+    return spawn(everything, 2, {"layout": True, "lm": True, "sync": sync, "async": ASYNC})
 
 
 @pytest.fixture(scope="module")
@@ -93,6 +112,8 @@ def world4(tmp_path_factory):
                    store=StoreConfig(kind="mmap", mmap_dir=str(tmp / "fedexp")))),
              ("pods:2x1x2/replicated/device/fedexp", "fedexp",
               dict(backend="mesh", mesh="pods:2x1x2"))]
+    # the in-body chunks on world 8's client split, for its data split
+    sync += _data_runs("pods:2x1x2", ("pfedsop",), rounds=1)
     return spawn(everything, 4, {"sync": sync})
 
 
@@ -102,6 +123,7 @@ def world8():
              dict(backend="mesh", mesh="pods:2x2x2", output_sharding=out, rounds=1))
             for out in ("replicated", "sharded")]
     sync.append(("shard_map/auto", "pfedsop", dict(backend="shard_map", rounds=1)))
+    sync += _data_runs("pods:2x2x2", ("pfedsop",), rounds=1)
     return spawn(everything, 8, {"sync": sync})
 
 
@@ -162,12 +184,13 @@ def test_sharded_outputs_and_host_stores_are_bitwise(request, n):
     groups = {}
     for label, (h, rows, bc, _) in sync.items():
         parts = label.split("/")
-        if len(parts) == 4:  # layout/output/store/method
-            groups.setdefault((parts[0], parts[3]), []).append((label, h, rows, bc))
+        if len(parts) == 4:  # layout/output/store (or chunks2)/method
+            groups.setdefault((parts[0], parts[2] == "chunks2", parts[3]), []).append(
+                (label, h, rows, bc))
     if n == 8:
         (h1, r1, b1, _), (h2, r2, b2, _) = (sync["pods:2x2x2/replicated"],
                                             sync["pods:2x2x2/sharded"])
-        groups[("pods:2x2x2", "pfedsop")] = [("r", h1, r1, b1), ("s", h2, r2, b2)]
+        groups[("pods:2x2x2", False, "pfedsop")] = [("r", h1, r1, b1), ("s", h2, r2, b2)]
     assert groups
     for key, runs in groups.items():
         _, h0, r0, b0 = runs[0]
@@ -203,6 +226,57 @@ def test_grad_chunks_over_ranks_against_vmap(world2, vmap_refs):
     _close((h, rows, bc), vmap_refs["pfedsop/chunks2"], "pfedsop")
     # two chunks are another gradient than one (in the last bits)
     assert not np.array_equal(rows[0], vmap_refs["pfedsop"][1][0])
+
+
+@pytest.mark.parametrize("n", [2, 8])
+def test_data_split_is_bitwise_the_in_body_chunks(request, n, vmap_refs):
+    """pods:1x2x1 against the vmap history at grad_chunks 2 (every rank
+    vmaps the whole cohort); pods:2x2x2 against pods:2x1x2 (the same 2 + 2
+    client split, chunks in the body); replicated and sharded, every rank
+    on the data split, the in-body runs on none."""
+    res = _world(request, n)
+    methods = ("pfedsop", "fedavg") if n == 2 else ("pfedsop",)
+    mesh = "pods:1x2x1" if n == 2 else "pods:2x2x2"
+    for out in ("replicated", "sharded"):
+        for m in methods:
+            label = f"{mesh}/{out}/chunks2/{m}"
+            assert [r["sync"][label][2] for r in res] == [True] * n, label
+            h, rows, bc, census = res[0]["sync"][label][0]
+            if n == 2:
+                want = vmap_refs[f"{m}/chunks2"]
+            else:
+                body = request.getfixturevalue("world4")
+                in_body = f"pods:2x1x2/{out}/chunks2/{m}"
+                assert [r["sync"][in_body][2] for r in body] == [False] * 4
+                want = body[0]["sync"][in_body][0][:3]
+            assert h == want[0] and _same(rows, want[1]) and _same(bc, want[2]), label
+            assert census["all-gather"]["count"] > 0
+
+
+def test_lm_step_data_split_is_bitwise_the_in_body_chunks(world2):
+    for r in world2:
+        lm = r["lm"]
+        same, census, split = lm["data"]
+        assert lm["chunks_differ"]  # two chunks are another gradient than one
+        assert same and split is True
+        # a step gathers the loss and every gradient leaf: 2 clients x 2 steps
+        assert census["all-gather"]["count"] % 4 == 0 and "all-reduce" not in census
+
+
+def test_lm_step_on_pods_and_model_split_is_bitwise_the_engine_less_step(world2):
+    for r in world2:
+        lm = r["lm"]
+        same, census, _ = lm["pods"]  # this rank's client; Eq. 13 over the ranks
+        assert same and census["all-gather"]["count"] > 0
+        same, census, _ = lm["model"]  # the round start on tile ranges
+        assert same and census["all-reduce"]["count"] == 2  # one a client
+        assert census["all-gather"]["count"] == 2
+
+
+def test_lm_step_takes_the_in_body_path_on_a_batch_the_data_size_does_not_divide(world2):
+    for r in world2:
+        same, census, split = r["lm"]["in_body"]
+        assert same and split is False and census == {}
 
 
 def test_async_on_two_pods_follows_repro_s_scheduler(world2):

@@ -139,12 +139,19 @@ def _imports(path: Path):
 
 
 def test_port_never_imports_jax_or_repro():
+    """Every module of the port, the multi-device slice's among them, and
+    ``chip_smoke.py``."""
+    paths = sorted((SRC / "repro_torch").rglob("*.py")) + [SRC.parent / "chip_smoke.py"]
+    names = {str(p.relative_to(SRC.parent)) for p in paths}
+    assert {"chip_smoke.py", "src/repro_torch/launch/train.py",
+            "src/repro_torch/launch/dryrun.py", "src/repro_torch/launch/collectives.py",
+            "src/repro_torch/fl/engine.py"} <= names
     bad = []
-    for path in sorted((SRC / "repro_torch").rglob("*.py")):
+    for path in paths:
         for mod in _imports(path):
             top = mod.split(".")[0]
             if top in ("jax", "jaxlib", "repro"):
-                bad.append(f"{path.relative_to(SRC)}: {mod}")
+                bad.append(f"{path.relative_to(SRC.parent)}: {mod}")
     assert not bad, bad
 
 

@@ -230,17 +230,20 @@ def reduce_and_update(rank, world):
 
 
 def sync_runs(rank, world, runs):
-    """Each ``(name, kwargs)`` of ``runs`` as a 2-round sync federation;
-    rank 0 returns (history, final rows, broadcast) and every rank the
-    sum of its final rows (all ranks must agree)."""
+    """Each ``(label, name, kwargs)`` of ``runs`` as a sync federation (2
+    rounds unless ``kwargs`` say otherwise); rank 0 returns (history, final
+    rows, broadcast, census), every rank the sums of its final rows (all
+    ranks must agree) and whether its engine took the data split."""
     from repro_torch.launch import collectives
 
     out = {}
     for label, name, kw in runs:
         collectives.reset_census()
-        h, rows, bc = final(federation(name, **kw))
+        fed = federation(name, **kw)
+        h, rows, bc = final(fed)
         digest = [float(np.asarray(r, np.float64).sum()) for r in rows + bc]
-        out[label] = ((h, rows, bc, collectives.census()) if rank == 0 else None, digest)
+        out[label] = ((h, rows, bc, collectives.census()) if rank == 0 else None, digest,
+                      getattr(fed.engine, "data_split", None))
     return out
 
 
@@ -282,12 +285,97 @@ def layout(rank, world):
     return all(torch.equal(back[k], tree[k]) for k in tree)
 
 
+def lm_inputs(clients, iters, batch, seq_len, seed=3):
+    """gemma3-1b-smoke's train-step inputs from a seed: the port's init,
+    numpy noise on each client's params and delta and on the global delta,
+    numpy tokens (clients, iters, batch, seq_len)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.pytree import tree_map
+
+    cfg = get_config("gemma3-1b", reduced=True)
+    params = tf.init_params(torch.Generator().manual_seed(seed), cfg, device="cpu")
+    rng = np.random.RandomState(seed)
+
+    def noise(x):
+        return torch.from_numpy((0.01 * rng.standard_normal(tuple(x.shape))).astype(np.float32))
+
+    def stack(make):
+        return tree_map(lambda x: torch.stack([make(x) for _ in range(clients)]), params)
+
+    state = {"params": stack(lambda x: x + noise(x)), "delta": stack(noise)}
+    global_delta = tree_map(noise, params)
+    toks = rng.randint(0, cfg.vocab_size, (clients, iters, batch, seq_len)).astype(np.int32)
+    batches = {"tokens": torch.from_numpy(toks), "labels": torch.from_numpy(np.roll(toks, -1, -1))}
+    return cfg, state, global_delta, batches
+
+
+def _same_trees(a, b) -> bool:
+    import torch
+
+    from repro_torch.utils.pytree import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(torch.equal(x, y) for x, y in zip(la, lb))
+
+
+def lm_mesh_steps(rank, world):
+    """``launch/steps.py::make_train_step`` on mesh engines at world 2
+    (2 clients, 2 local iterations, batch 2, gemma3-1b-smoke), each against
+    the engine-less step on the same inputs, bit for bit:
+
+      data     ``pods:1x2x1`` at ``grad_chunks`` 2: the data split (each rank
+               one chunk of each batch) against the in-body chunks;
+      pods     ``pods:2x1x1``: one client a rank, Eq. 13 over the ranks;
+      model    ``pods:1x1x2``: the round start on tile ranges;
+      in_body  ``pods:1x2x1`` with a batch of 3 (the data size does not
+               divide it), one chunk: the in-body path.
+
+    Returns per case (bitwise, the census, the engine's data split)."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pfedsop import PFedSOPConfig
+    from repro_torch.fl.engine import MeshBackend, client_tree
+    from repro_torch.kernels.dispatch import grad_chunk_count
+    from repro_torch.launch import collectives, steps
+    from repro_torch.launch.mesh import parse_mesh
+
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1)
+    cfg, state, gd, batches = lm_inputs(2, 2, 2, 32)
+    b3 = lm_inputs(2, 2, 3, 32, seed=4)[3]
+
+    def step(mesh=None, chunks=1, b=batches, data_chunks=0):
+        engine = mesh and MeshBackend(2, parse_mesh(mesh), data_chunks=data_chunks)
+        shape = InputShape("small", 32, 2 * b["tokens"].shape[2], "train")
+        collectives.reset_census()
+        with grad_chunk_count(chunks):
+            out = steps.make_train_step(cfg, shape, pcfg, engine=engine)(state, gd, b)
+        return out, collectives.census(), getattr(engine, "data_split", None)
+
+    ref1, ref2, ref3 = step()[0], step(chunks=2)[0], step(b=b3)[0]
+    out = {"chunks_differ": not _same_trees(ref1, ref2)}
+    got, census, split = step("pods:1x2x1", chunks=2, data_chunks=2)
+    out["data"] = (_same_trees(got, ref2), census, split)
+    (s, g, loss), census, split = step("pods:2x1x1")
+    rows = client_tree(ref1[0], slice(rank, rank + 1))
+    out["pods"] = (_same_trees((s, g, loss), (rows, ref1[1], ref1[2])), census, split)
+    got, census, split = step("pods:1x1x2")
+    out["model"] = (_same_trees(got, ref1), census, split)
+    got, census, split = step("pods:1x2x1", b=b3, data_chunks=2)
+    out["in_body"] = (_same_trees(got, ref3), census, split)
+    return out
+
+
 def everything(rank, world, plan):
     """One spawn's worth of checks: the reductions and the update, the
-    layout (2 ranks), the sync runs and the async run of ``plan``."""
+    layout (2 ranks), the LM train step on mesh engines (2 ranks), the sync
+    runs and the async run of ``plan``."""
     out = {"reduce_update": reduce_and_update(rank, world)}
     if plan.get("layout"):
         out["layout"] = layout(rank, world)
+    if plan.get("lm"):
+        out["lm"] = lm_mesh_steps(rank, world)
     out["sync"] = sync_runs(rank, world, plan.get("sync", []))
     if plan.get("async"):
         out["async"] = async_pods(rank, world, plan["async"])
