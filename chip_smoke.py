@@ -159,6 +159,29 @@ Phases (any failure exits non-zero; nothing is caught):
                   bitwise (by digest) the in-body one; then
                   ``launch/train.py``'s round loop at gemma3-1b's full width,
                   3 rounds, replicated and sharded: equal losses.
+ 18. tp serve     gemma3-1b at full width and depth in bf16 served tensor-
+                  parallel on ``pods:1x1x2`` by two processes sharing the card
+                  (gloo, host-staged; NCCL refuses two ranks on one device):
+                  each rank its model slices (``launch/sharding.py::
+                  rank_plan``), phase 12's batch 4 and 1,024-token prompt,
+                  then 16 decode steps teacher-forced on the whole model's
+                  greedy tokens, the launch counters reset just before (exact
+                  K4/K5 counts); each rank's last-token logits and every
+                  step's against the whole-model run, their worst |d| over
+                  5e-3 + 5e-3 |want| at most ``TP_LIMIT`` (10: at full
+                  depth in bf16 a sound reordering of the sums reads
+                  7.4-8.3, the reference path's printed beside it), and
+                  each step's vocab-parallel greedy token the first argmax
+                  of its gathered logits; each rank's census of the
+                  prefill and serve steps equal to the dry run's count of
+                  the same shapes on a 2-rank fake world, and its peak
+                  within 10 % of the dry run's; four planted faults must
+                  each fail those checks (``TP_FAULTS``: the row-parallel
+                  all-reduce dropped in prefill; over the 16 decode steps,
+                  the owner write skipped and the slot combine without the
+                  rescale; the argmax's slice offset dropped); prefill ms,
+                  decode ms per step and the idle share, with the card's
+                  name and power limit.
                   Each phase prints its seconds.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
@@ -542,7 +565,9 @@ def check_flash(seeds=FLASH_SEEDS):
     Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
     (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
-    musicgen's (B = 4, S = 1024, H = KV = 32, D = 64).
+    musicgen's (B = 4, S = 1024, H = KV = 32, D = 64); phase 18's
+    tensor-parallel rank of gemma3-1b at m = 2 (B = 4, S = 1024, H = 2
+    over KV = 1, D = 256, window 512 and none).
     The backward kernels take the plain forward's LSE and delta, so each is
     checked alone.  Tolerance in units of the largest value: f32 1e-4 (sums
     of up to 8,192 f32 terms in another order, the online softmax against
@@ -583,7 +608,10 @@ def check_flash(seeds=FLASH_SEEDS):
         (2, 512, 50.0, bf16, 1000, 80, 4, 2),
         (2, None, None, bf16, 2048, 64, 16, 2),   # granite-moe-1b-a400m, phase 13
         (2, None, None, bf16, 1024, 128, 16, 4),  # internvl2-2b prefill, phase 14
-        (1, None, None, bf16, 1024, 64, 32, 4)]   # musicgen-large prefill, phase 14
+        (1, None, None, bf16, 1024, 64, 32, 4),   # musicgen-large prefill, phase 14
+        # phase 18: one tensor-parallel rank of gemma3-1b at m = 2 (its 2 query
+        # heads over the gathered KV head), full and window-512 layers
+        (2, None, None, bf16, 1024, 256, 2, 4), (2, 512, None, bf16, 1024, 256, 2, 4)]
     for seed in seeds:
         g = torch.Generator(device="cuda").manual_seed(seed)
         for gq, window, cap, dtype, s, d, h, b in cases:
@@ -1985,38 +2013,7 @@ def _split_rank(rank, port, answers):
 def split_on_one_card(want):
     """``_split_rank`` on 2 processes; each rank's result must have the
     digest ``want`` (the in-body 2-chunk step's).  Returns rank 0's answer."""
-    import multiprocessing as mp
-    import queue
-    import socket
-
-    ctx = mp.get_context("spawn")
-    answers = ctx.Queue()
-    with socket.socket() as sock:
-        sock.bind(("localhost", 0))
-        port = sock.getsockname()[1]
-    procs = [ctx.Process(target=_split_rank, args=(r, port, answers), daemon=True)
-             for r in range(2)]
-    for p in procs:
-        p.start()
-    got, deadline = {}, time.monotonic() + SPLIT_JOIN_S
-    try:
-        while len(got) < 2 and time.monotonic() < deadline:
-            try:
-                rank, ok, value = answers.get(timeout=1.0)
-            except queue.Empty:
-                if any(p.exitcode not in (None, 0) for p in procs):
-                    break
-                continue
-            assert ok, f"data rank {rank}:\n{value}"
-            got[rank] = value
-    finally:
-        for p in procs:
-            p.join(timeout=max(0.1, deadline - time.monotonic()))
-            if p.is_alive():
-                p.kill()
-                p.join(timeout=5)
-    assert len(got) == 2, (f"data ranks answered {sorted(got)} of 2 within {SPLIT_JOIN_S} s; "
-                           f"exit codes {[p.exitcode for p in procs]}")
+    got = _spawn_two(_split_rank, (), SPLIT_JOIN_S)
     for rank, r in sorted(got.items()):
         print(f"mesh train[pods:1x2x1 data split, 2 processes on one card, gloo, rank {rank}]: "
               f"bitwise the in-body 2-chunk step: {r['digest'] == want}; data split "
@@ -2139,6 +2136,360 @@ def mesh_train_run():
     return paths
 
 
+# phase 18: tensor-parallel serving of gemma3-1b over two processes sharing the card
+TP_SERVE = dict(batch=4, prompt=1024, steps=16, capacity=1088, mesh="pods:1x1x2")  # phase 12's
+TP_JOIN_S = 400  # both ranks' answers, then they are killed
+TP_PEAK_RTOL = 0.10  # each rank's step peak against the dry run's
+
+
+def _tp_shapes():
+    """(prefill, decode) ``InputShape``s of phase 18's serving steps."""
+    b, cap = TP_SERVE["batch"], TP_SERVE["capacity"]
+    return (InputShape("tp_prefill", TP_SERVE["prompt"], b, "prefill"),
+            InputShape("tp_decode", cap, b, "decode"))
+
+
+def _storage_bytes(tree):
+    seen = {x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+            for x in tree_leaves(tree) if isinstance(x, torch.Tensor)}
+    return sum(seen.values())
+
+
+def _step_peak(fn, args):
+    """(result, census, peak bytes): ``fn(*args)`` with the census reset
+    before it; the peak is the arguments' bytes plus what the call
+    allocated beyond what was live before it (``max_memory_allocated``),
+    as the dry run counts argument + temp."""
+    from repro_torch.launch import collectives
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    collectives.reset_census()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    census = collectives.census()
+    return out, census, _storage_bytes(args) + torch.cuda.max_memory_allocated() - base
+
+
+def _host(x):
+    """``x`` as a numpy array (bf16 widened to f32, exactly): the answers
+    cross the process boundary by value, not as shared-memory tensors
+    whose handles die with the rank."""
+    return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
+
+
+def _combine_unscaled(m, l, o, tp):
+    """A planted fault: ``parallel.combine_attention`` with each rank's part
+    weighted 1 where it must be weighted ``exp(m_r - M)``."""
+    from repro_torch.models import parallel
+
+    parts = parallel.gather(torch.cat([l, o], dim=-1).unsqueeze(0), tp, 0)
+    return parts[..., 1:].sum(0) / parts[..., :1].sum(0)
+
+
+def _tp_rank(rank, port, answers, teacher):
+    """One of two processes on the one card (gloo: NCCL refuses a second
+    rank on a device), ``pods:1x1x2``: its model slices of gemma3-1b
+    (seed 0, phase 12's params), the prompt served by
+    ``prefill_with_caches`` and ``TP_SERVE["steps"]`` decode steps
+    teacher-forced on ``teacher`` (the whole model's greedy tokens), with
+    the launch counters reset just before; each step's logits gathered
+    over the vocab and its greedy token by ``parallel.vocab_argmax``; then
+    the prefill and serve steps alone, each with its census and peak; then
+    each planted fault of ``TP_FAULTS``: prefill served again, decode
+    ``TP_FAULT_STEPS`` steps from a copy of the prefill's caches, the
+    argmax on the run's own logits."""
+    import dataclasses
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.models import attention, parallel
+    from repro_torch.weights import cut
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=120))
+        try:
+            cfg = get_config("gemma3-1b")
+            tp = lm_steps.tensor_parallel(parse_mesh(TP_SERVE["mesh"]))
+            b, s, steps, cap = (TP_SERVE[k] for k in ("batch", "prompt", "steps", "capacity"))
+            whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                   device="cuda")
+            params = cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank))
+            del whole
+            torch.cuda.empty_cache()
+            g = torch.Generator(device="cuda").manual_seed(0)
+            prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+            teacher = teacher.cuda()
+            (torch.ones(64, 64, device="cuda") @ torch.ones(64, 64, device="cuda")).sum().item()
+
+            def vocab(x):
+                return parallel.gather(x, tp, -1)
+
+            reset_launches()
+            t0 = time.perf_counter()
+            logits, caches = tf.prefill_with_caches(params, cfg, {"tokens": prompt},
+                                                    capacity=cap, tp=tp)
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            # the prefill's caches, for the decode faults (decode writes in place)
+            prefilled = tree_map(torch.clone, caches)
+            local, step_s = [logits], []
+            pos = torch.zeros((), dtype=torch.int32, device="cuda")
+
+            def decode(t, caches):
+                pos.fill_(s + t)
+                return tf.decode_step(params, cfg, {"tokens": teacher[t]}, pos, caches, tp=tp)
+
+            def step(t):
+                nonlocal caches
+                t1 = time.perf_counter()
+                out, caches = decode(t, caches)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t1)
+                local.append(out)
+
+            profiled = 4
+            for t in range(steps - profiled):
+                step(t)
+
+            def last_steps():
+                t1 = time.perf_counter()
+                for t in range(steps - profiled, steps):
+                    step(t)
+                return None, time.perf_counter() - t1
+
+            _, wall_p, busy_us = profiled_run(last_steps)
+            launches = all_launches()
+            outs = [_host(vocab(x)) for x in local]
+            tokens = [_host(parallel.vocab_argmax(x, tp, cfg.vocab_size)) for x in local]
+
+            # the two steps alone, as the dry run counts them
+            shape_p, shape_d = _tp_shapes()
+            batch = {"tokens": prompt}
+            _, census_p, peak_p = _step_peak(lm_steps.make_prefill_step(cfg, shape_p, tp),
+                                             (params, batch))
+            pos.fill_(s + steps)
+            serve_step = lm_steps.make_serve_step(cfg, shape_d, tp)
+            (tok, _), census_d, peak_d = _step_peak(
+                serve_step, (params, {"tokens": teacher[steps]}, pos, caches))
+            del caches
+
+            # the planted faults (TP_FAULTS), each patched in for its run only
+            plants = {"row_all_reduce_dropped": (
+                          parallel, "row", lambda eq, x, w, tp_: torch.einsum(eq, x, w)),
+                      "owner_write_skipped": (
+                          attention, "_write_owned", lambda buf, slot, value, lo: None),
+                      "combine_unscaled": (parallel, "combine_attention", _combine_unscaled)}
+            faulty = {}
+            for name, (module, attr, fault) in plants.items():
+                sound = getattr(module, attr)
+                setattr(module, attr, fault)
+                try:
+                    if name == "row_all_reduce_dropped":
+                        faulty[name] = [_host(vocab(tf.prefill_with_caches(
+                            params, cfg, {"tokens": prompt}, capacity=cap, tp=tp)[0]))]
+                    else:
+                        fc = tree_map(torch.clone, prefilled)
+                        faulty[name] = []
+                        for t in range(TP_FAULT_STEPS):
+                            out, fc = decode(t, fc)
+                            faulty[name].append(_host(vocab(out)))
+                finally:
+                    setattr(module, attr, sound)
+            # each rank taking itself for rank 0: no slice offset
+            offset_dropped = dataclasses.replace(tp, rank=0)
+            faulty_tokens = [_host(parallel.vocab_argmax(x, offset_dropped, cfg.vocab_size))
+                             for x in local]
+            answers.put((rank, True, dict(
+                logits=outs, tokens=tokens, faulty=faulty, faulty_tokens=faulty_tokens,
+                prefill_s=prefill_s, step_s=step_s, wall_p=wall_p, busy_us=busy_us,
+                launches=launches, census_p=census_p, census_d=census_d, peak_p=peak_p,
+                peak_d=peak_d, token=_host(tok))))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the parent fails the phase with this traceback
+        answers.put((rank, False, traceback.format_exc()))
+
+
+def _spawn_two(target, args, join_s):
+    """``target(rank, port, answers, *args)`` in 2 spawned processes; each
+    rank's answer, or the phase fails with a rank's traceback."""
+    import multiprocessing as mp
+    import queue
+    import socket
+
+    ctx = mp.get_context("spawn")
+    answers = ctx.Queue()
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    procs = [ctx.Process(target=target, args=(r, port, answers, *args), daemon=True)
+             for r in range(2)]
+    for p in procs:
+        p.start()
+    got, deadline = {}, time.monotonic() + join_s
+    try:
+        while len(got) < 2 and time.monotonic() < deadline:
+            try:
+                rank, ok, value = answers.get(timeout=1.0)
+            except queue.Empty:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                continue
+            assert ok, f"rank {rank}:\n{value}"
+            got[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=max(0.1, deadline - time.monotonic()))
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=5)
+    assert len(got) == 2, (f"ranks answered {sorted(got)} of 2 within {join_s} s; "
+                           f"exit codes {[p.exitcode for p in procs]}")
+    return got
+
+
+def _tp_gap(got, want):
+    """(worst |got - want| over 5e-3 + 5e-3 |want| (at most 1: within
+    test_torch_serve.py's rtol = atol = 5e-3), the error in units of the
+    largest |want|)."""
+    got, want = torch.as_tensor(got).float().cpu(), want.float().cpu()
+    ratio = ((got - want).abs() / (TP_ATOL + TP_ATOL * want.abs())).max().item()
+    return ratio, errors(got, want)[1]
+
+
+TP_ATOL = 5e-3  # rtol = atol: test_torch_serve.py's bound
+# the logit check's limit on |d| / (TP_ATOL + TP_ATOL |want|): at full depth
+# in bf16 a sound reordering of the sums reads 7.4-8.3 against the whole
+# model (PERF.md, section 6), so the bare bound (1) cannot hold; each
+# planted fault must read above it
+TP_LIMIT = 10.0
+TP_FAULT_STEPS = TP_SERVE["steps"]  # decode steps each planted decode fault is served
+# the planted faults, each of which phase 18 must catch
+TP_FAULTS = ("row_all_reduce_dropped", "owner_write_skipped", "combine_unscaled",
+             "argmax_offset_dropped")
+
+
+def tp_serve_run():
+    """Phase 18: gemma3-1b at full width and depth in bf16 served
+    tensor-parallel on ``pods:1x1x2`` by two processes sharing the card
+    (gloo, host-staged: no NVLink), against the whole-model run on the
+    same params, prompt and tokens (phase 12's: batch 4, a 1,024-token
+    prompt, then ``TP_SERVE["steps"]`` decode steps teacher-forced on the
+    whole model's greedy tokens).  Each rank's last-token logits and every
+    step's are held against the whole model's within ``TP_LIMIT``, and its
+    greedy tokens to the first argmax of its logits; each rank's census of
+    the prefill and serve steps must equal the dry run's count of the same
+    shapes on a 2-rank fake world, and its peak be within
+    ``TP_PEAK_RTOL`` of the dry run's; each planted fault of ``TP_FAULTS``
+    must fail those checks.  Returns rank 0's launches."""
+    from repro_torch.launch.mesh import parse_mesh
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = get_config("gemma3-1b")
+    b, s, steps, cap = (TP_SERVE[k] for k in ("batch", "prompt", "steps", "capacity"))
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
+    logits, caches = tf.prefill_with_caches(params, cfg, {"tokens": prompt}, capacity=cap)
+    want, toks = [logits.cpu()], [logits.argmax(-1)]
+    for t in range(steps):
+        out, caches = tf.decode_step(params, cfg, {"tokens": toks[t]}, s + t, caches)
+        want.append(out.cpu())
+        toks.append(out.argmax(-1))
+    # the bf16 noise floor of two sound paths, printed beside the reading:
+    # the reference path (phase 12's comparison) teacher-forced on the same
+    # tokens
+    ref_cfg = cfg.replace(kernel_impl="reference")
+    r_logits, r_caches = tf.prefill_with_caches(params, ref_cfg, {"tokens": prompt}, capacity=cap)
+    floor = [_tp_gap(r_logits, want[0])]
+    for t in range(steps):
+        r_out, r_caches = tf.decode_step(params, ref_cfg, {"tokens": toks[t]}, s + t, r_caches)
+        floor.append(_tp_gap(r_out, want[t + 1]))
+    teacher = torch.stack(toks).cpu()
+    del params, caches, r_caches, logits, out, r_out, r_logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    spec = parse_mesh(TP_SERVE["mesh"])
+    counted = {}
+    for shape in _tp_shapes():
+        rec = dryrun.run_one("gemma3-1b", shape, save=False, verbose=False, mesh=spec)
+        assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
+        counted[shape.kind] = rec
+    got = _spawn_two(_tp_rank, (teacher,), TP_JOIN_S)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    checks = []
+    for rank, r in sorted(got.items()):
+        gaps = [_tp_gap(x, w) for x, w in zip(r["logits"], want)]
+        # each step's greedy token against the first argmax of its logits
+        wrong = sum(int((tk != lg.argmax(-1)).sum()) for tk, lg in zip(r["tokens"], r["logits"]))
+        faults = {name: max(_tp_gap(x, w)[0] for x, w in zip(
+                      r["faulty"][name], want if name == "row_all_reduce_dropped" else want[1:]))
+                  for name in r["faulty"]}
+        faults["argmax_offset_dropped"] = sum(
+            int((tk != lg.argmax(-1)).sum()) for tk, lg in zip(r["faulty_tokens"], r["logits"]))
+        assert sorted(faults) == sorted(TP_FAULTS), sorted(faults)
+        agree = sum(int((tk == w.numpy()).sum()) for tk, w in zip(r["tokens"], teacher))
+        checks.append((rank, r, gaps, wrong, faults))
+        decode_ms = 1e3 * sum(r["step_s"]) / len(r["step_s"])
+        print(f"tp serve[{TP_SERVE['mesh']}, rank {rank}, gloo host-staged, 2 processes on one "
+              f"card, {smi}]: prefill {1e3 * r['prefill_s']:.3f} ms, decode {decode_ms:.3f} "
+              f"ms/step over {steps} steps, {b * 1e3 / decode_ms:.1f} tokens/s; 4 profiled "
+              f"steps: wall {1e3 * r['wall_p']:.3f} ms, device busy "
+              f"{r['busy_us'] / 1e3:.3f} ms, idle share "
+              f"{1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches {r['launches']}",
+              flush=True)
+        print(f"tp serve[rank {rank}]: against the whole model, worst |d| / (5e-3 + 5e-3 "
+              f"|want|) {max(x for x, _ in gaps):.4g} (prefill {gaps[0][0]:.4g}; limit "
+              f"{TP_LIMIT}), worst error in units of the largest logit "
+              f"{max(y for _, y in gaps):.4g}; the reference path against the whole model "
+              f"(the bf16 floor, not held): {max(x for x, _ in floor):.4g}, "
+              f"{max(y for _, y in floor):.4g}; greedy tokens not the first argmax of their "
+              f"logits {wrong}, equal to the whole model's {agree}/{b * (1 + steps)}",
+              flush=True)
+        print(f"tp serve[rank {rank}]: planted faults (|d| / (5e-3 + 5e-3 |want|) over "
+              f"prefill or {TP_FAULT_STEPS} decode steps; the argmax's: tokens not the first "
+              f"argmax): " + ", ".join(f"{k} {v:.4g}" for k, v in faults.items()), flush=True)
+        for kind, census, peak in (("prefill", r["census_p"], r["peak_p"]),
+                                   ("decode", r["census_d"], r["peak_d"])):
+            rec = counted[kind]
+            print(f"tp serve[rank {rank}, {kind} step]: census {census} (dry run "
+                  f"{rec['collectives']}); peak {peak} bytes, the dry run's "
+                  f"{rec['peak_bytes']}: {100 * (rec['peak_bytes'] - peak) / peak:+.2f}%",
+                  flush=True)
+    for rank, r, gaps, wrong, faults in checks:
+        for kind, census, peak in (("prefill", r["census_p"], r["peak_p"]),
+                                   ("decode", r["census_d"], r["peak_d"])):
+            rec = counted[kind]
+            assert census == rec["collectives"], (rank, kind, census, rec["collectives"])
+            assert abs(rec["peak_bytes"] - peak) <= TP_PEAK_RTOL * peak, (rank, kind, peak)
+        want_launches = {**{k: 0 for k in r["launches"]},
+                         "rmsnorm": (4 * cfg.n_layers + 1) * (1 + steps),
+                         "flash_fwd": cfg.n_layers}
+        assert r["launches"] == want_launches, (r["launches"], want_launches)
+        assert max(x for x, _ in gaps) <= TP_LIMIT, ("tensor-parallel logits", TP_LIMIT, gaps)
+        assert wrong == 0, ("vocab-parallel greedy tokens", wrong)
+        for name in TP_FAULTS:
+            caught = faults[name] > 0 if name == "argmax_offset_dropped" else \
+                faults[name] > TP_LIMIT
+            assert caught, ("a planted fault passed the check", name, faults[name])
+        assert 0 <= int(r["token"].min()) and int(r["token"].max()) < cfg.vocab_size
+    print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    return got[0]["launches"]
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
@@ -2218,6 +2569,7 @@ def main():
     mesh_paths, worst = mesh_run()
     paths.update(mesh_paths)
     paths.update(mesh_train_run())
+    paths["tp_serve_gemma3_1b_rank0"] = tp_serve_run()
     for k in ("reduce3", "update"):
         rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 

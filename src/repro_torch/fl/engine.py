@@ -53,10 +53,15 @@ the chunks run in the body on every data rank, with the same numbers;
 ``data_split`` records which layout the last client phase took.
 
 Pure data movement around the same per-client computation, so a mesh
-history is bitwise the vmap history wherever the local vmap computes
-bitwise what the whole-cohort vmap does (one rank; on the CPU a vmapped
-convolution's gradient differs in the last bits between 4 clients and
-2 + 2, so a 2-rank CNN history drifts by ~1e-6 from the 4-client vmap's).
+history is bitwise the vmap history.  That needs each client's numbers to
+be independent of how many clients share its vmap: a vmapped convolution
+folds its clients into one grouped convolution, whose gradient over 4
+clients differs in the last bits from 2 + 2 (on the CPU, and on the card
+under ``cudnn.deterministic``: 20 clients against 2 x 10).  So every
+backend maps its clients one at a time (``torch.func.vmap``'s
+``chunk_size=1``): bitwise
+whatever the split, on the CPU and on the card, at a cost in round time
+(PERF.md, §6; ``scripts/torch_client_chunk.py``).
 """
 from __future__ import annotations
 
@@ -71,7 +76,7 @@ import torch.func
 from repro_torch.kernels.dispatch import client_shard_axis, data_shard_axis, model_shard_axis
 from repro_torch.launch import collectives
 from repro_torch.launch.mesh import MeshSpec, is_auto_clients, parse_mesh, resolve_mesh
-from repro_torch.launch.sharding import client_stacked_specs
+from repro_torch.launch.sharding import client_stacked_specs, leaf_plan
 from repro_torch.utils.pytree import (
     tree_flatten,
     tree_leaves,
@@ -86,7 +91,9 @@ BACKENDS = ("vmap", "shard_map", "mesh")
 
 
 def _run_vmap(fn, states, broadcast, rest):
-    return torch.func.vmap(fn, in_dims=(0, None, 0))(states, broadcast, rest)
+    # one client a call of the vmapped function, so a client's numbers do
+    # not depend on how many clients share its rank (module docstring)
+    return torch.func.vmap(fn, in_dims=(0, None, 0), chunk_size=1)(states, broadcast, rest)
 
 
 def client_tree(tree, i):
@@ -321,16 +328,13 @@ class MeshBackend:
         maxis, msize = self.spec.model_axis, self.spec.model_size
         specs = client_stacked_specs(tree, caxis, model_axis=maxis, msize=msize)
         rows = self._rows()
+        sizes = {maxis: msize} if maxis is not None else {}
+        ranks = {maxis: self._local_rank(maxis)} if msize > 1 else {}
         leaves, treedef = tree_flatten(tree)
         out = []
         for x, spec in zip(leaves, specs):
-            model = None
-            for d, ax in enumerate(spec):
-                if d and ax is not None and ax == maxis:
-                    w = x.shape[d] // msize
-                    s = self._local_rank(maxis)
-                    model = (d, slice(s * w, (s + 1) * w))
-            out.append(LeafShard(rows, model))
+            cuts = leaf_plan(spec, x.shape, sizes, ranks).cuts
+            out.append(LeafShard(rows, cuts[0] if cuts else None))
         return tree_unflatten(treedef, out)
 
     def _gather_model(self, tree, shardings):

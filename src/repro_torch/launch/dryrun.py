@@ -36,10 +36,18 @@ engine gathers them; its per-step batch is its data rank's chunk (2 of
 the micro batch's 32 sequences), whose gradient it gathers with the 15
 others' (``optim/sgd.py``'s data split); the round start runs K1/K2 on
 its tile range; multi-pod, Eq. 13 gathers the two pods' partial sums.
-The global delta is whole on every rank.  The port has no tensor- or
-sequence-parallel forward (the ``seqshard`` item of ROADMAP.md), so every
-rank of a model group computes the same chunk, and a prefill or decode
-step on a mesh is rank 0's pod's client served whole, with no collective.
+The global delta is whole on every rank.  The train step has no tensor-
+or sequence-parallel forward (ROADMAP.md queue 1, items 16a-iii and 16b),
+so every rank of a model group computes the same chunk.  A prefill or
+decode step of a dense text arch on a mesh is rank 0's tensor-parallel
+program (``launch/steps.py``'s ``tp``, ``models/parallel.py``): its model
+slice of every Megatron-eligible leaf, its data rank's rows of the batch
+and its slice of every KV cache (batch rows over ``data``, slots over
+``model``), cut by ``launch/sharding.py::rank_plan`` from rank 0's pod's
+client, with the collectives that layout needs; the record says
+``"serve_layout": "tensor_parallel"``.  The other archs' serving steps
+are rank 0's pod's client served whole, with no collective
+(``"whole_client"``; ROADMAP.md queue 1, item 16a-ii).
 Per (arch x shape x mesh) the record under ``experiments/dryrun_torch/``
 has ``repro``'s keys:
 
@@ -60,7 +68,7 @@ and the port's own ``launches`` (per kernel), ``kernels`` (their FLOPs and
 bytes), ``peak_bytes`` and ``fits`` (the peak against the card's 80 GB).
 ``moe_dispatch`` / ``moe_grouped`` run the capacity-based MoE dispatch,
 whose shapes are static (set by the capacity, not the routing);
-``seqshard`` is refused (ROADMAP.md queue 1, item 16's last part).
+``seqshard`` is refused (ROADMAP.md queue 1, item 16b).
 
 The live-bytes tracker (``MemoryCounter``) follows each storage an op
 returns until its last reference goes: the peak it reads is the caching
@@ -95,7 +103,10 @@ from repro_torch.launch import collectives
 from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import MeshSpec
 from repro_torch.launch.roofline import HBM_CAPACITY, roofline_terms
+from repro_torch.launch.sharding import rank_plan
+from repro_torch.models import transformer as tf
 from repro_torch.utils.pytree import tree_leaves, tree_map
+from repro_torch.weights import cut
 
 ART_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
 VARIANTS = {"baseline": None, "moe_dispatch": "dispatch", "moe_grouped": "dispatch_grouped"}
@@ -239,7 +250,7 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
         raise NotImplementedError(
             "variant 'seqshard' shards the sequence over the model group, a "
             "sequence-parallel forward the port does not have; see ROADMAP.md "
-            "queue 1, item 16 (its last part, seqshard)")
+            "queue 1, item 16b (seqshard)")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; choose from {tuple(VARIANTS)}")
     if VARIANTS[variant]:
@@ -260,18 +271,21 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
             step = functools.partial(step, shardings=shardings)
         args = (state, specs["global_delta"], specs["batches"])
     else:
+        tp = None
+        if engine is not None and tf.serves_tensor_parallel(rcfg):
+            tp = st.tensor_parallel(engine.spec, engine.mesh)
         if shape.kind == "prefill":
-            client_args = (0, 1)
-            step = _per_client(st.make_prefill_step(cfg, shape), client_args)
+            client_args = {0: "params", 1: "batch"}
+            step = _per_client(st.make_prefill_step(cfg, shape, tp=tp), client_args)
             args = (specs["params"], specs["batch"])
         else:
-            client_args = (0, 1, 3)
-            step = _per_client(st.make_serve_step(cfg, shape), client_args)
+            client_args = {0: "params", 1: "batch", 3: "caches"}
+            step = _per_client(st.make_serve_step(cfg, shape, tp=tp), client_args)
             args = (specs["params"], specs["batch"], specs["pos"], specs["caches"])
         if engine is not None:  # rank 0's pod's rows, each leaf its own storage
             rows = engine._rows()
-            args = tuple(tree_map(lambda x: x[rows].clone(), a) if j in client_args else a
-                         for j, a in enumerate(args))
+            args = tuple(_rank_part(tree_map(lambda x: x[rows], a), client_args[j], tp)
+                         if j in client_args else a for j, a in enumerate(args))
     spec = engine.spec if engine is not None else None
     info = {
         "arch": arch, "shape": shape.name, "mesh": "1", "variant": variant,
@@ -280,7 +294,18 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
         "long_context_mode": rcfg.long_context_mode if shape.name == "long_500k" else None,
         "cfg_name": rcfg.name,
     }
+    if engine is not None and shape.kind != "train":
+        info["serve_layout"] = "whole_client" if tp is None else "tensor_parallel"
     return step, args, info
+
+
+def _rank_part(tree, kind, tp):
+    """This rank's part of a client-stacked serving input, each leaf its
+    own storage: whole (``tp`` None) or cut by the rank's plan."""
+    if tp is None:
+        return tree_map(lambda x: x.clone(), tree)
+    plan = rank_plan(tree, kind, tp.data_size, tp.size, tp.data_rank, tp.rank, client=True)
+    return cut(tree, plan)
 
 
 @contextlib.contextmanager

@@ -26,9 +26,16 @@ decode state: heads on ``model``.
 
 The federation's CNN state is flat ``(K', N)`` rows whose leaf names match
 no rule, so its client-stacked specs are the plain client split.
+
+``rank_plan`` turns a spec tree into one rank's plan: per leaf, the
+``(dim, slice)`` of every split dim at that rank's coordinates (the
+tensor-parallel serving layout, ``models/parallel.py``, and the engines'
+placement at rest, ``fl/engine.py::MeshBackend.input_shardings``);
+``weights.cut`` applies it.
 """
 from __future__ import annotations
 
+from dataclasses import dataclass
 from typing import Optional
 
 from repro_torch.utils.pytree import tree_flatten, tree_flatten_with_path, tree_unflatten
@@ -159,12 +166,18 @@ def _cache_rule(names, shape, dsize, msize):
     return tuple([None] * len(shape))  # pos etc.
 
 
+def _cache_specs(cache_tree, dsize, msize, stacked_prefixes=("pattern",), client=False,
+                 client_axis=None) -> list:
+    return _specs(cache_tree, lambda path, leaf: _with_prefix(
+        path, leaf, client, client_axis, stacked_prefixes,
+        lambda names, shape: _cache_rule(names, shape, dsize, msize)))
+
+
 def cache_pspecs(cache_tree, dsize: int, msize: int,
                  stacked_prefixes=("pattern",), client: bool = False,
                  client_axis: Optional[str] = None):
-    return _as_tree(cache_tree, _specs(cache_tree, lambda path, leaf: _with_prefix(
-        path, leaf, client, client_axis, stacked_prefixes,
-        lambda names, shape: _cache_rule(names, shape, dsize, msize))))
+    return _as_tree(cache_tree, _cache_specs(cache_tree, dsize, msize, stacked_prefixes,
+                                             client, client_axis))
 
 
 def batch_pspecs(batch_tree, dsize: int, batch_axis_index: int = 0,
@@ -173,7 +186,11 @@ def batch_pspecs(batch_tree, dsize: int, batch_axis_index: int = 0,
 
     ``batch_axis_index`` is the position of the batch dim AFTER the client
     axis (train batches are (T, micro_b, ...) -> index 1)."""
+    return _as_tree(batch_tree, _batch_specs(batch_tree, dsize, batch_axis_index, client,
+                                             client_axis))
 
+
+def _batch_specs(batch_tree, dsize, batch_axis_index=0, client=False, client_axis=None) -> list:
     def spec_of(path, leaf):
         shape = list(leaf.shape)
         prefix = []
@@ -185,7 +202,7 @@ def batch_pspecs(batch_tree, dsize: int, batch_axis_index: int = 0,
             spec[batch_axis_index] = "data"
         return tuple(prefix) + tuple(spec)
 
-    return _as_tree(batch_tree, _specs(batch_tree, spec_of))
+    return _specs(batch_tree, spec_of)
 
 
 def client_stacked_specs(tree, axis_name: Optional[str] = "clients",
@@ -228,3 +245,43 @@ def _replicated_specs(tree, client=False, client_axis=None) -> list:
 
 def replicated(tree, client: bool = False, client_axis: Optional[str] = None):
     return _as_tree(tree, _replicated_specs(tree, client, client_axis))
+
+
+
+@dataclass(frozen=True)
+class LeafPlan:
+    """One leaf's part on one rank: ``(dim, slice)`` of each split dim,
+    contiguous and in rank order; no cut for a whole leaf."""
+
+    cuts: tuple = ()
+
+
+def leaf_plan(spec, shape, sizes: dict, ranks: dict) -> LeafPlan:
+    """``spec``'s split dims over the axes of ``sizes``, at ``ranks``."""
+    cuts = []
+    for d, ax in enumerate(spec):
+        if ax in sizes and sizes[ax] > 1:
+            w = shape[d] // sizes[ax]
+            cuts.append((d, slice(ranks[ax] * w, (ranks[ax] + 1) * w)))
+    return LeafPlan(tuple(cuts))
+
+
+def rank_plan(tree, kind: str, dsize: int = 1, msize: int = 1, drank: int = 0,
+              mrank: int = 0, client: bool = False):
+    """One rank's plan for ``tree`` (tensors or meta tensors): a tree of
+    ``LeafPlan``, each the leaf's spec at data rank ``drank`` of ``dsize``
+    and model rank ``mrank`` of ``msize``.  ``kind``: "params" (the param
+    rules), "caches" (the cache rules) or "batch" (the batch dim first);
+    ``client``: every leaf leads with a client axis, never cut here."""
+    if kind == "params":
+        specs = _param_specs(tree, msize, client=client)
+    elif kind == "caches":
+        specs = _cache_specs(tree, dsize, msize, client=client)
+    elif kind == "batch":
+        specs = _batch_specs(tree, dsize, client=client)
+    else:
+        raise ValueError(f"rank_plan kind {kind!r}: choose params, caches or batch")
+    sizes, ranks = {"data": dsize, "model": msize}, {"data": drank, "model": mrank}
+    leaves, treedef = tree_flatten(tree)
+    return tree_unflatten(treedef, [leaf_plan(sp, x.shape, sizes, ranks)
+                                    for x, sp in zip(leaves, specs)])

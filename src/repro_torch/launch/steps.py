@@ -20,6 +20,17 @@ Serving:
   make_serve_step    one new token against the KV caches; greedy sampling
                      (``argmax``: ties go to the first index, as in JAX)
 
+  With ``tp`` (a ``models/parallel.py`` ``TensorParallel``) each is one
+  rank's program of ``repro``'s GSPMD-partitioned step: params cut to this
+  model rank's slices, the batch to this data rank's rows (where the data
+  size divides the batch) and the caches to both (``launch/sharding.py::
+  rank_plan``, ``weights.cut``).  The outputs are whole on every rank, as
+  ``repro``'s replicated ``out_shardings`` make them: the prefill's logits
+  all-gathered over the vocab slices and the data ranks' rows, the serve
+  step's tokens from ``parallel.vocab_argmax`` and all-gathered over the
+  data ranks; the caches stay this rank's slices.  With no ``tp`` they
+  are the one-device steps.
+
 ``input_specs(cfg, shape)`` builds meta-device stand-ins for every input,
 leaf for leaf ``repro``'s ``ShapeDtypeStruct``s (a leading client axis on
 the per-client inputs): no allocation, no draw.  ``abstract_params`` and
@@ -41,6 +52,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import pfedsop as pf
 from repro_torch.fl.engine import VmapBackend
+from repro_torch.launch import collectives
+from repro_torch.launch.mesh import resolve_mesh
+from repro_torch.models import parallel
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import apply_long_context
 from repro_torch.optim.reduce import cohort_mean
@@ -92,25 +106,56 @@ def next_tokens(cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     return tokens.transpose(1, 2) if cfg.frontend == "audio_codebooks" else tokens
 
 
-def make_prefill_step(cfg: ModelConfig, shape: InputShape):
+def tensor_parallel(spec, mesh=None) -> parallel.TensorParallel:
+    """This rank's ``TensorParallel`` on ``spec``'s model and data axes, over
+    the default process group laid out by ``launch/mesh.py::resolve_mesh``
+    (or ``mesh``, one already laid out)."""
+    mesh = mesh if mesh is not None else resolve_mesh(spec)
+
+    def axis(name):
+        if name is None or spec.size(name) == 1:
+            return None, 1, 0
+        return mesh.get_group(name), spec.size(name), mesh.get_local_rank(name)
+
+    group, size, rank = axis(spec.model_axis)
+    data_group, data_size, data_rank = axis(spec.data_axis)
+    return parallel.TensorParallel(group, size, rank, data_group, data_size, data_rank)
+
+
+def _whole_rows(x, shape: InputShape, tp: Optional[parallel.TensorParallel]):
+    """Every data rank's rows of ``x``, where the data size split the batch."""
+    if tp is None or tp.data_size == 1 or shape.global_batch % tp.data_size:
+        return x
+    return collectives.all_gather(x, tp.data_group, dim=0)
+
+
+def make_prefill_step(cfg: ModelConfig, shape: InputShape,
+                      tp: Optional[parallel.TensorParallel] = None):
     cfg = resolve_cfg(cfg, shape)
 
     @torch.no_grad()
     def prefill_step(params, batch):
-        hidden, _ = tf.forward(params, cfg, batch)
-        return tf.lm_logits(params, cfg, hidden[:, -1:, :])
+        hidden, _ = tf.forward(params, cfg, batch, tp=tp)
+        logits = tf.lm_logits(params, cfg, hidden[:, -1:, :], tp=tp)
+        if tp is not None and parallel.split(tp, logits.shape[-1], cfg.vocab_size):
+            logits = parallel.gather(logits, tp, -1)
+        return _whole_rows(logits, shape, tp)
 
     return prefill_step
 
 
-def make_serve_step(cfg: ModelConfig, shape: InputShape):
+def make_serve_step(cfg: ModelConfig, shape: InputShape,
+                    tp: Optional[parallel.TensorParallel] = None):
     cfg = resolve_cfg(cfg, shape)
 
     def serve_step(params, batch, pos, caches):
         """-> (next tokens (B, 1), or (B, 1, K) for the codebooks, int32;
         caches updated in place)."""
-        logits, caches = tf.decode_step(params, cfg, batch, pos, caches)
-        return logits.argmax(-1).to(torch.int32), caches
+        logits, caches = tf.decode_step(params, cfg, batch, pos, caches, tp=tp)
+        if tp is None:
+            return logits.argmax(-1).to(torch.int32), caches
+        tokens = parallel.vocab_argmax(logits, tp, cfg.vocab_size).to(torch.int32)
+        return _whole_rows(tokens, shape, tp), caches
 
     return serve_step
 

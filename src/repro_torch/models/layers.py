@@ -12,6 +12,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels.dispatch import kernel_scope
 from repro_torch.kernels.rmsnorm import ops as rmsnorm_ops
+from repro_torch.models import parallel
 
 
 def dense_init(gen, shape, in_axis_size, dtype, scale=1.0):
@@ -84,11 +85,18 @@ def mlp_init(gen, d_model, d_ff, n_layers, dtype):
     }
 
 
-def mlp(p, x, activation="silu"):
+def mlp(p, x, activation="silu", tp=None, d_ff=None):
+    """Gated MLP.  With ``tp`` (``models/parallel.py``) and ``wi_*`` / ``wo``
+    holding this rank's slice of the ``d_ff`` columns / rows: the
+    column-parallel ``wi_*`` need no collective, and ``wo`` is
+    row-parallel (its partial products summed over the model group)."""
     # jax.nn.gelu defaults to the tanh approximation
     g = F.silu(x @ p["wi_gate"]) if activation == "silu" else \
         F.gelu(x @ p["wi_gate"], approximate="tanh")
-    return (g * (x @ p["wi_up"])) @ p["wo"]
+    h = g * (x @ p["wi_up"])
+    if tp is not None and parallel.split(tp, p["wo"].shape[0], d_ff):
+        return parallel.row("...f,fd->...d", h, p["wo"], tp)
+    return h @ p["wo"]
 
 
 def softcap(x, cap):

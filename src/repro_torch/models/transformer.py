@@ -35,6 +35,19 @@ layer's new k/v (and each SSM layer's conv window and state) into
 one it was given, updated in place.
 ``prefill_with_caches`` runs the prompt once and leaves the caches decode
 continues from.  Both run without autograd.
+
+Tensor-parallel serving: ``embed_inputs``, ``lm_logits``, ``forward``,
+``decode_step`` and ``prefill_with_caches`` take ``tp``, a
+``models/parallel.py`` ``TensorParallel``, with ``params`` and ``caches``
+holding this rank's slices (``launch/sharding.py::rank_plan``,
+``weights.cut``).  The embedding and the tied head are vocab-parallel
+where the rules split the vocab (``lm_logits`` then returns this rank's
+vocab slice of the logits), attention and the MLP as
+``models/attention.py`` and ``models/layers.py::mlp`` say, and the
+norms (K4) run on whole ``D`` rows on every rank: the residual stream is
+replicated over the model group.  Only the dense text archs (every
+sublayer ``attn``, no frontend, no int8 cache) take a ``tp``; the others
+refuse it.
 """
 from __future__ import annotations
 
@@ -47,6 +60,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
+from repro_torch.models import parallel
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.layers import (
     dense_init,
@@ -116,36 +130,36 @@ def _block_init(gen, spec, cfg, dtype):
     return p
 
 
-def _ffn(p, spec, cfg, x):
+def _ffn(p, spec, cfg, x, tp=None):
     """The sublayer's second half on the residual ``x``: (x, aux)."""
     h = _norm(p["ln2"], cfg, x)
     if spec.kind == "moe":
         y, aux = moe_mod.moe_ffn(p["moe"], cfg, h, cfg.moe_impl)
         return x + y, aux
-    return x + mlp(p["mlp"], h), None
+    return x + mlp(p["mlp"], h, tp=tp, d_ff=cfg.d_ff), None
 
 
-def _block_fwd(p, spec, cfg, x, positions):
+def _block_fwd(p, spec, cfg, x, positions, tp=None):
     """Full-sequence (train/prefill) sublayer.  Returns (x, aux_loss f32)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "ssm":
         return x + ssm_mod.ssm_forward(p["ssm"], cfg, _norm(p["ln1"], cfg, x)), zero
     h = _norm(p["ln1"], cfg, x)
     x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions, spec.window,
-                                   spec.rope_base, q_block=cfg.attn_q_block)
-    x, aux = _ffn(p, spec, cfg, x)
+                                   spec.rope_base, q_block=cfg.attn_q_block, tp=tp)
+    x, aux = _ffn(p, spec, cfg, x, tp)
     return x, zero if aux is None else aux
 
 
-def _block_decode(p, spec, cfg, x, pos, cache):
+def _block_decode(p, spec, cfg, x, pos, cache, tp=None):
     """Single-token sublayer; ``cache`` is updated in place."""
     if spec.kind == "ssm":
         y, cache = ssm_mod.ssm_decode(p["ssm"], cfg, _norm(p["ln1"], cfg, x), cache)
         return x + y, cache
     h = _norm(p["ln1"], cfg, x)
     y, cache = attn_mod.attention_decode(p["attn"], cfg, h, pos, cache, spec.window,
-                                         spec.rope_base)
-    return _ffn(p, spec, cfg, x + y)[0], cache
+                                         spec.rope_base, tp=tp)
+    return _ffn(p, spec, cfg, x + y, tp)[0], cache
 
 
 def _block_cache_init(spec, cfg, batch, seq_len, dtype, device):
@@ -155,7 +169,7 @@ def _block_cache_init(spec, cfg, batch, seq_len, dtype, device):
     return attn_mod.init_cache(cfg, batch, cap, dtype, device)
 
 
-def _block_prefill(p, spec, cfg, x, positions, capacity):
+def _block_prefill(p, spec, cfg, x, positions, capacity, tp=None):
     """Sublayer forward that also builds the decode cache it leaves behind.
 
     ``capacity``: total sequence budget (prompt + planned decode steps);
@@ -167,12 +181,15 @@ def _block_prefill(p, spec, cfg, x, positions, capacity):
         y, cache = ssm_mod.ssm_forward_with_cache(p["ssm"], cfg, _norm(p["ln1"], cfg, x))
         return x + y, cache
     h = _norm(p["ln1"], cfg, x)
-    q, k, v = attn_mod._project_qkv(p["attn"], cfg, h, positions, spec.rope_base)
+    q, k, v = attn_mod._project_qkv(p["attn"], cfg, h, positions, spec.rope_base, tp)
     cap = capacity if spec.window is None else min(spec.window, capacity)
-    cache = attn_mod.pack_prefill_cache(cfg, k, v, positions, cap, _dtype(cfg))
+    kv = cfg.n_kv_heads  # the cache holds every KV head
+    cache = attn_mod.pack_prefill_cache(cfg, attn_mod._heads(k, kv, tp),
+                                        attn_mod._heads(v, kv, tp), positions, cap,
+                                        _dtype(cfg), tp)
     x = x + attn_mod._attend(p["attn"], cfg, q, k, v, positions, spec.window, h.dtype,
-                             cfg.attn_q_block)
-    return _ffn(p, spec, cfg, x)[0], cache
+                             cfg.attn_q_block, tp)
+    return _ffn(p, spec, cfg, x, tp)[0], cache
 
 
 def _unstack(tree, n):
@@ -245,14 +262,42 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def embed_inputs(params, cfg, batch):
+def _not_tensor_parallel(cfg) -> list:
+    """What of ``cfg`` has no tensor-parallel serving path yet."""
+    kinds = sorted({s.kind for s in cfg.layers} - {"attn"})
+    frontend = [] if cfg.frontend == "none" else [cfg.frontend]
+    return kinds + frontend + (["int8 KV cache"] if cfg.kv_quant else [])
+
+
+def serves_tensor_parallel(cfg) -> bool:
+    """Whether ``cfg`` takes a ``tp``: the dense text archs."""
+    return not _not_tensor_parallel(cfg)
+
+
+def _check_tp(cfg, tp):
+    """Refuses a tensor-parallel plan for what only the dense text archs
+    have one for."""
+    if tp is None:
+        return
+    what = _not_tensor_parallel(cfg)
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: tensor-parallel serving of {', '.join(what)} is not ported yet; "
+            "see ROADMAP.md queue 1, item 16a-ii")
+
+
+def embed_inputs(params, cfg, batch, tp=None):
     """Returns (x (B,S,D), positions (B,S)).  ``batch["tokens"]`` is (B, S),
     or (B, K, S) for ``audio_codebooks``; ``vision_stub`` also takes
-    ``batch["patch_embeds"]`` (B, n_patches, d_vision), n_patches >= 0."""
+    ``batch["patch_embeds"]`` (B, n_patches, d_vision), n_patches >= 0.
+    With ``tp``, ``params["embed"]`` may hold a vocab slice."""
+    _check_tp(cfg, tp)
     toks = batch["tokens"]
     emb = params["embed"]
     scale = torch.tensor(np.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
-    if cfg.frontend == "audio_codebooks":
+    if tp is not None:
+        x = parallel.vocab_embed(toks, emb, tp, cfg.vocab_size) * scale
+    elif cfg.frontend == "audio_codebooks":
         x = 0  # repro's sum(...) order
         for k in range(cfg.n_codebooks):
             x = x + F.embedding(toks[:, k], emb[k])
@@ -267,9 +312,11 @@ def embed_inputs(params, cfg, batch):
     return x, pos
 
 
-def lm_logits(params, cfg, x):
+def lm_logits(params, cfg, x, tp=None):
     """Tied LM head with the optional final-logit softcap (f32); the audio
-    frontend's per-codebook heads give (B, S, K, V)."""
+    frontend's per-codebook heads give (B, S, K, V).  With ``tp`` and a
+    vocab-split ``embed``: this rank's vocab slice of the logits."""
+    _check_tp(cfg, tp)
     if cfg.frontend == "audio_codebooks":
         return torch.einsum("bsd,kdv->bskv", x, params["heads"])
     logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
@@ -278,16 +325,18 @@ def lm_logits(params, cfg, x):
     return logits
 
 
-def forward(params, cfg, batch):
+def forward(params, cfg, batch, tp=None):
     """Returns (hidden (B,S,D), aux_loss scalar f32: the MoE sublayers'
-    load-balance losses summed in layer order, zero without them)."""
-    x, positions = embed_inputs(params, cfg, batch)
+    load-balance losses summed in layer order, zero without them).  With
+    ``tp`` (serving only: the collectives have no backward), this rank's
+    slices of ``params``; the hidden state is whole on every rank."""
+    x, positions = embed_inputs(params, cfg, batch, tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in _schedule(params, cfg):
-        if cfg.remat == "block":
+        if cfg.remat == "block" and tp is None:
             x, a = checkpoint(_block_fwd, p, spec, cfg, x, positions, use_reentrant=False)
         else:
-            x, a = _block_fwd(p, spec, cfg, x, positions)
+            x, a = _block_fwd(p, spec, cfg, x, positions, tp)
         aux_total = aux_total + a
     return _norm(params["final_norm"], cfg, x), aux_total
 
@@ -339,33 +388,37 @@ def init_caches(cfg, batch, seq_len, device="cuda"):
 
 
 @torch.no_grad()
-def decode_step(params, cfg, batch, pos, caches):
+def decode_step(params, cfg, batch, pos, caches, tp=None):
     """One token for every sequence in the batch.
 
     ``batch["tokens"]``: (B, 1), or (B, K, 1) for the codebooks (the vision
     frontend's ``patch_embeds`` hold 0 patches here); ``pos``: the absolute
     position (a Python int or a 0-d tensor).  Returns (logits (B,1,V), or
-    (B,1,K,V), caches), the caches updated in place."""
-    x, _ = embed_inputs(params, cfg, batch)  # (B,1,D)
+    (B,1,K,V), caches), the caches updated in place.  With ``tp``: this
+    rank's slices of ``params`` and ``caches``, and its vocab slice of
+    the logits."""
+    x, _ = embed_inputs(params, cfg, batch, tp)  # (B,1,D)
     for (p, spec), cache in zip(_schedule(params, cfg), _layers(caches, cfg.n_rep)):
-        x, _ = _block_decode(p, spec, cfg, x, pos, cache)
+        x, _ = _block_decode(p, spec, cfg, x, pos, cache, tp)
     x = _norm(params["final_norm"], cfg, x)
-    return lm_logits(params, cfg, x), caches
+    return lm_logits(params, cfg, x, tp), caches
 
 
 @torch.no_grad()
-def prefill_with_caches(params, cfg, batch, capacity=None):
+def prefill_with_caches(params, cfg, batch, capacity=None, tp=None):
     """Full prompt forward returning (last-token logits, decode caches).
 
     ``capacity``: total sequence budget (prompt + decode steps; defaults to
     prompt_len + 64).  The caches have ``init_caches(cfg, B, capacity)``'s
     structure, so ``decode_step(params, cfg, next_tok, S, caches)``
-    continues the sequence."""
-    x, positions = embed_inputs(params, cfg, batch)
+    continues the sequence.  With ``tp``: this rank's slices of the
+    caches (``decode_step``'s ``tp`` layout) and its vocab slice of the
+    logits."""
+    x, positions = embed_inputs(params, cfg, batch, tp)
     seq_len = capacity or (x.shape[1] + 64)
     made = []
     for p, spec in _schedule(params, cfg):
-        x, c = _block_prefill(p, spec, cfg, x, positions, seq_len)
+        x, c = _block_prefill(p, spec, cfg, x, positions, seq_len, tp)
         made.append(c)
     caches: dict[str, Any] = {}
     npat = len(cfg.pattern) * cfg.n_rep
@@ -375,4 +428,4 @@ def prefill_with_caches(params, cfg, batch, capacity=None):
     if cfg.tail:
         caches["tail"] = tuple(made[npat:])
     x = _norm(params["final_norm"], cfg, x)
-    return lm_logits(params, cfg, x[:, -1:, :]), caches
+    return lm_logits(params, cfg, x[:, -1:, :], tp), caches

@@ -12,6 +12,10 @@ A JAX bfloat16 leaf arrives as an ``ml_dtypes.bfloat16`` array, which
 (an ``int16`` view, reinterpreted as ``torch.bfloat16``), so every bit is
 kept.  Back in numpy a bfloat16 leaf comes out as float32, which holds
 every bfloat16 value exactly.
+
+``cut`` takes one rank's slices of a tree (a whole tree or one carried
+across from ``repro``) by a ``launch/sharding.py::rank_plan``: the
+params, caches and batch of a tensor-parallel serving rank.
 """
 from __future__ import annotations
 
@@ -41,3 +45,17 @@ def params_to_numpy(tree):
         x = x.detach().cpu()
         return (x.float() if x.dtype == torch.bfloat16 else x).numpy()
     return tree_map(leaf, tree)
+
+
+
+def _cut_leaf(x, plan, own):
+    for d, sl in plan.cuts:
+        x = x.narrow(d, sl.start, sl.stop - sl.start)
+    return x.clone() if own or plan.cuts else x
+
+
+def cut(tree, plan, own: bool = True):
+    """``tree`` cut to one rank's slices by ``plan`` (a ``rank_plan``
+    tree of ``LeafPlan``).  ``own``: every leaf in a storage of its own
+    (a whole leaf cloned too), so the whole tree can be freed."""
+    return tree_map(lambda x, p: _cut_leaf(x, p, own), tree, plan)

@@ -22,7 +22,10 @@ one-device results.  (The multi-rank runs are gloo processes in
   to the bytes and counts worked out from ``repro``'s sharding rules
   (``repro.launch.sharding.param_pspecs``) and the step's structure; the
   argument bytes equal the state at rest those rules give; the CLI's
-  ``--mesh both`` writes the two records.
+  ``--mesh both`` writes the two records.  A dense arch's serving record
+  on a mesh is rank 0's tensor-parallel program: its argument bytes the
+  byte sum of its slices by those rules, with a nonempty census; a
+  non-dense arch's says ``"whole_client"`` and counts no collective.
 """
 import math
 
@@ -305,6 +308,31 @@ def test_full_width_train_4k_on_the_multi_pod_mesh():
     assert rec["roofline"]["total_flops"] == rec["cost_analysis"]["flops"] * 512
 
 
+def serve_argument(arch, jshape, spec: MeshSpec, reduced=False):
+    """Rank 0's argument bytes of a serving step: the byte sum of its
+    slices of the params, the batch and the caches by ``repro``'s
+    sharding rules (each leaf over the sizes of the axes its spec names),
+    and the position."""
+    cfg = j_get_config(arch, reduced=reduced)
+    p, d, m = spec.client_size, spec.data_size, spec.model_size
+    caxis = spec.client_axis
+    specs = j_steps.input_specs(cfg, jshape, n_clients=p)
+    sizes = {caxis: p, "data": d, "model": m}
+    trees = [(specs["params"], j_sharding.param_pspecs(specs["params"], m, client=True,
+                                                      client_axis=caxis)),
+             (specs["batch"], j_sharding.batch_pspecs(specs["batch"], d, client=True,
+                                                     client_axis=caxis))]
+    if jshape.kind == "decode":
+        trees.append((specs["caches"], j_sharding.cache_pspecs(specs["caches"], d, m, client=True,
+                                                              client_axis=caxis)))
+    total = 4 if jshape.kind == "decode" else 0  # the position, int32
+    for tree, pspecs in trees:
+        for x, sp in zip(jax.tree.leaves(tree), jax.tree.leaves(
+                pspecs, is_leaf=lambda s: isinstance(s, jax.sharding.PartitionSpec))):
+            total += _leaf_bytes(x) // math.prod(sizes[ax] for ax in sp if ax is not None)
+    return total
+
+
 def test_cli_mesh_both_writes_the_two_records(tmp_path, monkeypatch):
     monkeypatch.setattr(dryrun, "ART_DIR", tmp_path)
     dryrun.main(["--arch", "gemma3-1b", "--shape", "decode_32k", "--mesh", "both"])
@@ -312,7 +340,36 @@ def test_cli_mesh_both_writes_the_two_records(tmp_path, monkeypatch):
     assert got == ["gemma3-1b__decode_32k__16x16.json", "gemma3-1b__decode_32k__2x16x16.json"]
     one = dryrun.run_one("gemma3-1b", "decode_32k", save=False, verbose=False)
     multi = dryrun.run_one("gemma3-1b", "decode_32k", save=False, verbose=False, mesh="multi")
-    # serving on a mesh: rank 0's pod's client, whole, with no collective
-    assert multi["collectives"] == {} and multi["n_devices"] == 512
-    assert multi["launches"] == one["launches"]
-    assert multi["memory_analysis"] == one["memory_analysis"]
+    # serving a dense arch on a mesh: rank 0's tensor-parallel program, its
+    # slices of the params and caches, with the collectives that needs
+    assert multi["serve_layout"] == "tensor_parallel" and multi["n_devices"] == 512
+    assert multi["collectives"]["all-gather"]["count"] > 0
+    assert multi["collectives"]["all-reduce"]["count"] > 0
+    assert multi["launches"] == one["launches"]  # K4 on whole rows on every rank
+    assert multi["memory_analysis"]["argument_size_in_bytes"] == serve_argument(
+        "gemma3-1b", INPUT_SHAPES["decode_32k"], MeshSpec.multi_pod(2, 16, 16))
+    assert multi["peak_bytes"] < one["peak_bytes"] / 16
+
+
+@pytest.mark.parametrize("kind", ["prefill", "decode"])
+@pytest.mark.parametrize("spec", [MeshSpec.single_pod(2, 2), MeshSpec.multi_pod(2, 2, 2)],
+                         ids=["pod2x2", "pods2x2x2"])
+def test_serve_records_at_reduced_width(spec, kind):
+    """A dense arch's serving record is rank 0's tensor-parallel program
+    (argument bytes the byte sum of its slices, a nonempty census); a
+    non-dense arch's is its pod's client served whole, with no collective."""
+    shape = InputShape("small_" + kind, 64, 4, kind)
+    rec = dryrun.run_one("gemma3-1b", shape, save=False, verbose=False, mesh=spec,
+                         cfg=get_config("gemma3-1b", reduced=True))
+    assert rec["serve_layout"] == "tensor_parallel"
+    assert rec["memory_analysis"]["argument_size_in_bytes"] == serve_argument(
+        "gemma3-1b", shape, spec, reduced=True)
+    assert rec["collectives"]["all-gather"]["count"] > 0
+    assert rec["collectives"]["all-reduce"]["count"] > 0
+    moe = dryrun.run_one("granite-moe-1b-a400m", shape, save=False, verbose=False, mesh=spec,
+                         cfg=get_config("granite-moe-1b-a400m", reduced=True))
+    one = dryrun.run_one("granite-moe-1b-a400m", shape, save=False, verbose=False,
+                         cfg=get_config("granite-moe-1b-a400m", reduced=True))
+    assert moe["serve_layout"] == "whole_client" and moe["collectives"] == {}
+    assert moe["memory_analysis"] == one["memory_analysis"]
+    assert not dist.is_initialized()

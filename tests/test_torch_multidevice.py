@@ -10,12 +10,11 @@ world sizes 2, 4 and 8.
   against the device store, per backend and layout; a model-split mesh
   whose ranks each hold the whole cohort (``pods:1x1x2``) against the vmap
   history; every rank's final state against rank 0's.
-- Against the port's ``VmapBackend`` history where the ranks split the
-  cohort: on the CPU a vmapped convolution's gradient over 4 clients
-  differs in the last bits from 2 + 2, so these are held at the port's
-  history tolerance (``tests/test_torch_pfedsop.py``: loss rtol 1e-5,
-  accuracy atol 1e-6, client rows atol 1e-5), and the drift is asserted
-  nonzero there and zero where the client count per vmap is the vmap's.
+- Bitwise against the port's ``VmapBackend`` history, also where the
+  ranks split the cohort (2 + 2 clients against one vmap of 4): every
+  backend maps its clients one at a time (``fl/engine.py``'s
+  ``_run_vmap``), so a client's numbers do not depend on how many
+  clients share its rank.
 - Async on ``pods:2x1x1`` (two pods, each draining its own completions):
   its dispatches, versions, ``sim_time`` and staleness exactly those of
   the port's driver on ``repro``'s ``RoundScheduler(n_pods=2)`` over
@@ -200,9 +199,8 @@ def test_sharded_outputs_and_host_stores_are_bitwise(request, n):
 
 @pytest.mark.parametrize("n", [2, 4, 8])
 def test_mesh_history_against_vmap(request, n, vmap_refs):
-    """Within the port's history tolerance where the ranks split the
-    cohort (and then not bitwise); bitwise where every rank vmaps the
-    whole cohort."""
+    """Bitwise, where the ranks split the cohort and where every rank
+    vmaps the whole cohort."""
     sync = {k: v[0] for k, v in _world(request, n)[0]["sync"].items()}
     for label, (h, rows, bc, census) in sync.items():
         if "chunks2" in label:
@@ -215,10 +213,8 @@ def test_mesh_history_against_vmap(request, n, vmap_refs):
             want = vmap_refs[name]
         _close((h, rows, bc), want, name)
         assert census.get("all-gather", {}).get("count", 0) > 0, label
-        if label.startswith("pods:1x1x2"):
-            assert h == want[0] and _same(rows, want[1]) and _same(bc, want[2])
-        else:
-            assert _drift((h, rows, bc), want) > 0, label  # 2 + 2 clients is not 4
+        assert h == want[0] and _same(rows, want[1]) and _same(bc, want[2]), label
+        assert _drift((h, rows, bc), want) == 0, label  # 2 + 2 clients is 4
 
 
 def test_grad_chunks_over_ranks_against_vmap(world2, vmap_refs):

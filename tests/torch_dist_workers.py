@@ -367,6 +367,166 @@ def lm_mesh_steps(rank, world):
     return out
 
 
+# tests/test_torch_tp_serve.py: its cases, shared with the JAX reference
+# (tests/tp_serve_reference.py), which imports them from here
+TP_B, TP_S, TP_T = 4, 12, 8  # batch, prompt, decode steps
+TP_CAPACITY = TP_S + TP_T
+TP_CASES = {  # name -> (arch, variant): see tp_config
+    "gemma3-1b": ("gemma3-1b", "base"),
+    "gemma3-1b/wrap": ("gemma3-1b", "wrap"),
+    "gemma3-1b/head_dim": ("gemma3-1b", "head_dim"),
+    "gemma2-9b/wrap": ("gemma2-9b", "wrap"),
+    "granite-3-2b": ("granite-3-2b", "base"),
+}
+
+
+def tp_config(get, arch: str, variant: str):
+    """The reduced config of ``arch`` (``get`` is either package's
+    ``get_config``), with the variant applied alike in both packages:
+    ``wrap`` (window 8, full) x 2 + a window-8 tail layer, so the ring
+    buffers wrap and split over the model ranks; ``head_dim`` one query
+    and one KV head, so every attention projection splits ``head_dim``."""
+    cfg = get(arch, reduced=True)
+    if variant == "wrap":
+        local = cfg.pattern[0].replace(window=8)
+        glob = cfg.pattern[-1].replace(window=None)
+        cfg = cfg.replace(pattern=(local, glob), n_rep=2, tail=(local,), n_layers=5)
+    elif variant == "head_dim":
+        cfg = cfg.replace(n_heads=1, n_kv_heads=1)
+    return cfg
+
+
+def _argmax_ties(tp):
+    """``parallel.vocab_argmax`` on this rank's vocab slice of logits with
+    ties inside a slice, across slices and over the whole row, against
+    ``argmax`` of the whole logits."""
+    import torch
+
+    from repro_torch.models import parallel
+
+    v = 8 * tp.size
+    whole = torch.randint(0, 3, (6, 1, v), generator=torch.Generator().manual_seed(0)).float()
+    whole[0, 0, :] = 0.0
+    whole[0, 0, [1, v - 1]] = 5.0  # across slices
+    whole[1, 0, :] = 1.0  # the whole row
+    whole[2, 0, v // 2:] = 7.0  # the last slice only
+    whole[3, 0, [v // 2 - 1, v // 2]] = 9.0  # either side of a boundary
+    local = whole[..., tp.slice_of(v)].contiguous()
+    got = parallel.vocab_argmax(local, tp, v)
+    return got.tolist(), whole.argmax(-1).tolist()
+
+
+def _combine_unscaled(m, l, o, tp):
+    """A planted fault: ``parallel.combine_attention`` with each rank's part
+    weighted 1 where it must be weighted ``exp(m_r - M)``."""
+    import torch
+
+    from repro_torch.models import parallel
+
+    parts = parallel.gather(torch.cat([l, o], dim=-1).unsqueeze(0), tp, 0)
+    return parts[..., 1:].sum(0) / parts[..., :1].sum(0)
+
+
+def tp_faults():
+    """The planted faults of tensor-parallel serving: name -> (module,
+    attribute, the faulty replacement)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import attention, parallel
+
+    argmax = parallel.vocab_argmax
+    return {
+        "row_all_reduce_dropped": (parallel, "row",
+                                   lambda eq, x, w, tp: torch.einsum(eq, x, w)),
+        "owner_write_skipped": (attention, "_write_owned", lambda buf, slot, value, lo: None),
+        "combine_unscaled": (parallel, "combine_attention", _combine_unscaled),
+        # each rank taking itself for rank 0: no slice offset
+        "argmax_offset_dropped": (parallel, "vocab_argmax", lambda logits, tp, vocab: argmax(
+            logits, dataclasses.replace(tp, rank=0), vocab)),
+    }
+
+
+TP_FAULT_CASE = "gemma3-1b/wrap"  # the planted faults' case: both ranks own written slots
+
+
+def tp_serve(rank, world, plan):
+    """The dense archs' tensor-parallel serving on ``plan["mesh"]``, per
+    case of ``TP_CASES``, from the params and prompt of the JAX reference
+    (``plan["ref"]``, pickled by ``tests/tp_serve_reference.py``): the
+    prefill step's logits (whole), ``prefill_with_caches``'s logits and
+    each decode step's (this data rank's rows, gathered over the vocab),
+    teacher-forced on the reference's inputs, and the serve step's tokens
+    (whole); with this rank's rows and the census of the two steps.  With
+    ``plan["faults"]``, the same for ``TP_FAULT_CASE`` under each planted
+    fault of ``tp_faults``."""
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import collectives, steps
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.models import parallel
+    from repro_torch.models import transformer as tf
+    from repro_torch.weights import cut, params_from_jax
+
+    tp = steps.tensor_parallel(parse_mesh(plan["mesh"]))
+    with open(plan["ref"], "rb") as f:
+        ref = pickle.load(f)
+    shape = InputShape("tp_serve", TP_CAPACITY, TP_B, "prefill")
+    out = {"argmax": _argmax_ties(tp), "cases": {}, "faults": {}}
+
+    def rows(x):
+        return cut({"tokens": x}, rank_plan({"tokens": x}, "batch", tp.data_size,
+                                            drank=tp.data_rank))["tokens"]
+
+    def vocab(logits, cfg):
+        return parallel.gather(logits, tp, -1) if logits.shape[-1] != cfg.vocab_size else logits
+
+    def serve_case(name):
+        arch, variant = TP_CASES[name]
+        cfg, r = tp_config(get_config, arch, variant), ref[name]
+        whole = params_from_jax(r["params"], device="cpu")
+        params = cut(whole, rank_plan(whole, "params", tp.data_size, tp.size, tp.data_rank,
+                                      tp.rank))
+        batch = {"tokens": rows(torch.from_numpy(r["prompt"]))}
+        collectives.reset_census()
+        step_logits = steps.make_prefill_step(cfg, shape, tp)(params, batch)
+        census = {"prefill_step": collectives.census()}
+        logits, caches = tf.prefill_with_caches(params, cfg, batch, TP_CAPACITY, tp)
+        serve = steps.make_serve_step(cfg, shape, tp)
+        decoded, served = [], []
+        for t in range(TP_T):
+            tok = {"tokens": rows(torch.from_numpy(r["inputs"][t]))}
+            pos = torch.tensor(TP_S + t, dtype=torch.int32)
+            collectives.reset_census()
+            tokens, caches = serve(params, tok, pos, caches)
+            census.setdefault("serve_step", collectives.census())
+            # the same slot rewritten with the same values
+            step, caches = tf.decode_step(params, cfg, tok, pos, caches, tp)
+            decoded.append(vocab(step, cfg).numpy())
+            served.append(tokens.numpy())
+        n = batch["tokens"].shape[0]
+        return {"rows": (tp.data_rank * n, (tp.data_rank + 1) * n) if n < TP_B else (0, TP_B),
+                "prefill_step": step_logits.numpy(), "prefill": vocab(logits, cfg).numpy(),
+                "decode": decoded, "serve": served, "census": census}
+
+    for name in TP_CASES:
+        out["cases"][name] = serve_case(name)
+    for fault, (module, attr, faulty) in (tp_faults().items() if plan.get("faults") else ()):
+        sound = getattr(module, attr)
+        setattr(module, attr, faulty)
+        try:
+            out["faults"][fault] = serve_case(TP_FAULT_CASE)
+        finally:
+            setattr(module, attr, sound)
+    return out
+
+
 def everything(rank, world, plan):
     """One spawn's worth of checks: the reductions and the update, the
     layout (2 ranks), the LM train step on mesh engines (2 ranks), the sync
