@@ -159,29 +159,37 @@ Phases (any failure exits non-zero; nothing is caught):
                   bitwise (by digest) the in-body one; then
                   ``launch/train.py``'s round loop at gemma3-1b's full width,
                   3 rounds, replicated and sharded: equal losses.
- 18. tp serve     gemma3-1b at full width and depth in bf16 served tensor-
-                  parallel on ``pods:1x1x2`` by two processes sharing the card
-                  (gloo, host-staged; NCCL refuses two ranks on one device):
-                  each rank its model slices (``launch/sharding.py::
-                  rank_plan``), phase 12's batch 4 and 1,024-token prompt,
-                  then 16 decode steps teacher-forced on the whole model's
-                  greedy tokens, the launch counters reset just before (exact
-                  K4/K5 counts); each rank's last-token logits and every
-                  step's against the whole-model run, their worst |d| over
-                  5e-3 + 5e-3 |want| at most ``TP_LIMIT`` (10: at full
-                  depth in bf16 a sound reordering of the sums reads
-                  7.4-8.3, the reference path's printed beside it), and
-                  each step's vocab-parallel greedy token the first argmax
-                  of its gathered logits; each rank's census of the
-                  prefill and serve steps equal to the dry run's count of
-                  the same shapes on a 2-rank fake world, and its peak
-                  within 10 % of the dry run's; four planted faults must
-                  each fail those checks (``TP_FAULTS``: the row-parallel
-                  all-reduce dropped in prefill; over the 16 decode steps,
-                  the owner write skipped and the slot combine without the
-                  rescale; the argmax's slice offset dropped); prefill ms,
-                  decode ms per step and the idle share, with the card's
-                  name and power limit.
+ 18. tp serve     gemma3-1b, granite-moe-1b-a400m (MoE, ``dense``),
+                  zamba2-2.7b (SSM + shared attention, K5 at D = 80),
+                  internvl2-2b (vision, whole ``embed``) and musicgen-large
+                  (codebooks, int8 cache) at full width and depth in bf16,
+                  each served tensor-parallel on ``pods:1x1x2`` by two
+                  processes sharing the card (one spawn for all; gloo,
+                  host-staged; NCCL refuses two ranks on one device): each
+                  rank its model slices (``launch/sharding.py::
+                  rank_plan``), phase 12's batch 4 and 1,024-position
+                  prompt, then 16 decode steps teacher-forced on the whole
+                  model's greedy tokens, the launch counters reset just
+                  before (exact K4/K5 counts); each rank's last-token
+                  logits and every step's against the whole-model run,
+                  their worst |d| over 5e-3 + 5e-3 |want| at most the arch's
+                  ``TP_LIMIT`` (1.34x the sound reading: at full depth in
+                  bf16 a sound reordering of the sums reads 6.5-18, the
+                  reference path's printed beside it), and each step's
+                  vocab-parallel greedy tokens the first argmax of its
+                  gathered logits; each rank's census of the prefill and
+                  serve steps equal to the dry run's count of the same
+                  shapes on a 2-rank fake world, and its peak within 10 %
+                  of the dry run's; nine planted faults (``TP_FAULTS``: the
+                  row-parallel all-reduce dropped, decode's owner write
+                  skipped, its slot combine without the rescale, the
+                  argmax's slice offset dropped, the MoE's f32 sum dropped,
+                  the SSM's norm statistic rank-local, its conv gather in
+                  the reverse rank order, the int8 write without its
+                  scale, the codebook lookup without its offset) must each
+                  read above their arch's limit or change a greedy token
+                  of the sound run; prefill ms, decode ms per step and the
+                  idle share, with the card's name and power limit.
                   Each phase prints its seconds.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
@@ -567,7 +575,10 @@ def check_flash(seeds=FLASH_SEEDS):
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
     musicgen's (B = 4, S = 1024, H = KV = 32, D = 64); phase 18's
     tensor-parallel rank of gemma3-1b at m = 2 (B = 4, S = 1024, H = 2
-    over KV = 1, D = 256, window 512 and none).
+    over KV = 1, D = 256, window 512 and none), and its ranks at m = 2 of
+    granite-moe-1b-a400m (H = 8 over KV = 4, D = 64), zamba2-2.7b (16 over
+    16, D = 80), internvl2-2b (8 over 4, D = 128) and musicgen-large (16
+    over 16, D = 64), each B = 4, S = 1024, no window.
     The backward kernels take the plain forward's LSE and delta, so each is
     checked alone.  Tolerance in units of the largest value: f32 1e-4 (sums
     of up to 8,192 f32 terms in another order, the online softmax against
@@ -611,7 +622,11 @@ def check_flash(seeds=FLASH_SEEDS):
         (1, None, None, bf16, 1024, 64, 32, 4),   # musicgen-large prefill, phase 14
         # phase 18: one tensor-parallel rank of gemma3-1b at m = 2 (its 2 query
         # heads over the gathered KV head), full and window-512 layers
-        (2, None, None, bf16, 1024, 256, 2, 4), (2, 512, None, bf16, 1024, 256, 2, 4)]
+        (2, None, None, bf16, 1024, 256, 2, 4), (2, 512, None, bf16, 1024, 256, 2, 4),
+        # phase 18: a rank at m = 2 of granite-moe-1b-a400m (8 over 4),
+        # zamba2-2.7b (16 over 16, D = 80), internvl2-2b (8 over 4), musicgen-large
+        (2, None, None, bf16, 1024, 64, 8, 4), (1, None, None, bf16, 1024, 80, 16, 4),
+        (2, None, None, bf16, 1024, 128, 8, 4), (1, None, None, bf16, 1024, 64, 16, 4)]
     for seed in seeds:
         g = torch.Generator(device="cuda").manual_seed(seed)
         for gq, window, cap, dtype, s, d, h, b in cases:
@@ -2136,10 +2151,37 @@ def mesh_train_run():
     return paths
 
 
-# phase 18: tensor-parallel serving of gemma3-1b over two processes sharing the card
+# phase 18: tensor-parallel serving over two processes sharing the card
 TP_SERVE = dict(batch=4, prompt=1024, steps=16, capacity=1088, mesh="pods:1x1x2")  # phase 12's
-TP_JOIN_S = 400  # both ranks' answers, then they are killed
+TP_ARCHS = ("gemma3-1b", "granite-moe-1b-a400m", "zamba2-2.7b", "internvl2-2b",
+            "musicgen-large")
+TP_JOIN_S = 600  # both ranks' answers for every arch, then they are killed
 TP_PEAK_RTOL = 0.10  # each rank's step peak against the dry run's
+TP_ATOL = 5e-3  # rtol = atol: test_torch_serve.py's bound
+# each arch's limit on |d| / (TP_ATOL + TP_ATOL |want|) against the whole
+# model: at full depth in bf16 a sound reordering of the sums reads far
+# above the bare bound (1); on an H100 the sound runs read 7.451 (gemma3-1b;
+# its reference path 7.63), 17.92, 13.31, 8.058 and 6.462 (PERF.md, section
+# 6), and each limit is 1.34x its reading
+TP_LIMIT = {"gemma3-1b": 10.0, "granite-moe-1b-a400m": 24.0, "zamba2-2.7b": 18.0,
+            "internvl2-2b": 11.0, "musicgen-large": 8.7}
+# the planted faults: name -> (its arch, the decode steps served after the
+# prefill under the fault); each must read above its arch's limit or change
+# a greedy token of the sound run's same steps.  A fault in prefill shows at
+# once; a decode fault that drops or mis-weights the new token's slot (one
+# of ~1,000 a head under random weights) is served every step.  The codebook
+# embeddings summed on each rank before one all-reduce are a reordering of
+# the same additions (on the CPU in f32 they hold 1e-5), so the codebook
+# fault is the lookup without the rank's vocab offset.
+TP_FAULTS = {"row_all_reduce_dropped": ("gemma3-1b", 0),
+             "owner_write_skipped": ("gemma3-1b", TP_SERVE["steps"]),
+             "combine_unscaled": ("gemma3-1b", TP_SERVE["steps"]),
+             "argmax_offset_dropped": ("gemma3-1b", TP_SERVE["steps"]),
+             "moe_sum_dropped": ("granite-moe-1b-a400m", 2),
+             "ssm_norm_rank_local": ("zamba2-2.7b", 2),
+             "ssm_gather_reversed": ("zamba2-2.7b", 2),
+             "int8_write_without_scale": ("musicgen-large", TP_SERVE["steps"]),
+             "codebook_offset_dropped": ("musicgen-large", 2)}
 
 
 def _tp_shapes():
@@ -2179,6 +2221,31 @@ def _host(x):
     return (x.float() if x.dtype == torch.bfloat16 else x).cpu().numpy()
 
 
+def _tp_prompt(cfg):
+    """Phase 18's prompt of ``cfg`` on the card, from seed 0: tokens (and
+    the vision arch's patch embeddings) in ``steps.token_batch``'s layout,
+    phase 12's batch and length."""
+    g = torch.Generator(device="cuda").manual_seed(0)
+    prompt = {}
+    for name, (shape, dtype) in lm_steps.token_batch(cfg, TP_SERVE["batch"],
+                                                     TP_SERVE["prompt"]).items():
+        if name == "tokens":
+            prompt[name] = torch.randint(0, cfg.vocab_size, shape, generator=g, device="cuda")
+        elif name == "patch_embeds":
+            prompt[name] = torch.randn(shape, generator=g, device="cuda", dtype=dtype)
+    return prompt
+
+
+def _tp_step_batch(cfg, tokens):
+    """A decode batch from the next tokens (``steps.next_tokens``'s
+    layout): the vision arch's holds 0 patches."""
+    batch = {"tokens": tokens}
+    if cfg.frontend == "vision_stub":
+        batch["patch_embeds"] = torch.zeros((tokens.shape[0], 0, cfg.d_vision),
+                                            device=tokens.device)
+    return batch
+
+
 def _combine_unscaled(m, l, o, tp):
     """A planted fault: ``parallel.combine_attention`` with each rank's part
     weighted 1 where it must be weighted ``exp(m_r - M)``."""
@@ -2188,19 +2255,63 @@ def _combine_unscaled(m, l, o, tp):
     return parts[..., 1:].sum(0) / parts[..., :1].sum(0)
 
 
-def _tp_rank(rank, port, answers, teacher):
-    """One of two processes on the one card (gloo: NCCL refuses a second
-    rank on a device), ``pods:1x1x2``: its model slices of gemma3-1b
-    (seed 0, phase 12's params), the prompt served by
-    ``prefill_with_caches`` and ``TP_SERVE["steps"]`` decode steps
-    teacher-forced on ``teacher`` (the whole model's greedy tokens), with
-    the launch counters reset just before; each step's logits gathered
-    over the vocab and its greedy token by ``parallel.vocab_argmax``; then
-    the prefill and serve steps alone, each with its census and peak; then
-    each planted fault of ``TP_FAULTS``: prefill served again, decode
-    ``TP_FAULT_STEPS`` steps from a copy of the prefill's caches, the
-    argmax on the run's own logits."""
+def _gather_reversed(x, tp):
+    """A planted fault: the SSM conv output gathered over its channels in
+    the reverse rank order."""
+    from repro_torch.models import parallel
+
+    return torch.cat(parallel.gather(x, tp, -1).chunk(tp.size, -1)[::-1], dim=-1)
+
+
+def _owner_write_without_scale(cache, name, slot, new, lo=None):
+    """A planted fault: ``attention._store_token`` writing an int8 cache's
+    quantised values but not their scales."""
+    from repro_torch.models import attention
+
+    qv, _ = attention._quantize(new)
+    if lo is None:
+        attention._write_slot(cache[name], slot, qv)
+    else:
+        attention._write_owned(cache[name], slot, qv, lo)
+
+
+def _plants():
+    """``TP_FAULTS``' replacements: name -> (module, attribute, fault)."""
     import dataclasses
+
+    from repro_torch.models import attention, parallel, ssm
+
+    argmax, embed = parallel.vocab_argmax, parallel.vocab_embed
+    return {
+        "row_all_reduce_dropped": (parallel, "row",
+                                   lambda eq, x, w, tp: torch.einsum(eq, x, w)),
+        "owner_write_skipped": (attention, "_write_owned", lambda buf, slot, value, lo: None),
+        "combine_unscaled": (parallel, "combine_attention", _combine_unscaled),
+        # each rank taking itself for rank 0: no slice offset
+        "argmax_offset_dropped": (parallel, "vocab_argmax", lambda logits, tp, vocab: argmax(
+            logits, dataclasses.replace(tp, rank=0), vocab)),
+        "moe_sum_dropped": (parallel, "sum_f32", lambda x, tp: x),
+        "ssm_norm_rank_local": (parallel, "rms_noscale",
+                                lambda x, tp, whole, eps=1e-6: ssm.rmsnorm_noscale(x, eps)),
+        "ssm_gather_reversed": (ssm, "_gather_channels", _gather_reversed),
+        "int8_write_without_scale": (attention, "_store_token", _owner_write_without_scale),
+        "codebook_offset_dropped": (parallel, "vocab_embed", lambda tokens, emb, tp, vocab: embed(
+            tokens, emb, dataclasses.replace(tp, rank=0), vocab)),
+    }
+
+
+def _tp_rank(rank, port, answers, teachers):
+    """One of two processes on the one card (gloo: NCCL refuses a second
+    rank on a device), ``pods:1x1x2``, for each arch of ``teachers`` (arch
+    -> the whole model's next tokens, step by step): its model slices
+    (seed 0), the prompt served by ``prefill_with_caches`` and
+    ``TP_SERVE["steps"]`` decode steps teacher-forced, the launch counters
+    reset just before (the last 4 steps profiled); each step's logits
+    gathered over the vocab and its greedy tokens by
+    ``parallel.vocab_argmax``; the prefill and serve steps alone, each with
+    its census and peak; then each planted fault of the arch, patched in
+    for a prefill and its decode steps (``TP_FAULTS``), with the greedy
+    tokens it changes."""
     import datetime
     import traceback
 
@@ -2208,7 +2319,7 @@ def _tp_rank(rank, port, answers, teacher):
 
     from repro_torch.launch.mesh import parse_mesh
     from repro_torch.launch.sharding import rank_plan
-    from repro_torch.models import attention, parallel
+    from repro_torch.models import parallel
     from repro_torch.weights import cut
 
     try:
@@ -2217,102 +2328,103 @@ def _tp_rank(rank, port, answers, teacher):
         dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
                                 world_size=2, timeout=datetime.timedelta(seconds=120))
         try:
-            cfg = get_config("gemma3-1b")
             tp = lm_steps.tensor_parallel(parse_mesh(TP_SERVE["mesh"]))
-            b, s, steps, cap = (TP_SERVE[k] for k in ("batch", "prompt", "steps", "capacity"))
-            whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
-                                   device="cuda")
-            params = cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank))
-            del whole
-            torch.cuda.empty_cache()
-            g = torch.Generator(device="cuda").manual_seed(0)
-            prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
-            teacher = teacher.cuda()
-            (torch.ones(64, 64, device="cuda") @ torch.ones(64, 64, device="cuda")).sum().item()
-
-            def vocab(x):
-                return parallel.gather(x, tp, -1)
-
-            reset_launches()
-            t0 = time.perf_counter()
-            logits, caches = tf.prefill_with_caches(params, cfg, {"tokens": prompt},
-                                                    capacity=cap, tp=tp)
-            torch.cuda.synchronize()
-            prefill_s = time.perf_counter() - t0
-            # the prefill's caches, for the decode faults (decode writes in place)
-            prefilled = tree_map(torch.clone, caches)
-            local, step_s = [logits], []
-            pos = torch.zeros((), dtype=torch.int32, device="cuda")
-
-            def decode(t, caches):
-                pos.fill_(s + t)
-                return tf.decode_step(params, cfg, {"tokens": teacher[t]}, pos, caches, tp=tp)
-
-            def step(t):
-                nonlocal caches
-                t1 = time.perf_counter()
-                out, caches = decode(t, caches)
-                torch.cuda.synchronize()
-                step_s.append(time.perf_counter() - t1)
-                local.append(out)
-
-            profiled = 4
-            for t in range(steps - profiled):
-                step(t)
-
-            def last_steps():
-                t1 = time.perf_counter()
-                for t in range(steps - profiled, steps):
-                    step(t)
-                return None, time.perf_counter() - t1
-
-            _, wall_p, busy_us = profiled_run(last_steps)
-            launches = all_launches()
-            outs = [_host(vocab(x)) for x in local]
-            tokens = [_host(parallel.vocab_argmax(x, tp, cfg.vocab_size)) for x in local]
-
-            # the two steps alone, as the dry run counts them
+            s, cap, steps = TP_SERVE["prompt"], TP_SERVE["capacity"], TP_SERVE["steps"]
             shape_p, shape_d = _tp_shapes()
-            batch = {"tokens": prompt}
-            _, census_p, peak_p = _step_peak(lm_steps.make_prefill_step(cfg, shape_p, tp),
-                                             (params, batch))
-            pos.fill_(s + steps)
-            serve_step = lm_steps.make_serve_step(cfg, shape_d, tp)
-            (tok, _), census_d, peak_d = _step_peak(
-                serve_step, (params, {"tokens": teacher[steps]}, pos, caches))
-            del caches
+            plants = _plants()
+            out = {}
+            for arch, teacher in teachers.items():
+                cfg = get_config(arch)
+                whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                       device="cuda")
+                params = cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank))
+                del whole
+                gc.collect()
+                torch.cuda.empty_cache()
+                prompt = _tp_prompt(cfg)
+                teacher = teacher.cuda()
+                pos = torch.zeros((), dtype=torch.int32, device="cuda")
+                (torch.ones(64, 64, device="cuda") @ torch.ones(64, 64, device="cuda")).sum().item()
 
-            # the planted faults (TP_FAULTS), each patched in for its run only
-            plants = {"row_all_reduce_dropped": (
-                          parallel, "row", lambda eq, x, w, tp_: torch.einsum(eq, x, w)),
-                      "owner_write_skipped": (
-                          attention, "_write_owned", lambda buf, slot, value, lo: None),
-                      "combine_unscaled": (parallel, "combine_attention", _combine_unscaled)}
-            faulty = {}
-            for name, (module, attr, fault) in plants.items():
-                sound = getattr(module, attr)
-                setattr(module, attr, fault)
-                try:
-                    if name == "row_all_reduce_dropped":
-                        faulty[name] = [_host(vocab(tf.prefill_with_caches(
-                            params, cfg, {"tokens": prompt}, capacity=cap, tp=tp)[0]))]
-                    else:
-                        fc = tree_map(torch.clone, prefilled)
-                        faulty[name] = []
-                        for t in range(TP_FAULT_STEPS):
-                            out, fc = decode(t, fc)
-                            faulty[name].append(_host(vocab(out)))
-                finally:
-                    setattr(module, attr, sound)
-            # each rank taking itself for rank 0: no slice offset
-            offset_dropped = dataclasses.replace(tp, rank=0)
-            faulty_tokens = [_host(parallel.vocab_argmax(x, offset_dropped, cfg.vocab_size))
-                             for x in local]
-            answers.put((rank, True, dict(
-                logits=outs, tokens=tokens, faulty=faulty, faulty_tokens=faulty_tokens,
-                prefill_s=prefill_s, step_s=step_s, wall_p=wall_p, busy_us=busy_us,
-                launches=launches, census_p=census_p, census_d=census_d, peak_p=peak_p,
-                peak_d=peak_d, token=_host(tok))))
+                def vocab(x):
+                    return parallel.gather(x, tp, -1) if x.shape[-1] != cfg.vocab_size else x
+
+                def decode(t, caches):
+                    pos.fill_(s + t)
+                    return tf.decode_step(params, cfg, _tp_step_batch(cfg, teacher[t]), pos,
+                                          caches, tp=tp)
+
+                torch.cuda.synchronize()
+                reset_launches()
+                t0 = time.perf_counter()
+                logits, caches = tf.prefill_with_caches(params, cfg, prompt, capacity=cap, tp=tp)
+                torch.cuda.synchronize()
+                prefill_s = time.perf_counter() - t0
+                local, step_s = [logits], []
+
+                def step(t):
+                    nonlocal caches
+                    t1 = time.perf_counter()
+                    out_t, caches = decode(t, caches)
+                    torch.cuda.synchronize()
+                    step_s.append(time.perf_counter() - t1)
+                    local.append(out_t)
+
+                profiled = 4
+                for t in range(steps - profiled):
+                    step(t)
+
+                def last_steps():
+                    t1 = time.perf_counter()
+                    for t in range(steps - profiled, steps):
+                        step(t)
+                    return None, time.perf_counter() - t1
+
+                _, wall_p, busy_us = profiled_run(last_steps)
+                launches = all_launches()
+                outs = [_host(vocab(x)) for x in local]
+                tokens = [_host(parallel.vocab_argmax(x, tp, cfg.vocab_size)) for x in local]
+
+                # the two steps alone, as the dry run counts them
+                _, census_p, peak_p = _step_peak(lm_steps.make_prefill_step(cfg, shape_p, tp),
+                                                 (params, prompt))
+                pos.fill_(s + steps)
+                (tok, _), census_d, peak_d = _step_peak(
+                    lm_steps.make_serve_step(cfg, shape_d, tp),
+                    (params, _tp_step_batch(cfg, teacher[steps]), pos, caches))
+                del caches, local, logits
+                gc.collect()
+                torch.cuda.empty_cache()
+
+                faulty = {}  # name -> (logits, greedy tokens changed from the sound run's)
+                for name, (_, n_steps) in ((n, f) for n, f in TP_FAULTS.items()
+                                           if f[0] == arch):
+                    module, attr, fault = plants[name]
+                    sound = getattr(module, attr)
+                    setattr(module, attr, fault)
+                    try:
+                        kept, fc = tf.prefill_with_caches(params, cfg, prompt, capacity=cap,
+                                                          tp=tp)
+                        kept = [kept]
+                        for t in range(n_steps):
+                            out_t, fc = decode(t, fc)
+                            kept.append(out_t)
+                        faulty[name] = (
+                            [_host(vocab(x)) for x in kept],
+                            sum(int((_host(parallel.vocab_argmax(x, tp, cfg.vocab_size))
+                                     != tk).sum()) for x, tk in zip(kept, tokens)))
+                        del kept, fc
+                    finally:
+                        setattr(module, attr, sound)
+                out[arch] = dict(
+                    logits=outs, tokens=tokens, faulty=faulty, prefill_s=prefill_s,
+                    step_s=step_s, wall_p=wall_p, busy_us=busy_us, launches=launches,
+                    census_p=census_p, census_d=census_d, peak_p=peak_p, peak_d=peak_d,
+                    token=_host(tok))
+                del params, prompt
+                gc.collect()
+                torch.cuda.empty_cache()
+            answers.put((rank, True, out))
         finally:
             dist.destroy_process_group()
     except Exception:  # the parent fails the phase with this traceback
@@ -2366,128 +2478,134 @@ def _tp_gap(got, want):
     return ratio, errors(got, want)[1]
 
 
-TP_ATOL = 5e-3  # rtol = atol: test_torch_serve.py's bound
-# the logit check's limit on |d| / (TP_ATOL + TP_ATOL |want|): at full depth
-# in bf16 a sound reordering of the sums reads 7.4-8.3 against the whole
-# model (PERF.md, section 6), so the bare bound (1) cannot hold; each
-# planted fault must read above it
-TP_LIMIT = 10.0
-TP_FAULT_STEPS = TP_SERVE["steps"]  # decode steps each planted decode fault is served
-# the planted faults, each of which phase 18 must catch
-TP_FAULTS = ("row_all_reduce_dropped", "owner_write_skipped", "combine_unscaled",
-             "argmax_offset_dropped")
+def _tp_whole(arch):
+    """``arch``'s whole model at full width on the card (seed 0): the
+    logits of the prompt and of ``TP_SERVE["steps"]`` greedy decode steps
+    (on the host), the next tokens fed at each step, and the gaps of the
+    reference path teacher-forced on them (the bf16 floor of two sound
+    paths, printed beside the reading)."""
+    cfg = get_config(arch)
+    s, cap = TP_SERVE["prompt"], TP_SERVE["capacity"]
+    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
+    prompt = _tp_prompt(cfg)
+    floor = []
+    for run_cfg in (cfg, cfg.replace(kernel_impl="reference")):
+        logits, caches = tf.prefill_with_caches(params, run_cfg, prompt, capacity=cap)
+        outs = [logits]
+        if run_cfg is cfg:
+            feed = [lm_steps.next_tokens(cfg, logits.argmax(-1))]
+        for t in range(TP_SERVE["steps"]):
+            out, caches = tf.decode_step(params, run_cfg, _tp_step_batch(cfg, feed[t]), s + t,
+                                         caches)
+            outs.append(out)
+            if run_cfg is cfg:
+                feed.append(lm_steps.next_tokens(cfg, out.argmax(-1)))
+        if run_cfg is cfg:
+            want = [x.cpu() for x in outs]
+        else:
+            floor = [_tp_gap(x, w) for x, w in zip(outs, want)]
+    del params, caches, logits, out, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return want, torch.stack(feed).cpu(), floor
 
 
 def tp_serve_run():
-    """Phase 18: gemma3-1b at full width and depth in bf16 served
-    tensor-parallel on ``pods:1x1x2`` by two processes sharing the card
-    (gloo, host-staged: no NVLink), against the whole-model run on the
-    same params, prompt and tokens (phase 12's: batch 4, a 1,024-token
-    prompt, then ``TP_SERVE["steps"]`` decode steps teacher-forced on the
-    whole model's greedy tokens).  Each rank's last-token logits and every
-    step's are held against the whole model's within ``TP_LIMIT``, and its
-    greedy tokens to the first argmax of its logits; each rank's census of
-    the prefill and serve steps must equal the dry run's count of the same
-    shapes on a 2-rank fake world, and its peak be within
-    ``TP_PEAK_RTOL`` of the dry run's; each planted fault of ``TP_FAULTS``
-    must fail those checks.  Returns rank 0's launches."""
+    """Phase 18: each arch of ``TP_ARCHS`` at full width and depth in bf16
+    served tensor-parallel on ``pods:1x1x2`` by two processes sharing the
+    card (gloo, host-staged: no NVLink; one spawn for every arch), against
+    its whole-model run on the same params, prompt (batch 4, 1,024
+    positions; internvl2's 256 of them patches) and tokens, capacity
+    1,088, ``TP_SERVE["steps"]`` decode steps teacher-forced on the whole
+    model's greedy tokens.  For each arch and rank: the census of the
+    prefill and serve steps equal to the dry run's count of the same shapes
+    on a 2-rank fake world, the peaks within ``TP_PEAK_RTOL`` of the dry
+    run's, the logits within the arch's ``TP_LIMIT`` of the whole model's,
+    the greedy tokens the first argmax of their logits, rank 0's K4/K5
+    launches those the config predicts (``serve_launches``); every planted
+    fault of ``TP_FAULTS`` above its arch's limit or changing a greedy token
+    from the sound run's.  Returns rank 0's launches per arch."""
     from repro_torch.launch.mesh import parse_mesh
 
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("gemma3-1b")
-    b, s, steps, cap = (TP_SERVE[k] for k in ("batch", "prompt", "steps", "capacity"))
-    params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-    g = torch.Generator(device="cuda").manual_seed(0)
-    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device="cuda")
-    logits, caches = tf.prefill_with_caches(params, cfg, {"tokens": prompt}, capacity=cap)
-    want, toks = [logits.cpu()], [logits.argmax(-1)]
-    for t in range(steps):
-        out, caches = tf.decode_step(params, cfg, {"tokens": toks[t]}, s + t, caches)
-        want.append(out.cpu())
-        toks.append(out.argmax(-1))
-    # the bf16 noise floor of two sound paths, printed beside the reading:
-    # the reference path (phase 12's comparison) teacher-forced on the same
-    # tokens
-    ref_cfg = cfg.replace(kernel_impl="reference")
-    r_logits, r_caches = tf.prefill_with_caches(params, ref_cfg, {"tokens": prompt}, capacity=cap)
-    floor = [_tp_gap(r_logits, want[0])]
-    for t in range(steps):
-        r_out, r_caches = tf.decode_step(params, ref_cfg, {"tokens": toks[t]}, s + t, r_caches)
-        floor.append(_tp_gap(r_out, want[t + 1]))
-    teacher = torch.stack(toks).cpu()
-    del params, caches, r_caches, logits, out, r_out, r_logits
-    gc.collect()
-    torch.cuda.empty_cache()
-
+    wants, teachers, floors = {}, {}, {}
+    for arch in TP_ARCHS:
+        wants[arch], teachers[arch], floors[arch] = _tp_whole(arch)
     spec = parse_mesh(TP_SERVE["mesh"])
     counted = {}
-    for shape in _tp_shapes():
-        rec = dryrun.run_one("gemma3-1b", shape, save=False, verbose=False, mesh=spec)
-        assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
-        counted[shape.kind] = rec
-    got = _spawn_two(_tp_rank, (teacher,), TP_JOIN_S)
+    for arch in TP_ARCHS:
+        for shape in _tp_shapes():
+            rec = dryrun.run_one(arch, shape, save=False, verbose=False, mesh=spec)
+            assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
+            counted[arch, shape.kind] = rec
+    t_spawn = time.perf_counter()
+    got = _spawn_two(_tp_rank, (teachers,), TP_JOIN_S)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
+    b, steps = TP_SERVE["batch"], TP_SERVE["steps"]
     checks = []
-    for rank, r in sorted(got.items()):
-        gaps = [_tp_gap(x, w) for x, w in zip(r["logits"], want)]
-        # each step's greedy token against the first argmax of its logits
-        wrong = sum(int((tk != lg.argmax(-1)).sum()) for tk, lg in zip(r["tokens"], r["logits"]))
-        faults = {name: max(_tp_gap(x, w)[0] for x, w in zip(
-                      r["faulty"][name], want if name == "row_all_reduce_dropped" else want[1:]))
-                  for name in r["faulty"]}
-        faults["argmax_offset_dropped"] = sum(
-            int((tk != lg.argmax(-1)).sum()) for tk, lg in zip(r["faulty_tokens"], r["logits"]))
-        assert sorted(faults) == sorted(TP_FAULTS), sorted(faults)
-        agree = sum(int((tk == w.numpy()).sum()) for tk, w in zip(r["tokens"], teacher))
-        checks.append((rank, r, gaps, wrong, faults))
-        decode_ms = 1e3 * sum(r["step_s"]) / len(r["step_s"])
-        print(f"tp serve[{TP_SERVE['mesh']}, rank {rank}, gloo host-staged, 2 processes on one "
-              f"card, {smi}]: prefill {1e3 * r['prefill_s']:.3f} ms, decode {decode_ms:.3f} "
-              f"ms/step over {steps} steps, {b * 1e3 / decode_ms:.1f} tokens/s; 4 profiled "
-              f"steps: wall {1e3 * r['wall_p']:.3f} ms, device busy "
-              f"{r['busy_us'] / 1e3:.3f} ms, idle share "
-              f"{1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches {r['launches']}",
-              flush=True)
-        print(f"tp serve[rank {rank}]: against the whole model, worst |d| / (5e-3 + 5e-3 "
-              f"|want|) {max(x for x, _ in gaps):.4g} (prefill {gaps[0][0]:.4g}; limit "
-              f"{TP_LIMIT}), worst error in units of the largest logit "
-              f"{max(y for _, y in gaps):.4g}; the reference path against the whole model "
-              f"(the bf16 floor, not held): {max(x for x, _ in floor):.4g}, "
-              f"{max(y for _, y in floor):.4g}; greedy tokens not the first argmax of their "
-              f"logits {wrong}, equal to the whole model's {agree}/{b * (1 + steps)}",
-              flush=True)
-        print(f"tp serve[rank {rank}]: planted faults (|d| / (5e-3 + 5e-3 |want|) over "
-              f"prefill or {TP_FAULT_STEPS} decode steps; the argmax's: tokens not the first "
-              f"argmax): " + ", ".join(f"{k} {v:.4g}" for k, v in faults.items()), flush=True)
+    for arch in TP_ARCHS:
+        want, limit, floor = wants[arch], TP_LIMIT[arch], floors[arch]
+        for rank in sorted(got):
+            r = got[rank][arch]
+            gaps = [_tp_gap(x, w) for x, w in zip(r["logits"], want)]
+            wrong = sum(int((tk != lg.argmax(-1)).sum()) for tk, lg in zip(r["tokens"],
+                                                                           r["logits"]))
+            agree = sum(int((tk == w.argmax(-1).numpy()).sum()) for tk, w in zip(r["tokens"],
+                                                                                 want))
+            # each fault: (its reading, greedy tokens changed from the sound run's)
+            faults = {name: (max(_tp_gap(x, w)[0] for x, w in zip(lg, want)), changed)
+                      for name, (lg, changed) in r["faulty"].items()}
+            checks.append((arch, rank, r, gaps, wrong, faults))
+            decode_ms = 1e3 * sum(r["step_s"]) / len(r["step_s"])
+            print(f"tp serve[{arch}, {TP_SERVE['mesh']}, rank {rank}, gloo host-staged, 2 "
+                  f"processes on one card, {smi}]: prefill {1e3 * r['prefill_s']:.3f} ms, "
+                  f"decode {decode_ms:.3f} ms/step over {steps} steps, "
+                  f"{b * 1e3 / decode_ms:.1f} tokens/s; 4 profiled steps: wall "
+                  f"{1e3 * r['wall_p']:.3f} ms, device busy {r['busy_us'] / 1e3:.3f} ms, idle "
+                  f"share {1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches "
+                  f"{r['launches']}", flush=True)
+            print(f"tp serve[{arch}, rank {rank}]: against the whole model, worst |d| / (5e-3 "
+                  f"+ 5e-3 |want|) {max(x for x, _ in gaps):.4g} (prefill {gaps[0][0]:.4g}; "
+                  f"limit {limit}), worst error in units of the largest logit "
+                  f"{max(y for _, y in gaps):.4g}; the reference path against the whole "
+                  f"model (the bf16 floor, not held): {max(x for x, _ in floor):.4g}, "
+                  f"{max(y for _, y in floor):.4g}; greedy tokens not the first argmax of "
+                  f"their logits {wrong}, equal to the whole model's "
+                  f"{agree}/{sum(w.argmax(-1).numel() for w in want)}", flush=True)
+            print(f"tp serve[{arch}, rank {rank}]: planted faults (|d| / (5e-3 + 5e-3 "
+                  f"|want|) over prefill and the decode steps served; greedy tokens "
+                  f"changed from the sound run's): " + ", ".join(
+                      f"{k} {v:.4g}, {n} tokens ({TP_FAULTS[k][1]} steps)"
+                      for k, (v, n) in faults.items()), flush=True)
+            for kind, census, peak in (("prefill", r["census_p"], r["peak_p"]),
+                                       ("decode", r["census_d"], r["peak_d"])):
+                rec = counted[arch, kind]
+                print(f"tp serve[{arch}, rank {rank}, {kind} step]: census {census} (dry run "
+                      f"{rec['collectives']}); peak {peak} bytes, the dry run's "
+                      f"{rec['peak_bytes']}: {100 * (rec['peak_bytes'] - peak) / peak:+.2f}%",
+                      flush=True)
+    for arch, rank, r, gaps, wrong, faults in checks:
+        cfg = get_config(arch)
         for kind, census, peak in (("prefill", r["census_p"], r["peak_p"]),
                                    ("decode", r["census_d"], r["peak_d"])):
-            rec = counted[kind]
-            print(f"tp serve[rank {rank}, {kind} step]: census {census} (dry run "
-                  f"{rec['collectives']}); peak {peak} bytes, the dry run's "
-                  f"{rec['peak_bytes']}: {100 * (rec['peak_bytes'] - peak) / peak:+.2f}%",
-                  flush=True)
-    for rank, r, gaps, wrong, faults in checks:
-        for kind, census, peak in (("prefill", r["census_p"], r["peak_p"]),
-                                   ("decode", r["census_d"], r["peak_d"])):
-            rec = counted[kind]
-            assert census == rec["collectives"], (rank, kind, census, rec["collectives"])
-            assert abs(rec["peak_bytes"] - peak) <= TP_PEAK_RTOL * peak, (rank, kind, peak)
-        want_launches = {**{k: 0 for k in r["launches"]},
-                         "rmsnorm": (4 * cfg.n_layers + 1) * (1 + steps),
-                         "flash_fwd": cfg.n_layers}
-        assert r["launches"] == want_launches, (r["launches"], want_launches)
-        assert max(x for x, _ in gaps) <= TP_LIMIT, ("tensor-parallel logits", TP_LIMIT, gaps)
-        assert wrong == 0, ("vocab-parallel greedy tokens", wrong)
-        for name in TP_FAULTS:
-            caught = faults[name] > 0 if name == "argmax_offset_dropped" else \
-                faults[name] > TP_LIMIT
-            assert caught, ("a planted fault passed the check", name, faults[name])
+            rec = counted[arch, kind]
+            assert census == rec["collectives"], (arch, rank, kind, census, rec["collectives"])
+            assert abs(rec["peak_bytes"] - peak) <= TP_PEAK_RTOL * peak, (arch, rank, kind, peak)
+        want_launches = {**{k: 0 for k in r["launches"]}, **serve_launches(cfg, steps)}
+        assert r["launches"] == want_launches, (arch, rank, r["launches"], want_launches)
+        assert max(x for x, _ in gaps) <= TP_LIMIT[arch], (arch, "logits", gaps)
+        assert wrong == 0, (arch, "vocab-parallel greedy tokens", wrong)
+        assert sorted(faults) == sorted(n for n, f in TP_FAULTS.items() if f[0] == arch)
+        for name, (reading, changed) in faults.items():
+            assert reading > TP_LIMIT[arch] or changed > 0, (
+                "a planted fault passed", arch, name, reading, changed)
         assert 0 <= int(r["token"].min()) and int(r["token"].max()) < cfg.vocab_size
-    print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
-    return got[0]["launches"]
+    print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s (the two processes "
+          f"{time.perf_counter() - t_spawn:.1f}s)", flush=True)
+    return {arch: got[0][arch]["launches"] for arch in TP_ARCHS}
 
 
 def print_ptxas(source):
@@ -2569,7 +2687,8 @@ def main():
     mesh_paths, worst = mesh_run()
     paths.update(mesh_paths)
     paths.update(mesh_train_run())
-    paths["tp_serve_gemma3_1b_rank0"] = tp_serve_run()
+    for arch, launches in tp_serve_run().items():
+        paths["tp_serve_" + arch.replace("-", "_").replace(".", "_") + "_rank0"] = launches
     for k in ("reduce3", "update"):
         rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 

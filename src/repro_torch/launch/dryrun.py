@@ -39,15 +39,15 @@ its tile range; multi-pod, Eq. 13 gathers the two pods' partial sums.
 The global delta is whole on every rank.  The train step has no tensor-
 or sequence-parallel forward (ROADMAP.md queue 1, items 16a-iii and 16b),
 so every rank of a model group computes the same chunk.  A prefill or
-decode step of a dense text arch on a mesh is rank 0's tensor-parallel
-program (``launch/steps.py``'s ``tp``, ``models/parallel.py``): its model
-slice of every Megatron-eligible leaf, its data rank's rows of the batch
-and its slice of every KV cache (batch rows over ``data``, slots over
-``model``), cut by ``launch/sharding.py::rank_plan`` from rank 0's pod's
-client, with the collectives that layout needs; the record says
-``"serve_layout": "tensor_parallel"``.  The other archs' serving steps
-are rank 0's pod's client served whole, with no collective
-(``"whole_client"``; ROADMAP.md queue 1, item 16a-ii).
+decode step on a mesh, of every arch, is rank 0's tensor-parallel program
+(``launch/steps.py``'s ``tp``, ``models/parallel.py``): its model slice
+of every leaf ``launch/sharding.py``'s rules split (attention, MLP,
+experts, the SSM's projections and conv, the vocab tables and heads),
+its data rank's rows of the batch and its slice of every cache (batch
+rows over ``data``; KV slots, int8 scales included, SSM conv channels
+and state heads over ``model``), cut by ``launch/sharding.py::rank_plan``
+from rank 0's pod's client, with the collectives that layout needs; the
+record says ``"serve_layout": "tensor_parallel"``.
 Per (arch x shape x mesh) the record under ``experiments/dryrun_torch/``
 has ``repro``'s keys:
 
@@ -104,7 +104,6 @@ from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import MeshSpec
 from repro_torch.launch.roofline import HBM_CAPACITY, roofline_terms
 from repro_torch.launch.sharding import rank_plan
-from repro_torch.models import transformer as tf
 from repro_torch.utils.pytree import tree_leaves, tree_map
 from repro_torch.weights import cut
 
@@ -271,9 +270,7 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
             step = functools.partial(step, shardings=shardings)
         args = (state, specs["global_delta"], specs["batches"])
     else:
-        tp = None
-        if engine is not None and tf.serves_tensor_parallel(rcfg):
-            tp = st.tensor_parallel(engine.spec, engine.mesh)
+        tp = st.tensor_parallel(engine.spec, engine.mesh) if engine is not None else None
         if shape.kind == "prefill":
             client_args = {0: "params", 1: "batch"}
             step = _per_client(st.make_prefill_step(cfg, shape, tp=tp), client_args)
@@ -295,15 +292,13 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
         "cfg_name": rcfg.name,
     }
     if engine is not None and shape.kind != "train":
-        info["serve_layout"] = "whole_client" if tp is None else "tensor_parallel"
+        info["serve_layout"] = "tensor_parallel"
     return step, args, info
 
 
 def _rank_part(tree, kind, tp):
-    """This rank's part of a client-stacked serving input, each leaf its
-    own storage: whole (``tp`` None) or cut by the rank's plan."""
-    if tp is None:
-        return tree_map(lambda x: x.clone(), tree)
+    """This rank's part of a client-stacked serving input, cut by the
+    rank's plan, each leaf its own storage."""
     plan = rank_plan(tree, kind, tp.data_size, tp.size, tp.data_rank, tp.rank, client=True)
     return cut(tree, plan)
 

@@ -11,10 +11,19 @@ serves: the codebook archs feed one token per codebook a step, the vision
 arch tokens beside zero patch embeddings (``steps.decode_batch``).  Prints
 the prompt time, the first decode call and the decode rate after it.
 
+``--mesh`` (a port flag, ``launch/mesh.py``'s grammar, e.g. ``pods:1x1x2``)
+serves tensor-parallel, one rank of the mesh a process: it joins
+``torchrun``'s group (``collectives.init_world``), cuts the params and
+caches to this rank's slices (``launch/sharding.py::rank_plan``) and the
+batch to its data rank's rows, and runs ``make_serve_step(tp=)``; the
+tokens are whole on every rank, and rank 0 prints.
+
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --steps 8
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --prompt-len 8 --steps 16
   PYTHONPATH=src python -m repro_torch.launch.serve --device cpu --arch musicgen-large
   PYTHONPATH=src python -m repro_torch.launch.serve --full --arch gemma3-1b --batch 4 --steps 32
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.serve --device cpu \
+      --arch granite-moe-1b-a400m --mesh pods:1x1x2 --prompt-len 8 --steps 8
 """
 from __future__ import annotations
 
@@ -27,9 +36,13 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.kernels.dispatch import check_impl_name
+from repro_torch.launch import collectives
 from repro_torch.launch import steps as st
+from repro_torch.launch.mesh import parse_mesh
+from repro_torch.launch.sharding import rank_plan
 from repro_torch.models import transformer as tf
 from repro_torch.utils.device import resolve_device
+from repro_torch.weights import cut
 
 
 def _sync(dev):
@@ -56,6 +69,9 @@ def main(argv=None):
                     help="the arch's full config instead of the reduced smoke variant")
     ap.add_argument("--device", default="cuda",
                     help="torch device; the default needs a CUDA card")
+    ap.add_argument("--mesh", default=None,
+                    help="serve tensor-parallel as one rank of this mesh (e.g. pods:1x1x2; "
+                         "one process a rank, under torchrun)")
     args = ap.parse_args(argv)
     try:
         check_impl_name(args.kernel_impl, "rmsnorm/flash_gqa")
@@ -69,36 +85,51 @@ def main(argv=None):
     dev = resolve_device(args.device)
     cfg = get_config(args.arch, reduced=not args.full).replace(kernel_impl=args.kernel_impl)
     shape = InputShape("custom_decode", args.capacity, args.batch, "decode")
-    serve_step = st.make_serve_step(cfg, shape)
+    tp, say = None, print
+    if args.mesh:
+        collectives.init_world(dev)
+        tp = st.tensor_parallel(parse_mesh(args.mesh))
+        if torch.distributed.get_rank():
+            say = lambda *a, **k: None  # noqa: E731 - rank 0 prints
+    serve_step = st.make_serve_step(cfg, shape, tp)
     b = args.batch
-    print(f"serving {cfg.name}: {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab_size} "
-          f"{cfg.dtype}, batch {b}, capacity {args.capacity}, kernel_impl="
-          f"{cfg.kernel_impl}, device={dev}", flush=True)
+    say(f"serving {cfg.name}: {cfg.n_layers}L d={cfg.d_model} vocab={cfg.vocab_size} "
+        f"{cfg.dtype}, batch {b}, capacity {args.capacity}, kernel_impl="
+        f"{cfg.kernel_impl}, device={dev}" + (f", mesh {args.mesh}" if tp else ""), flush=True)
     params = tf.init_params(torch.Generator(device=dev).manual_seed(args.seed), cfg, device=dev)
     caches = tf.init_caches(cfg, b, args.capacity, device=dev)
+    rows = lambda x: x  # noqa: E731 - this data rank's rows of a batch leaf
+    if tp is not None:
+        params = cut(params, rank_plan(params, "params", tp.data_size, tp.size, tp.data_rank,
+                                       tp.rank))
+        caches = cut(caches, rank_plan(caches, "caches", tp.data_size, tp.size, tp.data_rank,
+                                       tp.rank))
+        if b % tp.data_size == 0:
+            n = b // tp.data_size
+            rows = lambda x: x[tp.data_rank * n:(tp.data_rank + 1) * n]  # noqa: E731
 
     pos = 0
-    batch = {k: torch.zeros(shape, dtype=dt, device=dev)
+    batch = {k: rows(torch.zeros(shape, dtype=dt, device=dev))
              for k, (shape, dt) in st.decode_batch(cfg, b).items()}
     t0 = time.perf_counter()
     if args.prompt_len:
         g = torch.Generator(device=dev).manual_seed(args.seed + 1)
-        prompts = torch.randint(0, cfg.vocab_size, batch["tokens"].shape[:-1]
+        prompts = torch.randint(0, cfg.vocab_size, (b,) + batch["tokens"].shape[1:-1]
                                 + (args.prompt_len,), generator=g, device=dev)
         for pos in range(args.prompt_len):
-            batch["tokens"] = prompts[..., pos:pos + 1]
+            batch["tokens"] = rows(prompts[..., pos:pos + 1])
             tok, caches = serve_step(params, batch, pos, caches)
-            batch["tokens"] = st.next_tokens(cfg, tok)
+            batch["tokens"] = rows(st.next_tokens(cfg, tok))
         pos += 1
         _sync(dev)
-        print(f"prompt: {args.prompt_len} tokens x {b} sequences fed token by token in "
-              f"{time.perf_counter() - t0:.3f}s", flush=True)
+        say(f"prompt: {args.prompt_len} tokens x {b} sequences fed token by token in "
+            f"{time.perf_counter() - t0:.3f}s", flush=True)
 
     out = []
     t1 = time.perf_counter()
     for t in range(args.steps):
         tok, caches = serve_step(params, batch, pos + t, caches)
-        batch["tokens"] = st.next_tokens(cfg, tok)
+        batch["tokens"] = rows(st.next_tokens(cfg, tok))
         out.append(tok)
         if t == 0:
             _sync(dev)
@@ -106,15 +137,15 @@ def main(argv=None):
     _sync(dev)
     t3 = time.perf_counter()
     gen = torch.cat(out, dim=1).cpu().numpy()
-    print(f"first decode call: {t2 - t1:.3f}s", flush=True)
+    say(f"first decode call: {t2 - t1:.3f}s", flush=True)
     if args.steps > 1:
         dt = t3 - t2
-        print(f"decode: {args.steps - 1} steps x {b} sequences in {dt:.3f}s, "
-              f"{1e3 * dt / (args.steps - 1):.3f} ms/step, "
-              f"{(args.steps - 1) * b / dt:.1f} tokens/s", flush=True)
-    print("sample token ids:", gen[:, :10].tolist())
+        say(f"decode: {args.steps - 1} steps x {b} sequences in {dt:.3f}s, "
+            f"{1e3 * dt / (args.steps - 1):.3f} ms/step, "
+            f"{(args.steps - 1) * b / dt:.1f} tokens/s", flush=True)
+    say("sample token ids:", gen[:, :10].tolist())
     assert np.all(gen >= 0) and np.all(gen < cfg.vocab_size)
-    print("OK")
+    say("OK")
     return gen
 
 

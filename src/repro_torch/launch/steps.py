@@ -27,9 +27,13 @@ Serving:
   rank_plan``, ``weights.cut``).  The outputs are whole on every rank, as
   ``repro``'s replicated ``out_shardings`` make them: the prefill's logits
   all-gathered over the vocab slices and the data ranks' rows, the serve
-  step's tokens from ``parallel.vocab_argmax`` and all-gathered over the
-  data ranks; the caches stay this rank's slices.  With no ``tp`` they
-  are the one-device steps.
+  step's tokens from ``parallel.vocab_argmax`` over the last dim (the
+  codebooks' (B, 1, K, V/m) logits too) and all-gathered over the data
+  ranks; the caches stay this rank's slices.  Every arch serves so; the
+  vision arch's ``patch_embeds`` are cut to the data rank's rows like the
+  tokens.  Where the data size does not divide the batch, every data
+  rank holds the whole batch and the step drops the data group.  With
+  no ``tp`` they are the one-device steps.
 
 ``input_specs(cfg, shape)`` builds meta-device stand-ins for every input,
 leaf for leaf ``repro``'s ``ShapeDtypeStruct``s (a leading client axis on
@@ -44,6 +48,7 @@ single pod (``make_train_step``'s ``engine``).
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
@@ -122,9 +127,18 @@ def tensor_parallel(spec, mesh=None) -> parallel.TensorParallel:
     return parallel.TensorParallel(group, size, rank, data_group, data_size, data_rank)
 
 
-def _whole_rows(x, shape: InputShape, tp: Optional[parallel.TensorParallel]):
+def _for_batch(tp: Optional[parallel.TensorParallel], shape: InputShape):
+    """``tp`` for ``shape``'s batch: without its data group where the data
+    size does not divide the batch (every data rank then holds all of it,
+    as the rules replicate it)."""
+    if tp is None or tp.data_size == 1 or shape.global_batch % tp.data_size == 0:
+        return tp
+    return dataclasses.replace(tp, data_group=None, data_size=1, data_rank=0)
+
+
+def _whole_rows(x, tp: Optional[parallel.TensorParallel]):
     """Every data rank's rows of ``x``, where the data size split the batch."""
-    if tp is None or tp.data_size == 1 or shape.global_batch % tp.data_size:
+    if tp is None or tp.data_size == 1:
         return x
     return collectives.all_gather(x, tp.data_group, dim=0)
 
@@ -132,6 +146,7 @@ def _whole_rows(x, shape: InputShape, tp: Optional[parallel.TensorParallel]):
 def make_prefill_step(cfg: ModelConfig, shape: InputShape,
                       tp: Optional[parallel.TensorParallel] = None):
     cfg = resolve_cfg(cfg, shape)
+    tp = _for_batch(tp, shape)
 
     @torch.no_grad()
     def prefill_step(params, batch):
@@ -139,7 +154,7 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape,
         logits = tf.lm_logits(params, cfg, hidden[:, -1:, :], tp=tp)
         if tp is not None and parallel.split(tp, logits.shape[-1], cfg.vocab_size):
             logits = parallel.gather(logits, tp, -1)
-        return _whole_rows(logits, shape, tp)
+        return _whole_rows(logits, tp)
 
     return prefill_step
 
@@ -147,6 +162,7 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape,
 def make_serve_step(cfg: ModelConfig, shape: InputShape,
                     tp: Optional[parallel.TensorParallel] = None):
     cfg = resolve_cfg(cfg, shape)
+    tp = _for_batch(tp, shape)
 
     def serve_step(params, batch, pos, caches):
         """-> (next tokens (B, 1), or (B, 1, K) for the codebooks, int32;
@@ -155,7 +171,7 @@ def make_serve_step(cfg: ModelConfig, shape: InputShape,
         if tp is None:
             return logits.argmax(-1).to(torch.int32), caches
         tokens = parallel.vocab_argmax(logits, tp, cfg.vocab_size).to(torch.int32)
-        return _whole_rows(tokens, shape, tp), caches
+        return _whole_rows(tokens, tp), caches
 
     return serve_step
 

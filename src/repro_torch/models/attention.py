@@ -36,6 +36,11 @@ projection is read from the local weight's shape:
   owns slot ``pos % capacity`` writes it (a masked write, no host
   sync); every rank attends its own slots for every head, and the
   partials combine in rank order (``parallel.combine_attention``);
+- the int8 cache (``kv_quant``): ``k_scale``/``v_scale`` split on slots
+  with ``k``/``v``; the owner writes the quantised values and their
+  scales; prefill quantises this rank's slots from whole heads (the
+  quantisation acts over ``head_dim`` per token and head, so the pieces
+  are the whole cache's bits); decode dequantises this rank's slots;
 - ``wo`` is row-parallel on the dim its rule splits: the attention
   output is cut to match, and the partial products are summed over the
   model group.
@@ -245,6 +250,25 @@ def _write_owned(buf, slot, value, lo):
     buf.index_copy_(1, local, torch.where(owned, value, buf.index_select(1, local)))
 
 
+def _store_token(cache, name, slot, new, lo=None):
+    """The new token's ``name`` ("k" or "v", (B,1,KV,hd)) written at slot
+    ``slot``: quantised with its scale into an int8 cache.  ``lo``: the
+    first slot of this rank's slice of a slot-split cache (the write
+    then lands only on the owner, ``_write_owned``), None for a whole
+    cache."""
+    buf = cache[name]
+    if name + "_scale" in cache:
+        qv, sc = _quantize(new)
+        parts = ((buf, qv), (cache[name + "_scale"], sc))
+    else:
+        parts = ((buf, new.to(buf.dtype)),)
+    for dst, value in parts:
+        if lo is None:
+            _write_slot(dst, slot, value)
+        else:
+            _write_owned(dst, slot, value, lo)
+
+
 def attention_decode(p, cfg, x, pos, cache, window, rope_base, tp=None):
     """Decode one token.
 
@@ -276,20 +300,12 @@ def attention_decode(p, cfg, x, pos, cache, window, rope_base, tp=None):
     else:
         cache["pos"].index_copy_(0, slot, positions[:1, 0])
     slot_pos = cache["pos"][mine]
-    if "k_scale" in cache:  # int8 cache: quantise the new token on write
-        for name, new in (("k", k_new), ("v", v_new)):
-            qv, sc = _quantize(new)
-            _write_slot(cache[name], slot, qv)
-            _write_slot(cache[name + "_scale"], slot, sc)
-        # dequantised in x's dtype, as repro does
+    for name, new in (("k", k_new), ("v", v_new)):
+        _store_token(cache, name, slot, new, mine.start if split else None)
+    if "k_scale" in cache:  # this rank's slots dequantised in x's dtype, as repro does
         k = cache["k"].to(x.dtype) * cache["k_scale"][..., None].to(x.dtype)
         v = cache["v"].to(x.dtype) * cache["v_scale"][..., None].to(x.dtype)
     else:
-        for name, new in (("k", k_new), ("v", v_new)):
-            if split:
-                _write_owned(cache[name], slot, new.to(cache[name].dtype), mine.start)
-            else:
-                _write_slot(cache[name], slot, new.to(cache[name].dtype))
         k, v = cache["k"], cache["v"]
 
     sc = _grouped_scores(q, k, cfg)  # (B,1,KV,G,slots)
@@ -343,8 +359,12 @@ def pack_prefill_cache(cfg, k, v, positions, capacity, dtype, tp=None):
         mine = tp.slice_of(cap)
         cache = init_cache(cfg, b, cap, dtype, k.device, slots=mine.stop - mine.start)
         for src, dst, n in _owned_runs(s, take, cap, mine.start, mine.stop):
-            cache["k"][:, dst:dst + n] = k[:, src:src + n]
-            cache["v"][:, dst:dst + n] = v[:, src:src + n]
+            for name, x in (("k", k[:, src:src + n]), ("v", v[:, src:src + n])):
+                if cfg.kv_quant:  # per (token, head) over whole heads: the whole cache's bits
+                    cache[name][:, dst:dst + n], cache[name + "_scale"][:, dst:dst + n] = \
+                        _quantize(x)
+                else:
+                    cache[name][:, dst:dst + n] = x
         cache["pos"].index_copy_(0, slots, last_pos)
         return cache
     cache = init_cache(cfg, b, cap, dtype, k.device)

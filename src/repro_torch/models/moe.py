@@ -21,6 +21,24 @@ order: values descending, ties broken by the lower index (a stable
 descending sort).  Where ``repro`` scatter-adds with ``mode="drop"``, the
 dropped slots' contributions are zeroed before the add, so the buffer
 receives exact zeros there, as in ``repro``.
+
+Tensor-parallel serving (``tp``, a ``models/parallel.py``
+``TensorParallel``): the experts are split over the model group where
+their count divides (``launch/sharding.py``: ``wi_gate``/``wi_up``/``wo``
+on E), the router is whole on every rank, so the routing, the top-k
+weights, the aux loss and the capacity (from the whole E) are the whole
+model's.  A rank runs its E/m experts: ``dense`` on every token, the
+dispatches on the slots routed to its experts only (the others are
+masked to exact zeros, as the dropped slots are).  It sums its weighted
+outputs in f32 and the ranks' partials are summed in f32
+(``parallel.sum_f32``) before the cast, where the whole model sums over
+every expert (``dense``) or slot (the dispatches) in f32: the same
+terms, in another order.  Where the batch rows are split over the data
+group, ``dispatch`` routes over the whole batch, as the whole model: the
+capacity from every row's tokens, and each slot's position in its
+expert's buffer offset by the slots the earlier data ranks' rows route
+to that expert (``parallel.rows_before``).  The aux loss is this data
+rank's rows' (serving discards it).
 """
 from __future__ import annotations
 
@@ -28,6 +46,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import dense_init
 
 
@@ -72,16 +91,47 @@ def _expert_ffn(p, xs):
     return torch.einsum("ecf,efd->ecd", g * u, p["wo"])
 
 
-def moe_dense(p, cfg, x):
+def _experts(p, cfg, tp):
+    """This rank's experts ``lo .. lo + n - 1`` as (lo, n), or None where
+    it holds all of them."""
+    n = p["wi_gate"].shape[0]
+    if tp is None or not parallel.split(tp, n, cfg.n_experts):
+        return None
+    return tp.rank * n, n
+
+
+def _combine(out, x, tp, mine):
+    """The f32 partial sum ``out`` summed over the model group where the
+    experts are split, then cast to ``x``'s dtype."""
+    if mine is not None:
+        out = parallel.sum_f32(out, tp)
+    return out.to(x.dtype)
+
+
+def _own_slots(expert_of, keep, mine):
+    """(expert index into this rank's weights, kept) of each slot: with
+    ``mine`` (lo, n), a slot routed elsewhere is dropped here and indexes
+    a local expert, clamped, with a zero contribution."""
+    if mine is None:
+        return expert_of, keep
+    lo, n = mine
+    local = expert_of - lo
+    return local.clamp(0, n - 1), keep & (local >= 0) & (local < n)
+
+
+def moe_dense(p, cfg, x, tp=None):
     """Every expert on every token.  x: (B,S,D) -> ((B,S,D), aux)."""
     b, s, d = x.shape
     xf = x.reshape(b * s, d)
     weights, _, _, aux = _router(p, cfg, xf)
+    mine = _experts(p, cfg, tp)
+    if mine is not None:
+        weights = weights[:, mine[0]:mine[0] + mine[1]]
     g = F.silu(torch.einsum("nd,edf->enf", xf, p["wi_gate"]))
     u = torch.einsum("nd,edf->enf", xf, p["wi_up"])
     y = torch.einsum("enf,efd->end", g * u, p["wo"])  # (E, N, D)
     out = torch.einsum("end,ne->nd", y.float(), weights)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return _combine(out, x, tp, mine).reshape(b, s, d), aux
 
 
 def _capacity(n, k, e, factor):
@@ -90,7 +140,7 @@ def _capacity(n, k, e, factor):
     return max(8, int(np.ceil(cap / 8) * 8))
 
 
-def moe_dispatch(p, cfg, x):
+def moe_dispatch(p, cfg, x, tp=None):
     """Capacity-based scatter/gather dispatch.  x: (B,S,D) -> ((B,S,D), aux).
     A slot past its expert's capacity adds nothing for that expert."""
     b, s, d = x.shape
@@ -98,26 +148,30 @@ def moe_dispatch(p, cfg, x):
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(n, d)
     _, top_idx, top_w, aux = _router(p, cfg, xf)
-    cap = _capacity(n, k, e, cfg.capacity_factor)
+    rows_split = tp is not None and tp.data_size > 1
+    cap = _capacity(n * (tp.data_size if rows_split else 1), k, e, cfg.capacity_factor)
 
     # position of each (token, slot) in its expert's buffer: the running
     # count of earlier slots routed to the same expert, in token order
     expert_of = top_idx.reshape(n * k)  # (T,), T = N k slots
     onehot = F.one_hot(expert_of, e)  # (T, E)
     pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
-    keep = pos < cap
+    if rows_split:  # the earlier data ranks' slots come first
+        pos = pos + parallel.rows_before(onehot.sum(dim=0), tp)[expert_of]
+    mine = _experts(p, cfg, tp)
+    expert_of, keep = _own_slots(expert_of, pos < cap, mine)
     pos_c = torch.where(keep, pos, cap - 1)  # clamped; dropped slots add zeros
 
     token_of = torch.arange(n * k, device=x.device) // k
     contrib = xf[token_of] * keep[:, None].to(xf.dtype)  # (T, D)
-    xs = torch.zeros((e, cap, d), dtype=xf.dtype, device=x.device).index_put(
-        (expert_of, pos_c), contrib, accumulate=True)
+    xs = torch.zeros((p["wi_gate"].shape[0], cap, d), dtype=xf.dtype,
+                     device=x.device).index_put((expert_of, pos_c), contrib, accumulate=True)
 
     ys = _expert_ffn(p, xs)  # (E, cap, D)
     back = ys[expert_of, pos_c]  # (T, D)
     comb_w = top_w.reshape(n * k) * keep.float()
     out = (back.float() * comb_w[:, None]).reshape(n, k, d).sum(dim=1)
-    return out.reshape(b, s, d).to(x.dtype), aux
+    return _combine(out, x, tp, mine).reshape(b, s, d), aux
 
 
 def _positions_sorted(expert_of, e):
@@ -136,7 +190,7 @@ def _positions_sorted(expert_of, e):
     return torch.empty_like(pos_sorted).scatter_(-1, order, pos_sorted)
 
 
-def moe_dispatch_grouped(p, cfg, x):
+def moe_dispatch_grouped(p, cfg, x, tp=None):
     """Group-local capacity dispatch: every batch row is its own routing
     group, cap_g = ceil(S k / E * capacity_factor) (rounded as above)."""
     b, s, d = x.shape
@@ -147,14 +201,16 @@ def moe_dispatch_grouped(p, cfg, x):
 
     expert_of = top_idx.reshape(g, n_g * k)  # (G, T_g)
     pos = _positions_sorted(expert_of, e)
-    keep = pos < cap
+    mine = _experts(p, cfg, tp)
+    expert_of, keep = _own_slots(expert_of, pos < cap, mine)
     pos_c = torch.where(keep, pos, cap - 1)
 
     token_of = torch.arange(n_g * k, device=x.device) // k  # token index in its group
     contrib = x[:, token_of, :] * keep[..., None].to(x.dtype)  # (G, T_g, D)
     rows = torch.arange(g, device=x.device)[:, None].expand(g, n_g * k)
-    xs = torch.zeros((g, e, cap, d), dtype=x.dtype, device=x.device).index_put(
-        (rows, expert_of, pos_c), contrib, accumulate=True)
+    xs = torch.zeros((g, p["wi_gate"].shape[0], cap, d), dtype=x.dtype,
+                     device=x.device).index_put((rows, expert_of, pos_c), contrib,
+                                                accumulate=True)
 
     gg = F.silu(torch.einsum("gecd,edf->gecf", xs, p["wi_gate"]))
     uu = torch.einsum("gecd,edf->gecf", xs, p["wi_up"])
@@ -163,14 +219,14 @@ def moe_dispatch_grouped(p, cfg, x):
     back = ys[rows, expert_of, pos_c]  # (G, T_g, D)
     comb_w = top_w.reshape(g, n_g * k) * keep.float()
     out = (back.float() * comb_w[..., None]).reshape(g, n_g, k, d).sum(dim=2)
-    return out.to(x.dtype), aux
+    return _combine(out, x, tp, mine), aux
 
 
-def moe_ffn(p, cfg, x, impl: str = "dense"):
+def moe_ffn(p, cfg, x, impl: str = "dense", tp=None):
     if impl == "dense":
-        return moe_dense(p, cfg, x)
+        return moe_dense(p, cfg, x, tp)
     if impl == "dispatch":
-        return moe_dispatch(p, cfg, x)
+        return moe_dispatch(p, cfg, x, tp)
     if impl == "dispatch_grouped":
-        return moe_dispatch_grouped(p, cfg, x)
+        return moe_dispatch_grouped(p, cfg, x, tp)
     raise ValueError(f"unknown moe impl {impl!r}")

@@ -17,6 +17,13 @@ the collectives.  The port writes the per-rank program out.  A
                      in that dtype, as XLA reduces GSPMD's partials;
   ``gather``         a column-parallel output made whole along ``dim``
                      (all-gather in rank order);
+  ``sum_f32``        a SUM all-reduce of f32 partials (the MoE combines,
+                     whose sums over the experts the whole model takes
+                     in f32 before the cast);
+  ``rms_noscale``    the scale-free RMSNorm of a vector split over the
+                     model group (the SSM's gated norm over ``d_inner``
+                     with the heads split): the rank's f32 sum of squares
+                     all-reduced, then divided by the whole length;
   ``vocab_embed``    the embedding lookup on a vocab slice: ids outside it
                      give zero rows, then a SUM all-reduce (exact: one
                      nonzero term a position);
@@ -25,6 +32,13 @@ the collectives.  The port writes the per-rank program out.  A
                      and the first rank holding the largest max wins, so
                      ties go to the lowest global index, as ``argmax`` on
                      the whole logits does;
+  ``rows_before``    the sum of a per-rank count over the data ranks
+                     before this one (whose batch rows come first): the
+                     MoE dispatch's slot positions over the whole batch;
+  ``codebook_embed`` the audio frontend's summed codebook embeddings from
+                     vocab slices of its (K, V, D) tables: one
+                     ``vocab_embed`` a codebook, summed in codebook order
+                     (``x = 0; x + e_0 + e_1 ...``), as the whole model;
   ``combine_attention``  one query's attention over slot slices: each
                      rank's max, sum of exponentials and weighted V,
                      all-gathered in rank order and combined in that
@@ -49,8 +63,10 @@ from repro_torch.launch import collectives
 class TensorParallel:
     """One rank's place in a tensor-parallel serving layout: the model
     group (``size`` ranks, this one ``rank``) and the data group (its
-    ``data_size`` ranks each hold ``1 / data_size`` of the batch rows).
-    ``None`` groups are the default process group."""
+    ``data_size`` ranks each hold ``1 / data_size`` of the batch rows, in
+    data-rank order; ``launch/steps.py`` drops the data group where the
+    size does not divide the batch).  ``None`` groups are the default
+    process group."""
 
     group: Any = None
     size: int = 1
@@ -87,6 +103,29 @@ def row(eq: str, x: torch.Tensor, w: torch.Tensor, tp: TensorParallel) -> torch.
     return collectives.all_reduce(torch.einsum(eq, x, w), tp.group)
 
 
+def sum_f32(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Every model rank's f32 partial ``x`` summed, in f32."""
+    if x.dtype != torch.float32:
+        raise TypeError(f"sum_f32 reduces f32 partials, got {x.dtype}")
+    return collectives.all_reduce(x, tp.group)
+
+
+def rms_noscale(x: torch.Tensor, tp: TensorParallel, whole: int,
+                eps: float = 1e-6) -> torch.Tensor:
+    """``layers.rmsnorm_noscale`` over a last dim of ``whole`` of which
+    ``x`` holds this rank's share: the mean square is the f32 sum of
+    squares over every rank, divided by ``whole``."""
+    x32 = x.float()
+    ss = collectives.all_reduce((x32 * x32).sum(dim=-1, keepdim=True), tp.group)
+    return (x32 * torch.rsqrt(ss / whole + eps)).to(x.dtype)
+
+
+def rows_before(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sum of ``x`` over the data ranks before this one."""
+    parts = collectives.all_gather(x.unsqueeze(0), tp.data_group, dim=0)
+    return parts[:tp.data_rank].sum(0)
+
+
 def vocab_embed(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel,
                 vocab: int) -> torch.Tensor:
     """``F.embedding(tokens, whole)`` from this rank's rows ``emb`` of a
@@ -98,6 +137,17 @@ def vocab_embed(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel,
     inside = (local >= 0) & (local < emb.shape[0])
     rows = torch.nn.functional.embedding(local.clamp(0, emb.shape[0] - 1), emb)
     return collectives.all_reduce(rows * inside[..., None].to(rows.dtype), tp.group)
+
+
+def codebook_embed(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel,
+                   vocab: int) -> torch.Tensor:
+    """``sum_k F.embedding(tokens[:, k], whole[k])`` in codebook order, from
+    this rank's vocab rows ``emb`` (K, V/m, D) of (K, ``vocab``, D) tables;
+    ``tokens`` (B, K, S)."""
+    x = 0
+    for k in range(emb.shape[0]):
+        x = x + vocab_embed(tokens[:, k], emb[k], tp, vocab)
+    return x
 
 
 def vocab_argmax(logits: torch.Tensor, tp: TensorParallel, vocab: int) -> torch.Tensor:

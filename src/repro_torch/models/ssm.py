@@ -19,6 +19,27 @@ cumsum math is f32.
 
 Decode writes the ``conv`` and ``state`` caches in place, as the
 attention caches are written (``models/transformer.py``).
+
+Tensor-parallel serving (``tp``, a ``models/parallel.py``
+``TensorParallel``): a rank holds the cuts ``launch/sharding.py``'s rules
+give it, each leaf whole where its dim does not divide: ``in_proj`` on Z,
+``conv_w``/``conv_b`` and the ``conv`` cache on the conv channels C,
+``out_proj`` on ``d_inner`` and the ``state`` cache on the heads.  The
+cuts do not follow the z / x / B / C / dt segments (rank 0 of m = 2 holds
+all of z and the first channels of x), so the mixer runs:
+
+1. ``in_proj`` column-parallel, its output gathered over Z;
+2. the depthwise conv and its ``silu`` on this rank's C slice (its
+   ``conv_w``/``conv_b``, and in decode its ``conv`` cache slice; prefill
+   leaves that slice behind), the output gathered over C;
+3. the SSD scan / recurrence on this rank's heads where the heads divide
+   (``A_log``, ``dt_bias``, ``D`` and ``norm_scale`` are replicated and
+   sliced here), leaving its ``state`` slice; else on every head;
+4. the gate, then the scale-free norm over the whole ``d_inner`` with the
+   sum of squares all-reduced (``parallel.rms_noscale``) where the heads
+   are split;
+5. ``out_proj`` row-parallel on its ``d_inner`` rows (the gated output cut
+   to them where the heads are whole).
 """
 from __future__ import annotations
 
@@ -26,6 +47,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.models import parallel
 from repro_torch.models.layers import dense_init, rmsnorm_noscale
 
 
@@ -59,13 +81,49 @@ def ssm_init(gen, cfg, dtype):
     }
 
 
-def _split_proj(p, cfg, x):
-    """x: (B,S,D) -> z (B,S,d_inner), xBC (B,S,d_inner+2N), dt (B,S,H)."""
-    d_inner, _ = ssm_dims(cfg)
+def _split_proj(p, cfg, x, tp=None):
+    """x: (B,S,D) -> z (B,S,d_inner), xBC (B,S,d_inner+2N), dt (B,S,H),
+    whole (gathered over Z where ``in_proj`` holds a column slice)."""
+    d_inner, h = ssm_dims(cfg)
     n = cfg.ssm_state
     zxbcdt = x @ p["in_proj"]
+    if tp is not None and parallel.split(tp, zxbcdt.shape[-1], 2 * d_inner + 2 * n + h):
+        zxbcdt = parallel.gather(zxbcdt, tp, -1)
     return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:2 * d_inner + 2 * n],
             zxbcdt[..., 2 * d_inner + 2 * n:])
+
+
+def _conv_slice(p, cfg, tp):
+    """This rank's slice of the conv channels, or None where ``conv_w`` is
+    whole."""
+    c = ssm_dims(cfg)[0] + 2 * cfg.ssm_state
+    if tp is None or not parallel.split(tp, p["conv_w"].shape[1], c):
+        return None
+    return tp.slice_of(c)
+
+
+def _gather_channels(x, tp):
+    """The conv's output made whole over its channels (the last dim)."""
+    return parallel.gather(x, tp, -1)
+
+
+def _head_slice(cfg, tp, local=None):
+    """This rank's heads where the rules split them (the ``state`` cache
+    on H), or None; ``local``: the heads of its ``state`` slice."""
+    h = ssm_dims(cfg)[1]
+    if tp is None:
+        return None
+    if local is not None:
+        return tp.slice_of(h) if parallel.split(tp, local, h) else None
+    return tp.slice_of(h) if tp.size > 1 and h % tp.size == 0 else None
+
+
+def _conv_tp(p, cfg, xbc, tp):
+    """``_causal_conv`` on this rank's channels, gathered over them."""
+    cs = _conv_slice(p, cfg, tp)
+    if cs is None:
+        return _causal_conv(p, xbc, cfg.ssm_conv_width)
+    return _gather_channels(_causal_conv(p, xbc[..., cs], cfg.ssm_conv_width), tp)
 
 
 def _causal_conv(p, xbc, width):
@@ -143,33 +201,59 @@ def ssd_chunked(cfg, xh, Bm, Cm, dt_soft, A):
     return (y_intra + y_inter).reshape(b, s, h, pdim), hcur
 
 
-def _mix(p, cfg, x, xbc, z, dt):
+def _per_head(p, hs):
+    """(dt_bias, A_log, D) of the heads ``hs`` (all of them for None)."""
+    if hs is None:
+        return p["dt_bias"], p["A_log"], p["D"]
+    return p["dt_bias"][hs], p["A_log"][hs], p["D"][hs]
+
+
+def _mix(p, cfg, x, xbc, z, dt, tp=None):
     """The SSD scan and the gated output over the conv's output ``xbc``;
-    returns (out (B,S,D), final state)."""
+    returns (out (B,S,D), final state); with ``tp``, on this rank's heads
+    where they are split."""
     d_inner, h = ssm_dims(cfg)
     n, pdim = cfg.ssm_state, cfg.ssm_head_dim
     b, s, _ = x.shape
     xs = xbc[..., :d_inner].reshape(b, s, h, pdim)
     Bm = xbc[..., d_inner:d_inner + n]
     Cm = xbc[..., d_inner + n:]
-    dt_soft = F.softplus(dt.float() + p["dt_bias"][None, None, :])
-    A = -torch.exp(p["A_log"])
+    hs = _head_slice(cfg, tp)
+    if hs is not None:
+        xs, dt = xs[:, :, hs], dt[..., hs]
+    dt_bias, a_log, d_skip = _per_head(p, hs)
+    dt_soft = F.softplus(dt.float() + dt_bias[None, None, :])
+    A = -torch.exp(a_log)
     y, h_final = ssd_chunked(cfg, xs, Bm, Cm, dt_soft, A)
-    y = y + p["D"][None, None, :, None] * xs.float()
-    return _gate_out(p, cfg, y.reshape(b, s, d_inner).to(x.dtype), z), h_final
+    y = y + d_skip[None, None, :, None] * xs.float()
+    y = y.reshape(b, s, xs.shape[2] * pdim).to(x.dtype)
+    return _gate_out(p, cfg, y, z, tp, hs), h_final
 
 
-def _gate_out(p, cfg, y, z):
-    """y * silu(z), the scale-free RMSNorm times (1 + norm_scale), out_proj."""
-    y = y * F.silu(z)
-    y = rmsnorm_noscale(y, cfg.norm_eps) * (1.0 + p["norm_scale"].float()).to(y.dtype)
+def _gate_out(p, cfg, y, z, tp=None, hs=None):
+    """y * silu(z), the scale-free RMSNorm times (1 + norm_scale), out_proj.
+    ``hs``: the heads ``y`` holds (this rank's), None for all of them."""
+    d_inner = ssm_dims(cfg)[0]
+    scale = p["norm_scale"]
+    if hs is None:
+        y = y * F.silu(z)
+        y = rmsnorm_noscale(y, cfg.norm_eps) * (1.0 + scale.float()).to(y.dtype)
+    else:
+        inner = tp.slice_of(d_inner)  # the heads' rows of d_inner
+        y = y * F.silu(z[..., inner])
+        y = parallel.rms_noscale(y, tp, d_inner, cfg.norm_eps) * \
+            (1.0 + scale[inner].float()).to(y.dtype)
+    if tp is not None and parallel.split(tp, p["out_proj"].shape[0], d_inner):
+        if hs is None:  # every head here: cut to this rank's rows
+            y = y[..., tp.slice_of(d_inner)]
+        return parallel.row("...i,id->...d", y, p["out_proj"], tp)
     return y @ p["out_proj"]
 
 
-def ssm_forward(p, cfg, x):
+def ssm_forward(p, cfg, x, tp=None):
     """Training / prefill pass.  x: (B,S,D) normed -> (B,S,D)."""
-    z, xbc, dt = _split_proj(p, cfg, x)
-    return _mix(p, cfg, x, _causal_conv(p, xbc, cfg.ssm_conv_width), z, dt)[0]
+    z, xbc, dt = _split_proj(p, cfg, x, tp)
+    return _mix(p, cfg, x, _conv_tp(p, cfg, xbc, tp), z, dt, tp)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -187,40 +271,53 @@ def ssm_init_cache(cfg, batch, dtype, device):
     }
 
 
-def ssm_decode(p, cfg, x, cache):
+def ssm_decode(p, cfg, x, cache, tp=None):
     """One-token recurrent step.  x: (B,1,D) -> (out (B,1,D), cache), the
-    cache's ``conv`` and ``state`` updated in place."""
+    cache's ``conv`` and ``state`` updated in place; with ``tp``, this
+    rank's slices of them."""
     d_inner, h = ssm_dims(cfg)
     n, pdim = cfg.ssm_state, cfg.ssm_head_dim
     b = x.shape[0]
 
-    z, xbc, dt = _split_proj(p, cfg, x)  # (B,1,*)
-    window = torch.cat([cache["conv"], xbc], dim=1)  # (B,w,C)
+    z, xbc, dt = _split_proj(p, cfg, x, tp)  # (B,1,*)
+    cs = _conv_slice(p, cfg, tp)
+    window = torch.cat([cache["conv"], xbc if cs is None else xbc[..., cs]], dim=1)  # (B,w,C)
     conv_out = (window * p["conv_w"][None, :, :]).sum(dim=1) + p["conv_b"]
     xbc1 = F.silu(conv_out)  # (B,C)
+    if cs is not None:
+        xbc1 = _gather_channels(xbc1, tp)
 
+    hs = _head_slice(cfg, tp, cache["state"].shape[1])
     xs = xbc1[:, :d_inner].reshape(b, h, pdim).float()
+    dt = dt[:, 0]
+    if hs is not None:
+        xs, dt = xs[:, hs], dt[:, hs]
+    dt_bias, a_log, d_skip = _per_head(p, hs)
     Bm = xbc1[:, d_inner:d_inner + n].float()
     Cm = xbc1[:, d_inner + n:].float()
-    dt_soft = F.softplus(dt[:, 0].float() + p["dt_bias"][None, :])  # (B,H)
-    decay = torch.exp(dt_soft * -torch.exp(p["A_log"])[None, :])  # (B,H)
+    dt_soft = F.softplus(dt.float() + dt_bias[None, :])  # (B,H)
+    decay = torch.exp(dt_soft * -torch.exp(a_log)[None, :])  # (B,H)
 
     state = cache["state"] * decay[:, :, None, None] + torch.einsum(
         "bh,bn,bhp->bhpn", dt_soft, Bm, xs)
-    y = torch.einsum("bn,bhpn->bhp", Cm, state) + p["D"][None, :, None] * xs
+    y = torch.einsum("bn,bhpn->bhp", Cm, state) + d_skip[None, :, None] * xs
     cache["conv"].copy_(window[:, 1:, :])
     cache["state"].copy_(state)
-    return _gate_out(p, cfg, y.reshape(b, 1, d_inner).to(x.dtype), z), cache
+    y = y.reshape(b, 1, xs.shape[1] * pdim).to(x.dtype)
+    return _gate_out(p, cfg, y, z, tp, hs), cache
 
 
-def ssm_forward_with_cache(p, cfg, x):
+def ssm_forward_with_cache(p, cfg, x, tp=None):
     """Prefill pass that also returns the decode cache: the conv buffer (the
     last w - 1 pre-activation projections, as decode keeps it) and the
-    final recurrent state."""
+    final recurrent state; with ``tp``, this rank's slices of them."""
     w = cfg.ssm_conv_width
     s = x.shape[1]
-    z, xbc_pre, dt = _split_proj(p, cfg, x)
-    out, h_final = _mix(p, cfg, x, _causal_conv(p, xbc_pre, w), z, dt)
+    z, xbc_pre, dt = _split_proj(p, cfg, x, tp)
+    out, h_final = _mix(p, cfg, x, _conv_tp(p, cfg, xbc_pre, tp), z, dt, tp)
+    cs = _conv_slice(p, cfg, tp)
+    if cs is not None:
+        xbc_pre = xbc_pre[..., cs]
     conv_tail = (xbc_pre[:, -(w - 1):, :] if s >= w - 1
                  else F.pad(xbc_pre, (0, 0, w - 1 - s, 0)))
     return out, {"conv": conv_tail.contiguous(), "state": h_final}

@@ -45,9 +45,16 @@ where the rules split the vocab (``lm_logits`` then returns this rank's
 vocab slice of the logits), attention and the MLP as
 ``models/attention.py`` and ``models/layers.py::mlp`` say, and the
 norms (K4) run on whole ``D`` rows on every rank: the residual stream is
-replicated over the model group.  Only the dense text archs (every
-sublayer ``attn``, no frontend, no int8 cache) take a ``tp``; the others
-refuse it.
+replicated over the model group.  Every arch serves so: the MoE FFN with
+its experts over the model group (``models/moe.py``), the Mamba2 mixer
+on its Z / channel / head cuts (``models/ssm.py``), zamba2's shared
+block through the dense path (``params["shared"]`` cut like any
+attention block, a cache per invocation), the int8 cache on slots with
+its scales (``models/attention.py``), the codebook tables and heads on
+the vocab (``parallel.codebook_embed``; the logits (B, S, K, V/m)) and
+the vision projection whole, on this data rank's patches.  The
+collectives have no backward: a ``tp`` forward under autograd is
+refused (the train step through it is ROADMAP.md queue 1, item 16a-iii).
 """
 from __future__ import annotations
 
@@ -134,7 +141,7 @@ def _ffn(p, spec, cfg, x, tp=None):
     """The sublayer's second half on the residual ``x``: (x, aux)."""
     h = _norm(p["ln2"], cfg, x)
     if spec.kind == "moe":
-        y, aux = moe_mod.moe_ffn(p["moe"], cfg, h, cfg.moe_impl)
+        y, aux = moe_mod.moe_ffn(p["moe"], cfg, h, cfg.moe_impl, tp)
         return x + y, aux
     return x + mlp(p["mlp"], h, tp=tp, d_ff=cfg.d_ff), None
 
@@ -143,7 +150,7 @@ def _block_fwd(p, spec, cfg, x, positions, tp=None):
     """Full-sequence (train/prefill) sublayer.  Returns (x, aux_loss f32)."""
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if spec.kind == "ssm":
-        return x + ssm_mod.ssm_forward(p["ssm"], cfg, _norm(p["ln1"], cfg, x)), zero
+        return x + ssm_mod.ssm_forward(p["ssm"], cfg, _norm(p["ln1"], cfg, x), tp), zero
     h = _norm(p["ln1"], cfg, x)
     x = x + attn_mod.attention_fwd(p["attn"], cfg, h, positions, spec.window,
                                    spec.rope_base, q_block=cfg.attn_q_block, tp=tp)
@@ -154,7 +161,7 @@ def _block_fwd(p, spec, cfg, x, positions, tp=None):
 def _block_decode(p, spec, cfg, x, pos, cache, tp=None):
     """Single-token sublayer; ``cache`` is updated in place."""
     if spec.kind == "ssm":
-        y, cache = ssm_mod.ssm_decode(p["ssm"], cfg, _norm(p["ln1"], cfg, x), cache)
+        y, cache = ssm_mod.ssm_decode(p["ssm"], cfg, _norm(p["ln1"], cfg, x), cache, tp)
         return x + y, cache
     h = _norm(p["ln1"], cfg, x)
     y, cache = attn_mod.attention_decode(p["attn"], cfg, h, pos, cache, spec.window,
@@ -178,7 +185,7 @@ def _block_prefill(p, spec, cfg, x, positions, capacity, tp=None):
     both the cache and the attention (``repro`` projects twice; the values
     are the same).  An SSM sublayer leaves its conv window and state."""
     if spec.kind == "ssm":
-        y, cache = ssm_mod.ssm_forward_with_cache(p["ssm"], cfg, _norm(p["ln1"], cfg, x))
+        y, cache = ssm_mod.ssm_forward_with_cache(p["ssm"], cfg, _norm(p["ln1"], cfg, x), tp)
         return x + y, cache
     h = _norm(p["ln1"], cfg, x)
     q, k, v = attn_mod._project_qkv(p["attn"], cfg, h, positions, spec.rope_base, tp)
@@ -262,28 +269,19 @@ def _to(tree, dev):
 # ---------------------------------------------------------------------------
 
 
-def _not_tensor_parallel(cfg) -> list:
-    """What of ``cfg`` has no tensor-parallel serving path yet."""
-    kinds = sorted({s.kind for s in cfg.layers} - {"attn"})
-    frontend = [] if cfg.frontend == "none" else [cfg.frontend]
-    return kinds + frontend + (["int8 KV cache"] if cfg.kv_quant else [])
-
-
 def serves_tensor_parallel(cfg) -> bool:
-    """Whether ``cfg`` takes a ``tp``: the dense text archs."""
-    return not _not_tensor_parallel(cfg)
+    """Whether ``cfg`` takes a ``tp``: every decoder stack (the ten archs)."""
+    return bool(cfg.layers)
 
 
-def _check_tp(cfg, tp):
-    """Refuses a tensor-parallel plan for what only the dense text archs
-    have one for."""
-    if tp is None:
-        return
-    what = _not_tensor_parallel(cfg)
-    if what:
+def _check_tp(tp):
+    """Refuses a tensor-parallel forward under autograd: the collectives
+    have no backward."""
+    if tp is not None and torch.is_grad_enabled():
         raise NotImplementedError(
-            f"{cfg.name}: tensor-parallel serving of {', '.join(what)} is not ported yet; "
-            "see ROADMAP.md queue 1, item 16a-ii")
+            "a tensor-parallel forward serves only (its collectives have no backward): run "
+            "it under torch.no_grad(); the train step through it is ROADMAP.md queue 1, "
+            "item 16a-iii")
 
 
 def embed_inputs(params, cfg, batch, tp=None):
@@ -291,11 +289,13 @@ def embed_inputs(params, cfg, batch, tp=None):
     or (B, K, S) for ``audio_codebooks``; ``vision_stub`` also takes
     ``batch["patch_embeds"]`` (B, n_patches, d_vision), n_patches >= 0.
     With ``tp``, ``params["embed"]`` may hold a vocab slice."""
-    _check_tp(cfg, tp)
+    _check_tp(tp)
     toks = batch["tokens"]
     emb = params["embed"]
     scale = torch.tensor(np.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
-    if tp is not None:
+    if tp is not None and cfg.frontend == "audio_codebooks":
+        x = parallel.codebook_embed(toks, emb, tp, cfg.vocab_size) * scale
+    elif tp is not None:
         x = parallel.vocab_embed(toks, emb, tp, cfg.vocab_size) * scale
     elif cfg.frontend == "audio_codebooks":
         x = 0  # repro's sum(...) order
@@ -315,8 +315,9 @@ def embed_inputs(params, cfg, batch, tp=None):
 def lm_logits(params, cfg, x, tp=None):
     """Tied LM head with the optional final-logit softcap (f32); the audio
     frontend's per-codebook heads give (B, S, K, V).  With ``tp`` and a
-    vocab-split ``embed``: this rank's vocab slice of the logits."""
-    _check_tp(cfg, tp)
+    vocab-split ``embed`` or ``heads``: this rank's vocab slice of the
+    logits ((B, S, K, V/m) for the codebook heads)."""
+    _check_tp(tp)
     if cfg.frontend == "audio_codebooks":
         return torch.einsum("bsd,kdv->bskv", x, params["heads"])
     logits = torch.einsum("bsd,vd->bsv", x, params["embed"])

@@ -22,10 +22,11 @@ one-device results.  (The multi-rank runs are gloo processes in
   to the bytes and counts worked out from ``repro``'s sharding rules
   (``repro.launch.sharding.param_pspecs``) and the step's structure; the
   argument bytes equal the state at rest those rules give; the CLI's
-  ``--mesh both`` writes the two records.  A dense arch's serving record
-  on a mesh is rank 0's tensor-parallel program: its argument bytes the
-  byte sum of its slices by those rules, with a nonempty census; a
-  non-dense arch's says ``"whole_client"`` and counts no collective.
+  ``--mesh both`` writes the two records.  Every arch's serving record on
+  a mesh (the dense gemma3-1b, the MoE granite-moe-1b-a400m) is rank 0's
+  tensor-parallel program: its argument bytes the byte sum of its slices
+  by those rules, with a nonempty census.  The train step has no
+  tensor-parallel forward (ROADMAP.md queue 1, item 16a-iii).
 """
 import math
 
@@ -355,9 +356,9 @@ def test_cli_mesh_both_writes_the_two_records(tmp_path, monkeypatch):
 @pytest.mark.parametrize("spec", [MeshSpec.single_pod(2, 2), MeshSpec.multi_pod(2, 2, 2)],
                          ids=["pod2x2", "pods2x2x2"])
 def test_serve_records_at_reduced_width(spec, kind):
-    """A dense arch's serving record is rank 0's tensor-parallel program
-    (argument bytes the byte sum of its slices, a nonempty census); a
-    non-dense arch's is its pod's client served whole, with no collective."""
+    """A dense and an MoE arch's serving records are rank 0's
+    tensor-parallel program (argument bytes the byte sum of its slices, a
+    nonempty census), the MoE's experts split over the model axis."""
     shape = InputShape("small_" + kind, 64, 4, kind)
     rec = dryrun.run_one("gemma3-1b", shape, save=False, verbose=False, mesh=spec,
                          cfg=get_config("gemma3-1b", reduced=True))
@@ -370,6 +371,10 @@ def test_serve_records_at_reduced_width(spec, kind):
                          cfg=get_config("granite-moe-1b-a400m", reduced=True))
     one = dryrun.run_one("granite-moe-1b-a400m", shape, save=False, verbose=False,
                          cfg=get_config("granite-moe-1b-a400m", reduced=True))
-    assert moe["serve_layout"] == "whole_client" and moe["collectives"] == {}
-    assert moe["memory_analysis"] == one["memory_analysis"]
+    assert moe["serve_layout"] == "tensor_parallel"
+    assert moe["collectives"]["all-reduce"]["count"] > 0
+    assert moe["memory_analysis"]["argument_size_in_bytes"] == serve_argument(
+        "granite-moe-1b-a400m", shape, spec, reduced=True)
+    assert (moe["memory_analysis"]["argument_size_in_bytes"]
+            < one["memory_analysis"]["argument_size_in_bytes"])
     assert not dist.is_initialized()

@@ -25,10 +25,11 @@ and one KV head (every projection on ``head_dim``), gemma2-9b with
 windows of 8 (softcaps) and granite-3-2b.
 
 Also: each rank's plan splits exactly the dims ``repro``'s
-``_param_rule`` / ``_cache_rule`` name, at m = 1, 2, 4 and 16, and the
-ranks' slices tile every leaf; ``vocab_argmax`` breaks ties as ``argmax``
-on the whole logits; the archs without a tensor-parallel path refuse one;
-and each planted fault of ``torch_dist_workers.tp_faults`` (the
+``_param_rule`` / ``_cache_rule`` name, for all ten archs at m = 1, 2, 4
+and 16, and the ranks' slices tile every leaf; ``vocab_argmax`` breaks
+ties as ``argmax`` on the whole logits; every arch serves tensor-parallel
+(the other archs' serving is ``tests/test_torch_tp_serve_archs.py``'s),
+and a ``tp`` forward under autograd refuses; and each planted fault of ``torch_dist_workers.tp_faults`` (the
 row-parallel all-reduce dropped, decode's owner write skipped, its slot
 combine without the rescale, the argmax's slice offset dropped) fails the
 check at world 2.
@@ -42,23 +43,21 @@ from pathlib import Path
 import numpy as np
 import pytest
 import torch
-from torch_dist_workers import (TP_CASES, TP_CAPACITY, TP_FAULT_CASE, TP_S, TP_T, spawn,
-                                tp_config, tp_faults, tp_serve)
+from torch_dist_workers import (TP_CAPACITY, TP_CASES, TP_FAULT_CASE, TP_T, TPA_CASES, spawn,
+                                tp_batch, tp_config, tp_faults, tp_serve, tp_whole)
 
 from repro.launch import sharding as j_sh
-from repro_torch.configs import get_config
-from repro_torch.configs.base import InputShape
+from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.launch import steps
 from repro_torch.launch.sharding import rank_plan
 from repro_torch.models import parallel
 from repro_torch.models import transformer as tf
 from repro_torch.utils.pytree import tree_flatten_with_path, tree_leaves
-from repro_torch.weights import cut, params_from_jax
+from repro_torch.weights import cut
 
 ROOT = Path(__file__).resolve().parents[1]
 TOL = dict(rtol=1e-5, atol=1e-5)
 MESHES = {2: "pods:1x1x2", 4: "pods:1x2x2", 8: "pods:2x2x2"}
-DENSE = ["gemma3-1b", "gemma2-9b", "granite-3-2b", "granite-3-8b"]
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -93,21 +92,7 @@ def whole(ref):
     """The port's whole-model outputs on the reference's params and
     inputs: the prefill step's logits, ``prefill_with_caches``'s and each
     decode step's (teacher-forced on the reference's inputs)."""
-    out = {}
-    shape = InputShape("tp_serve", TP_CAPACITY, 4, "prefill")
-    for name, (arch, variant) in TP_CASES.items():
-        cfg, r = tp_config(get_config, arch, variant), ref[name]
-        params = params_from_jax(r["params"], device="cpu")
-        tokens = {"tokens": torch.from_numpy(r["prompt"])}
-        step = steps.make_prefill_step(cfg, shape)(params, tokens)
-        logits, caches = tf.prefill_with_caches(params, cfg, tokens, TP_CAPACITY)
-        decoded = []
-        for t in range(TP_T):
-            lg, caches = tf.decode_step(params, cfg, {"tokens": torch.from_numpy(r["inputs"][t])},
-                                        TP_S + t, caches)
-            decoded.append(lg.numpy())
-        out[name] = {"prefill_step": step.numpy(), "prefill": logits.numpy(), "decode": decoded}
-    return out
+    return tp_whole(ref, "dense")
 
 
 def _world(n):
@@ -207,7 +192,7 @@ def _names(path):
 
 
 @pytest.mark.parametrize("m", [1, 2, 4, 16])
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", ARCH_NAMES)
 def test_plan_splits_the_dims_repro_s_rules_name(arch, m):
     """Full width, on meta: each leaf's cut dims are those ``repro``'s
     ``_param_rule`` / ``_cache_rule`` shard (the stacked n_rep axis never),
@@ -234,14 +219,17 @@ def test_plan_splits_the_dims_repro_s_rules_name(arch, m):
                 assert (sl.start, sl.stop) == (at * w, (at + 1) * w), (names, dim)
 
 
-@pytest.mark.parametrize("case", ["gemma3-1b/wrap", "granite-3-2b"])
+@pytest.mark.parametrize("case", ["gemma3-1b/wrap", "granite-3-2b", "granite-moe",
+                                  "mamba2-2.7b", "musicgen-large"])
 def test_rank_slices_tile_every_leaf(case):
     """The 2 x 2 ranks' cuts of the params and of a prefill's caches put
-    back together are the whole trees, bit for bit."""
-    cfg = tp_config(get_config, *TP_CASES[case])
+    back together are the whole trees, bit for bit (the MoE's experts, the
+    SSM's projections, conv and state, the codebook tables and heads, the
+    int8 cache's values and scales)."""
+    cfg = tp_config(get_config, *{**TP_CASES, **TPA_CASES}[case])
     params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    tokens = torch.randint(0, cfg.vocab_size, (4, 12), generator=torch.Generator().manual_seed(1))
-    _, caches = tf.prefill_with_caches(params, cfg, {"tokens": tokens}, capacity=TP_CAPACITY)
+    batch = {k: torch.from_numpy(v) for k, v in tp_batch(cfg, 1).items()}
+    _, caches = tf.prefill_with_caches(params, cfg, batch, capacity=TP_CAPACITY)
     for kind, tree in (("params", params), ("caches", caches)):
         parts = {(dr, mr): cut(tree, rank_plan(tree, kind, 2, 2, dr, mr))
                  for dr in range(2) for mr in range(2)}
@@ -256,17 +244,17 @@ def test_rank_slices_tile_every_leaf(case):
             assert torch.equal(back, x), (kind, i)
 
 
-@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "mamba2-2.7b", "zamba2-2.7b",
-                                  "internvl2-2b", "musicgen-large"])
-def test_archs_without_a_tp_path_refuse_one(arch):
-    cfg = get_config(arch, reduced=True)
-    assert not tf.serves_tensor_parallel(cfg)
+@pytest.mark.parametrize("arch", [*ARCH_NAMES, "under autograd"])
+def test_every_arch_serves_tensor_parallel(arch):
+    """Every arch takes a ``tp``; a ``tp`` forward under autograd is
+    refused (the collectives have no backward), citing item 16a-iii."""
+    if arch != "under autograd":
+        assert tf.serves_tensor_parallel(get_config(arch))
+        return
+    cfg = get_config("granite-moe-1b-a400m", reduced=True)
     params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 16a-ii"):
-        tf.forward(params, cfg, {"tokens": torch.zeros((1, 4), dtype=torch.int32)},
-                   tp=parallel.TensorParallel())
-
-
-@pytest.mark.parametrize("arch", DENSE)
-def test_dense_archs_serve_tensor_parallel(arch):
-    assert tf.serves_tensor_parallel(get_config(arch))
+    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
+    with pytest.raises(NotImplementedError, match="item 16a-iii"):
+        tf.forward(params, cfg, batch, tp=parallel.TensorParallel())
+    with torch.no_grad():  # serving: the same call runs
+        tf.forward(params, cfg, batch, tp=parallel.TensorParallel())

@@ -380,12 +380,40 @@ TP_CASES = {  # name -> (arch, variant): see tp_config
 }
 
 
+# tests/test_torch_tp_serve_archs.py: the MoE, SSM, hybrid and frontend
+# archs, each reduced so that every rule splits at m = 2 and 4, but one
+TPA_CASES = {
+    "granite-moe": ("granite-moe-1b-a400m", "base"),
+    "granite-moe/dispatch": ("granite-moe-1b-a400m", "dispatch"),
+    "granite-moe/dispatch_grouped": ("granite-moe-1b-a400m", "dispatch_grouped"),
+    "olmoe-1b-7b": ("olmoe-1b-7b", "experts8"),
+    "mamba2-2.7b": ("mamba2-2.7b", "base"),
+    "mamba2-2.7b/whole_leaves": ("mamba2-2.7b", "whole_leaves"),
+    "zamba2-2.7b": ("zamba2-2.7b", "two_reps"),
+    "internvl2-2b": ("internvl2-2b", "odd_vocab"),
+    "musicgen-large": ("musicgen-large", "base"),
+}
+
+
 def tp_config(get, arch: str, variant: str):
     """The reduced config of ``arch`` (``get`` is either package's
     ``get_config``), with the variant applied alike in both packages:
-    ``wrap`` (window 8, full) x 2 + a window-8 tail layer, so the ring
-    buffers wrap and split over the model ranks; ``head_dim`` one query
-    and one KV head, so every attention projection splits ``head_dim``."""
+
+      wrap          (window 8, full) x 2 + a window-8 tail layer, so the
+                    ring buffers wrap and split over the model ranks;
+      head_dim      one query and one KV head, so every attention
+                    projection splits ``head_dim``;
+      dispatch, dispatch_grouped  that MoE impl at capacity factor 0.5,
+                    so slots are dropped;
+      experts8      8 experts, top 4;
+      whole_leaves  d_model 96: 3 SSM heads, so ``in_proj`` (Z = 419) and
+                    the ``state`` stay whole at m = 2 and 4 while
+                    ``conv_w``/``conv_b`` (C = 224) and ``out_proj`` (192
+                    rows, cut inside a head) split;
+      two_reps      zamba2's (ssm, shared_attn) pattern twice: two
+                    invocations of the shared block, a cache each;
+      odd_vocab     509 tokens (odd, as internvl2-2b's 92,553: ``embed``
+                    whole at every m) and 2 KV heads under 4 (G = 2)."""
     cfg = get(arch, reduced=True)
     if variant == "wrap":
         local = cfg.pattern[0].replace(window=8)
@@ -393,7 +421,46 @@ def tp_config(get, arch: str, variant: str):
         cfg = cfg.replace(pattern=(local, glob), n_rep=2, tail=(local,), n_layers=5)
     elif variant == "head_dim":
         cfg = cfg.replace(n_heads=1, n_kv_heads=1)
+    elif variant in ("dispatch", "dispatch_grouped"):
+        cfg = cfg.replace(moe_impl=variant, capacity_factor=0.5)
+    elif variant == "experts8":
+        cfg = cfg.replace(n_experts=8, top_k=4)
+    elif variant == "whole_leaves":
+        cfg = cfg.replace(d_model=96)
+    elif variant == "two_reps":
+        cfg = cfg.replace(n_rep=2, n_layers=2 * len(cfg.pattern))
+    elif variant == "odd_vocab":
+        cfg = cfg.replace(vocab_size=509, n_kv_heads=2)
+    elif variant != "base":
+        raise ValueError(f"unknown variant {variant!r}")
     return cfg
+
+
+def tp_batch(cfg, seed: int) -> dict:
+    """A prompt of ``TP_S`` positions in ``steps.token_batch``'s layout,
+    numpy, from ``seed``: tokens (B, S), (B, K, S) for the codebooks, or
+    (B, S - n_patches) beside f32 ``patch_embeds`` for the vision arch."""
+    rng = np.random.RandomState(seed)
+    if cfg.frontend == "audio_codebooks":
+        return {"tokens": rng.randint(0, cfg.vocab_size, (TP_B, cfg.n_codebooks, TP_S))
+                .astype(np.int32)}
+    if cfg.frontend == "vision_stub":
+        toks = rng.randint(0, cfg.vocab_size, (TP_B, TP_S - cfg.n_patches)).astype(np.int32)
+        return {"tokens": toks, "patch_embeds": rng.randn(
+            TP_B, cfg.n_patches, cfg.d_vision).astype(np.float32)}
+    return {"tokens": rng.randint(0, cfg.vocab_size, (TP_B, TP_S)).astype(np.int32)}
+
+
+def tp_decode_batch(cfg, tokens) -> dict:
+    """The next decode batch (numpy) from greedy tokens (B, 1), or (B, 1, K)
+    for the codebooks; the vision arch's holds 0 patches."""
+    tokens = np.asarray(tokens, np.int32)
+    if cfg.frontend == "audio_codebooks":
+        return {"tokens": np.ascontiguousarray(np.swapaxes(tokens, 1, 2))}
+    if cfg.frontend == "vision_stub":
+        return {"tokens": tokens,
+                "patch_embeds": np.zeros((tokens.shape[0], 0, cfg.d_vision), np.float32)}
+    return {"tokens": tokens}
 
 
 def _argmax_ties(tp):
@@ -451,16 +518,123 @@ def tp_faults():
 TP_FAULT_CASE = "gemma3-1b/wrap"  # the planted faults' case: both ranks own written slots
 
 
+def _gather_reversed(x, tp):
+    """A planted fault: the SSM conv output gathered over its channels in
+    the reverse rank order."""
+    import torch
+
+    from repro_torch.models import parallel
+
+    return torch.cat(parallel.gather(x, tp, -1).chunk(tp.size, -1)[::-1], dim=-1)
+
+
+def _owner_write_without_scale(cache, name, slot, new, lo=None):
+    """A planted fault: ``attention._store_token`` writing an int8 cache's
+    quantised values but not their scales."""
+    from repro_torch.models import attention
+
+    qv, _ = attention._quantize(new)
+    (attention._write_slot if lo is None else
+     lambda buf, s, v: attention._write_owned(buf, s, v, lo))(cache[name], slot, qv)
+
+
+def tpa_faults():
+    """The planted faults of the archs' tensor-parallel serving: name ->
+    (its case of ``TPA_CASES``, module, attribute, the faulty
+    replacement).  The codebook embeddings summed on each rank before one
+    all-reduce are only a reordering of the same f32 additions (it holds
+    at rtol = atol = 1e-5), so the codebook fault planted is the lookup
+    without this rank's vocab offset."""
+    import dataclasses
+
+    from repro_torch.models import attention, parallel, ssm
+
+    embed = parallel.vocab_embed
+    return {
+        "moe_sum_dropped": ("granite-moe", parallel, "sum_f32", lambda x, tp: x),
+        "ssm_norm_rank_local": ("mamba2-2.7b", parallel, "rms_noscale",
+                                lambda x, tp, whole, eps=1e-6: ssm.rmsnorm_noscale(x, eps)),
+        "ssm_gather_reversed": ("mamba2-2.7b", ssm, "_gather_channels", _gather_reversed),
+        "int8_write_without_scale": ("musicgen-large", attention, "_store_token",
+                                     _owner_write_without_scale),
+        "codebook_offset_dropped": ("musicgen-large", parallel, "vocab_embed",
+                                    lambda tokens, emb, tp, vocab: embed(
+                                        tokens, emb, dataclasses.replace(tp, rank=0), vocab)),
+    }
+
+
+def tp_cases(suite: str) -> dict:
+    """A serving suite's cases: "dense" (``TP_CASES``) or "archs"
+    (``TPA_CASES``)."""
+    return {"dense": TP_CASES, "archs": TPA_CASES}[suite]
+
+
+def tp_suite_faults(suite: str) -> dict:
+    """A serving suite's planted faults: name -> (case, module, attribute,
+    replacement); "dense": every fault of ``tp_faults`` on
+    ``TP_FAULT_CASE``."""
+    if suite == "dense":
+        return {f: (TP_FAULT_CASE, *v) for f, v in tp_faults().items()}
+    return tpa_faults()
+
+
+def tp_whole(ref, suite: str) -> dict:
+    """The port's whole-model outputs on the reference's params and inputs,
+    per case of ``suite``: the prefill step's logits, ``prefill_with_
+    caches``'s and its caches' leaves, and each decode step's logits
+    (teacher-forced on the reference's inputs)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import steps
+    from repro_torch.models import transformer as tf
+    from repro_torch.utils.pytree import tree_leaves
+    from repro_torch.weights import params_from_jax
+
+    out = {}
+    shape = InputShape("tp_serve", TP_CAPACITY, TP_B, "prefill")
+    for name, (arch, variant) in tp_cases(suite).items():
+        cfg, r = tp_config(get_config, arch, variant), ref[name]
+        params = params_from_jax(r["params"], device="cpu")
+        batch = _torch_batch(r["prompt"])
+        step = steps.make_prefill_step(cfg, shape)(params, batch)
+        logits, caches = tf.prefill_with_caches(params, cfg, batch, TP_CAPACITY)
+        leaves = [leaf_np(x) for x in tree_leaves(caches)]
+        decoded = []
+        for t in range(TP_T):
+            lg, caches = tf.decode_step(params, cfg, _torch_batch(r["inputs"][t]), TP_S + t,
+                                        caches)
+            decoded.append(lg.numpy())
+        out[name] = {"prefill_step": step.numpy(), "prefill": logits.numpy(),
+                     "caches": leaves, "decode": decoded}
+    return out
+
+
+def leaf_np(x):
+    """A tensor as numpy, bit for bit (a bf16 leaf as its int16 bits)."""
+    import torch
+
+    return (x.view(torch.int16) if x.dtype == torch.bfloat16 else x).numpy().copy()
+
+
+def _torch_batch(batch: dict) -> dict:
+    import torch
+
+    return {k: torch.from_numpy(v) for k, v in batch.items()}
+
+
 def tp_serve(rank, world, plan):
-    """The dense archs' tensor-parallel serving on ``plan["mesh"]``, per
-    case of ``TP_CASES``, from the params and prompt of the JAX reference
-    (``plan["ref"]``, pickled by ``tests/tp_serve_reference.py``): the
-    prefill step's logits (whole), ``prefill_with_caches``'s logits and
-    each decode step's (this data rank's rows, gathered over the vocab),
-    teacher-forced on the reference's inputs, and the serve step's tokens
-    (whole); with this rank's rows and the census of the two steps.  With
-    ``plan["faults"]``, the same for ``TP_FAULT_CASE`` under each planted
-    fault of ``tp_faults``."""
+    """Tensor-parallel serving on ``plan["mesh"]``, per case of
+    ``plan["suite"]`` (``tp_cases``; "dense" when absent), from the params
+    and prompt of the JAX reference (``plan["ref"]``, pickled by
+    ``tests/tp_serve_reference.py``): the prefill step's logits (whole),
+    ``prefill_with_caches``'s logits and each decode step's (this data
+    rank's rows, gathered over the vocab), teacher-forced on the
+    reference's inputs, and the serve step's tokens (whole); with this
+    rank's rows, the leaves of the caches its prefill left and the census
+    of the two steps.  With ``plan["faults"]``, the same for each planted
+    fault's case under that fault."""
     import pickle
 
     import torch
@@ -472,59 +646,71 @@ def tp_serve(rank, world, plan):
     from repro_torch.launch.sharding import rank_plan
     from repro_torch.models import parallel
     from repro_torch.models import transformer as tf
+    from repro_torch.utils.pytree import tree_leaves, tree_map
     from repro_torch.weights import cut, params_from_jax
 
     tp = steps.tensor_parallel(parse_mesh(plan["mesh"]))
+    suite = plan.get("suite", "dense")
+    cases = tp_cases(suite)
     with open(plan["ref"], "rb") as f:
         ref = pickle.load(f)
     shape = InputShape("tp_serve", TP_CAPACITY, TP_B, "prefill")
     out = {"argmax": _argmax_ties(tp), "cases": {}, "faults": {}}
 
-    def rows(x):
-        return cut({"tokens": x}, rank_plan({"tokens": x}, "batch", tp.data_size,
-                                            drank=tp.data_rank))["tokens"]
+    def rows(batch):
+        batch = _torch_batch(batch)
+        return cut(batch, rank_plan(batch, "batch", tp.data_size, drank=tp.data_rank))
 
     def vocab(logits, cfg):
         return parallel.gather(logits, tp, -1) if logits.shape[-1] != cfg.vocab_size else logits
 
     def serve_case(name):
-        arch, variant = TP_CASES[name]
+        arch, variant = cases[name]
         cfg, r = tp_config(get_config, arch, variant), ref[name]
         whole = params_from_jax(r["params"], device="cpu")
         params = cut(whole, rank_plan(whole, "params", tp.data_size, tp.size, tp.data_rank,
                                       tp.rank))
-        batch = {"tokens": rows(torch.from_numpy(r["prompt"]))}
+        batch = rows(r["prompt"])
         collectives.reset_census()
         step_logits = steps.make_prefill_step(cfg, shape, tp)(params, batch)
         census = {"prefill_step": collectives.census()}
         logits, caches = tf.prefill_with_caches(params, cfg, batch, TP_CAPACITY, tp)
+        prefilled = [leaf_np(x) for x in tree_leaves(caches)]
         serve = steps.make_serve_step(cfg, shape, tp)
         decoded, served = [], []
         for t in range(TP_T):
-            tok = {"tokens": rows(torch.from_numpy(r["inputs"][t]))}
+            tok = rows(r["inputs"][t])
             pos = torch.tensor(TP_S + t, dtype=torch.int32)
             collectives.reset_census()
-            tokens, caches = serve(params, tok, pos, caches)
+            # on a copy: an SSM layer's recurrence steps its state in place
+            tokens, _ = serve(params, tok, pos, tree_map(torch.clone, caches))
             census.setdefault("serve_step", collectives.census())
-            # the same slot rewritten with the same values
             step, caches = tf.decode_step(params, cfg, tok, pos, caches, tp)
             decoded.append(vocab(step, cfg).numpy())
             served.append(tokens.numpy())
         n = batch["tokens"].shape[0]
         return {"rows": (tp.data_rank * n, (tp.data_rank + 1) * n) if n < TP_B else (0, TP_B),
                 "prefill_step": step_logits.numpy(), "prefill": vocab(logits, cfg).numpy(),
-                "decode": decoded, "serve": served, "census": census}
+                "caches": prefilled, "decode": decoded, "serve": served, "census": census}
 
-    for name in TP_CASES:
+    for name in cases:
         out["cases"][name] = serve_case(name)
-    for fault, (module, attr, faulty) in (tp_faults().items() if plan.get("faults") else ()):
+    faults = tp_suite_faults(suite) if plan.get("faults") else {}
+    for fault, (case, module, attr, faulty) in faults.items():
         sound = getattr(module, attr)
         setattr(module, attr, faulty)
         try:
-            out["faults"][fault] = serve_case(TP_FAULT_CASE)
+            out["faults"][fault] = serve_case(case)
         finally:
             setattr(module, attr, sound)
     return out
+
+
+def serve_cli(rank, world, argv):
+    """``launch/serve.py``'s CLI on this rank (the group is already up)."""
+    from repro_torch.launch import serve
+
+    return serve.main(argv)
 
 
 def everything(rank, world, plan):
