@@ -188,9 +188,41 @@ Phases (any failure exits non-zero; nothing is caught):
                   the reverse rank order, the int8 write without its
                   scale, the codebook lookup without its offset) must each
                   read above their arch's limit or change a greedy token
-                  of the sound run; prefill ms, decode ms per step and the
-                  idle share, with the card's name and power limit.
-                  Each phase prints its seconds.
+                  of the sound run (each served until it does, at most its
+                  steps); prefill ms, decode ms per step and the idle
+                  share, with the card's name and power limit.  The whole
+                  models' runs and the dry run's counts are made while the
+                  two processes start, as are phase 19's counts and
+                  one-process steps.
+ 19. tp train     the tensor-parallel train step (``make_train_step(tp=)``)
+                  at phase 15's shape (one client, B = 2, S = 2048, T = 2,
+                  bf16) on ``pods:1x1x2`` by two processes sharing the card
+                  (one spawn; gloo, host-staged): gemma3-1b and
+                  granite-moe-1b-a400m at full width and depth, zamba2-2.7b
+                  at full width and one of its 9 repetitions (the full
+                  depth would move ~40 GB a rank a step through gloo); each
+                  rank its model slices, the step under the profiler with
+                  the counters reset just before: census equal to rank 0's
+                  step counted on meta in a 2-rank fake world, peak within
+                  10 % of the count's, K1/K2/K4-K7 launches the count's,
+                  the loss bitwise across the ranks and within 2e-5 of the
+                  one-process step's, every replicated leaf of the outputs
+                  bitwise across the ranks; the first local step's
+                  gradient from the slices against the whole model's
+                  (``grad_gaps`` per arch, ``TP_GRAD_LIMITS``) and six
+                  planted faults (the attention input's ``enter`` dropped,
+                  the head_dim K/V gather's backward a plain slice, the CE's
+                  logsumexp over the local slice, the MoE gates' gradient
+                  rank-local, the SSM norm statistic's backward and its
+                  per-head leaves' gradient rank-local) outside those
+                  limits; the round start's
+                  (beta, eta1 coeff) from the slices within 1e-5 of the
+                  whole tree's and the replicated leaves counted on every
+                  rank outside it; step wall and idle share with the card's
+                  name and power limit.
+                  Each phase prints its seconds, the TP ranks the seconds
+                  of their parts, and ``time[...]`` lines the seconds
+                  since the build began.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
 D = 80 readings under ``d80``; launches per path under
@@ -578,7 +610,10 @@ def check_flash(seeds=FLASH_SEEDS):
     over KV = 1, D = 256, window 512 and none), and its ranks at m = 2 of
     granite-moe-1b-a400m (H = 8 over KV = 4, D = 64), zamba2-2.7b (16 over
     16, D = 80), internvl2-2b (8 over 4, D = 128) and musicgen-large (16
-    over 16, D = 64), each B = 4, S = 1024, no window.
+    over 16, D = 64), each B = 4, S = 1024, no window; phase 19's training
+    ranks at m = 2 (B = 2, S = 2048): gemma3-1b's 2 over 1 (D = 256, window
+    512 and none), granite-moe's 8 over 4 (D = 64) and zamba2's 16 over 16
+    (D = 80), no window.
     The backward kernels take the plain forward's LSE and delta, so each is
     checked alone.  Tolerance in units of the largest value: f32 1e-4 (sums
     of up to 8,192 f32 terms in another order, the online softmax against
@@ -626,7 +661,12 @@ def check_flash(seeds=FLASH_SEEDS):
         # phase 18: a rank at m = 2 of granite-moe-1b-a400m (8 over 4),
         # zamba2-2.7b (16 over 16, D = 80), internvl2-2b (8 over 4), musicgen-large
         (2, None, None, bf16, 1024, 64, 8, 4), (1, None, None, bf16, 1024, 80, 16, 4),
-        (2, None, None, bf16, 1024, 128, 8, 4), (1, None, None, bf16, 1024, 64, 16, 4)]
+        (2, None, None, bf16, 1024, 128, 8, 4), (1, None, None, bf16, 1024, 64, 16, 4),
+        # phase 19: a training rank at m = 2 (B = 2, S = 2048) of gemma3-1b (2
+        # over the gathered KV head, full and window-512 layers), granite-moe
+        # (8 over 4) and zamba2 (16 over 16, D = 80)
+        (2, None, None, bf16, 2048, 256, 2, 2), (2, 512, None, bf16, 2048, 256, 2, 2),
+        (2, None, None, bf16, 2048, 64, 8, 2), (1, None, None, bf16, 2048, 80, 16, 2)]
     for seed in seeds:
         g = torch.Generator(device="cuda").manual_seed(seed)
         for gq, window, cap, dtype, s, d, h, b in cases:
@@ -688,7 +728,8 @@ def check_flash(seeds=FLASH_SEEDS):
 
     # K7's sum pass at the LM slice's and granite-moe's shapes: f32 partials
     # (B, S, H, D) -> bf16 (B, S, KV, D)
-    for shape, kv in (((2, 2048, 4, 256), 1), ((2, 2048, 16, 64), 8)):
+    for shape, kv in (((2, 2048, 4, 256), 1), ((2, 2048, 16, 64), 8),
+                      ((2, 2048, 2, 256), 1), ((2, 2048, 8, 64), 4)):  # phase 19's ranks
         pk, pv = (_randn(g, *shape) for _ in range(2))
         got = flash_ops.flash_bwd_dkv_sum(pk, pv, kv)
         want = flash_ops.flash_bwd_dkv_sum_plain(pk, pv, kv)
@@ -1055,21 +1096,25 @@ def profiled_run(body):
     """``body()`` under torch.profiler; it returns (result, the wall seconds
     of the part it times, ending in a synchronize).  Returns (result, wall,
     the device's busy microseconds: the union of the device events'
-    intervals)."""
+    intervals).  The intervals are read from the profiler's raw events:
+    ``prof.events()`` first builds a Python event tree of every host op,
+    which took 90 s after phase 9's 6 s run on an H100 host."""
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=acts) as prof:
         out, wall = body()
         torch.cuda.synchronize()
-    spans = sorted((e.time_range.start, e.time_range.end) for e in prof.events()
-                   if e.device_type == DeviceType.CUDA)
-    busy_us, end = 0.0, float("-inf")
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA
+                   and not getattr(e, "is_hidden_event", lambda: False)())
+    busy_ns, end = 0, float("-inf")
     for lo, hi in spans:
         if hi > end:
-            busy_us += hi - max(lo, end)
+            busy_ns += hi - max(lo, end)
             end = hi
-    assert busy_us > 0, "the profiler recorded no device event"
-    return out, wall, busy_us
+    assert busy_ns > 0, "the profiler recorded no device event"
+    return out, wall, busy_ns / 1e3
 
 
 def async_resume(full):
@@ -1090,28 +1135,27 @@ def async_resume(full):
 
 
 def _final_rows(store):
-    """The store's final client rows as host arrays, one per leaf, read in
+    """The store's final client rows as host tensors, one per leaf, read in
     ranges of ``STORE_RANGE`` clients as checkpoint shards stream them."""
     out = None
     for lo in range(0, store.k, STORE_RANGE):
         hi = min(lo + STORE_RANGE, store.k)
-        block = [x.cpu().numpy() if isinstance(x, torch.Tensor) else x
-                 for x in tree_leaves(store._host_block(lo, hi))]
+        block = [torch.as_tensor(x) for x in tree_leaves(store._host_block(lo, hi))]
         if out is None:
-            out = [np.empty((store.k,) + b.shape[1:], b.dtype) for b in block]
+            out = [torch.empty((store.k,) + b.shape[1:], dtype=b.dtype) for b in block]
         for o, b in zip(out, block):
-            o[lo:hi] = b
+            o[lo:hi].copy_(b)
     return out
 
 
 def _same_rows(store, ref):
-    """Every client range of ``store`` bitwise equal to ``ref``'s; returns
-    the number of ranges compared."""
+    """Every client range of ``store`` equal to ``ref``'s (``torch.equal`` on
+    the host, every thread); returns the number of ranges compared."""
     n = 0
     for lo in range(0, store.k, STORE_RANGE):
         hi = min(lo + STORE_RANGE, store.k)
         for r, b in zip(ref, tree_leaves(store._host_block(lo, hi))):
-            assert np.array_equal(r[lo:hi], b), (store.describe(), lo, hi)
+            assert torch.equal(r[lo:hi], torch.as_tensor(b)), (store.describe(), lo, hi)
         n += 1
     return n
 
@@ -1595,12 +1639,13 @@ def grad_gaps(g_k, g_r, g_t):
     return scale, ratio
 
 
-def launch_step_args(cfg):
+def launch_step_args(cfg, n=LM_N):
     """``make_train_step``'s inputs at phase 6's shape on the card: one
-    client's params from seed 0 and zero local and global deltas, and
-    client 0's first ``LM["local_iters"]`` batches of phase 6's stream."""
+    client's params from seed 0 (``n`` of them, unchecked for None) and
+    zero local and global deltas, and client 0's first
+    ``LM["local_iters"]`` batches of phase 6's stream."""
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
-    assert sum(x.numel() for x in tree_leaves(params)) == LM_N
+    assert n is None or sum(x.numel() for x in tree_leaves(params)) == n
     state = {"params": tree_map(lambda x: x.unsqueeze(0), params),
              "delta": tree_map(lambda x: torch.zeros_like(x).unsqueeze(0), params)}
     global_delta = tree_map(torch.zeros_like, params)
@@ -2165,14 +2210,16 @@ TP_ATOL = 5e-3  # rtol = atol: test_torch_serve.py's bound
 # 6), and each limit is 1.34x its reading
 TP_LIMIT = {"gemma3-1b": 10.0, "granite-moe-1b-a400m": 24.0, "zamba2-2.7b": 18.0,
             "internvl2-2b": 11.0, "musicgen-large": 8.7}
-# the planted faults: name -> (its arch, the decode steps served after the
-# prefill under the fault); each must read above its arch's limit or change
-# a greedy token of the sound run's same steps.  A fault in prefill shows at
-# once; a decode fault that drops or mis-weights the new token's slot (one
-# of ~1,000 a head under random weights) is served every step.  The codebook
-# embeddings summed on each rank before one all-reduce are a reordering of
-# the same additions (on the CPU in f32 they hold 1e-5), so the codebook
-# fault is the lookup without the rank's vocab offset.
+# the planted faults: name -> (its arch, the most decode steps served after
+# the prefill under the fault); each must read above its arch's limit or
+# change a greedy token of the sound run's same steps, and is served only
+# until it does (the verdict is the one all its steps would give).  A fault
+# in prefill shows at once; a decode fault that drops or mis-weights the new
+# token's slot (one of ~1,000 a head under random weights) is served every
+# step.  The codebook embeddings summed on each rank before one all-reduce
+# are a reordering of the same additions (on the CPU in f32 they hold
+# 1e-5), so the codebook fault is the lookup without the rank's vocab
+# offset.
 TP_FAULTS = {"row_all_reduce_dropped": ("gemma3-1b", 0),
              "owner_write_skipped": ("gemma3-1b", TP_SERVE["steps"]),
              "combine_unscaled": ("gemma3-1b", TP_SERVE["steps"]),
@@ -2182,6 +2229,15 @@ TP_FAULTS = {"row_all_reduce_dropped": ("gemma3-1b", 0),
              "ssm_gather_reversed": ("zamba2-2.7b", 2),
              "int8_write_without_scale": ("musicgen-large", TP_SERVE["steps"]),
              "codebook_offset_dropped": ("musicgen-large", 2)}
+
+
+def depth_cut(arch, n_rep):
+    """``arch``'s full config with ``n_rep`` pattern repetitions (None: its
+    full depth)."""
+    cfg = get_config(arch)
+    if n_rep is None:
+        return cfg
+    return cfg.replace(n_rep=n_rep, n_layers=n_rep * len(cfg.pattern) + len(cfg.tail))
 
 
 def _tp_shapes():
@@ -2300,7 +2356,7 @@ def _plants():
     }
 
 
-def _tp_rank(rank, port, answers, teachers):
+def _tp_rank(rank, port, answers, teachers, want):
     """One of two processes on the one card (gloo: NCCL refuses a second
     rank on a device), ``pods:1x1x2``, for each arch of ``teachers`` (arch
     -> the whole model's next tokens, step by step): its model slices
@@ -2310,8 +2366,9 @@ def _tp_rank(rank, port, answers, teachers):
     gathered over the vocab and its greedy tokens by
     ``parallel.vocab_argmax``; the prefill and serve steps alone, each with
     its census and peak; then each planted fault of the arch, patched in
-    for a prefill and its decode steps (``TP_FAULTS``), with the greedy
-    tokens it changes."""
+    for a prefill and its decode steps (``TP_FAULTS``) until ``want`` (arch
+    -> the whole model's logits, step by step) shows it caught, with the
+    greedy tokens it changes."""
     import datetime
     import traceback
 
@@ -2334,6 +2391,7 @@ def _tp_rank(rank, port, answers, teachers):
             plants = _plants()
             out = {}
             for arch, teacher in teachers.items():
+                marks = [time.perf_counter()]  # the seconds of each part, below
                 cfg = get_config(arch)
                 whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                                        device="cuda")
@@ -2385,6 +2443,7 @@ def _tp_rank(rank, port, answers, teachers):
                 outs = [_host(vocab(x)) for x in local]
                 tokens = [_host(parallel.vocab_argmax(x, tp, cfg.vocab_size)) for x in local]
 
+                marks.append(time.perf_counter())
                 # the two steps alone, as the dry run counts them
                 _, census_p, peak_p = _step_peak(lm_steps.make_prefill_step(cfg, shape_p, tp),
                                                  (params, prompt))
@@ -2395,32 +2454,44 @@ def _tp_rank(rank, port, answers, teachers):
                 del caches, local, logits
                 gc.collect()
                 torch.cuda.empty_cache()
+                marks.append(time.perf_counter())
 
-                faulty = {}  # name -> (logits, greedy tokens changed from the sound run's)
+                # name -> (logits, greedy tokens changed from the sound run's): the
+                # prefill, then one decode step at a time until the fault is caught
+                # (above the limit or a token changed) or its steps are served; both
+                # ranks stop together on the MAX of their verdicts
+                faulty = {}
                 for name, (_, n_steps) in ((n, f) for n, f in TP_FAULTS.items()
                                            if f[0] == arch):
                     module, attr, fault = plants[name]
                     sound = getattr(module, attr)
                     setattr(module, attr, fault)
                     try:
-                        kept, fc = tf.prefill_with_caches(params, cfg, prompt, capacity=cap,
-                                                          tp=tp)
-                        kept = [kept]
-                        for t in range(n_steps):
-                            out_t, fc = decode(t, fc)
-                            kept.append(out_t)
-                        faulty[name] = (
-                            [_host(vocab(x)) for x in kept],
-                            sum(int((_host(parallel.vocab_argmax(x, tp, cfg.vocab_size))
-                                     != tk).sum()) for x, tk in zip(kept, tokens)))
-                        del kept, fc
+                        kept, changed = [], 0
+                        out_t, fc = tf.prefill_with_caches(params, cfg, prompt, capacity=cap,
+                                                           tp=tp)
+                        for t in range(n_steps + 1):
+                            if t:
+                                out_t, fc = decode(t - 1, fc)
+                            kept.append(_host(vocab(out_t)))
+                            changed += int((_host(parallel.vocab_argmax(
+                                out_t, tp, cfg.vocab_size)) != tokens[t]).sum())
+                            caught = torch.tensor([int(
+                                _tp_gap(kept[-1], want[arch][t])[0] > TP_LIMIT[arch]
+                                or changed > 0)])
+                            dist.all_reduce(caught, op=dist.ReduceOp.MAX)
+                            if caught.item():
+                                break
+                        faulty[name] = (kept, changed)
+                        del fc, out_t
                     finally:
                         setattr(module, attr, sound)
+                marks.append(time.perf_counter())
                 out[arch] = dict(
                     logits=outs, tokens=tokens, faulty=faulty, prefill_s=prefill_s,
                     step_s=step_s, wall_p=wall_p, busy_us=busy_us, launches=launches,
                     census_p=census_p, census_d=census_d, peak_p=peak_p, peak_d=peak_d,
-                    token=_host(tok))
+                    token=_host(tok), parts=np.diff(marks).tolist())
                 del params, prompt
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2431,9 +2502,22 @@ def _tp_rank(rank, port, answers, teachers):
         answers.put((rank, False, traceback.format_exc()))
 
 
-def _spawn_two(target, args, join_s):
+def _with_inputs(target, rank, port, answers, inbox, *args):
+    """A rank of ``_spawn_two`` with ``prepare``: it reaches the card, waits
+    for the parent's inputs, then runs ``target`` with them after
+    ``args``."""
+    if torch.cuda.is_available():
+        torch.cuda.set_device(0)
+        torch.zeros((), device="cuda")  # the CUDA context, while the parent prepares
+    target(rank, port, answers, *args, *inbox.get())
+
+
+def _spawn_two(target, args, join_s, prepare=None):
     """``target(rank, port, answers, *args)`` in 2 spawned processes; each
-    rank's answer, or the phase fails with a rank's traceback."""
+    rank's answer, or the phase fails with a rank's traceback.  With
+    ``prepare``, the ranks start first and ``prepare()`` runs here while
+    they import and reach the card; its result (a tuple) is sent to each
+    rank and appended to its arguments.  ``join_s`` counts from then."""
     import multiprocessing as mp
     import queue
     import socket
@@ -2443,12 +2527,23 @@ def _spawn_two(target, args, join_s):
     with socket.socket() as sock:
         sock.bind(("localhost", 0))
         port = sock.getsockname()[1]
-    procs = [ctx.Process(target=target, args=(r, port, answers, *args), daemon=True)
-             for r in range(2)]
+    if prepare is None:
+        procs = [ctx.Process(target=target, args=(r, port, answers, *args), daemon=True)
+                 for r in range(2)]
+    else:
+        inboxes = [ctx.Queue() for _ in range(2)]
+        procs = [ctx.Process(target=_with_inputs, args=(target, r, port, answers, inboxes[r],
+                                                        *args), daemon=True)
+                 for r in range(2)]
     for p in procs:
         p.start()
-    got, deadline = {}, time.monotonic() + join_s
+    got, deadline = {}, time.monotonic()
     try:
+        if prepare is not None:
+            inputs = prepare()
+            for box in inboxes:
+                box.put(inputs)
+        deadline = time.monotonic() + join_s
         while len(got) < 2 and time.monotonic() < deadline:
             try:
                 rank, ok, value = answers.get(timeout=1.0)
@@ -2530,18 +2625,23 @@ def tp_serve_run():
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    wants, teachers, floors = {}, {}, {}
-    for arch in TP_ARCHS:
-        wants[arch], teachers[arch], floors[arch] = _tp_whole(arch)
-    spec = parse_mesh(TP_SERVE["mesh"])
-    counted = {}
-    for arch in TP_ARCHS:
-        for shape in _tp_shapes():
-            rec = dryrun.run_one(arch, shape, save=False, verbose=False, mesh=spec)
-            assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
-            counted[arch, shape.kind] = rec
-    t_spawn = time.perf_counter()
-    got = _spawn_two(_tp_rank, (teachers,), TP_JOIN_S)
+    wants, teachers, floors, counted = {}, {}, {}, {}
+
+    def prepare():  # while the ranks start
+        nonlocal t_spawn
+        for arch in TP_ARCHS:
+            wants[arch], teachers[arch], floors[arch] = _tp_whole(arch)
+        spec = parse_mesh(TP_SERVE["mesh"])
+        for arch in TP_ARCHS:
+            for shape in _tp_shapes():
+                rec = dryrun.run_one(arch, shape, save=False, verbose=False, mesh=spec)
+                assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
+                counted[arch, shape.kind] = rec
+        t_spawn = time.perf_counter()
+        return teachers, wants
+
+    t_spawn = None
+    got = _spawn_two(_tp_rank, (), TP_JOIN_S, prepare)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
     b, steps = TP_SERVE["batch"], TP_SERVE["steps"]
@@ -2555,9 +2655,10 @@ def tp_serve_run():
                                                                            r["logits"]))
             agree = sum(int((tk == w.argmax(-1).numpy()).sum()) for tk, w in zip(r["tokens"],
                                                                                  want))
-            # each fault: (its reading, greedy tokens changed from the sound run's)
-            faults = {name: (max(_tp_gap(x, w)[0] for x, w in zip(lg, want)), changed)
-                      for name, (lg, changed) in r["faulty"].items()}
+            # each fault: (its reading, greedy tokens changed from the sound run's,
+            # the decode steps served until it was caught)
+            faults = {name: (max(_tp_gap(x, w)[0] for x, w in zip(lg, want)), changed,
+                             len(lg) - 1) for name, (lg, changed) in r["faulty"].items()}
             checks.append((arch, rank, r, gaps, wrong, faults))
             decode_ms = 1e3 * sum(r["step_s"]) / len(r["step_s"])
             print(f"tp serve[{arch}, {TP_SERVE['mesh']}, rank {rank}, gloo host-staged, 2 "
@@ -2566,7 +2667,9 @@ def tp_serve_run():
                   f"{b * 1e3 / decode_ms:.1f} tokens/s; 4 profiled steps: wall "
                   f"{1e3 * r['wall_p']:.3f} ms, device busy {r['busy_us'] / 1e3:.3f} ms, idle "
                   f"share {1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches "
-                  f"{r['launches']}", flush=True)
+                  f"{r['launches']}; seconds: model and sound run "
+                  f"{r['parts'][0]:.1f}, census steps {r['parts'][1]:.1f}, faults "
+                  f"{r['parts'][2]:.1f}", flush=True)
             print(f"tp serve[{arch}, rank {rank}]: against the whole model, worst |d| / (5e-3 "
                   f"+ 5e-3 |want|) {max(x for x, _ in gaps):.4g} (prefill {gaps[0][0]:.4g}; "
                   f"limit {limit}), worst error in units of the largest logit "
@@ -2576,10 +2679,10 @@ def tp_serve_run():
                   f"their logits {wrong}, equal to the whole model's "
                   f"{agree}/{sum(w.argmax(-1).numel() for w in want)}", flush=True)
             print(f"tp serve[{arch}, rank {rank}]: planted faults (|d| / (5e-3 + 5e-3 "
-                  f"|want|) over prefill and the decode steps served; greedy tokens "
-                  f"changed from the sound run's): " + ", ".join(
-                      f"{k} {v:.4g}, {n} tokens ({TP_FAULTS[k][1]} steps)"
-                      for k, (v, n) in faults.items()), flush=True)
+                  f"|want|) over prefill and the decode steps served until caught; "
+                  f"greedy tokens changed from the sound run's): " + ", ".join(
+                      f"{k} {v:.4g}, {n} tokens ({s} of {TP_FAULTS[k][1]} steps)"
+                      for k, (v, n, s) in faults.items()), flush=True)
             for kind, census, peak in (("prefill", r["census_p"], r["peak_p"]),
                                        ("decode", r["census_d"], r["peak_d"])):
                 rec = counted[arch, kind]
@@ -2599,13 +2702,438 @@ def tp_serve_run():
         assert max(x for x, _ in gaps) <= TP_LIMIT[arch], (arch, "logits", gaps)
         assert wrong == 0, (arch, "vocab-parallel greedy tokens", wrong)
         assert sorted(faults) == sorted(n for n, f in TP_FAULTS.items() if f[0] == arch)
-        for name, (reading, changed) in faults.items():
+        for name, (reading, changed, _) in faults.items():
             assert reading > TP_LIMIT[arch] or changed > 0, (
                 "a planted fault passed", arch, name, reading, changed)
         assert 0 <= int(r["token"].min()) and int(r["token"].max()) < cfg.vocab_size
-    print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s (the two processes "
-          f"{time.perf_counter() - t_spawn:.1f}s)", flush=True)
+    print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s (the whole models and the "
+          f"dry run's counts {t_spawn - t_phase:.1f}s while the two processes started, then "
+          f"the two processes {time.perf_counter() - t_spawn:.1f}s)", flush=True)
     return {arch: got[0][arch]["launches"] for arch in TP_ARCHS}
+
+
+# phase 19: the tensor-parallel train step over two processes sharing the card
+TP_TRAIN_MESH = "pods:1x1x2"
+# arch -> the pattern repetitions run (None: full depth).  zamba2-2.7b's 9
+# repetitions (54 layers) would move ~40 GB a rank a step through gloo and
+# the host, ~100 s at its ~0.4 GB/s: the time limit cuts it to one (6 layers)
+TP_TRAIN_ARCHS = {"gemma3-1b": None, "granite-moe-1b-a400m": None, "zamba2-2.7b": 1}
+TP_TRAIN_JOIN_S = 900  # both ranks' answers for every arch, then they are killed
+# the round start's (beta, eta1 coeff) from the ranks' slices against the
+# whole tree's: f32 sums of ~1e9 products in another order.  Its noise
+# deltas are scaled so that |dp|^2 ~ 1: at |dp|^2 >> 1, coeff = 1 -
+# |dp|^2 / (1 + |dp|^2) cancels to a few f32 ulps of 1 and no longer reads
+# the sums (an H100 run at |dp|^2 ~ 1e5 read the same bits with the
+# round-start fault planted)
+TP_ROUND_RTOL = 1e-5
+# the step's loss against the one-process step's: the local steps' second
+# gradient starts from bf16 parameters that the TP and the whole first
+# step round differently (an H100 run read 1.27e-5 for gemma3-1b, 3.2e-6
+# and 4.3e-6 for granite-moe and zamba2: the limit is 1.5x the largest)
+TP_TRAIN_LOSS_RTOL = 2e-5
+# each arch's limits on ``grad_gaps``' (scale drift, error ratio) of the
+# gradient from the slices: phase 15's where the sound run fits them
+# (gemma3-1b read 1.23e-3 / 1.010 on an H100); granite-moe's sound run reads
+# an error ratio of 1.053 (the row all-reduces round each rank's partial
+# to bf16 before the sum), held at twice its excess over 1; zamba2's (6
+# layers) reads a scale drift of 5.111e-3, held at 1.34x (phase 18's rule),
+# and an error ratio of 1.025 inside phase 15's
+TP_GRAD_LIMITS = {"gemma3-1b": (GRAD_SCALE_TOL, GRAD_RATIO_TOL),
+                  "granite-moe-1b-a400m": (GRAD_SCALE_TOL, 1.10),
+                  "zamba2-2.7b": (6.85e-3, GRAD_RATIO_TOL)}
+# planted faults: name -> its arch; the gradient faults are held by
+# ``grad_gaps``' limits, the round-start fault by ``TP_ROUND_RTOL``
+TP_TRAIN_FAULTS = {"attention_input_enter_dropped": "gemma3-1b",
+                   "kv_gather_backward_a_plain_slice": "gemma3-1b",
+                   "ce_logsumexp_local": "gemma3-1b",
+                   "moe_gates_rank_local": "granite-moe-1b-a400m",
+                   "ssm_norm_statistic_backward_local": "zamba2-2.7b",
+                   "ssm_per_head_leaves_rank_local": "zamba2-2.7b",
+                   "round_start_counts_replicated_on_every_rank": "gemma3-1b"}
+
+
+def _tp_train_cfg(arch):
+    """``arch``'s full config, its depth cut to ``TP_TRAIN_ARCHS``' repetitions."""
+    return depth_cut(arch, TP_TRAIN_ARCHS[arch])
+
+
+def _ce_logsumexp_local(logits, labels, tp):
+    """A planted fault: the vocab-parallel CE with its logsumexp over this
+    rank's slice only."""
+    from repro_torch.models import parallel
+
+    logits = logits.float()
+    n = logits.shape[-1]
+    top = logits.amax(-1).detach()
+    se = torch.exp(logits - top[..., None]).sum(-1)
+    local = labels.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = parallel.reduce(torch.where(inside, gold, torch.zeros_like(gold)), tp)
+    return (torch.log(se) + top - gold).mean()
+
+
+def _rms_noscale_local(x, tp, whole, eps=1e-6):
+    """A planted fault: ``parallel.rms_noscale`` whose statistic's backward
+    keeps this rank's heads' share (no ``enter`` after the all-reduce)."""
+    from repro_torch.models import parallel
+
+    x32 = x.float()
+    ss = parallel.reduce((x32 * x32).sum(dim=-1, keepdim=True), tp)
+    return (x32 * torch.rsqrt(ss / whole + eps)).to(x.dtype)
+
+
+def _per_head_local(p, hs, tp):
+    """A planted fault: ``ssm._per_head`` reading the SSM's per-head leaves
+    on this rank's heads without ``enter``: their gradient rank-local."""
+    if hs is None:
+        return p["dt_bias"], p["A_log"], p["D"]
+    return p["dt_bias"][hs], p["A_log"][hs], p["D"][hs]
+
+
+def _tp_train_plants():
+    """``TP_TRAIN_FAULTS``' replacements: name -> (module, attribute, fault)."""
+    import dataclasses
+
+    from repro_torch.core import pfedsop
+    from repro_torch.models import attention, moe, parallel, ssm
+
+    personalize = pfedsop._personalize_tp
+    return {
+        "attention_input_enter_dropped": (attention, "_block_input", lambda x, tp: x),
+        "kv_gather_backward_a_plain_slice": (attention, "_whole_kv", lambda k, v, tp: (k, v)),
+        "ce_logsumexp_local": (parallel, "cross_entropy", _ce_logsumexp_local),
+        "moe_gates_rank_local": (moe, "_gates", lambda w, tp: w),
+        "ssm_norm_statistic_backward_local": (parallel, "rms_noscale", _rms_noscale_local),
+        "ssm_per_head_leaves_rank_local": (ssm, "_per_head", _per_head_local),
+        # every rank taking itself for rank 0: the replicated leaves counted twice
+        "round_start_counts_replicated_on_every_rank": (
+            pfedsop, "_personalize_tp",
+            lambda params, ld, gd, cfg, impl, tp, split: personalize(
+                params, ld, gd, cfg, impl, dataclasses.replace(tp, rank=0), split)),
+    }
+
+
+def _tp_train_count(cfg, pcfg):
+    """Rank 0's TP train step at phase 15's shape counted on the meta device
+    in a 2-rank fake world (``dryrun.fake_world``, ``dryrun.count``): its
+    inputs at rest as rank 0's slices.  Returns (the count, the census)."""
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.weights import cut
+
+    with dryrun.fake_world(2):
+        tp = lm_steps.tensor_parallel(parse_mesh(TP_TRAIN_MESH))
+        specs = lm_steps.input_specs(cfg, LAUNCH_SHAPE, micro_batch=LM["batch"])
+        state = {k: cut(v, rank_plan(v, "params", 1, tp.size, 0, tp.rank, client=True))
+                 for k, v in specs["state"].items()}
+        gd = cut(specs["global_delta"], rank_plan(specs["global_delta"], "params", 1, tp.size,
+                                                  0, tp.rank))
+        step = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg, tp=tp)
+        collectives.reset_census()
+        _, c = dryrun.count(step, (state, gd, specs["batches"]))
+        return c, collectives.census()
+
+
+def _tp_grads(cfg, leaves, treedef, batch, tp):
+    """The gradient leaves of ``tf.lm_loss`` with ``tp`` at this rank's
+    slices ``leaves``."""
+    ps = [x.detach().requires_grad_() for x in leaves]
+    loss = tf.lm_loss(tree_unflatten(treedef, ps), cfg, batch, tp)
+    return torch.autograd.grad(loss, ps)
+
+
+def _sliced_grad_gaps(g_k, g_r, g_t, counted, numel, tp):
+    """``grad_gaps`` from every rank's slices: per leaf the f32 sums
+    <g_k - g_r, g_r>, |g_r|^2, |g_k - g_t|^2 and |g_r - g_t|^2 over the
+    rank's elements (a replicated leaf on rank 0 only), summed over the
+    ranks in f64.  Returns (scale drift, error ratio, the index of the leaf
+    whose scale drift is the largest)."""
+    from repro_torch.launch import collectives
+
+    sums = torch.zeros((len(g_k), 4), dtype=torch.float64)
+    for i, (k, r, t) in enumerate(zip(g_k, g_r, g_t)):
+        if counted[i]:
+            k, r, t = k.float(), r.float(), t.float()
+            sums[i] = torch.stack([((k - r) * r).sum(), (r * r).sum(), ((k - t) ** 2).sum(),
+                                   ((r - t) ** 2).sum()]).double().cpu()
+    sums = collectives.all_reduce(sums, tp.group)
+    drifts = [abs(a) / b for a, b, _, _ in sums.tolist()]
+    scale = max(drifts)
+    ratio = max(math.sqrt(c / d) for (_, _, c, d), n in zip(sums.tolist(), numel)
+                if n >= GRAD_RATIO_NUMEL)
+    return scale, ratio, drifts.index(scale)
+
+
+def _round_start_scalars(cfg, pcfg, params, tp, split, plan):
+    """The round start's (beta, eta1 coeff) from this rank's slices of
+    ``params`` and of seeded noise deltas (``tree_personalize``'s ``tp``),
+    and the whole tree's (K1 over the whole flat vectors, on rank 0)."""
+    from repro_torch.core import pfedsop
+    from repro_torch.utils.pytree import FlatLayout
+    from repro_torch.weights import cut
+
+    dev = params[0].device
+    g = torch.Generator(device=dev).manual_seed(7)
+    sigma = (2.0 / sum(x.numel() for x in params)) ** 0.5  # |dp|^2 ~ 1: TP_ROUND_RTOL
+    ld, gd = ([(sigma * torch.randn(x.shape, generator=g, device=dev)).to(x.dtype)
+               for x in params] for _ in range(2))
+    treedef = plan[1]
+    mine = [cut(tree_unflatten(treedef, t), plan[0]) for t in (params, ld, gd)]
+    _, aux = pfedsop.tree_personalize(*mine, pcfg, tp=tp, split=split)
+    got = (aux["beta"].item(), aux["eta_coeff"].item())
+    del mine, aux
+    whole = None
+    if tp.rank == 0:
+        layout = FlatLayout(params)
+        dv, gv = layout.flatten(ld), layout.flatten(gd)
+        beta, ec = ops.scalars_from_partials(ops.reduce3_batched(dv[None], gv), pcfg.eta1,
+                                             pcfg.rho, pcfg.lam, pcfg.eps)
+        whole = (beta.item(), ec.item())
+        del dv, gv
+    del ld, gd
+    return got, whole
+
+
+def _tp_train_rank(rank, port, answers):
+    """One of two processes on the one card (gloo), ``pods:1x1x2``, for each
+    arch of ``TP_TRAIN_ARCHS``: phase 15's step inputs (seed 0) at rest as
+    this rank's slices, ``make_train_step(tp=)`` under the profiler with
+    the counters and the census reset just before (launches, census, peak,
+    wall, the device's busy time), its loss and the digests of its
+    replicated outputs; for the archs of ``TP_GRAD_LIMITS`` the
+    first local step's gradient on the slices held by ``grad_gaps`` against the whole
+    model's reference and f32 gradients (each rank computes them and keeps
+    its slices), and under each planted gradient fault of the
+    arch; for gemma3-1b the round start's scalars, sound and under the
+    round-start fault."""
+    import datetime
+    import traceback
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.weights import cut
+
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.cuda.set_device(0)
+        dist.init_process_group("gloo", init_method=f"tcp://localhost:{port}", rank=rank,
+                                world_size=2, timeout=datetime.timedelta(seconds=300))
+        try:
+            tp = lm_steps.tensor_parallel(parse_mesh(TP_TRAIN_MESH))
+            pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
+            plants = _tp_train_plants()
+            out = {}
+            for arch in TP_TRAIN_ARCHS:
+                marks = [time.perf_counter()]  # the seconds of each part, below
+                cfg = _tp_train_cfg(arch)
+                r = {}
+                state, gd, batches = launch_step_args(cfg, n=None)
+                params, treedef = tree_flatten(tree_map(lambda x: x[0], state["params"]))
+                pplan = rank_plan(tree_unflatten(treedef, params), "params", 1, tp.size, 0,
+                                  tp.rank)
+                split = lm_steps.split_leaves(cfg, tp)
+                args = ({k: cut(v, rank_plan(v, "params", 1, tp.size, 0, tp.rank, client=True))
+                         for k, v in state.items()}, cut(gd, pplan), batches)
+                del state, gd
+                gc.collect()
+                torch.cuda.empty_cache()
+                step = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg, tp=tp)
+                def timed():
+                    t1 = time.perf_counter()
+                    out = step(*args)
+                    torch.cuda.synchronize()
+                    return out, time.perf_counter() - t1
+
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                collectives.reset_census()
+                reset_launches()
+                (new_state, new_gd, loss), r["wall"], r["busy_us"] = profiled_run(timed)
+                r["launches"] = all_launches()
+                r["census"] = collectives.census()
+                r["peak"] = _storage_bytes(args) + torch.cuda.max_memory_allocated() - base
+                r["loss"] = loss.item()
+                kept = [x for x, p in zip(tree_leaves((new_state["params"], new_state["delta"],
+                                                       new_gd)), 3 * tree_leaves(pplan))
+                        if not p.cuts]
+                r["digests"] = tree_digest([loss] + kept)
+                del new_state, new_gd, loss, kept
+                marks.append(time.perf_counter())
+
+                if arch in TP_GRAD_LIMITS:
+                    first = {k: v[0, 0] for k, v in batches.items()}
+                    ref_cfg = cfg.replace(kernel_impl="reference")
+                    # the whole model's gradients (both ranks at once: ~2 x 21 GB at
+                    # gemma3-1b's f32), this rank's slices kept
+                    g_r, g_t = (tree_leaves(cut(tree_unflatten(treedef, list(
+                        loss_and_grads(c, params, treedef, first, f32=f32)[1])), pplan))
+                        for c, f32 in ((ref_cfg, False), (ref_cfg.replace(dtype="float32"), True)))
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                    mine = tree_leaves(tree_map(lambda x: x[0], args[0]["params"]))
+                    counted = [s or tp.rank == 0 for s in split]
+                    numel = [x.numel() for x in params]
+                    r["leaves"] = [(tuple(x.shape), str(x.dtype).removeprefix("torch."))
+                                   for x in params]
+                    mtp = lm_steps._model_only(tp)
+                    r["grad"] = _sliced_grad_gaps(_tp_grads(cfg, mine, treedef, first, mtp),
+                                                  g_r, g_t, counted, numel, tp)
+                    r["grad_faults"] = {}
+                    for name in (n for n, a in TP_TRAIN_FAULTS.items() if a == arch
+                                 and n != "round_start_counts_replicated_on_every_rank"):
+                        module, attr, fault = plants[name]
+                        sound = getattr(module, attr)
+                        setattr(module, attr, fault)
+                        try:
+                            g_f = _tp_grads(cfg, mine, treedef, first, mtp)
+                        finally:
+                            setattr(module, attr, sound)
+                        r["grad_faults"][name] = _sliced_grad_gaps(g_f, g_r, g_t, counted,
+                                                                   numel, tp)
+                        del g_f
+                    del g_r, g_t, mine
+                marks.append(time.perf_counter())
+                if arch == "gemma3-1b":
+                    mtp = lm_steps._model_only(tp)
+                    r["round"] = _round_start_scalars(cfg, pcfg, params, mtp, split,
+                                                      (pplan, treedef))
+                    name = "round_start_counts_replicated_on_every_rank"
+                    module, attr, fault = plants[name]
+                    sound = getattr(module, attr)
+                    setattr(module, attr, fault)
+                    try:
+                        r["round_fault"] = _round_start_scalars(cfg, pcfg, params, mtp, split,
+                                                                (pplan, treedef))
+                    finally:
+                        setattr(module, attr, sound)
+                marks.append(time.perf_counter())
+                r["parts"] = np.diff(marks).tolist()
+                out[arch] = r
+                del args, params, batches, step
+                gc.collect()
+                torch.cuda.empty_cache()
+            answers.put((rank, True, out))
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # the parent fails the phase with this traceback
+        answers.put((rank, False, traceback.format_exc()))
+
+
+def tp_train_run():
+    """Phase 19: the tensor-parallel train step (``make_train_step(tp=)``)
+    of each arch of ``TP_TRAIN_ARCHS`` at full width in bf16, at phase 15's
+    shape (one client, B = 2, S = 2048, T = 2), on ``pods:1x1x2`` by two
+    processes sharing the card (gloo, host-staged; one spawn for every
+    arch), each rank its model slices.  Per arch: each rank's census equal
+    to rank 0's step counted on meta tensors in a 2-rank fake world, its
+    peak within ``TP_PEAK_RTOL`` of the count's and its K1/K2/K4-K7
+    launches the count's; the loss bitwise equal across the ranks and
+    within ``TP_TRAIN_LOSS_RTOL`` of the one-process step's, every
+    replicated leaf of the outputs bitwise equal across the ranks; for the
+    archs of ``TP_GRAD_LIMITS`` the first local step's gradient from the
+    slices within the arch's ``grad_gaps`` limits of the whole model's, and
+    each planted gradient fault of the arch outside them; for gemma3-1b the
+    round start's (beta, eta1 coeff) within ``TP_ROUND_RTOL`` of the whole
+    tree's and the round-start fault outside it; step wall and idle share
+    with the card's name and power limit.  Returns rank 0's launches per
+    arch."""
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
+    counted, whole_loss = {}, {}
+
+    def prepare():  # while the ranks start; they allocate once it is done
+        nonlocal t_spawn
+        for arch in TP_TRAIN_ARCHS:
+            cfg = _tp_train_cfg(arch)
+            if TP_TRAIN_ARCHS[arch] is not None:
+                print(f"tp train[{arch}]: depth cut to {cfg.n_layers} of "
+                      f"{get_config(arch).n_layers} layers ({TP_TRAIN_ARCHS[arch]} pattern "
+                      "repetition): the full depth would move ~40 GB a rank a step through "
+                      "gloo", flush=True)
+            t0 = time.perf_counter()
+            counted[arch] = _tp_train_count(cfg, pcfg)
+            args = launch_step_args(cfg, n=None)
+            whole_loss[arch] = lm_steps.make_train_step(cfg, LAUNCH_SHAPE, pcfg)(
+                *args)[2].item()
+            print(f"tp train[{arch}]: rank 0's step counted on meta in a 2-rank fake world "
+                  f"and the one-process step run in {time.perf_counter() - t0:.1f}s",
+                  flush=True)
+            del args
+            gc.collect()
+            torch.cuda.empty_cache()
+        t_spawn = time.perf_counter()
+        return ()
+
+    t_spawn = None
+    got = _spawn_two(_tp_train_rank, (), TP_TRAIN_JOIN_S, prepare)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    for arch in TP_TRAIN_ARCHS:
+        c, census = counted[arch]
+        for rank in sorted(got):
+            r = got[rank][arch]
+            print(f"tp train[{arch}, {TP_TRAIN_MESH}, rank {rank}, gloo host-staged, 2 "
+                  f"processes on one card, {smi}]: step wall {1e3 * r['wall']:.3f} ms "
+                  f"(profiled), device busy {r['busy_us'] / 1e3:.3f} ms, idle share "
+                  f"{1 - r['busy_us'] / 1e3 / (r['wall'] * 1e3):.4f}; loss {r['loss']!r} "
+                  f"(one process {whole_loss[arch]!r}); launches {r['launches']} (count "
+                  f"{c['launches']}); census {r['census']} (count {census}); peak {r['peak']} "
+                  f"bytes, the count's {c['peak']}: "
+                  f"{100 * (c['peak'] - r['peak']) / r['peak']:+.2f}%; seconds: inputs and "
+                  f"the step {r['parts'][0]:.1f}, gradients and their faults "
+                  f"{r['parts'][1]:.1f}, round start {r['parts'][2]:.1f}", flush=True)
+            if "grad" in r:
+                tol, (scale, ratio, worst) = TP_GRAD_LIMITS[arch], r["grad"]
+                print(f"tp train[{arch}, rank {rank}]: the first local step's gradient from "
+                      f"the slices against the whole model's: scale drift {scale:.4g} (tol "
+                      f"{tol[0]:.4g}; largest on leaf {worst}, {r['leaves'][worst]}), error "
+                      f"against f32 over the reference path's {ratio:.4g} (tol {tol[1]:.4g}); "
+                      "planted faults: " + ", ".join(f"{n} {a:.4g} / {b:.4g}" for n, (a, b, _)
+                                                     in r["grad_faults"].items()), flush=True)
+            if "round" in r:
+                print(f"tp train[{arch}, rank {rank}]: the round start's (beta, eta1 coeff) "
+                      f"from the slices {r['round'][0]}, the whole tree's {r['round'][1]}; "
+                      f"under the round-start fault {r['round_fault'][0]}", flush=True)
+    for arch in TP_TRAIN_ARCHS:
+        c, census = counted[arch]
+        ranks = [got[rank][arch] for rank in sorted(got)]
+        for r in ranks:
+            want = {**{k: 0 for k in r["launches"]}, **c["launches"]}
+            assert r["launches"] == want, (arch, r["launches"], want)
+            assert r["census"] == census, (arch, r["census"], census)
+            assert abs(c["peak"] - r["peak"]) <= TP_PEAK_RTOL * r["peak"], (arch, r["peak"])
+            assert math.isfinite(r["loss"]), (arch, r["loss"])
+            assert abs(r["loss"] - whole_loss[arch]) <= TP_TRAIN_LOSS_RTOL * abs(
+                whole_loss[arch]), (arch, r["loss"], whole_loss[arch])
+        assert all(r["digests"] == ranks[0]["digests"] for r in ranks), (arch, "replicated")
+        if arch in TP_GRAD_LIMITS:
+            r, (scale_tol, ratio_tol) = ranks[0], TP_GRAD_LIMITS[arch]
+            assert r["grad"][0] <= scale_tol and r["grad"][1] <= ratio_tol, (arch, r["grad"])
+            faults = [n for n, a in TP_TRAIN_FAULTS.items() if a == arch and n in
+                      r["grad_faults"]]
+            assert faults, arch
+            for name in faults:
+                sc, ra, _ = r["grad_faults"][name]
+                assert sc > scale_tol or ra > ratio_tol, ("a planted fault passed", name, sc, ra)
+        if arch == "gemma3-1b":
+            (tp_s, whole), (fault_s, _) = ranks[0]["round"], ranks[0]["round_fault"]
+            assert all(r["round"][0] == tp_s for r in ranks), "the ranks' scalars differ"
+            for got_v, want_v in zip(tp_s, whole):
+                assert abs(got_v - want_v) <= TP_ROUND_RTOL * abs(want_v), (tp_s, whole)
+            assert any(abs(f - w) > TP_ROUND_RTOL * abs(w) for f, w in zip(fault_s, whole)), (
+                "a planted fault passed", fault_s, whole)
+    print(f"tp train: phase {time.perf_counter() - t_phase:.1f}s (the counts and the "
+          f"one-process steps {t_spawn - t_phase:.1f}s while the two processes started, then "
+          f"the two processes {time.perf_counter() - t_spawn:.1f}s)", flush=True)
+    return {arch: got[0][arch]["launches"] for arch in TP_TRAIN_ARCHS}
 
 
 def print_ptxas(source):
@@ -2642,6 +3170,12 @@ def main():
     assert cap == (9, 0), cap
 
     t0 = time.perf_counter()
+
+    def lap(done):
+        """The seconds since the build began, after the phases ``done``."""
+        print(f"time[{done}]: {time.perf_counter() - t0:.1f}s since the build began",
+              flush=True)
+
     kernel_build.build(ops.SOURCE, rms_ops.SOURCE, flash_ops.SOURCE, flash_ops.SM90_SOURCE)
     for mod in (ops, rms_ops, flash_ops):
         mod.build()
@@ -2663,15 +3197,18 @@ def main():
         rec[name]["max_abs_err"] = err
     l2_flush.cache_clear()  # the timing phases are over: free the flush buffer
     torch.cuda.empty_cache()
+    lap("phases 2-3")
     small_parity()
     lm_small_parity()
     resnet = slice_run()
     lm = lm_slice()
+    lap("phases 4-6")
     methods = methods_run()
     torch.backends.cudnn.deterministic = True  # the bitwise phases below
     sync_vs_async()
     hetero, hist = async_run()
     async_resume(hist)
+    lap("phases 7-10")
     stores, hetero_host = stores_run(hist)
     serve = serve_run()
     shutil.rmtree(SCRATCH)
@@ -2682,13 +3219,18 @@ def main():
         paths["lm_" + arch.replace("-", "_").replace(".", "_")] = arch_train_run(arch)
     for arch in ARCH_SERVE_N:
         paths["serve_" + arch.replace("-", "_").replace(".", "_")] = arch_serve_run(arch)
+    lap("phases 11-14")
     paths["train_step_gemma3_1b"] = launch_tooling_run()
     paths.update(scripts_run())
     mesh_paths, worst = mesh_run()
     paths.update(mesh_paths)
     paths.update(mesh_train_run())
+    lap("phases 15-17")
     for arch, launches in tp_serve_run().items():
         paths["tp_serve_" + arch.replace("-", "_").replace(".", "_") + "_rank0"] = launches
+    for arch, launches in tp_train_run().items():
+        paths["tp_train_" + arch.replace("-", "_").replace(".", "_") + "_rank0"] = launches
+    lap("phases 18-19")
     for k in ("reduce3", "update"):
         rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 

@@ -44,7 +44,13 @@ from repro_torch.kernels.pfedsop_update.ref import gompertz_beta
 from repro_torch.launch import collectives
 from repro_torch.optim.reduce import cohort_mean
 from repro_torch.optim.sgd import sgd_loop, tree_sgd_loop
-from repro_torch.utils.pytree import FlatLayout, tree_leaves, tree_map
+from repro_torch.utils.pytree import (
+    FlatLayout,
+    tree_flatten,
+    tree_leaves,
+    tree_map,
+    tree_unflatten,
+)
 
 
 @dataclass(frozen=True)
@@ -291,7 +297,46 @@ def _tree_dot(a, b):
                         for x, y in zip(tree_leaves(a), tree_leaves(b))]).sum()
 
 
-def tree_personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
+def _personalize_tp(params, local_delta, global_delta, cfg, impl, tp, split):
+    """The fused update on one model rank's slices: the three trees
+    flattened with the split leaves' slices first and the replicated
+    leaves after them; K1 over the split prefix on every rank and over the
+    replicated tail on rank 0 only (no element counted twice), its tile
+    partials zero-padded to rank 0's tile count and gathered in rank order,
+    then summed in one fixed order (the same (beta, eta1 coeff) on every
+    rank); K2 over every element the rank holds (the replicated leaves come
+    out bitwise equal on every rank).  No output gather."""
+    leaves = tree_leaves(params)
+    order = ([i for i, s in enumerate(split) if s] + [i for i, s in enumerate(split) if not s])
+    layout = FlatLayout([leaves[i] for i in order])
+
+    def flat(tree):
+        xs = tree_leaves(tree)
+        return layout.flatten([xs[i] for i in order])
+
+    xv, dv, gv = flat(params), flat(local_delta), flat(global_delta)
+    counted = xv.numel() if tp.rank == 0 else sum(leaves[i].numel() for i in order
+                                                   if split[i])
+    with kernel_scope("pfedsop_update", impl):
+        part = torch.zeros((1, ops.n_tiles(xv.numel()), 3), dtype=torch.float32,
+                           device=xv.device)
+        if counted:
+            part[:, :ops.n_tiles(counted)] = ops.reduce3_batched(dv[None, :counted],
+                                                                 gv[:counted])
+        parts = collectives.all_gather(part, tp.group, dim=1)
+        beta, eta_coeff = ops.scalars_from_partials(parts, cfg.eta1, cfg.rho, cfg.lam,
+                                                    cfg.eps)
+        new = ops.update_batched(xv[None], dv[None], gv, beta, eta_coeff)[0]
+    del xv, dv, gv
+    out = [None] * len(leaves)
+    for i, x in zip(order, layout.unflatten(new)):
+        out[i] = x
+    return tree_unflatten(tree_flatten(params)[1], out), {"beta": beta[0],
+                                                          "eta_coeff": eta_coeff[0]}
+
+
+def tree_personalize(params, local_delta, global_delta, cfg: PFedSOPConfig, tp=None,
+                     split=None):
     """Algorithm 1 on one client's tree: returns (x_it, aux).
 
     With ``use_pc`` and "auto"/"kernel", ``repro``'s ``_personalize_fused``:
@@ -302,9 +347,23 @@ def tree_personalize(params, local_delta, global_delta, cfg: PFedSOPConfig):
     row (``pfedsop_update_batched_sharded``, bitwise the whole row's), as
     ``repro`` passes ``shard=current_model_shard()``.  "reference" and the
     no-PC ablation run ``repro``'s per-leaf math, rounding the blend and
-    the step to each leaf's dtype as it does."""
+    the step to each leaf's dtype as it does.
+
+    ``tp`` (a ``models/parallel.py`` ``TensorParallel``) of more than one
+    rank, with ``split`` (a bool per leaf, in leaf order): the trees hold
+    this model rank's slices of the ``split`` leaves and the replicated
+    leaves whole, as the tensor-parallel train step keeps them; the fused
+    update runs on them (``_personalize_tp``): the whole tree's update
+    within f32 reduction order."""
     leaf = tree_leaves(params)[0]
     impl = check_impl(cfg.update_impl, "pfedsop_update", leaf)
+    if tp is not None and tp.size > 1:
+        if not cfg.use_pc or impl == "reference" or split is None:
+            raise NotImplementedError(
+                "tree_personalize on a model rank's slices runs the fused update with the "
+                "personalization component (use_pc, update_impl 'auto' or 'kernel') and "
+                "needs ``split``")
+        return _personalize_tp(params, local_delta, global_delta, cfg, impl, tp, split)
     if cfg.use_pc and impl != "reference":
         layout = FlatLayout(params)
         xv, dv, gv = (layout.flatten(params), layout.flatten(local_delta),

@@ -36,9 +36,13 @@ engine gathers them; its per-step batch is its data rank's chunk (2 of
 the micro batch's 32 sequences), whose gradient it gathers with the 15
 others' (``optim/sgd.py``'s data split); the round start runs K1/K2 on
 its tile range; multi-pod, Eq. 13 gathers the two pods' partial sums.
-The global delta is whole on every rank.  The train step has no tensor-
-or sequence-parallel forward (ROADMAP.md queue 1, items 16a-iii and 16b),
-so every rank of a model group computes the same chunk.  A prefill or
+The global delta is whole on every rank.  The train records stay on
+this engine lowering, as ``repro``'s dry run lowers its train step
+through ``MeshBackend``: every rank of a model group computes the same
+chunk.  (The tensor-parallel train step, ``make_train_step(tp=)``, is
+``launch/train.py``'s replicated step on a model axis; ``chip_smoke.py``
+phase 19 counts it with ``count`` in a 2-rank ``fake_world``.  The
+sequence-parallel ``seqshard`` is ROADMAP.md queue 1, item 16b.)  A prefill or
 decode step on a mesh, of every arch, is rank 0's tensor-parallel program
 (``launch/steps.py``'s ``tp``, ``models/parallel.py``): its model slice
 of every leaf ``launch/sharding.py``'s rules split (attention, MLP,
@@ -77,7 +81,12 @@ rounding (512 bytes a block), the cuBLAS workspace and the scratch of ATen
 kernels that the dispatcher does not see.  The largest such scratch on the
 train path is ``logsumexp``'s, which ATen's kernel computes as
 ``sum(exp(x - max))`` into a temporary of its input's size (the f32 logits
-of the cross-entropy); ``SCRATCH`` adds it.
+of the cross-entropy); ``SCRATCH`` adds it.  The reverse: ``gather``'s
+backward scatters the gradient into fresh zeros in place, but under any
+dispatch mode (this tracker's included) autograd takes its out-of-place
+branch, whose result is a second buffer of the zeros' size that the card
+never holds (the f32 logits of the cross-entropy again); the tracker
+leaves that twin out of the peak.
 """
 from __future__ import annotations
 
@@ -152,6 +161,7 @@ class MemoryCounter(TorchDispatchMode):
         self.held = self.live = self.peak = sum(self._live.values())
         self.traffic = 0
         self.ops = 0
+        self._zeros = None  # the storage the last op filled with zeros, if new_zeros
 
     def _free(self, key, n):
         if self._live.pop(key, None) is not None:
@@ -178,7 +188,11 @@ class MemoryCounter(TorchDispatchMode):
         for t in outs:
             self._track(t)
         scratch = SCRATCH[func](*args, **kwargs) if func in SCRATCH else 0
-        self.peak = max(self.peak, self.live + scratch)
+        twin = 0  # gather's backward out of place (the module docstring)
+        if func is aten.scatter_add.default and args[0].untyped_storage()._cdata == self._zeros:
+            twin = outs[0].untyped_storage().nbytes()
+        self._zeros = outs[0].untyped_storage()._cdata if func is aten.new_zeros.default else None
+        self.peak = max(self.peak, self.live + scratch - twin)
         self.ops += 1
         if func not in _NO_TRAFFIC and not _is_view(func):
             self.traffic += sum(t.numel() * t.element_size()

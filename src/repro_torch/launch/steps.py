@@ -15,6 +15,10 @@ The pFedSOP train step (the paper's Algorithm 3 over a leading client axis):
   server:
     4. global delta = the canonical cohort mean over the client axis (Eq. 13)
 
+  With ``tp`` it is one rank's Megatron program on its model slices
+  (``make_train_step``): ``launch/train.py``'s replicated step on a model
+  axis.
+
 Serving:
   make_prefill_step  full forward, last-position logits
   make_serve_step    one new token against the KV caches; greedy sampling
@@ -48,6 +52,7 @@ single pod (``make_train_step``'s ``engine``).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Dict, Optional
 
@@ -57,14 +62,16 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from repro_torch.configs.base import InputShape, ModelConfig
 from repro_torch.core import pfedsop as pf
 from repro_torch.fl.engine import VmapBackend
+from repro_torch.kernels.dispatch import data_shard_axis
 from repro_torch.launch import collectives
 from repro_torch.launch.mesh import resolve_mesh
+from repro_torch.launch.sharding import rank_plan
 from repro_torch.models import parallel
 from repro_torch.models import transformer as tf
 from repro_torch.models.transformer import apply_long_context
 from repro_torch.optim.reduce import cohort_mean
 from repro_torch.optim.sgd import tree_sgd_loop
-from repro_torch.utils.pytree import tree_map
+from repro_torch.utils.pytree import tree_leaves, tree_map
 
 MICRO_BATCH = 32  # per-SGD-iteration batch for train_4k (T = 256/32 = 8)
 META = torch.device("meta")
@@ -260,9 +267,34 @@ def input_specs(cfg: ModelConfig, shape: InputShape, n_clients: int = 1,
 # ---------------------------------------------------------------------------
 
 
+def _model_only(tp: parallel.TensorParallel) -> parallel.TensorParallel:
+    """``tp`` without its data group: a train step's data ranks each take
+    a gradient chunk of their own (``optim/sgd.py``'s data split), so the
+    model never routes over the data ranks' rows."""
+    return dataclasses.replace(tp, data_group=None, data_size=1, data_rank=0)
+
+
+def split_leaves(cfg: ModelConfig, tp: parallel.TensorParallel) -> list:
+    """Per leaf of ``cfg``'s params (leaf order): whether this model rank
+    holds a slice of it (``launch/sharding.py``'s rules)."""
+    plan = rank_plan(abstract_params(cfg), "params", 1, tp.size, 0, tp.rank)
+    return [bool(p.cuts) for p in tree_leaves(plan)]
+
+
+def _data_rows(batches, tp: parallel.TensorParallel):
+    """This data rank's contiguous chunk of every per-step batch (C, T, b,
+    ...), or None where the data size does not divide ``b``."""
+    b = tree_leaves(batches)[0].shape[2]
+    if tp.data_size == 1 or b % tp.data_size:
+        return None
+    n = b // tp.data_size
+    return tree_map(lambda x: x.narrow(2, tp.data_rank * n, n), batches)
+
+
 def make_train_step(cfg: ModelConfig, shape: InputShape,
                     pcfg: Optional[pf.PFedSOPConfig] = None,
-                    use_pfedsop: bool = True, engine=None):
+                    use_pfedsop: bool = True, engine=None,
+                    tp: Optional[parallel.TensorParallel] = None):
     """Returns train_step(state, global_delta, batches) -> (state', gd', loss).
 
     ``state`` ({"params", "delta"}) and ``batches`` carry a leading client
@@ -289,21 +321,48 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
     the leaf-dtype difference by 1/eta2.  Each is held to its own
     reference (``tests/test_torch_dryrun.py``, ``tests/test_torch_lm.py``);
     the dry run and phases 15 and 17 of ``chip_smoke.py`` cover this one,
-    and the driver's peak at C > 1 is not predicted by them."""
+    and the driver's peak at C > 1 is not predicted by them.
+
+    ``tp`` (a ``models/parallel.py`` ``TensorParallel``; no ``engine``):
+    one rank's Megatron program of ``repro``'s jit-partitioned replicated
+    step (``repro/launch/train.py``: the client state and the global delta
+    sharded over ``model``).  ``state`` and ``global_delta`` hold this
+    model rank's slices of the leaves the rules split
+    (``launch/sharding.py::rank_plan``, ``weights.cut``) and the other
+    leaves whole; the round start runs on them
+    (``core/pfedsop.py::tree_personalize``'s ``tp``), the local steps
+    through the tensor-parallel forward and backward
+    (``models/transformer.py``'s ``tp``) and Eq. 13 on the slices, so the
+    outputs are this rank's slices (the loss, and every replicated leaf,
+    bitwise equal on every rank).  Where the data size divides the micro
+    batch, each data rank takes its contiguous rows of every batch and
+    the gradient chunks gather over the data group (``optim/sgd.py``'s
+    data split): bitwise the step at data 1 and ``grad_chunks`` equal to
+    the data size.  Text archs only, as ``repro``'s ``launch/train.py`` trains."""
     if engine is not None and not callable(getattr(engine, "client_phase_sharded", None)):
         raise TypeError(f"make_train_step(engine=...): {type(engine).__name__} is not a "
                         "federation engine (repro_torch.fl.engine)")
+    if tp is not None and engine is not None:
+        raise ValueError("make_train_step: a tensor-parallel step runs engine-less (tp= or "
+                         "engine=, not both)")
     cfg = resolve_cfg(cfg, shape)
+    if tp is not None and cfg.frontend != "none":
+        raise NotImplementedError(
+            f"a tensor-parallel train step of {cfg.name}: repro's launch/train.py trains text "
+            "archs only (repro/launch/train.py:77-78), so the frontends have no train step to port")
     pcfg = pcfg or pf.PFedSOPConfig()
     engine = engine if engine is not None else VmapBackend()
+    mtp = _model_only(tp) if tp is not None else None
+    split = split_leaves(cfg, tp) if tp is not None else None
 
     def loss_fn(p, batch):
-        return tf.lm_loss(p, cfg, batch)
+        return tf.lm_loss(p, cfg, batch, mtp)
 
     def client_step(state, global_delta, batches):
         params = state["params"]
         if use_pfedsop:
-            params, _ = pf.tree_personalize(params, state["delta"], global_delta, pcfg)
+            params, _ = pf.tree_personalize(params, state["delta"], global_delta, pcfg,
+                                            tp=mtp, split=split)
         final, loss = tree_sgd_loop(loss_fn, params, batches, pcfg.eta2)
         # repro's step divides the f32 difference by eta2, where
         # tree_local_sgd_delta (repro's local_sgd_delta, the federated LM
@@ -320,8 +379,13 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
         return new_global, cohort_mean(losses)
 
     def train_step(state, global_delta, batches, shardings=None):
-        new_state, _, metrics = engine.client_phase_sharded(
-            client_step, state, global_delta, batches, shardings=shardings, loop=True)
+        with contextlib.ExitStack() as ctx:
+            rows = _data_rows(batches, tp) if tp is not None else None
+            if rows is not None:  # the data split of the gradient chunks
+                batches = rows
+                ctx.enter_context(data_shard_axis(tp.data_group, tp.data_size))
+            new_state, _, metrics = engine.client_phase_sharded(
+                client_step, state, global_delta, batches, shardings=shardings, loop=True)
         if engine.client_sharded:
             new_global, loss = engine.aggregate_phase(server, global_delta,
                                                       new_state["delta"], metrics["loss"])

@@ -18,11 +18,29 @@ is the port's ``--profile-round`` (a ``torch.profiler`` capture of one round
 under ``<trace-dir>/torch_profile``); ``--kernel-impl kernel_interpret`` is
 refused (a CUDA kernel has no interpreter).
 
-``--output-sharding``: "replicated" runs the engine-less step on every rank;
-"sharded" runs it through ``MeshBackend(1, spec, strict=False,
-data_chunks=<data size>)``, the federation's mesh engine, whose data split
-engages when the micro batch divides over the data axis (else the step
-takes its one gradient in the body).  The two give the same numbers.
+``--mesh`` (a port flag, ``launch/mesh.py``'s grammar, e.g. ``pods:1x1x2``)
+lays ``torchrun``'s world out as that mesh, as ``launch/serve.py --mesh``
+does; ``--production-mesh`` is ``pod:16x16``.
+
+``--output-sharding``: "replicated" runs the engine-less step.  On a mesh
+whose model axis holds more than one rank it is ``repro``'s
+jit-partitioned step (the client state and the global delta sharded over
+``model``) as one rank's Megatron program: the state and the global
+delta at rest as this rank's slices (``launch/sharding.py::rank_plan``,
+``weights.cut``), ``make_train_step(tp=)`` (the tensor-parallel forward
+and backward, the round start on the slices; the data split of the
+gradient chunks where the data size divides the micro batch); else it
+runs the whole step on every rank.  "sharded" runs it through
+``MeshBackend(1, spec, strict=False, data_chunks=<data size>)``, the
+federation's mesh engine, whose data split engages when the micro batch
+divides over the data axis (else the step takes its one gradient in the
+body).  The layouts give the same numbers within f32 reduction order
+(the engine and the whole step bit for bit).  Checkpoints hold whole
+leaves, as ``repro``'s ``save_checkpoint`` of a sharded array does: every
+rank joins the gather of the slices and rank 0 writes.
+
+  PYTHONPATH=src torchrun --nproc-per-node 2 -m repro_torch.launch.train --device cpu \
+      --mesh pods:1x1x2 --checkpoint-dir ck
 
 ``--reduced`` is ``repro``'s ``store_true`` with ``default=True``: the
 flag cannot be turned off, so the CLI always runs the reduced config
@@ -34,6 +52,7 @@ from __future__ import annotations
 
 import argparse
 import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -45,31 +64,33 @@ from repro_torch.fl.engine import MeshBackend
 from repro_torch.kernels.dispatch import check_impl_name
 from repro_torch.launch import collectives
 from repro_torch.launch import steps as st
-from repro_torch.launch.mesh import MeshSpec, make_host_mesh, resolve_mesh
+from repro_torch.launch.mesh import MeshSpec, parse_mesh, resolve_mesh
+from repro_torch.launch.sharding import rank_plan
 from repro_torch.models import transformer as tf
 from repro_torch.obs import NOOP, Obs, ObsConfig, make_obs
 from repro_torch.utils.checkpoint import save_checkpoint
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_map
+from repro_torch.weights import cut, join
 
 
 def run(cfg, *, rounds: int = 3, local_iters: int = 2, micro_batch: int = 2,
         seq_len: int = 64, seed: int = 0, output_sharding: str = "replicated",
         production_mesh: bool = False, checkpoint_dir=None, obs: Obs = NOOP,
-        device="cuda"):
+        device="cuda", mesh: Optional[MeshSpec] = None):
     """``repro``'s round loop on ``cfg`` inside the initialized process
     group: ``rounds`` train steps of one client (``local_iters`` micro
     batches of ``micro_batch`` x ``seq_len`` tokens a step) from
     ``tf.init_params`` seeded by ``seed`` (an explicit ``torch.Generator``),
-    zero local and global deltas.  Returns ({"loss", "round_time"} per
-    round, (the final client state, the global delta))."""
+    zero local and global deltas, on ``mesh`` (``pod:16x16`` with
+    ``production_mesh``; the one-rank host mesh when neither).  Returns
+    ({"loss", "round_time"} per round, (the final client state, the global
+    delta)), whole on every rank."""
     device = resolve_device(device)
-    if production_mesh:
-        spec = MeshSpec.single_pod(16, 16)
-        resolve_mesh(spec)  # refuses a world other than 256, with the grammar
-    else:
-        spec = MeshSpec.host()
-        make_host_mesh()
+    if production_mesh and mesh is not None:
+        raise ValueError("run: production_mesh or mesh, not both")
+    spec = MeshSpec.single_pod(16, 16) if production_mesh else (mesh or MeshSpec.host())
+    dmesh = resolve_mesh(spec)  # refuses a world of another size, with the grammar
     layout = dict(zip(spec.axes, spec.shape))
     obs.open(fingerprint={
         "driver": "launch", "arch": cfg.name, "mesh": layout, "seed": seed,
@@ -80,13 +101,15 @@ def run(cfg, *, rounds: int = 3, local_iters: int = 2, micro_batch: int = 2,
                  arch=cfg.name)
 
     shape = InputShape("custom", seq_len, micro_batch * local_iters, "train")
-    engine = None
+    engine = tp = None
     if output_sharding == "sharded":
         engine = MeshBackend(1, spec, strict=False, data_chunks=spec.data_size)
     elif output_sharding != "replicated":
         raise ValueError(f"output_sharding must be 'replicated' or 'sharded', got "
                          f"{output_sharding!r}")
-    step = st.make_train_step(cfg, shape, engine=engine)
+    elif spec.model_size > 1:
+        tp = st.tensor_parallel(spec, dmesh)
+    step = st.make_train_step(cfg, shape, engine=engine, tp=tp)
 
     params = tf.init_params(torch.Generator(device=device).manual_seed(seed), cfg,
                             device=device)
@@ -94,6 +117,9 @@ def run(cfg, *, rounds: int = 3, local_iters: int = 2, micro_batch: int = 2,
     state = tree_map(lambda x: x.unsqueeze(0), {"params": params, "delta": zeros})
     global_delta = zeros
     del params, zeros
+    if tp is not None:  # at rest as this rank's slices
+        plans = _plans(state, global_delta, tp)
+        state, global_delta = cut(state, plans[0]), cut(global_delta, plans[1])
 
     stream = synthetic_lm_stream(50_000, cfg.vocab_size, seed=seed)
     it = lm_batch_iterator(stream, micro_batch, seq_len, seed=seed)
@@ -119,10 +145,29 @@ def run(cfg, *, rounds: int = 3, local_iters: int = 2, micro_batch: int = 2,
             obs.metrics.gauge("train.round_time").set(dt)
             obs.flush_metrics(step=r)
         obs.flush()
-        if checkpoint_dir and collectives.world_rank() == 0:
-            save_checkpoint(checkpoint_dir, r, state)
+        if checkpoint_dir:
+            # whole leaves: every rank joins the gather, rank 0 writes
+            full = state if tp is None else _whole(state, plans[0], tp)
+            if collectives.world_rank() == 0:
+                save_checkpoint(checkpoint_dir, r, full)
+            del full
     obs.close()
+    if tp is not None:
+        state, global_delta = _whole(state, plans[0], tp), _whole(global_delta, plans[1], tp)
     return hist, (state, global_delta)
+
+
+def _plans(state, global_delta, tp):
+    """This model rank's plans of the client-stacked state and of the
+    global delta (``launch/sharding.py``'s param rules)."""
+    return ({k: rank_plan(v, "params", 1, tp.size, 0, tp.rank, client=True)
+             for k, v in state.items()},
+            rank_plan(global_delta, "params", 1, tp.size, 0, tp.rank))
+
+
+def _whole(tree, plan, tp):
+    """``tree``'s whole leaves from every model rank's slices."""
+    return join(tree, plan, lambda x, dim: collectives.all_gather(x, tp.group, dim=dim))
 
 
 def parse_args(argv=None):
@@ -136,6 +181,10 @@ def parse_args(argv=None):
                     help="the reduced config (always on, as in repro)")
     ap.add_argument("--production-mesh", action="store_true",
                     help="use the 16x16 mesh (requires 256 ranks)")
+    ap.add_argument("--mesh", default=None,
+                    help="lay torchrun's world out as this mesh (launch/mesh.py's grammar, "
+                         "e.g. pods:1x1x2); a model axis above 1 trains tensor-parallel "
+                         "under --output-sharding replicated")
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--output-sharding", choices=["replicated", "sharded"],
@@ -163,6 +212,13 @@ def parse_args(argv=None):
     args = ap.parse_args(argv)
     if args.profile_round >= 0 and not args.trace_dir:
         ap.error("--xla-profile requires --trace-dir")
+    if args.mesh is not None:
+        if args.production_mesh:
+            ap.error("--mesh and --production-mesh name two meshes: pass one")
+        try:
+            args.mesh = parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
     try:
         check_impl_name(args.kernel_impl, "--kernel-impl")
     except ValueError as e:
@@ -196,7 +252,8 @@ def main(argv=None):
                       micro_batch=args.micro_batch, seq_len=args.seq_len, seed=args.seed,
                       output_sharding=args.output_sharding,
                       production_mesh=args.production_mesh,
-                      checkpoint_dir=args.checkpoint_dir, obs=obs, device=device)
+                      checkpoint_dir=args.checkpoint_dir, obs=obs, device=device,
+                      mesh=args.mesh)
     finally:
         if own_group:
             torch.distributed.destroy_process_group()

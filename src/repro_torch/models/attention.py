@@ -15,8 +15,8 @@ stays on ``jnp``: one query token against a ring buffer is bound by the
 bytes of the cache, not a tiled matmul.  Its caches are written in place
 (slot ``pos % capacity``), where ``repro`` returns updated arrays.
 
-Tensor-parallel serving (``tp``, a ``models/parallel.py``
-``TensorParallel``): each rank holds its model slice of ``wq``/``wk``/
+Tensor parallelism (``tp``, a ``models/parallel.py``
+``TensorParallel``), serving and training: each rank holds its model slice of ``wq``/``wk``/
 ``wv``/``wo`` by ``launch/sharding.py``'s rules (heads where they divide,
 else ``head_dim``) and its slice of every KV cache's slots (batch rows
 over ``data``, slots over ``model``; ``pos`` whole).  The split of each
@@ -44,6 +44,16 @@ projection is read from the local weight's shape:
 - ``wo`` is row-parallel on the dim its rule splits: the attention
   output is cut to match, and the partial products are summed over the
   model group.
+
+Under autograd (the tensor-parallel train step) the gradient of a whole
+tensor read by split computation is a per-rank partial, summed by
+``parallel.enter`` at the point of the split: the block input of the
+projections that hold a slice (``_block_input``, one all-reduce of the
+gradient a block), whole K/V (gathered over ``head_dim``, after the
+replicated QK-norm and RoPE) where this rank's query heads read their
+share (``_whole_kv``), a whole attention output cut for ``wo``, and the
+QK-norm scales where they act on this rank's heads; a gather's backward
+is this rank's slice of the gradient.
 
 Where the port's collectives differ from what GSPMD would insert into
 ``repro``'s partitioned step (its HLO cannot be read here): the port
@@ -81,6 +91,12 @@ def attn_init(gen, cfg, dtype):
     return p
 
 
+def _split_w(w, heads, cfg, tp):
+    """Whether a projection (D, heads, hd) holds a slice (heads or hd)."""
+    return tp is not None and (parallel.split(tp, w.shape[1], heads)
+                               or parallel.split(tp, w.shape[2], cfg.head_dim))
+
+
 def _project(x, w, cfg, tp):
     """x @ w (D, heads, hd), whole ``head_dim`` (gathered where split)."""
     y = torch.einsum("bsd,dhk->bshk", x, w)
@@ -89,13 +105,36 @@ def _project(x, w, cfg, tp):
     return y
 
 
+def _qk_norm(p, cfg, x, heads, tp):
+    """QK-norm; its replicated scale read on this rank's heads passes
+    through ``parallel.enter`` (its gradient summed over the ranks)."""
+    scale = p["scale"]
+    if tp is not None and parallel.split(tp, x.shape[2], heads):
+        scale = parallel.enter(scale, tp)
+    return rmsnorm({"scale": scale}, x, cfg.norm_eps, impl=cfg.kernel_impl)
+
+
+def _block_input(x, tp):
+    """The block input as the column-parallel projections read it: its
+    gradient summed over the model group (``parallel.enter``)."""
+    return parallel.enter(x, tp)
+
+
+def _whole_kv(k, v, tp):
+    """Whole K/V as this rank's query heads read them (``parallel.enter``)."""
+    return parallel.enter(k, tp), parallel.enter(v, tp)
+
+
 def _project_qkv(p, cfg, x, positions, rope_base, tp=None):
-    q = _project(x, p["wq"], cfg, tp)
-    k = _project(x, p["wk"], cfg, tp)
-    v = _project(x, p["wv"], cfg, tp)
+    """q, k, v after QK-norm and RoPE.  A projection holding a slice reads
+    the block input through one ``parallel.enter``."""
+    heads = {"wq": cfg.n_heads, "wk": cfg.n_kv_heads, "wv": cfg.n_kv_heads}
+    split = {n: _split_w(p[n], h, cfg, tp) for n, h in heads.items()}
+    xe = _block_input(x, tp) if any(split.values()) else x
+    q, k, v = (_project(xe if split[n] else x, p[n], cfg, tp) for n in heads)
     if cfg.use_qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps, impl=cfg.kernel_impl)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps, impl=cfg.kernel_impl)
+        q = _qk_norm(p["q_norm"], cfg, q, cfg.n_heads, tp)
+        k = _qk_norm(p["k_norm"], cfg, k, cfg.n_kv_heads, tp)
     return rope(q, positions, rope_base), rope(k, positions, rope_base), v
 
 
@@ -141,6 +180,7 @@ def _kv_for_queries(cfg, q, k, v, tp):
     if (qs.stop - qs.start) % (hi - lo):
         raise NotImplementedError(f"{qs.stop - qs.start} query heads a rank do not group "
                                   f"evenly over {hi - lo} KV heads")
+    k, v = _whole_kv(k, v, tp)
     return k[:, :, lo:hi], v[:, :, lo:hi]
 
 
@@ -152,9 +192,9 @@ def _out_proj(p, cfg, o, tp):
         return torch.einsum("bshk,hkd->bsd", o, wo)
     if parallel.split(tp, wo.shape[0], cfg.n_heads):
         if o.shape[2] == cfg.n_heads:
-            o = o[:, :, tp.slice_of(cfg.n_heads)]
+            o = parallel.enter(o, tp)[:, :, tp.slice_of(cfg.n_heads)]
     elif parallel.split(tp, wo.shape[1], cfg.head_dim):
-        o = _heads(o, cfg.n_heads, tp)[..., tp.slice_of(cfg.head_dim)]
+        o = parallel.enter(_heads(o, cfg.n_heads, tp), tp)[..., tp.slice_of(cfg.head_dim)]
     else:
         return torch.einsum("bshk,hkd->bsd", _heads(o, cfg.n_heads, tp), wo)
     return parallel.row("bshk,hkd->bsd", o, wo, tp)

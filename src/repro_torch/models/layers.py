@@ -88,13 +88,17 @@ def mlp_init(gen, d_model, d_ff, n_layers, dtype):
 def mlp(p, x, activation="silu", tp=None, d_ff=None):
     """Gated MLP.  With ``tp`` (``models/parallel.py``) and ``wi_*`` / ``wo``
     holding this rank's slice of the ``d_ff`` columns / rows: the
-    column-parallel ``wi_*`` need no collective, and ``wo`` is
-    row-parallel (its partial products summed over the model group)."""
+    column-parallel ``wi_*`` read ``x`` through ``parallel.enter`` (its
+    gradient summed over the model group), and ``wo`` is row-parallel (its
+    partial products summed over the model group)."""
+    split = tp is not None and parallel.split(tp, p["wo"].shape[0], d_ff)
+    if split:
+        x = parallel.enter(x, tp)
     # jax.nn.gelu defaults to the tanh approximation
     g = F.silu(x @ p["wi_gate"]) if activation == "silu" else \
         F.gelu(x @ p["wi_gate"], approximate="tanh")
     h = g * (x @ p["wi_up"])
-    if tp is not None and parallel.split(tp, p["wo"].shape[0], d_ff):
+    if split:
         return parallel.row("...f,fd->...d", h, p["wo"], tp)
     return h @ p["wo"]
 

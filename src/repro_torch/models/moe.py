@@ -38,7 +38,10 @@ group, ``dispatch`` routes over the whole batch, as the whole model: the
 capacity from every row's tokens, and each slot's position in its
 expert's buffer offset by the slots the earlier data ranks' rows route
 to that expert (``parallel.rows_before``).  The aux loss is this data
-rank's rows' (serving discards it).
+rank's rows' (serving discards it).  Training, the tokens and the gates
+a rank's experts read enter through ``parallel.enter`` (their gradients
+summed over the model group; the router's own gradient, from the aux
+loss and the gates, is then the whole model's on every rank).
 """
 from __future__ import annotations
 
@@ -100,6 +103,12 @@ def _experts(p, cfg, tp):
     return tp.rank * n, n
 
 
+def _gates(w, tp):
+    """The router's whole gates as this rank's experts read them: their
+    gradient summed over the model group (``parallel.enter``)."""
+    return parallel.enter(w, tp)
+
+
 def _combine(out, x, tp, mine):
     """The f32 partial sum ``out`` summed over the model group where the
     experts are split, then cast to ``x``'s dtype."""
@@ -125,8 +134,9 @@ def moe_dense(p, cfg, x, tp=None):
     xf = x.reshape(b * s, d)
     weights, _, _, aux = _router(p, cfg, xf)
     mine = _experts(p, cfg, tp)
-    if mine is not None:
-        weights = weights[:, mine[0]:mine[0] + mine[1]]
+    if mine is not None:  # the whole tokens and gates, read by this rank's experts
+        weights = _gates(weights, tp)[:, mine[0]:mine[0] + mine[1]]
+        xf = parallel.enter(xf, tp)
     g = F.silu(torch.einsum("nd,edf->enf", xf, p["wi_gate"]))
     u = torch.einsum("nd,edf->enf", xf, p["wi_up"])
     y = torch.einsum("enf,efd->end", g * u, p["wo"])  # (E, N, D)
@@ -161,6 +171,8 @@ def moe_dispatch(p, cfg, x, tp=None):
     mine = _experts(p, cfg, tp)
     expert_of, keep = _own_slots(expert_of, pos < cap, mine)
     pos_c = torch.where(keep, pos, cap - 1)  # clamped; dropped slots add zeros
+    if mine is not None:
+        xf, top_w = parallel.enter(xf, tp), _gates(top_w, tp)
 
     token_of = torch.arange(n * k, device=x.device) // k
     contrib = xf[token_of] * keep[:, None].to(xf.dtype)  # (T, D)
@@ -204,6 +216,8 @@ def moe_dispatch_grouped(p, cfg, x, tp=None):
     mine = _experts(p, cfg, tp)
     expert_of, keep = _own_slots(expert_of, pos < cap, mine)
     pos_c = torch.where(keep, pos, cap - 1)
+    if mine is not None:
+        x, top_w = parallel.enter(x, tp), _gates(top_w, tp)
 
     token_of = torch.arange(n_g * k, device=x.device) // k  # token index in its group
     contrib = x[:, token_of, :] * keep[..., None].to(x.dtype)  # (G, T_g, D)

@@ -1,32 +1,63 @@
-"""Tensor-parallel (Megatron) serving ops: what one rank of the model axis
-computes when it holds its model slice of every Megatron-eligible leaf
-(``launch/sharding.py``'s rules) and its data rank's rows of the batch and
-the KV caches.
+"""Tensor-parallel (Megatron) ops: what one rank of the model axis computes
+when it holds its model slice of every Megatron-eligible leaf
+(``launch/sharding.py``'s rules) and, serving, its data rank's rows of the
+batch and the KV caches.
 
 ``repro`` gets this layout from GSPMD: its prefill and decode steps are
 ``jax.jit``'d with params and caches sharded over ``model`` and batches
-over ``data`` (``repro/launch/dryrun.py``), and the partitioner inserts
-the collectives.  The port writes the per-rank program out.  A
+over ``data`` (``repro/launch/dryrun.py``), and its train step
+(``repro/launch/train.py``) with the client state and the global delta
+sharded over ``model``; the partitioner inserts the collectives, forward
+and backward.  The port writes the per-rank program out.  A
 ``TensorParallel`` carries the groups; every op takes it as an argument
 (never a global), and is called only where a dim is split.
 
+Every op is differentiable: each collective is a ``torch.autograd.
+Function`` that runs out of place, with its conjugate as its backward
+(Megatron's "f" and "g"):
+
+  ``enter``          identity forward; SUM all-reduce of the gradient.  A
+                     tensor whole on every rank that feeds computation
+                     split over the model ranks gets a per-rank partial
+                     gradient there, so it passes through ``enter`` at
+                     that point, after every replicated computation
+                     (whose replicated leaves then take the whole
+                     gradient): a column-parallel projection's input, the
+                     slice a rank takes of a whole tensor (its heads, its
+                     conv channels, its experts' gates), a replicated
+                     leaf read on split data (QK-norm scales on a rank's
+                     heads, the SSM's per-head leaves);
   ``row``            a row-parallel projection: this rank's partial
                      product over its slice of the contracted dim, in the
                      activation dtype (f32 accumulation inside the
                      matmul), then a SUM all-reduce over the model group
                      in that dtype, as XLA reduces GSPMD's partials;
+                     identity backward (the whole gradient is on every
+                     rank);
+  ``reduce``         that SUM all-reduce alone (identity backward);
   ``gather``         a column-parallel output made whole along ``dim``
-                     (all-gather in rank order);
+                     (all-gather in rank order); backward: this rank's
+                     slice of the gradient (after an ``enter``, a
+                     reduce-scatter);
   ``sum_f32``        a SUM all-reduce of f32 partials (the MoE combines,
                      whose sums over the experts the whole model takes
                      in f32 before the cast);
   ``rms_noscale``    the scale-free RMSNorm of a vector split over the
                      model group (the SSM's gated norm over ``d_inner``
                      with the heads split): the rank's f32 sum of squares
-                     all-reduced, then divided by the whole length;
+                     all-reduced, then divided by the whole length; the
+                     statistic feeds each rank's own heads, so its
+                     backward is an all-reduce too (``reduce``, then
+                     ``enter``);
   ``vocab_embed``    the embedding lookup on a vocab slice: ids outside it
                      give zero rows, then a SUM all-reduce (exact: one
                      nonzero term a position);
+  ``cross_entropy``  the mean next-token CE from this rank's vocab slice
+                     of the logits, the (B, S, V) logits never gathered:
+                     the global max over the slices' maxima (gathered in
+                     rank order), a SUM all-reduce of the slice's f32
+                     ``sum(exp(l - M))`` and the gold logit from its
+                     owner (masked, then summed);
   ``vocab_argmax``   greedy tokens from vocab-sliced logits: each rank's
                      max and its first index, all-gathered in rank order,
                      and the first rank holding the largest max wins, so
@@ -44,10 +75,11 @@ the collectives.  The port writes the per-rank program out.  A
                      all-gathered in rank order and combined in that
                      order (the flash-decoding combine).
 
-A column-parallel projection needs no op: it is the local matmul on the
-local slice of the weight.  Results are bitwise from run to run: gathers
+Results are bitwise from run to run, and every rank's copy of a whole
+tensor (a replicated leaf's gradient included) bitwise the others': gathers
 keep rank order, every combine runs in a fixed order, and the SUM
-all-reduce is the backend's fixed algorithm.
+all-reduce is the backend's fixed algorithm, whose result every rank
+receives.
 """
 from __future__ import annotations
 
@@ -61,7 +93,7 @@ from repro_torch.launch import collectives
 
 @dataclass(frozen=True)
 class TensorParallel:
-    """One rank's place in a tensor-parallel serving layout: the model
+    """One rank's place in a tensor-parallel layout: the model
     group (``size`` ranks, this one ``rank``) and the data group (its
     ``data_size`` ranks each hold ``1 / data_size`` of the batch rows, in
     data-rank order; ``launch/steps.py`` drops the data group where the
@@ -91,23 +123,78 @@ def split(tp: Optional[TensorParallel], local: int, whole: int) -> bool:
     return True
 
 
+class _Reduce(torch.autograd.Function):
+    """SUM all-reduce forward (out of place), identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return collectives.all_reduce(x.clone(), group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Enter(torch.autograd.Function):
+    """Identity forward, SUM all-reduce of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return collectives.all_reduce(g.clone(), ctx.group), None
+
+
+class _Gather(torch.autograd.Function):
+    """All-gather along ``dim`` in rank order forward, this rank's slice of
+    the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.dim, ctx.n = dim, x.shape[dim]
+        ctx.lo = collectives.rank(group) * x.shape[dim]
+        return collectives.all_gather(x, group, dim=dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.lo, ctx.n), None, None
+
+
+def _active(tp: Optional[TensorParallel]) -> bool:
+    return tp is not None and tp.size > 1
+
+
+def enter(x: torch.Tensor, tp: Optional[TensorParallel]) -> torch.Tensor:
+    """``x``, whole on every rank, where split computation reads it: the
+    identity, whose backward sums the ranks' partial gradients."""
+    return _Enter.apply(x, tp.group) if _active(tp) else x
+
+
+def reduce(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Every model rank's partial ``x`` summed, in ``x``'s dtype."""
+    return _Reduce.apply(x, tp.group)
+
+
 def gather(x: torch.Tensor, tp: TensorParallel, dim: int) -> torch.Tensor:
     """Every model rank's slice of ``x`` concatenated along ``dim``."""
-    return collectives.all_gather(x, tp.group, dim=dim % x.dim())
+    return _Gather.apply(x, tp.group, dim % x.dim())
 
 
 def row(eq: str, x: torch.Tensor, w: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """``einsum(eq, x, w)`` whose contracted dim is split over the model
     group: this rank's partial product, summed over the group, both in
     ``x``'s dtype."""
-    return collectives.all_reduce(torch.einsum(eq, x, w), tp.group)
+    return reduce(torch.einsum(eq, x, w), tp)
 
 
 def sum_f32(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """Every model rank's f32 partial ``x`` summed, in f32."""
     if x.dtype != torch.float32:
         raise TypeError(f"sum_f32 reduces f32 partials, got {x.dtype}")
-    return collectives.all_reduce(x, tp.group)
+    return reduce(x, tp)
 
 
 def rms_noscale(x: torch.Tensor, tp: TensorParallel, whole: int,
@@ -116,7 +203,7 @@ def rms_noscale(x: torch.Tensor, tp: TensorParallel, whole: int,
     ``x`` holds this rank's share: the mean square is the f32 sum of
     squares over every rank, divided by ``whole``."""
     x32 = x.float()
-    ss = collectives.all_reduce((x32 * x32).sum(dim=-1, keepdim=True), tp.group)
+    ss = enter(reduce((x32 * x32).sum(dim=-1, keepdim=True), tp), tp)
     return (x32 * torch.rsqrt(ss / whole + eps)).to(x.dtype)
 
 
@@ -136,7 +223,25 @@ def vocab_embed(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel,
     local = tokens.long() - lo
     inside = (local >= 0) & (local < emb.shape[0])
     rows = torch.nn.functional.embedding(local.clamp(0, emb.shape[0] - 1), emb)
-    return collectives.all_reduce(rows * inside[..., None].to(rows.dtype), tp.group)
+    return reduce(rows * inside[..., None].to(rows.dtype), tp)
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  tp: TensorParallel) -> torch.Tensor:
+    """``transformer.cross_entropy`` (the mean CE in f32) from this rank's
+    vocab slice ``logits`` (..., V/m) of the vocab: logsumexp as the
+    gathered max ``M`` plus the log of the summed slices'
+    ``sum(exp(l - M))``, the gold logit from the rank that holds it."""
+    logits = logits.float()
+    n = logits.shape[-1]
+    with torch.no_grad():  # logsumexp does not depend on M
+        top = collectives.all_gather(logits.amax(-1).unsqueeze(0), tp.group, dim=0).amax(0)
+    se = reduce(torch.exp(logits - top[..., None]).sum(-1), tp)
+    local = labels.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = reduce(torch.where(inside, gold, torch.zeros_like(gold)), tp)
+    return (torch.log(se) + top - gold).mean()
 
 
 def codebook_embed(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel,

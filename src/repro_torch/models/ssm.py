@@ -40,6 +40,13 @@ all of z and the first channels of x), so the mixer runs:
    are split;
 5. ``out_proj`` row-parallel on its ``d_inner`` rows (the gated output cut
    to them where the heads are whole).
+
+Training, each whole tensor read by split computation enters through
+``parallel.enter`` where the split happens (the input of a sliced
+``in_proj``, the conv input cut to its channels, the gathered x/B/C and
+dt and z read by this rank's heads, the per-head leaves and
+``norm_scale`` on its heads, a gated output cut for ``out_proj``), and the
+norm statistic's all-reduce has an all-reduce for its backward.
 """
 from __future__ import annotations
 
@@ -86,8 +93,10 @@ def _split_proj(p, cfg, x, tp=None):
     whole (gathered over Z where ``in_proj`` holds a column slice)."""
     d_inner, h = ssm_dims(cfg)
     n = cfg.ssm_state
-    zxbcdt = x @ p["in_proj"]
-    if tp is not None and parallel.split(tp, zxbcdt.shape[-1], 2 * d_inner + 2 * n + h):
+    split = tp is not None and parallel.split(tp, p["in_proj"].shape[-1],
+                                              2 * d_inner + 2 * n + h)
+    zxbcdt = (parallel.enter(x, tp) if split else x) @ p["in_proj"]
+    if split:
         zxbcdt = parallel.gather(zxbcdt, tp, -1)
     return (zxbcdt[..., :d_inner], zxbcdt[..., d_inner:2 * d_inner + 2 * n],
             zxbcdt[..., 2 * d_inner + 2 * n:])
@@ -123,7 +132,8 @@ def _conv_tp(p, cfg, xbc, tp):
     cs = _conv_slice(p, cfg, tp)
     if cs is None:
         return _causal_conv(p, xbc, cfg.ssm_conv_width)
-    return _gather_channels(_causal_conv(p, xbc[..., cs], cfg.ssm_conv_width), tp)
+    xbc = parallel.enter(xbc, tp)[..., cs]
+    return _gather_channels(_causal_conv(p, xbc, cfg.ssm_conv_width), tp)
 
 
 def _causal_conv(p, xbc, width):
@@ -201,11 +211,12 @@ def ssd_chunked(cfg, xh, Bm, Cm, dt_soft, A):
     return (y_intra + y_inter).reshape(b, s, h, pdim), hcur
 
 
-def _per_head(p, hs):
-    """(dt_bias, A_log, D) of the heads ``hs`` (all of them for None)."""
+def _per_head(p, hs, tp):
+    """(dt_bias, A_log, D) of the heads ``hs`` (all of them for None): the
+    replicated leaves read on this rank's heads through ``parallel.enter``."""
     if hs is None:
         return p["dt_bias"], p["A_log"], p["D"]
-    return p["dt_bias"][hs], p["A_log"][hs], p["D"][hs]
+    return tuple(parallel.enter(p[k], tp)[hs] for k in ("dt_bias", "A_log", "D"))
 
 
 def _mix(p, cfg, x, xbc, z, dt, tp=None):
@@ -215,13 +226,15 @@ def _mix(p, cfg, x, xbc, z, dt, tp=None):
     d_inner, h = ssm_dims(cfg)
     n, pdim = cfg.ssm_state, cfg.ssm_head_dim
     b, s, _ = x.shape
+    hs = _head_slice(cfg, tp)
+    if hs is not None:  # the whole x, B, C and dt read by this rank's heads
+        xbc, dt = parallel.enter(xbc, tp), parallel.enter(dt, tp)
     xs = xbc[..., :d_inner].reshape(b, s, h, pdim)
     Bm = xbc[..., d_inner:d_inner + n]
     Cm = xbc[..., d_inner + n:]
-    hs = _head_slice(cfg, tp)
     if hs is not None:
         xs, dt = xs[:, :, hs], dt[..., hs]
-    dt_bias, a_log, d_skip = _per_head(p, hs)
+    dt_bias, a_log, d_skip = _per_head(p, hs, tp)
     dt_soft = F.softplus(dt.float() + dt_bias[None, None, :])
     A = -torch.exp(a_log)
     y, h_final = ssd_chunked(cfg, xs, Bm, Cm, dt_soft, A)
@@ -240,12 +253,12 @@ def _gate_out(p, cfg, y, z, tp=None, hs=None):
         y = rmsnorm_noscale(y, cfg.norm_eps) * (1.0 + scale.float()).to(y.dtype)
     else:
         inner = tp.slice_of(d_inner)  # the heads' rows of d_inner
-        y = y * F.silu(z[..., inner])
+        y = y * F.silu(parallel.enter(z, tp)[..., inner])
         y = parallel.rms_noscale(y, tp, d_inner, cfg.norm_eps) * \
-            (1.0 + scale[inner].float()).to(y.dtype)
+            (1.0 + parallel.enter(scale, tp)[inner].float()).to(y.dtype)
     if tp is not None and parallel.split(tp, p["out_proj"].shape[0], d_inner):
         if hs is None:  # every head here: cut to this rank's rows
-            y = y[..., tp.slice_of(d_inner)]
+            y = parallel.enter(y, tp)[..., tp.slice_of(d_inner)]
         return parallel.row("...i,id->...d", y, p["out_proj"], tp)
     return y @ p["out_proj"]
 
@@ -292,7 +305,7 @@ def ssm_decode(p, cfg, x, cache, tp=None):
     dt = dt[:, 0]
     if hs is not None:
         xs, dt = xs[:, hs], dt[:, hs]
-    dt_bias, a_log, d_skip = _per_head(p, hs)
+    dt_bias, a_log, d_skip = _per_head(p, hs, tp)
     Bm = xbc1[:, d_inner:d_inner + n].float()
     Cm = xbc1[:, d_inner + n:].float()
     dt_soft = F.softplus(dt.float() + dt_bias[None, :])  # (B,H)

@@ -52,9 +52,20 @@ block through the dense path (``params["shared"]`` cut like any
 attention block, a cache per invocation), the int8 cache on slots with
 its scales (``models/attention.py``), the codebook tables and heads on
 the vocab (``parallel.codebook_embed``; the logits (B, S, K, V/m)) and
-the vision projection whole, on this data rank's patches.  The
-collectives have no backward: a ``tp`` forward under autograd is
-refused (the train step through it is ROADMAP.md queue 1, item 16a-iii).
+the vision projection whole, on this data rank's patches.
+
+Tensor-parallel training: every ``parallel`` op has its conjugate
+backward, so ``lm_loss`` with ``tp`` is one rank's Megatron program of the
+whole loss and its gradient (``launch/steps.py::make_train_step(tp=)``):
+whole tensors enter split computation through ``parallel.enter`` (the
+block inputs of the column-parallel projections, the gates and tokens of
+a rank's experts, the SSM's slices, the tied head's input), the loss is
+the vocab-parallel CE (``parallel.cross_entropy``) where the vocab is
+split, ``remat="block"`` recomputes each block's forward with its
+collectives, and every rank computes the MoE aux loss with the whole
+router.  The gradient of a split leaf is this rank's slice of the whole
+model's; of a replicated leaf, the whole one, bitwise equal on every
+rank.
 """
 from __future__ import annotations
 
@@ -274,22 +285,11 @@ def serves_tensor_parallel(cfg) -> bool:
     return bool(cfg.layers)
 
 
-def _check_tp(tp):
-    """Refuses a tensor-parallel forward under autograd: the collectives
-    have no backward."""
-    if tp is not None and torch.is_grad_enabled():
-        raise NotImplementedError(
-            "a tensor-parallel forward serves only (its collectives have no backward): run "
-            "it under torch.no_grad(); the train step through it is ROADMAP.md queue 1, "
-            "item 16a-iii")
-
-
 def embed_inputs(params, cfg, batch, tp=None):
     """Returns (x (B,S,D), positions (B,S)).  ``batch["tokens"]`` is (B, S),
     or (B, K, S) for ``audio_codebooks``; ``vision_stub`` also takes
     ``batch["patch_embeds"]`` (B, n_patches, d_vision), n_patches >= 0.
     With ``tp``, ``params["embed"]`` may hold a vocab slice."""
-    _check_tp(tp)
     toks = batch["tokens"]
     emb = params["embed"]
     scale = torch.tensor(np.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
@@ -316,11 +316,15 @@ def lm_logits(params, cfg, x, tp=None):
     """Tied LM head with the optional final-logit softcap (f32); the audio
     frontend's per-codebook heads give (B, S, K, V).  With ``tp`` and a
     vocab-split ``embed`` or ``heads``: this rank's vocab slice of the
-    logits ((B, S, K, V/m) for the codebook heads)."""
-    _check_tp(tp)
+    logits ((B, S, K, V/m) for the codebook heads), whose columns read ``x``
+    through ``parallel.enter``."""
+    head = params["heads"] if cfg.frontend == "audio_codebooks" else params["embed"]
+    if tp is not None and parallel.split(tp, head.shape[-1 if head.dim() == 3 else 0],
+                                         cfg.vocab_size):
+        x = parallel.enter(x, tp)
     if cfg.frontend == "audio_codebooks":
-        return torch.einsum("bsd,kdv->bskv", x, params["heads"])
-    logits = torch.einsum("bsd,vd->bsv", x, params["embed"])
+        return torch.einsum("bsd,kdv->bskv", x, head)
+    logits = torch.einsum("bsd,vd->bsv", x, head)
     if cfg.final_softcap is not None:
         logits = softcap(logits.float(), cfg.final_softcap)
     return logits
@@ -329,13 +333,15 @@ def lm_logits(params, cfg, x, tp=None):
 def forward(params, cfg, batch, tp=None):
     """Returns (hidden (B,S,D), aux_loss scalar f32: the MoE sublayers'
     load-balance losses summed in layer order, zero without them).  With
-    ``tp`` (serving only: the collectives have no backward), this rank's
-    slices of ``params``; the hidden state is whole on every rank."""
+    ``tp``, this rank's slices of ``params``; the hidden state is whole on
+    every rank.  Under ``remat="block"`` the backward recomputes each
+    block's forward, its collectives included."""
     x, positions = embed_inputs(params, cfg, batch, tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in _schedule(params, cfg):
-        if cfg.remat == "block" and tp is None:
-            x, a = checkpoint(_block_fwd, p, spec, cfg, x, positions, use_reentrant=False)
+        if cfg.remat == "block":
+            x, a = checkpoint(_block_fwd, p, spec, cfg, x, positions, tp,
+                              use_reentrant=False)
         else:
             x, a = _block_fwd(p, spec, cfg, x, positions, tp)
         aux_total = aux_total + a
@@ -353,17 +359,24 @@ def cross_entropy(logits, labels, mask=None):
     return nll.mean()
 
 
-def lm_loss(params, cfg, batch):
+def lm_loss(params, cfg, batch, tp=None):
     """Next-token CE (+ the MoE aux loss).  ``batch["labels"]`` is aligned
     with the text positions: (B, S), or (B, K, S) for the codebooks; the
-    vision frontend's patches carry no labels."""
-    hidden, aux = forward(params, cfg, batch)
+    vision frontend's patches carry no labels.  With ``tp`` and a
+    vocab-split head, the vocab-parallel CE (``parallel.cross_entropy``) on
+    this rank's slice of the logits; the loss is whole on every rank."""
+    hidden, aux = forward(params, cfg, batch, tp)
     if cfg.frontend == "vision_stub":
         hidden = hidden[:, cfg.n_patches:, :]  # the text region only
     labels = batch["labels"]
     if cfg.frontend == "audio_codebooks":
         labels = labels.movedim(1, 2)  # (B, S, K), as the logits
-    return cross_entropy(lm_logits(params, cfg, hidden), labels) + AUX_LOSS_COEF * aux
+    logits = lm_logits(params, cfg, hidden, tp)
+    if tp is not None and parallel.split(tp, logits.shape[-1], cfg.vocab_size):
+        ce = parallel.cross_entropy(logits, labels, tp)
+    else:
+        ce = cross_entropy(logits, labels)
+    return ce + AUX_LOSS_COEF * aux
 
 
 # ---------------------------------------------------------------------------

@@ -15,7 +15,10 @@ every bfloat16 value exactly.
 
 ``cut`` takes one rank's slices of a tree (a whole tree or one carried
 across from ``repro``) by a ``launch/sharding.py::rank_plan``: the
-params, caches and batch of a tensor-parallel serving rank.
+params, caches and batch of a tensor-parallel serving rank, the client
+state and global delta of a tensor-parallel train step.  ``join`` is its
+inverse over the ranks that hold the slices: the whole leaves, gathered
+in rank order.
 """
 from __future__ import annotations
 
@@ -59,3 +62,17 @@ def cut(tree, plan, own: bool = True):
     tree of ``LeafPlan``).  ``own``: every leaf in a storage of its own
     (a whole leaf cloned too), so the whole tree can be freed."""
     return tree_map(lambda x, p: _cut_leaf(x, p, own), tree, plan)
+
+
+def join(tree, plan, gather):
+    """The whole leaves of ``tree`` (this rank's slices, cut by ``plan``)
+    from every rank's: ``gather(x, dim)`` returns every rank's ``x``
+    concatenated along ``dim`` in rank order (``launch/collectives.py::
+    all_gather`` over the group the cut dims split), called on every rank
+    for every cut dim, innermost cut first; uncut leaves come back as
+    they are."""
+    def leaf(x, p):
+        for d, _ in reversed(p.cuts):
+            x = gather(x, d)
+        return x
+    return tree_map(leaf, tree, plan)

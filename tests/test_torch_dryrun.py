@@ -274,6 +274,18 @@ def test_memory_counter_adds_logsumexp_scratch():
     assert mem.peak == 4000 + 40 + 4000 and y.shape == (10,)
 
 
+def test_memory_counter_holds_gather_backward_in_place():
+    x = torch.empty(1000, device="meta", requires_grad=True)
+    idx = torch.zeros(10, dtype=torch.long, device="meta")
+    with dryrun.MemoryCounter((x, idx)) as mem:
+        (g,) = torch.autograd.grad(x.gather(0, idx).sum(), x)
+    # x and idx, the loss and its seed gradient (4 bytes each), and the
+    # zeros the gradient is scattered into (4,000), as eager's
+    # ``scatter_add_`` holds them: not the out-of-place twin a dispatch mode
+    # makes autograd allocate beside the zeros
+    assert (mem.held, mem.peak) == (4080, 4080 + 4 + 4 + 4000) and g.shape == (1000,)
+
+
 # -- the calibration ---------------------------------------------------------------
 
 

@@ -29,7 +29,8 @@ Also: each rank's plan splits exactly the dims ``repro``'s
 and 16, and the ranks' slices tile every leaf; ``vocab_argmax`` breaks
 ties as ``argmax`` on the whole logits; every arch serves tensor-parallel
 (the other archs' serving is ``tests/test_torch_tp_serve_archs.py``'s),
-and a ``tp`` forward under autograd refuses; and each planted fault of ``torch_dist_workers.tp_faults`` (the
+and a ``tp`` forward under autograd at one model rank gives the whole
+model's gradients; and each planted fault of ``torch_dist_workers.tp_faults`` (the
 row-parallel all-reduce dropped, decode's owner write skipped, its slot
 combine without the rescale, the argmax's slice offset dropped) fails the
 check at world 2.
@@ -246,15 +247,19 @@ def test_rank_slices_tile_every_leaf(case):
 
 @pytest.mark.parametrize("arch", [*ARCH_NAMES, "under autograd"])
 def test_every_arch_serves_tensor_parallel(arch):
-    """Every arch takes a ``tp``; a ``tp`` forward under autograd is
-    refused (the collectives have no backward), citing item 16a-iii."""
+    """Every arch takes a ``tp``; and a ``tp`` forward under autograd (the
+    collectives have their backward: ``tests/test_torch_tp_train.py``)
+    gives, at one model rank, the whole model's loss and gradients."""
     if arch != "under autograd":
         assert tf.serves_tensor_parallel(get_config(arch))
         return
     cfg = get_config("granite-moe-1b-a400m", reduced=True)
     params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int32)}
-    with pytest.raises(NotImplementedError, match="item 16a-iii"):
-        tf.forward(params, cfg, batch, tp=parallel.TensorParallel())
-    with torch.no_grad():  # serving: the same call runs
-        tf.forward(params, cfg, batch, tp=parallel.TensorParallel())
+    toks = torch.randint(0, cfg.vocab_size, (2, 9), generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    leaves = [x.requires_grad_() for x in tree_leaves(params)]
+    got, want = ([*torch.autograd.grad(tf.lm_loss(params, cfg, batch, tp=tp), leaves),
+                  tf.lm_loss(params, cfg, batch, tp=tp)]
+                 for tp in (parallel.TensorParallel(), None))
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)

@@ -713,6 +713,244 @@ def serve_cli(rank, world, argv):
     return serve.main(argv)
 
 
+# tests/test_torch_tp_train.py: the tensor-parallel train step's cases,
+# shared with its JAX reference (tests/tp_train_reference.py)
+TT_B, TT_S, TT_T = 2, 16, 2  # micro batch, sequence, local iterations
+TT_PCFG = dict(eta1=0.5, eta2=0.1)  # a round-start step large enough to read
+# the client's and the server's deltas, and the params' offset: |dp|^2 ~ 1
+# at the cases' ~1e6 parameters, where the round start's coeff = 1 - |dp|^2 /
+# (1 + |dp|^2) reads its sums (at |dp|^2 >> 1 it cancels to a few f32 ulps)
+TT_NOISE = 1e-3
+TT_CASES = {  # name -> (arch, variant): tp_config's, so every rule splits
+    "gemma3-1b": ("gemma3-1b", "base"),
+    "gemma3-1b/head_dim": ("gemma3-1b", "head_dim"),
+    "gemma2-9b": ("gemma2-9b", "base"),
+    "granite-3-2b": ("granite-3-2b", "base"),
+    "granite-3-8b": ("granite-3-8b", "base"),
+    "granite-moe": ("granite-moe-1b-a400m", "base"),
+    "granite-moe/dispatch": ("granite-moe-1b-a400m", "dispatch"),
+    "olmoe-1b-7b": ("olmoe-1b-7b", "experts8"),
+    "mamba2-2.7b": ("mamba2-2.7b", "base"),
+    "mamba2-2.7b/whole_leaves": ("mamba2-2.7b", "whole_leaves"),
+    "zamba2-2.7b": ("zamba2-2.7b", "two_reps"),
+}
+
+
+def _tt_ce_local(logits, labels, tp):
+    """A planted fault: the vocab-parallel CE with its logsumexp over this
+    rank's slice only."""
+    import torch
+
+    from repro_torch.models import parallel
+
+    logits = logits.float()
+    n = logits.shape[-1]
+    top = logits.amax(-1).detach()
+    se = torch.exp(logits - top[..., None]).sum(-1)
+    local = labels.long() - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    gold = logits.gather(-1, local.clamp(0, n - 1)[..., None])[..., 0]
+    gold = parallel.reduce(torch.where(inside, gold, torch.zeros_like(gold)), tp)
+    return (torch.log(se) + top - gold).mean()
+
+
+def _tt_rms_noscale_local(x, tp, whole, eps=1e-6):
+    """A planted fault: ``parallel.rms_noscale`` whose statistic's backward
+    keeps this rank's heads' share (no ``enter`` after the all-reduce)."""
+    import torch
+
+    from repro_torch.models import parallel
+
+    x32 = x.float()
+    ss = parallel.reduce((x32 * x32).sum(dim=-1, keepdim=True), tp)
+    return (x32 * torch.rsqrt(ss / whole + eps)).to(x.dtype)
+
+
+def _tt_per_head_local(p, hs, tp):
+    """A planted fault: ``ssm._per_head`` reading the SSM's per-head leaves
+    on this rank's heads without ``enter``: their gradient rank-local."""
+    if hs is None:
+        return p["dt_bias"], p["A_log"], p["D"]
+    return p["dt_bias"][hs], p["A_log"][hs], p["D"][hs]
+
+
+def tt_faults():
+    """The planted faults of the tensor-parallel train step: name -> (its
+    case of ``TT_CASES``, module, attribute, the faulty replacement)."""
+    import dataclasses
+
+    from repro_torch.core import pfedsop
+    from repro_torch.models import attention, moe, parallel, ssm
+
+    personalize = pfedsop._personalize_tp
+    return {
+        "attention_input_enter_dropped": ("gemma3-1b", attention, "_block_input",
+                                          lambda x, tp: x),
+        "kv_gather_backward_a_plain_slice": ("gemma3-1b", attention, "_whole_kv",
+                                             lambda k, v, tp: (k, v)),
+        "ce_logsumexp_local": ("gemma3-1b", parallel, "cross_entropy", _tt_ce_local),
+        # every rank taking itself for rank 0: the replicated leaves counted m times
+        "round_start_counts_replicated_on_every_rank": (
+            "gemma3-1b", pfedsop, "_personalize_tp",
+            lambda params, ld, gd, cfg, impl, tp, split: personalize(
+                params, ld, gd, cfg, impl, dataclasses.replace(tp, rank=0), split)),
+        "moe_gates_rank_local": ("granite-moe", moe, "_gates", lambda w, tp: w),
+        "ssm_norm_statistic_backward_local": ("zamba2-2.7b", parallel, "rms_noscale",
+                                              _tt_rms_noscale_local),
+        "ssm_per_head_leaves_rank_local": ("zamba2-2.7b", ssm, "_per_head",
+                                           _tt_per_head_local),
+    }
+
+
+def _digest(x) -> str:
+    import hashlib
+
+    return hashlib.sha1(leaf_np(x.contiguous()).tobytes()).hexdigest()
+
+
+def tt_step(cfg, ref_case, tp=None, chunks=1):
+    """``make_train_step`` on a reference case's inputs (``tests/
+    tp_train_reference.py``): with ``tp`` on this rank's slices of the
+    state and the global delta.  Returns (state', global delta', loss,
+    the state's plan, the global delta's plan); the plans are None
+    without ``tp``."""
+    from repro_torch.configs.base import InputShape
+    from repro_torch.core.pfedsop import PFedSOPConfig
+    from repro_torch.kernels.dispatch import grad_chunk_count
+    from repro_torch.launch import steps
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.weights import cut, params_from_jax
+
+    state = params_from_jax(ref_case["state"], device="cpu")
+    gd = params_from_jax(ref_case["gd"], device="cpu")
+    batches = _torch_batch(ref_case["batches"])
+    splan = gplan = None
+    if tp is not None:
+        splan = {k: rank_plan(v, "params", 1, tp.size, 0, tp.rank, client=True)
+                 for k, v in state.items()}
+        gplan = rank_plan(gd, "params", 1, tp.size, 0, tp.rank)
+        state, gd = cut(state, splan), cut(gd, gplan)
+    shape = InputShape("tp_train", TT_S, TT_B * TT_T, "train")
+    step = steps.make_train_step(cfg, shape, PFedSOPConfig(**TT_PCFG), tp=tp)
+    with grad_chunk_count(chunks):
+        new_state, new_gd, loss = step(state, gd, batches)
+    return new_state, new_gd, loss, splan, gplan
+
+
+def tt_round_start(cfg, ref_case, tp=None):
+    """The round start's (beta, eta1 * coeff) on a reference case's client:
+    with ``tp``, ``tree_personalize`` on this rank's slices; without, the
+    plain K1 over the whole flat vectors and the same scalars."""
+    from repro_torch.core import pfedsop as pf
+    from repro_torch.kernels.pfedsop_update import ops
+    from repro_torch.launch import steps
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.utils.pytree import FlatLayout, tree_map
+    from repro_torch.weights import cut, params_from_jax
+
+    pcfg = pf.PFedSOPConfig(**TT_PCFG)
+    trees = [params_from_jax(tree_map(lambda x: x[0], ref_case["state"][k]) if k else
+                             ref_case["gd"], device="cpu") for k in ("params", "delta", None)]
+    if tp is None:
+        layout = FlatLayout(trees[0])
+        dv, gv = layout.flatten(trees[1]), layout.flatten(trees[2])
+        beta, eta_coeff = ops.scalars_from_partials(ops.reduce3_batched_plain(dv[None], gv),
+                                                    pcfg.eta1, pcfg.rho, pcfg.lam, pcfg.eps)
+        return float(beta[0]), float(eta_coeff[0])
+    plan = rank_plan(trees[0], "params", 1, tp.size, 0, tp.rank)
+    trees = [cut(t, plan) for t in trees]
+    _, aux = pf.tree_personalize(*trees, pcfg, tp=tp, split=steps.split_leaves(cfg, tp))
+    return float(aux["beta"]), float(aux["eta_coeff"])
+
+
+def tt_whole(ref) -> dict:
+    """The port's one-rank step per case of ``TT_CASES`` on the reference's
+    inputs: {chunks: (state', global delta', loss)} as numpy leaves at
+    ``grad_chunks`` 1, and for the MoE at 2 (a data axis of 2's reference:
+    the other archs' chunk mean is the batch's), and the round start's
+    scalars under "round_start"."""
+    from repro_torch.configs import get_config
+    from repro_torch.utils.pytree import tree_leaves
+
+    out = {}
+    for name, (arch, variant) in TT_CASES.items():
+        cfg = tp_config(get_config, arch, variant)
+        out[name] = {"round_start": tt_round_start(cfg, ref[name])}
+        for chunks in (1, 2)[:1 + (cfg.n_experts > 0)]:
+            s, g, loss, _, _ = tt_step(cfg, ref[name], chunks=chunks)
+            out[name][chunks] = ([leaf_np(x) for x in tree_leaves(s)],
+                                 [leaf_np(x) for x in tree_leaves(g)], float(loss))
+    return out
+
+
+def tp_train(rank, world, plan):
+    """The tensor-parallel train step on ``plan["mesh"]``, per case of
+    ``TT_CASES``, from the JAX reference's inputs (``plan["ref"]``):
+    rank 0 returns the outputs made whole (numpy leaves: state', global
+    delta', loss); every rank the digests of its loss and of every
+    replicated leaf of its outputs (all ranks must agree), the round
+    start's (beta, eta1 * coeff) on its slices, and, where the
+    mesh has a data axis, whether the step equals the model-only step at
+    ``grad_chunks`` equal to the data size bit for bit.  With
+    ``plan["faults"]``, the same under each planted fault of
+    ``tt_faults``."""
+    import dataclasses
+    import pickle
+
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch import collectives, steps
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.utils.pytree import tree_leaves
+    from repro_torch.weights import join
+
+    tp = steps.tensor_parallel(parse_mesh(plan["mesh"]))
+    with open(plan["ref"], "rb") as f:
+        ref = pickle.load(f)
+
+    def gather(x, dim):
+        return collectives.all_gather(x, tp.group, dim=dim)
+
+    def case(name):
+        arch, variant = TT_CASES[name]
+        cfg = tp_config(get_config, arch, variant)
+        s, g, loss, splan, gplan = tt_step(cfg, ref[name], tp)
+        outs = []
+        for tree, p in ((s, splan), (g, gplan)):
+            outs.append([leaf_np(x) for x in tree_leaves(join(tree, p, gather))])
+        replicated = [_digest(x) for t, p in ((s, splan), (g, gplan))
+                      for x, q in zip(tree_leaves(t), tree_leaves(p)) if not q.cuts]
+        got = {"whole": (*outs, float(loss)) if rank == 0 else None,
+               "digests": [_digest(loss)] + replicated,
+               "round_start": tt_round_start(cfg, ref[name], steps._model_only(tp))}
+        if tp.data_size > 1:  # the data split against in-body chunks on the model group
+            s2, g2, loss2, _, _ = tt_step(cfg, ref[name], dataclasses.replace(
+                tp, data_group=None, data_size=1, data_rank=0), chunks=tp.data_size)
+            got["data_split_bitwise"] = all(
+                torch.equal(a, b) for a, b in zip(tree_leaves((s, g, loss)),
+                                                   tree_leaves((s2, g2, loss2))))
+        return got
+
+    out = {"cases": {name: case(name) for name in TT_CASES}, "faults": {}}
+    for fault, (name, module, attr, faulty) in (tt_faults().items()
+                                                if plan.get("faults") else ()):
+        sound = getattr(module, attr)
+        setattr(module, attr, faulty)
+        try:
+            out["faults"][fault] = case(name)
+        finally:
+            setattr(module, attr, sound)
+    return out
+
+
+def train_cli(rank, world, argv):
+    """``launch/train.py``'s CLI on this rank (the group is already up)."""
+    from repro_torch.launch import train
+
+    return train.main(argv)
+
+
 def everything(rank, world, plan):
     """One spawn's worth of checks: the reductions and the update, the
     layout (2 ranks), the LM train step on mesh engines (2 ranks), the sync
