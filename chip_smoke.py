@@ -31,7 +31,12 @@ Phases (any failure exits non-zero; nothing is caught):
                   in f32 before their final rounding within half an ulp,
                   and K7's sum pass bitwise against its plain version); the
                   flash cases at 8 seeds; K6 + K7 timed together beside
-                  SDPA's backward.  Device times (torch.profiler; host time
+                  SDPA's backward; K5 at a query offset at phase 20's rank
+                  shapes (gemma3-1b at m = 2 and 4, window 512 and none,
+                  softcap, bf16 and f32; granite-moe at m = 2), each rank
+                  against its plain version and bitwise the rows of the
+                  launch without an offset, and timed at the last rank
+                  (the ``flash_fwd`` record's ``q_offset``).  Device times (torch.profiler; host time
                   and an L2 flush before each call left out) beside
                   the bound (bytes over 3.35 TB/s, or operations over the
                   type's peak; ``launch/roofline.py``), the plain version's time and, where one
@@ -220,12 +225,29 @@ Phases (any failure exits non-zero; nothing is caught):
                   whole tree's and the replicated leaves counted on every
                   rank outside it; step wall and idle share with the card's
                   name and power limit.
+ 20. seqshard     inside phase 18's two processes, after each arch's
+                  serving: the sequence-parallel prefill (the dry run's
+                  ``seqshard`` variant; ``make_prefill_step`` with
+                  ``cfg.seq_shard``) of gemma3-1b and granite-moe-1b-a400m
+                  at full width and depth on phase 18's prompt, each rank
+                  its 512 positions with every layer weight whole
+                  (``rank_plan(seqshard=True)``): its census equal to the
+                  dry run's ``seqshard`` count of the same shape on a
+                  2-rank fake world, its peak within 10 % of the count's,
+                  its K4/K5 launches the count's, its last-token logits
+                  within ``SEQ_LIMIT`` of the whole model's (phase 18's
+                  units), and five planted faults (``SEQ_FAULTS``: RoPE on
+                  local positions, K/V not gathered, K5 at q0 = 0, the
+                  embedding's scatter in reversed rank order, the last
+                  position from rank 0) each above it; prefill ms and the
+                  idle share.
                   Each phase prints its seconds, the TP ranks the seconds
                   of their parts, and ``time[...]`` lines the seconds
                   since the build began.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
-D = 80 readings under ``d80``; launches per path under
+D = 80 readings under ``d80``, ``flash_fwd`` its query-offset readings
+under ``q_offset``; launches per path under
 ``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -829,6 +851,100 @@ def time_flash(h, kv, d, windows, seed):
         bound_ms=bnd, bound_by=by, library_ms=None)
     _print_time(f"flash_bwd_dkv_sum B={b} S={s} H={h} KV={kv} D={d} f32 -> bf16",
                 recs["flash_bwd_dkv_sum"])
+    return recs
+
+
+# phase 3, K5 at a query offset: the ranks of phase 20's sequence-parallel
+# prefill (B = 4, S = 1,024): (label, H, KV, D, window, softcap, m, dtype)
+OFFSET_CASES = [
+    ("gemma3-1b m=2", 4, 1, 256, None, None, 2, torch.bfloat16),
+    ("gemma3-1b m=2", 4, 1, 256, 512, None, 2, torch.bfloat16),
+    ("granite-moe m=2", 16, 8, 64, None, None, 2, torch.bfloat16),
+    ("gemma3-1b m=4", 4, 1, 256, 512, None, 4, torch.bfloat16),
+    ("gemma3-1b m=4 softcap", 4, 1, 256, None, 50.0, 4, torch.bfloat16),
+    ("gemma3-1b m=2 f32", 4, 1, 256, 512, None, 2, torch.float32),
+]
+OFFSET_SEEDS = (31, 32)
+
+
+def _offset_operands(g, h, kv, d, dtype, b=4, s=1024):
+    return _attention(g, h, kv, dtype, b=b, s=s, d=d)[:3]
+
+
+def check_flash_offset(seeds=OFFSET_SEEDS):
+    """K5 at a query offset against its plain version: every rank r of m
+    (queries q0 = r S/m .. q0 + S/m - 1 against the keys 0 .. q0 + S/m -
+    1) of ``OFFSET_CASES``, at each seed, within ``check_flash``'s limits
+    (bf16 2**-7, f32 1e-4 of the largest value; the LSE 1e-5); and bitwise
+    the same rows of the launch without an offset on the whole sequence
+    (the query offset is a multiple of both kernels' query tiles, so each
+    row's key tiles, in their order, are the same).  Returns the worst
+    absolute error."""
+    worst = 0.0
+    for seed in seeds:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        for label, h, kv, d, window, cap, m, dtype in OFFSET_CASES:
+            q, k, v = _offset_operands(g, h, kv, d, dtype)
+            kw = dict(window=window, softcap=cap)
+            full, full_lse = flash_ops.flash_fwd(q, k, v, **kw)
+            n = q.shape[1] // m
+            tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            line = []
+            for r in range(m):
+                q0 = r * n
+                args = (q[:, q0:q0 + n].contiguous(), k[:, :q0 + n].contiguous(),
+                        v[:, :q0 + n].contiguous())
+                out, lse = flash_ops.flash_fwd(*args, q0=q0, **kw)
+                pout, plse = flash_ops.flash_fwd_plain(*args, q0=q0, **kw)
+                torch.cuda.synchronize()
+                err, rel = errors(out, pout)
+                lse_rel = errors(lse, plse)[1]
+                where = (label, window, cap, seed, r)
+                assert rel <= tol and lse_rel <= 1e-5, (where, rel, lse_rel)
+                assert torch.equal(out, full[:, q0:q0 + n]), ("not the whole launch's rows", where)
+                assert torch.equal(lse, full_lse[:, :, q0:q0 + n]), ("lse rows", where)
+                worst = max(worst, err)
+                line.append(f"r{r} q0={q0} {err:.3g}/{rel:.3g}")
+            print(f"kernels[flash offset {label} seed={seed} window={window} softcap={cap} "
+                  f"{str(dtype)[6:]} B=4 S=1024 H={h} KV={kv} D={d}]: max_abs_err/relative "
+                  + ", ".join(line) + f" (tol {tol:.3g}, lse 1e-05); each rank bitwise the "
+                  "rows of the launch without an offset", flush=True)
+    return worst
+
+
+def time_flash_offset(seed=33):
+    """Phase 20's K5 launches timed at the last rank (the most causal
+    work), bf16, B = 4, S = 1,024: gemma3-1b at m = 2 (q0 = 512; its full
+    and window-512 layers) and m = 4 (q0 = 768, window 512), granite-moe at
+    m = 2.  Bounds count the rank's visible pairs (``costs.flash_fwd_cost``
+    at the offset) and its bytes (its q, out and LSE rows, keys 0 .. q0 +
+    S/m - 1); the library yardstick is SDPA with the rank's boolean mask."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    recs = {}
+    for label, h, kv, d, window, m in (("gemma3-1b m=2", 4, 1, 256, None, 2),
+                                       ("gemma3-1b m=2", 4, 1, 256, 512, 2),
+                                       ("gemma3-1b m=4", 4, 1, 256, 512, 4),
+                                       ("granite-moe m=2", 16, 8, 64, None, 2)):
+        q, k, v = _offset_operands(g, h, kv, d, torch.bfloat16)
+        b, s = q.shape[:2]
+        n = s // m
+        q0 = s - n
+        q = q[:, q0:].contiguous()
+        cost = roofline.flash_fwd_cost(b, s, h, kv, d, window, 2, q0=q0, sq=n)
+        bnd, by = roofline.bound_ms(cost)
+        mask = flash_ops.visible_mask(s, window, "cuda", q0, n)
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        kt, vt = (x.repeat_interleave(h // kv, dim=1) for x in (kt, vt))
+        sdpa = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)  # noqa: E731
+        want = flash_ops.flash_fwd(q, k, v, window=window, q0=q0)[0]
+        torch.testing.assert_close(sdpa().transpose(1, 2), want, rtol=2.0 ** -6, atol=2.0 ** -6)
+        r = dict(ms=device_ms(lambda: flash_ops.flash_fwd(q, k, v, window=window, q0=q0)),
+                 plain_ms=device_ms(lambda: flash_ops.flash_fwd_plain(q, k, v, window=window,
+                                                                      q0=q0), calls=5, warmup=1),
+                 bound_ms=bnd, bound_by=by, library_ms=device_ms(sdpa))
+        key = f"{label} rank {m - 1} q0={q0} window={window}"
+        _print_time(f"flash_fwd offset {key} B={b} H={h} KV={kv} D={d} bf16", r)
+        recs[key] = r
     return recs
 
 
@@ -2356,6 +2472,103 @@ def _plants():
     }
 
 
+# phase 20: the sequence-parallel prefill (the seqshard variant), run by
+# phase 18's two processes on the same prompt, against the same whole-model
+# logits, in phase 18's units
+SEQ_ARCHS = ("gemma3-1b", "granite-moe-1b-a400m")
+# each arch's limit on |d| / (TP_ATOL + TP_ATOL |want|) of the last-token
+# logits against the whole model: 1.34x its first sound reading on an H100
+# (PERF.md, section 6), granite-moe's 9.045; gemma3-1b's read 0 (its
+# sequence-parallel logits were the whole model's bits), and 1.34x of it
+# would ask for bits, so its limit is the bare bound, 1 (rtol = atol = 5e-3),
+# under its faults' least reading, 12.68
+SEQ_LIMIT = {"gemma3-1b": 1.0, "granite-moe-1b-a400m": 12.2}
+# the planted faults, on gemma3-1b: each must read above its limit
+SEQ_FAULTS = ("rope_local_positions", "kv_not_gathered", "k5_at_q0_zero", "scatter_reversed",
+              "last_from_rank0")
+
+
+def _seq_local_positions(rows, b, device):
+    """A planted fault: RoPE on positions counted from the rank's first."""
+    return torch.arange(rows.stop - rows.start, dtype=torch.int32, device=device)[None].expand(
+        b, -1)
+
+
+def _seq_keys_at_zero(k, v, tp):
+    """A planted fault: the gathered keys, but K5 launched at q0 = 0."""
+    from repro_torch.models import parallel
+
+    hi = (tp.rank + 1) * k.shape[1]
+    return parallel.gather(k, tp, 1)[:, :hi], parallel.gather(v, tp, 1)[:, :hi], 0
+
+
+def _seq_scatter_reversed(x, tp):
+    """A planted fault: the embedding's reduce-scatter in reversed rank
+    order (rank r takes rank m - 1 - r's positions)."""
+    from repro_torch.launch import collectives
+
+    return collectives.reduce_scatter(torch.cat(x.chunk(tp.size, 1)[::-1], 1), tp.group, 1)
+
+
+def _seq_last_from_rank0(x, tp):
+    """A planted fault: the last position taken from model rank 0."""
+    from repro_torch.launch import collectives
+
+    return collectives.broadcast(x[:, -1:].contiguous(), src=0, group=tp.group)
+
+
+def _seq_plants():
+    """``SEQ_FAULTS``' replacements: name -> (module, attribute, fault)."""
+    from repro_torch.models import attention, parallel
+
+    return {"rope_local_positions": (tf, "_seq_positions", _seq_local_positions),
+            "kv_not_gathered": (attention, "_seq_keys", lambda k, v, tp: (k, v, 0)),
+            "k5_at_q0_zero": (attention, "_seq_keys", _seq_keys_at_zero),
+            "scatter_reversed": (parallel, "seq_scatter", _seq_scatter_reversed),
+            "last_from_rank0": (parallel, "seq_last", _seq_last_from_rank0)}
+
+
+def _seq_cfg(arch):
+    return get_config(arch).replace(seq_shard=True)
+
+
+def _seq_rank(arch, params, prompt, tp, want):
+    """Phase 20 on this rank: ``arch``'s sequence-parallel prefill step
+    (``make_prefill_step`` with ``seq_shard``; ``params`` cut by
+    ``rank_plan(seqshard=True)``) on phase 18's prompt, the launch counters
+    reset just before (timed), once more under the profiler (wall and
+    device busy), once alone for its census and peak; then each planted
+    fault of ``SEQ_FAULTS`` (gemma3-1b) for one prefill, its reading
+    against ``want`` (the whole model's last-token logits)."""
+    cfg = _seq_cfg(arch)
+    step = lm_steps.make_prefill_step(cfg, _tp_shapes()[0], tp)
+    torch.cuda.synchronize()
+    reset_launches()
+    t0 = time.perf_counter()
+    logits = step(params, prompt)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    launches = all_launches()
+
+    def again():
+        t1 = time.perf_counter()
+        step(params, prompt)
+        return None, time.perf_counter() - t1
+
+    _, wall_p, busy_us = profiled_run(again)
+    _, census, peak = _step_peak(step, (params, prompt))
+    faulty = {}
+    for name, (module, attr, fault) in (_seq_plants().items() if arch == "gemma3-1b" else ()):
+        sound = getattr(module, attr)
+        setattr(module, attr, fault)
+        try:
+            faulty[name] = _tp_gap(_host(step(params, prompt)), want)[0]
+        finally:
+            setattr(module, attr, sound)
+    return dict(logits=_host(logits), prefill_s=prefill_s, wall_p=wall_p, busy_us=busy_us,
+                launches=launches, census=census, peak=peak, faulty=faulty)
+
+
 def _tp_rank(rank, port, answers, teachers, want):
     """One of two processes on the one card (gloo: NCCL refuses a second
     rank on a device), ``pods:1x1x2``, for each arch of ``teachers`` (arch
@@ -2368,7 +2581,8 @@ def _tp_rank(rank, port, answers, teachers, want):
     its census and peak; then each planted fault of the arch, patched in
     for a prefill and its decode steps (``TP_FAULTS``) until ``want`` (arch
     -> the whole model's logits, step by step) shows it caught, with the
-    greedy tokens it changes."""
+    greedy tokens it changes.  For each arch of ``SEQ_ARCHS``, phase 20
+    (``_seq_rank``) on its sequence-parallel slices."""
     import datetime
     import traceback
 
@@ -2396,6 +2610,9 @@ def _tp_rank(rank, port, answers, teachers, want):
                 whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                                        device="cuda")
                 params = cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank))
+                seq_params = (cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank,
+                                                   seqshard=True))
+                              if arch in SEQ_ARCHS else None)
                 del whole
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2487,11 +2704,18 @@ def _tp_rank(rank, port, answers, teachers, want):
                     finally:
                         setattr(module, attr, sound)
                 marks.append(time.perf_counter())
+                seq = None
+                if seq_params is not None:  # phase 20
+                    seq = _seq_rank(arch, seq_params, prompt, tp, want[arch][0])
+                    del seq_params
+                    gc.collect()
+                    torch.cuda.empty_cache()
+                marks.append(time.perf_counter())
                 out[arch] = dict(
                     logits=outs, tokens=tokens, faulty=faulty, prefill_s=prefill_s,
                     step_s=step_s, wall_p=wall_p, busy_us=busy_us, launches=launches,
                     census_p=census_p, census_d=census_d, peak_p=peak_p, peak_d=peak_d,
-                    token=_host(tok), parts=np.diff(marks).tolist())
+                    token=_host(tok), parts=np.diff(marks).tolist(), seq=seq)
                 del params, prompt
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2619,7 +2843,16 @@ def tp_serve_run():
     the greedy tokens the first argmax of their logits, rank 0's K4/K5
     launches those the config predicts (``serve_launches``); every planted
     fault of ``TP_FAULTS`` above its arch's limit or changing a greedy token
-    from the sound run's.  Returns rank 0's launches per arch."""
+    from the sound run's.
+
+    Phase 20 on the same ranks, for each arch of ``SEQ_ARCHS``: the
+    sequence-parallel prefill step's census equal to the dry run's
+    ``seqshard`` count of the same shape on a 2-rank fake world, its peak
+    within ``TP_PEAK_RTOL`` of the count's, its K4/K5 launches the count's,
+    its last-token logits within ``SEQ_LIMIT`` of the whole model's, every
+    planted fault of ``SEQ_FAULTS`` above that limit; prefill ms and idle
+    share.  Returns rank 0's launches per arch of phase 18 and, under
+    "seqshard <arch>", of phase 20."""
     from repro_torch.launch.mesh import parse_mesh
 
     t_phase = time.perf_counter()
@@ -2637,6 +2870,11 @@ def tp_serve_run():
                 rec = dryrun.run_one(arch, shape, save=False, verbose=False, mesh=spec)
                 assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
                 counted[arch, shape.kind] = rec
+        for arch in SEQ_ARCHS:
+            rec = dryrun.run_one(arch, _tp_shapes()[0], save=False, verbose=False, mesh=spec,
+                                 variant="seqshard")
+            assert rec["serve_layout"] == "sequence_parallel", rec["serve_layout"]
+            counted[arch, "seqshard"] = rec
         t_spawn = time.perf_counter()
         return teachers, wants
 
@@ -2669,7 +2907,7 @@ def tp_serve_run():
                   f"share {1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches "
                   f"{r['launches']}; seconds: model and sound run "
                   f"{r['parts'][0]:.1f}, census steps {r['parts'][1]:.1f}, faults "
-                  f"{r['parts'][2]:.1f}", flush=True)
+                  f"{r['parts'][2]:.1f}, phase 20 {r['parts'][3]:.1f}", flush=True)
             print(f"tp serve[{arch}, rank {rank}]: against the whole model, worst |d| / (5e-3 "
                   f"+ 5e-3 |want|) {max(x for x, _ in gaps):.4g} (prefill {gaps[0][0]:.4g}; "
                   f"limit {limit}), worst error in units of the largest logit "
@@ -2706,10 +2944,45 @@ def tp_serve_run():
             assert reading > TP_LIMIT[arch] or changed > 0, (
                 "a planted fault passed", arch, name, reading, changed)
         assert 0 <= int(r["token"].min()) and int(r["token"].max()) < cfg.vocab_size
+    seq_checks = []
+    for arch in SEQ_ARCHS:  # phase 20
+        rec = counted[arch, "seqshard"]
+        for rank in sorted(got):
+            r = got[rank][arch]["seq"]
+            gap = _tp_gap(r["logits"], wants[arch][0])
+            launches = {k: n for k, n in r["launches"].items() if n}
+            seq_checks.append((arch, rank, r, gap, launches))
+            print(f"seqshard prefill[{arch}, {TP_SERVE['mesh']}, rank {rank}, gloo host-staged, "
+                  f"2 processes on one card, {smi}]: prefill {1e3 * r['prefill_s']:.3f} ms; "
+                  f"profiled: wall {1e3 * r['wall_p']:.3f} ms, device busy "
+                  f"{r['busy_us'] / 1e3:.3f} ms, idle share "
+                  f"{1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches {launches} "
+                  f"(dry run {rec['launches']})", flush=True)
+            print(f"seqshard prefill[{arch}, rank {rank}]: last-token logits against the whole "
+                  f"model, worst |d| / (5e-3 + 5e-3 |want|) {gap[0]:.4g} (limit "
+                  f"{SEQ_LIMIT[arch]}), worst error in units of the largest logit "
+                  f"{gap[1]:.4g}; census {r['census']} (dry run {rec['collectives']}); peak "
+                  f"{r['peak']} bytes, the dry run's {rec['peak_bytes']}: "
+                  f"{100 * (rec['peak_bytes'] - r['peak']) / r['peak']:+.2f}%", flush=True)
+            if r["faulty"]:
+                print(f"seqshard prefill[{arch}, rank {rank}]: planted faults (|d| / (5e-3 + "
+                      f"5e-3 |want|)): " + ", ".join(f"{k} {v:.4g}"
+                                                     for k, v in r["faulty"].items()),
+                      flush=True)
+    for arch, rank, r, gap, launches in seq_checks:
+        rec = counted[arch, "seqshard"]
+        assert r["census"] == rec["collectives"], (arch, rank, r["census"], rec["collectives"])
+        assert abs(rec["peak_bytes"] - r["peak"]) <= TP_PEAK_RTOL * r["peak"], (arch, rank)
+        assert launches == rec["launches"], (arch, rank, launches, rec["launches"])
+        assert gap[0] <= SEQ_LIMIT[arch], (arch, rank, "seqshard logits", gap)
+        assert sorted(r["faulty"]) == (sorted(SEQ_FAULTS) if arch == "gemma3-1b" else [])
+        for name, reading in r["faulty"].items():
+            assert reading > SEQ_LIMIT[arch], ("a planted fault passed", arch, name, reading)
     print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s (the whole models and the "
           f"dry run's counts {t_spawn - t_phase:.1f}s while the two processes started, then "
           f"the two processes {time.perf_counter() - t_spawn:.1f}s)", flush=True)
-    return {arch: got[0][arch]["launches"] for arch in TP_ARCHS}
+    return {**{arch: got[0][arch]["launches"] for arch in TP_ARCHS},
+            **{"seqshard " + arch: got[0][arch]["seq"]["launches"] for arch in SEQ_ARCHS}}
 
 
 # phase 19: the tensor-parallel train step over two processes sharing the card
@@ -3188,11 +3461,13 @@ def main():
     ranges = time_ranges()
     rec["rmsnorm"] = check_rmsnorm()
     worst = check_flash()
+    worst["flash_fwd"] = max(worst["flash_fwd"], check_flash_offset())
     # the LM slice's gemma3-1b (H = 4 over KV = 1, D = 256; 4 full-attention
     # layers, 22 at window 512), then zamba2's shared attention at D = 80
     rec.update(time_flash(4, 1, 256, (None, 512), seed=13))
     for name, r in time_flash(32, 32, 80, (None,), seed=14).items():
         rec[name]["d80"] = r
+    rec["flash_fwd"]["q_offset"] = time_flash_offset()
     for name, err in worst.items():
         rec[name]["max_abs_err"] = err
     l2_flush.cache_clear()  # the timing phases are over: free the flush buffer
@@ -3226,11 +3501,13 @@ def main():
     paths.update(mesh_paths)
     paths.update(mesh_train_run())
     lap("phases 15-17")
-    for arch, launches in tp_serve_run().items():
-        paths["tp_serve_" + arch.replace("-", "_").replace(".", "_") + "_rank0"] = launches
+    for arch, launches in tp_serve_run().items():  # phases 18 and 20
+        name = ("seqshard_prefill_" + arch.split()[1] if arch.startswith("seqshard ")
+                else "tp_serve_" + arch)
+        paths[name.replace("-", "_").replace(".", "_") + "_rank0"] = launches
     for arch, launches in tp_train_run().items():
         paths["tp_train_" + arch.replace("-", "_").replace(".", "_") + "_rank0"] = launches
-    lap("phases 18-19")
+    lap("phases 18-20")
     for k in ("reduce3", "update"):
         rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 

@@ -319,14 +319,16 @@ class MeshBackend:
         return tree_map(lambda x: x.narrow(2, r * (x.shape[2] // dsize), x.shape[2] // dsize),
                         batches)
 
-    def input_shardings(self, tree):
+    def input_shardings(self, tree, seqshard: bool = False):
         """Per-leaf ``LeafShard`` of a client-stacked cohort tree (only the
         shapes are read): this rank's rows, and its model slice of the
         leaves the param rules shard (``launch/sharding.py::
-        client_stacked_specs``).  The host stores gather against these."""
+        client_stacked_specs``; ``seqshard``: of ``embed`` / ``heads``
+        only).  The host stores gather against these."""
         caxis = self.spec.client_axis if self.client_sharded else None
         maxis, msize = self.spec.model_axis, self.spec.model_size
-        specs = client_stacked_specs(tree, caxis, model_axis=maxis, msize=msize)
+        specs = client_stacked_specs(tree, caxis, model_axis=maxis, msize=msize,
+                                     seqshard=seqshard)
         rows = self._rows()
         sizes = {maxis: msize} if maxis is not None else {}
         ranks = {maxis: self._local_rank(maxis)} if msize > 1 else {}

@@ -56,10 +56,15 @@ def _flash_io(b, s, h, kv, d, itemsize):
     return (b * s * h * d + 2 * b * s * kv * d) * itemsize, b * s * h * d * itemsize, b * h * s * 4
 
 
-def flash_fwd_cost(b, s, h, kv, d, window, itemsize) -> dict:
-    """K5: reads q, k, v; writes out and the LSE; 4D FLOPs a visible pair."""
-    io, qsize, rows = _flash_io(b, s, h, kv, d, itemsize)
-    return _cost(4 * d * b * h * attention_pairs(s, window), io + qsize + rows, PEAK_FLOPS)
+def flash_fwd_cost(b, s, h, kv, d, window, itemsize, q0=0, sq=None) -> dict:
+    """K5: reads q, k, v; writes out and the LSE; 4D FLOPs a visible pair.
+    With a query offset: ``sq`` queries (None: S - q0) at positions q0 ..
+    q0 + sq - 1 of the S keys, their q, out and LSE rows and their pairs."""
+    sq = s - q0 if sq is None else sq
+    io = (b * sq * h * d + 2 * b * s * kv * d) * itemsize
+    qsize, rows = b * sq * h * d * itemsize, b * h * sq * 4
+    return _cost(4 * d * b * h * attention_pairs(s, window, q0, sq), io + qsize + rows,
+                 PEAK_FLOPS)
 
 
 def flash_dq_cost(b, s, h, kv, d, window, itemsize) -> dict:

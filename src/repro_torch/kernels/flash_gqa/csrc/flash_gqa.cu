@@ -13,7 +13,11 @@
 // all contiguous; q/k/v/o/dO/dq/dk/dv all f32.  Query head h reads
 // KV head h / (H/KV).  Positions are the canonical arange(S): key j is visible
 // to query i iff j <= i and (no window, or i - j < window).  The optional logit
-// softcap c applies s = c*tanh(s/c) to the scaled scores before the mask.
+// softcap c applies s = c*tanh(s/c) to the scaled scores before the mask.  K5
+// also takes a query offset (a rank of a sequence-parallel prefill): its Sq
+// queries (q, o (B, Sq, H, D), lse (B, H, Sq)) sit at positions q0 .. q0 + Sq - 1
+// of the S keys (q0 + Sq <= S), masked and tiled on those positions; q0 = 0,
+// Sq = S is the plain launch.  K6 and K7 take no offset.
 //
 //   K5: out = softmax(q k^T * scale) v row by row, online over key tiles, plus
 //       lse = m + log(l) per row (the backward's residual).
@@ -68,6 +72,7 @@ constexpr int kLdp = kBK + 1;  // padded row of a (kBQ, kBK) score tile
 
 struct Shape {
   int b, s, h, kv;
+  int sq, q0;     // queries held and the absolute position of query 0 (K5)
   int window;     // 0 = none
   float softcap;  // 0 = none
   float scale;
@@ -119,9 +124,10 @@ __device__ __forceinline__ void tile_dot(const float* A, const float* B, int r0,
   }
 }
 
-// Rows past a ragged S see nothing, so they add nothing to dk/dv.
+// qi, kj: absolute positions.  Rows past the last query (a ragged S) see
+// nothing, so they add nothing to dk/dv.
 __device__ __forceinline__ bool visible(int qi, int kj, const Shape& sh) {
-  return kj <= qi && qi < sh.s && (sh.window <= 0 || qi - kj < sh.window);
+  return kj <= qi && qi < sh.q0 + sh.sq && (sh.window <= 0 || qi - kj < sh.window);
 }
 
 // -- K5: forward ---------------------------------------------------------------
@@ -140,15 +146,17 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   const int bh = blockIdx.y, b = bh / sh.h, h = bh % sh.h;
   const int kvh = h / (sh.h / sh.kv);
   const long long q_rs = (long long)sh.h * D, k_rs = (long long)sh.kv * D;
-  const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
+  const long long q_off = ((long long)b * sh.sq * sh.h + h) * D;
   const long long k_off = ((long long)b * sh.s * sh.kv + kvh) * D;
   const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const int q0 = blockIdx.x * kBQ;
+  // q, o and lse rows are local; masks and key tiles use absolute positions
+  const int lq0 = blockIdx.x * kBQ;
+  const int q0 = sh.q0 + lq0, q_end = sh.q0 + sh.sq;
 
-  load_rows<D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
+  load_rows<D>(Qs, q + q_off, q_rs, lq0, kBQ, sh.sq, sh.scale);
 
   const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kBK : 0;
-  const int kt_last = (min(q0 + kBQ, sh.s) - 1) / kBK;
+  const int kt_last = (min(q0 + kBQ, q_end) - 1) / kBK;
 
   float m[4], l[4], acc[4][NC];
 #pragma unroll
@@ -220,12 +228,13 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int qi = q0 + tr * 4 + i;
-    if (qi >= sh.s) continue;
+    if (qi >= q_end) continue;
+    const int local = qi - sh.q0;
     const float lz = l[i] == 0.f ? 1.f : l[i];
-    float* orow = o + q_off + (long long)qi * q_rs;
+    float* orow = o + q_off + (long long)local * q_rs;
 #pragma unroll
     for (int c = 0; c < NC; ++c) orow[tc + 16 * c] = acc[i][c] / lz;
-    if (tc == 0) lse[(long long)bh * sh.s + qi] = m[i] + logf(lz);
+    if (tc == 0) lse[(long long)bh * sh.sq + local] = m[i] + logf(lz);
   }
 }
 
@@ -467,7 +476,7 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   auto kernel = fwd_kernel<D>;
   constexpr size_t smem = fwd_smem<D>();
   if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid((sh.s + kBQ - 1) / kBQ, sh.b * sh.h);
+  const dim3 grid((sh.sq + kBQ - 1) / kBQ, sh.b * sh.h);
   kernel<<<grid, kThreads, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                        static_cast<const float*>(v), static_cast<float*>(o),
                                        static_cast<float*>(lse), sh);
@@ -521,6 +530,8 @@ Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float s
   sh.s = s;
   sh.h = h;
   sh.kv = kv;
+  sh.sq = s;
+  sh.q0 = 0;
   sh.window = window;
   sh.softcap = softcap;
   sh.scale = scale;
@@ -530,11 +541,16 @@ Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float s
 }  // namespace
 
 // Returns a cudaError_t (0 = launched).  window 0 = none, softcap 0 = none;
-// dtype 0 (float32) only: bfloat16 runs flash_gqa_sm90.cu's kernels.
+// dtype 0 (float32) only: bfloat16 runs flash_gqa_sm90.cu's kernels.  The
+// forward's sq queries sit at positions q0 .. q0 + sq - 1 of the s keys.
 extern "C" int flash_gqa_fwd(const void* q, const void* k, const void* v, void* o,
-                             void* lse, int dtype, int b, int s, int h, int kv, int d,
-                             int window, float softcap, float scale, void* stream) {
-  const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
+                             void* lse, int sq, int q0, int dtype, int b, int s, int h,
+                             int kv, int d, int window, float softcap, float scale,
+                             void* stream) {
+  if (sq < 1 || q0 < 0 || q0 + sq > s) return (int)cudaErrorInvalidValue;
+  Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
+  sh.sq = sq;
+  sh.q0 = q0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, sh, st);
 }

@@ -11,7 +11,12 @@
 // dO, dq (B, S, H, D) and k, v (B, S, KV, D) bf16, lse and delta (B, H, S)
 // f32, all contiguous; query head h reads KV head h / G; key j is visible to
 // query i iff j <= i and (no window, or i - j < window); the softcap c
-// applies s = c*tanh(s/c) to the scaled scores before the mask.
+// applies s = c*tanh(s/c) to the scaled scores before the mask.  K5 also
+// takes a query offset (a rank of a sequence-parallel prefill): its Sq
+// queries (q, o (B, Sq, H, D), lse (B, H, Sq)) sit at absolute positions
+// q0 .. q0 + Sq - 1 of the S keys (q0 + Sq <= S), the mask and the key-tile
+// range are computed on those absolute positions, and q0 = 0, Sq = S is the
+// plain launch.  The backward passes take no offset.
 //
 // What bounds it on an H100 SXM: at the LM slice (B = 2, S = 2048, H = 4,
 // KV = 1, D = 256) the work is 4D (forward), 6D (dq) and 8D (dk/dv) flops per
@@ -53,7 +58,8 @@
 //    memory, and the two warpgroups never wait for each other;
 //  - masked scores never enter exp (p = 0; a row with no visible key yet
 //    keeps m = -inf, l = 0, alpha = 1), and the window prunes tiles exactly:
-//    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 and K6 the
+//    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (q0 the
+//    block's first absolute position, the last clamped to the last query's) and K6 the
 //    same range in 32-key tiles (each warpgroup computes only those its 64
 //    rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64
 //    (kernels/flash_gqa/grid.py mirrors all three);
@@ -99,6 +105,7 @@ __host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 struct Shape {
   int b, s, h, kv;
+  int sq, q0;     // queries held and the absolute position of query 0 (K5)
   int window;     // 0 = none
   float softcap;  // 0 = none
   float scale;
@@ -392,8 +399,9 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// qi, kj: absolute positions; rows past the last query see nothing.
 __device__ __forceinline__ bool visible(int qi, int kj, const Shape& sh) {
-  return kj <= qi && qi < sh.s && (sh.window <= 0 || qi - kj < sh.window);
+  return kj <= qi && qi < sh.q0 + sh.sq && (sh.window <= 0 || qi - kj < sh.window);
 }
 
 // Accumulator layout of a 64 x N wgmma tile: thread t (warp w = t / 32 of
@@ -437,10 +445,13 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 
   const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
   const int kvh = h / (sh.h / sh.kv);
-  const int n_qt = (sh.s + L::kQRows - 1) / L::kQRows;
-  const int q0 = (n_qt - 1 - (int)blockIdx.y) * L::kQRows;  // heaviest tiles first
+  // rows of q, o and lse are local (0 .. Sq - 1); masks and key tiles use
+  // absolute positions, local row + sh.q0
+  const int n_qt = (sh.sq + L::kQRows - 1) / L::kQRows;
+  const int lq0 = (n_qt - 1 - (int)blockIdx.y) * L::kQRows;  // heaviest tiles first
+  const int q0 = sh.q0 + lq0, q_end = sh.q0 + sh.sq;
   const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kTile : 0;
-  const int kt_last = (min(q0 + L::kQRows, sh.s) - 1) / kTile;
+  const int kt_last = (min(q0 + L::kQRows, q_end) - 1) / kTile;
 
   if (threadIdx.x == 0) {
     mbar_init(q_full, 1);
@@ -456,7 +467,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     set_max_registers_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
       mbar_expect_tx(q_full, L::kQ);
-      tma_tile<D, L::kQRows>(sQ, &tq, q_full, h, q0, b);
+      tma_tile<D, L::kQRows>(sQ, &tq, q_full, h, lq0, b);
       for (int kt = kt_first; kt <= kt_last; ++kt) {
         const int i = kt - kt_first, st = i & 1;
         if (i >= 2) mbar_wait(kv_empty + 8 * st, ((i >> 1) - 1) & 1);
@@ -473,11 +484,11 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const int t = threadIdx.x - 128;
   const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
   const long long q_rs = (long long)sh.h * D;
-  const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
-  const int r0 = q0 + wg * kTile;  // this warpgroup's first row
-  const bool live = r0 < sh.s;
+  const long long q_off = ((long long)b * sh.sq * sh.h + h) * D;
+  const int r0 = q0 + wg * kTile;  // this warpgroup's first row (absolute)
+  const bool live = r0 < q_end;
   const int wk_first = sh.window > 0 ? max(0, r0 - sh.window + 1) / kTile : 0;
-  const int wk_last = (min(r0 + kTile, sh.s) - 1) / kTile;
+  const int wk_last = (min(r0 + kTile, q_end) - 1) / kTile;
   const int row[2] = {r0 + acc_row(0, warp, lane), r0 + acc_row(2, warp, lane)};
 
   const bool capped = sh.softcap > 0.f;
@@ -568,15 +579,16 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   }
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
-    if (row[r] >= sh.s) continue;
+    if (row[r] >= q_end) continue;
+    const int local = row[r] - sh.q0;
     const float lz = l[r] == 0.f ? 1.f : l[r];
     const float inv = 1.f / lz;
-    bf16* orow = o + q_off + (long long)row[r] * q_rs;
+    bf16* orow = o + q_off + (long long)local * q_rs;
 #pragma unroll
     for (int n = 0; n < D / 8; ++n)
       *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * (lane & 3)) =
           pack_bf16(acc[4 * n + 2 * r] * inv, acc[4 * n + 2 * r + 1] * inv);
-    if ((lane & 3) == 0) lse[(long long)bh * sh.s + row[r]] = (m[r] + log2f(lz)) * kLn2;
+    if ((lane & 3) == 0) lse[(long long)bh * sh.sq + local] = (m[r] + log2f(lz)) * kLn2;
   }
 }
 
@@ -1005,11 +1017,11 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   auto kernel = fwd_kernel<D>;
   constexpr int smem = FwdLayout<D>::kBytes;
   CUtensorMap tq, tk, tv;
-  if (int err = make_map(&tq, q, sh.b, sh.s, sh.h, D, FwdLayout<D>::kQRows)) return err;
+  if (int err = make_map(&tq, q, sh.b, sh.sq, sh.h, D, FwdLayout<D>::kQRows)) return err;
   if (int err = make_map(&tk, k, sh.b, sh.s, sh.kv, D, kTile)) return err;
   if (int err = make_map(&tv, v, sh.b, sh.s, sh.kv, D, kTile)) return err;
   if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid(sh.b * sh.h, (sh.s + FwdLayout<D>::kQRows - 1) / FwdLayout<D>::kQRows);
+  const dim3 grid(sh.b * sh.h, (sh.sq + FwdLayout<D>::kQRows - 1) / FwdLayout<D>::kQRows);
   kernel<<<grid, kThreads, smem, st>>>(tq, tk, tv, static_cast<bf16*>(o),
                                        static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
@@ -1068,6 +1080,8 @@ Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float s
   sh.s = s;
   sh.h = h;
   sh.kv = kv;
+  sh.sq = s;
+  sh.q0 = 0;
   sh.window = window;
   sh.softcap = softcap;
   sh.scale = scale;
@@ -1078,10 +1092,15 @@ Shape make_shape(int b, int s, int h, int kv, int window, float softcap, float s
 
 // Each returns a cudaError_t (0 = launched).  window 0 = none, softcap 0 =
 // none; dtype 1 (bfloat16) only: float32 runs flash_gqa.cu's kernels.
+// The forward's sq queries sit at positions q0 .. q0 + sq - 1 of the s keys.
 extern "C" int flash_gqa_sm90_fwd(const void* q, const void* k, const void* v, void* o,
-                                  void* lse, int dtype, int b, int s, int h, int kv, int d,
-                                  int window, float softcap, float scale, void* stream) {
-  const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
+                                  void* lse, int sq, int q0, int dtype, int b, int s, int h,
+                                  int kv, int d, int window, float softcap, float scale,
+                                  void* stream) {
+  if (sq < 1 || q0 < 0 || q0 + sq > s) return (int)cudaErrorInvalidValue;
+  Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
+  sh.sq = sq;
+  sh.q0 = q0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   SM90_DISPATCH(launch_fwd, q, k, v, o, lse, sh, st);
 }

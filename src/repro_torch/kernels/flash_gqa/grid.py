@@ -5,12 +5,13 @@
 as they are: the TPU kernels' window-pruned grids at their (512-default)
 tiles, kept so the tile census the benchmarks quote can be checked
 against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
-own tiles and compute the exact tile range a window needs themselves;
-``sm90_fwd_key_tiles``, ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles``
+own tiles and compute the exact tile range a window needs themselves (K5
+on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``, ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles``
 are those ranges of the tensor-core kernels (``csrc/flash_gqa_sm90.cu``),
 written out so the CPU tests can hold them to the mask.  ``attention_pairs`` counts the
 (query, key) pairs causality and the window leave, the work any
-implementation must do (``chip_smoke.py``'s operation bounds).
+implementation must do (``chip_smoke.py``'s operation bounds), of every
+query row or of a rank's rows q0 .. q0 + sq - 1.
 """
 from __future__ import annotations
 
@@ -57,8 +58,14 @@ def flash_gqa_bwd_grid(s: int, bq: int = 512, bk: int = 512, window=None,
     return nkp, nqv
 
 
-def attention_pairs(s: int, window=None) -> int:
-    """(query, key) pairs with k <= q and q - k < window, per (batch, head)."""
+def attention_pairs(s: int, window=None, q0: int = 0, sq=None) -> int:
+    """(query, key) pairs with k <= q and q - k < window, per (batch, head),
+    of the query rows q0 .. q0 + sq - 1 (``sq`` None: S - q0; a rank of a
+    sequence-parallel prefill)."""
+    sq = s - q0 if sq is None else sq
+    if q0:  # the pairs of rows 0 .. q0 + sq - 1 less those of rows 0 .. q0 - 1
+        return attention_pairs(q0 + sq, window) - attention_pairs(q0, window)
+    s = sq
     if window is None or window >= s:
         return s * (s + 1) // 2
     w = window
@@ -71,6 +78,8 @@ SM90_DQ_KEYS = 32    # keys of a K6 K/V tile
 
 
 def _key_tiles(q0: int, rows: int, s: int, window, keys: int) -> range:
+    """Key tiles of rows at absolute positions q0 .. q0 + rows - 1, rows at
+    or past ``s`` (one past the last query) seeing nothing."""
     if q0 >= s:
         return range(0)
     first = max(0, q0 - window + 1) // keys if window else 0
@@ -78,11 +87,15 @@ def _key_tiles(q0: int, rows: int, s: int, window, keys: int) -> range:
     return range(first, last + 1)
 
 
-def sm90_fwd_key_tiles(q0: int, rows: int, s: int, window=None) -> range:
-    """Key tiles (of 64 keys) that query rows q0 .. q0 + rows - 1 visit in
+def sm90_fwd_key_tiles(r0: int, rows: int, s: int, window=None, q0: int = 0,
+                       sq=None) -> range:
+    """Key tiles (of 64 keys) that query rows r0 .. r0 + rows - 1 visit in
     ``fwd_kernel``: a block's range at rows = 128, one warpgroup's (the
-    tiles it computes) at rows = 64.  Rows that all lie past S visit none."""
-    return _key_tiles(q0, rows, s, window, SM90_TILE)
+    tiles it computes) at rows = 64.  Rows are the launch's, whose query 0
+    sits at position ``q0`` of the S keys and which holds ``sq`` queries
+    (None: S - q0); rows that all lie past the last query visit none."""
+    sq = s - q0 if sq is None else sq
+    return _key_tiles(q0 + r0, rows, q0 + sq, window, SM90_TILE)
 
 
 def sm90_dq_key_tiles(q0: int, rows: int, s: int, window=None) -> range:

@@ -36,6 +36,15 @@ in ``LAUNCHES``).
 The kernels take the canonical positions arange(S): key j is visible to
 query i iff j <= i and i - j < window.  Masked scores are NEG_INF in the
 plain versions, as in ``repro``; the CUDA kernels keep them out of exp.
+
+K5 also runs at a query offset (``q0``, a rank of the sequence-parallel
+prefill, ``models/attention.py``): q (B, Sq, H, D) holds the queries at
+positions q0 .. q0 + Sq - 1 of the S keys of k/v (q0 + Sq <= S), out is
+(B, Sq, H, D) and the LSE (B, H, Sq); the mask and the kernels' key-tile
+ranges are computed on those positions.  On the card q0 must be a
+multiple of the query tile (``grid.SM90_FWD_ROWS``); the plain version
+takes any.  K6 and K7 take no offset: a backward through an offset
+forward raises (ROADMAP.md section 3, R7: no sequence-parallel backward).
 """
 from __future__ import annotations
 
@@ -48,6 +57,7 @@ import torch
 from repro_torch.kernels import costs, meta
 from repro_torch.kernels.build import bind, check_launch
 from repro_torch.kernels.dispatch import check_impl, kernel_scope
+from repro_torch.kernels.flash_gqa.grid import SM90_FWD_ROWS
 from repro_torch.kernels.flash_gqa.ref import NEG_INF, flash_gqa_ref, visible_mask
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
@@ -59,13 +69,13 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SHAPE = [_INT] * 7 + [_F32, _F32, _PTR]  # dtype b s h kv d window softcap scale stream
 SIGNATURES = {
-    "flash_gqa_fwd": ([_PTR] * 5 + _SHAPE, _INT),
+    "flash_gqa_fwd": ([_PTR] * 5 + [_INT, _INT] + _SHAPE, _INT),  # + sq, q0
     "flash_gqa_bwd_dq": ([_PTR] * 7 + _SHAPE, _INT),
     "flash_gqa_bwd_dkv": ([_PTR] * 8 + _SHAPE, _INT),
     "flash_gqa_error_string": ([_INT], ctypes.c_char_p),
 }
 SM90_SIGNATURES = {
-    "flash_gqa_sm90_fwd": ([_PTR] * 5 + _SHAPE, _INT),
+    "flash_gqa_sm90_fwd": ([_PTR] * 5 + [_INT, _INT] + _SHAPE, _INT),  # + sq, q0
     "flash_gqa_sm90_bwd_dq": ([_PTR] * 7 + [_INT] + _SHAPE, _INT),  # + dq's dtype
     "flash_gqa_sm90_bwd_dkv": ([_PTR] * 8 + _SHAPE, _INT),
     "flash_gqa_sm90_dkv_sum": ([_PTR] * 4 + [_INT] * 5 + [_PTR], _INT),
@@ -93,16 +103,24 @@ def _scale(d, scale):
     return d ** -0.5 if scale is None else scale
 
 
-def _check(q, k, v, window, *rows, **more):
-    """Validate what every kernel takes; returns (B, S, H, KV, D)."""
+def _check(q, k, v, window, *rows, q0=None, **more):
+    """Validate what every kernel takes; returns (B, S, H, KV, D), S the
+    keys.  ``q0`` (K5 only): the queries' offset, q (B, Sq, H, D) at
+    positions q0 .. q0 + Sq - 1 of the S keys; None: Sq = S, no offset."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4:
         raise ValueError(f"need q (B,S,H,D) and k/v (B,S,KV,D), got {tuple(q.shape)}, "
                          f"{tuple(k.shape)}, {tuple(v.shape)}")
-    b, s, h, d = q.shape
-    kv = k.shape[2]
-    if k.shape[:2] != (b, s) or k.shape[3] != d or h % kv:
+    b, sq, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    if k.shape[0] != b or k.shape[3] != d or h % kv or (q0 is None and sq != s):
         raise ValueError(f"k/v {tuple(k.shape)} do not match q {tuple(q.shape)} "
                          "(same B, S, D; H a multiple of KV)")
+    if q0 is not None and not (0 <= q0 and 1 <= sq and q0 + sq <= s):
+        raise ValueError(f"queries at positions {q0} .. {q0 + sq - 1} do not lie within the "
+                         f"{s} keys")
+    if q0 and (q.is_cuda or q.is_meta) and q0 % SM90_FWD_ROWS:
+        raise ValueError(f"the kernels take a query offset that is a multiple of the query "
+                         f"tile ({SM90_FWD_ROWS}), got {q0}")
     if window is not None and window < 1:
         raise ValueError(f"window must be >= 1 or None, got {window}")
     for t in (q, k, v) + tuple(more.values()):
@@ -130,13 +148,16 @@ _COSTS = {"fwd": costs.flash_fwd_cost, "bwd_dq": costs.flash_dq_cost,
           "bwd_dkv": costs.flash_dkv_cost}
 
 
-def _launch(kind, tensors, *extra, dtype, b, s, h, kv, d, window, softcap, scale):
+def _launch(kind, tensors, *extra, dtype, b, s, h, kv, d, window, softcap, scale,
+            offset=None):
     """Launch ``flash_gqa_<kind>`` (bf16: ``flash_gqa_sm90_<kind>``) on the
-    pointers of ``tensors`` and ``extra`` (the sm90 dq pass's output dtype)
-    and count it under ``flash_<kind>``; on meta tensors record it with its
-    cost instead."""
+    pointers of ``tensors`` and ``extra`` (the forward's Sq and q0, the
+    sm90 dq pass's output dtype) and count it under ``flash_<kind>``; on
+    meta tensors record it with its cost (``offset``: the forward's
+    {"q0", "sq"}) instead."""
     if tensors[0].is_meta:
-        meta.launch(f"flash_{kind}", _COSTS[kind](b, s, h, kv, d, window, dtype.itemsize))
+        meta.launch(f"flash_{kind}", _COSTS[kind](b, s, h, kv, d, window, dtype.itemsize,
+                                                  **(offset or {})))
         return
     lib, prefix = ((_sm90_lib(), "flash_gqa_sm90") if dtype == torch.bfloat16
                    else (_lib(), "flash_gqa"))
@@ -152,30 +173,31 @@ def _launch(kind, tensors, *extra, dtype, b, s, h, kv, d, window, softcap, scale
 # -- plain versions ----------------------------------------------------------
 
 
-def _scores(q, k, window, softcap, scale):
+def _scores(q, k, window, softcap, scale, q0=0):
     """Scaled, softcapped, masked f32 scores (B, KV, G, Sq, Sk), the raw
     tanh (for the softcap's chain factor, or None), and q*scale grouped as
-    (B, S, KV, G, D)."""
-    b, s, h, d = q.shape
-    kv = k.shape[2]
-    qs = (q.float() * scale).reshape(b, s, kv, h // kv, d)
+    (B, Sq, KV, G, D); the queries at positions q0 .. q0 + Sq - 1."""
+    b, sq, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
+    qs = (q.float() * scale).reshape(b, sq, kv, h // kv, d)
     sc = torch.einsum("bqkgd,btkd->bkgqt", qs, k.float())
     t = None
     if softcap is not None:
         t = torch.tanh(sc / softcap)
         sc = softcap * t
-    sc = sc.masked_fill(~visible_mask(s, window, q.device), NEG_INF)
+    sc = sc.masked_fill(~visible_mask(s, window, q.device, q0, sq), NEG_INF)
     return sc, t, qs
 
 
-def flash_fwd_plain(q, k, v, window=None, softcap=None, scale=None):
-    """Plain K5: (out (B,S,H,D) in q's dtype, lse (B,H,S) f32)."""
-    b, s, h, d = q.shape
-    sc, _, _ = _scores(q, k, window, softcap, _scale(d, scale))
+def flash_fwd_plain(q, k, v, window=None, softcap=None, scale=None, q0=0):
+    """Plain K5: (out (B,Sq,H,D) in q's dtype, lse (B,H,Sq) f32), the
+    queries at positions q0 .. q0 + Sq - 1 of k/v's S."""
+    b, sq, h, d = q.shape
+    sc, _, _ = _scores(q, k, window, softcap, _scale(d, scale), q0)
     lse = torch.logsumexp(sc, dim=-1)
     p = torch.exp(sc - lse[..., None])
-    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float()).reshape(b, s, h, d)
-    return out.to(q.dtype), lse.reshape(b, h, s)
+    out = torch.einsum("bkgqt,btkd->bqkgd", p, v.float()).reshape(b, sq, h, d)
+    return out.to(q.dtype), lse.reshape(b, h, sq)
 
 
 def _probs_and_dscores(q, k, v, dout, lse, delta, window, softcap, scale):
@@ -226,15 +248,18 @@ def flash_bwd_dkv_sum_plain(pk, pv, kv):
 # -- wrappers ----------------------------------------------------------------
 
 
-def flash_fwd(q, k, v, window=None, softcap=None, scale=None):
-    """K5 on the card for CUDA tensors; the plain version for CPU ones."""
-    b, s, h, kv, d = _check(q, k, v, window)
+def flash_fwd(q, k, v, window=None, softcap=None, scale=None, q0=0):
+    """K5 on the card for CUDA tensors; the plain version for CPU ones.
+    ``q0``: the position of q's first row among k/v's (module docstring)."""
+    b, s, h, kv, d = _check(q, k, v, window, q0=q0)
     if not (q.is_cuda or q.is_meta):
-        return flash_fwd_plain(q, k, v, window, softcap, scale)
+        return flash_fwd_plain(q, k, v, window, softcap, scale, q0)
+    sq = q.shape[1]
     out = torch.empty_like(q)
-    lse = torch.empty((b, h, s), dtype=torch.float32, device=q.device)
-    _launch("fwd", (q, k, v, out, lse), dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d,
-            window=window, softcap=softcap, scale=_scale(d, scale))
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    _launch("fwd", (q, k, v, out, lse), sq, q0, dtype=q.dtype, b=b, s=s, h=h, kv=kv, d=d,
+            window=window, softcap=softcap, scale=_scale(d, scale),
+            offset={"q0": q0, "sq": sq})
     return out, lse
 
 
@@ -334,33 +359,40 @@ class _FlashGQA(torch.autograd.Function):
     """Forward: K5 (out and the LSE residual).  Backward: K6 + K7."""
 
     @staticmethod
-    def forward(q, k, v, window, softcap, scale):
-        return flash_fwd(q, k, v, window, softcap, scale)
+    def forward(q, k, v, window, softcap, scale, q0):
+        return flash_fwd(q, k, v, window, softcap, scale, q0)
 
     @staticmethod
     def setup_context(ctx, inputs, output):
-        q, k, v, window, softcap, scale = inputs
+        q, k, v, window, softcap, scale, q0 = inputs
         out, lse = output
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (window, softcap, scale)
+        ctx.offset = q0 or q.shape[1] != k.shape[1]
 
     @staticmethod
     def backward(ctx, dout, _dlse):
+        if ctx.offset:
+            raise NotImplementedError(
+                "a backward through K5 at a query offset: K6 and K7 take no offset, and "
+                "repro has no sequence-parallel backward that lowers (ROADMAP.md section 3, "
+                "R7)")
         q, k, v, out, lse = ctx.saved_tensors
         dout = dout.contiguous()
         delta = row_delta(dout, out)
         with kernel_scope("flash_gqa_bwd", "kernel" if q.is_cuda else "auto"):
             dq = flash_bwd_dq(q, k, v, dout, lse, delta, *ctx.args)
             dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, *ctx.args)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
-def flash_gqa(q, k, v, window=None, softcap=None, scale=None, impl: str = "auto"):
-    """q: (B,S,H,D), k/v: (B,S,KV,D) -> (B,S,H,D).  Causal GQA attention,
-    differentiable in q, k and v."""
+def flash_gqa(q, k, v, window=None, softcap=None, scale=None, impl: str = "auto", q0: int = 0):
+    """q: (B,Sq,H,D), k/v: (B,S,KV,D) -> (B,Sq,H,D).  Causal GQA attention,
+    differentiable in q, k and v; the queries at positions q0 .. q0 + Sq -
+    1 of the S keys (Sq = S without an offset; no backward with one)."""
     if check_impl(impl, "flash_gqa", q) == "reference":
-        return flash_gqa_ref(q, k, v, window, softcap, scale)
+        return flash_gqa_ref(q, k, v, window, softcap, scale, q0)
     out, _ = _FlashGQA.apply(q.contiguous(), k.contiguous(), v.contiguous(),
-                             window, softcap, scale)
+                             window, softcap, scale, q0)
     return out

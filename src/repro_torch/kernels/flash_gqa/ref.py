@@ -11,9 +11,11 @@ import torch
 NEG_INF = -1e30
 
 
-def visible_mask(s: int, window, device) -> torch.Tensor:
-    """(S, S) bool: key j visible to query i (j <= i, i - j < window)."""
-    qi = torch.arange(s, device=device)[:, None]
+def visible_mask(s: int, window, device, q0: int = 0, sq=None) -> torch.Tensor:
+    """(Sq, S) bool: key j visible to query i (j <= i, i - j < window), the
+    Sq queries at positions q0 .. q0 + Sq - 1 (``sq`` None: S - q0)."""
+    sq = s - q0 if sq is None else sq
+    qi = torch.arange(q0, q0 + sq, device=device)[:, None]
     kj = torch.arange(s, device=device)[None, :]
     mask = kj <= qi
     if window is not None:
@@ -21,16 +23,17 @@ def visible_mask(s: int, window, device) -> torch.Tensor:
     return mask
 
 
-def flash_gqa_ref(q, k, v, window=None, softcap=None, scale=None):
-    """q: (B,S,H,D), k/v: (B,S,KV,D) -> (B,S,H,D).  Causal."""
-    b, s, h, d = q.shape
-    kv = k.shape[2]
+def flash_gqa_ref(q, k, v, window=None, softcap=None, scale=None, q0: int = 0):
+    """q: (B,Sq,H,D), k/v: (B,S,KV,D) -> (B,Sq,H,D).  Causal; the queries
+    at positions q0 .. q0 + Sq - 1 (Sq = S at q0 = 0 without an offset)."""
+    b, sq, h, d = q.shape
+    s, kv = k.shape[1], k.shape[2]
     sc = scale if scale is not None else d**-0.5
-    qg = q.float().reshape(b, s, kv, h // kv, d)
+    qg = q.float().reshape(b, sq, kv, h // kv, d)
     scores = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * sc
     if softcap is not None:
         scores = softcap * torch.tanh(scores / softcap)
-    scores = scores.masked_fill(~visible_mask(s, window, q.device), NEG_INF)
+    scores = scores.masked_fill(~visible_mask(s, window, q.device, q0, sq), NEG_INF)
     w = torch.softmax(scores, dim=-1)
     o = torch.einsum("bkgqt,btkd->bqkgd", w, v.float())
-    return o.reshape(b, s, h, d).to(q.dtype)
+    return o.reshape(b, sq, h, d).to(q.dtype)

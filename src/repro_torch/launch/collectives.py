@@ -11,14 +11,21 @@ the model-sharded update reach the other ranks through these functions:
                    rank order (JAX's non-tiled ``all_gather(..., axis=0)``):
                    the data split's gradient chunks (``optim/sgd.py``);
   ``all_reduce``   an in-place SUM;
+  ``reduce_scatter`` every rank's tensor summed, this rank's share of the
+                   sum along ``dim`` in rank order (the sequence-parallel
+                   prefill's embedding): NCCL's reduce-scatter; gloo has
+                   none, so there (and on the dry run's ``fake`` backend)
+                   an all-reduce, then the slice;
   ``broadcast``    from a group rank;
   ``barrier``.
 
 Each call adds to ``CENSUS`` in ``repro``'s collective schema
 (``launch/roofline.py::collective_bytes_from_hlo``, which the port has no
 HLO to parse for): ``{op: {"bytes", "count"}}`` with the op named as HLO
-names it ("all-gather", "all-reduce", "collective-broadcast") and the
-bytes of the op's RESULT on this rank; ``launch/roofline.py::
+names it ("all-gather", "all-reduce", "reduce-scatter",
+"collective-broadcast") and the bytes of the op's RESULT on this rank (a
+reduce-scatter is counted as one whatever the backend runs for it, so the
+dry run's count and a gloo run's census agree); ``launch/roofline.py::
 roofline_terms`` reads the same schema.  A barrier moves no data and is
 counted under "barrier" with 0 bytes.
 
@@ -143,6 +150,29 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     dist.all_reduce(x, op=dist.ReduceOp.SUM, group=group)
     _count("all-reduce", x.nbytes)
     return x
+
+
+def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """Every rank's ``x`` (same shape on each rank) summed, and this rank's
+    contiguous share of the sum along ``dim`` (``dim`` divides by the group
+    size; rank r holds the r-th share)."""
+    _refuse_transforms(x)
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    if x.shape[dim] % n:
+        raise ValueError(f"reduce_scatter: dim {dim} of {tuple(x.shape)} does not divide "
+                         f"over {n} ranks")
+    w = x.shape[dim] // n
+    if dist.get_backend(group) == "nccl":
+        whole = x.movedim(dim, 0).contiguous()
+        out = whole.new_empty((w,) + tuple(whole.shape[1:]))
+        dist.reduce_scatter_tensor(out, whole, op=dist.ReduceOp.SUM, group=group)
+        out = out.movedim(0, dim).contiguous()
+    else:
+        whole = x.clone()
+        dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=group)
+        out = whole.narrow(dim, r * w, w).contiguous()
+    _count("reduce-scatter", out.nbytes)
+    return out
 
 
 def broadcast(x: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:

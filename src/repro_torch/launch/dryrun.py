@@ -41,8 +41,7 @@ this engine lowering, as ``repro``'s dry run lowers its train step
 through ``MeshBackend``: every rank of a model group computes the same
 chunk.  (The tensor-parallel train step, ``make_train_step(tp=)``, is
 ``launch/train.py``'s replicated step on a model axis; ``chip_smoke.py``
-phase 19 counts it with ``count`` in a 2-rank ``fake_world``.  The
-sequence-parallel ``seqshard`` is ROADMAP.md queue 1, item 16b.)  A prefill or
+phase 19 counts it with ``count`` in a 2-rank ``fake_world``.)  A prefill or
 decode step on a mesh, of every arch, is rank 0's tensor-parallel program
 (``launch/steps.py``'s ``tp``, ``models/parallel.py``): its model slice
 of every leaf ``launch/sharding.py``'s rules split (attention, MLP,
@@ -71,8 +70,33 @@ has ``repro``'s keys:
 and the port's own ``launches`` (per kernel), ``kernels`` (their FLOPs and
 bytes), ``peak_bytes`` and ``fits`` (the peak against the card's 80 GB).
 ``moe_dispatch`` / ``moe_grouped`` run the capacity-based MoE dispatch,
-whose shapes are static (set by the capacity, not the routing);
-``seqshard`` is refused (ROADMAP.md queue 1, item 16b).
+whose shapes are static (set by the capacity, not the routing).
+
+``seqshard`` sets ``cfg.seq_shard``, as ``repro``'s does:
+
+  prefill  rank 0's sequence-parallel program (``launch/steps.py``,
+           ``models/transformer.py``): every layer leaf whole, ``embed`` /
+           ``heads`` vocab-cut (``rank_plan(seqshard=True)``, ``repro``'s
+           ``_strip_model_axis``), the data rank's rows of the prompt; the
+           record says ``"serve_layout": "sequence_parallel"`` (at ``one``
+           the one-device prefill).  The census holds the embedding's
+           reduce-scatter (where ``embed`` splits), the K/V gathers, the
+           last position's broadcast and the logits' vocab gather.  The SSM,
+           hybrid and frontend archs and the dispatch MoE are refused
+           (ROADMAP.md item 16b-ii); the CLI's sweep skips them with a line
+           each;
+  decode   the baseline tensor-parallel serve step, as ``repro``'s decode
+           branch ignores the variant: the record is the baseline's but
+           for ``"variant"``;
+  train    the port's reading (``repro``'s pins manual axes inside the
+           engine's shard_map, which jax 0.9.0 does not lower: ROADMAP.md
+           section 3, R7): the ``MeshBackend`` lowering with the client
+           state at rest on ``_strip_model_axis``'s specs, every layer leaf
+           whole on its model rank and ``embed`` vocab-cut; the pin is a
+           no-op in the engine's body, where every rank of a model group
+           computes its whole chunk, as the baseline engine step does.  So
+           the model-axis all-gather drops by the layer leaves the baseline
+           gathers, and the argument bytes rise by what their cuts saved.
 
 The live-bytes tracker (``MemoryCounter``) follows each storage an op
 returns until its last reference goes: the peak it reads is the caching
@@ -113,11 +137,15 @@ from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import MeshSpec
 from repro_torch.launch.roofline import HBM_CAPACITY, roofline_terms
 from repro_torch.launch.sharding import rank_plan
+from repro_torch.models.transformer import check_seq_shard
 from repro_torch.utils.pytree import tree_leaves, tree_map
 from repro_torch.weights import cut
 
 ART_DIR = Path(__file__).resolve().parents[3] / "experiments" / "dryrun_torch"
-VARIANTS = {"baseline": None, "moe_dispatch": "dispatch", "moe_grouped": "dispatch_grouped"}
+# --variant name -> the MoE impl it runs (None: the config's); "seqshard"
+# sets cfg.seq_shard instead (the module docstring)
+VARIANTS = {"baseline": None, "moe_dispatch": "dispatch", "moe_grouped": "dispatch_grouped",
+            "seqshard": None}
 # --mesh name -> (its MeshSpec, None for one device; the records' mesh tag)
 MESHES = {"one": (None, "1"), "single": (MeshSpec.single_pod(16, 16), "16x16"),
           "multi": (MeshSpec.multi_pod(2, 16, 16), "2x16x16")}
@@ -259,15 +287,13 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
     With a mesh ``engine`` (inside its process group), rank 0's step and
     its inputs at rest, one client a pod (the module docstring)."""
     cfg = cfg or get_config(arch)
-    if variant == "seqshard":
-        raise NotImplementedError(
-            "variant 'seqshard' shards the sequence over the model group, a "
-            "sequence-parallel forward the port does not have; see ROADMAP.md "
-            "queue 1, item 16b (seqshard)")
     if variant not in VARIANTS:
         raise ValueError(f"unknown variant {variant!r}; choose from {tuple(VARIANTS)}")
     if VARIANTS[variant]:
         cfg = cfg.replace(moe_impl=VARIANTS[variant])
+    seqshard = variant == "seqshard"
+    if seqshard:
+        cfg = cfg.replace(seq_shard=True)
     shape = resolve_shape(shape)
     micro_batch = micro_batch_for(cfg, micro_batch)
     if engine is not None:
@@ -279,7 +305,8 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
         step = st.make_train_step(cfg, shape, engine=engine)
         state = specs["state"]
         if engine is not None:
-            shardings = {k: engine.input_shardings(v) for k, v in state.items()}
+            shardings = {k: engine.input_shardings(v, seqshard=seqshard)
+                         for k, v in state.items()}
             state = {k: _at_rest(v, shardings[k]) for k, v in state.items()}
             step = functools.partial(step, shardings=shardings)
         args = (state, specs["global_delta"], specs["batches"])
@@ -295,7 +322,8 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
             args = (specs["params"], specs["batch"], specs["pos"], specs["caches"])
         if engine is not None:  # rank 0's pod's rows, each leaf its own storage
             rows = engine._rows()
-            args = tuple(_rank_part(tree_map(lambda x: x[rows], a), client_args[j], tp)
+            seq = seqshard and shape.kind == "prefill"
+            args = tuple(_rank_part(tree_map(lambda x: x[rows], a), client_args[j], tp, seq)
                          if j in client_args else a for j, a in enumerate(args))
     spec = engine.spec if engine is not None else None
     info = {
@@ -305,16 +333,33 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
         "long_context_mode": rcfg.long_context_mode if shape.name == "long_500k" else None,
         "cfg_name": rcfg.name,
     }
-    if engine is not None and shape.kind != "train":
+    if seqshard and shape.kind == "prefill":
+        info["serve_layout"] = "sequence_parallel"
+    elif engine is not None and shape.kind != "train":
         info["serve_layout"] = "tensor_parallel"
     return step, args, info
 
 
-def _rank_part(tree, kind, tp):
+def _rank_part(tree, kind, tp, seqshard=False):
     """This rank's part of a client-stacked serving input, cut by the
-    rank's plan, each leaf its own storage."""
-    plan = rank_plan(tree, kind, tp.data_size, tp.size, tp.data_rank, tp.rank, client=True)
+    rank's plan (``seqshard``: the sequence-parallel params), each leaf its
+    own storage."""
+    plan = rank_plan(tree, kind, tp.data_size, tp.size, tp.data_rank, tp.rank, client=True,
+                     seqshard=seqshard)
     return cut(tree, plan)
+
+
+def refused(arch: str, shape, variant: str):
+    """Why (arch, shape) has no step under ``variant`` (ROADMAP.md item
+    16b-ii: the seqshard prefill of the SSM, hybrid and frontend archs and
+    the dispatch MoE), or None."""
+    if variant != "seqshard" or resolve_shape(shape).kind != "prefill":
+        return None
+    try:
+        check_seq_shard(get_config(arch))
+    except NotImplementedError as e:
+        return str(e)
+    return None
 
 
 @contextlib.contextmanager
@@ -413,6 +458,10 @@ def main(argv=None):
     failures = []
     for arch in archs:
         for shape in shapes:
+            why = refused(arch, shape, args.variant)
+            if why is not None:
+                print(f"-- skipped {arch} x {shape} ({args.variant}): {why}")
+                continue
             for mesh in meshes:
                 try:
                     run_one(arch, shape, variant=args.variant, micro_batch=args.micro_batch,

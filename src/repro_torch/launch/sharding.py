@@ -27,6 +27,11 @@ decode state: heads on ``model``.
 The federation's CNN state is flat ``(K', N)`` rows whose leaf names match
 no rule, so its client-stacked specs are the plain client split.
 
+``seqshard=True`` (``rank_plan``, ``client_stacked_specs``) is ``repro``'s
+``_strip_model_axis`` (``repro/launch/dryrun.py``): every leaf but
+``embed`` and ``heads`` whole on the model axis, the sequence-parallel
+layout (``models/transformer.py``).
+
 ``rank_plan`` turns a spec tree into one rank's plan: per leaf, the
 ``(dim, slice)`` of every split dim at that rank's coordinates (the
 tensor-parallel serving layout, ``models/parallel.py``, and the engines'
@@ -117,10 +122,15 @@ def _as_tree(tree, specs: list):
 
 
 def _param_specs(params_tree, msize, stacked_prefixes=("pattern",), client=False,
-                 client_axis=None) -> list:
-    return _specs(params_tree, lambda path, leaf: _with_prefix(
-        path, leaf, client, client_axis, stacked_prefixes,
-        lambda names, shape: _param_rule(names, shape, msize)))
+                 client_axis=None, seqshard=False) -> list:
+    def spec_of(path, leaf):
+        spec = _with_prefix(path, leaf, client, client_axis, stacked_prefixes,
+                            lambda names, shape: _param_rule(names, shape, msize))
+        if seqshard and not {"embed", "heads"} & set(_path_names(path)):
+            spec = tuple(None if ax == "model" else ax for ax in spec)
+        return spec
+
+    return _specs(params_tree, spec_of)
 
 
 def param_pspecs(params_tree, msize: int, stacked_prefixes=("pattern",),
@@ -206,7 +216,8 @@ def _batch_specs(batch_tree, dsize, batch_axis_index=0, client=False, client_axi
 
 
 def client_stacked_specs(tree, axis_name: Optional[str] = "clients",
-                        model_axis: Optional[str] = None, msize: int = 1) -> list:
+                        model_axis: Optional[str] = None, msize: int = 1,
+                        seqshard: bool = False) -> list:
     """Specs (leaf order) splitting the leading stacked-client axis of
     every leaf.
 
@@ -216,7 +227,9 @@ def client_stacked_specs(tree, axis_name: Optional[str] = "clients",
     are not divisible by ``msize``) stay whole beyond the client axis, so
     arbitrary method state (the CNN federation) composes to the plain
     client split.  The param rules emit the literal axis name ``"model"``,
-    so a composing mesh must name its model-role axis ``"model"``."""
+    so a composing mesh must name its model-role axis ``"model"``.
+    ``seqshard``: only ``embed`` / ``heads`` split over the model axis (the
+    module docstring)."""
     if model_axis is None or msize <= 1:
         return _replicated_specs(tree, client=True, client_axis=axis_name)
     if model_axis != "model":
@@ -224,7 +237,7 @@ def client_stacked_specs(tree, axis_name: Optional[str] = "clients",
             f"model-axis composition requires the mesh's model-role axis to "
             f"be named 'model' (got {model_axis!r}); the name-based param "
             "rules emit the literal axis name")
-    return _param_specs(tree, msize, client=True, client_axis=axis_name)
+    return _param_specs(tree, msize, client=True, client_axis=axis_name, seqshard=seqshard)
 
 
 def client_stacked_pspecs(tree, axis_name: Optional[str] = "clients",
@@ -267,14 +280,15 @@ def leaf_plan(spec, shape, sizes: dict, ranks: dict) -> LeafPlan:
 
 
 def rank_plan(tree, kind: str, dsize: int = 1, msize: int = 1, drank: int = 0,
-              mrank: int = 0, client: bool = False):
+              mrank: int = 0, client: bool = False, seqshard: bool = False):
     """One rank's plan for ``tree`` (tensors or meta tensors): a tree of
     ``LeafPlan``, each the leaf's spec at data rank ``drank`` of ``dsize``
     and model rank ``mrank`` of ``msize``.  ``kind``: "params" (the param
     rules), "caches" (the cache rules) or "batch" (the batch dim first);
-    ``client``: every leaf leads with a client axis, never cut here."""
+    ``client``: every leaf leads with a client axis, never cut here;
+    ``seqshard`` (params): the layer leaves whole (the module docstring)."""
     if kind == "params":
-        specs = _param_specs(tree, msize, client=client)
+        specs = _param_specs(tree, msize, client=client, seqshard=seqshard)
     elif kind == "caches":
         specs = _cache_specs(tree, dsize, msize, client=client)
     elif kind == "batch":

@@ -39,6 +39,17 @@ Serving:
   rank holds the whole batch and the step drops the data group.  With
   no ``tp`` they are the one-device steps.
 
+  ``cfg.seq_shard`` (``repro``'s ``seqshard`` variant): the prefill step
+  with ``tp`` is one rank's sequence-parallel program
+  (``models/transformer.py``'s module docstring): params with every layer
+  leaf whole and ``embed`` vocab-cut (``rank_plan(seqshard=True)``), the
+  data rank's rows of the whole prompt; the last position broadcast from
+  the last model rank, its logits gathered over the vocab and the data
+  ranks as above.  The serve step ignores the flag, as ``repro``'s decode
+  does (its caches and params keep the tensor-parallel layout).  The
+  flag's refusals (``transformer.check_seq_shard``: ROADMAP.md item
+  16b-ii) raise when the prefill step is made.
+
 ``input_specs(cfg, shape)`` builds meta-device stand-ins for every input,
 leaf for leaf ``repro``'s ``ShapeDtypeStruct``s (a leading client axis on
 the per-client inputs): no allocation, no draw.  ``abstract_params`` and
@@ -154,11 +165,13 @@ def make_prefill_step(cfg: ModelConfig, shape: InputShape,
                       tp: Optional[parallel.TensorParallel] = None):
     cfg = resolve_cfg(cfg, shape)
     tp = _for_batch(tp, shape)
+    if cfg.seq_shard:
+        tf.check_seq_shard(cfg)
 
     @torch.no_grad()
     def prefill_step(params, batch):
         hidden, _ = tf.forward(params, cfg, batch, tp=tp)
-        logits = tf.lm_logits(params, cfg, hidden[:, -1:, :], tp=tp)
+        logits = tf.lm_logits(params, cfg, tf.last_position(hidden, cfg, tp), tp=tp)
         if tp is not None and parallel.split(tp, logits.shape[-1], cfg.vocab_size):
             logits = parallel.gather(logits, tp, -1)
         return _whole_rows(logits, tp)
@@ -350,6 +363,11 @@ def make_train_step(cfg: ModelConfig, shape: InputShape,
         raise NotImplementedError(
             f"a tensor-parallel train step of {cfg.name}: repro's launch/train.py trains text "
             "archs only (repro/launch/train.py:77-78), so the frontends have no train step to port")
+    if tp is not None and cfg.seq_shard:
+        raise NotImplementedError(
+            "a sequence-parallel train step: repro's seqshard train lowering pins manual axes "
+            "inside MeshBackend's shard_map, which does not lower (ROADMAP.md section 3, R7); "
+            "the dry run's seqshard train record is the engine lowering")
     pcfg = pcfg or pf.PFedSOPConfig()
     engine = engine if engine is not None else VmapBackend()
     mtp = _model_only(tp) if tp is not None else None

@@ -55,6 +55,14 @@ share (``_whole_kv``), a whole attention output cut for ``wo``, and the
 QK-norm scales where they act on this rank's heads; a gather's backward
 is this rank's slice of the gradient.
 
+Sequence-parallel prefill (``seq_attention_fwd``; ``cfg.seq_shard`` under
+a ``tp``, ``repro``'s ``seqshard`` variant): the weights are whole and the
+rank holds positions q0 = r S/m .. q0 + S/m - 1.  It projects its own
+positions (RoPE at those global positions, after QK-norm), gathers K and V
+over the sequence in rank order (``parallel.gather`` along dim 1), keeps the keys
+up to its last query, and runs K5 on its S/m queries at offset q0 against
+those q0 + S/m keys: causality and windows act on absolute positions.
+
 Where the port's collectives differ from what GSPMD would insert into
 ``repro``'s partitioned step (its HLO cannot be read here): the port
 gathers head-split K/V for the cache and whole queries for decode, where
@@ -200,18 +208,24 @@ def _out_proj(p, cfg, o, tp):
     return parallel.row("bshk,hkd->bsd", o, wo, tp)
 
 
-def _attend(p, cfg, q, k, v, positions, window, dtype, q_block, tp=None):
+def _attend(p, cfg, q, k, v, positions, window, dtype, q_block, tp=None, q0=0):
     """``attention_fwd`` after the projections: the mixing and the output
-    projection, the result in ``dtype``."""
+    projection, the result in ``dtype``.  ``q0``: the position of q's first
+    row among the keys' (a sequence-parallel rank's; ``positions`` are
+    then the queries')."""
     if tp is not None:
         k, v = _kv_for_queries(cfg, q, k, v, tp)
     b, s, h, hd = q.shape
     if check_impl_name(cfg.kernel_impl, "flash_gqa") != "reference":
         with kernel_scope("flash_gqa", cfg.kernel_impl):
             o = flash_ops.flash_gqa(q, k, v, window=window, softcap=cfg.attn_softcap,
-                                    impl=cfg.kernel_impl)
+                                    impl=cfg.kernel_impl, q0=q0)
         return _out_proj(p, cfg, o.to(dtype), tp)
 
+    kpos = positions
+    if q0 or k.shape[1] != s:  # the keys' canonical positions
+        kpos = torch.arange(k.shape[1], dtype=positions.dtype,
+                            device=positions.device)[None].expand(b, -1)
     qb = min(q_block, s)
     while s % qb:
         qb //= 2
@@ -220,15 +234,34 @@ def _attend(p, cfg, q, k, v, positions, window, dtype, q_block, tp=None):
         qi = q[:, i * qb:(i + 1) * qb]  # (B,qb,H,hd)
         qpos = positions[:, i * qb:(i + 1) * qb]
         sc = _grouped_scores(qi, k, cfg)  # (B,qb,KV,G,S)
-        mask = positions[:, None, :] <= qpos[:, :, None]  # causal (B,qb,S)
+        mask = kpos[:, None, :] <= qpos[:, :, None]  # causal (B,qb,S)
         if window is not None:
-            mask &= (qpos[:, :, None] - positions[:, None, :]) < window
+            mask &= (qpos[:, :, None] - kpos[:, None, :]) < window
         sc = torch.where(mask[:, :, None, None, :], sc, NEG_INF)
         w = torch.softmax(sc, dim=-1)
         # probabilities cast to the storage dtype for the PV product, f32 sums
         o = torch.einsum("bqkgt,btkd->bqkgd", w.to(v.dtype).float(), v.float())
         outs.append(o.reshape(b, qb, h, hd).to(dtype))
     return _out_proj(p, cfg, torch.cat(outs, dim=1), tp)
+
+
+def _seq_keys(k, v, tp):
+    """Every rank's post-RoPE K and V positions gathered over the sequence
+    in rank order, kept up to this rank's last query, and the position of
+    this rank's first query: (k, v (B, q0 + S/m, KV, hd), q0)."""
+    n = k.shape[1]
+    q0 = tp.rank * n
+    k, v = (parallel.gather(x, tp, 1)[:, :q0 + n] for x in (k, v))
+    return k, v, q0
+
+
+def seq_attention_fwd(p, cfg, x, positions, window, rope_base, tp):
+    """Prefill self-attention on one rank of a sequence-parallel prefill
+    (module docstring): x (B, S/m, D) normed, this rank's positions;
+    ``positions`` (B, S/m) their global positions; whole weights."""
+    q, k, v = _project_qkv(p, cfg, x, positions, rope_base)
+    k, v, q0 = _seq_keys(k, v, tp)
+    return _attend(p, cfg, q, k, v, positions, window, x.dtype, cfg.attn_q_block, q0=q0)
 
 
 # ---------------------------------------------------------------------------

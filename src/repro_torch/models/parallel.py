@@ -75,6 +75,20 @@ Function`` that runs out of place, with its conjugate as its backward
                      all-gathered in rank order and combined in that
                      order (the flash-decoding combine).
 
+The sequence-parallel prefill (``repro``'s ``seqshard`` variant, a
+``TensorParallel`` under ``cfg.seq_shard``: model rank r of m holds
+positions r S/m .. (r + 1) S/m - 1 of its data rank's rows, with every
+layer weight whole) adds three ops, forward only (the prefill runs under
+``no_grad``; ``repro`` has no sequence-parallel backward that lowers), and
+gathers K and V over the sequence with ``gather`` along dim 1:
+
+  ``seq_rows``       this rank's positions of a sequence of ``n``;
+  ``seq_scatter``    every rank's partial summed and this rank's positions
+                     of it (``collectives.reduce_scatter`` over the
+                     sequence): the vocab-parallel embedding's partials;
+  ``seq_last``       the sequence's last position, broadcast from model
+                     rank m - 1, which holds it.
+
 Results are bitwise from run to run, and every rank's copy of a whole
 tensor (a replicated leaf's gradient included) bitwise the others': gathers
 keep rank order, every combine runs in a fixed order, and the SUM
@@ -213,17 +227,22 @@ def rows_before(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     return parts[:tp.data_rank].sum(0)
 
 
+def vocab_partial(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """This rank's term of ``F.embedding(tokens, whole)``: the rows of the
+    tokens in its vocab slice ``emb``, zeros for the others."""
+    local = tokens.long() - tp.rank * emb.shape[0]
+    inside = (local >= 0) & (local < emb.shape[0])
+    rows = torch.nn.functional.embedding(local.clamp(0, emb.shape[0] - 1), emb)
+    return rows * inside[..., None].to(rows.dtype)
+
+
 def vocab_embed(tokens: torch.Tensor, emb: torch.Tensor, tp: TensorParallel,
                 vocab: int) -> torch.Tensor:
     """``F.embedding(tokens, whole)`` from this rank's rows ``emb`` of a
     ``vocab``-row table."""
     if not split(tp, emb.shape[0], vocab):
         return torch.nn.functional.embedding(tokens, emb)
-    lo = tp.rank * emb.shape[0]
-    local = tokens.long() - lo
-    inside = (local >= 0) & (local < emb.shape[0])
-    rows = torch.nn.functional.embedding(local.clamp(0, emb.shape[0] - 1), emb)
-    return reduce(rows * inside[..., None].to(rows.dtype), tp)
+    return reduce(vocab_partial(tokens, emb, tp), tp)
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
@@ -282,3 +301,23 @@ def combine_attention(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
         num = num + a * os_[r]
         den = den + a * ls[r]
     return num / den
+
+
+def seq_rows(tp: TensorParallel, n: int) -> slice:
+    """This model rank's positions of a sequence of ``n`` (``n`` divides)."""
+    if n % tp.size:
+        raise ValueError(f"a sequence of {n} positions does not split over {tp.size} model "
+                         "ranks")
+    return tp.slice_of(n)
+
+
+def seq_scatter(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """Every model rank's partial ``x`` (B, S, ...) summed, this rank's
+    positions of the sum (B, S/m, ...)."""
+    return collectives.reduce_scatter(x, tp.group, dim=1)
+
+
+def seq_last(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The sequence's last position (B, 1, ...) from this rank's positions
+    ``x`` (B, S/m, ...): model rank m - 1's, broadcast to the group."""
+    return collectives.broadcast(x[:, -1:].contiguous(), src=tp.size - 1, group=tp.group)

@@ -66,6 +66,25 @@ collectives, and every rank computes the MoE aux loss with the whole
 router.  The gradient of a split leaf is this rank's slice of the whole
 model's; of a replicated leaf, the whole one, bitwise equal on every
 rank.
+
+Sequence-parallel prefill (``repro``'s ``seqshard`` variant:
+``cfg.seq_shard`` pins the residual stream to ``P("data", "model",
+None)``): ``forward`` with ``cfg.seq_shard`` and a ``tp`` of m > 1 model
+ranks runs one rank's program, ``params`` holding every layer leaf whole
+and ``embed`` vocab-cut (``launch/sharding.py::rank_plan(seqshard=True)``,
+``repro``'s ``_strip_model_axis``).  Model rank r holds positions r S/m ..
+(r + 1) S/m - 1 of its data rank's rows: the embedding's vocab partial over
+every position is reduce-scattered over the sequence (or, a whole
+``embed``, looked up on the rank's positions), the norms, projections,
+MLP and dense MoE run on its rows, attention gathers K/V over the
+sequence (``models/attention.py::seq_attention_fwd``), the final norm
+runs on its rows and the hidden state returned is its positions';
+``last_position`` broadcasts the last one from rank m - 1 for the head.
+It runs forward only (``repro`` has no sequence-parallel backward that
+lowers: ROADMAP.md section 3, R7), on the archs whose blocks are per token
+outside attention (the dense archs and the dense MoE); the SSM, hybrid and
+frontend archs and the capacity MoE impls are refused (ROADMAP.md item
+16b-ii), never run as the Megatron program.
 """
 from __future__ import annotations
 
@@ -285,6 +304,77 @@ def serves_tensor_parallel(cfg) -> bool:
     return bool(cfg.layers)
 
 
+def check_seq_shard(cfg) -> None:
+    """Raise unless ``cfg``'s forward can run sequence-parallel: text
+    archs whose blocks are ``attn`` or ``moe`` at ``moe_impl`` "dense"."""
+    kinds = {s.kind for s in cfg.layers}
+    if cfg.frontend != "none" or not kinds <= {"attn", "moe"} or (
+            "moe" in kinds and cfg.moe_impl != "dense"):
+        raise NotImplementedError(
+            f"a sequence-parallel (seq_shard) forward of {cfg.name} (layers {sorted(kinds)}, "
+            f"frontend {cfg.frontend!r}, moe_impl {cfg.moe_impl!r}): the SSM, hybrid and "
+            "frontend archs and the dispatch MoE are ROADMAP.md item 16b-ii")
+
+
+def seq_parallel(cfg, tp) -> bool:
+    """Whether ``forward`` runs the sequence-parallel program (the module
+    docstring): ``cfg.seq_shard`` under a ``tp`` of more than one model
+    rank; raises for an arch it does not take."""
+    if not cfg.seq_shard or tp is None:
+        return False
+    check_seq_shard(cfg)
+    return tp.size > 1
+
+
+def _seq_positions(rows: slice, b: int, device) -> torch.Tensor:
+    """(B, S/m) int32: the global positions of this rank's rows."""
+    return torch.arange(rows.start, rows.stop, dtype=torch.int32, device=device)[None].expand(
+        b, -1)
+
+
+def _seq_embed(params, cfg, batch, tp):
+    """(x (B, S/m, D), positions (B, S/m)) of this rank's positions: the
+    vocab partial over every position reduce-scattered over the sequence,
+    or a whole ``embed`` looked up on its positions."""
+    toks, emb = batch["tokens"], params["embed"]
+    b, s = toks.shape
+    rows = parallel.seq_rows(tp, s)
+    scale = torch.tensor(np.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
+    if parallel.split(tp, emb.shape[0], cfg.vocab_size):
+        x = parallel.seq_scatter(parallel.vocab_partial(toks, emb, tp), tp)
+    else:
+        x = F.embedding(toks[:, rows], emb)
+    return x * scale, _seq_positions(rows, b, toks.device)
+
+
+def _seq_forward(params, cfg, batch, tp):
+    """``forward``'s sequence-parallel program (the module docstring):
+    (this rank's positions of the normed hidden state, the MoE aux loss of
+    its rows)."""
+    if torch.is_grad_enabled():
+        raise NotImplementedError(
+            "the sequence-parallel forward runs under no_grad: repro has no sequence-"
+            "parallel backward that lowers (ROADMAP.md section 3, R7)")
+    x, positions = _seq_embed(params, cfg, batch, tp)
+    aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for p, spec in _schedule(params, cfg):
+        h = _norm(p["ln1"], cfg, x)
+        x = x + attn_mod.seq_attention_fwd(p["attn"], cfg, h, positions, spec.window,
+                                           spec.rope_base, tp)
+        x, aux = _ffn(p, spec, cfg, x)
+        if aux is not None:
+            aux_total = aux_total + aux
+    return _norm(params["final_norm"], cfg, x), aux_total
+
+
+def last_position(x, cfg, tp=None):
+    """The last position of ``forward``'s hidden state, (B, 1, D): on every
+    rank of a sequence-parallel forward, model rank m - 1's."""
+    if seq_parallel(cfg, tp):
+        return parallel.seq_last(x, tp)
+    return x[:, -1:, :]
+
+
 def embed_inputs(params, cfg, batch, tp=None):
     """Returns (x (B,S,D), positions (B,S)).  ``batch["tokens"]`` is (B, S),
     or (B, K, S) for ``audio_codebooks``; ``vision_stub`` also takes
@@ -335,7 +425,11 @@ def forward(params, cfg, batch, tp=None):
     load-balance losses summed in layer order, zero without them).  With
     ``tp``, this rank's slices of ``params``; the hidden state is whole on
     every rank.  Under ``remat="block"`` the backward recomputes each
-    block's forward, its collectives included."""
+    block's forward, its collectives included.  With ``cfg.seq_shard``
+    and ``tp``, the sequence-parallel program: this rank's positions of
+    the hidden state (B, S/m, D) (the module docstring)."""
+    if seq_parallel(cfg, tp):
+        return _seq_forward(params, cfg, batch, tp)
     x, positions = embed_inputs(params, cfg, batch, tp)
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in _schedule(params, cfg):
@@ -428,6 +522,11 @@ def prefill_with_caches(params, cfg, batch, capacity=None, tp=None):
     continues the sequence.  With ``tp``: this rank's slices of the
     caches (``decode_step``'s ``tp`` layout) and its vocab slice of the
     logits."""
+    if seq_parallel(cfg, tp):
+        raise NotImplementedError(
+            "prefill_with_caches under seq_shard: the sequence-parallel prefill leaves no "
+            "decode caches (launch/steps.py::make_prefill_step runs it; decode serves the "
+            "tensor-parallel layout, as repro's seqshard decode does)")
     x, positions = embed_inputs(params, cfg, batch, tp)
     seq_len = capacity or (x.shape[1] + 64)
     made = []

@@ -32,13 +32,14 @@ from repro.launch.calibrate import _unrolled_cfg as j_unrolled_cfg
 from repro_torch.configs import ARCH_NAMES, INPUT_SHAPES, get_config
 from repro_torch.configs.base import InputShape
 from repro_torch.core import pfedsop as t_pf
-from repro_torch.kernels import meta
+from repro_torch.kernels import costs, meta
 from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.kernels.pfedsop_update import ops as update_ops
 from repro_torch.kernels.rmsnorm import ops as rms_ops
 from repro_torch.launch import calibrate, dryrun, roofline
 from repro_torch.launch import steps as t_steps
 from repro_torch.launch import train_lm_pfedsop as driver
+from repro_torch.launch.sharding import rank_plan
 from repro_torch.utils.pytree import keystr, tree_flatten_with_path, tree_leaves
 from repro_torch.weights import params_from_jax
 
@@ -220,16 +221,129 @@ def test_moe_dispatch_variants_run_on_meta():
         assert rec["variant"] == variant and rec["launches"]["flash_fwd"] == 48
 
 
-def test_mesh_layouts_and_seqshard_are_item_16():
-    """The mesh layouts are item 16's done part (their counts are
-    ``tests/test_torch_mesh_train.py``'s); ``seqshard``, its last part, is
-    refused on every mesh, and ``both`` is the CLI's, not a layout."""
+# -- the seqshard variant ----------------------------------------------------------
+
+PREFILL_4K = InputShape("prefill_4k", 4096, 32, "prefill")  # S/m = 256 at m = 16
+DECODE_4K = InputShape("decode_4k", 4096, 32, "decode")
+
+
+def _same_but(a, b, keys):
+    drop = {"count_s", *keys}
+    return {k: v for k, v in a.items() if k not in drop} == \
+        {k: v for k, v in b.items() if k not in drop}
+
+
+@pytest.mark.parametrize("mesh", ["one", "single", "multi"])
+@pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-1b-a400m"])
+def test_seqshard_prefill_records_on_every_mesh(arch, mesh):
+    """At full width, rank 0's sequence-parallel prefill: positions 0 ..
+    255 of its data rank's 2 rows at m = 16, every layer weight whole.  Its
+    census: the embedding's reduce-scatter where ``embed`` splits (gemma3-1b's
+    vocab; granite-moe's 49,155 does not divide), a K and a V gather a layer,
+    the last position's broadcast, the logits' vocab (where split) and data
+    gathers; its K5 launches each count rank 0's pairs.  At ``one`` it is
+    the one-device prefill."""
+    cfg = get_config(arch)
+    rec = dryrun.run_one(arch, PREFILL_4K, save=False, verbose=False, mesh=mesh,
+                         variant="seqshard")
+    base = dryrun.run_one(arch, PREFILL_4K, save=False, verbose=False, mesh=mesh)
+    assert (rec["variant"], rec["serve_layout"]) == ("seqshard", "sequence_parallel")
+    assert rec["launches"] == base["launches"]
+    assert rec["launches"]["flash_fwd"] == cfg.n_layers
+    if mesh == "one":
+        assert _same_but(rec, base, ("variant", "serve_layout"))
+        return
+    assert base["serve_layout"] == "tensor_parallel"
+    rows, n, d = 2, 4096 // 16, cfg.d_model
+    split = cfg.vocab_size % 16 == 0
+    c = rec["collectives"]
+    assert c["all-gather"]["count"] == 2 * cfg.n_layers + split + 1
+    kv_bytes = 2 * cfg.n_layers * rows * 4096 * cfg.n_kv_heads * cfg.head_dim * 2
+    assert c["all-gather"]["bytes"] > kv_bytes
+    assert c["collective-broadcast"] == {"bytes": rows * d * 2, "count": 1}
+    assert ("reduce-scatter" in c) == split and "all-reduce" not in c
+    if split:
+        assert c["reduce-scatter"] == {"bytes": rows * n * d * 2, "count": 1}
+    want = [costs.flash_fwd_cost(rows, n, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                 spec.window, 2, q0=0, sq=n) for spec in cfg.layers]
+    assert rec["kernels"]["flash_fwd"]["flops"] == sum(w["flops"] for w in want)
+    assert rec["kernels"]["flash_fwd"]["bytes"] == sum(w["bytes"] for w in want)
+    # every layer weight whole: more argument bytes than the tensor-parallel rank
+    assert (rec["memory_analysis"]["argument_size_in_bytes"]
+            > base["memory_analysis"]["argument_size_in_bytes"])
+
+
+@pytest.mark.parametrize("mesh", ["one", "single", "multi"])
+def test_seqshard_decode_record_is_the_baseline(mesh):
+    """``repro``'s decode ignores the variant: the baseline tensor-parallel
+    serve step, its record the same but for ``"variant"``."""
+    rec = dryrun.run_one("gemma3-1b", DECODE_4K, save=False, verbose=False, mesh=mesh,
+                         variant="seqshard")
+    base = dryrun.run_one("gemma3-1b", DECODE_4K, save=False, verbose=False, mesh=mesh)
+    assert rec["variant"] == "seqshard" and _same_but(rec, base, ("variant",))
+
+
+@pytest.mark.parametrize("mesh", ["single", "multi"])
+def test_seqshard_train_keeps_the_layer_leaves_whole_at_rest(mesh):
+    """The port's reading of the seqshard train lowering (ROADMAP.md R7):
+    the engine's step with the client state at rest on
+    ``_strip_model_axis``'s specs.  Its model-axis all-gather is the
+    baseline's less exactly the layer leaves the baseline gathers (params
+    and delta of the rank's one client), its argument bytes the baseline's
+    plus what their cuts saved, and its compute the baseline's."""
+    cfg = get_config("gemma3-1b", reduced=True)
+    kw = dict(save=False, verbose=False, micro_batch=1, mesh=mesh, cfg=cfg)
+    base = dryrun.run_one("gemma3-1b", SMALL, **kw)
+    rec = dryrun.run_one("gemma3-1b", SMALL, variant="seqshard", **kw)
+    params = t_steps.abstract_params(cfg)
+    plans = [tree_leaves(rank_plan(params, "params", 1, 16, 0, 0, seqshard=s))
+             for s in (False, True)]
+    layer = [x for x, a, b in zip(tree_leaves(params), *plans) if a.cuts and not b.cuts]
+    kept = [keystr(path) for (path, _), b in zip(tree_flatten_with_path(params), plans[1])
+            if b.cuts]
+    assert layer and kept == ["['embed']"]
+    whole = sum(x.numel() * x.element_size() for x in layer)
+    gb, gs = base["collectives"]["all-gather"], rec["collectives"]["all-gather"]
+    assert (gb["bytes"] - gs["bytes"], gb["count"] - gs["count"]) == (2 * whole, 2 * len(layer))
+    arg = "argument_size_in_bytes"
+    assert rec["memory_analysis"][arg] - base["memory_analysis"][arg] == 2 * (whole - whole // 16)
+    assert rec["launches"] == base["launches"]
+    assert rec["cost_analysis"]["flops"] == base["cost_analysis"]["flops"]
+
+
+def test_seqshard_refuses_item_16b_ii_prefill_and_the_sweep_skips_it(tmp_path, monkeypatch,
+                                                                     capsys):
+    """The SSM, hybrid and frontend archs' seqshard prefill raises on every
+    mesh, citing 16b-ii; the CLI's sweep skips each such (arch, shape) with
+    one line and writes nothing for it.  ``both`` is the CLI's, not a
+    layout."""
     for mesh in ("one", "single", "multi"):
-        with pytest.raises(NotImplementedError, match="item 16"):
-            dryrun.run_one("gemma3-1b", SMALL, save=False, verbose=False, mesh=mesh,
+        with pytest.raises(NotImplementedError, match="16b-ii"):
+            dryrun.run_one("zamba2-2.7b", PREFILL_4K, save=False, verbose=False, mesh=mesh,
                            variant="seqshard")
     with pytest.raises(ValueError, match="single \\+ multi"):
         dryrun.run_one("gemma3-1b", SMALL, save=False, verbose=False, mesh="both")
+    refused = {arch for arch in ARCH_NAMES if dryrun.refused(arch, "prefill_32k", "seqshard")}
+    assert refused == {"mamba2-2.7b", "zamba2-2.7b", "internvl2-2b", "musicgen-large"}
+    assert not any(dryrun.refused(a, s, v) for a in ARCH_NAMES
+                   for s, v in (("train_4k", "seqshard"), ("decode_32k", "seqshard"),
+                                ("prefill_32k", "baseline")))
+    monkeypatch.setattr(dryrun, "ART_DIR", tmp_path)
+    dryrun.main(["--arch", "musicgen-large", "--shape", "prefill_32k", "--variant", "seqshard",
+                 "--mesh", "both"])
+    out = capsys.readouterr().out
+    assert out.count("skipped musicgen-large x prefill_32k (seqshard)") == 1
+    assert "16b-ii" in out and not list(tmp_path.iterdir())
+
+
+def test_calibrate_takes_the_seqshard_variant():
+    """At one device the seqshard prefill is the one-device prefill: the
+    calibration runs through ``build_inputs`` and composes the same terms."""
+    rec = calibrate.calibrate_one("gemma3-1b", PREFILL_4K, variant="seqshard", save=False,
+                                  verbose=False)
+    base = calibrate.calibrate_one("gemma3-1b", PREFILL_4K, save=False, verbose=False)
+    assert rec["variant"] == "seqshard"
+    assert (rec["per_device"], rec["launches"]) == (base["per_device"], base["launches"])
 
 
 def test_cli_writes_records_under_the_torch_artifact_dirs(tmp_path, monkeypatch):

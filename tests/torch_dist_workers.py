@@ -713,6 +713,133 @@ def serve_cli(rank, world, argv):
     return serve.main(argv)
 
 
+# tests/test_torch_seqshard.py: the sequence-parallel prefill's cases,
+# shared with its JAX reference (tests/seqshard_reference.py)
+SQ_B, SQ_S = 4, 24  # batch, prompt: S/m = 12 at m = 2, 6 at m = 4
+SQ_CASES = {  # name -> (arch, variant): tp_config's, with cfg.seq_shard
+    "gemma3-1b": ("gemma3-1b", "base"),  # window 512 (> S) and full
+    "gemma3-1b/wrap": ("gemma3-1b", "wrap"),  # window 8: below S/m at m = 2, above at 4
+    "gemma2-9b/wrap": ("gemma2-9b", "wrap"),  # and the softcaps
+    "granite-3-2b": ("granite-3-2b", "base"),
+    "granite-3-8b": ("granite-3-8b", "base"),
+    "granite-moe": ("granite-moe-1b-a400m", "base"),
+    "granite-moe/odd_vocab": ("granite-moe-1b-a400m", "odd_vocab"),  # embed whole
+    "olmoe-1b-7b": ("olmoe-1b-7b", "experts8"),
+}
+SQ_FAULT_CASE = "gemma3-1b/wrap"  # the planted faults' case
+
+
+def sq_config(get, name: str):
+    """The reduced config of ``SQ_CASES[name]`` (``get``: either package's
+    ``get_config``) with ``seq_shard`` set."""
+    return tp_config(get, *SQ_CASES[name]).replace(seq_shard=True)
+
+
+def sq_prompt(cfg, seed: int) -> dict:
+    """A prompt of ``SQ_S`` tokens a row, ``SQ_B`` rows, numpy, from ``seed``."""
+    rng = np.random.RandomState(seed)
+    return {"tokens": rng.randint(0, cfg.vocab_size, (SQ_B, SQ_S)).astype(np.int32)}
+
+
+def _sq_local_positions(rows, b, device):
+    """A planted fault: RoPE on positions counted from this rank's first."""
+    import torch
+
+    return torch.arange(rows.stop - rows.start, dtype=torch.int32, device=device)[None].expand(
+        b, -1)
+
+
+def _sq_own_keys(k, v, tp):
+    """A planted fault: K/V not gathered, each rank attending its own
+    positions only (as a sequence of its own)."""
+    return k, v, 0
+
+
+def _sq_keys_at_zero(k, v, tp):
+    """A planted fault: the gathered keys, but K5 launched at q0 = 0."""
+    from repro_torch.models import parallel
+
+    hi = (tp.rank + 1) * k.shape[1]
+    return parallel.gather(k, tp, 1)[:, :hi], parallel.gather(v, tp, 1)[:, :hi], 0
+
+
+def _sq_scatter_reversed(x, tp):
+    """A planted fault: the embedding's reduce-scatter in reversed rank
+    order (rank r takes rank m - 1 - r's positions)."""
+    import torch
+
+    from repro_torch.launch import collectives
+
+    return collectives.reduce_scatter(torch.cat(x.chunk(tp.size, 1)[::-1], 1), tp.group, 1)
+
+
+def _sq_last_from_rank0(x, tp):
+    """A planted fault: the last position taken from model rank 0."""
+    from repro_torch.launch import collectives
+
+    return collectives.broadcast(x[:, -1:].contiguous(), src=0, group=tp.group)
+
+
+def sq_faults():
+    """The planted faults of the sequence-parallel prefill: name ->
+    (module, attribute, the faulty replacement)."""
+    from repro_torch.models import attention, parallel
+    from repro_torch.models import transformer as tf
+
+    return {
+        "rope_local_positions": (tf, "_seq_positions", _sq_local_positions),
+        "kv_not_gathered": (attention, "_seq_keys", _sq_own_keys),
+        "k5_at_q0_zero": (attention, "_seq_keys", _sq_keys_at_zero),
+        "scatter_reversed": (parallel, "seq_scatter", _sq_scatter_reversed),
+        "last_from_rank0": (parallel, "seq_last", _sq_last_from_rank0),
+    }
+
+
+def sq_prefill(rank, world, plan):
+    """The sequence-parallel prefill step on ``plan["mesh"]``, per case of
+    ``SQ_CASES``, from the JAX reference's inputs (``plan["ref"]``): this
+    rank's params cut by ``rank_plan(seqshard=True)``, its data rank's rows
+    of the prompt; the step's logits (whole), its census and which leaves
+    the plan cut.  With ``plan["faults"]``, the logits of
+    ``SQ_FAULT_CASE`` under each planted fault of ``sq_faults``."""
+    import pickle
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import InputShape
+    from repro_torch.launch import collectives, steps
+    from repro_torch.launch.mesh import parse_mesh
+    from repro_torch.launch.sharding import rank_plan
+    from repro_torch.utils.pytree import keystr, tree_flatten_with_path
+    from repro_torch.weights import cut, params_from_jax
+
+    tp = steps.tensor_parallel(parse_mesh(plan["mesh"]))
+    with open(plan["ref"], "rb") as f:
+        ref = pickle.load(f)
+    shape = InputShape("seqshard", SQ_S, SQ_B, "prefill")
+
+    def case(name):
+        cfg = sq_config(get_config, name)
+        whole = params_from_jax(ref[name]["params"], device="cpu")
+        pplan = rank_plan(whole, "params", tp.data_size, tp.size, tp.data_rank, tp.rank,
+                          seqshard=True)
+        batch = _torch_batch(ref[name]["prompt"])
+        batch = cut(batch, rank_plan(batch, "batch", tp.data_size, drank=tp.data_rank))
+        collectives.reset_census()
+        logits = steps.make_prefill_step(cfg, shape, tp)(cut(whole, pplan), batch)
+        return {"logits": logits.numpy(), "census": collectives.census(),
+                "cut": sorted(keystr(p) for p, x in tree_flatten_with_path(pplan) if x.cuts)}
+
+    out = {"cases": {name: case(name) for name in SQ_CASES}, "faults": {}}
+    for fault, (module, attr, faulty) in (sq_faults().items() if plan.get("faults") else ()):
+        sound = getattr(module, attr)
+        setattr(module, attr, faulty)
+        try:
+            out["faults"][fault] = case(SQ_FAULT_CASE)["logits"]
+        finally:
+            setattr(module, attr, sound)
+    return out
+
+
 # tests/test_torch_tp_train.py: the tensor-parallel train step's cases,
 # shared with its JAX reference (tests/tp_train_reference.py)
 TT_B, TT_S, TT_T = 2, 16, 2  # micro batch, sequence, local iterations
