@@ -139,7 +139,10 @@ Phases (any failure exits non-zero; nothing is caught):
                   ``examples/torch_quickstart.py`` on the card.
  16. mesh         a one-rank NCCL group (file store under
                   ``build/chip_smoke``) and the ``clients:1`` and
-                  ``pods:1x1x1`` meshes; phase 5's ResNet slice, 3 rounds of
+                  ``pods:1x1x1`` meshes; ``collectives.reduce_scatter``'s
+                  NCCL branch bitwise the all-reduce then the slice
+                  (``nccl_reduce_scatter_check``; phase 20's ranks take the
+                  gloo branch); phase 5's ResNet slice, 3 rounds of
                   pfedsop and of fedavg, under ``shard_map`` (1 shard) and
                   ``mesh pods:1x1x1``, each with ``output_sharding``
                   replicated and sharded: histories, broadcast and client
@@ -270,7 +273,7 @@ import numpy as np
 import torch
 from torch.autograd import DeviceType
 
-sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+sys.path[:0] = [str(Path(__file__).resolve().parent / d) for d in ("src", "scripts")]
 
 import torch.nn.functional as F  # noqa: E402
 
@@ -2066,7 +2069,8 @@ def time_ranges():
 
 def mesh_run():
     """Phase 16: ``mesh_update_run``; then a one-rank NCCL group (file store
-    under ``SCRATCH``), the ``clients:1`` and ``pods:1x1x1`` meshes, and the
+    under ``SCRATCH``), the ``clients:1`` and ``pods:1x1x1`` meshes,
+    ``nccl_reduce_scatter_check``, and the
     ResNet slice's pfedsop and fedavg for 3 rounds on every layout of
     ``MESH_LAYOUTS``, each history, broadcast and client rows bitwise the
     vmap run's.  Returns (path launch counts, the ranges' worst errors)."""
@@ -2086,6 +2090,7 @@ def mesh_run():
         for text in ("clients:1", "pods:1x1x1"):
             mesh = mesh_lib.resolve_mesh(mesh_lib.parse_mesh(text))
             print(f"mesh[{text}]: {mesh}", flush=True)
+        nccl_reduce_scatter_check()
         torch.backends.cudnn.deterministic = True
         counts = {"reduce3": 0, "update": 0}
         for name in ("pfedsop", "fedavg"):
@@ -2118,6 +2123,36 @@ def mesh_run():
     print(f"mesh: phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     emulated.update(reduce3_range=emulated["reduce3"], update_range=emulated["update"])
     return {"resnet9_mesh": counts, "mesh_update_ranges": emulated}, worst
+
+
+def nccl_reduce_scatter_check():
+    """``collectives.reduce_scatter``'s NCCL branch (``movedim``,
+    ``reduce_scatter_tensor``, ``movedim`` back), which phase 20's gloo
+    ranks never take, in phase 16's one-rank NCCL group: on phase 20's
+    embedding partial (batch 4, 1,024 positions, 1,152 wide, bf16) and a
+    transposed view of it, along each dim, bitwise the all-reduce then the
+    slice, contiguous, one census entry of the result's bytes a call."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+
+    g = torch.Generator(device="cuda").manual_seed(20)
+    x = torch.randn(4, TP_SERVE["prompt"], 1152, generator=g, device="cuda").to(torch.bfloat16)
+    n = dist.get_world_size()
+    for src in (x, x.transpose(0, 1)):
+        for dim in range(src.dim()):
+            collectives.reset_census()
+            got = collectives.reduce_scatter(src, None, dim)
+            census = collectives.census()
+            whole = src.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(whole)
+            w = src.shape[dim] // n
+            want = whole.narrow(dim, dist.get_rank() * w, w)
+            assert torch.equal(got, want) and got.is_contiguous(), (tuple(src.shape), dim)
+            assert census == {"reduce-scatter": {"bytes": got.nbytes, "count": 1}}, census
+    collectives.reset_census()
+    print(f"mesh: reduce_scatter on NCCL ({n} rank) bitwise the all-reduce then the slice, "
+          f"{tuple(x.shape)} and its transpose along each dim", flush=True)
 
 
 # phase 17: the LM train step on a mesh engine, and launch/train.py's loop
@@ -2488,44 +2523,12 @@ SEQ_FAULTS = ("rope_local_positions", "kv_not_gathered", "k5_at_q0_zero", "scatt
               "last_from_rank0")
 
 
-def _seq_local_positions(rows, b, device):
-    """A planted fault: RoPE on positions counted from the rank's first."""
-    return torch.arange(rows.stop - rows.start, dtype=torch.int32, device=device)[None].expand(
-        b, -1)
-
-
-def _seq_keys_at_zero(k, v, tp):
-    """A planted fault: the gathered keys, but K5 launched at q0 = 0."""
-    from repro_torch.models import parallel
-
-    hi = (tp.rank + 1) * k.shape[1]
-    return parallel.gather(k, tp, 1)[:, :hi], parallel.gather(v, tp, 1)[:, :hi], 0
-
-
-def _seq_scatter_reversed(x, tp):
-    """A planted fault: the embedding's reduce-scatter in reversed rank
-    order (rank r takes rank m - 1 - r's positions)."""
-    from repro_torch.launch import collectives
-
-    return collectives.reduce_scatter(torch.cat(x.chunk(tp.size, 1)[::-1], 1), tp.group, 1)
-
-
-def _seq_last_from_rank0(x, tp):
-    """A planted fault: the last position taken from model rank 0."""
-    from repro_torch.launch import collectives
-
-    return collectives.broadcast(x[:, -1:].contiguous(), src=0, group=tp.group)
-
-
 def _seq_plants():
-    """``SEQ_FAULTS``' replacements: name -> (module, attribute, fault)."""
-    from repro_torch.models import attention, parallel
+    """``SEQ_FAULTS``' replacements (``scripts/seqshard_faults.py``, which
+    the CPU tests also plant): name -> (module, attribute, fault)."""
+    import seqshard_faults
 
-    return {"rope_local_positions": (tf, "_seq_positions", _seq_local_positions),
-            "kv_not_gathered": (attention, "_seq_keys", lambda k, v, tp: (k, v, 0)),
-            "k5_at_q0_zero": (attention, "_seq_keys", _seq_keys_at_zero),
-            "scatter_reversed": (parallel, "seq_scatter", _seq_scatter_reversed),
-            "last_from_rank0": (parallel, "seq_last", _seq_last_from_rank0)}
+    return seqshard_faults.faults()
 
 
 def _seq_cfg(arch):

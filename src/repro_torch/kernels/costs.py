@@ -59,9 +59,12 @@ def _flash_io(b, s, h, kv, d, itemsize):
 def flash_fwd_cost(b, s, h, kv, d, window, itemsize, q0=0, sq=None) -> dict:
     """K5: reads q, k, v; writes out and the LSE; 4D FLOPs a visible pair.
     With a query offset: ``sq`` queries (None: S - q0) at positions q0 ..
-    q0 + sq - 1 of the S keys, their q, out and LSE rows and their pairs."""
+    q0 + sq - 1 of the S keys, their q, out and LSE rows and their pairs,
+    and the k and v rows they can see: keys max(0, q0 - window + 1) ..
+    q0 + sq - 1 (at q0 = 0 all S keys)."""
     sq = s - q0 if sq is None else sq
-    io = (b * sq * h * d + 2 * b * s * kv * d) * itemsize
+    keys = min(s, q0 + sq) - (max(0, q0 - window + 1) if window else 0)
+    io = (b * sq * h * d + 2 * b * keys * kv * d) * itemsize
     qsize, rows = b * sq * h * d * itemsize, b * h * sq * 4
     return _cost(4 * d * b * h * attention_pairs(s, window, q0, sq), io + qsize + rows,
                  PEAK_FLOPS)

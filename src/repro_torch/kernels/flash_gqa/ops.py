@@ -248,10 +248,12 @@ def flash_bwd_dkv_sum_plain(pk, pv, kv):
 # -- wrappers ----------------------------------------------------------------
 
 
-def flash_fwd(q, k, v, window=None, softcap=None, scale=None, q0=0):
+def flash_fwd(q, k, v, window=None, softcap=None, scale=None, q0=None):
     """K5 on the card for CUDA tensors; the plain version for CPU ones.
-    ``q0``: the position of q's first row among k/v's (module docstring)."""
+    ``q0``: the position of q's first row among k/v's (module docstring);
+    None: q and k/v hold the same S positions."""
     b, s, h, kv, d = _check(q, k, v, window, q0=q0)
+    q0 = q0 or 0
     if not (q.is_cuda or q.is_meta):
         return flash_fwd_plain(q, k, v, window, softcap, scale, q0)
     sq = q.shape[1]
@@ -369,7 +371,7 @@ class _FlashGQA(torch.autograd.Function):
         ctx.mark_non_differentiable(lse)
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.args = (window, softcap, scale)
-        ctx.offset = q0 or q.shape[1] != k.shape[1]
+        ctx.offset = bool(q0) or q.shape[1] != k.shape[1]
 
     @staticmethod
     def backward(ctx, dout, _dlse):
@@ -387,10 +389,10 @@ class _FlashGQA(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None
 
 
-def flash_gqa(q, k, v, window=None, softcap=None, scale=None, impl: str = "auto", q0: int = 0):
+def flash_gqa(q, k, v, window=None, softcap=None, scale=None, impl: str = "auto", q0=None):
     """q: (B,Sq,H,D), k/v: (B,S,KV,D) -> (B,Sq,H,D).  Causal GQA attention,
     differentiable in q, k and v; the queries at positions q0 .. q0 + Sq -
-    1 of the S keys (Sq = S without an offset; no backward with one)."""
+    1 of the S keys (``q0`` None: Sq = S; no backward with an offset)."""
     if check_impl(impl, "flash_gqa", q) == "reference":
         return flash_gqa_ref(q, k, v, window, softcap, scale, q0)
     out, _ = _FlashGQA.apply(q.contiguous(), k.contiguous(), v.contiguous(),

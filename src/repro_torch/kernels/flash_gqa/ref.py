@@ -23,11 +23,15 @@ def visible_mask(s: int, window, device, q0: int = 0, sq=None) -> torch.Tensor:
     return mask
 
 
-def flash_gqa_ref(q, k, v, window=None, softcap=None, scale=None, q0: int = 0):
+def flash_gqa_ref(q, k, v, window=None, softcap=None, scale=None, q0=None):
     """q: (B,Sq,H,D), k/v: (B,S,KV,D) -> (B,Sq,H,D).  Causal; the queries
-    at positions q0 .. q0 + Sq - 1 (Sq = S at q0 = 0 without an offset)."""
+    at positions q0 .. q0 + Sq - 1 (``q0`` None: Sq = S, no offset)."""
     b, sq, h, d = q.shape
     s, kv = k.shape[1], k.shape[2]
+    if q0 is None and sq != s:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} hold different "
+                         "positions and no query offset was given")
+    q0 = q0 or 0
     sc = scale if scale is not None else d**-0.5
     qg = q.float().reshape(b, sq, kv, h // kv, d)
     scores = torch.einsum("bqkgd,btkd->bkgqt", qg, k.float()) * sc

@@ -168,7 +168,7 @@ def reduce_scatter(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
         dist.reduce_scatter_tensor(out, whole, op=dist.ReduceOp.SUM, group=group)
         out = out.movedim(0, dim).contiguous()
     else:
-        whole = x.clone()
+        whole = x.clone(memory_format=torch.contiguous_format)
         dist.all_reduce(whole, op=dist.ReduceOp.SUM, group=group)
         out = whole.narrow(dim, r * w, w).contiguous()
     _count("reduce-scatter", out.nbytes)

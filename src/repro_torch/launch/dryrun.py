@@ -1,5 +1,5 @@
 """Dry run: count a whole step on the meta device, at one device or as
-rank 0 of the production meshes.
+one rank of the production meshes.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma3-1b --shape train_4k \
@@ -24,10 +24,12 @@ record of each launch with its cost.
           512 ranks, 2 clients (one a pod); ``__2x16x16.json``;
   both    single, then multi.
 
-On a mesh the count runs rank 0's program inside a one-process
-``torch.distributed`` group of the mesh's world size on the ``fake``
-backend (``torch.testing._internal.distributed.fake_pg``: collectives
-complete without moving data), through a ``MeshBackend`` with
+On a mesh the count runs one rank's program (rank 0's; for the
+``seqshard`` prefill the heaviest rank's, below; the record's
+``counted_rank``) inside a one-process ``torch.distributed`` group of
+the mesh's world size on the ``fake`` backend
+(``torch.testing._internal.distributed.fake_pg``: collectives complete
+without moving data), through a ``MeshBackend`` with
 ``data_chunks = 16`` as ``repro``'s does.  A train step runs
 ``make_train_step(engine=)``: rank 0's client state at rest is its rows
 with the Megatron-eligible leaves cut to its model slice
@@ -62,7 +64,7 @@ has ``repro``'s keys:
                    the kernels' counted FLOPs) and bytes accessed (every
                    op's operand and result bytes, the unfused eager traffic
                    the card pays, plus the kernels' counted bytes), per rank;
-  collectives      ``launch/collectives.py``'s census of rank 0's calls,
+  collectives      ``launch/collectives.py``'s census of the rank's calls,
                    ``{op: {bytes, count}}`` with each op's result bytes;
   roofline         ``roofline.roofline_terms`` on the H100's rates, with
                    ``n_devices`` 1, 256 or 512;
@@ -74,9 +76,12 @@ whose shapes are static (set by the capacity, not the routing).
 
 ``seqshard`` sets ``cfg.seq_shard``, as ``repro``'s does:
 
-  prefill  rank 0's sequence-parallel program (``launch/steps.py``,
-           ``models/transformer.py``): every layer leaf whole, ``embed`` /
-           ``heads`` vocab-cut (``rank_plan(seqshard=True)``, ``repro``'s
+  prefill  the sequence-parallel program (``launch/steps.py``,
+           ``models/transformer.py``) of the last model rank of rank 0's
+           data group, the heaviest rank: its queries see every key, so
+           its K5 pairs and FLOPs and its kept K/V bound the step (rank
+           0's are the fewest; the census is every rank's).  Every layer
+           leaf whole, ``embed`` / ``heads`` vocab-cut (``rank_plan(seqshard=True)``, ``repro``'s
            ``_strip_model_axis``), the data rank's rows of the prompt; the
            record says ``"serve_layout": "sequence_parallel"`` (at ``one``
            the one-device prefill).  The census holds the embedding's
@@ -118,6 +123,7 @@ import argparse
 import contextlib
 import functools
 import json
+import math
 import time
 import traceback
 import weakref
@@ -284,7 +290,7 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
                  variant: str = "baseline", t_override=None, cfg=None, n_clients: int = 1,
                  engine=None):
     """The step and its meta inputs for one (arch, shape): (step, args, meta).
-    With a mesh ``engine`` (inside its process group), rank 0's step and
+    With a mesh ``engine`` (inside its process group), this rank's step and
     its inputs at rest, one client a pod (the module docstring)."""
     cfg = cfg or get_config(arch)
     if variant not in VARIANTS:
@@ -320,7 +326,7 @@ def build_inputs(arch: str, shape, micro_batch: int = st.MICRO_BATCH,
             client_args = {0: "params", 1: "batch", 3: "caches"}
             step = _per_client(st.make_serve_step(cfg, shape, tp=tp), client_args)
             args = (specs["params"], specs["batch"], specs["pos"], specs["caches"])
-        if engine is not None:  # rank 0's pod's rows, each leaf its own storage
+        if engine is not None:  # this rank's pod's rows, each leaf its own storage
             rows = engine._rows()
             seq = seqshard and shape.kind == "prefill"
             args = tuple(_rank_part(tree_map(lambda x: x[rows], a), client_args[j], tp, seq)
@@ -362,17 +368,27 @@ def refused(arch: str, shape, variant: str):
     return None
 
 
+def counted_rank(spec: MeshSpec, shape, variant: str) -> int:
+    """The global rank whose program a record on ``spec`` counts: 0, but
+    for the ``seqshard`` prefill the last model rank of rank 0's data group
+    (the module docstring)."""
+    if variant != "seqshard" or resolve_shape(shape).kind != "prefill" or not spec.model_axis:
+        return 0
+    i = spec.axes.index(spec.model_axis)
+    return (spec.shape[i] - 1) * math.prod(spec.shape[i + 1:])
+
+
 @contextlib.contextmanager
-def fake_world(n: int):
+def fake_world(n: int, rank: int = 0):
     """A one-process ``torch.distributed`` group of ``n`` ranks on the
-    ``fake`` backend, this process rank 0; destroyed on exit.  Refuses to
+    ``fake`` backend, this process ``rank``; destroyed on exit.  Refuses to
     start inside another group."""
     from torch.testing._internal.distributed.fake_pg import FakeStore
 
     if dist.is_initialized():
         raise RuntimeError("the dry run's mesh count starts its own fake process group of "
                            "the mesh's world size; a group is already initialized")
-    dist.init_process_group("fake", store=FakeStore(), rank=0, world_size=n)
+    dist.init_process_group("fake", store=FakeStore(), rank=rank, world_size=n)
     try:
         yield
     finally:
@@ -396,7 +412,8 @@ def run_one(arch: str, shape, save: bool = True, verbose: bool = True,
         raise ValueError(f"mesh {mesh!r}: choose from {tuple(MESHES)} ('both' is the "
                          "CLI's single + multi) or pass a MeshSpec")
     t0 = time.time()
-    with fake_world(spec.n_devices) if spec else contextlib.nullcontext():
+    rank = counted_rank(spec, shape, variant) if spec else 0
+    with fake_world(spec.n_devices, rank) if spec else contextlib.nullcontext():
         engine = None
         if spec is not None:
             engine = MeshBackend(spec.client_size if spec.client_axis else 1, spec,
@@ -406,6 +423,9 @@ def run_one(arch: str, shape, save: bool = True, verbose: bool = True,
         collectives.reset_census()
         _, c = count(step, args)
         census = collectives.census() if spec else {}
+        if engine is not None:
+            record["counted_rank"] = {"rank": rank, **{
+                a: engine.mesh.get_local_rank(a) for a in spec.axes}}
         if engine is not None and record["kind"] == "train":
             record["data_split"] = engine.data_split
     record["mesh"] = tag

@@ -208,7 +208,7 @@ def _out_proj(p, cfg, o, tp):
     return parallel.row("bshk,hkd->bsd", o, wo, tp)
 
 
-def _attend(p, cfg, q, k, v, positions, window, dtype, q_block, tp=None, q0=0):
+def _attend(p, cfg, q, k, v, positions, window, dtype, q_block, tp=None, q0=None):
     """``attention_fwd`` after the projections: the mixing and the output
     projection, the result in ``dtype``.  ``q0``: the position of q's first
     row among the keys' (a sequence-parallel rank's; ``positions`` are
@@ -223,7 +223,7 @@ def _attend(p, cfg, q, k, v, positions, window, dtype, q_block, tp=None, q0=0):
         return _out_proj(p, cfg, o.to(dtype), tp)
 
     kpos = positions
-    if q0 or k.shape[1] != s:  # the keys' canonical positions
+    if q0 is not None:  # the keys' canonical positions
         kpos = torch.arange(k.shape[1], dtype=positions.dtype,
                             device=positions.device)[None].expand(b, -1)
     qb = min(q_block, s)

@@ -236,13 +236,14 @@ def _same_but(a, b, keys):
 @pytest.mark.parametrize("mesh", ["one", "single", "multi"])
 @pytest.mark.parametrize("arch", ["gemma3-1b", "granite-moe-1b-a400m"])
 def test_seqshard_prefill_records_on_every_mesh(arch, mesh):
-    """At full width, rank 0's sequence-parallel prefill: positions 0 ..
-    255 of its data rank's 2 rows at m = 16, every layer weight whole.  Its
-    census: the embedding's reduce-scatter where ``embed`` splits (gemma3-1b's
-    vocab; granite-moe's 49,155 does not divide), a K and a V gather a layer,
-    the last position's broadcast, the logits' vocab (where split) and data
-    gathers; its K5 launches each count rank 0's pairs.  At ``one`` it is
-    the one-device prefill."""
+    """At full width, the last model rank's sequence-parallel prefill (the
+    heaviest): positions 3840 .. 4095 of its data rank's 2 rows at m = 16,
+    every layer weight whole.  Its census: the embedding's reduce-scatter
+    where ``embed`` splits (gemma3-1b's vocab; granite-moe's 49,155 does not
+    divide), a K and a V gather a layer, the last position's broadcast, the
+    logits' vocab (where split) and data gathers; its K5 launches each count
+    that rank's pairs against all 4096 keys.  At ``one`` it is the
+    one-device prefill."""
     cfg = get_config(arch)
     rec = dryrun.run_one(arch, PREFILL_4K, save=False, verbose=False, mesh=mesh,
                          variant="seqshard")
@@ -254,6 +255,10 @@ def test_seqshard_prefill_records_on_every_mesh(arch, mesh):
         assert _same_but(rec, base, ("variant", "serve_layout"))
         return
     assert base["serve_layout"] == "tensor_parallel"
+    # model is the mesh's last axis: (pod 0,) data 0, model 15 is rank 15
+    assert rec["counted_rank"] == {"rank": 15, "data": 0, "model": 15,
+                                   **({"pod": 0} if mesh == "multi" else {})}
+    assert base["counted_rank"]["rank"] == 0
     rows, n, d = 2, 4096 // 16, cfg.d_model
     split = cfg.vocab_size % 16 == 0
     c = rec["collectives"]
@@ -264,8 +269,8 @@ def test_seqshard_prefill_records_on_every_mesh(arch, mesh):
     assert ("reduce-scatter" in c) == split and "all-reduce" not in c
     if split:
         assert c["reduce-scatter"] == {"bytes": rows * n * d * 2, "count": 1}
-    want = [costs.flash_fwd_cost(rows, n, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
-                                 spec.window, 2, q0=0, sq=n) for spec in cfg.layers]
+    want = [costs.flash_fwd_cost(rows, 4096, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                 spec.window, 2, q0=4096 - n, sq=n) for spec in cfg.layers]
     assert rec["kernels"]["flash_fwd"]["flops"] == sum(w["flops"] for w in want)
     assert rec["kernels"]["flash_fwd"]["bytes"] == sum(w["bytes"] for w in want)
     # every layer weight whole: more argument bytes than the tensor-parallel rank

@@ -118,8 +118,8 @@ def test_offset_mask_pairs_tiles_and_cost(s, window, m):
     """At each rank's offset: the mask is the whole mask's rows, the pair
     count its sum, the key-tile ranges of ``fwd_kernel`` (its blocks of 128
     local rows and their warpgroups of 64) visit exactly the 64-key tiles
-    holding visible pairs, and K5's cost counts those pairs and the rank's
-    q, out and LSE rows."""
+    holding visible pairs, and K5's cost counts those pairs, the rank's
+    q, out and LSE rows and the k and v rows they can see."""
     whole = visible_mask(s, window, "cpu")
     n = s // m
     t = grid.SM90_TILE
@@ -140,7 +140,9 @@ def test_offset_mask_pairs_tiles_and_cost(s, window, m):
                 assert list(got) == key_tiles(lo, rows), (r, lo, rows)
         c = costs.flash_fwd_cost(4, q0 + n, 4, 1, 256, window, 2, q0=q0, sq=n)
         assert c["flops"] == 4 * 256 * 4 * 4 * pairs
-        assert c["bytes"] == (2 * 4 * n * 4 * 256 + 2 * 4 * (q0 + n) * 256) * 2 + 4 * 4 * n * 4
+        keys = q0 + n - (max(0, q0 - window + 1) if window else 0)  # the keys rows can see
+        assert keys == mask.any(0).sum().item()
+        assert c["bytes"] == (2 * 4 * n * 4 * 256 + 2 * 4 * keys * 256) * 2 + 4 * 4 * n * 4
     # no offset: the launch as before
     assert costs.flash_fwd_cost(2, s, 4, 1, 256, window, 2, q0=0, sq=s) == \
         costs.flash_fwd_cost(2, s, 4, 1, 256, window, 2)
@@ -149,7 +151,8 @@ def test_offset_mask_pairs_tiles_and_cost(s, window, m):
 def test_the_kernel_path_refuses_an_offset_off_the_query_tile():
     """On meta (the CUDA path up to the launch) an offset must be a multiple
     of the query tile: refused, not rounded; a multiple records one
-    launch at the rank's cost.  Keys must cover the queries."""
+    launch at the rank's cost.  Keys must cover the queries, and without
+    an offset q and k/v must hold the same positions."""
     from repro_torch.kernels import meta
 
     q = torch.empty(2, 128, 4, 64, dtype=torch.bfloat16, device="meta")
@@ -158,12 +161,46 @@ def test_the_kernel_path_refuses_an_offset_off_the_query_tile():
         flash_ops.flash_fwd(q, k[:, :192], k[:, :192], q0=64)
     with pytest.raises(ValueError, match="do not lie within"):
         flash_ops.flash_fwd(q, k[:, :200], k[:, :200], q0=128)
+    # no offset given: q must hold the keys' own positions, on every path
+    for dev in ("meta", "cpu"):
+        qd, kd = q.to(dev) if dev == "meta" else torch.zeros(2, 128, 4, 64), \
+            k if dev == "meta" else torch.zeros(2, 256, 1, 64)
+        with pytest.raises(ValueError, match="do not match q"):
+            flash_ops.flash_fwd(qd, kd, kd)
+        with pytest.raises(ValueError, match="do not match q"):
+            flash_ops.flash_gqa(qd, kd, kd)
+    with pytest.raises(ValueError, match="no query offset"):
+        flash_gqa_ref(torch.zeros(2, 128, 4, 64), torch.zeros(2, 256, 1, 64),
+                      torch.zeros(2, 256, 1, 64))
     with meta.census() as c:
         out, lse = flash_ops.flash_fwd(q, k, k, window=100, q0=128)
     assert out.shape == q.shape and lse.shape == (2, 4, 128)
     assert c.launches == {"flash_fwd": 1}
     want = costs.flash_fwd_cost(2, 256, 4, 1, 64, 100, 2, q0=128, sq=128)
     assert (c.flops["flash_fwd"], c.bytes["flash_fwd"]) == (want["flops"], want["bytes"])
+
+
+def test_reduce_scatter_takes_a_view_in_a_one_rank_gloo_group():
+    """``collectives.reduce_scatter`` on gloo (all-reduce, then the slice)
+    of a transposed view, along each dim: at one rank the input's values,
+    contiguous, one census entry of the result's bytes a call."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import collectives
+
+    x = torch.from_numpy(np.random.RandomState(5).randn(4, 8, 6).astype(np.float32))
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0, world_size=1)
+    try:
+        for src in (x, x.transpose(0, 1)):
+            for dim in range(3):
+                collectives.reset_census()
+                got = collectives.reduce_scatter(src, None, dim)
+                assert torch.equal(got, src) and got.is_contiguous()
+                assert collectives.census() == {
+                    "reduce-scatter": {"bytes": got.nbytes, "count": 1}}
+    finally:
+        collectives.reset_census()
+        dist.destroy_process_group()
 
 
 def test_a_backward_through_an_offset_forward_raises():

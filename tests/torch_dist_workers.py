@@ -741,58 +741,18 @@ def sq_prompt(cfg, seed: int) -> dict:
     return {"tokens": rng.randint(0, cfg.vocab_size, (SQ_B, SQ_S)).astype(np.int32)}
 
 
-def _sq_local_positions(rows, b, device):
-    """A planted fault: RoPE on positions counted from this rank's first."""
-    import torch
-
-    return torch.arange(rows.stop - rows.start, dtype=torch.int32, device=device)[None].expand(
-        b, -1)
-
-
-def _sq_own_keys(k, v, tp):
-    """A planted fault: K/V not gathered, each rank attending its own
-    positions only (as a sequence of its own)."""
-    return k, v, 0
-
-
-def _sq_keys_at_zero(k, v, tp):
-    """A planted fault: the gathered keys, but K5 launched at q0 = 0."""
-    from repro_torch.models import parallel
-
-    hi = (tp.rank + 1) * k.shape[1]
-    return parallel.gather(k, tp, 1)[:, :hi], parallel.gather(v, tp, 1)[:, :hi], 0
-
-
-def _sq_scatter_reversed(x, tp):
-    """A planted fault: the embedding's reduce-scatter in reversed rank
-    order (rank r takes rank m - 1 - r's positions)."""
-    import torch
-
-    from repro_torch.launch import collectives
-
-    return collectives.reduce_scatter(torch.cat(x.chunk(tp.size, 1)[::-1], 1), tp.group, 1)
-
-
-def _sq_last_from_rank0(x, tp):
-    """A planted fault: the last position taken from model rank 0."""
-    from repro_torch.launch import collectives
-
-    return collectives.broadcast(x[:, -1:].contiguous(), src=0, group=tp.group)
-
-
 def sq_faults():
-    """The planted faults of the sequence-parallel prefill: name ->
-    (module, attribute, the faulty replacement)."""
-    from repro_torch.models import attention, parallel
-    from repro_torch.models import transformer as tf
+    """The planted faults of the sequence-parallel prefill
+    (``scripts/seqshard_faults.py``, which ``chip_smoke.py`` phase 20 also
+    plants): name -> (module, attribute, the faulty replacement)."""
+    import importlib.util
+    from pathlib import Path
 
-    return {
-        "rope_local_positions": (tf, "_seq_positions", _sq_local_positions),
-        "kv_not_gathered": (attention, "_seq_keys", _sq_own_keys),
-        "k5_at_q0_zero": (attention, "_seq_keys", _sq_keys_at_zero),
-        "scatter_reversed": (parallel, "seq_scatter", _sq_scatter_reversed),
-        "last_from_rank0": (parallel, "seq_last", _sq_last_from_rank0),
-    }
+    path = Path(__file__).resolve().parents[1] / "scripts" / "seqshard_faults.py"
+    spec = importlib.util.spec_from_file_location("seqshard_faults", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.faults()
 
 
 def sq_prefill(rank, world, plan):
