@@ -33,7 +33,8 @@ Phases (any failure exits non-zero; nothing is caught):
                   flash cases at 8 seeds; K6 + K7 timed together beside
                   SDPA's backward; K5 at a query offset at phase 20's rank
                   shapes (gemma3-1b at m = 2 and 4, window 512 and none,
-                  softcap, bf16 and f32; granite-moe at m = 2), each rank
+                  softcap, bf16 and f32; granite-moe, zamba2 at D = 80,
+                  internvl2 at D = 128 and musicgen at m = 2), each rank
                   against its plain version and bitwise the rows of the
                   launch without an offset, and timed at the last rank
                   (the ``flash_fwd`` record's ``q_offset``).  Device times (torch.profiler; host time
@@ -231,19 +232,29 @@ Phases (any failure exits non-zero; nothing is caught):
  20. seqshard     inside phase 18's two processes, after each arch's
                   serving: the sequence-parallel prefill (the dry run's
                   ``seqshard`` variant; ``make_prefill_step`` with
-                  ``cfg.seq_shard``) of gemma3-1b and granite-moe-1b-a400m
-                  at full width and depth on phase 18's prompt, each rank
-                  its 512 positions with every layer weight whole
-                  (``rank_plan(seqshard=True)``): its census equal to the
-                  dry run's ``seqshard`` count of the same shape on a
-                  2-rank fake world, its peak within 10 % of the count's,
+                  ``cfg.seq_shard``) of ``SEQ_CASES``: gemma3-1b,
+                  granite-moe-1b-a400m (and its params at the
+                  ``dispatch`` and ``dispatch_grouped`` impls at capacity
+                  factor 0.5, dropping slots), zamba2-2.7b, internvl2-2b
+                  and musicgen-large at full width and depth on phase
+                  18's prompt, each rank its 512 positions with every
+                  layer weight whole (``rank_plan(seqshard=True)``): its
+                  census equal to the dry run's ``seqshard`` count of the
+                  same shape on a 2-rank fake world (the SSM's halo and
+                  state gathers and the dispatches' count gathers under
+                  their own names), its peak within 3 % of the count's,
                   its K4/K5 launches the count's, its last-token logits
                   within ``SEQ_LIMIT`` of the whole model's (phase 18's
-                  units), and five planted faults (``SEQ_FAULTS``: RoPE on
-                  local positions, K/V not gathered, K5 at q0 = 0, the
-                  embedding's scatter in reversed rank order, the last
-                  position from rank 0) each above it; prefill ms and the
-                  idle share.
+                  units), and eleven planted faults
+                  (``scripts/seqshard_faults.py``, each read on its case:
+                  RoPE on local positions, K/V not gathered, K5 at q0 =
+                  0, the embedding's scatter in reversed rank order, the
+                  last position from rank 0; the SSM state not carried,
+                  the conv halo zeroed, the state fold in reverse rank
+                  order; the patches on the wrong ranks; the codebook
+                  partials of rank 0 only; the dispatch slot positions
+                  left local) each above it; prefill ms and the idle
+                  share beside phase 18's prefill.
                   Each phase prints its seconds, the TP ranks the seconds
                   of their parts, and ``time[...]`` lines the seconds
                   since the build began.
@@ -866,6 +877,12 @@ OFFSET_CASES = [
     ("gemma3-1b m=4", 4, 1, 256, 512, None, 4, torch.bfloat16),
     ("gemma3-1b m=4 softcap", 4, 1, 256, None, 50.0, 4, torch.bfloat16),
     ("gemma3-1b m=2 f32", 4, 1, 256, 512, None, 2, torch.float32),
+    # the ranks of the SSM, hybrid and frontend archs: zamba2's shared block
+    # at head_dim 80 (fwd_kernel<80>, tiles padded to 128 columns),
+    # internvl2's 128, musicgen's 64
+    ("zamba2-2.7b m=2", 32, 32, 80, None, None, 2, torch.bfloat16),
+    ("internvl2-2b m=2", 16, 8, 128, None, None, 2, torch.bfloat16),
+    ("musicgen-large m=2", 32, 32, 64, None, None, 2, torch.bfloat16),
 ]
 OFFSET_SEEDS = (31, 32)
 
@@ -918,16 +935,20 @@ def check_flash_offset(seeds=OFFSET_SEEDS):
 def time_flash_offset(seed=33):
     """Phase 20's K5 launches timed at the last rank (the most causal
     work), bf16, B = 4, S = 1,024: gemma3-1b at m = 2 (q0 = 512; its full
-    and window-512 layers) and m = 4 (q0 = 768, window 512), granite-moe at
-    m = 2.  Bounds count the rank's visible pairs (``costs.flash_fwd_cost``
-    at the offset) and its bytes (its q, out and LSE rows, keys 0 .. q0 +
-    S/m - 1); the library yardstick is SDPA with the rank's boolean mask."""
+    and window-512 layers) and m = 4 (q0 = 768, window 512), granite-moe,
+    zamba2 (D = 80), internvl2 (D = 128) and musicgen at m = 2.  Bounds
+    count the rank's visible pairs (``costs.flash_fwd_cost`` at the
+    offset) and its bytes (its q, out and LSE rows, keys 0 .. q0 + S/m -
+    1); the library yardstick is SDPA with the rank's boolean mask."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     recs = {}
     for label, h, kv, d, window, m in (("gemma3-1b m=2", 4, 1, 256, None, 2),
                                        ("gemma3-1b m=2", 4, 1, 256, 512, 2),
                                        ("gemma3-1b m=4", 4, 1, 256, 512, 4),
-                                       ("granite-moe m=2", 16, 8, 64, None, 2)):
+                                       ("granite-moe m=2", 16, 8, 64, None, 2),
+                                       ("zamba2-2.7b m=2", 32, 32, 80, None, 2),
+                                       ("internvl2-2b m=2", 16, 8, 128, None, 2),
+                                       ("musicgen-large m=2", 32, 32, 64, None, 2)):
         q, k, v = _offset_operands(g, h, kv, d, torch.bfloat16)
         b, s = q.shape[:2]
         n = s // m
@@ -2508,42 +2529,80 @@ def _plants():
 
 
 # phase 20: the sequence-parallel prefill (the seqshard variant), run by
-# phase 18's two processes on the same prompt, against the same whole-model
-# logits, in phase 18's units
-SEQ_ARCHS = ("gemma3-1b", "granite-moe-1b-a400m")
-# each arch's limit on |d| / (TP_ATOL + TP_ATOL |want|) of the last-token
+# phase 18's two processes on the same prompt, against the whole model's
+# logits on the same params, in phase 18's units.  name -> (arch, the MoE
+# impl: None for the config's); the capacity dispatches reuse granite-moe's
+# params at SEQ_CAPACITY, which drops slots
+SEQ_CASES = {"gemma3-1b": ("gemma3-1b", None),
+             "granite-moe-1b-a400m": ("granite-moe-1b-a400m", None),
+             "granite-moe-1b-a400m/dispatch": ("granite-moe-1b-a400m", "dispatch"),
+             "granite-moe-1b-a400m/dispatch_grouped": ("granite-moe-1b-a400m",
+                                                       "dispatch_grouped"),
+             "zamba2-2.7b": ("zamba2-2.7b", None),
+             "internvl2-2b": ("internvl2-2b", None),
+             "musicgen-large": ("musicgen-large", None)}
+SEQ_CAPACITY = 0.5
+# each case's limit on |d| / (TP_ATOL + TP_ATOL |want|) of the last-token
 # logits against the whole model: 1.34x its first sound reading on an H100
-# (PERF.md, section 6), granite-moe's 9.045; gemma3-1b's read 0 (its
-# sequence-parallel logits were the whole model's bits), and 1.34x of it
-# would ask for bits, so its limit is the bare bound, 1 (rtol = atol = 5e-3),
-# under its faults' least reading, 12.68
-SEQ_LIMIT = {"gemma3-1b": 1.0, "granite-moe-1b-a400m": 12.2}
-# the planted faults, on gemma3-1b: each must read above its limit
-SEQ_FAULTS = ("rope_local_positions", "kv_not_gathered", "k5_at_q0_zero", "scatter_reversed",
-              "last_from_rank0")
+# (PERF.md, section 6): granite-moe's 9.045 (its dense MoE's bf16 sums on
+# 2,048 rows), musicgen's 7.466 (the codebook partials summed before the
+# scatter), the dispatches' 14.08 and 2.309 (a router bit that flips one
+# slot's expert moves every later slot of that expert, and which slots
+# the capacity drops).  gemma3-1b, zamba2 and internvl2 read 0 (the whole
+# model's bits), and 1.34x of it would ask for bits, so their limit is the
+# bare bound, 1 (rtol = atol = 5e-3), under their faults' least readings
+# (12.68, 9.884, 6,297)
+SEQ_LIMIT = {"gemma3-1b": 1.0, "granite-moe-1b-a400m": 12.2,
+             "granite-moe-1b-a400m/dispatch": 18.9,
+             "granite-moe-1b-a400m/dispatch_grouped": 3.1,
+             "zamba2-2.7b": 1.0, "internvl2-2b": 1.0, "musicgen-large": 10.0}
+SEQ_PEAK_RTOL = 0.03  # each rank's prefill peak against the dry run's
 
 
 def _seq_plants():
-    """``SEQ_FAULTS``' replacements (``scripts/seqshard_faults.py``, which
-    the CPU tests also plant): name -> (module, attribute, fault)."""
+    """The planted faults (``scripts/seqshard_faults.py``, which the CPU
+    tests also plant): (name -> (module, attribute, fault), name -> the
+    case it is read on)."""
     import seqshard_faults
 
-    return seqshard_faults.faults()
+    return seqshard_faults.faults(), seqshard_faults.ARCH
 
 
-def _seq_cfg(arch):
-    return get_config(arch).replace(seq_shard=True)
+def _seq_cfg(name):
+    arch, impl = SEQ_CASES[name]
+    cfg = get_config(arch).replace(seq_shard=True)
+    return cfg if impl is None else cfg.replace(moe_impl=impl, capacity_factor=SEQ_CAPACITY)
 
 
-def _seq_rank(arch, params, prompt, tp, want):
-    """Phase 20 on this rank: ``arch``'s sequence-parallel prefill step
-    (``make_prefill_step`` with ``seq_shard``; ``params`` cut by
+def _seq_whole(names):
+    """The whole model's last-token logits of each case of ``names`` whose
+    MoE impl is not its config's (the others are phase 18's prefill), on
+    the card (seed 0, phase 18's prompt)."""
+    out = {}
+    for name in names:
+        arch, impl = SEQ_CASES[name]
+        if impl is None:
+            continue
+        cfg = _seq_cfg(name).replace(seq_shard=False)
+        params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
+                                device="cuda")
+        out[name] = lm_steps.make_prefill_step(cfg, _tp_shapes()[0])(params,
+                                                                     _tp_prompt(cfg)).cpu()
+        del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_rank(name, params, prompt, tp, want):
+    """Phase 20 on this rank: case ``name``'s sequence-parallel prefill
+    step (``make_prefill_step`` with ``seq_shard``; ``params`` cut by
     ``rank_plan(seqshard=True)``) on phase 18's prompt, the launch counters
     reset just before (timed), once more under the profiler (wall and
     device busy), once alone for its census and peak; then each planted
-    fault of ``SEQ_FAULTS`` (gemma3-1b) for one prefill, its reading
-    against ``want`` (the whole model's last-token logits)."""
-    cfg = _seq_cfg(arch)
+    fault read on the case for one prefill, its reading against ``want``
+    (the whole model's last-token logits)."""
+    cfg = _seq_cfg(name)
     step = lm_steps.make_prefill_step(cfg, _tp_shapes()[0], tp)
     torch.cuda.synchronize()
     reset_launches()
@@ -2561,18 +2620,21 @@ def _seq_rank(arch, params, prompt, tp, want):
     _, wall_p, busy_us = profiled_run(again)
     _, census, peak = _step_peak(step, (params, prompt))
     faulty = {}
-    for name, (module, attr, fault) in (_seq_plants().items() if arch == "gemma3-1b" else ()):
+    plants, cases = _seq_plants()
+    for fault, (module, attr, replacement) in plants.items():
+        if cases[fault] != name:
+            continue
         sound = getattr(module, attr)
-        setattr(module, attr, fault)
+        setattr(module, attr, replacement)
         try:
-            faulty[name] = _tp_gap(_host(step(params, prompt)), want)[0]
+            faulty[fault] = _tp_gap(_host(step(params, prompt)), want)[0]
         finally:
             setattr(module, attr, sound)
     return dict(logits=_host(logits), prefill_s=prefill_s, wall_p=wall_p, busy_us=busy_us,
                 launches=launches, census=census, peak=peak, faulty=faulty)
 
 
-def _tp_rank(rank, port, answers, teachers, want):
+def _tp_rank(rank, port, answers, teachers, want, seq_want):
     """One of two processes on the one card (gloo: NCCL refuses a second
     rank on a device), ``pods:1x1x2``, for each arch of ``teachers`` (arch
     -> the whole model's next tokens, step by step): its model slices
@@ -2584,8 +2646,9 @@ def _tp_rank(rank, port, answers, teachers, want):
     its census and peak; then each planted fault of the arch, patched in
     for a prefill and its decode steps (``TP_FAULTS``) until ``want`` (arch
     -> the whole model's logits, step by step) shows it caught, with the
-    greedy tokens it changes.  For each arch of ``SEQ_ARCHS``, phase 20
-    (``_seq_rank``) on its sequence-parallel slices."""
+    greedy tokens it changes.  For each case of ``SEQ_CASES`` on the arch,
+    phase 20 (``_seq_rank``) on its sequence-parallel slices against
+    ``seq_want`` (case -> the whole model's last-token logits)."""
     import datetime
     import traceback
 
@@ -2613,9 +2676,10 @@ def _tp_rank(rank, port, answers, teachers, want):
                 whole = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg,
                                        device="cuda")
                 params = cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank))
+                seq_names = [n for n, (a, _) in SEQ_CASES.items() if a == arch]
                 seq_params = (cut(whole, rank_plan(whole, "params", 1, tp.size, 0, tp.rank,
                                                    seqshard=True))
-                              if arch in SEQ_ARCHS else None)
+                              if seq_names else None)
                 del whole
                 gc.collect()
                 torch.cuda.empty_cache()
@@ -2707,9 +2771,10 @@ def _tp_rank(rank, port, answers, teachers, want):
                     finally:
                         setattr(module, attr, sound)
                 marks.append(time.perf_counter())
-                seq = None
+                seq = {}
                 if seq_params is not None:  # phase 20
-                    seq = _seq_rank(arch, seq_params, prompt, tp, want[arch][0])
+                    for name in seq_names:
+                        seq[name] = _seq_rank(name, seq_params, prompt, tp, seq_want[name])
                     del seq_params
                     gc.collect()
                     torch.cuda.empty_cache()
@@ -2848,38 +2913,45 @@ def tp_serve_run():
     fault of ``TP_FAULTS`` above its arch's limit or changing a greedy token
     from the sound run's.
 
-    Phase 20 on the same ranks, for each arch of ``SEQ_ARCHS``: the
+    Phase 20 on the same ranks, for each case of ``SEQ_CASES``: the
     sequence-parallel prefill step's census equal to the dry run's
     ``seqshard`` count of the same shape on a 2-rank fake world, its peak
-    within ``TP_PEAK_RTOL`` of the count's, its K4/K5 launches the count's,
-    its last-token logits within ``SEQ_LIMIT`` of the whole model's, every
-    planted fault of ``SEQ_FAULTS`` above that limit; prefill ms and idle
-    share.  Returns rank 0's launches per arch of phase 18 and, under
-    "seqshard <arch>", of phase 20."""
+    within ``SEQ_PEAK_RTOL`` of the count's, its K4/K5 launches the
+    count's, its last-token logits within ``SEQ_LIMIT`` of the whole
+    model's, every planted fault read on the case
+    (``scripts/seqshard_faults.py``'s ``ARCH``) above that limit; prefill
+    ms and idle share beside phase 18's prefill of the same prompt.
+    Returns rank 0's launches per arch of phase 18 and, under "seqshard
+    <case>", of phase 20."""
     from repro_torch.launch.mesh import parse_mesh
 
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     wants, teachers, floors, counted = {}, {}, {}, {}
+    seq_wants = {}
 
     def prepare():  # while the ranks start
         nonlocal t_spawn
         for arch in TP_ARCHS:
             wants[arch], teachers[arch], floors[arch] = _tp_whole(arch)
+        seq_wants.update(_seq_whole(SEQ_CASES))
+        for name, (arch, impl) in SEQ_CASES.items():
+            if impl is None:
+                seq_wants[name] = wants[arch][0]
         spec = parse_mesh(TP_SERVE["mesh"])
         for arch in TP_ARCHS:
             for shape in _tp_shapes():
                 rec = dryrun.run_one(arch, shape, save=False, verbose=False, mesh=spec)
                 assert rec["serve_layout"] == "tensor_parallel", rec["serve_layout"]
                 counted[arch, shape.kind] = rec
-        for arch in SEQ_ARCHS:
+        for name, (arch, _) in SEQ_CASES.items():
             rec = dryrun.run_one(arch, _tp_shapes()[0], save=False, verbose=False, mesh=spec,
-                                 variant="seqshard")
+                                 variant="seqshard", cfg=_seq_cfg(name))
             assert rec["serve_layout"] == "sequence_parallel", rec["serve_layout"]
-            counted[arch, "seqshard"] = rec
+            counted[name, "seqshard"] = rec
         t_spawn = time.perf_counter()
-        return teachers, wants
+        return teachers, wants, seq_wants
 
     t_spawn = None
     got = _spawn_two(_tp_rank, (), TP_JOIN_S, prepare)
@@ -2948,44 +3020,47 @@ def tp_serve_run():
                 "a planted fault passed", arch, name, reading, changed)
         assert 0 <= int(r["token"].min()) and int(r["token"].max()) < cfg.vocab_size
     seq_checks = []
-    for arch in SEQ_ARCHS:  # phase 20
-        rec = counted[arch, "seqshard"]
+    fault_cases = _seq_plants()[1]
+    for name, (arch, _) in SEQ_CASES.items():  # phase 20
+        rec = counted[name, "seqshard"]
         for rank in sorted(got):
-            r = got[rank][arch]["seq"]
-            gap = _tp_gap(r["logits"], wants[arch][0])
+            r = got[rank][arch]["seq"][name]
+            gap = _tp_gap(r["logits"], seq_wants[name])
             launches = {k: n for k, n in r["launches"].items() if n}
-            seq_checks.append((arch, rank, r, gap, launches))
-            print(f"seqshard prefill[{arch}, {TP_SERVE['mesh']}, rank {rank}, gloo host-staged, "
-                  f"2 processes on one card, {smi}]: prefill {1e3 * r['prefill_s']:.3f} ms; "
-                  f"profiled: wall {1e3 * r['wall_p']:.3f} ms, device busy "
-                  f"{r['busy_us'] / 1e3:.3f} ms, idle share "
-                  f"{1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches {launches} "
-                  f"(dry run {rec['launches']})", flush=True)
-            print(f"seqshard prefill[{arch}, rank {rank}]: last-token logits against the whole "
+            seq_checks.append((name, rank, r, gap, launches))
+            print(f"seqshard prefill[{name}, {TP_SERVE['mesh']}, rank {rank}, gloo host-staged, "
+                  f"2 processes on one card, {smi}]: prefill {1e3 * r['prefill_s']:.3f} ms "
+                  f"(phase 18's tensor-parallel prefill of the prompt "
+                  f"{1e3 * got[rank][arch]['prefill_s']:.3f} ms); profiled: wall "
+                  f"{1e3 * r['wall_p']:.3f} ms, device busy {r['busy_us'] / 1e3:.3f} ms, idle "
+                  f"share {1 - r['busy_us'] / 1e3 / (r['wall_p'] * 1e3):.4f}; launches "
+                  f"{launches} (dry run {rec['launches']})", flush=True)
+            print(f"seqshard prefill[{name}, rank {rank}]: last-token logits against the whole "
                   f"model, worst |d| / (5e-3 + 5e-3 |want|) {gap[0]:.4g} (limit "
-                  f"{SEQ_LIMIT[arch]}), worst error in units of the largest logit "
+                  f"{SEQ_LIMIT[name]}), worst error in units of the largest logit "
                   f"{gap[1]:.4g}; census {r['census']} (dry run {rec['collectives']}); peak "
                   f"{r['peak']} bytes, the dry run's {rec['peak_bytes']}: "
                   f"{100 * (rec['peak_bytes'] - r['peak']) / r['peak']:+.2f}%", flush=True)
             if r["faulty"]:
-                print(f"seqshard prefill[{arch}, rank {rank}]: planted faults (|d| / (5e-3 + "
+                print(f"seqshard prefill[{name}, rank {rank}]: planted faults (|d| / (5e-3 + "
                       f"5e-3 |want|)): " + ", ".join(f"{k} {v:.4g}"
                                                      for k, v in r["faulty"].items()),
                       flush=True)
-    for arch, rank, r, gap, launches in seq_checks:
-        rec = counted[arch, "seqshard"]
-        assert r["census"] == rec["collectives"], (arch, rank, r["census"], rec["collectives"])
-        assert abs(rec["peak_bytes"] - r["peak"]) <= TP_PEAK_RTOL * r["peak"], (arch, rank)
-        assert launches == rec["launches"], (arch, rank, launches, rec["launches"])
-        assert gap[0] <= SEQ_LIMIT[arch], (arch, rank, "seqshard logits", gap)
-        assert sorted(r["faulty"]) == (sorted(SEQ_FAULTS) if arch == "gemma3-1b" else [])
-        for name, reading in r["faulty"].items():
-            assert reading > SEQ_LIMIT[arch], ("a planted fault passed", arch, name, reading)
+    for name, rank, r, gap, launches in seq_checks:
+        rec = counted[name, "seqshard"]
+        assert r["census"] == rec["collectives"], (name, rank, r["census"], rec["collectives"])
+        assert abs(rec["peak_bytes"] - r["peak"]) <= SEQ_PEAK_RTOL * r["peak"], (name, rank)
+        assert launches == rec["launches"], (name, rank, launches, rec["launches"])
+        assert gap[0] <= SEQ_LIMIT[name], (name, rank, "seqshard logits", gap)
+        assert sorted(r["faulty"]) == sorted(f for f, c in fault_cases.items() if c == name)
+        for fault, reading in r["faulty"].items():
+            assert reading > SEQ_LIMIT[name], ("a planted fault passed", name, fault, reading)
     print(f"tp serve: phase {time.perf_counter() - t_phase:.1f}s (the whole models and the "
           f"dry run's counts {t_spawn - t_phase:.1f}s while the two processes started, then "
           f"the two processes {time.perf_counter() - t_spawn:.1f}s)", flush=True)
     return {**{arch: got[0][arch]["launches"] for arch in TP_ARCHS},
-            **{"seqshard " + arch: got[0][arch]["seq"]["launches"] for arch in SEQ_ARCHS}}
+            **{"seqshard " + name: got[0][arch]["seq"][name]["launches"]
+               for name, (arch, _) in SEQ_CASES.items()}}
 
 
 # phase 19: the tensor-parallel train step over two processes sharing the card
@@ -3507,7 +3582,7 @@ def main():
     for arch, launches in tp_serve_run().items():  # phases 18 and 20
         name = ("seqshard_prefill_" + arch.split()[1] if arch.startswith("seqshard ")
                 else "tp_serve_" + arch)
-        paths[name.replace("-", "_").replace(".", "_") + "_rank0"] = launches
+        paths[re.sub(r"[-./]", "_", name) + "_rank0"] = launches
     for arch, launches in tp_train_run().items():
         paths["tp_train_" + arch.replace("-", "_").replace(".", "_") + "_rank0"] = launches
     lap("phases 18-20")

@@ -27,7 +27,11 @@ names it ("all-gather", "all-reduce", "reduce-scatter",
 reduce-scatter is counted as one whatever the backend runs for it, so the
 dry run's count and a gloo run's census agree); ``launch/roofline.py::
 roofline_terms`` reads the same schema.  A barrier moves no data and is
-counted under "barrier" with 0 bytes.
+counted under "barrier" with 0 bytes.  The sequence-parallel prefill's
+three small gathers are counted apart, under the names
+``models/parallel.py`` gives them ("all-gather:conv-halo",
+"all-gather:ssm-state", "all-gather:moe-counts"), so a census shows what
+each costs; the roofline sums every entry alike.
 
 A collective refuses to run under a ``torch.func`` transform (``vmap``,
 ``grad``): a gloo ``all_gather`` of a vmapped tensor returned zeros with
@@ -89,16 +93,18 @@ def rank(group=None) -> int:
     return dist.get_rank(group)
 
 
-def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+def all_gather(x: torch.Tensor, group=None, dim: int = 0, name: str = "all-gather"
+               ) -> torch.Tensor:
     """Every rank's ``x`` (same shape on each rank) concatenated along
-    ``dim`` in the group's rank order."""
+    ``dim`` in the group's rank order; counted under ``name`` (the module
+    docstring)."""
     _refuse_transforms(x)
     flag = x.dtype == torch.bool  # moved as bytes: not every backend takes bool
     x = (x.to(torch.uint8) if flag else x).contiguous()
     parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
     dist.all_gather(parts, x, group=group)
     out = torch.cat(parts, dim=dim)
-    _count("all-gather", out.nbytes)
+    _count(name, out.nbytes)
     return out.bool() if flag else out
 
 

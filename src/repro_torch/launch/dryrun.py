@@ -86,10 +86,10 @@ whose shapes are static (set by the capacity, not the routing).
            record says ``"serve_layout": "sequence_parallel"`` (at ``one``
            the one-device prefill).  The census holds the embedding's
            reduce-scatter (where ``embed`` splits), the K/V gathers, the
-           last position's broadcast and the logits' vocab gather.  The SSM,
-           hybrid and frontend archs and the dispatch MoE are refused
-           (ROADMAP.md item 16b-ii); the CLI's sweep skips them with a line
-           each;
+           SSM's conv-halo and state gathers and the capacity MoE's count
+           gathers (each under its own name: ``launch/collectives.py``),
+           the last position's broadcast and the logits' vocab gather;
+           every arch and MoE impl has the record;
   decode   the baseline tensor-parallel serve step, as ``repro``'s decode
            branch ignores the variant: the record is the baseline's but
            for ``"variant"``;
@@ -143,7 +143,6 @@ from repro_torch.launch import steps as st
 from repro_torch.launch.mesh import MeshSpec
 from repro_torch.launch.roofline import HBM_CAPACITY, roofline_terms
 from repro_torch.launch.sharding import rank_plan
-from repro_torch.models.transformer import check_seq_shard
 from repro_torch.utils.pytree import tree_leaves, tree_map
 from repro_torch.weights import cut
 
@@ -355,19 +354,6 @@ def _rank_part(tree, kind, tp, seqshard=False):
     return cut(tree, plan)
 
 
-def refused(arch: str, shape, variant: str):
-    """Why (arch, shape) has no step under ``variant`` (ROADMAP.md item
-    16b-ii: the seqshard prefill of the SSM, hybrid and frontend archs and
-    the dispatch MoE), or None."""
-    if variant != "seqshard" or resolve_shape(shape).kind != "prefill":
-        return None
-    try:
-        check_seq_shard(get_config(arch))
-    except NotImplementedError as e:
-        return str(e)
-    return None
-
-
 def counted_rank(spec: MeshSpec, shape, variant: str) -> int:
     """The global rank whose program a record on ``spec`` counts: 0, but
     for the ``seqshard`` prefill the last model rank of rank 0's data group
@@ -478,10 +464,6 @@ def main(argv=None):
     failures = []
     for arch in archs:
         for shape in shapes:
-            why = refused(arch, shape, args.variant)
-            if why is not None:
-                print(f"-- skipped {arch} x {shape} ({args.variant}): {why}")
-                continue
             for mesh in meshes:
                 try:
                     run_one(arch, shape, variant=args.variant, micro_batch=args.micro_batch,

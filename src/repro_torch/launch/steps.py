@@ -46,9 +46,12 @@ Serving:
   data rank's rows of the whole prompt; the last position broadcast from
   the last model rank, its logits gathered over the vocab and the data
   ranks as above.  The serve step ignores the flag, as ``repro``'s decode
-  does (its caches and params keep the tensor-parallel layout).  The
-  flag's refusals (``transformer.check_seq_shard``: ROADMAP.md item
-  16b-ii) raise when the prefill step is made.
+  does (its caches and params keep the tensor-parallel layout).  Every
+  arch and MoE impl takes the flag (``transformer.check_seq_shard``
+  refuses only a config without a decoder stack, when the prefill step
+  is made); the frontends' batches are the whole prompt's (the vision
+  arch's patches count among the S positions), the codebook heads'
+  (B, 1, K, V/m) logits gathered over the vocab like ``embed``'s.
 
 ``input_specs(cfg, shape)`` builds meta-device stand-ins for every input,
 leaf for leaf ``repro``'s ``ShapeDtypeStruct``s (a leading client axis on

@@ -42,6 +42,19 @@ rank's rows' (serving discards it).  Training, the tokens and the gates
 a rank's experts read enter through ``parallel.enter`` (their gradients
 summed over the model group; the router's own gradient, from the aux
 loss and the gates, is then the whole model's on every rank).
+
+Sequence-parallel prefill (``seq``, a ``TensorParallel`` under
+``cfg.seq_shard``): the weights are whole and model rank r holds positions
+r S/m .. (r + 1) S/m - 1 of its data rank's rows.  The dispatches drop
+exactly the whole model's slots: the capacity is the whole batch's
+(``dispatch``) or the whole row's (``dispatch_grouped``), and each slot's
+position is offset by the same-expert slots before it in the whole
+model's order, from one all-gather of per-(row, expert) counts over the
+model group (``parallel.seq_counts_before``): for ``dispatch``, (b, s)
+row-major, so the earlier rows on every rank, the earlier ranks' slots of
+the row, and the earlier data ranks' (``parallel.rows_before``); for
+``dispatch_grouped``, the earlier ranks' slots of the row.  The aux loss
+is the rank's tokens' (a prefill discards it).
 """
 from __future__ import annotations
 
@@ -150,24 +163,32 @@ def _capacity(n, k, e, factor):
     return max(8, int(np.ceil(cap / 8) * 8))
 
 
-def moe_dispatch(p, cfg, x, tp=None):
+def moe_dispatch(p, cfg, x, tp=None, seq=None):
     """Capacity-based scatter/gather dispatch.  x: (B,S,D) -> ((B,S,D), aux).
-    A slot past its expert's capacity adds nothing for that expert."""
+    A slot past its expert's capacity adds nothing for that expert.
+    ``seq``: the ``TensorParallel`` of a sequence-parallel prefill, ``x``
+    this rank's positions (module docstring)."""
     b, s, d = x.shape
     n = b * s
     e, k = cfg.n_experts, cfg.top_k
     xf = x.reshape(n, d)
     _, top_idx, top_w, aux = _router(p, cfg, xf)
-    rows_split = tp is not None and tp.data_size > 1
-    cap = _capacity(n * (tp.data_size if rows_split else 1), k, e, cfg.capacity_factor)
+    rows = seq if seq is not None else tp  # whose data group splits the rows
+    rows_split = rows is not None and rows.data_size > 1
+    whole_n = n * (seq.size if seq is not None else 1) * (rows.data_size if rows_split else 1)
+    cap = _capacity(whole_n, k, e, cfg.capacity_factor)
 
     # position of each (token, slot) in its expert's buffer: the running
     # count of earlier slots routed to the same expert, in token order
     expert_of = top_idx.reshape(n * k)  # (T,), T = N k slots
     onehot = F.one_hot(expert_of, e)  # (T, E)
-    pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+    if seq is None:
+        pos = (onehot.cumsum(dim=0) * onehot).sum(dim=-1) - 1
+        count = onehot.sum(dim=0) if rows_split else None
+    else:
+        pos, count = _seq_positions(onehot.reshape(b, s * k, e), seq)
     if rows_split:  # the earlier data ranks' slots come first
-        pos = pos + parallel.rows_before(onehot.sum(dim=0), tp)[expert_of]
+        pos = pos + parallel.rows_before(count, rows)[expert_of]
     mine = _experts(p, cfg, tp)
     expert_of, keep = _own_slots(expert_of, pos < cap, mine)
     pos_c = torch.where(keep, pos, cap - 1)  # clamped; dropped slots add zeros
@@ -186,6 +207,18 @@ def moe_dispatch(p, cfg, x, tp=None):
     return _combine(out, x, tp, mine).reshape(b, s, d), aux
 
 
+def _seq_positions(onehot, tp):
+    """The dispatch positions of this rank's slots, (B, S/m, k) flattened,
+    in the whole model's (row, position) order over the model group's
+    rows, and the group's count of slots per expert: within its row, after
+    the earlier rows' slots on every rank and the earlier ranks' slots of
+    the row.  ``onehot`` (B, S/m k, E)."""
+    before, total = parallel.seq_counts_before(onehot.sum(dim=1).to(torch.int32), tp)
+    offset = total.cumsum(dim=0) - total + before  # (B, E)
+    pos = ((onehot.cumsum(dim=1) + offset[:, None, :]) * onehot).sum(dim=-1) - 1
+    return pos.reshape(-1), total.sum(dim=0)
+
+
 def _positions_sorted(expert_of, e):
     """Position of each slot in its expert's buffer, by a stable sort.
 
@@ -202,17 +235,21 @@ def _positions_sorted(expert_of, e):
     return torch.empty_like(pos_sorted).scatter_(-1, order, pos_sorted)
 
 
-def moe_dispatch_grouped(p, cfg, x, tp=None):
+def moe_dispatch_grouped(p, cfg, x, tp=None, seq=None):
     """Group-local capacity dispatch: every batch row is its own routing
-    group, cap_g = ceil(S k / E * capacity_factor) (rounded as above)."""
+    group, cap_g = ceil(S k / E * capacity_factor) (rounded as above).
+    ``seq``: as ``moe_dispatch``'s."""
     b, s, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     _, top_idx, top_w, aux = _router(p, cfg, x.reshape(b * s, d))
     g, n_g = b, s  # one group per batch row
-    cap = _capacity(n_g, k, e, cfg.capacity_factor)
+    cap = _capacity(n_g * (seq.size if seq is not None else 1), k, e, cfg.capacity_factor)
 
     expert_of = top_idx.reshape(g, n_g * k)  # (G, T_g)
     pos = _positions_sorted(expert_of, e)
+    if seq is not None:  # after the earlier ranks' slots of the row
+        counts = F.one_hot(expert_of, e).sum(dim=1).to(torch.int32)
+        pos = pos + parallel.seq_counts_before(counts, seq)[0].gather(1, expert_of)
     mine = _experts(p, cfg, tp)
     expert_of, keep = _own_slots(expert_of, pos < cap, mine)
     pos_c = torch.where(keep, pos, cap - 1)
@@ -236,11 +273,14 @@ def moe_dispatch_grouped(p, cfg, x, tp=None):
     return _combine(out, x, tp, mine), aux
 
 
-def moe_ffn(p, cfg, x, impl: str = "dense", tp=None):
+def moe_ffn(p, cfg, x, impl: str = "dense", tp=None, seq=None):
+    """``impl``'s FFN; ``seq``: the ``TensorParallel`` of a
+    sequence-parallel prefill, whose dispatches place this rank's slots in
+    the whole model's order (``dense`` is per token)."""
     if impl == "dense":
         return moe_dense(p, cfg, x, tp)
     if impl == "dispatch":
-        return moe_dispatch(p, cfg, x, tp)
+        return moe_dispatch(p, cfg, x, tp, seq)
     if impl == "dispatch_grouped":
-        return moe_dispatch_grouped(p, cfg, x, tp)
+        return moe_dispatch_grouped(p, cfg, x, tp, seq)
     raise ValueError(f"unknown moe impl {impl!r}")

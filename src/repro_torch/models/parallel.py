@@ -78,16 +78,30 @@ Function`` that runs out of place, with its conjugate as its backward
 The sequence-parallel prefill (``repro``'s ``seqshard`` variant, a
 ``TensorParallel`` under ``cfg.seq_shard``: model rank r of m holds
 positions r S/m .. (r + 1) S/m - 1 of its data rank's rows, with every
-layer weight whole) adds three ops, forward only (the prefill runs under
+layer weight whole) adds six ops, forward only (the prefill runs under
 ``no_grad``; ``repro`` has no sequence-parallel backward that lowers), and
 gathers K and V over the sequence with ``gather`` along dim 1:
 
   ``seq_rows``       this rank's positions of a sequence of ``n``;
   ``seq_scatter``    every rank's partial summed and this rank's positions
                      of it (``collectives.reduce_scatter`` over the
-                     sequence): the vocab-parallel embedding's partials;
+                     sequence): the vocab-parallel embedding's partials
+                     (the codebooks' summed over K first);
   ``seq_last``       the sequence's last position, broadcast from model
-                     rank m - 1, which holds it.
+                     rank m - 1, which holds it;
+  ``seq_halo``       the k rows before this rank's first (the SSM conv's
+                     w - 1): one all-gather of every rank's last
+                     min(k, S/m) rows, so a halo may span several ranks;
+  ``seq_state_prefix``  the SSM state entering this rank's first position:
+                     one all-gather of every rank's final state from zero
+                     and its total log-decay, the earlier ranks' folded in
+                     rank order (h <- h exp(a_j) + h_j, no atomics);
+  ``seq_counts_before``  one all-gather of per-(row, expert) int32 counts:
+                     the capacity MoE's slot positions in the whole
+                     model's token order.
+
+The last three are counted in the census under names of their own
+(``collectives.all_gather``'s ``name``).
 
 Results are bitwise from run to run, and every rank's copy of a whole
 tensor (a replicated leaf's gradient included) bitwise the others': gathers
@@ -321,3 +335,36 @@ def seq_last(x: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
     """The sequence's last position (B, 1, ...) from this rank's positions
     ``x`` (B, S/m, ...): model rank m - 1's, broadcast to the group."""
     return collectives.broadcast(x[:, -1:].contiguous(), src=tp.size - 1, group=tp.group)
+
+
+def seq_halo(x: torch.Tensor, tp: TensorParallel, k: int) -> torch.Tensor:
+    """The ``k`` positions (B, k, ...) before this rank's first, from its
+    positions ``x`` (B, S/m, ...): the earlier ranks' last rows in rank
+    order, zeros before position 0."""
+    j = min(k, x.shape[1])
+    tails = collectives.all_gather(x[:, x.shape[1] - j:].contiguous(), tp.group, dim=1,
+                                   name="all-gather:conv-halo")
+    zeros = x.new_zeros((x.shape[0], k) + tuple(x.shape[2:]))
+    return torch.cat([zeros, tails[:, :tp.rank * j]], dim=1)[:, -k:]
+
+
+def seq_state_prefix(h: torch.Tensor, a: torch.Tensor, tp: TensorParallel) -> torch.Tensor:
+    """The recurrent state entering this rank's first position, from each
+    rank's final state ``h`` (B, H, P, N) f32 of its positions run from a
+    zero state and their total log-decay ``a`` (B, H) f32: the earlier
+    ranks' folded in rank order, h <- h exp(a_j) + h_j (zeros on rank 0)."""
+    parts = collectives.all_gather(torch.cat([h.flatten(2), a[..., None]], dim=-1)[None],
+                                   tp.group, dim=0, name="all-gather:ssm-state")
+    out = torch.zeros_like(h)
+    for j in range(tp.rank):  # rank order
+        out = out * torch.exp(parts[j, ..., -1])[..., None, None] + \
+            parts[j, ..., :-1].reshape(h.shape)
+    return out
+
+
+def seq_counts_before(c: torch.Tensor, tp: TensorParallel):
+    """From this rank's counts ``c`` (B, E) int32 of each (row, expert):
+    (the earlier model ranks' counts summed, every rank's summed), both
+    (B, E) int64."""
+    parts = collectives.all_gather(c[None], tp.group, dim=0, name="all-gather:moe-counts")
+    return parts[:tp.rank].sum(0), parts.sum(0)

@@ -47,8 +47,27 @@ Training, each whole tensor read by split computation enters through
 dt and z read by this rank's heads, the per-head leaves and
 ``norm_scale`` on its heads, a gated output cut for ``out_proj``), and the
 norm statistic's all-reduce has an all-reduce for its backward.
+
+Sequence-parallel prefill (``seq_ssm_forward``; ``cfg.seq_shard`` under
+a ``tp``, ``repro``'s ``seqshard`` variant): the weights are whole and
+model rank r of m holds positions r S/m .. (r + 1) S/m - 1.  The mixer
+runs on those rows, and two things cross ranks:
+
+1. the causal conv reads the w - 1 pre-activation rows before the rank's
+   first (``parallel.seq_halo``: the earlier ranks' last rows, which span
+   several ranks where S/m < w - 1; zeros before position 0);
+2. the SSD runs from a zero state, then each rank's final state and its
+   total f32 log-decay are gathered and the earlier ranks' folded in rank
+   order, h <- h exp(a_j) + h_j (``parallel.seq_state_prefix``), and only
+   the inter-chunk recurrence and its output term are rerun from that
+   entering state (``ssd_chunked``'s ``h0``).
+
+The gated norm and ``out_proj`` run on the rank's rows: ``d_inner`` is
+whole, so no statistic crosses ranks.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -136,10 +155,11 @@ def _conv_tp(p, cfg, xbc, tp):
     return _gather_channels(_causal_conv(p, xbc, cfg.ssm_conv_width), tp)
 
 
-def _causal_conv(p, xbc, width):
-    """Depthwise causal conv over the sequence axis.  xbc: (B,S,C)."""
+def _causal_conv(p, xbc, width, halo=None):
+    """Depthwise causal conv over the sequence axis.  xbc: (B,S,C);
+    ``halo``: the w - 1 rows before its first (None: zeros)."""
     s = xbc.shape[1]
-    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    pad = F.pad(xbc, (0, 0, width - 1, 0)) if halo is None else torch.cat([halo, xbc], dim=1)
     out = 0
     for i in range(width):  # repro's sum(...) order, from 0
         out = out + pad[:, i:i + s, :] * p["conv_w"][i][None, None, :]
@@ -162,11 +182,21 @@ def _f32(x, dtype):
     return x.to(dtype).float()
 
 
-def ssd_chunked(cfg, xh, Bm, Cm, dt_soft, A):
-    """Chunked SSD scan.
+class _Chunks(NamedTuple):
+    """What the chunked SSD computes of a sequence without its entering
+    state (``_chunks``)."""
 
-    xh: (B,S,H,P)  Bm, Cm: (B,S,N)  dt_soft: (B,S,H) f32  A: (H,) f32 (< 0).
-    Returns y (B,S,H,P) f32 and the final state (B,H,P,N) f32."""
+    y_intra: torch.Tensor  # (B,c,L,H,P) f32: each chunk's output from a zero state
+    states: torch.Tensor  # (B,c,H,P,N) f32: each chunk's final state from zero
+    chunk_decay: torch.Tensor  # (B,c,H): exp of each chunk's total log-decay
+    in_decay: torch.Tensor  # (B,c,L,H): decay from the chunk start to step t
+    Cc: torch.Tensor  # (B,c,L,N)
+    chunk_log_decay: torch.Tensor  # (B,c,H) f32: each chunk's sum of dt A
+
+
+def _chunks(cfg, xh, Bm, Cm, dt_soft, A) -> _Chunks:
+    """The parts of ``ssd_chunked`` that do not depend on the entering
+    state: the intra-chunk outputs and the chunk-final states."""
     b, s, h, pdim = xh.shape
     n = Bm.shape[-1]
     L = min(cfg.ssm_chunk, s)
@@ -193,22 +223,43 @@ def ssd_chunked(cfg, xh, Bm, Cm, dt_soft, A):
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)  # (B,c,L,H)
     states = torch.einsum("bclh,bcln,bclhp->bchpn", _f32(decay_to_end * dtc, dtype),
                           Bc.float(), xc.float())
+    return _Chunks(y_intra, states, torch.exp(cum[:, :, -1, :]), torch.exp(cum), Cc,
+                   cum[:, :, -1, :])
 
-    # -- inter-chunk recurrence over the chunk index --
-    chunk_decay = torch.exp(cum[:, :, -1, :])  # (B,c,H): a chunk's total decay
-    hcur = torch.zeros((b, h, pdim, n), dtype=torch.float32, device=xh.device)
+
+def _carry(ch: _Chunks, h0=None):
+    """The inter-chunk recurrence from ``h0`` (None: zeros): (the state
+    entering each chunk (B,c,H,P,N), the final state)."""
+    b, nc, h, pdim, n = ch.states.shape
+    hcur = (torch.zeros((b, h, pdim, n), dtype=torch.float32, device=ch.states.device)
+            if h0 is None else h0)
     h_in = []
     for c in range(nc):
         h_in.append(hcur)  # the state entering chunk c
-        hcur = hcur * chunk_decay[:, c, :, None, None] + states[:, c]
-    h_in = torch.stack(h_in, dim=1)  # (B,c,H,P,N)
+        hcur = hcur * ch.chunk_decay[:, c, :, None, None] + ch.states[:, c]
+    return torch.stack(h_in, dim=1), hcur
+
+
+def ssd_chunked(cfg, xh, Bm, Cm, dt_soft, A, h0=None):
+    """Chunked SSD scan.
+
+    xh: (B,S,H,P)  Bm, Cm: (B,S,N)  dt_soft: (B,S,H) f32  A: (H,) f32 (< 0).
+    ``h0``: the state entering the first position, (B,H,P,N) f32 (None:
+    zeros), or a function of (the final state from zeros, the sequence's
+    total log-decay (B,H) f32) that returns it; the intra-chunk outputs and
+    the chunk-final states are computed once either way.
+    Returns y (B,S,H,P) f32 and the final state (B,H,P,N) f32."""
+    b, s, h, pdim = xh.shape
+    ch = _chunks(cfg, xh, Bm, Cm, dt_soft, A)
+    if callable(h0):
+        h0 = h0(_carry(ch)[1], ch.chunk_log_decay.sum(dim=1))
+    h_in, hcur = _carry(ch, h0)
 
     # -- contribution of the carried state --
-    in_decay = torch.exp(cum)  # (B,c,L,H): decay from the chunk start to step t
-    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", Cc.float(), _f32(h_in, dtype),
-                           _f32(in_decay, dtype))
+    y_inter = torch.einsum("bcln,bchpn,bclh->bclhp", ch.Cc.float(), _f32(h_in, xh.dtype),
+                           _f32(ch.in_decay, xh.dtype))
 
-    return (y_intra + y_inter).reshape(b, s, h, pdim), hcur
+    return (ch.y_intra + y_inter).reshape(b, s, h, pdim), hcur
 
 
 def _per_head(p, hs, tp):
@@ -219,10 +270,10 @@ def _per_head(p, hs, tp):
     return tuple(parallel.enter(p[k], tp)[hs] for k in ("dt_bias", "A_log", "D"))
 
 
-def _mix(p, cfg, x, xbc, z, dt, tp=None):
+def _mix(p, cfg, x, xbc, z, dt, tp=None, h0=None):
     """The SSD scan and the gated output over the conv's output ``xbc``;
     returns (out (B,S,D), final state); with ``tp``, on this rank's heads
-    where they are split."""
+    where they are split; ``h0``: ``ssd_chunked``'s."""
     d_inner, h = ssm_dims(cfg)
     n, pdim = cfg.ssm_state, cfg.ssm_head_dim
     b, s, _ = x.shape
@@ -237,7 +288,7 @@ def _mix(p, cfg, x, xbc, z, dt, tp=None):
     dt_bias, a_log, d_skip = _per_head(p, hs, tp)
     dt_soft = F.softplus(dt.float() + dt_bias[None, None, :])
     A = -torch.exp(a_log)
-    y, h_final = ssd_chunked(cfg, xs, Bm, Cm, dt_soft, A)
+    y, h_final = ssd_chunked(cfg, xs, Bm, Cm, dt_soft, A, h0)
     y = y + d_skip[None, None, :, None] * xs.float()
     y = y.reshape(b, s, xs.shape[2] * pdim).to(x.dtype)
     return _gate_out(p, cfg, y, z, tp, hs), h_final
@@ -267,6 +318,16 @@ def ssm_forward(p, cfg, x, tp=None):
     """Training / prefill pass.  x: (B,S,D) normed -> (B,S,D)."""
     z, xbc, dt = _split_proj(p, cfg, x, tp)
     return _mix(p, cfg, x, _conv_tp(p, cfg, xbc, tp), z, dt, tp)[0]
+
+
+def seq_ssm_forward(p, cfg, x, tp):
+    """``ssm_forward`` on one rank of a sequence-parallel prefill (module
+    docstring): x (B, S/m, D) normed, this rank's positions; whole weights."""
+    w = cfg.ssm_conv_width
+    z, xbc, dt = _split_proj(p, cfg, x)
+    xbc = _causal_conv(p, xbc, w, parallel.seq_halo(xbc, tp, w - 1))
+    return _mix(p, cfg, x, xbc, z, dt,
+                h0=lambda h, a: parallel.seq_state_prefix(h, a, tp))[0]
 
 
 # ---------------------------------------------------------------------------

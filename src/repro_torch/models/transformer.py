@@ -71,20 +71,23 @@ Sequence-parallel prefill (``repro``'s ``seqshard`` variant:
 ``cfg.seq_shard`` pins the residual stream to ``P("data", "model",
 None)``): ``forward`` with ``cfg.seq_shard`` and a ``tp`` of m > 1 model
 ranks runs one rank's program, ``params`` holding every layer leaf whole
-and ``embed`` vocab-cut (``launch/sharding.py::rank_plan(seqshard=True)``,
-``repro``'s ``_strip_model_axis``).  Model rank r holds positions r S/m ..
-(r + 1) S/m - 1 of its data rank's rows: the embedding's vocab partial over
-every position is reduce-scattered over the sequence (or, a whole
-``embed``, looked up on the rank's positions), the norms, projections,
-MLP and dense MoE run on its rows, attention gathers K/V over the
-sequence (``models/attention.py::seq_attention_fwd``), the final norm
-runs on its rows and the hidden state returned is its positions';
+and ``embed`` / ``heads`` vocab-cut (``launch/sharding.py::rank_plan(
+seqshard=True)``, ``repro``'s ``_strip_model_axis``).  Model rank r holds
+positions r S/m .. (r + 1) S/m - 1 of its data rank's rows (S counts the
+vision frontend's patches): the embedding's vocab partial over every
+position (the codebooks' summed over K, the patch region zero) is
+reduce-scattered over the sequence (or, a whole ``embed``, looked up on
+the rank's text positions), the patches among its positions are
+projected there; the norms, projections, MLP and MoE run on its rows (the
+capacity dispatches placing its slots in the whole model's order,
+``models/moe.py``), attention gathers K/V over the sequence
+(``models/attention.py::seq_attention_fwd``; zamba2's shared block
+alike), the SSM mixer carries its conv halo and recurrent state across
+ranks (``models/ssm.py::seq_ssm_forward``), the final norm runs on its
+rows and the hidden state returned is its positions';
 ``last_position`` broadcasts the last one from rank m - 1 for the head.
 It runs forward only (``repro`` has no sequence-parallel backward that
-lowers: ROADMAP.md section 3, R7), on the archs whose blocks are per token
-outside attention (the dense archs and the dense MoE); the SSM, hybrid and
-frontend archs and the capacity MoE impls are refused (ROADMAP.md item
-16b-ii), never run as the Megatron program.
+lowers: ROADMAP.md section 3, R7), on every arch and MoE impl.
 """
 from __future__ import annotations
 
@@ -167,11 +170,12 @@ def _block_init(gen, spec, cfg, dtype):
     return p
 
 
-def _ffn(p, spec, cfg, x, tp=None):
-    """The sublayer's second half on the residual ``x``: (x, aux)."""
+def _ffn(p, spec, cfg, x, tp=None, seq=None):
+    """The sublayer's second half on the residual ``x``: (x, aux); ``seq``:
+    the ``TensorParallel`` of a sequence-parallel prefill (``moe_ffn``'s)."""
     h = _norm(p["ln2"], cfg, x)
     if spec.kind == "moe":
-        y, aux = moe_mod.moe_ffn(p["moe"], cfg, h, cfg.moe_impl, tp)
+        y, aux = moe_mod.moe_ffn(p["moe"], cfg, h, cfg.moe_impl, tp, seq)
         return x + y, aux
     return x + mlp(p["mlp"], h, tp=tp, d_ff=cfg.d_ff), None
 
@@ -305,21 +309,17 @@ def serves_tensor_parallel(cfg) -> bool:
 
 
 def check_seq_shard(cfg) -> None:
-    """Raise unless ``cfg``'s forward can run sequence-parallel: text
-    archs whose blocks are ``attn`` or ``moe`` at ``moe_impl`` "dense"."""
-    kinds = {s.kind for s in cfg.layers}
-    if cfg.frontend != "none" or not kinds <= {"attn", "moe"} or (
-            "moe" in kinds and cfg.moe_impl != "dense"):
+    """Raise unless ``cfg``'s forward can run sequence-parallel: every
+    decoder stack (the ten archs, each MoE impl)."""
+    if not serves_tensor_parallel(cfg):
         raise NotImplementedError(
-            f"a sequence-parallel (seq_shard) forward of {cfg.name} (layers {sorted(kinds)}, "
-            f"frontend {cfg.frontend!r}, moe_impl {cfg.moe_impl!r}): the SSM, hybrid and "
-            "frontend archs and the dispatch MoE are ROADMAP.md item 16b-ii")
+            f"a sequence-parallel (seq_shard) forward of {cfg.name}: it has no decoder stack")
 
 
 def seq_parallel(cfg, tp) -> bool:
     """Whether ``forward`` runs the sequence-parallel program (the module
     docstring): ``cfg.seq_shard`` under a ``tp`` of more than one model
-    rank; raises for an arch it does not take."""
+    rank; raises for a config it does not take."""
     if not cfg.seq_shard or tp is None:
         return False
     check_seq_shard(cfg)
@@ -332,19 +332,48 @@ def _seq_positions(rows: slice, b: int, device) -> torch.Tensor:
         b, -1)
 
 
+def _frontend_rows(rows: slice, n_patches: int):
+    """(the patches, the text tokens) at the positions ``rows`` of a
+    sequence whose first ``n_patches`` positions are patches: two slices,
+    either possibly empty."""
+    return (slice(min(rows.start, n_patches), min(rows.stop, n_patches)),
+            slice(max(rows.start, n_patches) - n_patches, max(rows.stop, n_patches) - n_patches))
+
+
 def _seq_embed(params, cfg, batch, tp):
     """(x (B, S/m, D), positions (B, S/m)) of this rank's positions: the
-    vocab partial over every position reduce-scattered over the sequence,
-    or a whole ``embed`` looked up on its positions."""
+    vocab partial over every position (the codebooks' summed over K, the
+    patch region zero) reduce-scattered over the sequence, or a whole
+    ``embed`` looked up on its text positions; the vision projection on
+    the patches among its positions."""
     toks, emb = batch["tokens"], params["embed"]
-    b, s = toks.shape
-    rows = parallel.seq_rows(tp, s)
+    b, s_text = toks.shape[0], toks.shape[-1]
+    n_patch = cfg.n_patches if cfg.frontend == "vision_stub" else 0
+    rows = parallel.seq_rows(tp, n_patch + s_text)
+    patch, text = _frontend_rows(rows, n_patch)
     scale = torch.tensor(np.sqrt(cfg.d_model), dtype=emb.dtype, device=emb.device)
-    if parallel.split(tp, emb.shape[0], cfg.vocab_size):
-        x = parallel.seq_scatter(parallel.vocab_partial(toks, emb, tp), tp)
+    codebooks = cfg.frontend == "audio_codebooks"
+    if parallel.split(tp, emb.shape[-2], cfg.vocab_size):
+        if codebooks:
+            part = 0
+            for k in range(cfg.n_codebooks):
+                part = part + parallel.vocab_partial(toks[:, k], emb[k], tp)
+        else:
+            part = parallel.vocab_partial(toks, emb, tp)
+        if n_patch:
+            part = torch.cat([part.new_zeros((b, n_patch, cfg.d_model)), part], dim=1)
+        x = parallel.seq_scatter(part, tp)[:, patch.stop - patch.start:]
+    elif codebooks:
+        x = 0  # repro's sum(...) order
+        for k in range(cfg.n_codebooks):
+            x = x + F.embedding(toks[:, k, text], emb[k])
     else:
-        x = F.embedding(toks[:, rows], emb)
-    return x * scale, _seq_positions(rows, b, toks.device)
+        x = F.embedding(toks[:, text], emb)
+    x = x * scale
+    if patch.stop > patch.start:
+        x = torch.cat([batch["patch_embeds"][:, patch].to(emb.dtype) @ params["vis_proj"], x],
+                      dim=1)
+    return x, _seq_positions(rows, b, toks.device)
 
 
 def _seq_forward(params, cfg, batch, tp):
@@ -359,9 +388,12 @@ def _seq_forward(params, cfg, batch, tp):
     aux_total = torch.zeros((), dtype=torch.float32, device=x.device)
     for p, spec in _schedule(params, cfg):
         h = _norm(p["ln1"], cfg, x)
+        if spec.kind == "ssm":
+            x = x + ssm_mod.seq_ssm_forward(p["ssm"], cfg, h, tp)
+            continue
         x = x + attn_mod.seq_attention_fwd(p["attn"], cfg, h, positions, spec.window,
                                            spec.rope_base, tp)
-        x, aux = _ffn(p, spec, cfg, x)
+        x, aux = _ffn(p, spec, cfg, x, seq=tp)
         if aux is not None:
             aux_total = aux_total + aux
     return _norm(params["final_norm"], cfg, x), aux_total

@@ -15,7 +15,8 @@ runs this file in a subprocess:
 
 It pickles, per case of ``torch_dist_workers.SQ_CASES``, first the inputs
 as numpy to IN.pkl (``repro``'s init, a prompt from the case's seed), then
-to OUT.pkl the step's last-position logits (B, 1, V); and, for every arch
+to OUT.pkl the step's last-position logits (B, 1, V), (B, 1, K, V) for
+the codebooks; and, for every arch
 at full width and m = 2, 4 and 16, the specs ``_strip_model_axis`` gives
 its params (``{keystr: spec}``), so the port's ranks can start while the
 steps compile.  Imports nothing of the port.
@@ -37,7 +38,7 @@ from repro.launch import sharding as sh
 from repro.launch import steps as st
 from repro.launch.mesh import MeshSpec
 from repro.models import transformer as tf
-from torch_dist_workers import SQ_B, SQ_CASES, SQ_S, sq_config, sq_prompt
+from torch_dist_workers import SQ_B, SQ_CASES, sq_config, sq_len, sq_prompt
 
 
 def _named(mesh, specs):
@@ -49,9 +50,10 @@ def _stacked(tree):
     return jax.tree.map(lambda x: x[None], tree)
 
 
-def run_case(mesh, strip, cfg, case: dict) -> np.ndarray:
-    """The seqshard prefill step's last-position logits on ``case``."""
-    shape = InputShape("seqshard", SQ_S, SQ_B, "prefill")
+def run_case(mesh, strip, cfg, case: dict, s: int) -> np.ndarray:
+    """The seqshard prefill step's last-position logits on ``case``, a
+    prompt of ``s`` positions."""
+    shape = InputShape("seqshard", s, SQ_B, "prefill")
     params, batch = _stacked(case["params"]), _stacked(case["prompt"])
     in_sh = (strip(sh.param_pspecs(params, mesh.shape["model"], client=True,
                                    client_axis=None)),
@@ -96,10 +98,10 @@ def main(inputs_path: str, outputs_path: str) -> None:
     mesh = Mesh(np.asarray(jax.devices()).reshape(spec.shape), spec.axes)
     cfgs = {name: sq_config(get_config, name) for name in SQ_CASES}
     cases = {name: {"params": jax.tree.map(np.asarray, tf.init_params(
-        jax.random.PRNGKey(i), cfg)), "prompt": sq_prompt(cfg, i)}
+        jax.random.PRNGKey(i), cfg)), "prompt": sq_prompt(cfg, i, sq_len(name))}
         for i, (name, cfg) in enumerate(cfgs.items())}
     _dump(cases, inputs_path)  # the port's ranks start from these
-    _dump({"logits": {name: run_case(mesh, _strip_model_axis, cfgs[name], case)
+    _dump({"logits": {name: run_case(mesh, _strip_model_axis, cfgs[name], case, sq_len(name))
                       for name, case in cases.items()},
            "stripped": stripped_specs(_strip_model_axis)}, outputs_path)
 

@@ -17,6 +17,7 @@
   direct count of the full depth.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -318,27 +319,72 @@ def test_seqshard_train_keeps_the_layer_leaves_whole_at_rest(mesh):
 
 def test_seqshard_refuses_item_16b_ii_prefill_and_the_sweep_skips_it(tmp_path, monkeypatch,
                                                                      capsys):
-    """The SSM, hybrid and frontend archs' seqshard prefill raises on every
-    mesh, citing 16b-ii; the CLI's sweep skips each such (arch, shape) with
-    one line and writes nothing for it.  ``both`` is the CLI's, not a
-    layout."""
-    for mesh in ("one", "single", "multi"):
-        with pytest.raises(NotImplementedError, match="16b-ii"):
-            dryrun.run_one("zamba2-2.7b", PREFILL_4K, save=False, verbose=False, mesh=mesh,
-                           variant="seqshard")
+    """Item 16b-ii is done: the seqshard variant refuses nothing (the dry
+    run has no refusal left), and the CLI's sweep writes the prefill
+    record of an arch it once skipped on both meshes, with no skip line.
+    ``both`` is the CLI's, not a layout."""
     with pytest.raises(ValueError, match="single \\+ multi"):
         dryrun.run_one("gemma3-1b", SMALL, save=False, verbose=False, mesh="both")
-    refused = {arch for arch in ARCH_NAMES if dryrun.refused(arch, "prefill_32k", "seqshard")}
-    assert refused == {"mamba2-2.7b", "zamba2-2.7b", "internvl2-2b", "musicgen-large"}
-    assert not any(dryrun.refused(a, s, v) for a in ARCH_NAMES
-                   for s, v in (("train_4k", "seqshard"), ("decode_32k", "seqshard"),
-                                ("prefill_32k", "baseline")))
     monkeypatch.setattr(dryrun, "ART_DIR", tmp_path)
     dryrun.main(["--arch", "musicgen-large", "--shape", "prefill_32k", "--variant", "seqshard",
                  "--mesh", "both"])
     out = capsys.readouterr().out
-    assert out.count("skipped musicgen-large x prefill_32k (seqshard)") == 1
-    assert "16b-ii" in out and not list(tmp_path.iterdir())
+    assert "skipped" not in out and "ALL DRY-RUNS PASSED" in out
+    names = sorted(p.name for p in tmp_path.iterdir())
+    assert names == [f"musicgen-large__prefill_32k__{m}__seqshard.json"
+                     for m in ("16x16", "2x16x16")]
+    for p in tmp_path.iterdir():
+        assert json.loads(p.read_text())["serve_layout"] == "sequence_parallel"
+
+
+@pytest.mark.parametrize("arch,impl", [("mamba2-2.7b", None), ("zamba2-2.7b", None),
+                                       ("internvl2-2b", None), ("musicgen-large", None),
+                                       ("granite-moe-1b-a400m", "dispatch"),
+                                       ("granite-moe-1b-a400m", "dispatch_grouped")])
+def test_seqshard_prefill_records_of_the_ssm_frontend_and_capacity_archs(arch, impl):
+    """At full width on 16x16, the last model rank's sequence-parallel
+    prefill of each arch item 16b-ii added: its census names the SSM's
+    conv-halo and state gathers (one each an SSM layer; the halo the
+    earlier ranks' last w - 1 rows, the state every rank's (B, H, P, N)
+    state and (B, H) log-decay in f32) and the capacity MoE's count
+    gathers (one an MoE layer, (m, B, E) int32; ``dispatch`` also gathers
+    its count per expert over the data group), beside a K and a V gather
+    an attention layer; zamba2's shared block and internvl2's head_dim 128
+    launch K5 at the rank's offset."""
+    cfg = get_config(arch)
+    if impl:
+        cfg = cfg.replace(moe_impl=impl)
+    rec = dryrun.run_one(arch, PREFILL_4K, save=False, verbose=False, mesh="single",
+                         variant="seqshard", cfg=cfg)
+    assert rec["serve_layout"] == "sequence_parallel" and rec["counted_rank"]["model"] == 15
+    kinds = [spec.kind for spec in cfg.layers]
+    n_ssm, n_attn = kinds.count("ssm"), len(kinds) - kinds.count("ssm")
+    rows, m, w = 2, 16, cfg.ssm_conv_width
+    c = rec["collectives"]
+    if n_ssm:
+        d_inner = cfg.ssm_expand * cfg.d_model
+        h, conv = d_inner // cfg.ssm_head_dim, d_inner + 2 * cfg.ssm_state
+        assert c["all-gather:conv-halo"] == {"count": n_ssm, "bytes": n_ssm * rows * m * (w - 1)
+                                             * conv * 2}
+        state = rows * h * (cfg.ssm_head_dim * cfg.ssm_state + 1) * 4
+        assert c["all-gather:ssm-state"] == {"count": n_ssm, "bytes": n_ssm * m * state}
+    else:
+        assert not any(k.startswith("all-gather:") and k != "all-gather:moe-counts" for k in c)
+    if impl:
+        n_moe = kinds.count("moe")
+        assert c["all-gather:moe-counts"] == {"count": n_moe,
+                                              "bytes": n_moe * m * rows * cfg.n_experts * 4}
+    else:
+        assert "all-gather:moe-counts" not in c
+    split = cfg.vocab_size % m == 0
+    # + the logits' data gather and dispatch's data gather an MoE layer
+    data = kinds.count("moe") if impl == "dispatch" else 0
+    assert c["all-gather"]["count"] == 2 * n_attn + split + 1 + data
+    assert rec["launches"].get("flash_fwd", 0) == n_attn
+    if n_attn:
+        want = costs.flash_fwd_cost(rows, 4096, cfg.n_heads, cfg.n_kv_heads, cfg.head_dim,
+                                    None, 2, q0=4096 - 256, sq=256)
+        assert rec["kernels"]["flash_fwd"]["flops"] == n_attn * want["flops"]
 
 
 def test_calibrate_takes_the_seqshard_variant():

@@ -6,26 +6,36 @@ offset, against ``repro``.
   - 1 of the whole plain output and of ``repro``'s ``flash_gqa_ref`` at
   1e-6 (windows below and above S/m, softcap); the mask, the pair count,
   the tensor-core kernel's key-tile ranges and the cost at an offset; the
-  kernel path refuses an offset off the query tile, and a backward through
-  an offset forward raises.
+  kernel path refuses an offset off the query tile, records one launch at
+  the rank's cost at every head dim, and a backward through an offset
+  forward raises.
+- The SSD scan from an entering state (``ssd_chunked``'s ``h0``): zeros are
+  bitwise no state, and the second half of a sequence from the first
+  half's final state is the whole scan's rows.
 - The prefill's logits on gloo worlds of model 2 (``pods:1x1x2``), model 4
   (``pods:1x1x4``) and data 2 x model 2 (``pods:1x2x2``), one process a
   rank (``tests/torch_dist_workers.py``), at rtol = atol = 1e-5 in f32
   against ``repro``'s own seqshard step (``make_prefill_step`` under
   ``jax.jit`` with ``_strip_model_axis``'s params, on 4 forced CPU devices,
   run in a subprocess: ``tests/seqshard_reference.py``) and against the
-  port's one-rank prefill, for the six archs whose blocks are per token
-  outside attention (``torch_dist_workers.SQ_CASES``: gemma3-1b with
-  windows of 512 and of 8, gemma2-9b with softcaps, granite-3-2b,
-  granite-3-8b, granite-moe with a split and a whole ``embed``, olmoe).
-  Each rank's census holds the embedding's reduce-scatter, the K/V
-  gathers, the last position's broadcast and the logits' gathers; the
-  plan cuts exactly what ``_strip_model_axis`` leaves on the model axis.
+  port's one-rank prefill, for every arch (``torch_dist_workers.SQ_CASES``:
+  gemma3-1b with windows of 512 and of 8, gemma2-9b with softcaps,
+  granite-3-2b, granite-3-8b, granite-moe with a split and a whole
+  ``embed`` and at the two capacity dispatches dropping slots, olmoe,
+  mamba2 with several SSD chunks a rank and with S/m < w - 1 (the conv
+  halo spans two ranks at m = 4), zamba2, internvl2 with its patches over
+  two ranks at m = 4, musicgen).  Each rank's census holds the embedding's
+  reduce-scatter, the K/V gathers, the SSM's halo and state gathers, the
+  dispatches' count gathers, the last position's broadcast and the
+  logits' gathers; the plan cuts exactly what ``_strip_model_axis``
+  leaves on the model axis.
 - Each planted fault of ``torch_dist_workers.sq_faults`` (RoPE on local
   positions, K/V not gathered, K5 at q0 = 0, the scatter in reversed rank
-  order, the last position from rank 0) fails the check at world 2.
-- The archs of ROADMAP.md item 16b-ii are refused, never run as the
-  tensor-parallel program.
+  order, the last position from rank 0, the SSM state not carried, the
+  halo zeroed, the state fold in reverse rank order, the patches on the
+  wrong ranks, the codebook partials of rank 0 only, the dispatch slot
+  positions left local) fails the check at world 2 on its case.
+- Every arch and MoE impl runs under ``seq_shard``: none is refused.
 """
 import os
 import pickle
@@ -38,8 +48,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_dist_workers import (SQ_B, SQ_CASES, SQ_FAULT_CASE, SQ_S, spawn, sq_config,
-                                sq_faults, sq_prefill)
+from torch_dist_workers import (SQ_B, SQ_CASES, SQ_S, spawn, sq_config, sq_fault_case,
+                                sq_faults, sq_len, sq_prefill)
 
 from repro.kernels.flash_gqa.ref import flash_gqa_ref as j_flash_gqa_ref
 from repro_torch.configs import ARCH_NAMES, get_config
@@ -50,7 +60,7 @@ from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.kernels.flash_gqa.ref import flash_gqa_ref, visible_mask
 from repro_torch.launch import steps
 from repro_torch.launch.sharding import rank_plan
-from repro_torch.models import parallel
+from repro_torch.models import parallel, ssm
 from repro_torch.models import transformer as tf
 from repro_torch.utils.pytree import keystr, tree_flatten_with_path
 from repro_torch.weights import params_from_jax
@@ -61,6 +71,10 @@ MESHES = {"model2": ("pods:1x1x2", 2), "model4": ("pods:1x1x4", 4),
           "data2_model2": ("pods:1x2x2", 4)}
 REF_S = 300  # the JAX reference's clock
 SHAPE = InputShape("seqshard", SQ_S, SQ_B, "prefill")
+
+
+def _shape(case):
+    return InputShape("seqshard", sq_len(case), SQ_B, "prefill")
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -203,6 +217,24 @@ def test_reduce_scatter_takes_a_view_in_a_one_rank_gloo_group():
         dist.destroy_process_group()
 
 
+@pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
+def test_the_offset_launch_is_recorded_at_every_head_dim(d):
+    """K5's meta path at a query offset at each head dim the kernels take
+    (80 and 128 are zamba2's and internvl2's ranks): its outputs and one
+    launch at ``costs.flash_fwd_cost``'s offset cost."""
+    from repro_torch.kernels import meta
+
+    b, s, h, kv, n = 4, 1024, 4, 2, 512
+    q = torch.empty(b, n, h, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(b, s, kv, d, dtype=torch.bfloat16, device="meta")
+    with meta.census() as c:
+        out, lse = flash_ops.flash_fwd(q, k, k, q0=s - n)
+    assert out.shape == q.shape and lse.shape == (b, h, n)
+    want = costs.flash_fwd_cost(b, s, h, kv, d, None, 2, q0=s - n, sq=n)
+    assert c.launches == {"flash_fwd": 1}
+    assert (c.flops["flash_fwd"], c.bytes["flash_fwd"]) == (want["flops"], want["bytes"])
+
+
 def test_a_backward_through_an_offset_forward_raises():
     q, k, v = (torch.from_numpy(x).requires_grad_() for x in _qkv(1, 8, 2, 1, 16, seed=0))
     out = flash_ops.flash_gqa(q[:, 4:], k, v, q0=4)
@@ -281,8 +313,9 @@ def whole(inputs):
         cfg = sq_config(get_config, name)
         params = params_from_jax(inputs[name]["params"], device="cpu")
         batch = {k: torch.from_numpy(v) for k, v in inputs[name]["prompt"].items()}
-        plain = steps.make_prefill_step(cfg.replace(seq_shard=False), SHAPE)(params, batch)
-        assert torch.equal(steps.make_prefill_step(cfg, SHAPE)(params, batch), plain)
+        plain = steps.make_prefill_step(cfg.replace(seq_shard=False), _shape(name))(params,
+                                                                                   batch)
+        assert torch.equal(steps.make_prefill_step(cfg, _shape(name))(params, batch), plain)
         out[name] = plain.numpy()
     return out
 
@@ -295,7 +328,9 @@ def test_seqshard_prefill_matches_repro_and_the_one_rank_prefill(request, key, c
     np.testing.assert_allclose(whole[case], want, **TOL)
     for r in request.getfixturevalue(key):
         got = r["cases"][case]["logits"]
-        assert got.shape == (SQ_B, 1, sq_config(get_config, case).vocab_size)
+        cfg = sq_config(get_config, case)
+        codebooks = (cfg.n_codebooks,) if cfg.frontend == "audio_codebooks" else ()
+        assert got.shape == (SQ_B, 1, *codebooks, cfg.vocab_size)
         np.testing.assert_allclose(got, want, **TOL)
         np.testing.assert_allclose(got, whole[case], **TOL)
 
@@ -303,25 +338,35 @@ def test_seqshard_prefill_matches_repro_and_the_one_rank_prefill(request, key, c
 @pytest.mark.parametrize("key", list(MESHES))
 def test_each_rank_makes_the_sequence_parallel_collectives(request, key):
     """Per rank: one reduce-scatter where ``embed`` splits over the vocab
-    (none where it is whole), a K and a V gather a layer and the logits'
-    vocab and data gathers, one broadcast of the last position; every rank
+    (none where it is whole), a K and a V gather an attention layer, a conv
+    halo and a state gather an SSM layer, a count gather a capacity MoE
+    layer (and at data 2 the ``dispatch``'s data gather), the logits' vocab
+    and data gathers, one broadcast of the last position; every rank
     counts the same."""
     mesh, n = MESHES[key]
     m, data = (n, 1) if key != "data2_model2" else (2, 2)
     ranks = request.getfixturevalue(key)
     for case in SQ_CASES:
         cfg = sq_config(get_config, case)
+        kinds = [spec.kind for spec in cfg.layers]
+        n_ssm, n_moe = kinds.count("ssm"), kinds.count("moe")
+        dispatch = n_moe if cfg.moe_impl in ("dispatch", "dispatch_grouped") else 0
         split = cfg.vocab_size % m == 0
         census = [r["cases"][case]["census"] for r in ranks]
         assert all(c == census[0] for c in census), case
         c = census[0]
-        assert c["all-gather"]["count"] == 2 * cfg.n_layers + split + (data > 1), case
+        data_gathers = dispatch if cfg.moe_impl == "dispatch" and data > 1 else 0
+        assert c["all-gather"]["count"] == (2 * (len(kinds) - n_ssm) + split + (data > 1)
+                                            + data_gathers), case
+        for name, count in (("conv-halo", n_ssm), ("ssm-state", n_ssm),
+                            ("moe-counts", dispatch)):
+            assert c.get(f"all-gather:{name}", {"count": 0})["count"] == count, (case, name)
         assert c["collective-broadcast"]["count"] == 1
         assert ("reduce-scatter" in c) == split, case
         if split:
             rows = SQ_B // data
-            assert c["reduce-scatter"] == {"count": 1, "bytes": rows * SQ_S // m * cfg.d_model
-                                           * 4}
+            assert c["reduce-scatter"] == {"count": 1, "bytes": rows * sq_len(case) // m
+                                           * cfg.d_model * 4}
         assert "all-reduce" not in c, case
 
 
@@ -329,7 +374,8 @@ def test_the_plan_cuts_what_strip_model_axis_leaves_on_model(model2, repro_out):
     """Full width, every arch, m = 2, 4, 16: ``rank_plan(seqshard=True)``
     cuts exactly the leaves ``repro``'s ``_strip_model_axis`` keeps on the
     model axis (``embed`` / ``heads`` where the vocab divides), and the
-    ranks' plans cut ``embed`` only in the reduced cases where it splits."""
+    ranks' plans cut ``embed`` (and musicgen's ``heads``) only in the
+    reduced cases where the vocab splits."""
     for arch in ARCH_NAMES:
         params = steps.abstract_params(get_config(arch))
         for m in (2, 4, 16):
@@ -343,14 +389,17 @@ def test_the_plan_cuts_what_strip_model_axis_leaves_on_model(model2, repro_out):
                 assert not want or keystr(path).startswith(("['embed']", "['heads']"))
     for case, got in model2[0]["cases"].items():
         want = [] if case == "granite-moe/odd_vocab" else ["['embed']"]
+        if case == "musicgen-large":  # and the codebook heads
+            want.append("['heads']")
         assert got["cut"] == want, case
 
 
 @pytest.mark.parametrize("fault", list(sq_faults()))
 def test_planted_faults_fail_the_check(model2, fault, whole, repro_out):
-    want = repro_out["logits"][SQ_FAULT_CASE]
+    case = sq_fault_case(fault)
+    want = repro_out["logits"][case]
     for r in model2:  # the sound run passes
-        np.testing.assert_allclose(r["cases"][SQ_FAULT_CASE]["logits"], want, **TOL)
+        np.testing.assert_allclose(r["cases"][case]["logits"], want, **TOL)
     caught = False
     for r in model2:
         try:
@@ -360,7 +409,7 @@ def test_planted_faults_fail_the_check(model2, fault, whole, repro_out):
     assert caught, fault
 
 
-# -- what seq_shard refuses ---------------------------------------------------------
+# -- what seq_shard takes -----------------------------------------------------------
 
 
 @pytest.mark.parametrize("arch,impl", [("mamba2-2.7b", None), ("zamba2-2.7b", None),
@@ -368,19 +417,68 @@ def test_planted_faults_fail_the_check(model2, fault, whole, repro_out):
                                        ("granite-moe-1b-a400m", "dispatch"),
                                        ("olmoe-1b-7b", "dispatch_grouped")])
 def test_item_16b_ii_archs_are_refused(arch, impl):
-    """The SSM, hybrid and frontend archs and the capacity MoE impls raise
-    under ``seq_shard`` where the prefill step is made, and in ``forward``
-    under a ``tp``: never the tensor-parallel program."""
+    """The archs ROADMAP.md item 16b-ii once refused (the SSM, hybrid and
+    frontend archs, the capacity MoE impls) are refused no more: the
+    prefill step is made under ``seq_shard``, and ``forward`` under a
+    ``tp`` reaches the sequence-parallel program (whose first check is
+    that autograd is off), never the tensor-parallel one."""
     cfg = get_config(arch, reduced=True).replace(seq_shard=True)
     if impl:
         cfg = cfg.replace(moe_impl=impl)
-    with pytest.raises(NotImplementedError, match="16b-ii"):
-        steps.make_prefill_step(cfg, SHAPE)
+    tf.check_seq_shard(cfg)
+    steps.make_prefill_step(cfg, SHAPE)
     tp = parallel.TensorParallel(size=2)
-    with pytest.raises(NotImplementedError, match="16b-ii"):
+    with pytest.raises(NotImplementedError, match="R7"):
         tf.forward({}, cfg, {}, tp=tp)
-    # without the flag the same arch serves as before
-    steps.make_prefill_step(cfg.replace(seq_shard=False), SHAPE)
+
+
+def test_check_seq_shard_refuses_a_config_without_a_decoder_stack():
+    from repro_torch.configs.resnet_cifar import SMALL_CNN
+
+    with pytest.raises(NotImplementedError, match="no decoder stack"):
+        tf.check_seq_shard(SMALL_CNN)
+
+
+# -- the SSD scan from an entering state ---------------------------------------------
+
+
+def _ssd_inputs(seed, b=2, s=16, h=3, p=4, n=5):
+    rng = np.random.RandomState(seed)
+    xh, bm, cm = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                  for shape in ((b, s, h, p), (b, s, n), (b, s, n)))
+    dt = torch.nn.functional.softplus(torch.from_numpy(rng.randn(b, s, h).astype(np.float32)))
+    a = -torch.from_numpy(rng.uniform(0.5, 2.0, h).astype(np.float32))
+    return xh, bm, cm, dt, a
+
+
+@pytest.mark.parametrize("chunk", [4, 16])
+def test_ssd_from_an_entering_state_continues_the_scan(chunk):
+    """Zeros as ``h0`` are bitwise no ``h0``; the second half from the first
+    half's final state is the whole scan's second half (and its final
+    state) at 1e-5; a callable ``h0`` gets the final state from zeros and
+    the total log-decay sum(dt A), and its result is the entering state."""
+    cfg = get_config("mamba2-2.7b", reduced=True).replace(ssm_chunk=chunk)
+    xh, bm, cm, dt, a = _ssd_inputs(chunk)
+    y, h = ssm.ssd_chunked(cfg, xh, bm, cm, dt, a)
+    y0, h0 = ssm.ssd_chunked(cfg, xh, bm, cm, dt, a, torch.zeros_like(h))
+    assert torch.equal(y, y0) and torch.equal(h, h0)
+    half = slice(0, 8), slice(8, 16)
+    y1, h1 = ssm.ssd_chunked(cfg, *(x[:, half[0]] for x in (xh, bm, cm, dt)), a)
+    seen = {}
+
+    def enter(h_zero, log_decay):
+        seen["h"], seen["a"] = h_zero, log_decay
+        return h1
+
+    y2, h2 = ssm.ssd_chunked(cfg, *(x[:, half[1]] for x in (xh, bm, cm, dt)), a, enter)
+    np.testing.assert_allclose(torch.cat([y1, y2], 1).numpy(), y.numpy(), **TOL)
+    np.testing.assert_allclose(h2.numpy(), h.numpy(), **TOL)
+    alone = ssm.ssd_chunked(cfg, *(x[:, half[1]] for x in (xh, bm, cm, dt)), a)[1]
+    assert torch.equal(seen["h"], alone)
+    np.testing.assert_allclose(seen["a"].numpy(), (dt[:, half[1]] * a).sum(1).numpy(), **TOL)
+    # the fold of two halves' states is the whole final state
+    np.testing.assert_allclose((h1 * torch.exp(seen["a"])[..., None, None] + alone).numpy(),
+                               h.numpy(), **TOL)
 
 
 def test_seq_shard_runs_forward_only():

@@ -413,7 +413,9 @@ def tp_config(get, arch: str, variant: str):
       two_reps      zamba2's (ssm, shared_attn) pattern twice: two
                     invocations of the shared block, a cache each;
       odd_vocab     509 tokens (odd, as internvl2-2b's 92,553: ``embed``
-                    whole at every m) and 2 KV heads under 4 (G = 2)."""
+                    whole at every m) and 2 KV heads under 4 (G = 2);
+      chunk4        SSD chunks of 4 positions, so that a rank of a
+                    sequence-parallel prefill holds several."""
     cfg = get(arch, reduced=True)
     if variant == "wrap":
         local = cfg.pattern[0].replace(window=8)
@@ -431,24 +433,28 @@ def tp_config(get, arch: str, variant: str):
         cfg = cfg.replace(n_rep=2, n_layers=2 * len(cfg.pattern))
     elif variant == "odd_vocab":
         cfg = cfg.replace(vocab_size=509, n_kv_heads=2)
+    elif variant == "chunk4":
+        cfg = cfg.replace(ssm_chunk=4)
     elif variant != "base":
         raise ValueError(f"unknown variant {variant!r}")
     return cfg
 
 
-def tp_batch(cfg, seed: int) -> dict:
-    """A prompt of ``TP_S`` positions in ``steps.token_batch``'s layout,
-    numpy, from ``seed``: tokens (B, S), (B, K, S) for the codebooks, or
-    (B, S - n_patches) beside f32 ``patch_embeds`` for the vision arch."""
+def tp_batch(cfg, seed: int, b: int = None, s: int = None) -> dict:
+    """A prompt of ``b`` rows (``TP_B``) of ``s`` positions (``TP_S``) in
+    ``steps.token_batch``'s layout, numpy, from ``seed``: tokens (B, S),
+    (B, K, S) for the codebooks, or (B, S - n_patches) beside f32
+    ``patch_embeds`` for the vision arch."""
+    b, s = b or TP_B, s or TP_S
     rng = np.random.RandomState(seed)
     if cfg.frontend == "audio_codebooks":
-        return {"tokens": rng.randint(0, cfg.vocab_size, (TP_B, cfg.n_codebooks, TP_S))
+        return {"tokens": rng.randint(0, cfg.vocab_size, (b, cfg.n_codebooks, s))
                 .astype(np.int32)}
     if cfg.frontend == "vision_stub":
-        toks = rng.randint(0, cfg.vocab_size, (TP_B, TP_S - cfg.n_patches)).astype(np.int32)
+        toks = rng.randint(0, cfg.vocab_size, (b, s - cfg.n_patches)).astype(np.int32)
         return {"tokens": toks, "patch_embeds": rng.randn(
-            TP_B, cfg.n_patches, cfg.d_vision).astype(np.float32)}
-    return {"tokens": rng.randint(0, cfg.vocab_size, (TP_B, TP_S)).astype(np.int32)}
+            b, cfg.n_patches, cfg.d_vision).astype(np.float32)}
+    return {"tokens": rng.randint(0, cfg.vocab_size, (b, s)).astype(np.int32)}
 
 
 def tp_decode_batch(cfg, tokens) -> dict:
@@ -716,7 +722,7 @@ def serve_cli(rank, world, argv):
 # tests/test_torch_seqshard.py: the sequence-parallel prefill's cases,
 # shared with its JAX reference (tests/seqshard_reference.py)
 SQ_B, SQ_S = 4, 24  # batch, prompt: S/m = 12 at m = 2, 6 at m = 4
-SQ_CASES = {  # name -> (arch, variant): tp_config's, with cfg.seq_shard
+SQ_CASES = {  # name -> (arch, variant[, prompt length, SQ_S if not given]): tp_config's
     "gemma3-1b": ("gemma3-1b", "base"),  # window 512 (> S) and full
     "gemma3-1b/wrap": ("gemma3-1b", "wrap"),  # window 8: below S/m at m = 2, above at 4
     "gemma2-9b/wrap": ("gemma2-9b", "wrap"),  # and the softcaps
@@ -725,26 +731,45 @@ SQ_CASES = {  # name -> (arch, variant): tp_config's, with cfg.seq_shard
     "granite-moe": ("granite-moe-1b-a400m", "base"),
     "granite-moe/odd_vocab": ("granite-moe-1b-a400m", "odd_vocab"),  # embed whole
     "olmoe-1b-7b": ("olmoe-1b-7b", "experts8"),
+    # the capacity dispatches at capacity factor 0.5: slots are dropped
+    "granite-moe/dispatch": ("granite-moe-1b-a400m", "dispatch"),
+    "granite-moe/dispatch_grouped": ("granite-moe-1b-a400m", "dispatch_grouped"),
+    "mamba2-2.7b": ("mamba2-2.7b", "chunk4"),  # 3 chunks a rank at m = 2 and 4
+    "mamba2-2.7b/halo": ("mamba2-2.7b", "chunk4", 8),  # S/m = 2 < w - 1 at m = 4
+    "zamba2-2.7b": ("zamba2-2.7b", "two_reps"),
+    "internvl2-2b": ("internvl2-2b", "base"),  # 8 patches: ranks 0 and 1 at m = 4
+    "musicgen-large": ("musicgen-large", "base"),
 }
-SQ_FAULT_CASE = "gemma3-1b/wrap"  # the planted faults' case
+# the planted faults' cases: the arch a fault of scripts/seqshard_faults.py
+# is read on (its ARCH) -> the case run under it
+SQ_FAULT_CASES = {"gemma3-1b": "gemma3-1b/wrap", "zamba2-2.7b": "zamba2-2.7b",
+                  "internvl2-2b": "internvl2-2b", "musicgen-large": "musicgen-large",
+                  "granite-moe-1b-a400m/dispatch": "granite-moe/dispatch"}
 
 
 def sq_config(get, name: str):
     """The reduced config of ``SQ_CASES[name]`` (``get``: either package's
     ``get_config``) with ``seq_shard`` set."""
-    return tp_config(get, *SQ_CASES[name]).replace(seq_shard=True)
+    return tp_config(get, *SQ_CASES[name][:2]).replace(seq_shard=True)
 
 
-def sq_prompt(cfg, seed: int) -> dict:
-    """A prompt of ``SQ_S`` tokens a row, ``SQ_B`` rows, numpy, from ``seed``."""
-    rng = np.random.RandomState(seed)
-    return {"tokens": rng.randint(0, cfg.vocab_size, (SQ_B, SQ_S)).astype(np.int32)}
+def sq_len(name: str) -> int:
+    """The prompt length of ``SQ_CASES[name]``, patches included."""
+    return (SQ_CASES[name] + (SQ_S,))[2]
 
 
-def sq_faults():
-    """The planted faults of the sequence-parallel prefill
-    (``scripts/seqshard_faults.py``, which ``chip_smoke.py`` phase 20 also
-    plants): name -> (module, attribute, the faulty replacement)."""
+def sq_prompt(cfg, seed: int, s: int = SQ_S) -> dict:
+    """A prompt of ``s`` positions a row (patches included), ``SQ_B``
+    rows, numpy, from ``seed``: ``tp_batch``'s layout."""
+    return tp_batch(cfg, seed, SQ_B, s)
+
+
+def sq_fault_case(fault: str) -> str:
+    """The case a planted fault of ``sq_faults`` is read on."""
+    return SQ_FAULT_CASES[_sq_fault_module().ARCH[fault]]
+
+
+def _sq_fault_module():
     import importlib.util
     from pathlib import Path
 
@@ -752,7 +777,14 @@ def sq_faults():
     spec = importlib.util.spec_from_file_location("seqshard_faults", path)
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.faults()
+    return mod
+
+
+def sq_faults():
+    """The planted faults of the sequence-parallel prefill
+    (``scripts/seqshard_faults.py``, which ``chip_smoke.py`` phase 20 also
+    plants): name -> (module, attribute, the faulty replacement)."""
+    return _sq_fault_module().faults()
 
 
 def sq_prefill(rank, world, plan):
@@ -760,8 +792,8 @@ def sq_prefill(rank, world, plan):
     ``SQ_CASES``, from the JAX reference's inputs (``plan["ref"]``): this
     rank's params cut by ``rank_plan(seqshard=True)``, its data rank's rows
     of the prompt; the step's logits (whole), its census and which leaves
-    the plan cut.  With ``plan["faults"]``, the logits of
-    ``SQ_FAULT_CASE`` under each planted fault of ``sq_faults``."""
+    the plan cut.  With ``plan["faults"]``, the logits of each planted
+    fault of ``sq_faults`` on its case (``sq_fault_case``)."""
     import pickle
 
     from repro_torch.configs import get_config
@@ -775,10 +807,9 @@ def sq_prefill(rank, world, plan):
     tp = steps.tensor_parallel(parse_mesh(plan["mesh"]))
     with open(plan["ref"], "rb") as f:
         ref = pickle.load(f)
-    shape = InputShape("seqshard", SQ_S, SQ_B, "prefill")
-
     def case(name):
         cfg = sq_config(get_config, name)
+        shape = InputShape("seqshard", sq_len(name), SQ_B, "prefill")
         whole = params_from_jax(ref[name]["params"], device="cpu")
         pplan = rank_plan(whole, "params", tp.data_size, tp.size, tp.data_rank, tp.rank,
                           seqshard=True)
@@ -794,7 +825,7 @@ def sq_prefill(rank, world, plan):
         sound = getattr(module, attr)
         setattr(module, attr, faulty)
         try:
-            out["faults"][fault] = case(SQ_FAULT_CASE)["logits"]
+            out["faults"][fault] = case(sq_fault_case(fault))["logits"]
         finally:
             setattr(module, attr, sound)
     return out
