@@ -21,8 +21,10 @@ Phases (any failure exits non-zero; nothing is caught):
                   slice's shapes (B = 2, S = 2048, D = 256), G = 1 and 4,
                   window on and off, softcap on and off, f32 and bf16, plus
                   bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40, and
-                  zamba2's D = 80 (H = KV = 32, bf16 and f32, and a masked
-                  bf16 case; timed too, beside SDPA at D = 80), and phases
+                  zamba2's D = 80 (H = KV = 32, bf16 and f32, a masked
+                  bf16 case and the D = 80 K6/K7 kernels' edges: S = 40,
+                  1,040 and 1,100, window 512; timed too, beside SDPA at
+                  D = 80 and at phase 19's rank, H = KV = 16), and phases
                   13-14's shapes: granite-moe's training (H = 16 over KV =
                   8, D = 64, and its sum pass), internvl2's and musicgen's
                   prefill (B = 4, S = 1,024; D = 128 and 64) (bf16
@@ -260,8 +262,9 @@ Phases (any failure exits non-zero; nothing is caught):
                   since the build began.
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
-D = 80 readings under ``d80``, ``flash_fwd`` its query-offset readings
-under ``q_offset``; launches per path under
+D = 80 readings under ``d80`` (zamba2, H = KV = 32) and ``d80_rank``
+(phase 19's rank, H = KV = 16), ``flash_fwd`` its query-offset
+readings under ``q_offset``; launches per path under
 ``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -628,7 +631,40 @@ def _attention(g, h, kv, dtype, b=2, s=2048, d=256):
     return q, k, v, do
 
 
-def check_flash(seeds=FLASH_SEEDS):
+bf16, f32 = torch.bfloat16, torch.float32
+FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
+    (4, 512, None, bf16, 2048, 256, 4, 2), (4, None, None, bf16, 2048, 256, 4, 2),
+    (1, 512, 50.0, bf16, 2048, 256, 4, 2), (4, None, 50.0, f32, 2048, 256, 4, 2),
+    (1, 512, None, f32, 2048, 256, 4, 2),
+    (4, 512, None, bf16, 2048, 64, 4, 2), (4, None, None, bf16, 2048, 64, 4, 2),
+    (4, 512, None, bf16, 2048, 128, 4, 2), (4, None, None, bf16, 2048, 128, 4, 2),
+    (4, 512, None, bf16, 1000, 256, 4, 2), (4, 16, None, bf16, 40, 64, 4, 2),
+    (1, None, None, bf16, 2048, 80, 32, 2), (1, None, None, f32, 2048, 80, 32, 2),
+    (2, 512, 50.0, bf16, 1000, 80, 4, 2),
+    (2, None, None, bf16, 2048, 64, 16, 2),   # granite-moe-1b-a400m, phase 13
+    (2, None, None, bf16, 1024, 128, 16, 4),  # internvl2-2b prefill, phase 14
+    (1, None, None, bf16, 1024, 64, 32, 4),   # musicgen-large prefill, phase 14
+    # phase 18: one tensor-parallel rank of gemma3-1b at m = 2 (its 2 query
+    # heads over the gathered KV head), full and window-512 layers
+    (2, None, None, bf16, 1024, 256, 2, 4), (2, 512, None, bf16, 1024, 256, 2, 4),
+    # phase 18: a rank at m = 2 of granite-moe-1b-a400m (8 over 4),
+    # zamba2-2.7b (16 over 16, D = 80), internvl2-2b (8 over 4), musicgen-large
+    (2, None, None, bf16, 1024, 64, 8, 4), (1, None, None, bf16, 1024, 80, 16, 4),
+    (2, None, None, bf16, 1024, 128, 8, 4), (1, None, None, bf16, 1024, 64, 16, 4),
+    # phase 19: a training rank at m = 2 (B = 2, S = 2048) of gemma3-1b (2
+    # over the gathered KV head, full and window-512 layers), granite-moe
+    # (8 over 4) and zamba2 (16 over 16, D = 80)
+    (2, None, None, bf16, 2048, 256, 2, 2), (2, 512, None, bf16, 2048, 256, 2, 2),
+    (2, None, None, bf16, 2048, 64, 8, 2), (1, None, None, bf16, 2048, 80, 16, 2),
+    # the D = 80 kernels' edges: S = 40, window 16 (shorter than one tile);
+    # S = 1,100 (K7's last 128-key block: the second warpgroup's keys partly
+    # past S) and 1,040 (wholly past S, G = 2, softcap); S = 2,048, window 512
+    (2, 16, None, bf16, 40, 80, 4, 2), (1, None, None, bf16, 1100, 80, 32, 2),
+    (2, 512, 50.0, bf16, 1040, 80, 4, 2), (1, 512, None, bf16, 2048, 80, 32, 2)]
+D80_CASES = [c for c in FLASH_CASES if c[5] == 80 and c[3] == bf16]
+
+
+def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     """K5-K7 against their plain versions, once for each seed: at the LM
     slice's attention shapes (B = 2, S = 2048, D = 256; gemma3-1b's H = 4
     over KV = 1, i.e. G = 4, and G = 1), window 512 and none, softcap 50 and
@@ -636,8 +672,13 @@ def check_flash(seeds=FLASH_SEEDS):
     none), at a ragged S = 1,000 (D = 256, window 512), where the last tiles
     are partial, and at S = 40 (D = 64, window 16), shorter than one tile;
     and at zamba2's shared attention, D = 80 (H = KV = 32, no window, bf16
-    and f32; the tensor-core tiles pad D to 128 with zero columns), plus a
-    masked D = 80 case (G = 2, window 512, softcap 50, ragged S = 1,000).
+    and f32; K5's tensor-core tiles pad D to 128 with zero columns, K6 and
+    K7 run their own kernels on 80-column tiles), plus a masked D = 80 case
+    (G = 2, window 512, softcap 50, ragged S = 1,000) and the D = 80
+    kernels' edges: S = 40 at window 16 (shorter than one tile), S = 1,100
+    (the last 128-key K7 block's second warpgroup partly past S), S = 1,040
+    (wholly past S; G = 2, window 512, softcap 50) and S = 2,048 at window
+    512.
     Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
     (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
@@ -678,31 +719,6 @@ def check_flash(seeds=FLASH_SEEDS):
              "flash_bwd_dkv_sum": 0.0}
     worst_rel = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     worst_pre = {"dq": 0.0, "dk/dv": 0.0}  # before the final rounding, bf16
-    bf16, f32 = torch.bfloat16, torch.float32
-    cases = [  # (G, window, softcap, dtype, S, D, H, B)
-        (4, 512, None, bf16, 2048, 256, 4, 2), (4, None, None, bf16, 2048, 256, 4, 2),
-        (1, 512, 50.0, bf16, 2048, 256, 4, 2), (4, None, 50.0, f32, 2048, 256, 4, 2),
-        (1, 512, None, f32, 2048, 256, 4, 2),
-        (4, 512, None, bf16, 2048, 64, 4, 2), (4, None, None, bf16, 2048, 64, 4, 2),
-        (4, 512, None, bf16, 2048, 128, 4, 2), (4, None, None, bf16, 2048, 128, 4, 2),
-        (4, 512, None, bf16, 1000, 256, 4, 2), (4, 16, None, bf16, 40, 64, 4, 2),
-        (1, None, None, bf16, 2048, 80, 32, 2), (1, None, None, f32, 2048, 80, 32, 2),
-        (2, 512, 50.0, bf16, 1000, 80, 4, 2),
-        (2, None, None, bf16, 2048, 64, 16, 2),   # granite-moe-1b-a400m, phase 13
-        (2, None, None, bf16, 1024, 128, 16, 4),  # internvl2-2b prefill, phase 14
-        (1, None, None, bf16, 1024, 64, 32, 4),   # musicgen-large prefill, phase 14
-        # phase 18: one tensor-parallel rank of gemma3-1b at m = 2 (its 2 query
-        # heads over the gathered KV head), full and window-512 layers
-        (2, None, None, bf16, 1024, 256, 2, 4), (2, 512, None, bf16, 1024, 256, 2, 4),
-        # phase 18: a rank at m = 2 of granite-moe-1b-a400m (8 over 4),
-        # zamba2-2.7b (16 over 16, D = 80), internvl2-2b (8 over 4), musicgen-large
-        (2, None, None, bf16, 1024, 64, 8, 4), (1, None, None, bf16, 1024, 80, 16, 4),
-        (2, None, None, bf16, 1024, 128, 8, 4), (1, None, None, bf16, 1024, 64, 16, 4),
-        # phase 19: a training rank at m = 2 (B = 2, S = 2048) of gemma3-1b (2
-        # over the gathered KV head, full and window-512 layers), granite-moe
-        # (8 over 4) and zamba2 (16 over 16, D = 80)
-        (2, None, None, bf16, 2048, 256, 2, 2), (2, 512, None, bf16, 2048, 256, 2, 2),
-        (2, None, None, bf16, 2048, 64, 8, 2), (1, None, None, bf16, 2048, 80, 16, 2)]
     for seed in seeds:
         g = torch.Generator(device="cuda").manual_seed(seed)
         for gq, window, cap, dtype, s, d, h, b in cases:
@@ -786,10 +802,9 @@ def time_flash(h, kv, d, windows, seed):
     K6 + K7 timed as one backward beside SDPA's; at G > 1 also K7's sum
     pass alone.  Bounds count the visible (query, key) pairs: 4D flops each
     forward, 6D for the dq pass (scores, dO v^T, dq), 8D for the dk/dv pass,
-    at the bf16 peak, over the useful D columns.  At D = 80 the kernels'
-    products whose N is D run 128 columns (TMA's zero fill), so they do
-    (2D + 2*128) / 4D = 1.30x (K5), (4D + 2*128) / 6D = 1.20x (K6) and
-    (4D + 4*128) / 8D = 1.30x (K7) of the counted work."""
+    at the bf16 peak, over the useful D columns.  At D = 80, K6 and K7 do
+    the counted work (80-column tiles); K5's O += P V runs 128 columns (TMA's
+    zero fill), so it does (2D + 2*128) / 4D = 1.30x of it."""
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v, do = _attention(g, h, kv, torch.bfloat16, d=d)
     b, s, _, _ = q.shape
@@ -3487,20 +3502,39 @@ def tp_train_run():
     return {arch: got[0][arch]["launches"] for arch in TP_TRAIN_ARCHS}
 
 
+def _kernel_name(mangled):
+    """``name<args>`` of a mangled kernel in the anonymous namespace: the
+    identifier ending in ``_kernel`` whose length prefix matches it (the
+    namespace's own name ends in digits too), then its template's int and
+    bool arguments."""
+    end = mangled.index("_kernel") + len("_kernel")
+    for start in range(end - 1, 0, -1):
+        n = str(end - start)
+        if mangled[start].isalpha() and mangled[:start].endswith(n):
+            args = re.match(r"I(\w+?)E*v", mangled[end:])
+            vals = re.findall(r"L[ib](\d+)", args.group(1) if args else "")
+            return f"{mangled[start:end]}<{', '.join(vals)}>"
+    return mangled
+
+
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
-    the ``-Xptxas -v`` report the build keeps.  A spill fails the run: the
+    the ``-Xptxas -v`` report the build keeps, and any note that ptxas
+    serialized a kernel's wgmma products.  A spill fails the run: the
     tensor-core kernels' f32 accumulators are sized to fit their registers."""
-    name = None
+    name, spilled = None, []
     for line in kernel_build.build_log(source).splitlines():
-        m = re.search(r"Compiling entry function '\w*?\d+([a-z_]+_kernel)(?:I(\w+?)E*v)?", line)
+        m = re.search(r"Compiling entry function '(\w+_kernel\w*)'", line)
         if m:
-            args = re.findall(r"L[ib](\d+)", m.group(2) or "")
-            name = f"{m.group(1)}<{', '.join(args)}>"
+            name = _kernel_name(m.group(1))
+        elif "wgmma" in line:  # ptxas serialized a kernel's wgmma pipeline
+            print(f"build[ptxas]: {line.strip()}", flush=True)
         elif name and ("registers" in line or "spill" in line):
             print(f"build[ptxas {name}]: {line.split(':', 1)[-1].strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-            assert not spills or spills.groups() == ("0", "0"), (name, line)
+            if spills and spills.groups() != ("0", "0"):
+                spilled.append((name, line.strip()))
+    assert not spilled, spilled
 
 
 def main():
@@ -3545,6 +3579,9 @@ def main():
     rec.update(time_flash(4, 1, 256, (None, 512), seed=13))
     for name, r in time_flash(32, 32, 80, (None,), seed=14).items():
         rec[name]["d80"] = r
+    # phase 19's zamba2 training rank at m = 2 (H = KV = 16)
+    for name, r in time_flash(16, 16, 80, (None,), seed=15).items():
+        rec[name]["d80_rank"] = r
     rec["flash_fwd"]["q_offset"] = time_flash_offset()
     for name, err in worst.items():
         rec[name]["max_abs_err"] = err

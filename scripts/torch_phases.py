@@ -4,6 +4,7 @@ after building the four CUDA sources:
     python scripts/torch_phases.py gloo_probe async tp_serve tp_train
     python scripts/torch_phases.py ptxas flash_offset flash_one_seed \
         flash_offset_times tp_serve
+    python scripts/torch_phases.py ptxas flash_d80 flash_times
 
 Phases (``PHASES``): ``gloo_probe`` (gloo's all-reduce between two
 processes sharing the card: ms a call, a 9 KB and a 9.4 MB bf16 tensor, on
@@ -11,7 +12,9 @@ the card, on the host and staged through the host by hand), ``ptxas``
 (ptxas's report of the tensor-core flash kernels), ``flash_offset`` and
 ``flash_offset_times`` (phase 3's K5 query-offset checks and times),
 ``flash_one_seed`` (one seed of ``check_flash``, the launches without an
-offset), ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
+offset), ``flash_d80`` (``check_flash``'s bf16 D = 80 cases at every
+seed), ``flash_times`` (phase 3's times at D = 80: ``time_flash`` at
+zamba2's H = KV = 32 and phase 19's rank, 16, beside SDPA), ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
 two gloo processes) and ``tp_train`` (phase 19).  From ``async`` on,
 cuDNN is deterministic, as in ``chip_smoke.py`` from phase 8 on.
 """
@@ -68,6 +71,10 @@ PHASES = {
     "flash_offset": (cs.check_flash_offset, False),
     "flash_one_seed": (lambda: cs.check_flash(seeds=(12,)), False),
     "flash_offset_times": (cs.time_flash_offset, False),
+    "flash_d80": (lambda: cs.check_flash(cases=cs.D80_CASES), False),
+    "flash_times": (lambda: {
+        "d80": cs.time_flash(32, 32, 80, (None,), seed=14),
+        "d80_rank": cs.time_flash(16, 16, 80, (None,), seed=15)}, False),
     "async": (cs.async_run, True),
     "tp_serve": (_tp_serve, True),
     "tp_train": (cs.tp_train_run, True),

@@ -50,7 +50,7 @@
 //  - K6: one block per (batch*head, 128-query tile), heaviest first, as K5;
 //    Q and dO stay resident (2 x 64 KB at D = 256), K/V stream through the
 //    ring in 32-key tiles (two 64-key stages would not fit in 227 KB at
-//    D = 256; one width for every D keeps one tile range).  Each consumer
+//    D = 256; one width for D = 64, 128 and 256 keeps one tile range).  Each consumer
 //    warpgroup computes S = Q K^T and dP = dO V^T for its 64 rows (m64n32),
 //    P and dS = P (dP - delta) [(1 - t^2)] in f32 registers, rounds dS to
 //    bf16 in registers (the TPU kernel keeps f32) as the A operand of
@@ -60,9 +60,10 @@
 //    keeps m = -inf, l = 0, alpha = 1), and the window prunes tiles exactly:
 //    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (q0 the
 //    block's first absolute position, the last clamped to the last query's) and K6 the
-//    same range in 32-key tiles (each warpgroup computes only those its 64
-//    rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64
-//    (kernels/flash_gqa/grid.py mirrors all three);
+//    same range in 32-key tiles (128 at D = 80; each warpgroup computes only
+//    those its 64 rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64
+//    (at D = 80 the same for the block's 128 keys and for each warpgroup's
+//    64; kernels/flash_gqa/grid.py mirrors them all);
 //  - no atomics: at G > 1 each K7 block writes its head's dk/dv partial in
 //    f32 to (B, S, H, D) scratch and dkv_sum_kernel adds the G heads in the
 //    fixed order g = 0 .. G-1; at G = 1 K7 writes bf16 dk/dv itself; a K6
@@ -70,15 +71,29 @@
 //    bitwise run to run.
 //
 // A head_dim that is not a multiple of 64 (zamba2's D = 80) keeps the tensor
-// maps at the true D and pads every shared tile to DP = 64 * ceil(D / 64)
+// maps at the true D, and K5 pads every shared tile to DP = 64 * ceil(D / 64)
 // columns: the last 64-column box reaches past D, and TMA fills the columns
-// D .. DP - 1 with zeros.  The products that reduce over D (S = Q K^T,
-// dP = dO V^T and their transposes) stop at D, so they are exact and do no
-// padded work; the products whose N is D (O += P V, dQ += dS K, dV += P^T dO,
-// dK += dS^T Q) run at N = DP, since a 128-byte-swizzled MN-major operand
-// comes in 64-column blocks, and their columns past D are zeros that no
-// store writes (every global row offset and store loop uses the true D).  At
-// D = 80 those products do 128 columns of work for 80 useful ones.
+// D .. DP - 1 with zeros.  The products that reduce over D (S = Q K^T) stop
+// at D, so they are exact and do no padded work; O += P V runs at N = DP,
+// since a 128-byte-swizzled MN-major operand comes in 64-column blocks, and
+// its columns past D are zeros that no store writes (every global row offset
+// and store loop uses the true D): 128 columns of work for 80 useful ones.
+//
+// K6 and K7 at D = 80 run kernels of their own (dq_d80_kernel,
+// dkv_d80_kernel, below), on tiles held at 80 columns: a 64-column block
+// (128-byte swizzle) and a 16-column one (32-byte swizzle, its own tensor
+// map and descriptors), so the products whose N is D run at N = 64 + 16.
+// What bounds them: the padded design did 1.2-1.3x the counted work, split
+// dV and dK across the warpgroups (P^T and dS^T through shared memory and a
+// named barrier every query tile, since a 64 x 128 f32 accumulator a
+// warpgroup left no room for a second), and waited on every product.  At 80
+// columns a warpgroup holds both dV and dK (40 + 40 registers) beside S^T and
+// dP^T, so P^T and dS^T stay in registers as A operands, K7 takes 128-key
+// blocks (Q/dO read half as often), K6 128-key tiles, and each warpgroup's
+// exp and mask run while its next products do.  The elementwise step has
+// no branch inside (the mask is an exponent of -inf; the softcap and the
+// masked-tile choice are made once a tile): per-element branches around exp
+// and the mask would cost more than the products.
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // from the CUDA driver through cudaGetDriverEntryPoint, so the library links
@@ -87,6 +102,7 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only; no -lcuda)
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -188,9 +204,15 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // step adds 32 bytes inside the 128-byte row.  MN-major operand (rows of 64
 // contiguous M/N values, one row per K index): lbo = the next 64-wide column
 // block, sbo = 1024 (the next 8 K rows); a k16 step adds 2048 bytes.
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+// The 32-byte swizzle (layout 3; the D = 80 kernels) is the same with rows
+// of 16 values: K-major, sbo = 256 (the next 8 rows) and one k16 step a row;
+// MN-major, lbo = the next 16-wide column block, sbo = 256, a k16 step adds
+// 512 bytes.
+constexpr uint64_t kSw128 = 1, kSw32 = 3;
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                         uint64_t layout = kSw128) {
   return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
+         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (layout << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -206,6 +228,21 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+// The same for the bf16x2 registers of an A operand: they stay as they are
+// until the wait after which this stands.
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(a[i])::"memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+// Waits until at most N committed groups of this warpgroup are in flight.
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
 
 // d (64 x N, f32) = [d +] A B with A (64 x 16) and B (16 x N) from shared
@@ -259,6 +296,28 @@ __device__ __forceinline__ void wgmma_ss<64, 1>(float (&d)[32], uint64_t a, uint
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128, 0>(float (&d)[64], uint64_t a, uint64_t b,
+                                                 int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -390,7 +449,17 @@ __device__ __forceinline__ void wgmma_rs<256>(float (&d)[128], const uint32_t* a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
 }
 
-
+template <>
+__device__ __forceinline__ void wgmma_rs<16>(float (&d)[8], const uint32_t* a, uint64_t b,
+                                            int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, {%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(accumulate));
+}
 
 // -- shared helpers ----------------------------------------------------------
 
@@ -934,6 +1003,508 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   }
 }
 
+// -- K6 and K7 at head_dim 80 ---------------------------------------------------
+//
+// Separate kernels, since the 64-column blocks above would pad D = 80 to 128
+// and a 64 x 128 f32 accumulator leaves no registers for a second one.  A
+// (rows, 80) bf16 tile is held at its own 80 columns (Tile80), so every
+// product runs at the counted work, and the passes are shaped for it:
+//  - K7: one block per 128 keys; each consumer warpgroup owns 64 of them and
+//    holds both its dV and its dK accumulator (2 x 40 f32 a thread).  For each
+//    streamed 64-query tile it computes S^T = K Q^T and dP^T = V dO^T at
+//    m64n64, forms P^T and dS^T in f32 and rounds them to bf16 in registers,
+//    where they are the A operands of dV += P^T dO and dK += dS^T Q (dO and Q
+//    the MN-major B): P^T and dS^T never go through shared memory and the
+//    warpgroups never wait for each other; the two share each Q/dO stage,
+//    into which producer warp 1 writes the tile's lse log2 e and delta (in
+//    registers, 32 a thread, they spilled);
+//  - K6: K/V stream in 128-key tiles (S and dP at m64n128), dS stays in
+//    registers as the A operand of dQ += dS K;
+//  - inside a warpgroup, products overlap the elementwise work: S and dP are
+//    committed as two groups, P is formed while dP runs (wait_group 1), and
+//    the dV / dK / dQ products of one tile run on while the next tile's S and
+//    dP are issued; a stage is released once the wait of the next tile has
+//    seen the products that read it.  A warpgroup with no key (K7) or row
+//    (K6) in a tile still waits for it and releases it, after its own
+//    products in flight, so arrivals on a stage never run ahead of a use;
+//  - a 4-stage ring: K7's Q/dO (and lse, delta) 4 x 21 KB beside 40 KB of
+//    resident K/V, K6's K/V 4 x 40 KB beside 40 KB of resident Q/dO.
+// Masks, windows, the softcap, G > 1 (f32 head partials for the sum pass),
+// the f32 dq and the no-atomics ownership are those of the kernels above.
+
+constexpr int kD80 = 80;
+constexpr int kDq80Keys = 128;   // keys of a K6 K/V tile at D = 80
+constexpr int kDkv80Keys = 128;  // keys of a K7 block at D = 80: 64 a warpgroup
+constexpr int kStages80 = 4;     // stages of the D = 80 rings
+
+// A (rows, 80) bf16 tile of rows * 160 bytes: a 64-column block, 128-byte
+// swizzled (rows x 128 bytes), then a 16-column block, 32-byte swizzled (rows
+// x 32 bytes; the 16-byte chunk c of row r at chunk c ^ ((r / 4) % 2)).
+struct Tile80 {
+  static constexpr int bytes(int rows) { return rows * 2 * kD80; }
+  // Rows row0 .. row0 + rows - 1 of `head`: `wide` reads boxes of 64
+  // columns, `narrow` boxes of 16.
+  __device__ static void load(uint32_t dst, const CUtensorMap* wide, const CUtensorMap* narrow,
+                              uint32_t bar, int rows, int head, int row0, int b) {
+    tma_load(dst, wide, bar, 0, head, row0, b);
+    tma_load(dst + rows * 128, narrow, bar, 64, head, row0, b);
+  }
+  // K-major operand: columns 16 kk .. 16 kk + 15 of rows r0 .. of a tile of
+  // `rows` rows.
+  __device__ static uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
+    if (kk < 4) return desc(tile + r0 * 128 + kk * 32, 16, 1024);
+    return desc(tile + rows * 128 + r0 * 32, 16, 256, kSw32);
+  }
+  // acc (64 x 80) += A B: A (64 x 16) from the registers a, B the rows 16 kk
+  // .. 16 kk + 15 of a tile of `rows` rows (MN-major): m64n64 on the 64-column
+  // block, m64n16 on the 16-column one, the accumulator's columns in order.
+  __device__ static void mma(float (&acc)[kD80 / 2], const uint32_t* a, uint32_t tile, int rows,
+                             int kk) {
+    wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(acc), a,
+                 desc(tile + kk * 2048, rows * 128, 1024), 1);
+    wgmma_rs<16>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
+                 desc(tile + rows * 128 + kk * 512, rows * 32, 256, kSw32), 1);
+  }
+};
+
+// 2^x without branches (a result below 2^-126 flushes to 0; 2^-inf = 0).
+__device__ __forceinline__ float exp2_ftz(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The elementwise step of the D = 80 passes on a 64-row score tile in the
+// accumulator's layout (NE values a thread: 64 x 64 in K7, 64 x 128 in K6),
+// without a branch inside (kCapped and kMasked are uniform): p = exp(s - lse)
+// with s = c tanh(raw scale / c) or raw scale, computed as 2^(s log2 e - lse
+// log2 e); p = 0 where the mask hides the pair.  Element j sits at row
+// rows[(j / 2) % 2] (a key in K7, kRowsAreKeys; a query in K6) and column
+// col0 + acc_col(j); `lse2(j)` is lse log2 e of its query.  The tile keeps
+// p [(1 - t^2)] (the factor dS takes); pa, if not null, gets p as bf16 pairs.
+struct Mask80 {
+  int q_end, window;  // window: INT_MAX for none
+};
+
+template <bool kCapped, bool kMasked, bool kRowsAreKeys, int NE, typename Lse>
+__device__ __forceinline__ void probs80(float (&s)[NE], uint32_t* pa, Lse lse2, float mul,
+                                        float softcap, const int (&rows)[2], int col0,
+                                        int lane, Mask80 mk) {
+#pragma unroll
+  for (int j = 0; j < NE; j += 2) {
+    float p[2];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const float raw = s[j + e];
+      float arg, chain = 1.f;
+      if (kCapped) {
+        const float th = tanhf(raw * mul);
+        arg = fmaf(softcap * th, kLog2e, -lse2(j + e));
+        chain = 1.f - th * th;
+      } else {
+        arg = fmaf(raw, mul, -lse2(j + e));  // mul = scale log2 e here
+      }
+      if (kMasked) {
+        const int a = rows[(j >> 1) & 1], c = col0 + acc_col(j + e, lane);
+        const int qi = kRowsAreKeys ? c : a, kj = kRowsAreKeys ? a : c;
+        if (!(kj <= qi && qi < mk.q_end && qi - kj < mk.window)) arg = -INFINITY;
+      }
+      p[e] = exp2_ftz(arg);
+      s[j + e] = kCapped ? p[e] * chain : p[e];
+    }
+    if (pa) pa[j >> 1] = pack_bf16(p[0], p[1]);
+  }
+}
+
+// probs80 with its uniform choices made once.
+template <bool kRowsAreKeys, int NE, typename Lse>
+__device__ __forceinline__ void probs80_any(bool capped, bool masked, float (&s)[NE],
+                                            uint32_t* pa, Lse lse2, float mul, float softcap,
+                                            const int (&rows)[2], int col0, int lane,
+                                            Mask80 mk) {
+  if (capped) {
+    if (masked)
+      probs80<true, true, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+    else
+      probs80<true, false, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+  } else {
+    if (masked)
+      probs80<false, true, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+    else
+      probs80<false, false, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+  }
+}
+
+// A warpgroup's stage release: once the products that read stage `pending`
+// are done (the caller has waited), one arrival of each thread.
+__device__ __forceinline__ void release(uint32_t empty, int& pending) {
+  if (pending >= 0) mbar_arrive(empty + 8 * pending);
+  pending = -1;
+}
+
+struct Dkv80Layout {
+  static constexpr int kKV = Tile80::bytes(kDkv80Keys);  // resident K or V
+  static constexpr int kT = Tile80::bytes(kTile);        // one Q or dO tile
+  static constexpr int kStage = 2 * kT + 2 * kTile * 4;  // Q, dO, then the tile's lse, delta
+  static constexpr int kBars = 2 * kKV + kStages80 * kStage;      // kv_full, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kStages80) * 8 + 1024;
+};
+
+// Each map comes twice: 64-column boxes and 16-column boxes.
+template <bool kPartial>
+__global__ void __launch_bounds__(kThreads, 1)
+dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
+               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
+               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
+               const __grid_constant__ CUtensorMap tdo,
+               const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
+               const float* __restrict__ delta, void* __restrict__ dk, void* __restrict__ dv,
+               Shape sh) {
+  using L = Dkv80Layout;
+  using T = Tile80;
+  constexpr int D = kD80;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t sK = base, sV = base + L::kKV;
+  const uint32_t sStage = base + 2 * L::kKV;  // stage st: Q at + st kStage, dO, lse, delta
+  const uint32_t kv_full = base + L::kBars, full = kv_full + 8, empty = full + 8 * kStages80;
+  uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
+
+  const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
+  const int kvh = h / (sh.h / sh.kv);
+  const int k0 = blockIdx.y * kDkv80Keys;  // block 0, the heaviest, first
+  const int k1 = min(k0 + kDkv80Keys, sh.s) - 1;
+  const int qt_first = k0 / kTile;
+  const int qt_last = (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : sh.s - 1) / kTile;
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int st = 0; st < kStages80; ++st) {
+      mbar_init(full + 8 * st, 1 + 32);  // the copies' thread, then warp 1
+      mbar_init(empty + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup
+    set_max_registers_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {  // starts every copy
+      mbar_expect_tx(kv_full, 2 * L::kKV);
+      T::load(sK, &tk, &tk16, kv_full, kDkv80Keys, kvh, k0, b);
+      T::load(sV, &tv, &tv16, kv_full, kDkv80Keys, kvh, k0, b);
+      for (int qt = qt_first; qt <= qt_last; ++qt) {
+        const int i = qt - qt_first, st = i % kStages80;
+        if (i >= kStages80) mbar_wait(empty + 8 * st, (i / kStages80 - 1) & 1);
+        const uint32_t bar = full + 8 * st, dst = sStage + st * L::kStage;
+        mbar_expect_tx(bar, 2 * L::kT);
+        T::load(dst, &tq, &tq16, bar, kTile, h, qt * kTile, b);
+        T::load(dst + L::kT, &tdo, &tdo16, bar, kTile, h, qt * kTile, b);
+      }
+    } else if (threadIdx.x >= 32 && threadIdx.x < 64) {  // warp 1: lse log2 e, delta
+      const int lane = threadIdx.x - 32;
+      const long long row_off = (long long)bh * sh.s;
+      for (int qt = qt_first; qt <= qt_last; ++qt) {
+        const int i = qt - qt_first, st = i % kStages80;
+        if (i >= kStages80) mbar_wait(empty + 8 * st, (i / kStages80 - 1) & 1);
+        float* rows = reinterpret_cast<float*>(gbase + st * L::kStage + 2 * (L::kKV + L::kT));
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int c = 2 * lane + e, qi = qt * kTile + c;
+          rows[c] = qi < sh.s ? lse[row_off + qi] * kLog2e : 0.f;
+          rows[kTile + c] = qi < sh.s ? delta[row_off + qi] : 0.f;
+        }
+        mbar_arrive(full + 8 * st);
+      }
+    }
+    return;
+  }
+  set_max_registers_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x - 128;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
+  const bool capped = sh.softcap > 0.f;
+  const float mul = capped ? sh.scale / sh.softcap : sh.scale * kLog2e;
+  const Mask80 mk = {sh.s, sh.window > 0 ? sh.window : INT_MAX};
+  const int kw = k0 + wg * kTile;  // this warpgroup's first key
+  const bool live = kw < sh.s;
+  const int kw_last = min(kw + kTile, sh.s) - 1;
+  const int wq_first = kw / kTile;
+  const int wq_last =
+      (sh.window > 0 ? min(sh.s - 1, kw_last + sh.window - 1) : sh.s - 1) / kTile;
+  const int key[2] = {kw + acc_row(0, warp, lane), kw + acc_row(2, warp, lane)};
+  float dv_acc[D / 2], dk_acc[D / 2];  // dK unscaled
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dv_acc[i] = dk_acc[i] = 0.f;
+  uint32_t pa[16] = {}, da[16] = {};  // P^T, dS^T: A operands of products in flight
+  int pending = -1;                   // the stage those products read
+
+  mbar_wait(kv_full, 0);
+  for (int qt = qt_first; qt <= qt_last; ++qt) {
+    const int i = qt - qt_first, st_i = i % kStages80;
+    const uint32_t sQ = sStage + st_i * L::kStage, sdO = sQ + L::kT;
+    if (!live || qt < wq_first || qt > wq_last) {  // none of our keys sees the tile
+      wgmma_wait<0>();
+      fence_regs(pa);
+      fence_regs(da);
+      release(empty, pending);
+      mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+      mbar_arrive(empty + 8 * st_i);
+      continue;
+    }
+    const int q0 = qt * kTile;
+    const float* lse_c =  // lse log2 e
+        reinterpret_cast<const float*>(gbase + st_i * L::kStage + 2 * (L::kKV + L::kT));
+    const float* delta_c = lse_c + kTile;
+    mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), two groups
+    float sc[32], dp[32];
+#pragma unroll
+    for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64, 0>(sc, T::kmajor(sK, kDkv80Keys, wg * kTile, kk),
+                      T::kmajor(sQ, kTile, 0, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<64, 0>(dp, T::kmajor(sV, kDkv80Keys, wg * kTile, kk),
+                      T::kmajor(sdO, kTile, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S^T, and the last tile's dV and dK, are done
+    fence_regs(sc);
+    fence_regs(pa);
+    fence_regs(da);
+    release(empty, pending);
+
+    // P^T = exp(s - lse) to bf16 for dV; sc keeps P^T [(1 - t^2)] for dS^T
+    const bool masked = !(kw + kTile - 1 <= q0 && q0 + kTile - 1 < sh.s &&
+                          (sh.window <= 0 || q0 + kTile - 1 - kw < sh.window));
+    probs80_any<true>(capped, masked, sc, pa,
+                      [&](int j) { return lse_c[acc_col(j, lane)]; }, mul, sh.softcap, key, q0,
+                      lane, mk);
+    // dV += P^T dO
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) T::mma(dv_acc, pa + 4 * kk, sdO, kTile, kk);
+    wgmma_commit();
+    wgmma_wait<1>();  // dP^T is done
+    fence_regs(dp);
+
+    // dS^T = P^T (dP^T - delta) [(1 - t^2)] to bf16; dK += dS^T Q
+#pragma unroll
+    for (int j = 0; j < 32; j += 2) {
+      const int ci = acc_col(j, lane);
+      da[j >> 1] = pack_bf16(sc[j] * (dp[j] - delta_c[ci]), sc[j + 1] * (dp[j + 1] - delta_c[ci + 1]));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kTile / 16; ++kk) T::mma(dk_acc, da + 4 * kk, sQ, kTile, kk);
+    wgmma_commit();
+    pending = st_i;
+  }
+  wgmma_wait<0>();
+  fence_regs(dv_acc);
+  fence_regs(dk_acc);
+  fence_regs(pa);
+  fence_regs(da);
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (key[r] >= sh.s) continue;
+    if (kPartial) {
+      const long long off = (((long long)b * sh.s + key[r]) * sh.h + h) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(static_cast<float*>(dv) + off + 8 * n) =
+            make_float2(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+        *reinterpret_cast<float2*>(static_cast<float*>(dk) + off + 8 * n) = make_float2(
+            dk_acc[4 * n + 2 * r] * sh.scale, dk_acc[4 * n + 2 * r + 1] * sh.scale);
+      }
+    } else {
+      const long long off = (((long long)b * sh.s + key[r]) * sh.kv + kvh) * D + 2 * (lane & 3);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dv) + off + 8 * n) =
+            pack_bf16(dv_acc[4 * n + 2 * r], dv_acc[4 * n + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dk) + off + 8 * n) = pack_bf16(
+            dk_acc[4 * n + 2 * r] * sh.scale, dk_acc[4 * n + 2 * r + 1] * sh.scale);
+      }
+    }
+  }
+}
+
+struct Dq80Layout {
+  static constexpr int kRows = 2 * kTile;                          // two warpgroups' rows
+  static constexpr int kQ = Tile80::bytes(kRows);          // the Q or the dO tile
+  static constexpr int kKV = Tile80::bytes(kDq80Keys);     // one K or V tile
+  static constexpr int kStage = 2 * kKV;                           // K, then V
+  static constexpr int kBars = 2 * kQ + kStages80 * kStage;        // qd_full, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kStages80) * 8 + 1024;
+};
+
+template <bool kWide>
+__global__ void __launch_bounds__(kThreads, 1)
+dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
+              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
+              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
+              const __grid_constant__ CUtensorMap tdo,
+              const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
+              const float* __restrict__ delta, void* __restrict__ dq, Shape sh) {
+  using L = Dq80Layout;
+  constexpr int NK = kDq80Keys;
+  using T = Tile80;
+  constexpr int D = kD80;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  const uint32_t sQ = base, sdO = base + L::kQ;
+  const uint32_t sKV = base + 2 * L::kQ;  // stage st: K at + st kStage, V after it
+  const uint32_t qd_full = base + L::kBars, full = qd_full + 8, empty = full + 8 * kStages80;
+
+  const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
+  const int kvh = h / (sh.h / sh.kv);
+  const int n_qt = (sh.s + L::kRows - 1) / L::kRows;
+  const int q0 = (n_qt - 1 - (int)blockIdx.y) * L::kRows;  // heaviest tiles first
+  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kDq80Keys : 0;
+  const int kt_last = (min(q0 + L::kRows, sh.s) - 1) / kDq80Keys;
+
+  if (threadIdx.x == 0) {
+    mbar_init(qd_full, 1);
+    for (int st = 0; st < kStages80; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup; one thread starts every copy
+    set_max_registers_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(qd_full, 2 * L::kQ);
+      T::load(sQ, &tq, &tq16, qd_full, L::kRows, h, q0, b);
+      T::load(sdO, &tdo, &tdo16, qd_full, L::kRows, h, q0, b);
+      for (int kt = kt_first; kt <= kt_last; ++kt) {
+        const int i = kt - kt_first, st = i % kStages80;
+        if (i >= kStages80) mbar_wait(empty + 8 * st, (i / kStages80 - 1) & 1);
+        const uint32_t bar = full + 8 * st, dst = sKV + st * L::kStage;
+        mbar_expect_tx(bar, L::kStage);
+        T::load(dst, &tk, &tk16, bar, kDq80Keys, kvh, kt * kDq80Keys, b);
+        T::load(dst + L::kKV, &tv, &tv16, bar, kDq80Keys, kvh, kt * kDq80Keys, b);
+      }
+    }
+    return;
+  }
+  set_max_registers_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x - 128;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
+  const long long q_rs = (long long)sh.h * D;
+  const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
+  const int r0 = q0 + wg * kTile;  // this warpgroup's first row
+  const bool live = r0 < sh.s;
+  const int wk_first = sh.window > 0 ? max(0, r0 - sh.window + 1) / kDq80Keys : 0;
+  const int wk_last = (min(r0 + kTile, sh.s) - 1) / kDq80Keys;
+  const int row[2] = {r0 + acc_row(0, warp, lane), r0 + acc_row(2, warp, lane)};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    lse_r[r] = row[r] < sh.s ? lse[(long long)bh * sh.s + row[r]] : 0.f;
+    delta_r[r] = row[r] < sh.s ? delta[(long long)bh * sh.s + row[r]] : 0.f;
+  }
+
+  const bool capped = sh.softcap > 0.f;
+  const float mul = capped ? sh.scale / sh.softcap : sh.scale * kLog2e;
+  const Mask80 mk = {sh.s, sh.window > 0 ? sh.window : INT_MAX};
+  const float lse2[2] = {lse_r[0] * kLog2e, lse_r[1] * kLog2e};
+  float acc[D / 2];  // dq / scale
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  uint32_t da[NK / 4] = {};  // dS: the A operand of the dQ product in flight
+  int pending = -1;      // the stage it reads
+
+  mbar_wait(qd_full, 0);
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    const int i = kt - kt_first, st_i = i % kStages80;
+    const uint32_t sK = sKV + st_i * L::kStage, sV = sK + L::kKV;
+    if (!live || kt < wk_first || kt > wk_last) {  // no row of ours sees the tile
+      wgmma_wait<0>();
+      fence_regs(da);
+      release(empty, pending);
+      mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+      mbar_arrive(empty + 8 * st_i);
+      continue;
+    }
+    const int k0 = kt * kDq80Keys;
+    mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+
+    // S = Q K^T and dP = dO V^T (64 rows x 128 keys), two groups
+    float sc[NK / 2], dp[NK / 2];
+#pragma unroll
+    for (int j = 0; j < NK / 2; ++j) sc[j] = dp[j] = 0.f;
+    fence_regs(sc);
+    fence_regs(dp);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<NK, 0>(sc, T::kmajor(sQ, L::kRows, wg * kTile, kk),
+                      T::kmajor(sK, kDq80Keys, 0, kk), kk > 0);
+    wgmma_commit();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk)
+      wgmma_ss<NK, 0>(dp, T::kmajor(sdO, L::kRows, wg * kTile, kk),
+                      T::kmajor(sV, kDq80Keys, 0, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<1>();  // S, and the last tile's dQ product, are done
+    fence_regs(sc);
+    fence_regs(da);
+    release(empty, pending);
+
+    // P = exp(s - lse) [(1 - t^2)] while dP runs
+    const bool masked = !(k0 + kDq80Keys - 1 <= r0 && r0 + kTile - 1 < sh.s &&
+                          (sh.window <= 0 || r0 + kTile - 1 - k0 < sh.window));
+    probs80_any<false>(capped, masked, sc, nullptr, [&](int j) { return lse2[(j >> 1) & 1]; },
+                       mul, sh.softcap, row, k0, lane, mk);
+    wgmma_wait<0>();  // dP is done
+    fence_regs(dp);
+
+    // dS = P (dP - delta) [(1 - t^2)] to bf16; dQ += dS K (K MN-major)
+#pragma unroll
+    for (int j = 0; j < NK / 2; j += 2) {
+      const int r = (j >> 1) & 1;
+      da[j >> 1] = pack_bf16(sc[j] * (dp[j] - delta_r[r]), sc[j + 1] * (dp[j + 1] - delta_r[r]));
+    }
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDq80Keys / 16; ++kk) T::mma(acc, da + 4 * kk, sK, kDq80Keys, kk);
+    wgmma_commit();
+    pending = st_i;
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  fence_regs(da);
+
+  if (!live) return;
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    if (row[r] >= sh.s) continue;
+    const long long off = q_off + (long long)row[r] * q_rs + 2 * (lane & 3);
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      const float x0 = acc[4 * n + 2 * r] * sh.scale, x1 = acc[4 * n + 2 * r + 1] * sh.scale;
+      if (kWide)
+        *reinterpret_cast<float2*>(static_cast<float*>(dq) + off + 8 * n) = make_float2(x0, x1);
+      else
+        *reinterpret_cast<uint32_t*>(static_cast<bf16*>(dq) + off + 8 * n) = pack_bf16(x0, x1);
+    }
+  }
+}
+
 // dk/dv (B, S, KV, D) bf16 = sum over g = 0 .. G-1, in that order, of the f32
 // partials (B, S, H, D) of query heads kvh * G + g.  4 columns a thread.
 __global__ void __launch_bounds__(256)
@@ -989,19 +1560,20 @@ EncodeTiled encode_tiled() {
 }
 
 // The map of a contiguous bf16 (B, S, heads, D) tensor read in boxes of
-// 64 columns x `rows` rows of one head, 128-byte swizzled; rows past S read
-// as zeros.  Returns a cudaError_t.
-int make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, int rows) {
+// `cols` columns x `rows` rows of one head, 128-byte swizzled (or as `swizzle`
+// says); rows past S read as zeros.  Returns a cudaError_t.
+int make_map(CUtensorMap* map, const void* ptr, int b, int s, int heads, int d, int rows,
+             int cols = 64, CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s, (cuuint64_t)b};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
                                  (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t box[4] = {(cuuint32_t)cols, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   const CUresult res = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr),
                               dims, strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                              swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
@@ -1060,6 +1632,52 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (int err = prepare(kernel, L::kBytes)) return err;
   const dim3 grid(sh.b * sh.h, (sh.s + L::kRows - 1) / L::kRows);
   kernel<<<grid, kThreads, L::kBytes, st>>>(tq, tk, tv, tdo, static_cast<const float*>(lse),
+                                            static_cast<const float*>(delta), dq, sh);
+  return (int)cudaGetLastError();
+}
+
+// The two maps of a (B, S, heads, 80) tensor for Tile80: 64-column boxes
+// (128-byte swizzle) and 16-column boxes (32-byte swizzle).
+int make_maps80(CUtensorMap* maps, const void* ptr, int b, int s, int heads, int rows) {
+  if (int err = make_map(&maps[0], ptr, b, s, heads, kD80, rows)) return err;
+  return make_map(&maps[1], ptr, b, s, heads, kD80, rows, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+}
+
+template <>
+int launch_dkv<80>(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
+                   cudaStream_t st) {
+  auto kernel = sh.h == sh.kv ? dkv_d80_kernel<false> : dkv_d80_kernel<true>;
+  constexpr int smem = Dkv80Layout::kBytes;
+  CUtensorMap m[8];
+  if (int err = make_maps80(m, q, sh.b, sh.s, sh.h, kTile)) return err;
+  if (int err = make_maps80(m + 2, k, sh.b, sh.s, sh.kv, kDkv80Keys)) return err;
+  if (int err = make_maps80(m + 4, v, sh.b, sh.s, sh.kv, kDkv80Keys)) return err;
+  if (int err = make_maps80(m + 6, dout, sh.b, sh.s, sh.h, kTile)) return err;
+  if (int err = prepare(kernel, smem)) return err;
+  const dim3 grid(sh.b * sh.h, (sh.s + kDkv80Keys - 1) / kDkv80Keys);
+  kernel<<<grid, kThreads, smem, st>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+                                       static_cast<const float*>(lse),
+                                       static_cast<const float*>(delta), dk, dv, sh);
+  return (int)cudaGetLastError();
+}
+
+template <>
+int launch_dq<80>(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
+                  cudaStream_t st) {
+  if (dq_dtype < 0 || dq_dtype > 1) return (int)cudaErrorInvalidValue;
+  auto kernel = dq_dtype == 1 ? dq_d80_kernel<false> : dq_d80_kernel<true>;
+  using L = Dq80Layout;
+  CUtensorMap m[8];
+  if (int err = make_maps80(m, q, sh.b, sh.s, sh.h, L::kRows)) return err;
+  if (int err = make_maps80(m + 2, k, sh.b, sh.s, sh.kv, kDq80Keys)) return err;
+  if (int err = make_maps80(m + 4, v, sh.b, sh.s, sh.kv, kDq80Keys)) return err;
+  if (int err = make_maps80(m + 6, dout, sh.b, sh.s, sh.h, L::kRows)) return err;
+  if (int err = prepare(kernel, L::kBytes)) return err;
+  const dim3 grid(sh.b * sh.h, (sh.s + L::kRows - 1) / L::kRows);
+  kernel<<<grid, kThreads, L::kBytes, st>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
+                                            static_cast<const float*>(lse),
                                             static_cast<const float*>(delta), dq, sh);
   return (int)cudaGetLastError();
 }

@@ -6,9 +6,11 @@ as they are: the TPU kernels' window-pruned grids at their (512-default)
 tiles, kept so the tile census the benchmarks quote can be checked
 against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
 own tiles and compute the exact tile range a window needs themselves (K5
-on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``, ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles``
-are those ranges of the tensor-core kernels (``csrc/flash_gqa_sm90.cu``),
-written out so the CPU tests can hold them to the mask.  ``attention_pairs`` counts the
+on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``,
+``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles`` are those ranges of the
+tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 80 too (K6's
+128-key tiles, K7's 128-key blocks of two warpgroups' 64 keys), written out
+so the CPU tests can hold them to the mask.  ``attention_pairs`` counts the
 (query, key) pairs causality and the window leave, the work any
 implementation must do (``chip_smoke.py``'s operation bounds), of every
 query row or of a rank's rows q0 .. q0 + sq - 1.
@@ -75,6 +77,8 @@ def attention_pairs(s: int, window=None, q0: int = 0, sq=None) -> int:
 SM90_TILE = 64       # keys of a K5 K/V tile; keys and queries of a K7 tile
 SM90_FWD_ROWS = 128  # query rows of a K5 or K6 block (two warpgroups of 64)
 SM90_DQ_KEYS = 32    # keys of a K6 K/V tile
+SM90_DQ80_KEYS = 128  # keys of a K6 K/V tile at head_dim 80 (dq_d80_kernel)
+SM90_DKV80_KEYS = 128  # keys of a K7 block at head_dim 80 (dkv_d80_kernel): 64 a warpgroup
 
 
 def _key_tiles(q0: int, rows: int, s: int, window, keys: int) -> range:
@@ -98,16 +102,20 @@ def sm90_fwd_key_tiles(r0: int, rows: int, s: int, window=None, q0: int = 0,
     return _key_tiles(q0 + r0, rows, q0 + sq, window, SM90_TILE)
 
 
-def sm90_dq_key_tiles(q0: int, rows: int, s: int, window=None) -> range:
-    """Key tiles (of 32 keys) that query rows q0 .. q0 + rows - 1 visit in
-    ``dq_kernel``, as ``sm90_fwd_key_tiles`` for ``fwd_kernel``."""
-    return _key_tiles(q0, rows, s, window, SM90_DQ_KEYS)
+def sm90_dq_key_tiles(q0: int, rows: int, s: int, window=None,
+                      keys: int = SM90_DQ_KEYS) -> range:
+    """Key tiles (of ``keys`` keys: 32, or 128 at head_dim 80) that query
+    rows q0 .. q0 + rows - 1 visit in ``dq_kernel`` (``dq_d80_kernel``), as
+    ``sm90_fwd_key_tiles`` for ``fwd_kernel``."""
+    return _key_tiles(q0, rows, s, window, keys)
 
 
-def sm90_dkv_query_tiles(kt: int, s: int, window=None) -> range:
-    """Query tiles (of 64 queries) that key tile ``kt`` visits in
-    ``dkv_kernel``."""
-    k0 = kt * SM90_TILE
-    k1 = min(k0 + SM90_TILE, s) - 1
+def sm90_dkv_query_tiles(kt: int, s: int, window=None, keys: int = SM90_TILE) -> range:
+    """Query tiles (of 64 queries) that key block ``kt`` of ``keys`` keys
+    visits in ``dkv_kernel`` (64), or at head_dim 80 in ``dkv_d80_kernel``:
+    a block at 128, each of its warpgroups (64-key tile 2 kt + w) at 64.
+    Keys that all lie past S visit none."""
+    k0 = kt * keys
+    k1 = min(k0 + keys, s) - 1
     last = min(s - 1, k1 + window - 1) if window else s - 1
     return range(k0 // SM90_TILE, last // SM90_TILE + 1)

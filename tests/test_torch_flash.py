@@ -14,6 +14,7 @@ Tolerances:
   so a value next to a rounding boundary may round the other way.
 """
 import ctypes
+import functools
 import re
 
 import jax
@@ -217,38 +218,104 @@ def test_attention_pairs_counts_the_visible_pairs(s, window):
     assert visible_mask(s, window, "cpu").sum().item() == grid.attention_pairs(s, window)
 
 
-@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (200, 300),
-                                      (1000, 512), (1000, None), (40, 16), (300, 1)])
-def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
-    """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py): every
-    visible (query, key) pair lies in a visited tile, and no visited tile
-    is fully masked -- for each K5 and K6 block (128 rows; 64- and 32-key
-    tiles), each of its warpgroups (64 rows), and each K7 key tile (64
-    keys)."""
+_TILE_CASES = [(2048, 512), (2048, None), (100, 16), (64, 1), (200, 300), (1000, 512),
+               (1000, None), (40, 16), (300, 1)]
+
+
+def _query_tiles(mask, k0, keys):
+    """64-query tiles holding a visible pair of keys k0 .. k0 + keys - 1."""
+    hit = mask[:, k0:k0 + keys].any(1)
+    return sorted({i // grid.SM90_TILE for i in hit.nonzero().flatten().tolist()})
+
+
+def _check_sm90_tile_ranges(s, window, dq_keys, dkv_keys, constants):
+    """Every visible (query, key) pair lies in a visited tile, and no
+    visited tile is fully masked: for each K5 and K6 block (128 rows; 64-
+    and ``dq_keys``-key tiles), each of its warpgroups (64 rows), each K7
+    block of ``dkv_keys`` keys and, where a block holds more than 64, each
+    of its warpgroups' 64 keys.  ``constants``: the source's widths."""
     src = flash_ops.SM90_SOURCE.read_text()
-    assert f"constexpr int kTile = {grid.SM90_TILE};" in src
-    assert f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};" in src
+    for line in constants:
+        assert line in src, line
     mask = visible_mask(s, window, "cpu")
-    t = grid.SM90_TILE
-    pad = -s % t
-    tiles = torch.nn.functional.pad(mask, (0, pad, 0, pad)).reshape(
-        (s + pad) // t, t, (s + pad) // t, t).any(3).any(1)  # (query tile, key tile)
 
     def key_tiles(q0, rows, keys):
         hit = mask[q0:q0 + rows].any(0)
         return sorted({j // keys for j in hit.nonzero().flatten().tolist()})
 
     rows = grid.SM90_FWD_ROWS
-    for tiles_of, keys in ((grid.sm90_fwd_key_tiles, t),
-                           (grid.sm90_dq_key_tiles, grid.SM90_DQ_KEYS)):
+    for tiles_of, keys in ((grid.sm90_fwd_key_tiles, grid.SM90_TILE),
+                           (functools.partial(grid.sm90_dq_key_tiles, keys=dq_keys), dq_keys)):
         for q0 in range(0, s, rows):
             assert list(tiles_of(q0, rows, s, window)) == key_tiles(q0, rows, keys), q0
             for r0 in (q0, q0 + rows // 2):
                 want = key_tiles(r0, rows // 2, keys)
                 assert list(tiles_of(r0, rows // 2, s, window)) == want, (keys, r0)
-    for kt in range(tiles.shape[1]):
-        want = tiles[:, kt].nonzero().flatten().tolist()
-        assert list(grid.sm90_dkv_query_tiles(kt, s, window)) == want, kt
+    per = dkv_keys // grid.SM90_TILE  # warpgroups of a K7 block
+    for kb in range(-(-s // dkv_keys)):
+        want = _query_tiles(mask, kb * dkv_keys, dkv_keys)
+        assert list(grid.sm90_dkv_query_tiles(kb, s, window, dkv_keys)) == want, kb
+        for w in range(per if per > 1 else 0):
+            kt = kb * per + w
+            want = _query_tiles(mask, kt * grid.SM90_TILE, grid.SM90_TILE)
+            assert list(grid.sm90_dkv_query_tiles(kt, s, window)) == want, (kb, w)
+
+
+@pytest.mark.parametrize("s,window", _TILE_CASES)
+def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
+    """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py) at head_dim
+    64, 128 and 256: K5 and K6 blocks of 128 rows over 64- and 32-key
+    tiles, K7 key tiles of 64 (``_check_sm90_tile_ranges``)."""
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
+        f"constexpr int kTile = {grid.SM90_TILE};",
+        f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};"))
+
+
+@pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
+def test_sm90_tile_ranges_at_head_dim_80_visit_exactly_the_tiles_with_visible_pairs(s, window):
+    """The same at head_dim 80 (dq_d80_kernel, dkv_d80_kernel): K6 over
+    128-key tiles, K7 blocks of 128 keys and each warpgroup's 64."""
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ80_KEYS, grid.SM90_DKV80_KEYS, (
+        f"constexpr int kTile = {grid.SM90_TILE};",
+        f"constexpr int kDq80Keys = {grid.SM90_DQ80_KEYS};",
+        f"constexpr int kDkv80Keys = {grid.SM90_DKV80_KEYS};"))
+
+
+@pytest.mark.parametrize("s,window", [(1000, None), (1000, 512), (1100, None), (1100, 512),
+                                      (1040, 512), (40, 16), (2048, 512), (128, None)])
+def test_sm90_d80_dkv_warpgroups_own_the_block_tiles(s, window):
+    """K7 at head_dim 80: a 128-key block's query tiles are the union of
+    its two warpgroups' ranges (each held to the mask), each a run from the
+    warpgroup's diagonal tile, so a warpgroup skips only a block's first
+    tile (the second's keys start one tile later) and its last ones (the
+    window, or keys that all lie past S: none then)."""
+    mask = visible_mask(s, window, "cpu")
+    keys, per = grid.SM90_DKV80_KEYS, grid.SM90_DKV80_KEYS // grid.SM90_TILE
+    for kb in range(-(-s // keys)):
+        block = list(grid.sm90_dkv_query_tiles(kb, s, window, keys))
+        wgs = [list(grid.sm90_dkv_query_tiles(kb * per + w, s, window)) for w in range(per)]
+        assert sorted(set(wgs[0]) | set(wgs[1])) == block, kb
+        for w, tiles in enumerate(wgs):
+            k0 = (kb * per + w) * grid.SM90_TILE
+            assert tiles == _query_tiles(mask, k0, grid.SM90_TILE), (kb, w)
+            if k0 >= s:
+                assert tiles == [], (kb, w)
+            else:
+                assert tiles[0] == k0 // grid.SM90_TILE == block[0] + w, (kb, w)
+                assert tiles == list(range(tiles[0], tiles[-1] + 1)), (kb, w)
+
+
+def test_sm90_head_dim_80_backward_runs_its_own_kernels():
+    """The bf16 dq and dk/dv passes at head_dim 80 launch dq_d80_kernel and
+    dkv_d80_kernel (native 80-column tiles), every other head_dim its
+    dq_kernel<D> / dkv_kernel<D>, and the forward stays fwd_kernel<D>."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    for launch, kernel in (("dq", "dq_d80_kernel"), ("dkv", "dkv_d80_kernel")):
+        body = re.search(r"\nint launch_" + launch + r"<80>\(.*?\n}", src, re.S)
+        assert body and f"{kernel}<false>" in body.group(0), launch
+        body = re.search(r"\nint launch_" + launch + r"\(.*?\n}", src, re.S)
+        assert body and f"{launch}_kernel<D, false>" in body.group(0), launch
+    assert "template <>\nint launch_fwd<" not in src
 
 
 def test_dkv_sum_plain_adds_the_head_partials():

@@ -137,3 +137,44 @@ def test_phase15_gradient_check_fails_a_planted_fault(_phase15_grads, name):
             setattr(mod, attr, fn)
     scale, ratio = cs.grad_gaps(g_f, g_r, g_t)
     assert scale > cs.GRAD_SCALE_TOL or ratio > cs.GRAD_RATIO_TOL, (scale, ratio)
+
+
+_PTXAS_NS = "_ZN50_GLOBAL__N__8a88681c_17_flash_gqa_sm90_cu_36f005a1"
+
+
+@pytest.mark.parametrize("spill", [False, True])
+def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys, spill):
+    """``chip_smoke.print_ptxas`` names each kernel of the build log by its
+    mangled identifier's length prefix (the anonymous namespace's own name
+    ends in digits, and the D = 80 kernels' names hold digits), prints its
+    registers and spills, passes on ptxas's notes about wgmma, and fails
+    naming the kernel that spills."""
+    cs = _load("chip_smoke.py")
+    entry = "ptxas info    : Compiling entry function '{}' for 'sm_90a'"
+    props = "ptxas info    : Function properties for {}"
+    kernels = [(f"{_PTXAS_NS}10dkv_kernelILi256ELb1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PvS4_"
+                "NS_5ShapeE", "dkv_kernel<256, 1>", 0),
+               (f"{_PTXAS_NS}14dkv_d80_kernelILb1ELb0EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_"
+                "PKfS3_PvS4_NS_5ShapeE", "dkv_d80_kernel<1, 0>", 8 if spill else 0),
+               (f"{_PTXAS_NS}13dq_d80_kernelILb0ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_"
+                "PKfS3_PvNS_5ShapeE", "dq_d80_kernel<0, 1>", 0),
+               (f"{_PTXAS_NS}14dkv_sum_kernelEPKfS1_P13__nv_bfloat16S3_xii", "dkv_sum_kernel<>",
+                0)]
+    lines = []
+    for mangled, _, spilled in kernels:
+        lines += [entry.format(mangled), props.format(mangled),
+                  f"    0 bytes stack frame, {spilled} bytes spill stores, {spilled} bytes spill "
+                  "loads",
+                  "ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem"]
+    lines.append("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+                 "instructions are serialized")
+    monkeypatch.setattr(cs.kernel_build, "build_log", lambda source: "\n".join(lines))
+    if spill:
+        with pytest.raises(AssertionError, match=r"dkv_d80_kernel<1, 0>"):
+            cs.print_ptxas("flash_gqa_sm90.cu")
+    else:
+        cs.print_ptxas("flash_gqa_sm90.cu")
+    out = capsys.readouterr().out
+    for _, name, _ in kernels:
+        assert f"build[ptxas {name}]: Used 168 registers" in out, name
+    assert "build[ptxas]: ptxas info    : (C7515) Potential Performance Loss: wgmma" in out
