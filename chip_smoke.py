@@ -263,9 +263,11 @@ Phases (any failure exits non-zero; nothing is caught):
 
 Prints a ``{"kernels": [...]}`` line (each flash record also holds its
 D = 80 readings under ``d80`` (zamba2, H = KV = 32) and ``d80_rank``
-(phase 19's rank, H = KV = 16), ``flash_fwd`` its query-offset
-readings under ``q_offset``; launches per path under
-``launches_by_path``) and ends with
+(phase 19's rank, H = KV = 16), its D = 64 readings under ``d64``
+(granite-moe's training shape), ``flash_fwd`` internvl2's prefill (D =
+128) under ``d128_prefill`` and its query-offset readings under
+``q_offset``; the window records a library time, SDPA with the window's
+mask; launches per path under ``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -660,8 +662,14 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     # S = 1,100 (K7's last 128-key block: the second warpgroup's keys partly
     # past S) and 1,040 (wholly past S, G = 2, softcap); S = 2,048, window 512
     (2, 16, None, bf16, 40, 80, 4, 2), (1, None, None, bf16, 1100, 80, 32, 2),
-    (2, 512, 50.0, bf16, 1040, 80, 4, 2), (1, 512, None, bf16, 2048, 80, 32, 2)]
-D80_CASES = [c for c in FLASH_CASES if c[5] == 80 and c[3] == bf16]
+    (2, 512, 50.0, bf16, 1040, 80, 4, 2), (1, 512, None, bf16, 2048, 80, 32, 2),
+    # the same edges of K5's 128-key tiles at D = 64 (fwd_narrow_kernel):
+    # S = 1,100 (a partial last tile), 1,040 (G = 2, window 512, softcap 50),
+    # S = 2,048 at window 512
+    (1, None, None, bf16, 1100, 64, 32, 2), (2, 512, 50.0, bf16, 1040, 64, 4, 2),
+    (1, 512, None, bf16, 2048, 64, 32, 2)]
+# the bf16 cases at D = 64 and 80, where K5 runs fwd_narrow_kernel
+NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80) and c[3] == bf16]
 
 
 def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
@@ -672,13 +680,13 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     none), at a ragged S = 1,000 (D = 256, window 512), where the last tiles
     are partial, and at S = 40 (D = 64, window 16), shorter than one tile;
     and at zamba2's shared attention, D = 80 (H = KV = 32, no window, bf16
-    and f32; K5's tensor-core tiles pad D to 128 with zero columns, K6 and
-    K7 run their own kernels on 80-column tiles), plus a masked D = 80 case
-    (G = 2, window 512, softcap 50, ragged S = 1,000) and the D = 80
-    kernels' edges: S = 40 at window 16 (shorter than one tile), S = 1,100
-    (the last 128-key K7 block's second warpgroup partly past S), S = 1,040
-    (wholly past S; G = 2, window 512, softcap 50) and S = 2,048 at window
-    512.
+    and f32; K5, K6 and K7 run kernels of their own on 80-column tiles),
+    plus a masked D = 80 case (G = 2, window 512, softcap 50, ragged S =
+    1,000) and the D = 80 kernels' edges: S = 40 at window 16 (shorter than
+    one tile), S = 1,100 (the last 128-key K7 block's second warpgroup partly
+    past S; K5's last 128-key tile partial), S = 1,040 (wholly past S; G = 2,
+    window 512, softcap 50) and S = 2,048 at window 512; and the same three
+    edges at D = 64, where K5 runs the same 128-key kernel.
     Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
     (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
@@ -794,20 +802,21 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     return worst
 
 
-def time_flash(h, kv, d, windows, seed):
-    """Times at one attention shape, bf16, B = 2, S = 2048: the records at a
-    full-attention layer, where one PyTorch call,
+def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False):
+    """Times at one attention shape, bf16 (B = 2, S = 2,048 unless given):
+    the records at a full-attention layer, where one PyTorch call,
     ``F.scaled_dot_product_attention``, computes the same function, each
-    further window of ``windows`` printed beside them as ``window<w>``, and
-    K6 + K7 timed as one backward beside SDPA's; at G > 1 also K7's sum
-    pass alone.  Bounds count the visible (query, key) pairs: 4D flops each
+    further window of ``windows`` printed beside them as ``window<w>``, its
+    yardstick SDPA with the window's boolean mask (K/V heads repeated to H
+    for it); K6 + K7 timed as one backward beside SDPA's; at G > 1 also K7's
+    sum pass alone.  ``fwd_only``: K5 and SDPA's forward alone (a prefill's
+    shape).  Bounds count the visible (query, key) pairs: 4D flops each
     forward, 6D for the dq pass (scores, dO v^T, dq), 8D for the dk/dv pass,
-    at the bf16 peak, over the useful D columns.  At D = 80, K6 and K7 do
-    the counted work (80-column tiles); K5's O += P V runs 128 columns (TMA's
-    zero fill), so it does (2D + 2*128) / 4D = 1.30x of it."""
+    at the bf16 peak, over the D columns; every kernel's tiles hold the true
+    D (at D = 80 a 64- and a 16-column block), so the work past the count is
+    the masked pairs of the tiles on the diagonal and the window's edge."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = _attention(g, h, kv, torch.bfloat16, d=d)
-    b, s, _, _ = q.shape
+    q, k, v, do = _attention(g, h, kv, torch.bfloat16, b=b, s=s, d=d)
     recs = {}
     for window in windows:
         out, lse = flash_ops.flash_fwd(q, k, v, window=window)
@@ -827,6 +836,8 @@ def time_flash(h, kv, d, windows, seed):
                 roofline.flash_dkv_cost(*shape)),
         }
         for name, (kern, plain, cost) in fns.items():
+            if fwd_only and name != "flash_fwd":
+                continue
             bnd, by = roofline.bound_ms(cost)
             # K7's time includes its sum pass over the f32 head partials
             r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, calls=5, warmup=1),
@@ -851,6 +862,14 @@ def time_flash(h, kv, d, windows, seed):
     torch.testing.assert_close(sdpa(qt, kt, vt).transpose(1, 2), want, rtol=2.0 ** -6,
                                atol=2.0 ** -6)
     recs["flash_fwd"]["library_ms"] = device_ms(lambda: sdpa(qt, kt, vt))
+    for window in windows:  # SDPA with each window's boolean mask
+        if window is not None:
+            _time_sdpa_window(recs, window, flash_ops.flash_fwd(q, k, v, window=window)[0],
+                              qt, kt, vt, dot, fwd_only)
+    if fwd_only:
+        print(f"kernels[time sdpa full-attention D={d} bf16]: forward "
+              f"{recs['flash_fwd']['library_ms']:.4f} ms", flush=True)
+        return recs
     leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
     o = sdpa(*leaves)
     bwd = device_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
@@ -883,6 +902,46 @@ def time_flash(h, kv, d, windows, seed):
     return recs
 
 
+def time_flash_other_shapes():
+    """Phase 3's times beyond the LM slice's gemma3-1b, each a ``time_flash``
+    record set under its key: zamba2's shared attention (``d80``: H = KV =
+    32, D = 80), phase 19's zamba2 training rank at m = 2 (``d80_rank``: H =
+    KV = 16), granite-moe's training shape (``d64``: phase 13, H = 16 over
+    KV = 8, D = 64, with K7's sum pass) and internvl2's prefill
+    (``d128_prefill``: phase 14, B = 4, S = 1,024, H = 16 over KV = 8, D =
+    128; K5 alone)."""
+    return {"d80": time_flash(32, 32, 80, (None,), seed=14),
+            "d80_rank": time_flash(16, 16, 80, (None,), seed=15),
+            "d64": time_flash(16, 8, 64, (None,), seed=16),
+            "d128_prefill": time_flash(16, 8, 128, (None,), seed=17, b=4, s=1024,
+                                       fwd_only=True)}
+
+
+def _time_sdpa_window(recs, window, want, qt, kt, vt, dot, fwd_only):
+    """SDPA with the window's boolean mask, the yardstick of ``recs``'s
+    ``window<w>`` records: its forward (held to K5's output ``want``) and,
+    unless ``fwd_only``, its backward, the yardstick of K6 and K7 together.
+    qt, kt, vt, dot: (B, heads, S, D); K/V heads are repeated to H here
+    (SDPA's ``enable_gqa`` does not take a mask on every version)."""
+    h, s = qt.shape[1], qt.shape[2]
+    kt, vt = (x.repeat_interleave(h // x.shape[1], dim=1) for x in (kt, vt))
+    mask = flash_ops.visible_mask(s, window, "cuda")
+    sdpa = lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, attn_mask=mask)  # noqa: E731
+    torch.testing.assert_close(sdpa(qt, kt, vt).transpose(1, 2), want, rtol=2.0 ** -6,
+                               atol=2.0 ** -6)
+    rec = {n: r[f"window{window}"] for n, r in recs.items() if f"window{window}" in r}
+    rec["flash_fwd"]["library_ms"] = device_ms(lambda: sdpa(qt, kt, vt))
+    line = f"forward {rec['flash_fwd']['library_ms']:.4f} ms"
+    if not fwd_only:
+        leaves = [x.detach().requires_grad_() for x in (qt, kt, vt)]
+        o = sdpa(*leaves)
+        bwd = device_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
+        rec["flash_bwd_dq"]["library_ms"] = rec["flash_bwd_dkv"]["library_ms"] = bwd
+        line += f", backward (dq, dk, dv) {bwd:.4f} ms"
+    print(f"kernels[time sdpa window={window} D={qt.shape[-1]} bf16, boolean mask]: {line}",
+          flush=True)
+
+
 # phase 3, K5 at a query offset: the ranks of phase 20's sequence-parallel
 # prefill (B = 4, S = 1,024): (label, H, KV, D, window, softcap, m, dtype)
 OFFSET_CASES = [
@@ -893,11 +952,13 @@ OFFSET_CASES = [
     ("gemma3-1b m=4 softcap", 4, 1, 256, None, 50.0, 4, torch.bfloat16),
     ("gemma3-1b m=2 f32", 4, 1, 256, 512, None, 2, torch.float32),
     # the ranks of the SSM, hybrid and frontend archs: zamba2's shared block
-    # at head_dim 80 (fwd_kernel<80>, tiles padded to 128 columns),
-    # internvl2's 128, musicgen's 64
+    # at head_dim 80 and musicgen's 64 (fwd_narrow_kernel's 128-key tiles),
+    # internvl2's 128; the two narrow ones at m = 4 too (q0 = 256 .. 768)
     ("zamba2-2.7b m=2", 32, 32, 80, None, None, 2, torch.bfloat16),
     ("internvl2-2b m=2", 16, 8, 128, None, None, 2, torch.bfloat16),
     ("musicgen-large m=2", 32, 32, 64, None, None, 2, torch.bfloat16),
+    ("zamba2-2.7b m=4", 32, 32, 80, None, None, 4, torch.bfloat16),
+    ("musicgen-large m=4", 32, 32, 64, None, None, 4, torch.bfloat16),
 ]
 OFFSET_SEEDS = (31, 32)
 
@@ -1515,8 +1576,13 @@ ARCH_TRAIN = {"granite-moe-1b-a400m": (4, 1_334_628_352), "zamba2-2.7b": (2, 1_9
 # the loss's relative gap and the gradient's |g_k - g_r| / |g_r| (all
 # leaves).  The sound runs on an H100 read 2.324e-6 / 2.498e-6 and 1.211e-3
 # / 4.079e-3 (zamba2 / granite-moe; PERF.md, Findings): the limits
-# are 4x the larger reading.
+# are 4x the larger reading.  The loss is read over the first batch of each
+# of ``TRAIN_LOSS_BATCHES`` client streams (4,096 tokens each, client 0's
+# first): a kernel's fault moves every batch's loss, while a token whose
+# top-k experts flip between the two paths (granite-moe) moves only its own
+# batch's mean, a quarter as much over four batches as over one.
 TRAIN_LOSS_RTOL = 1e-5
+TRAIN_LOSS_BATCHES = 4
 TRAIN_GRAD_RTOL = 1.6e-2
 # Phase 14: batch 4, a 1,024-position prompt, 32 greedy steps
 ARCH_SERVE = dict(batch=4, prompt=1024, steps=32)
@@ -1544,8 +1610,10 @@ def arch_train_run(arch):
     """Phase 13: ``train_lm_pfedsop`` at ``arch``'s full width and depth,
     ``LM``'s loop (3 rounds, batch 2, seq_len 2048, 2 local iterations, eta
     0.1, seed 0) with ``ARCH_TRAIN``'s clients and the exact launch counts;
-    then one forward of client 0's trained model on the reference path
-    against the kernel path.  Returns the launches."""
+    then client 0's trained model on the reference path against the kernel
+    path: its logits and gradient on client 0's first batch, its mean loss
+    over the first batch of ``TRAIN_LOSS_BATCHES`` client streams.  Returns
+    the launches."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, fragmented
@@ -1582,8 +1650,10 @@ def arch_train_run(arch):
 
     trained = states[0].params
     states = None
-    batch = next(lm_driver.client_streams(cfg, 1, run["batch"], run["seq_len"])[0])
-    batch = {k: torch.from_numpy(v).cuda() for k, v in batch.items()}
+    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+               for stream in lm_driver.client_streams(cfg, TRAIN_LOSS_BATCHES, run["batch"],
+                                                      run["seq_len"])]
+    batch = batches[0]  # client 0's first batch
     ref_cfg = cfg.replace(kernel_impl="reference")
     leaves, treedef = tree_flatten(trained)
 
@@ -1591,23 +1661,31 @@ def arch_train_run(arch):
         with torch.no_grad():
             return tf.lm_logits(trained, c, tf.forward(trained, c, batch)[0])
 
+    def loss(c, x):
+        with torch.no_grad():
+            return tf.lm_loss(trained, c, x).item()
+
     # per-token logits, as phase 12 holds them: within 2**-4 of the largest
     err, rel = errors(logits(cfg), logits(ref_cfg))
     assert rel <= SERVE_RTOL, (arch, "kernel vs reference logits", err, rel)
-    # the loss and its gradient, within 4x the sound runs' readings
+    # the gradient on client 0's batch and the mean loss over every batch,
+    # within 4x the sound runs' readings
     loss_k, grads_k = loss_and_grads(cfg, leaves, treedef, batch)
     loss_r, grads_r = loss_and_grads(ref_cfg, leaves, treedef, batch)
+    pairs = [(loss_k, loss_r)] + [(loss(cfg, x), loss(ref_cfg, x)) for x in batches[1:]]
+    gaps = ", ".join(f"{abs(k - r) / abs(r):.4g}" for k, r in pairs)
+    loss_k, loss_r = (sum(p[i] for p in pairs) / len(pairs) for i in (0, 1))
     loss_rel = abs(loss_k - loss_r) / abs(loss_r)
     grad_rel = _tree_gap(grads_k, grads_r)
     print(f"train[{arch}]: client 0's trained model, kernel path against the reference "
           f"path: logits max_abs_err {err:.4g}, relative {rel:.4g} (tol {SERVE_RTOL:.4g}); "
-          f"loss {loss_k:.6f} / {loss_r:.6f} (rel diff {loss_rel:.4g}, tol "
-          f"{TRAIN_LOSS_RTOL:.4g}); gradient |g_k - g_r| / |g_r| {grad_rel:.4g} (tol "
-          f"{TRAIN_GRAD_RTOL:.4g}) over {len(leaves)} leaves; phase "
-          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
+          f"mean loss over {len(pairs)} client batches {loss_k:.6f} / {loss_r:.6f} (rel diff "
+          f"{loss_rel:.4g}, tol {TRAIN_LOSS_RTOL:.4g}; each batch's {gaps}); gradient "
+          f"|g_k - g_r| / |g_r| {grad_rel:.4g} (tol {TRAIN_GRAD_RTOL:.4g}) over "
+          f"{len(leaves)} leaves; phase {time.perf_counter() - t_phase:.1f}s", flush=True)
     assert loss_rel <= TRAIN_LOSS_RTOL, (arch, loss_k, loss_r, loss_rel)
     assert grad_rel <= TRAIN_GRAD_RTOL, (arch, "gradient", grad_rel)
-    del trained, batch, leaves, grads_k, grads_r
+    del trained, batch, batches, leaves, grads_k, grads_r
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3577,11 +3655,9 @@ def main():
     # the LM slice's gemma3-1b (H = 4 over KV = 1, D = 256; 4 full-attention
     # layers, 22 at window 512), then zamba2's shared attention at D = 80
     rec.update(time_flash(4, 1, 256, (None, 512), seed=13))
-    for name, r in time_flash(32, 32, 80, (None,), seed=14).items():
-        rec[name]["d80"] = r
-    # phase 19's zamba2 training rank at m = 2 (H = KV = 16)
-    for name, r in time_flash(16, 16, 80, (None,), seed=15).items():
-        rec[name]["d80_rank"] = r
+    for key, recs in time_flash_other_shapes().items():
+        for name, r in recs.items():
+            rec[name][key] = r
     rec["flash_fwd"]["q_offset"] = time_flash_offset()
     for name, err in worst.items():
         rec[name]["max_abs_err"] = err

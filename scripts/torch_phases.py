@@ -4,7 +4,8 @@ after building the four CUDA sources:
     python scripts/torch_phases.py gloo_probe async tp_serve tp_train
     python scripts/torch_phases.py ptxas flash_offset flash_one_seed \
         flash_offset_times tp_serve
-    python scripts/torch_phases.py ptxas flash_d80 flash_times
+    python scripts/torch_phases.py ptxas flash_narrow flash_offset flash_times \
+        flash_offset_times
 
 Phases (``PHASES``): ``gloo_probe`` (gloo's all-reduce between two
 processes sharing the card: ms a call, a 9 KB and a 9.4 MB bf16 tensor, on
@@ -12,13 +13,18 @@ the card, on the host and staged through the host by hand), ``ptxas``
 (ptxas's report of the tensor-core flash kernels), ``flash_offset`` and
 ``flash_offset_times`` (phase 3's K5 query-offset checks and times),
 ``flash_one_seed`` (one seed of ``check_flash``, the launches without an
-offset), ``flash_d80`` (``check_flash``'s bf16 D = 80 cases at every
-seed), ``flash_times`` (phase 3's times at D = 80: ``time_flash`` at
-zamba2's H = KV = 32 and phase 19's rank, 16, beside SDPA), ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
-two gloo processes) and ``tp_train`` (phase 19).  From ``async`` on,
-cuDNN is deterministic, as in ``chip_smoke.py`` from phase 8 on.
+offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64 and 80, at
+every seed), ``flash_times`` (phase
+3's times: ``time_flash`` at gemma3-1b's full and window-512 layers, then
+``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
+rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's
+prefill, beside SDPA), ``train`` (phase 13), ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
+two gloo processes) and ``tp_train`` (phase 19).  From ``train`` on,
+cuDNN is deterministic, as in ``chip_smoke.py`` from phase 8 on.  Prints
+the card's name and power limit first.
 """
 import datetime
+import subprocess
 import sys
 import time
 from pathlib import Path
@@ -71,10 +77,10 @@ PHASES = {
     "flash_offset": (cs.check_flash_offset, False),
     "flash_one_seed": (lambda: cs.check_flash(seeds=(12,)), False),
     "flash_offset_times": (cs.time_flash_offset, False),
-    "flash_d80": (lambda: cs.check_flash(cases=cs.D80_CASES), False),
-    "flash_times": (lambda: {
-        "d80": cs.time_flash(32, 32, 80, (None,), seed=14),
-        "d80_rank": cs.time_flash(16, 16, 80, (None,), seed=15)}, False),
+    "flash_narrow": (lambda: cs.check_flash(cases=cs.NARROW_CASES), False),
+    "flash_times": (lambda: {"gemma3-1b": cs.time_flash(4, 1, 256, (None, 512), seed=13),
+                             **cs.time_flash_other_shapes()}, False),
+    "train": (lambda: {a: cs.arch_train_run(a) for a in cs.ARCH_TRAIN}, True),
     "async": (cs.async_run, True),
     "tp_serve": (_tp_serve, True),
     "tp_train": (cs.tp_train_run, True),
@@ -88,6 +94,8 @@ def main(argv=None):
         raise SystemExit(f"name phases from {tuple(PHASES)}; unknown: {unknown}")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
     t0 = time.perf_counter()
     cs.kernel_build.build(cs.ops.SOURCE, cs.rms_ops.SOURCE, cs.flash_ops.SOURCE,
                           cs.flash_ops.SM90_SOURCE)

@@ -39,7 +39,11 @@
 //    scores, the mask, the online softmax in registers in the accumulator's
 //    layout, P rounded to bf16 in registers (where the model's reference
 //    rounds it) as the A operand of O += P V, V the transposed B operand;
-//    the two warpgroups never wait for each other;
+//    the two warpgroups never wait for each other.  At D = 128 and 256
+//    (fwd_kernel) K/V stream in 64-key tiles and each tile's products are
+//    waited for in turn; at D = 64 and 80 (fwd_narrow_kernel, below) in
+//    128-key tiles at the true width, the next tile's S and this tile's
+//    exp overlapping the products;
 //  - K7: one block per (batch, query head, 64-key tile), K and V resident,
 //    Q/dO tiles of 64 queries streamed.  Each consumer warpgroup computes
 //    32 query columns of S^T = K Q^T and dP^T = V dO^T, then P^T and
@@ -59,7 +63,8 @@
 //  - masked scores never enter exp (p = 0; a row with no visible key yet
 //    keeps m = -inf, l = 0, alpha = 1), and the window prunes tiles exactly:
 //    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (q0 the
-//    block's first absolute position, the last clamped to the last query's) and K6 the
+//    block's first absolute position, the last clamped to the last query's;
+//    128-key tiles at D = 64 and 80) and K6 the
 //    same range in 32-key tiles (128 at D = 80; each warpgroup computes only
 //    those its 64 rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64
 //    (at D = 80 the same for the block's 128 keys and for each warpgroup's
@@ -70,14 +75,16 @@
 //    block owns its dq rows.  Every sum has one order, so results are
 //    bitwise run to run.
 //
-// A head_dim that is not a multiple of 64 (zamba2's D = 80) keeps the tensor
-// maps at the true D, and K5 pads every shared tile to DP = 64 * ceil(D / 64)
-// columns: the last 64-column box reaches past D, and TMA fills the columns
-// D .. DP - 1 with zeros.  The products that reduce over D (S = Q K^T) stop
-// at D, so they are exact and do no padded work; O += P V runs at N = DP,
-// since a 128-byte-swizzled MN-major operand comes in 64-column blocks, and
-// its columns past D are zeros that no store writes (every global row offset
-// and store loop uses the true D): 128 columns of work for 80 useful ones.
+// K5 at D = 64 and 80 runs a kernel of its own (fwd_narrow_kernel, below).
+// What bounds it: at zamba2's shape (B = 2, S = 2048, H = KV = 32, D = 80)
+// 4D flops a visible pair put the bound at 0.043 ms of tensor-core work, but
+// at D <= 80 a 128-key tile's 128 exps a row keep the SM's exp units about as
+// busy as its products keep the tensor cores, so the design overlaps the two
+// and keeps the elementwise step short: tiles at the true width (at D = 80 a
+// 64-column and a 16-column block, no padded columns), 128-key K/V tiles
+// through a 4-stage ring, the next tile's S issued before this tile's P V is
+// waited for, and no branch per element.  (fwd_kernel<80> padded O += P V
+// to 128 columns, 1.3x the counted work, and waited on each product.)
 //
 // K6 and K7 at D = 80 run kernels of their own (dq_d80_kernel,
 // dkv_d80_kernel, below), on tiles held at 80 columns: a 64-column block
@@ -115,9 +122,6 @@ constexpr int kThreads = kConsumers + 128;    // and the producer warpgroup
 constexpr int kTile = 64;  // rows of a K/V or streamed Q/dO tile; wgmma's M
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
-
-// Columns of a shared tile for head_dim D: whole 64-column swizzle blocks.
-__host__ __device__ constexpr int padded(int d) { return (d + 63) / 64 * 64; }
 
 struct Shape {
   int b, s, h, kv;
@@ -170,14 +174,14 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, u
       : "memory");
 }
 
-// A (rows, D) tile of a (B, S, heads, D) tensor: rows row0 .. row0 + rows - 1
-// of head `head`, as padded(D)/64 boxes of 64 columns into the swizzled
-// column blocks (columns past D arrive as zeros).
+// A (rows, D) tile of a (B, S, heads, D) tensor, D a multiple of 64: rows
+// row0 .. row0 + rows - 1 of head `head`, as D/64 boxes of 64 columns into
+// the swizzled column blocks.
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, uint32_t bar,
                                          int head, int row0, int b) {
 #pragma unroll
-  for (int cb = 0; cb < padded(D) / 64; ++cb) tma_load(dst + cb * ROWS * 128, map, bar, cb * 64, head, row0, b);
+  for (int cb = 0; cb < D / 64; ++cb) tma_load(dst + cb * ROWS * 128, map, bar, cb * 64, head, row0, b);
 }
 
 __device__ __forceinline__ void fence_async_shared() {
@@ -493,8 +497,8 @@ __device__ __forceinline__ uint32_t smem_base(uint8_t* raw) {
 template <int D>
 struct FwdLayout {
   static constexpr int kQRows = 2 * kTile;   // one query tile: two warpgroups' rows
-  static constexpr int kQ = kQRows * padded(D) * 2;
-  static constexpr int kKV = kTile * padded(D) * 2;  // one K or V tile
+  static constexpr int kQ = kQRows * D * 2;
+  static constexpr int kKV = kTile * D * 2;  // one K or V tile
   static constexpr int kBars = kQ + 4 * kKV;  // q_full, kv_full[2], kv_empty[2]
   static constexpr int kBytes = kBars + 5 * 8 + 1024;  // + alignment slack
 };
@@ -505,8 +509,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, Shape sh) {
   using L = FwdLayout<D>;
-  constexpr int DP = padded(D);
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  static_assert(D % 64 == 0, "whole 64-column swizzle blocks (D = 80 has kernels of its own)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sKV = base + L::kQ;  // stage st: K at sKV + 2 st kKV, V after
@@ -563,9 +566,9 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const bool capped = sh.softcap > 0.f;
   const float score_mul = capped ? sh.scale / sh.softcap : sh.scale * kLog2e;
   const float cap_mul = sh.softcap * kLog2e;
-  float acc[DP / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  float acc[D / 2], m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(q_full, 0);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
@@ -626,14 +629,14 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 #pragma unroll
       for (int j = 0; j < 16; ++j) pa[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
 #pragma unroll
-      for (int j = 0; j < DP / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
+      for (int j = 0; j < D / 2; ++j) acc[j] *= alpha[(j >> 1) & 1];
 
       // O += P V: P from registers, V MN-major
       fence_regs(acc);
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kTile / 16; ++kk)
-        wgmma_rs<DP>(acc, pa + 4 * kk, desc(st + L::kKV + kk * 2048, kTile * 128, 1024), 1);
+        wgmma_rs<D>(acc, pa + 4 * kk, desc(st + L::kKV + kk * 2048, kTile * 128, 1024), 1);
       wgmma_commit_and_wait();
       fence_regs(acc);
     }
@@ -665,7 +668,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
 
 template <int D>
 struct DkvLayout {
-  static constexpr int kT = kTile * padded(D) * 2;  // one 64-row bf16 tile
+  static constexpr int kT = kTile * D * 2;  // one 64-row bf16 tile
   static constexpr int kPT = kTile * kTile * 2;  // P^T or dS^T
   static constexpr int kStages = 2 * kT;         // + Q, dO of stage 1 after stage 0
   static constexpr int kP = 2 * kT + 2 * kStages;  // P^T[2], dS^T[2] after K, V, stages
@@ -682,8 +685,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            const float* __restrict__ lse, const float* __restrict__ delta,
            void* __restrict__ dk, void* __restrict__ dv, Shape sh) {
   using L = DkvLayout<D>;
-  constexpr int DP = padded(D);
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  static_assert(D % 64 == 0, "whole 64-column swizzle blocks (D = 80 has kernels of its own)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -734,9 +736,9 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
   const bool capped = sh.softcap > 0.f;
   const float score_mul = capped ? sh.scale / sh.softcap : sh.scale;
   const int key[2] = {k0 + acc_row(0, warp, lane), k0 + acc_row(2, warp, lane)};
-  float acc[DP / 2];  // warpgroup 0: dV, warpgroup 1: dK (unscaled)
+  float acc[D / 2];  // warpgroup 0: dV, warpgroup 1: dK (unscaled)
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(kv_full, 0);
   for (int qt = qt_first; qt <= qt_last; ++qt) {
@@ -808,7 +810,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk)
-      wgmma_ss<DP, 1>(acc, desc(a_tile + kk * 32, 16, 1024),
+      wgmma_ss<D, 1>(acc, desc(a_tile + kk * 32, 16, 1024),
                      desc(b_tile + kk * 2048, kTile * 128, 1024), 1);
     wgmma_commit_and_wait();
     fence_regs(acc);
@@ -844,8 +846,8 @@ constexpr int kDqKeys = 32;  // keys of a K6 K/V tile
 template <int D>
 struct DqLayout {
   static constexpr int kRows = 2 * kTile;          // one query tile: two warpgroups' rows
-  static constexpr int kQ = kRows * padded(D) * 2;     // the Q or the dO tile
-  static constexpr int kKV = kDqKeys * padded(D) * 2;  // one K or V tile
+  static constexpr int kQ = kRows * D * 2;     // the Q or the dO tile
+  static constexpr int kKV = kDqKeys * D * 2;  // one K or V tile
   static constexpr int kBars = 2 * kQ + 4 * kKV;   // qd_full, kv_full[2], kv_empty[2]
   static constexpr int kBytes = kBars + 5 * 8 + 1024;
 };
@@ -858,8 +860,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
           const float* __restrict__ lse, const float* __restrict__ delta,
           void* __restrict__ dq, Shape sh) {
   using L = DqLayout<D>;
-  constexpr int DP = padded(D);
-  static_assert(D % 16 == 0, "head_dim must be a multiple of 16");
+  static_assert(D % 64 == 0, "whole 64-column swizzle blocks (D = 80 has kernels of its own)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sdO = base + L::kQ;
@@ -920,9 +921,9 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
 
   const bool capped = sh.softcap > 0.f;
   const float score_mul = capped ? sh.scale / sh.softcap : sh.scale;
-  float acc[DP / 2];  // dq / scale
+  float acc[D / 2];  // dq / scale
 #pragma unroll
-  for (int i = 0; i < DP / 2; ++i) acc[i] = 0.f;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
 
   mbar_wait(qd_full, 0);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
@@ -980,7 +981,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kDqKeys / 16; ++kk)
-        wgmma_rs<DP>(acc, da + 4 * kk, desc(sK + kk * 2048, kDqKeys * 128, 1024), 1);
+        wgmma_rs<D>(acc, da + 4 * kk, desc(sK + kk * 2048, kDqKeys * 128, 1024), 1);
       wgmma_commit_and_wait();
       fence_regs(acc);
     }
@@ -1037,17 +1038,21 @@ constexpr int kDq80Keys = 128;   // keys of a K6 K/V tile at D = 80
 constexpr int kDkv80Keys = 128;  // keys of a K7 block at D = 80: 64 a warpgroup
 constexpr int kStages80 = 4;     // stages of the D = 80 rings
 
-// A (rows, 80) bf16 tile of rows * 160 bytes: a 64-column block, 128-byte
-// swizzled (rows x 128 bytes), then a 16-column block, 32-byte swizzled (rows
-// x 32 bytes; the 16-byte chunk c of row r at chunk c ^ ((r / 4) % 2)).
-struct Tile80 {
-  static constexpr int bytes(int rows) { return rows * 2 * kD80; }
+// A (rows, D) bf16 tile, D = 64 or 80, of rows * 2D bytes: a 64-column block,
+// 128-byte swizzled (rows x 128 bytes), then at D = 80 a 16-column block,
+// 32-byte swizzled (rows x 32 bytes; the 16-byte chunk c of row r at chunk
+// c ^ ((r / 4) % 2)).  The forward at D = 64 (fwd_narrow_kernel) uses the
+// first block alone.
+template <int D>
+struct TileN {
+  static_assert(D == 64 || D == kD80, "a TileN holds 64 or 80 columns");
+  static constexpr int bytes(int rows) { return rows * 2 * D; }
   // Rows row0 .. row0 + rows - 1 of `head`: `wide` reads boxes of 64
-  // columns, `narrow` boxes of 16.
+  // columns, `narrow` boxes of 16 (not read at D = 64).
   __device__ static void load(uint32_t dst, const CUtensorMap* wide, const CUtensorMap* narrow,
                               uint32_t bar, int rows, int head, int row0, int b) {
     tma_load(dst, wide, bar, 0, head, row0, b);
-    tma_load(dst + rows * 128, narrow, bar, 64, head, row0, b);
+    if constexpr (D == kD80) tma_load(dst + rows * 128, narrow, bar, 64, head, row0, b);
   }
   // K-major operand: columns 16 kk .. 16 kk + 15 of rows r0 .. of a tile of
   // `rows` rows.
@@ -1055,17 +1060,20 @@ struct Tile80 {
     if (kk < 4) return desc(tile + r0 * 128 + kk * 32, 16, 1024);
     return desc(tile + rows * 128 + r0 * 32, 16, 256, kSw32);
   }
-  // acc (64 x 80) += A B: A (64 x 16) from the registers a, B the rows 16 kk
+  // acc (64 x D) += A B: A (64 x 16) from the registers a, B the rows 16 kk
   // .. 16 kk + 15 of a tile of `rows` rows (MN-major): m64n64 on the 64-column
-  // block, m64n16 on the 16-column one, the accumulator's columns in order.
-  __device__ static void mma(float (&acc)[kD80 / 2], const uint32_t* a, uint32_t tile, int rows,
+  // block, at D = 80 m64n16 on the 16-column one, the accumulator's columns in
+  // order.
+  __device__ static void mma(float (&acc)[D / 2], const uint32_t* a, uint32_t tile, int rows,
                              int kk) {
     wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(acc), a,
                  desc(tile + kk * 2048, rows * 128, 1024), 1);
-    wgmma_rs<16>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
-                 desc(tile + rows * 128 + kk * 512, rows * 32, 256, kSw32), 1);
+    if constexpr (D == kD80)
+      wgmma_rs<16>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
+                   desc(tile + rows * 128 + kk * 512, rows * 32, 256, kSw32), 1);
   }
 };
+using Tile80 = TileN<kD80>;
 
 // 2^x without branches (a result below 2^-126 flushes to 0; 2^-inf = 0).
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -1505,6 +1513,416 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   }
 }
 
+// -- K5 at head_dim 64 and 80 ---------------------------------------------------
+//
+// fwd_kernel above was shaped for D = 256, where the products dominate.  At
+// D <= 80 they are short, and the exp, the mask and the softmax's bookkeeping
+// are as much of a tile's time as the products: 128 exps a row of a 128-key
+// tile take the SM's 16 exp units about as long as the tile's two products
+// take its tensor cores; and a short block's start (its Q and first K/V
+// loads) and end (its stores) weigh on it.  So the narrow forward overlaps
+// them all:
+//  - tiles at the true width (TileN<D>: Q, K and V at 80 columns as a
+//    64-column and a 16-column block, or at 64 as one), S = Q K^T at k = D and
+//    O += P V at N = D: no padded work;
+//  - work items of one (batch*head, 128-query tile), two consumer warpgroups
+//    of 64 rows each, as fwd_kernel, but persistent blocks, one an SM, that
+//    walk the items heaviest first (NarrowItem): two Q buffers and a K/V ring
+//    that runs on across items, so the next item's loads overlap this one's
+//    last tiles and its stores;
+//  - K/V in 128-key tiles (S at m64n128, 64 f32 a thread) through a 4-stage
+//    ring (40 KB a stage at D = 80, 32 KB at 64);
+//  - inside a warpgroup, tile t's S = Q K^T is issued before tile t-1's
+//    O += P V, O is rescaled while S runs, and tile t's exp and mask run
+//    while P V runs (two commit groups, wait_group 1); P is packed to bf16
+//    once P V has read the last P, and a stage is released after the wait
+//    that saw the P V that read it;
+//  - between the warpgroups, turns (named barriers) at issuing products, so
+//    one warpgroup's products run while the other's softmax does;
+//  - an elementwise step with no branch inside: the softcap and "is this
+//    tile masked for my rows" are uniform choices made once a tile; the mask
+//    is an exponent of -inf through ex2.approx.ftz; the row max is taken on
+//    the raw scores, so the scale (log2 e folded in) and the max go into one
+//    FFMA (the scale must be positive); a row that has seen no visible key
+//    subtracts a stand-in of 0, chosen once a row, so p and alpha are 0 (on
+//    an O and l still 0) and never NaN.
+// Key tiles start at absolute multiples of 128 and a query offset is a
+// multiple of the 128-row query tile, so each row of an offset launch visits
+// the same tiles in the same order as in the launch without one.  The
+// epilogue, the LSE and the row-with-no-visible-key contract are fwd_kernel's.
+
+constexpr int kFwdNarrowKeys = 128;  // keys of a K/V tile of fwd_narrow_kernel
+constexpr int kFwdNarrowStages = 4;
+
+template <int D>
+struct FwdNarrowLayout {
+  static constexpr int kQRows = 2 * kTile;                       // two warpgroups' rows
+  static constexpr int kQ = TileN<D>::bytes(kQRows);             // one of two Q tiles
+  static constexpr int kKV = TileN<D>::bytes(kFwdNarrowKeys);   // one K or V tile
+  static constexpr int kStage = 2 * kKV;                         // K, then V
+  // q_full[2], q_empty[2], full[], empty[]
+  static constexpr int kBars = 2 * kQ + kFwdNarrowStages * kStage;
+  static constexpr int kBytes = kBars + (4 + 2 * kFwdNarrowStages) * 8 + 1024;
+};
+
+// A block of fwd_narrow_kernel is persistent: it runs the work items (one
+// (batch*head, 128-query tile) each) k = 0, 1, .. of a list, item k*P + c on
+// even rounds and k*P + P-1-c on odd ones (c the block, P the blocks).  The
+// list takes the heads in groups of hg = P / n_qt (P is launched as hg n_qt
+// where n_qt <= the SMs), each group's items heaviest first: a round is then
+// one group, whose K/V the L2 holds while its blocks read them, and over two
+// rounds a block takes a heavy item and a light one, so that each block's
+// total is close to the mean.  (Heaviest first over all heads kept every
+// head's K/V in use at once, 42 MB at zamba2's shape, and read them slower.)
+// Where n_qt > P (S > 16,896 on 132 SMs) a round holds part of one head, and
+// the list is heaviest first over all heads, one group.
+struct NarrowItem {
+  int b, h, kvh, lq0, q0, kt_first, kt_last;  // lq0 local, q0 absolute
+};
+
+__device__ __forceinline__ int narrow_item_index(int k, int c, int p) {
+  return k * p + ((k & 1) ? p - 1 - c : c);
+}
+
+__device__ __forceinline__ NarrowItem narrow_item(int w, const Shape& sh, int n_qt, int p) {
+  NarrowItem it;
+  // heads in groups of hg = p / n_qt (all of them where p < n_qt), each
+  // group's items heaviest first
+  const int bhs = sh.b * sh.h, hg = p >= n_qt ? min(bhs, p / n_qt) : bhs;
+  const int group = w / (hg * n_qt), in_group = min(hg, bhs - group * hg);
+  const int r = w - group * hg * n_qt, bh = group * hg + r % in_group;
+  it.b = bh / sh.h;
+  it.h = bh % sh.h;
+  it.kvh = it.h / (sh.h / sh.kv);
+  it.lq0 = (n_qt - 1 - r / in_group) * 2 * kTile;
+  it.q0 = sh.q0 + it.lq0;
+  it.kt_first = sh.window > 0 ? max(0, it.q0 - sh.window + 1) / kFwdNarrowKeys : 0;
+  it.kt_last = (min(it.q0 + 2 * kTile, sh.q0 + sh.sq) - 1) / kFwdNarrowKeys;
+  return it;
+}
+
+// The online softmax of a 64 x 128 score tile in the accumulator's layout
+// (element j at row rows[(j / 2) % 2], key k0 + acc_col(j)), with no branch
+// inside (kCapped, kMasked uniform).  s holds the raw scores Q K^T and leaves
+// with p = 2^(x - m) in f32, x the log2-domain score (raw * emul, or c log2 e
+// tanh(raw scale / c) with emul 1), -inf where the mask hides the pair; m
+// (log2 domain), l and alpha (the factor O still owes) are per row.
+template <bool kCapped, bool kMasked, int NE>
+__device__ __forceinline__ void online_softmax(float (&s)[NE], float (&m)[2], float (&l)[2],
+                                               float (&alpha)[2], float mul, float cap_mul,
+                                               float emul, const int (&rows)[2], int k0,
+                                               int lane, int window) {
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < NE; ++j) {
+    float x = s[j];
+    if (kCapped) x = cap_mul * tanhf(x * mul);
+    if (kMasked) {
+      const int qi = rows[(j >> 1) & 1], kj = k0 + acc_col(j, lane);
+      if (!(kj <= qi && qi - kj < window)) x = -INFINITY;
+    }
+    s[j] = x;
+    mx[(j >> 1) & 1] = fmaxf(mx[(j >> 1) & 1], x);
+  }
+  float m_use[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r] * emul);
+    m_use[r] = m_new == -INFINITY ? 0.f : m_new;  // no visible key yet: a finite stand-in
+    alpha[r] = exp2_ftz(m[r] - m_use[r]);
+    m[r] = m_new;
+    l[r] *= alpha[r];
+  }
+#pragma unroll
+  for (int j = 0; j < NE; ++j) {
+    const int r = (j >> 1) & 1;
+    const float p = exp2_ftz(fmaf(s[j], emul, -m_use[r]));
+    l[r] += p;  // this thread's share of the row; summed over the quad at the end
+    s[j] = p;
+  }
+}
+
+// S = Q K^T of one 128-key tile (a 64-row warpgroup's slice), issued and
+// committed as one group.
+template <int D>
+__device__ __forceinline__ void issue_scores(float (&s)[kFwdNarrowKeys / 2], uint32_t sQ,
+                                             uint32_t sK, int wg) {
+  using T = TileN<D>;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk)
+    wgmma_ss<kFwdNarrowKeys, 0>(s, T::kmajor(sQ, FwdNarrowLayout<D>::kQRows, wg * kTile, kk),
+                                T::kmajor(sK, kFwdNarrowKeys, 0, kk), kk > 0);
+  wgmma_commit();
+}
+
+// O += P V of one 128-key tile, P the bf16 A operands in registers, issued
+// and committed as one group.  O (just rescaled) and P (just packed) are
+// pinned first: left free, the compiler may sink a write to them below the
+// fence (at D = 80, into the 16-column product's operands), and ptxas then
+// serializes every wgmma of the kernel.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[kFwdNarrowKeys / 4],
+                                         uint32_t sV) {
+  fence_regs(acc);
+  fence_regs(pa);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kFwdNarrowKeys / 16; ++kk)
+    TileN<D>::mma(acc, pa + 4 * kk, sV, kFwdNarrowKeys, kk);
+  wgmma_commit();
+}
+
+// The two consumer warpgroups take turns at issuing products (named
+// barriers 2 and 3): warpgroup w waits on barrier 2 + w, issues, and lets the
+// other go on barrier 3 - w.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(3 - wg), "n"(kConsumers) : "memory");
+}
+
+// What a consumer warpgroup of fwd_narrow_kernel holds across its tiles:
+// O (f32, 64 x D), the scores S or probabilities P of the tile in hand
+// (f32), P as bf16 pairs (the A operand of O += P V), and per row m (log2
+// domain), l and alpha (the factor O still owes).
+template <int D>
+struct NarrowState {
+  float acc[D / 2], s[kFwdNarrowKeys / 2], m[2], l[2], alpha[2];
+  uint32_t pa[kFwdNarrowKeys / 4];
+};
+
+// What stays fixed over a warpgroup's run.
+struct NarrowConst {
+  uint32_t sQ;
+  int wg, lane, window, rows[2];
+  float mul, cap_mul, emul;  // scale / c, c log2 e, raw score -> log2 domain
+};
+
+// One tile of a warpgroup's run: S = Q K^T of this tile (K at sK); unless
+// kFirst, O rescaled and O += P V of the last tile (V at sV_prev) issued
+// behind it; this tile's softmax while P V runs; the last tile's stage
+// released (empty_prev) once P V is done; P packed to bf16.  The uniform
+// choices are template arguments, made by the caller once a tile around the
+// whole step, so no branch is taken while a product is in flight.
+template <int D, bool kCapped, bool kMasked, bool kFirst>
+__device__ __forceinline__ void narrow_tile(NarrowState<D>& st, const NarrowConst& c,
+                                            uint32_t sK, uint32_t sV_prev, uint32_t empty_prev,
+                                            int k0) {
+  turn_wait(c.wg);
+  issue_scores<D>(st.s, c.sQ, sK, c.wg);
+  if (kFirst) {
+    turn_pass(c.wg);
+    wgmma_wait<0>();
+  } else {
+#pragma unroll
+    for (int j = 0; j < D / 2; ++j) st.acc[j] *= st.alpha[(j >> 1) & 1];
+    issue_pv<D>(st.acc, st.pa, sV_prev);
+    turn_pass(c.wg);
+    wgmma_wait<1>();  // S is done; the last tile's P V runs on
+  }
+  fence_regs(st.s);
+  online_softmax<kCapped, kMasked>(st.s, st.m, st.l, st.alpha, c.mul, c.cap_mul, c.emul, c.rows,
+                                   k0, c.lane, c.window);
+  if (!kFirst) {
+    wgmma_wait<0>();  // the last tile's P V is done: its stage and P are free
+    fence_regs(st.acc);
+    fence_regs(st.pa);
+    mbar_arrive(empty_prev);
+  }
+#pragma unroll
+  for (int j = 0; j < kFwdNarrowKeys / 4; ++j) st.pa[j] = pack_bf16(st.s[2 * j], st.s[2 * j + 1]);
+}
+
+// narrow_tile with its uniform choices made: the softcap, and whether the
+// mask hides a pair of the tile from a row of this warpgroup.
+template <int D, bool kFirst>
+__device__ __forceinline__ void narrow_tile_any(bool capped, bool masked, NarrowState<D>& st,
+                                                const NarrowConst& c, uint32_t sK,
+                                                uint32_t sV_prev, uint32_t empty_prev, int k0) {
+  if (capped) {
+    if (masked)
+      narrow_tile<D, true, true, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+    else
+      narrow_tile<D, true, false, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+  } else {
+    if (masked)
+      narrow_tile<D, false, true, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+    else
+      narrow_tile<D, false, false, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+  }
+}
+
+// Each map comes twice: 64-column boxes and 16-column boxes (at D = 64 the
+// second is the first again, unread).  Launched with at most one block an
+// SM; the blocks walk the work items (NarrowItem).  The K/V ring runs on
+// across items, and Q has two buffers, so the next item's Q and first K/V
+// tiles load while this item's last tiles compute and its O is stored.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
+                  const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
+                  const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
+                  bf16* __restrict__ o, float* __restrict__ lse, Shape sh) {
+  using L = FwdNarrowLayout<D>;
+  using T = TileN<D>;
+  constexpr int NK = kFwdNarrowKeys, NS = kFwdNarrowStages;
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  const uint32_t base = smem_base(smem_raw);
+  // Q buffer qb at base + qb kQ; stage st: K at sKV + st kStage, V after it
+  const uint32_t sKV = base + 2 * L::kQ;
+  const uint32_t q_full = base + L::kBars, q_empty = q_full + 16, full = q_empty + 16,
+                 empty = full + 8 * NS;
+  const int n_qt = (sh.sq + L::kQRows - 1) / L::kQRows;
+  const int n_items = sh.b * sh.h * n_qt, c0 = blockIdx.x, p = gridDim.x;
+
+  if (threadIdx.x == 0) {
+    for (int qb = 0; qb < 2; ++qb) {
+      mbar_init(q_full + 8 * qb, 1);
+      mbar_init(q_empty + 8 * qb, kConsumers);
+    }
+    for (int st = 0; st < NS; ++st) {
+      mbar_init(full + 8 * st, 1);
+      mbar_init(empty + 8 * st, kConsumers);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {  // producer warpgroup; one thread starts every copy
+    set_max_registers_dec<kProducerRegs>();
+    if (threadIdx.x == 0) {
+      int g = 0;  // K/V tiles loaded so far: the ring's running count
+      for (int k = 0;; ++k) {
+        const int w = narrow_item_index(k, c0, p);
+        if (w >= n_items) break;
+        const NarrowItem it = narrow_item(w, sh, n_qt, p);
+        const int qb = k & 1;
+        if (k >= 2) mbar_wait(q_empty + 8 * qb, ((k >> 1) - 1) & 1);
+        mbar_expect_tx(q_full + 8 * qb, L::kQ);
+        T::load(base + qb * L::kQ, &tq, &tq16, q_full + 8 * qb, L::kQRows, it.h, it.lq0, it.b);
+        for (int kt = it.kt_first; kt <= it.kt_last; ++kt, ++g) {
+          const int st = g % NS;
+          if (g >= NS) mbar_wait(empty + 8 * st, (g / NS - 1) & 1);
+          const uint32_t bar = full + 8 * st, dst = sKV + st * L::kStage;
+          mbar_expect_tx(bar, L::kStage);
+          T::load(dst, &tk, &tk16, bar, NK, it.kvh, kt * NK, it.b);
+          T::load(dst + L::kKV, &tv, &tv16, bar, NK, it.kvh, kt * NK, it.b);
+        }
+      }
+    }
+    return;
+  }
+  set_max_registers_inc<kConsumerRegs>();
+
+  const int t = threadIdx.x - 128;
+  const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
+  const long long q_rs = (long long)sh.h * D;
+  const bool capped = sh.softcap > 0.f;
+  const int window = sh.window > 0 ? sh.window : INT_MAX, q_end = sh.q0 + sh.sq;
+  if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
+  int g = 0;  // the K/V tiles of the items before this one
+  for (int k = 0;; ++k) {
+    const int w = narrow_item_index(k, c0, p);
+    if (w >= n_items) break;
+    const NarrowItem it = narrow_item(w, sh, n_qt, p);
+    const int qb = k & 1;
+    const int r0 = it.q0 + wg * kTile;  // this warpgroup's first row (absolute)
+    const bool live = r0 < q_end;
+    // this warpgroup's key tiles, a run inside the item's (none if no row of
+    // ours is a query)
+    const int wk_first =
+        live ? (sh.window > 0 ? max(0, r0 - sh.window + 1) / NK : 0) : it.kt_last + 1;
+    const int wk_last = live ? (min(r0 + kTile, q_end) - 1) / NK : it.kt_last;
+    const int row[2] = {r0 + acc_row(0, warp, lane), r0 + acc_row(2, warp, lane)};
+    const NarrowConst c = {base + qb * L::kQ, wg, lane, window, {row[0], row[1]},
+                           sh.scale / sh.softcap, sh.softcap * kLog2e,
+                           capped ? 1.f : sh.scale * kLog2e};
+    NarrowState<D> st;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) st.acc[i] = 0.f;
+    st.m[0] = st.m[1] = -INFINITY;
+    st.l[0] = st.l[1] = 0.f;
+    // some pair of the tile at k0 is hidden from a row of ours
+    auto masked = [&](int k0) { return !(k0 + NK - 1 <= r0 && r0 + kTile - 1 - k0 < window); };
+    // the ring's running count of the item's tile kt
+    auto ring = [&](int kt) { return g + kt - it.kt_first; };
+
+    // every thread waits for this item's Q, so its release below counts for
+    // this use of the buffer
+    mbar_wait(q_full + 8 * qb, (k >> 1) & 1);
+    // a stage none of our rows reads: wait for it, so that our arrival counts
+    // for this use of it, then release it
+    for (int kt = it.kt_first; kt < wk_first; ++kt) {
+      const int i = ring(kt);
+      mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
+      mbar_arrive(empty + 8 * (i % NS));
+      turn_wait(wg);  // an empty turn: each warpgroup takes one a tile of the item, and one more
+      turn_pass(wg);
+    }
+    if (wk_first <= wk_last) {
+      {
+        const int i = ring(wk_first);
+        mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
+        narrow_tile_any<D, true>(capped, masked(wk_first * NK), st, c,
+                                 sKV + (i % NS) * L::kStage, 0, 0, wk_first * NK);
+      }
+      for (int kt = wk_first + 1; kt <= wk_last; ++kt) {
+        const int i = ring(kt), prev = (i - 1) % NS;
+        mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
+        narrow_tile_any<D, false>(capped, masked(kt * NK), st, c, sKV + (i % NS) * L::kStage,
+                                  sKV + prev * L::kStage + L::kKV, empty + 8 * prev, kt * NK);
+      }
+      const int last = ring(wk_last) % NS;
+      turn_wait(wg);
+#pragma unroll
+      for (int j = 0; j < D / 2; ++j) st.acc[j] *= st.alpha[(j >> 1) & 1];
+      issue_pv<D>(st.acc, st.pa, sKV + last * L::kStage + L::kKV);
+      turn_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(st.acc);
+      fence_regs(st.pa);
+      mbar_arrive(empty + 8 * last);
+    } else {
+      turn_wait(wg);
+      turn_pass(wg);
+    }
+    for (int kt = wk_last + 1; kt <= it.kt_last; ++kt) {  // after our run: as before it
+      const int i = ring(kt);
+      mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
+      mbar_arrive(empty + 8 * (i % NS));
+      turn_wait(wg);
+      turn_pass(wg);
+    }
+    mbar_arrive(q_empty + 8 * qb);  // no product of ours reads this Q any more
+    g += it.kt_last - it.kt_first + 1;
+
+    if (!live) continue;
+    const long long q_off = ((long long)it.b * sh.sq * sh.h + it.h) * D;
+    const long long bh = (long long)it.b * sh.h + it.h;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float l = st.l[r];
+      l += __shfl_xor_sync(0xffffffffu, l, 1);
+      l += __shfl_xor_sync(0xffffffffu, l, 2);
+      if (row[r] >= q_end) continue;
+      const int local = row[r] - sh.q0;
+      const float lz = l == 0.f ? 1.f : l;
+      const float inv = 1.f / lz;
+      bf16* orow = o + q_off + (long long)local * q_rs;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * (lane & 3)) =
+            pack_bf16(st.acc[4 * n + 2 * r] * inv, st.acc[4 * n + 2 * r + 1] * inv);
+      if ((lane & 3) == 0) lse[bh * sh.sq + local] = (st.m[r] + log2f(lz)) * kLn2;
+    }
+  }
+  if (wg == 0) turn_wait(wg);
+}
+
 // dk/dv (B, S, KV, D) bf16 = sum over g = 0 .. G-1, in that order, of the f32
 // partials (B, S, H, D) of query heads kvh * G + g.  4 columns a thread.
 __global__ void __launch_bounds__(256)
@@ -1680,6 +2098,49 @@ int launch_dq<80>(const void* q, const void* k, const void* v, const void* dout,
                                             static_cast<const float*>(lse),
                                             static_cast<const float*>(delta), dq, sh);
   return (int)cudaGetLastError();
+}
+
+// K5 at D = 64 and 80: fwd_narrow_kernel.  Its softmax takes the row max on
+// the raw scores, so it takes a positive scale only.
+template <int D>
+int launch_fwd_narrow(const void* q, const void* k, const void* v, void* o, void* lse,
+                      const Shape& sh, cudaStream_t st) {
+  using L = FwdNarrowLayout<D>;
+  if (!(sh.scale > 0.f)) return (int)cudaErrorInvalidValue;
+  auto kernel = fwd_narrow_kernel<D>;
+  CUtensorMap m[6];
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const int rows = i == 0 ? L::kQRows : kFwdNarrowKeys, heads = i == 0 ? sh.h : sh.kv;
+    const int s = i == 0 ? sh.sq : sh.s;
+    if constexpr (D == kD80) {
+      if (int err = make_maps80(m + 2 * i, ptrs[i], sh.b, s, heads, rows)) return err;
+    } else {
+      if (int err = make_map(m + 2 * i, ptrs[i], sh.b, s, heads, D, rows)) return err;
+      m[2 * i + 1] = m[2 * i];
+    }
+  }
+  if (int err = prepare(kernel, L::kBytes)) return err;
+  int dev = 0, sms = 0;
+  if (int err = (int)cudaGetDevice(&dev)) return err;
+  if (int err = (int)cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) return err;
+  const int n_qt = (sh.sq + L::kQRows - 1) / L::kQRows, items = sh.b * sh.h * n_qt;
+  const int hg = n_qt <= sms ? min(sh.b * sh.h, sms / n_qt) : sh.b * sh.h;
+  kernel<<<min(items, n_qt <= sms ? hg * n_qt : sms), kThreads, L::kBytes, st>>>(
+      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<bf16*>(o), static_cast<float*>(lse), sh);
+  return (int)cudaGetLastError();
+}
+
+template <>
+int launch_fwd<64>(const void* q, const void* k, const void* v, void* o, void* lse,
+                   const Shape& sh, cudaStream_t st) {
+  return launch_fwd_narrow<64>(q, k, v, o, lse, sh, st);
+}
+
+template <>
+int launch_fwd<80>(const void* q, const void* k, const void* v, void* o, void* lse,
+                   const Shape& sh, cudaStream_t st) {
+  return launch_fwd_narrow<80>(q, k, v, o, lse, sh, st);
 }
 
 // Returns LAUNCH<D>(args...) for dtype 1 (bfloat16) and D in {64, 80, 128, 256}.

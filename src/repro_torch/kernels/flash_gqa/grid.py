@@ -8,8 +8,9 @@ against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
 own tiles and compute the exact tile range a window needs themselves (K5
 on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``,
 ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles`` are those ranges of the
-tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 80 too (K6's
-128-key tiles, K7's 128-key blocks of two warpgroups' 64 keys), written out
+tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 64 and 80 too
+(K5's 128-key tiles there; at 80 K6's 128-key tiles, K7's 128-key blocks of
+two warpgroups' 64 keys), written out
 so the CPU tests can hold them to the mask.  ``attention_pairs`` counts the
 (query, key) pairs causality and the window leave, the work any
 implementation must do (``chip_smoke.py``'s operation bounds), of every
@@ -76,6 +77,7 @@ def attention_pairs(s: int, window=None, q0: int = 0, sq=None) -> int:
 
 SM90_TILE = 64       # keys of a K5 K/V tile; keys and queries of a K7 tile
 SM90_FWD_ROWS = 128  # query rows of a K5 or K6 block (two warpgroups of 64)
+SM90_FWD_NARROW_KEYS = 128  # keys of a K5 K/V tile at head_dim 64 and 80 (fwd_narrow_kernel)
 SM90_DQ_KEYS = 32    # keys of a K6 K/V tile
 SM90_DQ80_KEYS = 128  # keys of a K6 K/V tile at head_dim 80 (dq_d80_kernel)
 SM90_DKV80_KEYS = 128  # keys of a K7 block at head_dim 80 (dkv_d80_kernel): 64 a warpgroup
@@ -92,14 +94,15 @@ def _key_tiles(q0: int, rows: int, s: int, window, keys: int) -> range:
 
 
 def sm90_fwd_key_tiles(r0: int, rows: int, s: int, window=None, q0: int = 0,
-                       sq=None) -> range:
-    """Key tiles (of 64 keys) that query rows r0 .. r0 + rows - 1 visit in
-    ``fwd_kernel``: a block's range at rows = 128, one warpgroup's (the
-    tiles it computes) at rows = 64.  Rows are the launch's, whose query 0
-    sits at position ``q0`` of the S keys and which holds ``sq`` queries
-    (None: S - q0); rows that all lie past the last query visit none."""
+                       sq=None, keys: int = SM90_TILE) -> range:
+    """Key tiles (of ``keys`` keys: 64 in ``fwd_kernel``, 128 at head_dim
+    64 and 80 in ``fwd_narrow_kernel``) that query rows r0 .. r0 + rows - 1
+    visit: a block's range at rows = 128, one warpgroup's (the tiles it
+    computes) at rows = 64.  Rows are the launch's, whose query 0 sits at
+    position ``q0`` of the S keys and which holds ``sq`` queries (None:
+    S - q0); rows that all lie past the last query visit none."""
     sq = s - q0 if sq is None else sq
-    return _key_tiles(q0 + r0, rows, q0 + sq, window, SM90_TILE)
+    return _key_tiles(q0 + r0, rows, q0 + sq, window, keys)
 
 
 def sm90_dq_key_tiles(q0: int, rows: int, s: int, window=None,
@@ -119,3 +122,33 @@ def sm90_dkv_query_tiles(kt: int, s: int, window=None, keys: int = SM90_TILE) ->
     k1 = min(k0 + keys, s) - 1
     last = min(s - 1, k1 + window - 1) if window else s - 1
     return range(k0 // SM90_TILE, last // SM90_TILE + 1)
+
+
+def sm90_fwd_narrow_blocks(b: int, h: int, n_qt: int, sms: int) -> list:
+    """The work of ``fwd_narrow_kernel``'s persistent blocks (K5 at head_dim
+    64 and 80): one list a block of its (batch*head, query tile) items, in
+    the order it runs them, for ``n_qt`` 128-row query tiles and ``sms``
+    SMs.  Heads go in groups of hg = sms // n_qt and the launch takes
+    hg * n_qt blocks (at most one an item); where n_qt > sms, ``sms``
+    blocks and one group of all heads.  The list holds each group's items
+    heaviest (last) query tile first; round k gives item k*P + c to block
+    c, or k*P + P-1-c on odd rounds."""
+    bhs = b * h
+    items = bhs * n_qt
+    hg = min(bhs, sms // n_qt) if n_qt <= sms else bhs
+    p = min(items, hg * n_qt if n_qt <= sms else sms)
+    hg = min(bhs, p // n_qt) if p >= n_qt else bhs  # as the kernel has it, from its blocks
+
+    def item(w):
+        group = w // (hg * n_qt)
+        in_group = min(hg, bhs - group * hg)
+        r = w - group * hg * n_qt
+        return group * hg + r % in_group, n_qt - 1 - r // in_group
+
+    blocks = [[] for _ in range(p)]
+    for k in range(_cdiv(items, p)):
+        for c in range(p):
+            w = k * p + (p - 1 - c if k & 1 else c)
+            if w < items:
+                blocks[c].append(item(w))
+    return blocks

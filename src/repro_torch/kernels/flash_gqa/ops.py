@@ -64,6 +64,7 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
 SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
 HEAD_DIMS = (64, 80, 128, 256)
+NARROW_HEAD_DIMS = (64, 80)  # the bf16 forward's fwd_narrow_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -251,11 +252,15 @@ def flash_bwd_dkv_sum_plain(pk, pv, kv):
 def flash_fwd(q, k, v, window=None, softcap=None, scale=None, q0=None):
     """K5 on the card for CUDA tensors; the plain version for CPU ones.
     ``q0``: the position of q's first row among k/v's (module docstring);
-    None: q and k/v hold the same S positions."""
+    None: q and k/v hold the same S positions.  bf16 at head_dim 64 and 80
+    (``NARROW_HEAD_DIMS``) takes a positive scale only: its kernel takes the
+    row max on the raw scores."""
     b, s, h, kv, d = _check(q, k, v, window, q0=q0)
     q0 = q0 or 0
     if not (q.is_cuda or q.is_meta):
         return flash_fwd_plain(q, k, v, window, softcap, scale, q0)
+    if q.dtype == torch.bfloat16 and d in NARROW_HEAD_DIMS and not _scale(d, scale) > 0:
+        raise ValueError(f"the bf16 forward at head_dim {d} takes a positive scale, got {scale}")
     sq = q.shape[1]
     out = torch.empty_like(q)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

@@ -228,29 +228,40 @@ def _query_tiles(mask, k0, keys):
     return sorted({i // grid.SM90_TILE for i in hit.nonzero().flatten().tolist()})
 
 
-def _check_sm90_tile_ranges(s, window, dq_keys, dkv_keys, constants):
+def _check_sm90_tile_ranges(s, window, dq_keys, dkv_keys, constants,
+                            fwd_keys=grid.SM90_TILE):
     """Every visible (query, key) pair lies in a visited tile, and no
-    visited tile is fully masked: for each K5 and K6 block (128 rows; 64-
+    visited tile is fully masked: for each K5 and K6 block (128 rows; ``fwd_keys``-
     and ``dq_keys``-key tiles), each of its warpgroups (64 rows), each K7
     block of ``dkv_keys`` keys and, where a block holds more than 64, each
-    of its warpgroups' 64 keys.  ``constants``: the source's widths."""
+    of its warpgroups' 64 keys; and for K5 at query offsets (multiples of
+    the 128-row query tile, the rank's rows to the end or 200 of them), each
+    local block and warpgroup.  ``constants``: the source's widths."""
     src = flash_ops.SM90_SOURCE.read_text()
     for line in constants:
         assert line in src, line
     mask = visible_mask(s, window, "cpu")
 
-    def key_tiles(q0, rows, keys):
-        hit = mask[q0:q0 + rows].any(0)
+    def key_tiles(q0, rows, keys, m=mask):
+        hit = m[q0:q0 + rows].any(0)
         return sorted({j // keys for j in hit.nonzero().flatten().tolist()})
 
     rows = grid.SM90_FWD_ROWS
-    for tiles_of, keys in ((grid.sm90_fwd_key_tiles, grid.SM90_TILE),
+    for tiles_of, keys in ((functools.partial(grid.sm90_fwd_key_tiles, keys=fwd_keys), fwd_keys),
                            (functools.partial(grid.sm90_dq_key_tiles, keys=dq_keys), dq_keys)):
         for q0 in range(0, s, rows):
             assert list(tiles_of(q0, rows, s, window)) == key_tiles(q0, rows, keys), q0
             for r0 in (q0, q0 + rows // 2):
                 want = key_tiles(r0, rows // 2, keys)
                 assert list(tiles_of(r0, rows // 2, s, window)) == want, (keys, r0)
+    for q0 in range(rows, s, rows):
+        for sq in {s - q0, min(200, s - q0)}:
+            rank = mask[q0:q0 + sq, :q0 + sq]
+            assert torch.equal(rank, visible_mask(q0 + sq, window, "cpu", q0, sq))
+            for r0 in range(0, sq, rows):
+                for lo, n in ((r0, rows), (r0, rows // 2), (r0 + rows // 2, rows // 2)):
+                    got = grid.sm90_fwd_key_tiles(lo, n, q0 + sq, window, q0, sq, fwd_keys)
+                    assert list(got) == key_tiles(lo, n, fwd_keys, rank), (q0, sq, lo, n)
     per = dkv_keys // grid.SM90_TILE  # warpgroups of a K7 block
     for kb in range(-(-s // dkv_keys)):
         want = _query_tiles(mask, kb * dkv_keys, dkv_keys)
@@ -264,8 +275,8 @@ def _check_sm90_tile_ranges(s, window, dq_keys, dkv_keys, constants):
 @pytest.mark.parametrize("s,window", _TILE_CASES)
 def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
     """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py) at head_dim
-    64, 128 and 256: K5 and K6 blocks of 128 rows over 64- and 32-key
-    tiles, K7 key tiles of 64 (``_check_sm90_tile_ranges``)."""
+    128 and 256: K5 and K6 blocks of 128 rows over 64- and 32-key tiles, K7
+    key tiles of 64 (``_check_sm90_tile_ranges``)."""
     _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
         f"constexpr int kTile = {grid.SM90_TILE};",
         f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};"))
@@ -273,12 +284,24 @@ def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
 
 @pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
 def test_sm90_tile_ranges_at_head_dim_80_visit_exactly_the_tiles_with_visible_pairs(s, window):
-    """The same at head_dim 80 (dq_d80_kernel, dkv_d80_kernel): K6 over
-    128-key tiles, K7 blocks of 128 keys and each warpgroup's 64."""
+    """The same at head_dim 80 (fwd_narrow_kernel, dq_d80_kernel,
+    dkv_d80_kernel): K5 and K6 over 128-key tiles, K7 blocks of 128 keys and
+    each warpgroup's 64."""
     _check_sm90_tile_ranges(s, window, grid.SM90_DQ80_KEYS, grid.SM90_DKV80_KEYS, (
         f"constexpr int kTile = {grid.SM90_TILE};",
+        f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};",
         f"constexpr int kDq80Keys = {grid.SM90_DQ80_KEYS};",
-        f"constexpr int kDkv80Keys = {grid.SM90_DKV80_KEYS};"))
+        f"constexpr int kDkv80Keys = {grid.SM90_DKV80_KEYS};"), grid.SM90_FWD_NARROW_KEYS)
+
+
+@pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
+def test_sm90_tile_ranges_at_head_dim_64_visit_exactly_the_tiles_with_visible_pairs(s, window):
+    """The same at head_dim 64: K5 over 128-key tiles (fwd_narrow_kernel), K6
+    over 32-key tiles and K7 over 64 (dq_kernel, dkv_kernel)."""
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
+        f"constexpr int kTile = {grid.SM90_TILE};",
+        f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};",
+        f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};"), grid.SM90_FWD_NARROW_KEYS)
 
 
 @pytest.mark.parametrize("s,window", [(1000, None), (1000, 512), (1100, None), (1100, 512),
@@ -308,14 +331,92 @@ def test_sm90_d80_dkv_warpgroups_own_the_block_tiles(s, window):
 def test_sm90_head_dim_80_backward_runs_its_own_kernels():
     """The bf16 dq and dk/dv passes at head_dim 80 launch dq_d80_kernel and
     dkv_d80_kernel (native 80-column tiles), every other head_dim its
-    dq_kernel<D> / dkv_kernel<D>, and the forward stays fwd_kernel<D>."""
+    dq_kernel<D> / dkv_kernel<D>; the forward's own kernel is at head_dim 64
+    and 80 only (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
     src = flash_ops.SM90_SOURCE.read_text()
     for launch, kernel in (("dq", "dq_d80_kernel"), ("dkv", "dkv_d80_kernel")):
         body = re.search(r"\nint launch_" + launch + r"<80>\(.*?\n}", src, re.S)
         assert body and f"{kernel}<false>" in body.group(0), launch
         body = re.search(r"\nint launch_" + launch + r"\(.*?\n}", src, re.S)
         assert body and f"{launch}_kernel<D, false>" in body.group(0), launch
-    assert "template <>\nint launch_fwd<" not in src
+    assert re.findall(r"template <>\nint launch_fwd<(\d+)>", src) == ["64", "80"]
+
+
+@pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
+def test_sm90_narrow_forward_runs_its_own_kernel(d):
+    """bf16 K5 at head_dim 64 and 80 launches fwd_narrow_kernel<D> (128-key
+    tiles at the true width, its own layout and tensor maps: two a tensor
+    at 80, 16-column boxes with a 32-byte swizzle), at 128 and 256
+    fwd_kernel<D> as before; the C entry still dispatches every head_dim
+    through launch_fwd."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    body = re.search(r"\nint launch_fwd<" + str(d) + r">\(.*?\n}", src, re.S)
+    if d in (64, 80):
+        assert body and f"launch_fwd_narrow<{d}>(" in body.group(0)
+        narrow = re.search(r"\nint launch_fwd_narrow\(.*?\n}", src, re.S).group(0)
+        assert "fwd_narrow_kernel<D>" in narrow and "FwdNarrowLayout<D>" in narrow
+        assert "make_maps80(" in narrow and "fwd_kernel<" not in narrow
+    else:
+        assert body is None
+        generic = re.search(r"\nint launch_fwd\(.*?\n}", src, re.S).group(0)
+        assert "fwd_kernel<D>" in generic and "FwdLayout<D>" in generic
+    assert f"dtype == 1 && d == {d}) return LAUNCH<{d}>" in src
+
+
+@pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
+def test_sm90_narrow_forward_takes_a_positive_scale_only(d):
+    """bf16 K5 at head_dim 64 and 80 refuses a scale <= 0 (its softmax takes
+    the row max on the raw scores), in the wrapper on card-side (meta)
+    tensors and in the source's launch; 128 and 256, f32 and the plain
+    version on the CPU take any scale."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    narrow = re.search(r"\nint launch_fwd_narrow\(.*?\n}", src, re.S).group(0)
+    assert "if (!(sh.scale > 0.f)) return (int)cudaErrorInvalidValue;" in narrow
+    assert flash_ops.NARROW_HEAD_DIMS == (64, 80)
+    q = torch.empty(1, 128, 2, d, dtype=torch.bfloat16, device="meta")
+    for scale in (-0.1, 0.0):
+        if d in flash_ops.NARROW_HEAD_DIMS:
+            with pytest.raises(ValueError, match="positive scale"):
+                flash_ops.flash_fwd(q, q, q, scale=scale)
+        else:
+            flash_ops.flash_fwd(q, q, q, scale=scale)
+        flash_ops.flash_fwd(q.float(), q.float(), q.float(), scale=scale)
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal((1, 8, 2, d))).bfloat16()
+    out, lse = flash_ops.flash_fwd(x, x, x, scale=-0.1)
+    want, want_lse = flash_ops.flash_fwd_plain(x, x, x, scale=-0.1)
+    assert torch.equal(out, want) and torch.equal(lse, want_lse)
+    assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("b,h,n_qt", [(2, 32, 16), (2, 16, 16), (4, 32, 4), (4, 16, 4),
+                                      (2, 8, 16), (4, 32, 8), (1, 3, 5), (2, 5, 300), (1, 32, 256),
+                                      (3, 7, 9), (1, 1, 1)])
+def test_sm90_narrow_forward_schedule_covers_every_item_and_balances(b, h, n_qt):
+    """``fwd_narrow_kernel``'s persistent blocks (mirrored by
+    ``grid.sm90_fwd_narrow_blocks``, its lines held to the source): every
+    (batch*head, query tile) item runs exactly once, on a card of 132 SMs
+    (the H100's) or fewer blocks; each block's items of one head group come
+    heaviest first; and where every block has two rounds or more of causal
+    items, no block's tiles exceed the mean over 132 SMs by more than 5 %."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    for line in ("return k * p + ((k & 1) ? p - 1 - c : c);",
+                 "hg = p >= n_qt ? min(bhs, p / n_qt) : bhs;",
+                 "const int hg = n_qt <= sms ? min(sh.b * sh.h, sms / n_qt) : sh.b * sh.h;",
+                 "min(items, n_qt <= sms ? hg * n_qt : sms)"):
+        assert line in src, line
+    sms = 132
+    blocks = grid.sm90_fwd_narrow_blocks(b, h, n_qt, sms)
+    assert len(blocks) <= sms
+    done = sorted(it for blk in blocks for it in blk)
+    assert done == [(bh, qt) for bh in range(b * h) for qt in range(n_qt)]
+    tiles = [sum(qt + 1 for _, qt in blk) for blk in blocks]  # causal key tiles, S = 128 n_qt
+    mean = sum(tiles) / sms
+    if min(len(blk) for blk in blocks) >= 2:
+        assert max(tiles) <= 1.05 * mean, (max(tiles), mean)
+    hg = min(b * h, len(blocks) // n_qt) if len(blocks) >= n_qt else b * h
+    for blk in blocks:
+        for (bh0, q0), (bh1, q1) in zip(blk, blk[1:]):
+            assert bh1 // hg > bh0 // hg or q1 <= q0
 
 
 def test_dkv_sum_plain_adds_the_head_partials():
