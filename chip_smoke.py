@@ -10,7 +10,8 @@ Phases (any failure exits non-zero; nothing is caught):
   2. build        the CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
                   one nvcc per source, all started together; ptxas's
                   registers, shared memory and spills of the tensor-core
-                  flash kernels printed, and no spill allowed there;
+                  flash kernels printed, and no spill and no serialized
+                  wgmma (ptxas's C7515 / C7520 notes) allowed there;
   3. kernels      each kernel against its plain PyTorch version on the card:
                   the update pair (K1/K2) at the ResNet path's shape (C = 20
                   clients, N = 1,249,956, shared server delta), at
@@ -22,9 +23,10 @@ Phases (any failure exits non-zero; nothing is caught):
                   window on and off, softcap on and off, f32 and bf16, plus
                   bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40, and
                   zamba2's D = 80 (H = KV = 32, bf16 and f32, a masked
-                  bf16 case and the D = 80 K6/K7 kernels' edges: S = 40,
-                  1,040 and 1,100, window 512; timed too, beside SDPA at
-                  D = 80 and at phase 19's rank, H = KV = 16), and phases
+                  bf16 case and the narrow K5-K7 kernels' edges at D = 80
+                  and 64: S = 40, 1,040 and 1,100, window 512; timed too,
+                  beside SDPA at D = 80 and at phase 19's rank, H = KV =
+                  16), and phases
                   13-14's shapes: granite-moe's training (H = 16 over KV =
                   8, D = 64, and its sum pass), internvl2's and musicgen's
                   prefill (B = 4, S = 1,024; D = 128 and 64) (bf16
@@ -116,8 +118,12 @@ Phases (any failure exits non-zero; nothing is caught):
                   80): N, the bytes of client state, peak memory, the exact
                   launch counts; then on client 0's trained model the
                   reference path against the kernel path: per-token logits
-                  within 2**-4 of the largest, the loss and its gradient
-                  within 4x the sound runs' readings;
+                  within 2**-4 of the largest, the gradient within 4x the
+                  sound runs' reading; over four client batches, each
+                  token's NLL against an f32 run (the kernel path's median
+                  error over the reference path's; on granite-moe K5's and
+                  K4's outputs x1.01 planted and failing it), and the loss
+                  gap (held where no token is routed to experts: zamba2);
  14. arch serve   zamba2-2.7b, internvl2-2b (256 random patch embeddings +
                   768 text tokens) and musicgen-large (4 codebooks, int8 KV
                   cache) at full width and depth, batch 4, a 1,024-position
@@ -272,6 +278,7 @@ mask; launches per path under ``launches_by_path``) and ends with
 """
 from __future__ import annotations
 
+import contextlib
 import functools
 import gc
 import json
@@ -663,12 +670,14 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     # past S) and 1,040 (wholly past S, G = 2, softcap); S = 2,048, window 512
     (2, 16, None, bf16, 40, 80, 4, 2), (1, None, None, bf16, 1100, 80, 32, 2),
     (2, 512, 50.0, bf16, 1040, 80, 4, 2), (1, 512, None, bf16, 2048, 80, 32, 2),
-    # the same edges of K5's 128-key tiles at D = 64 (fwd_narrow_kernel):
-    # S = 1,100 (a partial last tile), 1,040 (G = 2, window 512, softcap 50),
-    # S = 2,048 at window 512
+    # the same edges at D = 64, where K5-K7 run the same narrow kernels
+    # (128-key K5 and K6 tiles, 128-key K7 blocks): S = 1,100 (a partial last
+    # tile; K7's last block's second warpgroup partly past S), 1,040 (G = 2,
+    # window 512, softcap 50), S = 2,048 at window 512
     (1, None, None, bf16, 1100, 64, 32, 2), (2, 512, 50.0, bf16, 1040, 64, 4, 2),
     (1, 512, None, bf16, 2048, 64, 32, 2)]
-# the bf16 cases at D = 64 and 80, where K5 runs fwd_narrow_kernel
+# the bf16 cases at D = 64 and 80, where K5-K7 run the narrow kernels
+# (fwd_narrow_kernel, dq_narrow_kernel, dkv_narrow_kernel)
 NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80) and c[3] == bf16]
 
 
@@ -686,7 +695,7 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     one tile), S = 1,100 (the last 128-key K7 block's second warpgroup partly
     past S; K5's last 128-key tile partial), S = 1,040 (wholly past S; G = 2,
     window 512, softcap 50) and S = 2,048 at window 512; and the same three
-    edges at D = 64, where K5 runs the same 128-key kernel.
+    edges at D = 64, where K5, K6 and K7 run the same narrow kernels.
     Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
     (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
@@ -1578,11 +1587,27 @@ ARCH_TRAIN = {"granite-moe-1b-a400m": (4, 1_334_628_352), "zamba2-2.7b": (2, 1_9
 # / 4.079e-3 (zamba2 / granite-moe; PERF.md, Findings): the limits
 # are 4x the larger reading.  The loss is read over the first batch of each
 # of ``TRAIN_LOSS_BATCHES`` client streams (4,096 tokens each, client 0's
-# first): a kernel's fault moves every batch's loss, while a token whose
-# top-k experts flip between the two paths (granite-moe) moves only its own
-# batch's mean, a quarter as much over four batches as over one.
+# first), each path routing its own tokens.  The loss gap is held to its
+# limit where the model routes no tokens to experts (zamba2).  Where it does
+# (granite-moe), about half the tokens take other top-k experts at some
+# layer on the two paths, and a few of them move the trained model's loss by
+# as much as a 1 % fault of a kernel does: over 16 client batches (four
+# groups of four) the gap read up to 5.3e-4 on sound kernels, and K5's
+# output x1.01 from 1.3e-4 (PERF.md, Findings), so there it is printed
+# only.  Held on both: each token's NLL against an f32 run of the
+# reference path, the median |error| of the kernel path over the reference
+# path's (``train_loss_check``), as phase 15 holds the gradient against f32.
+# The median is the typical token's, which the few tokens whose experts flip
+# do not move.  Sound kernels read 0.935 to 1.011 on both archs, over all
+# 16 batches of the models that these kernels and the earlier generic D = 64
+# backward kernels train; K5's or K4's output x1.01 (``TRAIN_FAULTS``) reads
+# 1.131 to 2.073 on granite-moe: the limit sits between, and phase 13 plants
+# both on each routed model.  On zamba2 K5's fault moves neither number (its
+# shared attention feeds 9 of its 54 layers), K4's reads 1.78 to 1.84.
 TRAIN_LOSS_RTOL = 1e-5
 TRAIN_LOSS_BATCHES = 4
+TRAIN_NLL_RATIO_TOL = 1.06
+TRAIN_FAULTS = ("K5 output x1.01", "K4 output x1.01")  # keys of ``GRAD_FAULTS``
 TRAIN_GRAD_RTOL = 1.6e-2
 # Phase 14: batch 4, a 1,024-position prompt, 32 greedy steps
 ARCH_SERVE = dict(batch=4, prompt=1024, steps=32)
@@ -1606,15 +1631,78 @@ def _tree_gap(got, want):
     return math.sqrt(diff / norm)
 
 
-def arch_train_run(arch):
-    """Phase 13: ``train_lm_pfedsop`` at ``arch``'s full width and depth,
-    ``LM``'s loop (3 rounds, batch 2, seq_len 2048, 2 local iterations, eta
-    0.1, seed 0) with ``ARCH_TRAIN``'s clients and the exact launch counts;
-    then client 0's trained model on the reference path against the kernel
-    path: its logits and gradient on client 0's first batch, its mean loss
-    over the first batch of ``TRAIN_LOSS_BATCHES`` client streams.  Returns
-    the launches."""
-    t_phase = time.perf_counter()
+@contextlib.contextmanager
+def planted(plants):
+    """``plants`` (``GRAD_FAULTS``' (module, attribute, wrapper) triples) in
+    place inside the ``with``."""
+    kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in plants]
+    try:
+        for mod, attr, wrap in plants:
+            setattr(mod, attr, wrap(getattr(mod, attr)))
+        yield
+    finally:
+        for mod, attr, fn in kept:
+            setattr(mod, attr, fn)
+
+
+def token_nll(params, cfg, batch):
+    """(each token's next-token NLL in f32, ``tf.lm_loss``: their mean plus
+    the MoE aux loss) from one forward of a model with no frontend."""
+    assert cfg.frontend == "none", cfg.frontend
+    with torch.no_grad():
+        hidden, aux = tf.forward(params, cfg, batch)
+        logits = tf.lm_logits(params, cfg, hidden).float()
+    gold = logits.gather(-1, batch["labels"][..., None].long())[..., 0]
+    nll = torch.logsumexp(logits, dim=-1) - gold
+    return nll, nll.mean().item() + tf.AUX_LOSS_COEF * aux.item()
+
+
+def train_loss_check(params, cfg, ref_cfg, batches, faults=()):
+    """Phase 13's loss check on ``batches``: the kernel path (``cfg``), the
+    reference path (``ref_cfg``) and an f32 run of the reference path, each
+    routing its own tokens.  Returns (the mean loss's relative gap between
+    the kernel and reference paths, the median over the tokens of the
+    kernel path's |NLL error| against the f32 run over the reference
+    path's, the same ratio under each planted fault of ``faults`` (keys of
+    ``GRAD_FAULTS``), a line that gives them with each batch's gap)."""
+    f32 = tree_map(lambda x: x.float(), params)
+    truth = torch.cat([token_nll(f32, ref_cfg.replace(dtype="float32"), x)[0].flatten()
+                       for x in batches])
+    del f32
+
+    def run(c):  # (each batch's loss, the median |NLL error| against f32)
+        out = [token_nll(params, c, x) for x in batches]
+        nll = torch.cat([o[0].flatten() for o in out])
+        return [o[1] for o in out], (nll - truth).abs().median().item()
+
+    (loss_k, err_k), (loss_r, err_r) = run(cfg), run(ref_cfg)
+    r = sum(loss_r) / len(batches)
+
+    def gap(losses):
+        return abs(sum(losses) / len(batches) - r) / abs(r)
+
+    planted_ratios, planted_gaps = {}, {}
+    for name in faults:
+        with planted(GRAD_FAULTS[name]):
+            losses, err = run(cfg)
+        planted_ratios[name], planted_gaps[name] = err / err_r, gap(losses)
+    k, ratio = sum(loss_k) / len(batches), err_k / err_r
+    line = (f"mean loss over {len(batches)} client batches {k:.6f} / {r:.6f} (rel diff "
+            f"{gap(loss_k):.4g}, tol {TRAIN_LOSS_RTOL:.4g} where no token is routed; each batch's "
+            f"{', '.join(f'{abs(a - b) / abs(b):.4g}' for a, b in zip(loss_k, loss_r))}); each "
+            f"token's NLL against an f32 run, median |error| {err_k:.4g} / {err_r:.4g}: ratio "
+            f"{ratio:.4g} (tol {TRAIN_NLL_RATIO_TOL:.4g})")
+    if faults:
+        line += "; planted " + ", ".join(f"{n} {v:.4g} (loss rel diff {planted_gaps[n]:.4g})"
+                                         for n, v in planted_ratios.items())
+    return gap(loss_k), ratio, planted_ratios, line
+
+
+def arch_train(arch):
+    """``train_lm_pfedsop`` at ``arch``'s full width and depth, ``LM``'s loop
+    (3 rounds, batch 2, seq_len 2048, 2 local iterations, eta 0.1, seed 0)
+    with ``ARCH_TRAIN``'s clients and the exact launch counts.  Returns
+    (the config, client 0's trained params, the launches)."""
     gc.collect()
     torch.cuda.empty_cache()  # the earlier phases' cached blocks, fragmented
     cfg = get_config(arch)
@@ -1647,12 +1735,26 @@ def arch_train_run(arch):
     assert all(math.isfinite(v) for v in hist["loss"]), hist["loss"]
     print(f"train[{arch}]: launches {launches}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB", flush=True)
+    return cfg, states[0].params, launches
 
-    trained = states[0].params
-    states = None
-    batches = [{k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
-               for stream in lm_driver.client_streams(cfg, TRAIN_LOSS_BATCHES, run["batch"],
-                                                      run["seq_len"])]
+
+def train_loss_batches(cfg, n):
+    """The first batch of each of ``n`` client streams at ``LM``'s shape, on
+    the card (client 0's first)."""
+    return [{k: torch.from_numpy(v).cuda() for k, v in next(stream).items()}
+            for stream in lm_driver.client_streams(cfg, n, LM["batch"], LM["seq_len"])]
+
+
+def arch_train_run(arch):
+    """Phase 13: ``arch_train``, then client 0's trained model on the
+    reference path against the kernel path: its logits and gradient on
+    client 0's first batch, and ``train_loss_check`` over the first batch of
+    ``TRAIN_LOSS_BATCHES`` client streams, each planted fault of
+    ``TRAIN_FAULTS`` failing it where the model routes tokens to experts.
+    Returns the launches."""
+    t_phase = time.perf_counter()
+    cfg, trained, launches = arch_train(arch)
+    batches = train_loss_batches(cfg, TRAIN_LOSS_BATCHES)
     batch = batches[0]  # client 0's first batch
     ref_cfg = cfg.replace(kernel_impl="reference")
     leaves, treedef = tree_flatten(trained)
@@ -1661,31 +1763,26 @@ def arch_train_run(arch):
         with torch.no_grad():
             return tf.lm_logits(trained, c, tf.forward(trained, c, batch)[0])
 
-    def loss(c, x):
-        with torch.no_grad():
-            return tf.lm_loss(trained, c, x).item()
-
     # per-token logits, as phase 12 holds them: within 2**-4 of the largest
     err, rel = errors(logits(cfg), logits(ref_cfg))
     assert rel <= SERVE_RTOL, (arch, "kernel vs reference logits", err, rel)
-    # the gradient on client 0's batch and the mean loss over every batch,
-    # within 4x the sound runs' readings
-    loss_k, grads_k = loss_and_grads(cfg, leaves, treedef, batch)
-    loss_r, grads_r = loss_and_grads(ref_cfg, leaves, treedef, batch)
-    pairs = [(loss_k, loss_r)] + [(loss(cfg, x), loss(ref_cfg, x)) for x in batches[1:]]
-    gaps = ", ".join(f"{abs(k - r) / abs(r):.4g}" for k, r in pairs)
-    loss_k, loss_r = (sum(p[i] for p in pairs) / len(pairs) for i in (0, 1))
-    loss_rel = abs(loss_k - loss_r) / abs(loss_r)
+    # the gradient on client 0's batch within 4x the sound runs' readings,
+    # and the loss check over every batch
+    _, grads_k = loss_and_grads(cfg, leaves, treedef, batch)
+    _, grads_r = loss_and_grads(ref_cfg, leaves, treedef, batch)
     grad_rel = _tree_gap(grads_k, grads_r)
+    del grads_k, grads_r
+    loss_rel, ratio, faults, line = train_loss_check(
+        trained, cfg, ref_cfg, batches, TRAIN_FAULTS if cfg.n_experts else ())
     print(f"train[{arch}]: client 0's trained model, kernel path against the reference "
           f"path: logits max_abs_err {err:.4g}, relative {rel:.4g} (tol {SERVE_RTOL:.4g}); "
-          f"mean loss over {len(pairs)} client batches {loss_k:.6f} / {loss_r:.6f} (rel diff "
-          f"{loss_rel:.4g}, tol {TRAIN_LOSS_RTOL:.4g}; each batch's {gaps}); gradient "
-          f"|g_k - g_r| / |g_r| {grad_rel:.4g} (tol {TRAIN_GRAD_RTOL:.4g}) over "
-          f"{len(leaves)} leaves; phase {time.perf_counter() - t_phase:.1f}s", flush=True)
-    assert loss_rel <= TRAIN_LOSS_RTOL, (arch, loss_k, loss_r, loss_rel)
+          f"{line}; gradient |g_k - g_r| / |g_r| {grad_rel:.4g} (tol {TRAIN_GRAD_RTOL:.4g}) "
+          f"over {len(leaves)} leaves; phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    assert cfg.n_experts or loss_rel <= TRAIN_LOSS_RTOL, (arch, line)
+    assert ratio <= TRAIN_NLL_RATIO_TOL, (arch, line)
+    assert all(v > TRAIN_NLL_RATIO_TOL for v in faults.values()), (arch, "a fault passes", line)
     assert grad_rel <= TRAIN_GRAD_RTOL, (arch, "gradient", grad_rel)
-    del trained, batch, batches, leaves, grads_k, grads_r
+    del trained, batch, batches, leaves
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -1990,14 +2087,8 @@ def launch_tooling_run():
     assert scale <= GRAD_SCALE_TOL and ratio <= GRAD_RATIO_TOL, (scale, ratio)
     del g_k
     for name, plants in GRAD_FAULTS.items():
-        kept = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in plants]
-        try:
-            for mod, attr, wrap in plants:
-                setattr(mod, attr, wrap(getattr(mod, attr)))
+        with planted(plants):
             _, g_f = loss_and_grads(cfg, leaves, treedef, first)
-        finally:
-            for mod, attr, fn in kept:
-                setattr(mod, attr, fn)
         f_scale, f_ratio = grad_gaps(g_f, g_r, g_t)
         print(f"launch[step]: planted fault {name}: scale drift {f_scale:.4g}, error ratio "
               f"{f_ratio:.4g}", flush=True)
@@ -3598,21 +3689,28 @@ def _kernel_name(mangled):
 def print_ptxas(source):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps, and any note that ptxas
-    serialized a kernel's wgmma products.  A spill fails the run: the
-    tensor-core kernels' f32 accumulators are sized to fit their registers."""
-    name, spilled = None, []
+    serialized a kernel's wgmma products (C7515, C7520).  A spill or such a
+    note fails the run, naming the kernel: the tensor-core kernels' f32
+    accumulators are sized to fit their registers, and a serialized wgmma
+    waits for each product in turn, which no kernel here is shaped for (the
+    note names its function; where it does not, it falls in the section of
+    the kernel whose entry ptxas compiled last)."""
+    name, faults = None, []
     for line in kernel_build.build_log(source).splitlines():
         m = re.search(r"Compiling entry function '(\w+_kernel\w*)'", line)
         if m:
             name = _kernel_name(m.group(1))
-        elif "wgmma" in line:  # ptxas serialized a kernel's wgmma pipeline
+        elif "wgmma" in line:
             print(f"build[ptxas]: {line.strip()}", flush=True)
+            if "serialized" in line:  # ptxas serialized a kernel's wgmma pipeline
+                named = re.search(r"function '(\w+_kernel\w*)'", line)
+                faults.append((_kernel_name(named.group(1)) if named else name, line.strip()))
         elif name and ("registers" in line or "spill" in line):
             print(f"build[ptxas {name}]: {line.split(':', 1)[-1].strip()}", flush=True)
             spills = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             if spills and spills.groups() != ("0", "0"):
-                spilled.append((name, line.strip()))
-    assert not spilled, spilled
+                faults.append((name, line.strip()))
+    assert not faults, faults
 
 
 def main():

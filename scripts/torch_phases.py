@@ -6,6 +6,7 @@ after building the four CUDA sources:
         flash_offset_times tp_serve
     python scripts/torch_phases.py ptxas flash_narrow flash_offset flash_times \
         flash_offset_times
+    python scripts/torch_phases.py train_spread
 
 Phases (``PHASES``): ``gloo_probe`` (gloo's all-reduce between two
 processes sharing the card: ms a call, a 9 KB and a 9.4 MB bf16 tensor, on
@@ -18,7 +19,10 @@ every seed), ``flash_times`` (phase
 3's times: ``time_flash`` at gemma3-1b's full and window-512 layers, then
 ``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
 rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's
-prefill, beside SDPA), ``train`` (phase 13), ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
+prefill, beside SDPA), ``train`` (phase 13), ``train_spread`` (phase 13's
+training, then its loss check, planted faults too, on each of
+``SPREAD_GROUPS`` groups of four client batches: phase 13 reads the first),
+``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
 two gloo processes) and ``tp_train`` (phase 19).  From ``train`` on,
 cuDNN is deterministic, as in ``chip_smoke.py`` from phase 8 on.  Prints
 the card's name and power limit first.
@@ -64,6 +68,24 @@ def probe(rank, port, answers):
     answers.put((rank, True, out))
 
 
+SPREAD_GROUPS = 4
+
+
+def train_spread():
+    for arch in cs.ARCH_TRAIN:
+        cfg, trained, _ = cs.arch_train(arch)
+        ref_cfg = cfg.replace(kernel_impl="reference")
+        n = cs.TRAIN_LOSS_BATCHES
+        batches = cs.train_loss_batches(cfg, SPREAD_GROUPS * n)
+        for g in range(SPREAD_GROUPS):
+            line = cs.train_loss_check(trained, cfg, ref_cfg, batches[g * n:(g + 1) * n],
+                                       cs.TRAIN_FAULTS)[-1]
+            print(f"train_spread[{arch}] client batches {g * n}-{(g + 1) * n - 1}: {line}",
+                  flush=True)
+        del trained, batches
+    return SPREAD_GROUPS
+
+
 def _tp_serve():
     cs.l2_flush.cache_clear()
     torch.cuda.empty_cache()
@@ -81,6 +103,7 @@ PHASES = {
     "flash_times": (lambda: {"gemma3-1b": cs.time_flash(4, 1, 256, (None, 512), seed=13),
                              **cs.time_flash_other_shapes()}, False),
     "train": (lambda: {a: cs.arch_train_run(a) for a in cs.ARCH_TRAIN}, True),
+    "train_spread": (train_spread, True),
     "async": (cs.async_run, True),
     "tp_serve": (_tp_serve, True),
     "tp_train": (cs.tp_train_run, True),

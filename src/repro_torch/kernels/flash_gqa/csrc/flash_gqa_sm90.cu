@@ -31,76 +31,71 @@
 //    complete on mbarriers; rows past a ragged S arrive as zeros) and two
 //    consumer warpgroups that multiply; setmaxnreg moves the producer's
 //    registers to the consumers (24 / 240).  K/V or Q/dO tiles stream
-//    through a 2-stage ring with full/empty mbarriers, so the next tile's
-//    copy overlaps this tile's math and the consumers load nothing;
-//  - K5: one block per (batch*head, 128-query tile), each consumer
-//    warpgroup 64 query rows, the last (heaviest causal) tiles launched
-//    first; S = Q K^T from shared memory, the scale and softcap on the f32
-//    scores, the mask, the online softmax in registers in the accumulator's
-//    layout, P rounded to bf16 in registers (where the model's reference
-//    rounds it) as the A operand of O += P V, V the transposed B operand;
-//    the two warpgroups never wait for each other.  At D = 128 and 256
-//    (fwd_kernel) K/V stream in 64-key tiles and each tile's products are
-//    waited for in turn; at D = 64 and 80 (fwd_narrow_kernel, below) in
-//    128-key tiles at the true width, the next tile's S and this tile's
-//    exp overlapping the products;
-//  - K7: one block per (batch, query head, 64-key tile), K and V resident,
-//    Q/dO tiles of 64 queries streamed.  Each consumer warpgroup computes
-//    32 query columns of S^T = K Q^T and dP^T = V dO^T, then P^T and
-//    dS^T = P^T (dP^T - delta) [(1 - t^2)] in f32, stored to a
+//    through a ring with full/empty mbarriers, so the next tile's copy
+//    overlaps this tile's math and the consumers load nothing;
+//  - two designs, by head_dim.  At D = 128 and 256 (fwd_kernel, dq_kernel,
+//    dkv_kernel, shaped for D = 256, where the products dominate) tiles
+//    are whole 64-column blocks, each product is waited for in turn, and
+//    the rings have 2 stages.  At D = 64 and 80 (fwd_narrow_kernel,
+//    dq_narrow_kernel, dkv_narrow_kernel, templates over D on TileN<D>)
+//    tiles sit at the true width (at D = 80 a 64-column and a 16-column
+//    block, no padded columns), keys come 128 to a tile or block, rings have
+//    4 stages, products overlap the elementwise work, and the elementwise
+//    step has no branch inside; each section below says more;
+//  - K5 (fwd_kernel): one block per (batch*head, 128-query tile), each
+//    consumer warpgroup 64 query rows, the last (heaviest causal) tiles
+//    launched first; K/V stream in 64-key tiles; S = Q K^T from shared
+//    memory, the scale and softcap on the f32 scores, the mask, the online
+//    softmax in registers in the accumulator's layout, P rounded to bf16 in
+//    registers (where the model's reference rounds it) as the A operand of
+//    O += P V, V the transposed B operand; the two warpgroups never wait for
+//    each other;
+//  - K7 (dkv_kernel): one block per (batch, query head, 64-key tile), K and
+//    V resident, Q/dO tiles of 64 queries streamed.  Each consumer
+//    warpgroup computes 32 query columns of S^T = K Q^T and dP^T = V dO^T,
+//    then P^T and dS^T = P^T (dP^T - delta) [(1 - t^2)] in f32, stored to a
 //    double-buffered shared tile as bf16; after one named barrier,
 //    warpgroup 0 runs dV += P^T dO and warpgroup 1 dK += dS^T Q (each a
 //    64 x D f32 accumulator, 128 registers a thread at D = 256);
-//  - K6: one block per (batch*head, 128-query tile), heaviest first, as K5;
-//    Q and dO stay resident (2 x 64 KB at D = 256), K/V stream through the
-//    ring in 32-key tiles (two 64-key stages would not fit in 227 KB at
-//    D = 256; one width for D = 64, 128 and 256 keeps one tile range).  Each consumer
-//    warpgroup computes S = Q K^T and dP = dO V^T for its 64 rows (m64n32),
-//    P and dS = P (dP - delta) [(1 - t^2)] in f32 registers, rounds dS to
-//    bf16 in registers (the TPU kernel keeps f32) as the A operand of
-//    dQ += dS K, K the MN-major B operand: dS never goes through shared
-//    memory, and the two warpgroups never wait for each other;
+//  - K6 (dq_kernel): one block per (batch*head, 128-query tile), heaviest
+//    first, as K5; Q and dO stay resident (2 x 64 KB at D = 256), K/V
+//    stream through the ring in 32-key tiles (two 64-key stages would not
+//    fit in 227 KB at D = 256).  Each consumer warpgroup computes S = Q K^T
+//    and dP = dO V^T for its 64 rows (m64n32), P and dS = P (dP - delta)
+//    [(1 - t^2)] in f32 registers, rounds dS to bf16 in registers (the TPU
+//    kernel keeps f32) as the A operand of dQ += dS K, K the MN-major B
+//    operand: dS never goes through shared memory, and the two warpgroups
+//    never wait for each other;
 //  - masked scores never enter exp (p = 0; a row with no visible key yet
 //    keeps m = -inf, l = 0, alpha = 1), and the window prunes tiles exactly:
 //    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (q0 the
 //    block's first absolute position, the last clamped to the last query's;
-//    128-key tiles at D = 64 and 80) and K6 the
-//    same range in 32-key tiles (128 at D = 80; each warpgroup computes only
-//    those its 64 rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64
-//    (at D = 80 the same for the block's 128 keys and for each warpgroup's
-//    64; kernels/flash_gqa/grid.py mirrors them all);
+//    128-key tiles at D = 64 and 80) and K6 the same range in 32-key tiles
+//    (128 at D = 64 and 80; each warpgroup computes only those its 64 rows
+//    see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64 (at D = 64 and 80
+//    the same for the block's 128 keys and for each warpgroup's 64;
+//    kernels/flash_gqa/grid.py mirrors them all);
 //  - no atomics: at G > 1 each K7 block writes its head's dk/dv partial in
 //    f32 to (B, S, H, D) scratch and dkv_sum_kernel adds the G heads in the
 //    fixed order g = 0 .. G-1; at G = 1 K7 writes bf16 dk/dv itself; a K6
 //    block owns its dq rows.  Every sum has one order, so results are
 //    bitwise run to run.
 //
-// K5 at D = 64 and 80 runs a kernel of its own (fwd_narrow_kernel, below).
-// What bounds it: at zamba2's shape (B = 2, S = 2048, H = KV = 32, D = 80)
-// 4D flops a visible pair put the bound at 0.043 ms of tensor-core work, but
-// at D <= 80 a 128-key tile's 128 exps a row keep the SM's exp units about as
-// busy as its products keep the tensor cores, so the design overlaps the two
-// and keeps the elementwise step short: tiles at the true width (at D = 80 a
-// 64-column and a 16-column block, no padded columns), 128-key K/V tiles
-// through a 4-stage ring, the next tile's S issued before this tile's P V is
-// waited for, and no branch per element.  (fwd_kernel<80> padded O += P V
-// to 128 columns, 1.3x the counted work, and waited on each product.)
-//
-// K6 and K7 at D = 80 run kernels of their own (dq_d80_kernel,
-// dkv_d80_kernel, below), on tiles held at 80 columns: a 64-column block
-// (128-byte swizzle) and a 16-column one (32-byte swizzle, its own tensor
-// map and descriptors), so the products whose N is D run at N = 64 + 16.
-// What bounds them: the padded design did 1.2-1.3x the counted work, split
-// dV and dK across the warpgroups (P^T and dS^T through shared memory and a
-// named barrier every query tile, since a 64 x 128 f32 accumulator a
-// warpgroup left no room for a second), and waited on every product.  At 80
-// columns a warpgroup holds both dV and dK (40 + 40 registers) beside S^T and
-// dP^T, so P^T and dS^T stay in registers as A operands, K7 takes 128-key
-// blocks (Q/dO read half as often), K6 128-key tiles, and each warpgroup's
-// exp and mask run while its next products do.  The elementwise step has
-// no branch inside (the mask is an exponent of -inf; the softcap and the
-// masked-tile choice are made once a tile): per-element branches around exp
-// and the mask would cost more than the products.
+// Why D = 64 and 80 have kernels of their own.  At D <= 80 a tile's
+// products are short, and the exp, the mask and the bookkeeping take about
+// as long as they do (128 exps a row of a 128-key tile keep the SM's exp
+// units about as busy as the tile's products keep its tensor cores), so the
+// narrow kernels overlap the two and keep the elementwise step short: no
+// branch per element (the mask is an exponent of -inf; the softcap and the
+// masked-tile choice are made once a tile), the next tile's products issued
+// before this tile's are waited for.  The D = 256 shapes do not carry over:
+// at D = 80 they padded tiles to 128 columns (1.2-1.3x the counted work);
+// at D = 64 K6's 32-key tiles made S and dP m64n32 products of 4 k-steps,
+// too short to keep the tensor cores fed, and K7's 64-key blocks read Q
+// and dO twice as often as 128-key ones.  At D <= 80 a warpgroup holds
+// both dV and dK (2 x 32 or 2 x 40 f32 a thread) beside S^T and dP^T, so
+// P^T and dS^T stay in registers as A operands, with no shared-memory
+// round trip and no barrier between the warpgroups on every tile.
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // from the CUDA driver through cudaGetDriverEntryPoint, so the library links
@@ -208,10 +203,10 @@ constexpr int kProducerRegs = 24, kConsumerRegs = 240;
 // step adds 32 bytes inside the 128-byte row.  MN-major operand (rows of 64
 // contiguous M/N values, one row per K index): lbo = the next 64-wide column
 // block, sbo = 1024 (the next 8 K rows); a k16 step adds 2048 bytes.
-// The 32-byte swizzle (layout 3; the D = 80 kernels) is the same with rows
-// of 16 values: K-major, sbo = 256 (the next 8 rows) and one k16 step a row;
-// MN-major, lbo = the next 16-wide column block, sbo = 256, a k16 step adds
-// 512 bytes.
+// The 32-byte swizzle (layout 3; the narrow kernels at D = 80) is the same
+// with rows of 16 values: K-major, sbo = 256 (the next 8 rows) and one k16
+// step a row; MN-major, lbo = the next 16-wide column block, sbo = 256, a
+// k16 step adds 512 bytes.
 constexpr uint64_t kSw128 = 1, kSw32 = 3;
 __device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
                                          uint64_t layout = kSw128) {
@@ -280,22 +275,6 @@ __device__ __forceinline__ void wgmma_ss<64, 0>(float (&d)[32], uint64_t a, uint
       "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
       "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<64, 1>(float (&d)[32], uint64_t a, uint64_t b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -509,7 +488,8 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            const __grid_constant__ CUtensorMap tv, bf16* __restrict__ o,
            float* __restrict__ lse, Shape sh) {
   using L = FwdLayout<D>;
-  static_assert(D % 64 == 0, "whole 64-column swizzle blocks (D = 80 has kernels of its own)");
+  static_assert(D % 64 == 0,
+                "whole 64-column swizzle blocks (D = 64 and 80 have kernels of their own)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sKV = base + L::kQ;  // stage st: K at sKV + 2 st kKV, V after
@@ -685,7 +665,8 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            const float* __restrict__ lse, const float* __restrict__ delta,
            void* __restrict__ dk, void* __restrict__ dv, Shape sh) {
   using L = DkvLayout<D>;
-  static_assert(D % 64 == 0, "whole 64-column swizzle blocks (D = 80 has kernels of its own)");
+  static_assert(D % 64 == 0,
+                "whole 64-column swizzle blocks (D = 64 and 80 have kernels of their own)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -860,7 +841,8 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
           const float* __restrict__ lse, const float* __restrict__ delta,
           void* __restrict__ dq, Shape sh) {
   using L = DqLayout<D>;
-  static_assert(D % 64 == 0, "whole 64-column swizzle blocks (D = 80 has kernels of its own)");
+  static_assert(D % 64 == 0,
+                "whole 64-column swizzle blocks (D = 64 and 80 have kernels of their own)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sdO = base + L::kQ;
@@ -1004,23 +986,24 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   }
 }
 
-// -- K6 and K7 at head_dim 80 ---------------------------------------------------
+// -- K6 and K7 at head_dim 64 and 80 -------------------------------------------
 //
-// Separate kernels, since the 64-column blocks above would pad D = 80 to 128
-// and a 64 x 128 f32 accumulator leaves no registers for a second one.  A
-// (rows, 80) bf16 tile is held at its own 80 columns (Tile80), so every
-// product runs at the counted work, and the passes are shaped for it:
-//  - K7: one block per 128 keys; each consumer warpgroup owns 64 of them and
-//    holds both its dV and its dK accumulator (2 x 40 f32 a thread).  For each
-//    streamed 64-query tile it computes S^T = K Q^T and dP^T = V dO^T at
-//    m64n64, forms P^T and dS^T in f32 and rounds them to bf16 in registers,
-//    where they are the A operands of dV += P^T dO and dK += dS^T Q (dO and Q
-//    the MN-major B): P^T and dS^T never go through shared memory and the
-//    warpgroups never wait for each other; the two share each Q/dO stage,
+// Templates over D = 64 and 80, since the kernels above, shaped for D = 256,
+// pad D = 80 to 128 columns and run D = 64 on 32-key K6 tiles and 64-key K7
+// blocks.  A (rows, D) bf16 tile is held at its own D columns (TileN<D>), so
+// every product runs at the counted work, and the passes are shaped for it:
+//  - K7 (dkv_narrow_kernel): one block per 128 keys; each consumer warpgroup
+//    owns 64 of them and holds both its dV and its dK accumulator (2 x D/2
+//    f32 a thread).  For each streamed 64-query tile it computes S^T = K Q^T
+//    and dP^T = V dO^T at m64n64, forms P^T and dS^T in f32 and rounds them
+//    to bf16 in registers, where they are the A operands of dV += P^T dO and
+//    dK += dS^T Q (dO and Q the MN-major B): P^T and dS^T never go through
+//    shared memory and no barrier joins the warpgroups on a tile (at D = 64
+//    they take turns at issuing, below); the two share each Q/dO stage,
 //    into which producer warp 1 writes the tile's lse log2 e and delta (in
-//    registers, 32 a thread, they spilled);
-//  - K6: K/V stream in 128-key tiles (S and dP at m64n128), dS stays in
-//    registers as the A operand of dQ += dS K;
+//    registers, 32 a thread, they spilled at D = 80);
+//  - K6 (dq_narrow_kernel): K/V stream in 128-key tiles (S and dP at
+//    m64n128), dS stays in registers as the A operand of dQ += dS K;
 //  - inside a warpgroup, products overlap the elementwise work: S and dP are
 //    committed as two groups, P is formed while dP runs (wait_group 1), and
 //    the dV / dK / dQ products of one tile run on while the next tile's S and
@@ -1028,21 +1011,27 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
 //    seen the products that read it.  A warpgroup with no key (K7) or row
 //    (K6) in a tile still waits for it and releases it, after its own
 //    products in flight, so arrivals on a stage never run ahead of a use;
-//  - a 4-stage ring: K7's Q/dO (and lse, delta) 4 x 21 KB beside 40 KB of
-//    resident K/V, K6's K/V 4 x 40 KB beside 40 KB of resident Q/dO.
+//  - at D = 64, K7's two warpgroups take turns (named barriers) at issuing
+//    S^T and dP^T, so one's products run while the other's elementwise step
+//    does; a warpgroup with no key in a tile takes an empty turn (on an
+//    H100 they made K7 faster at D = 64 and slower at D = 80, and left K6
+//    as it was; PERF.md, Findings);
+//  - a 4-stage ring: K7's Q/dO (and lse, delta) 4 x 21 KB (D = 80) or
+//    4 x 17 KB (D = 64) beside 40 or 32 KB of resident K/V, K6's K/V 4 x 40
+//    or 4 x 32 KB beside 40 or 32 KB of resident Q/dO.
 // Masks, windows, the softcap, G > 1 (f32 head partials for the sum pass),
 // the f32 dq and the no-atomics ownership are those of the kernels above.
 
 constexpr int kD80 = 80;
-constexpr int kDq80Keys = 128;   // keys of a K6 K/V tile at D = 80
-constexpr int kDkv80Keys = 128;  // keys of a K7 block at D = 80: 64 a warpgroup
-constexpr int kStages80 = 4;     // stages of the D = 80 rings
+constexpr int kDqNarrowKeys = 128;   // keys of a K6 K/V tile at D = 64 and 80
+constexpr int kDkvNarrowKeys = 128;  // keys of a K7 block at D = 64 and 80: 64 a warpgroup
+constexpr int kNarrowStages = 4;     // stages of the K6 and K7 rings at D = 64 and 80
 
 // A (rows, D) bf16 tile, D = 64 or 80, of rows * 2D bytes: a 64-column block,
 // 128-byte swizzled (rows x 128 bytes), then at D = 80 a 16-column block,
 // 32-byte swizzled (rows x 32 bytes; the 16-byte chunk c of row r at chunk
-// c ^ ((r / 4) % 2)).  The forward at D = 64 (fwd_narrow_kernel) uses the
-// first block alone.
+// c ^ ((r / 4) % 2)).  At D = 64 the narrow kernels use the first block
+// alone.
 template <int D>
 struct TileN {
   static_assert(D == 64 || D == kD80, "a TileN holds 64 or 80 columns");
@@ -1073,7 +1062,6 @@ struct TileN {
                    desc(tile + rows * 128 + kk * 512, rows * 32, 256, kSw32), 1);
   }
 };
-using Tile80 = TileN<kD80>;
 
 // 2^x without branches (a result below 2^-126 flushes to 0; 2^-inf = 0).
 __device__ __forceinline__ float exp2_ftz(float x) {
@@ -1082,7 +1070,7 @@ __device__ __forceinline__ float exp2_ftz(float x) {
   return y;
 }
 
-// The elementwise step of the D = 80 passes on a 64-row score tile in the
+// The elementwise step of the narrow K6 and K7 on a 64-row score tile in the
 // accumulator's layout (NE values a thread: 64 x 64 in K7, 64 x 128 in K6),
 // without a branch inside (kCapped and kMasked are uniform): p = exp(s - lse)
 // with s = c tanh(raw scale / c) or raw scale, computed as 2^(s log2 e - lse
@@ -1090,14 +1078,14 @@ __device__ __forceinline__ float exp2_ftz(float x) {
 // rows[(j / 2) % 2] (a key in K7, kRowsAreKeys; a query in K6) and column
 // col0 + acc_col(j); `lse2(j)` is lse log2 e of its query.  The tile keeps
 // p [(1 - t^2)] (the factor dS takes); pa, if not null, gets p as bf16 pairs.
-struct Mask80 {
+struct MaskN {
   int q_end, window;  // window: INT_MAX for none
 };
 
 template <bool kCapped, bool kMasked, bool kRowsAreKeys, int NE, typename Lse>
-__device__ __forceinline__ void probs80(float (&s)[NE], uint32_t* pa, Lse lse2, float mul,
-                                        float softcap, const int (&rows)[2], int col0,
-                                        int lane, Mask80 mk) {
+__device__ __forceinline__ void probs_narrow(float (&s)[NE], uint32_t* pa, Lse lse2, float mul,
+                                             float softcap, const int (&rows)[2], int col0,
+                                             int lane, MaskN mk) {
 #pragma unroll
   for (int j = 0; j < NE; j += 2) {
     float p[2];
@@ -1124,23 +1112,33 @@ __device__ __forceinline__ void probs80(float (&s)[NE], uint32_t* pa, Lse lse2, 
   }
 }
 
-// probs80 with its uniform choices made once.
+// probs_narrow with its uniform choices made once.
 template <bool kRowsAreKeys, int NE, typename Lse>
-__device__ __forceinline__ void probs80_any(bool capped, bool masked, float (&s)[NE],
-                                            uint32_t* pa, Lse lse2, float mul, float softcap,
-                                            const int (&rows)[2], int col0, int lane,
-                                            Mask80 mk) {
+__device__ __forceinline__ void probs_narrow_any(bool capped, bool masked, float (&s)[NE],
+                                                 uint32_t* pa, Lse lse2, float mul,
+                                                 float softcap, const int (&rows)[2], int col0,
+                                                 int lane, MaskN mk) {
   if (capped) {
     if (masked)
-      probs80<true, true, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+      probs_narrow<true, true, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
     else
-      probs80<true, false, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+      probs_narrow<true, false, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
   } else {
     if (masked)
-      probs80<false, true, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+      probs_narrow<false, true, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
     else
-      probs80<false, false, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
+      probs_narrow<false, false, kRowsAreKeys>(s, pa, lse2, mul, softcap, rows, col0, lane, mk);
   }
+}
+
+// The two consumer warpgroups take turns at issuing products (named
+// barriers 2 and 3): warpgroup w waits on barrier 2 + w, issues, and lets the
+// other go on barrier 3 - w.
+__device__ __forceinline__ void turn_wait(int wg) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(kConsumers) : "memory");
+}
+__device__ __forceinline__ void turn_pass(int wg) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(3 - wg), "n"(kConsumers) : "memory");
 }
 
 // A warpgroup's stage release: once the products that read stage `pending`
@@ -1150,44 +1148,51 @@ __device__ __forceinline__ void release(uint32_t empty, int& pending) {
   pending = -1;
 }
 
-struct Dkv80Layout {
-  static constexpr int kKV = Tile80::bytes(kDkv80Keys);  // resident K or V
-  static constexpr int kT = Tile80::bytes(kTile);        // one Q or dO tile
-  static constexpr int kStage = 2 * kT + 2 * kTile * 4;  // Q, dO, then the tile's lse, delta
-  static constexpr int kBars = 2 * kKV + kStages80 * kStage;      // kv_full, full[], empty[]
-  static constexpr int kBytes = kBars + (1 + 2 * kStages80) * 8 + 1024;
+template <int D>
+struct DkvNarrowLayout {
+  static constexpr int kKV = TileN<D>::bytes(kDkvNarrowKeys);  // resident K or V
+  static constexpr int kT = TileN<D>::bytes(kTile);            // one Q or dO tile
+  static constexpr int kStage = 2 * kT + 2 * kTile * 4;  // Q, dO, then lse, delta
+  static constexpr int kBars = 2 * kKV + kNarrowStages * kStage;  // kv_full, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kNarrowStages) * 8 + 1024;
 };
 
-// Each map comes twice: 64-column boxes and 16-column boxes.
-template <bool kPartial>
+// Each map comes twice: 64-column boxes and 16-column boxes (at D = 64 the
+// second is the first again, unread).
+template <int D, bool kPartial>
 __global__ void __launch_bounds__(kThreads, 1)
-dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
-               const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
-               const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
-               const __grid_constant__ CUtensorMap tdo,
-               const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
-               const float* __restrict__ delta, void* __restrict__ dk, void* __restrict__ dv,
-               Shape sh) {
-  using L = Dkv80Layout;
-  using T = Tile80;
-  constexpr int D = kD80;
+dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tq16, const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tk16, const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap tv16,
+                  const __grid_constant__ CUtensorMap tdo,
+                  const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
+                  const float* __restrict__ delta, void* __restrict__ dk,
+                  void* __restrict__ dv, Shape sh) {
+  using L = DkvNarrowLayout<D>;
+  using T = TileN<D>;
+  constexpr int NS = kNarrowStages;
+  // At D = 64 the warpgroups take turns at issuing S^T and dP^T, so one's
+  // products run while the other's elementwise step does (at D = 80 the
+  // turns cost more than they gave)
+  constexpr bool kTurns = D == 64;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sK = base, sV = base + L::kKV;
   const uint32_t sStage = base + 2 * L::kKV;  // stage st: Q at + st kStage, dO, lse, delta
-  const uint32_t kv_full = base + L::kBars, full = kv_full + 8, empty = full + 8 * kStages80;
+  const uint32_t kv_full = base + L::kBars, full = kv_full + 8, empty = full + 8 * NS;
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
 
   const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
   const int kvh = h / (sh.h / sh.kv);
-  const int k0 = blockIdx.y * kDkv80Keys;  // block 0, the heaviest, first
-  const int k1 = min(k0 + kDkv80Keys, sh.s) - 1;
+  const int k0 = blockIdx.y * kDkvNarrowKeys;  // block 0, the heaviest, first
+  const int k1 = min(k0 + kDkvNarrowKeys, sh.s) - 1;
   const int qt_first = k0 / kTile;
   const int qt_last = (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : sh.s - 1) / kTile;
 
   if (threadIdx.x == 0) {
     mbar_init(kv_full, 1);
-    for (int st = 0; st < kStages80; ++st) {
+    for (int st = 0; st < NS; ++st) {
       mbar_init(full + 8 * st, 1 + 32);  // the copies' thread, then warp 1
       mbar_init(empty + 8 * st, kConsumers);
     }
@@ -1199,11 +1204,11 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     set_max_registers_dec<kProducerRegs>();
     if (threadIdx.x == 0) {  // starts every copy
       mbar_expect_tx(kv_full, 2 * L::kKV);
-      T::load(sK, &tk, &tk16, kv_full, kDkv80Keys, kvh, k0, b);
-      T::load(sV, &tv, &tv16, kv_full, kDkv80Keys, kvh, k0, b);
+      T::load(sK, &tk, &tk16, kv_full, kDkvNarrowKeys, kvh, k0, b);
+      T::load(sV, &tv, &tv16, kv_full, kDkvNarrowKeys, kvh, k0, b);
       for (int qt = qt_first; qt <= qt_last; ++qt) {
-        const int i = qt - qt_first, st = i % kStages80;
-        if (i >= kStages80) mbar_wait(empty + 8 * st, (i / kStages80 - 1) & 1);
+        const int i = qt - qt_first, st = i % NS;
+        if (i >= NS) mbar_wait(empty + 8 * st, (i / NS - 1) & 1);
         const uint32_t bar = full + 8 * st, dst = sStage + st * L::kStage;
         mbar_expect_tx(bar, 2 * L::kT);
         T::load(dst, &tq, &tq16, bar, kTile, h, qt * kTile, b);
@@ -1213,8 +1218,8 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
       const int lane = threadIdx.x - 32;
       const long long row_off = (long long)bh * sh.s;
       for (int qt = qt_first; qt <= qt_last; ++qt) {
-        const int i = qt - qt_first, st = i % kStages80;
-        if (i >= kStages80) mbar_wait(empty + 8 * st, (i / kStages80 - 1) & 1);
+        const int i = qt - qt_first, st = i % NS;
+        if (i >= NS) mbar_wait(empty + 8 * st, (i / NS - 1) & 1);
         float* rows = reinterpret_cast<float*>(gbase + st * L::kStage + 2 * (L::kKV + L::kT));
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
@@ -1233,7 +1238,7 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
   const bool capped = sh.softcap > 0.f;
   const float mul = capped ? sh.scale / sh.softcap : sh.scale * kLog2e;
-  const Mask80 mk = {sh.s, sh.window > 0 ? sh.window : INT_MAX};
+  const MaskN mk = {sh.s, sh.window > 0 ? sh.window : INT_MAX};
   const int kw = k0 + wg * kTile;  // this warpgroup's first key
   const bool live = kw < sh.s;
   const int kw_last = min(kw + kTile, sh.s) - 1;
@@ -1248,25 +1253,32 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   int pending = -1;                   // the stage those products read
 
   mbar_wait(kv_full, 0);
+  if constexpr (kTurns)
+    if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
   for (int qt = qt_first; qt <= qt_last; ++qt) {
-    const int i = qt - qt_first, st_i = i % kStages80;
+    const int i = qt - qt_first, st_i = i % NS;
     const uint32_t sQ = sStage + st_i * L::kStage, sdO = sQ + L::kT;
     if (!live || qt < wq_first || qt > wq_last) {  // none of our keys sees the tile
       wgmma_wait<0>();
       fence_regs(pa);
       fence_regs(da);
       release(empty, pending);
-      mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+      mbar_wait(full + 8 * st_i, (i / NS) & 1);
       mbar_arrive(empty + 8 * st_i);
+      if constexpr (kTurns) {  // an empty turn: each warpgroup takes one a tile
+        turn_wait(wg);
+        turn_pass(wg);
+      }
       continue;
     }
     const int q0 = qt * kTile;
     const float* lse_c =  // lse log2 e
         reinterpret_cast<const float*>(gbase + st_i * L::kStage + 2 * (L::kKV + L::kT));
     const float* delta_c = lse_c + kTile;
-    mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+    mbar_wait(full + 8 * st_i, (i / NS) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), two groups
+    if constexpr (kTurns) turn_wait(wg);
     float sc[32], dp[32];
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
@@ -1275,14 +1287,15 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(sc, T::kmajor(sK, kDkv80Keys, wg * kTile, kk),
+      wgmma_ss<64, 0>(sc, T::kmajor(sK, kDkvNarrowKeys, wg * kTile, kk),
                       T::kmajor(sQ, kTile, 0, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(dp, T::kmajor(sV, kDkv80Keys, wg * kTile, kk),
+      wgmma_ss<64, 0>(dp, T::kmajor(sV, kDkvNarrowKeys, wg * kTile, kk),
                       T::kmajor(sdO, kTile, 0, kk), kk > 0);
     wgmma_commit();
+    if constexpr (kTurns) turn_pass(wg);
     wgmma_wait<1>();  // S^T, and the last tile's dV and dK, are done
     fence_regs(sc);
     fence_regs(pa);
@@ -1292,9 +1305,9 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     // P^T = exp(s - lse) to bf16 for dV; sc keeps P^T [(1 - t^2)] for dS^T
     const bool masked = !(kw + kTile - 1 <= q0 && q0 + kTile - 1 < sh.s &&
                           (sh.window <= 0 || q0 + kTile - 1 - kw < sh.window));
-    probs80_any<true>(capped, masked, sc, pa,
-                      [&](int j) { return lse_c[acc_col(j, lane)]; }, mul, sh.softcap, key, q0,
-                      lane, mk);
+    probs_narrow_any<true>(capped, masked, sc, pa,
+                           [&](int j) { return lse_c[acc_col(j, lane)]; }, mul, sh.softcap, key,
+                           q0, lane, mk);
     // dV += P^T dO
     wgmma_fence();
 #pragma unroll
@@ -1315,6 +1328,8 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
     wgmma_commit();
     pending = st_i;
   }
+  if constexpr (kTurns)
+    if (wg == 0) turn_wait(wg);  // warpgroup 1's last pass
   wgmma_wait<0>();
   fence_regs(dv_acc);
   fence_regs(dk_acc);
@@ -1347,43 +1362,44 @@ dkv_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ C
   }
 }
 
-struct Dq80Layout {
-  static constexpr int kRows = 2 * kTile;                          // two warpgroups' rows
-  static constexpr int kQ = Tile80::bytes(kRows);          // the Q or the dO tile
-  static constexpr int kKV = Tile80::bytes(kDq80Keys);     // one K or V tile
-  static constexpr int kStage = 2 * kKV;                           // K, then V
-  static constexpr int kBars = 2 * kQ + kStages80 * kStage;        // qd_full, full[], empty[]
-  static constexpr int kBytes = kBars + (1 + 2 * kStages80) * 8 + 1024;
+template <int D>
+struct DqNarrowLayout {
+  static constexpr int kRows = 2 * kTile;                     // two warpgroups' rows
+  static constexpr int kQ = TileN<D>::bytes(kRows);           // the Q or the dO tile
+  static constexpr int kKV = TileN<D>::bytes(kDqNarrowKeys);  // one K or V tile
+  static constexpr int kStage = 2 * kKV;                          // K, then V
+  static constexpr int kBars = 2 * kQ + kNarrowStages * kStage;  // qd_full, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kNarrowStages) * 8 + 1024;
 };
 
-template <bool kWide>
+// Each map comes twice, as in dkv_narrow_kernel.
+template <int D, bool kWide>
 __global__ void __launch_bounds__(kThreads, 1)
-dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
-              const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
-              const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
-              const __grid_constant__ CUtensorMap tdo,
-              const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
-              const float* __restrict__ delta, void* __restrict__ dq, Shape sh) {
-  using L = Dq80Layout;
-  constexpr int NK = kDq80Keys;
-  using T = Tile80;
-  constexpr int D = kD80;
+dq_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
+                 const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
+                 const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
+                 const __grid_constant__ CUtensorMap tdo,
+                 const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
+                 const float* __restrict__ delta, void* __restrict__ dq, Shape sh) {
+  using L = DqNarrowLayout<D>;
+  constexpr int NK = kDqNarrowKeys, NS = kNarrowStages;
+  using T = TileN<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sdO = base + L::kQ;
   const uint32_t sKV = base + 2 * L::kQ;  // stage st: K at + st kStage, V after it
-  const uint32_t qd_full = base + L::kBars, full = qd_full + 8, empty = full + 8 * kStages80;
+  const uint32_t qd_full = base + L::kBars, full = qd_full + 8, empty = full + 8 * NS;
 
   const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
   const int kvh = h / (sh.h / sh.kv);
   const int n_qt = (sh.s + L::kRows - 1) / L::kRows;
   const int q0 = (n_qt - 1 - (int)blockIdx.y) * L::kRows;  // heaviest tiles first
-  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kDq80Keys : 0;
-  const int kt_last = (min(q0 + L::kRows, sh.s) - 1) / kDq80Keys;
+  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / NK : 0;
+  const int kt_last = (min(q0 + L::kRows, sh.s) - 1) / NK;
 
   if (threadIdx.x == 0) {
     mbar_init(qd_full, 1);
-    for (int st = 0; st < kStages80; ++st) {
+    for (int st = 0; st < NS; ++st) {
       mbar_init(full + 8 * st, 1);
       mbar_init(empty + 8 * st, kConsumers);
     }
@@ -1398,12 +1414,12 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
       T::load(sQ, &tq, &tq16, qd_full, L::kRows, h, q0, b);
       T::load(sdO, &tdo, &tdo16, qd_full, L::kRows, h, q0, b);
       for (int kt = kt_first; kt <= kt_last; ++kt) {
-        const int i = kt - kt_first, st = i % kStages80;
-        if (i >= kStages80) mbar_wait(empty + 8 * st, (i / kStages80 - 1) & 1);
+        const int i = kt - kt_first, st = i % NS;
+        if (i >= NS) mbar_wait(empty + 8 * st, (i / NS - 1) & 1);
         const uint32_t bar = full + 8 * st, dst = sKV + st * L::kStage;
         mbar_expect_tx(bar, L::kStage);
-        T::load(dst, &tk, &tk16, bar, kDq80Keys, kvh, kt * kDq80Keys, b);
-        T::load(dst + L::kKV, &tv, &tv16, bar, kDq80Keys, kvh, kt * kDq80Keys, b);
+        T::load(dst, &tk, &tk16, bar, NK, kvh, kt * NK, b);
+        T::load(dst + L::kKV, &tv, &tv16, bar, NK, kvh, kt * NK, b);
       }
     }
     return;
@@ -1416,8 +1432,8 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
   const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
   const int r0 = q0 + wg * kTile;  // this warpgroup's first row
   const bool live = r0 < sh.s;
-  const int wk_first = sh.window > 0 ? max(0, r0 - sh.window + 1) / kDq80Keys : 0;
-  const int wk_last = (min(r0 + kTile, sh.s) - 1) / kDq80Keys;
+  const int wk_first = sh.window > 0 ? max(0, r0 - sh.window + 1) / NK : 0;
+  const int wk_last = (min(r0 + kTile, sh.s) - 1) / NK;
   const int row[2] = {r0 + acc_row(0, warp, lane), r0 + acc_row(2, warp, lane)};
   float lse_r[2], delta_r[2];
 #pragma unroll
@@ -1428,28 +1444,28 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 
   const bool capped = sh.softcap > 0.f;
   const float mul = capped ? sh.scale / sh.softcap : sh.scale * kLog2e;
-  const Mask80 mk = {sh.s, sh.window > 0 ? sh.window : INT_MAX};
+  const MaskN mk = {sh.s, sh.window > 0 ? sh.window : INT_MAX};
   const float lse2[2] = {lse_r[0] * kLog2e, lse_r[1] * kLog2e};
   float acc[D / 2];  // dq / scale
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
   uint32_t da[NK / 4] = {};  // dS: the A operand of the dQ product in flight
-  int pending = -1;      // the stage it reads
+  int pending = -1;          // the stage it reads
 
   mbar_wait(qd_full, 0);
   for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int i = kt - kt_first, st_i = i % kStages80;
+    const int i = kt - kt_first, st_i = i % NS;
     const uint32_t sK = sKV + st_i * L::kStage, sV = sK + L::kKV;
     if (!live || kt < wk_first || kt > wk_last) {  // no row of ours sees the tile
       wgmma_wait<0>();
       fence_regs(da);
       release(empty, pending);
-      mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+      mbar_wait(full + 8 * st_i, (i / NS) & 1);
       mbar_arrive(empty + 8 * st_i);
       continue;
     }
-    const int k0 = kt * kDq80Keys;
-    mbar_wait(full + 8 * st_i, (i / kStages80) & 1);
+    const int k0 = kt * NK;
+    mbar_wait(full + 8 * st_i, (i / NS) & 1);
 
     // S = Q K^T and dP = dO V^T (64 rows x 128 keys), two groups
     float sc[NK / 2], dp[NK / 2];
@@ -1461,12 +1477,12 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss<NK, 0>(sc, T::kmajor(sQ, L::kRows, wg * kTile, kk),
-                      T::kmajor(sK, kDq80Keys, 0, kk), kk > 0);
+                      T::kmajor(sK, NK, 0, kk), kk > 0);
     wgmma_commit();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss<NK, 0>(dp, T::kmajor(sdO, L::kRows, wg * kTile, kk),
-                      T::kmajor(sV, kDq80Keys, 0, kk), kk > 0);
+                      T::kmajor(sV, NK, 0, kk), kk > 0);
     wgmma_commit();
     wgmma_wait<1>();  // S, and the last tile's dQ product, are done
     fence_regs(sc);
@@ -1474,10 +1490,11 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     release(empty, pending);
 
     // P = exp(s - lse) [(1 - t^2)] while dP runs
-    const bool masked = !(k0 + kDq80Keys - 1 <= r0 && r0 + kTile - 1 < sh.s &&
+    const bool masked = !(k0 + NK - 1 <= r0 && r0 + kTile - 1 < sh.s &&
                           (sh.window <= 0 || r0 + kTile - 1 - k0 < sh.window));
-    probs80_any<false>(capped, masked, sc, nullptr, [&](int j) { return lse2[(j >> 1) & 1]; },
-                       mul, sh.softcap, row, k0, lane, mk);
+    probs_narrow_any<false>(capped, masked, sc, nullptr,
+                            [&](int j) { return lse2[(j >> 1) & 1]; }, mul, sh.softcap, row, k0,
+                            lane, mk);
     wgmma_wait<0>();  // dP is done
     fence_regs(dp);
 
@@ -1489,7 +1506,7 @@ dq_d80_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CU
     }
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDq80Keys / 16; ++kk) T::mma(acc, da + 4 * kk, sK, kDq80Keys, kk);
+    for (int kk = 0; kk < NK / 16; ++kk) T::mma(acc, da + 4 * kk, sK, NK, kk);
     wgmma_commit();
     pending = st_i;
   }
@@ -1673,16 +1690,6 @@ __device__ __forceinline__ void issue_pv(float (&acc)[D / 2], uint32_t (&pa)[kFw
   for (int kk = 0; kk < kFwdNarrowKeys / 16; ++kk)
     TileN<D>::mma(acc, pa + 4 * kk, sV, kFwdNarrowKeys, kk);
   wgmma_commit();
-}
-
-// The two consumer warpgroups take turns at issuing products (named
-// barriers 2 and 3): warpgroup w waits on barrier 2 + w, issues, and lets the
-// other go on barrier 3 - w.
-__device__ __forceinline__ void turn_wait(int wg) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(2 + wg), "n"(kConsumers) : "memory");
-}
-__device__ __forceinline__ void turn_pass(int wg) {
-  asm volatile("bar.arrive %0, %1;\n" ::"r"(3 - wg), "n"(kConsumers) : "memory");
 }
 
 // What a consumer warpgroup of fwd_narrow_kernel holds across its tiles:
@@ -2054,50 +2061,87 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   return (int)cudaGetLastError();
 }
 
-// The two maps of a (B, S, heads, 80) tensor for Tile80: 64-column boxes
-// (128-byte swizzle) and 16-column boxes (32-byte swizzle).
-int make_maps80(CUtensorMap* maps, const void* ptr, int b, int s, int heads, int rows) {
-  if (int err = make_map(&maps[0], ptr, b, s, heads, kD80, rows)) return err;
-  return make_map(&maps[1], ptr, b, s, heads, kD80, rows, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+// The two maps of a (B, S, heads, D) tensor for TileN<D>: 64-column boxes
+// (128-byte swizzle) and, at D = 80, 16-column boxes (32-byte swizzle); at
+// D = 64 the second is the first again (TileN<64> reads one).
+template <int D>
+int make_maps_narrow(CUtensorMap* maps, const void* ptr, int b, int s, int heads, int rows) {
+  if (int err = make_map(&maps[0], ptr, b, s, heads, D, rows)) return err;
+  if constexpr (D == kD80) {
+    return make_map(&maps[1], ptr, b, s, heads, D, rows, 16, CU_TENSOR_MAP_SWIZZLE_32B);
+  } else {
+    maps[1] = maps[0];
+    return 0;
+  }
 }
 
-template <>
-int launch_dkv<80>(const void* q, const void* k, const void* v, const void* dout,
-                   const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
-                   cudaStream_t st) {
-  auto kernel = sh.h == sh.kv ? dkv_d80_kernel<false> : dkv_d80_kernel<true>;
-  constexpr int smem = Dkv80Layout::kBytes;
+// K7 at D = 64 and 80: dkv_narrow_kernel.
+template <int D>
+int launch_dkv_narrow(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
+                      cudaStream_t st) {
+  auto kernel = sh.h == sh.kv ? dkv_narrow_kernel<D, false> : dkv_narrow_kernel<D, true>;
+  constexpr int smem = DkvNarrowLayout<D>::kBytes;
   CUtensorMap m[8];
-  if (int err = make_maps80(m, q, sh.b, sh.s, sh.h, kTile)) return err;
-  if (int err = make_maps80(m + 2, k, sh.b, sh.s, sh.kv, kDkv80Keys)) return err;
-  if (int err = make_maps80(m + 4, v, sh.b, sh.s, sh.kv, kDkv80Keys)) return err;
-  if (int err = make_maps80(m + 6, dout, sh.b, sh.s, sh.h, kTile)) return err;
+  if (int err = make_maps_narrow<D>(m, q, sh.b, sh.s, sh.h, kTile)) return err;
+  if (int err = make_maps_narrow<D>(m + 2, k, sh.b, sh.s, sh.kv, kDkvNarrowKeys)) return err;
+  if (int err = make_maps_narrow<D>(m + 4, v, sh.b, sh.s, sh.kv, kDkvNarrowKeys)) return err;
+  if (int err = make_maps_narrow<D>(m + 6, dout, sh.b, sh.s, sh.h, kTile)) return err;
   if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid(sh.b * sh.h, (sh.s + kDkv80Keys - 1) / kDkv80Keys);
+  const dim3 grid(sh.b * sh.h, (sh.s + kDkvNarrowKeys - 1) / kDkvNarrowKeys);
   kernel<<<grid, kThreads, smem, st>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
                                        static_cast<const float*>(lse),
                                        static_cast<const float*>(delta), dk, dv, sh);
   return (int)cudaGetLastError();
 }
 
-template <>
-int launch_dq<80>(const void* q, const void* k, const void* v, const void* dout,
-                  const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
-                  cudaStream_t st) {
+// K6 at D = 64 and 80: dq_narrow_kernel.
+template <int D>
+int launch_dq_narrow(const void* q, const void* k, const void* v, const void* dout,
+                     const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
+                     cudaStream_t st) {
   if (dq_dtype < 0 || dq_dtype > 1) return (int)cudaErrorInvalidValue;
-  auto kernel = dq_dtype == 1 ? dq_d80_kernel<false> : dq_d80_kernel<true>;
-  using L = Dq80Layout;
+  auto kernel = dq_dtype == 1 ? dq_narrow_kernel<D, false> : dq_narrow_kernel<D, true>;
+  using L = DqNarrowLayout<D>;
   CUtensorMap m[8];
-  if (int err = make_maps80(m, q, sh.b, sh.s, sh.h, L::kRows)) return err;
-  if (int err = make_maps80(m + 2, k, sh.b, sh.s, sh.kv, kDq80Keys)) return err;
-  if (int err = make_maps80(m + 4, v, sh.b, sh.s, sh.kv, kDq80Keys)) return err;
-  if (int err = make_maps80(m + 6, dout, sh.b, sh.s, sh.h, L::kRows)) return err;
+  if (int err = make_maps_narrow<D>(m, q, sh.b, sh.s, sh.h, L::kRows)) return err;
+  if (int err = make_maps_narrow<D>(m + 2, k, sh.b, sh.s, sh.kv, kDqNarrowKeys)) return err;
+  if (int err = make_maps_narrow<D>(m + 4, v, sh.b, sh.s, sh.kv, kDqNarrowKeys)) return err;
+  if (int err = make_maps_narrow<D>(m + 6, dout, sh.b, sh.s, sh.h, L::kRows)) return err;
   if (int err = prepare(kernel, L::kBytes)) return err;
   const dim3 grid(sh.b * sh.h, (sh.s + L::kRows - 1) / L::kRows);
   kernel<<<grid, kThreads, L::kBytes, st>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7],
                                             static_cast<const float*>(lse),
                                             static_cast<const float*>(delta), dq, sh);
   return (int)cudaGetLastError();
+}
+
+template <>
+int launch_dkv<64>(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
+                   cudaStream_t st) {
+  return launch_dkv_narrow<64>(q, k, v, dout, lse, delta, dk, dv, sh, st);
+}
+
+template <>
+int launch_dkv<80>(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
+                   cudaStream_t st) {
+  return launch_dkv_narrow<80>(q, k, v, dout, lse, delta, dk, dv, sh, st);
+}
+
+template <>
+int launch_dq<64>(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
+                  cudaStream_t st) {
+  return launch_dq_narrow<64>(q, k, v, dout, lse, delta, dq, dq_dtype, sh, st);
+}
+
+template <>
+int launch_dq<80>(const void* q, const void* k, const void* v, const void* dout,
+                  const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
+                  cudaStream_t st) {
+  return launch_dq_narrow<80>(q, k, v, dout, lse, delta, dq, dq_dtype, sh, st);
 }
 
 // K5 at D = 64 and 80: fwd_narrow_kernel.  Its softmax takes the row max on
@@ -2113,12 +2157,7 @@ int launch_fwd_narrow(const void* q, const void* k, const void* v, void* o, void
   for (int i = 0; i < 3; ++i) {
     const int rows = i == 0 ? L::kQRows : kFwdNarrowKeys, heads = i == 0 ? sh.h : sh.kv;
     const int s = i == 0 ? sh.sq : sh.s;
-    if constexpr (D == kD80) {
-      if (int err = make_maps80(m + 2 * i, ptrs[i], sh.b, s, heads, rows)) return err;
-    } else {
-      if (int err = make_map(m + 2 * i, ptrs[i], sh.b, s, heads, D, rows)) return err;
-      m[2 * i + 1] = m[2 * i];
-    }
+    if (int err = make_maps_narrow<D>(m + 2 * i, ptrs[i], sh.b, s, heads, rows)) return err;
   }
   if (int err = prepare(kernel, L::kBytes)) return err;
   int dev = 0, sms = 0;

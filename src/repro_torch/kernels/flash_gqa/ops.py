@@ -11,8 +11,11 @@ its kernel for CUDA tensors and runs its plain PyTorch version
   ``flash_bwd_dkv``  K7: (dk, dv).
 
 Which kernel runs is a dispatch by dtype, not a fallback: bf16 (the LM
-slice's type) runs K5-K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``;
-at G = H / KV > 1, K7 writes per-head f32 partials and
+slice's type) runs K5-K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``:
+at head_dim 64 and 80 ``fwd_narrow_kernel``, ``dq_narrow_kernel`` and
+``dkv_narrow_kernel`` on tiles at the true width, at 128 and 256
+``fwd_kernel``, ``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
+writes per-head f32 partials and
 ``flash_bwd_dkv_sum`` adds them in head order); f32 runs the SIMT kernels
 of ``csrc/flash_gqa.cu``, whose products stay in f32.  A failed build or
 launch raises.  The bf16 kernels round P, dS (K6) and P^T, dS^T (K7) to
@@ -64,7 +67,7 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
 SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
 HEAD_DIMS = (64, 80, 128, 256)
-NARROW_HEAD_DIMS = (64, 80)  # the bf16 forward's fwd_narrow_kernel
+NARROW_HEAD_DIMS = (64, 80)  # bf16 K5-K7 run fwd_, dq_ and dkv_narrow_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

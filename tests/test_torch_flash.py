@@ -282,64 +282,96 @@ def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
         f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};"))
 
 
+_NARROW_CONSTANTS = (
+    f"constexpr int kTile = {grid.SM90_TILE};",
+    f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};",
+    f"constexpr int kDqNarrowKeys = {grid.SM90_DQ_NARROW_KEYS};",
+    f"constexpr int kDkvNarrowKeys = {grid.SM90_DKV_NARROW_KEYS};")
+
+
+def _launch_body(src, launch, d=None):
+    """The body of ``int launch_<launch>`` (``launch_<launch><d>`` for an
+    explicit specialization) in the source."""
+    name = launch if d is None else f"{launch}<{d}>"
+    body = re.search(r"\nint launch_" + re.escape(name) + r"\(.*?\n}", src, re.S)
+    return body and body.group(0)
+
+
 @pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
 def test_sm90_tile_ranges_at_head_dim_80_visit_exactly_the_tiles_with_visible_pairs(s, window):
-    """The same at head_dim 80 (fwd_narrow_kernel, dq_d80_kernel,
-    dkv_d80_kernel): K5 and K6 over 128-key tiles, K7 blocks of 128 keys and
-    each warpgroup's 64."""
-    _check_sm90_tile_ranges(s, window, grid.SM90_DQ80_KEYS, grid.SM90_DKV80_KEYS, (
-        f"constexpr int kTile = {grid.SM90_TILE};",
-        f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};",
-        f"constexpr int kDq80Keys = {grid.SM90_DQ80_KEYS};",
-        f"constexpr int kDkv80Keys = {grid.SM90_DKV80_KEYS};"), grid.SM90_FWD_NARROW_KEYS)
+    """The same at head_dim 80 (fwd_narrow_kernel, dq_narrow_kernel,
+    dkv_narrow_kernel): K5 and K6 over 128-key tiles, K7 blocks of 128 keys
+    and each warpgroup's 64."""
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_NARROW_KEYS, grid.SM90_DKV_NARROW_KEYS,
+                            _NARROW_CONSTANTS, grid.SM90_FWD_NARROW_KEYS)
 
 
 @pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
 def test_sm90_tile_ranges_at_head_dim_64_visit_exactly_the_tiles_with_visible_pairs(s, window):
-    """The same at head_dim 64: K5 over 128-key tiles (fwd_narrow_kernel), K6
-    over 32-key tiles and K7 over 64 (dq_kernel, dkv_kernel)."""
-    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
-        f"constexpr int kTile = {grid.SM90_TILE};",
-        f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};",
-        f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};"), grid.SM90_FWD_NARROW_KEYS)
+    """The same at head_dim 64, which runs the same narrow kernels (their
+    launches are ``launch_*_narrow<64>``): K5 and K6 over 128-key tiles, K7
+    blocks of 128 keys and each warpgroup's 64."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    for launch in ("fwd", "dq", "dkv"):
+        assert f"launch_{launch}_narrow<64>(" in _launch_body(src, launch, 64), launch
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_NARROW_KEYS, grid.SM90_DKV_NARROW_KEYS,
+                            _NARROW_CONSTANTS, grid.SM90_FWD_NARROW_KEYS)
 
 
 @pytest.mark.parametrize("s,window", [(1000, None), (1000, 512), (1100, None), (1100, 512),
                                       (1040, 512), (40, 16), (2048, 512), (128, None)])
 def test_sm90_d80_dkv_warpgroups_own_the_block_tiles(s, window):
-    """K7 at head_dim 80: a 128-key block's query tiles are the union of
-    its two warpgroups' ranges (each held to the mask), each a run from the
+    """K7 at head_dim 64 and 80 (dkv_narrow_kernel<D>, the same template at
+    both widths): a 128-key block's query tiles are the union of its two
+    warpgroups' ranges (each held to the mask), each a run from the
     warpgroup's diagonal tile, so a warpgroup skips only a block's first
     tile (the second's keys start one tile later) and its last ones (the
     window, or keys that all lie past S: none then)."""
-    mask = visible_mask(s, window, "cpu")
-    keys, per = grid.SM90_DKV80_KEYS, grid.SM90_DKV80_KEYS // grid.SM90_TILE
-    for kb in range(-(-s // keys)):
-        block = list(grid.sm90_dkv_query_tiles(kb, s, window, keys))
-        wgs = [list(grid.sm90_dkv_query_tiles(kb * per + w, s, window)) for w in range(per)]
-        assert sorted(set(wgs[0]) | set(wgs[1])) == block, kb
-        for w, tiles in enumerate(wgs):
-            k0 = (kb * per + w) * grid.SM90_TILE
-            assert tiles == _query_tiles(mask, k0, grid.SM90_TILE), (kb, w)
-            if k0 >= s:
-                assert tiles == [], (kb, w)
-            else:
-                assert tiles[0] == k0 // grid.SM90_TILE == block[0] + w, (kb, w)
-                assert tiles == list(range(tiles[0], tiles[-1] + 1)), (kb, w)
-
-
-def test_sm90_head_dim_80_backward_runs_its_own_kernels():
-    """The bf16 dq and dk/dv passes at head_dim 80 launch dq_d80_kernel and
-    dkv_d80_kernel (native 80-column tiles), every other head_dim its
-    dq_kernel<D> / dkv_kernel<D>; the forward's own kernel is at head_dim 64
-    and 80 only (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
     src = flash_ops.SM90_SOURCE.read_text()
-    for launch, kernel in (("dq", "dq_d80_kernel"), ("dkv", "dkv_d80_kernel")):
-        body = re.search(r"\nint launch_" + launch + r"<80>\(.*?\n}", src, re.S)
-        assert body and f"{kernel}<false>" in body.group(0), launch
-        body = re.search(r"\nint launch_" + launch + r"\(.*?\n}", src, re.S)
-        assert body and f"{launch}_kernel<D, false>" in body.group(0), launch
-    assert re.findall(r"template <>\nint launch_fwd<(\d+)>", src) == ["64", "80"]
+    narrow = _launch_body(src, "dkv_narrow")
+    assert "(sh.s + kDkvNarrowKeys - 1) / kDkvNarrowKeys" in narrow  # a block per 128 keys
+    mask = visible_mask(s, window, "cpu")
+    keys, per = grid.SM90_DKV_NARROW_KEYS, grid.SM90_DKV_NARROW_KEYS // grid.SM90_TILE
+    for d in flash_ops.NARROW_HEAD_DIMS:
+        assert f"launch_dkv_narrow<{d}>(" in _launch_body(src, "dkv", d), d
+        for kb in range(-(-s // keys)):
+            block = list(grid.sm90_dkv_query_tiles(kb, s, window, keys))
+            wgs = [list(grid.sm90_dkv_query_tiles(kb * per + w, s, window)) for w in range(per)]
+            assert sorted(set(wgs[0]) | set(wgs[1])) == block, (d, kb)
+            for w, tiles in enumerate(wgs):
+                k0 = (kb * per + w) * grid.SM90_TILE
+                assert tiles == _query_tiles(mask, k0, grid.SM90_TILE), (d, kb, w)
+                if k0 >= s:
+                    assert tiles == [], (d, kb, w)
+                else:
+                    assert tiles[0] == k0 // grid.SM90_TILE == block[0] + w, (d, kb, w)
+                    assert tiles == list(range(tiles[0], tiles[-1] + 1)), (d, kb, w)
+
+
+@pytest.mark.parametrize("d", flash_ops.NARROW_HEAD_DIMS)
+def test_sm90_head_dim_80_backward_runs_its_own_kernels(d):
+    """The bf16 dq and dk/dv passes at head_dim 64 and 80 launch
+    dq_narrow_kernel<D> and dkv_narrow_kernel<D> (128-key tiles and blocks
+    at the true width, their own layouts and tensor maps), through
+    launch_dq<D> / launch_dkv<D> specialized to launch_*_narrow<D>; 128 and
+    256 still launch dq_kernel<D> / dkv_kernel<D>, which are instantiated
+    at no narrow width; the forward's own kernel is at head_dim 64 and 80
+    only (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    for launch, kernel, layout in (("dq", "dq_narrow_kernel", "DqNarrowLayout"),
+                                   ("dkv", "dkv_narrow_kernel", "DkvNarrowLayout")):
+        assert f"launch_{launch}_narrow<{d}>(" in _launch_body(src, launch, d), launch
+        narrow = _launch_body(src, f"{launch}_narrow")
+        assert f"{kernel}<D, false>" in narrow and f"{kernel}<D, true>" in narrow, launch
+        assert f"{layout}<D>" in narrow and "make_maps_narrow<D>(" in narrow, launch
+        assert f"{launch}_kernel<" not in narrow, launch
+        generic = _launch_body(src, launch)
+        assert f"{launch}_kernel<D, false>" in generic and f"{launch}_kernel<D, true>" in generic
+    for launch in ("fwd", "dq", "dkv"):
+        assert re.findall(r"template <>\nint launch_" + launch + r"<(\d+)>", src) == ["64", "80"]
+    assert f"dtype == 1 && d == {d}) return LAUNCH<{d}>" in src
+    maps = re.search(r"\nint make_maps_narrow\(.*?\n}", src, re.S).group(0)
+    assert "maps[1] = maps[0];" in maps and "CU_TENSOR_MAP_SWIZZLE_32B" in maps
 
 
 @pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
@@ -355,7 +387,7 @@ def test_sm90_narrow_forward_runs_its_own_kernel(d):
         assert body and f"launch_fwd_narrow<{d}>(" in body.group(0)
         narrow = re.search(r"\nint launch_fwd_narrow\(.*?\n}", src, re.S).group(0)
         assert "fwd_narrow_kernel<D>" in narrow and "FwdNarrowLayout<D>" in narrow
-        assert "make_maps80(" in narrow and "fwd_kernel<" not in narrow
+        assert "make_maps_narrow<D>(" in narrow and "fwd_kernel<" not in narrow
     else:
         assert body is None
         generic = re.search(r"\nint launch_fwd\(.*?\n}", src, re.S).group(0)

@@ -6,6 +6,7 @@ run's and the calibration's records.  Each imports nothing of JAX or
 ``repro`` and asks for the card unless told otherwise.
 """
 import importlib.util
+import math
 import re
 from pathlib import Path
 
@@ -15,6 +16,8 @@ import torch
 
 from repro_torch.configs import INPUT_SHAPES, get_config
 from repro_torch.launch import calibrate, dryrun, roofline
+from repro_torch.launch import train_lm_pfedsop as lm_driver
+from repro_torch.models import transformer as tf
 
 ROOT = Path(__file__).resolve().parents[1]
 SCRIPTS = ["scripts/torch_smoke_models.py", "scripts/torch_smoke_fl.py",
@@ -45,6 +48,16 @@ def test_script_imports_only_the_port(rel):
                          src, re.M)
     original = (ROOT / rel.replace("torch_", "")).read_text()
     assert original != src  # the original stays beside it
+
+
+@pytest.mark.parametrize("rel", ["scripts/torch_phases.py"])
+def test_card_script_imports_only_the_port(rel):
+    """The card's own scripts (no ``repro`` original) import neither JAX
+    nor ``repro``."""
+    src = (ROOT / rel).read_text()
+    assert not re.search(r"^\s*(import jax|from jax|import repro\b|from repro\b|from repro\.)",
+                         src, re.M)
+    assert "import chip_smoke as cs" in src
 
 
 @pytest.mark.parametrize("rel", ["scripts/torch_smoke_models.py", "scripts/torch_smoke_fl.py",
@@ -142,39 +155,111 @@ def test_phase15_gradient_check_fails_a_planted_fault(_phase15_grads, name):
 _PTXAS_NS = "_ZN50_GLOBAL__N__8a88681c_17_flash_gqa_sm90_cu_36f005a1"
 
 
-@pytest.mark.parametrize("spill", [False, True])
-def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys, spill):
+_DQ64 = (f"{_PTXAS_NS}16dq_narrow_kernelILi64ELb0EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_PKfS3_"
+         "PvNS_5ShapeE")
+
+
+@pytest.mark.parametrize("fault", [None, "spill", "wgmma", "wgmma_unnamed"])
+def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys, fault):
     """``chip_smoke.print_ptxas`` names each kernel of the build log by its
     mangled identifier's length prefix (the anonymous namespace's own name
-    ends in digits, and the D = 80 kernels' names hold digits), prints its
-    registers and spills, passes on ptxas's notes about wgmma, and fails
-    naming the kernel that spills."""
+    ends in digits, and the kernels' template arguments hold digits), prints
+    its registers and spills and ptxas's notes about wgmma, and fails naming
+    the kernel that spills or whose wgmma ptxas serialized (C7515 / C7520):
+    the function the note names, or else the kernel whose section it falls
+    in.  A report with neither passes, also where another line names wgmma
+    (nvcc's note of an unused wgmma helper)."""
     cs = _load("chip_smoke.py")
     entry = "ptxas info    : Compiling entry function '{}' for 'sm_90a'"
     props = "ptxas info    : Function properties for {}"
+    note = ("ptxas info    : (C7520) Potential Performance Loss: wgmma.mma_async instructions are "
+            "serialized due to non wgmma instructions defining accumulator registers of a wgmma "
+            "between start and end of the pipeline stage")
     kernels = [(f"{_PTXAS_NS}10dkv_kernelILi256ELb1EEEv14CUtensorMap_stS1_S1_S1_PKfS3_PvS4_"
                 "NS_5ShapeE", "dkv_kernel<256, 1>", 0),
-               (f"{_PTXAS_NS}14dkv_d80_kernelILb1ELb0EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_"
-                "PKfS3_PvS4_NS_5ShapeE", "dkv_d80_kernel<1, 0>", 8 if spill else 0),
-               (f"{_PTXAS_NS}13dq_d80_kernelILb0ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_S1_"
-                "PKfS3_PvNS_5ShapeE", "dq_d80_kernel<0, 1>", 0),
+               (f"{_PTXAS_NS}17dkv_narrow_kernelILi80ELb1EEEv14CUtensorMap_stS1_S1_S1_S1_S1_S1_"
+                "S1_PKfS3_PvS4_NS_5ShapeE", "dkv_narrow_kernel<80, 1>", 8 if fault == "spill" else 0),
+               (_DQ64, "dq_narrow_kernel<64, 0>", 0),
                (f"{_PTXAS_NS}14dkv_sum_kernelEPKfS1_P13__nv_bfloat16S3_xii", "dkv_sum_kernel<>",
                 0)]
-    lines = []
+    unused = ('flash_gqa_sm90.cu(286): warning #177-D: function "<unnamed>::wgmma_ss<N,kTransB>('
+              'float (&)[<expression>], uint64_t, uint64_t, int) [with N=64, kTransB=1]" was '
+              'declared but never referenced')
+    lines = [unused]
     for mangled, _, spilled in kernels:
-        lines += [entry.format(mangled), props.format(mangled),
+        lines.append(entry.format(mangled))
+        if mangled == _DQ64 and fault == "wgmma":
+            lines.append(f"{note} in the function '{_DQ64}'")
+        elif mangled == _DQ64 and fault == "wgmma_unnamed":
+            lines.append(note)
+        lines += [props.format(mangled),
                   f"    0 bytes stack frame, {spilled} bytes spill stores, {spilled} bytes spill "
                   "loads",
                   "ptxas info    : Used 168 registers, used 1 barriers, 1024 bytes smem"]
-    lines.append("ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
-                 "instructions are serialized")
     monkeypatch.setattr(cs.kernel_build, "build_log", lambda source: "\n".join(lines))
-    if spill:
-        with pytest.raises(AssertionError, match=r"dkv_d80_kernel<1, 0>"):
-            cs.print_ptxas("flash_gqa_sm90.cu")
-    else:
+    if fault is None:
         cs.print_ptxas("flash_gqa_sm90.cu")
+    else:
+        name = "dkv_narrow_kernel<80, 1>" if fault == "spill" else "dq_narrow_kernel<64, 0>"
+        with pytest.raises(AssertionError, match=re.escape(name)) as err:
+            cs.print_ptxas("flash_gqa_sm90.cu")
+        assert str(err.value).count("_kernel<") == 1  # that kernel alone
     out = capsys.readouterr().out
     for _, name, _ in kernels:
         assert f"build[ptxas {name}]: Used 168 registers" in out, name
-    assert "build[ptxas]: ptxas info    : (C7515) Potential Performance Loss: wgmma" in out
+    if fault and fault.startswith("wgmma"):
+        assert "build[ptxas]: ptxas info    : (C7520) Potential Performance Loss: wgmma" in out
+
+
+def _phase13_model(arch):
+    cfg = get_config(arch).reduced().replace(dtype="bfloat16")
+    params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    streams = lm_driver.client_streams(cfg, 2, 2, 256)
+    return cfg, params, [{k: torch.from_numpy(v) for k, v in next(s).items()} for s in streams]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b"])
+def test_phase13_token_nll_gives_the_models_loss(arch):
+    """``chip_smoke.token_nll``: one NLL a label position, and their mean
+    plus the MoE aux loss is ``tf.lm_loss``."""
+    cs = _load("chip_smoke.py")
+    cfg, params, batches = _phase13_model(arch)
+    nll, loss = cs.token_nll(params, cfg, batches[0])
+    assert nll.shape == batches[0]["labels"].shape and nll.dtype == torch.float32
+    with torch.no_grad():
+        want = tf.lm_loss(params, cfg, batches[0]).item()
+    assert loss == pytest.approx(want, rel=1e-6)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m", "zamba2-2.7b"])
+def test_phase13_loss_check_passes_the_plain_path_and_fails_each_planted_fault(arch):
+    """``chip_smoke.train_loss_check`` on the CPU (the kernels' plain
+    versions against the oracles, in bf16, 2 x 256 tokens a batch): the
+    kernel path's median NLL error against the f32 run is within
+    ``TRAIN_NLL_RATIO_TOL`` of the reference path's, and a planted fault
+    reads above it: each of ``TRAIN_FAULTS`` on the routed model, K4's
+    output x1.01 on zamba2 (K5's moves its loss too little there, as on
+    the card)."""
+    cs = _load("chip_smoke.py")
+    cfg, params, batches = _phase13_model(arch)
+    plants = cs.TRAIN_FAULTS if cfg.n_experts else ("K4 output x1.01",)
+    gap, ratio, faults, line = cs.train_loss_check(
+        params, cfg, cfg.replace(kernel_impl="reference"), batches, plants)
+    assert "mean loss over 2 client batches" in line and math.isfinite(gap), line
+    assert ratio <= cs.TRAIN_NLL_RATIO_TOL, line
+    assert set(cs.TRAIN_FAULTS) <= set(cs.GRAD_FAULTS) and list(faults) == list(plants)
+    assert all(v > cs.TRAIN_NLL_RATIO_TOL for v in faults.values()), line
+    assert line.count("loss rel diff") == len(plants), line
+
+
+def test_planted_puts_the_kernels_back():
+    """``chip_smoke.planted`` swaps each planted kernel in inside the
+    ``with`` and puts the kernels back after it, also where it raises."""
+    cs = _load("chip_smoke.py")
+    plants = cs.GRAD_FAULTS["K6, K7 window - 1"] + cs.GRAD_FAULTS["K4 output x1.01"]
+    kept = [getattr(mod, attr) for mod, attr, _ in plants]
+    with pytest.raises(RuntimeError):
+        with cs.planted(plants):
+            assert all(getattr(mod, attr) is not fn for (mod, attr, _), fn in zip(plants, kept))
+            raise RuntimeError
+    assert [getattr(mod, attr) for mod, attr, _ in plants] == kept
