@@ -23,14 +23,16 @@ Phases (any failure exits non-zero; nothing is caught):
                   window on and off, softcap on and off, f32 and bf16, plus
                   bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40, and
                   zamba2's D = 80 (H = KV = 32, bf16 and f32, a masked
-                  bf16 case and the narrow K5-K7 kernels' edges at D = 80
-                  and 64: S = 40, 1,040 and 1,100, window 512; timed too,
-                  beside SDPA at D = 80 and at phase 19's rank, H = KV =
-                  16), and phases
+                  bf16 case and the narrow kernels' edges at D = 80 and
+                  64, and K5's at 128: S = 40, 1,040 and 1,100, window
+                  512; timed too, beside SDPA at D = 80 and at phase 19's
+                  rank, H = KV = 16), and phases
                   13-14's shapes: granite-moe's training (H = 16 over KV =
                   8, D = 64, and its sum pass), internvl2's and musicgen's
                   prefill (B = 4, S = 1,024; D = 128 and 64) (bf16
-                  K5-K7 run on the tensor cores, ``flash_gqa_sm90.cu``;
+                  K5-K7 run on the tensor cores, ``flash_gqa_sm90.cu``:
+                  K5 on the persistent ``fwd_narrow_kernel`` at D = 64,
+                  80 and 128;
                   K6's dq and K7's dk/dv held bitwise across two launches,
                   in f32 before their final rounding within half an ulp,
                   and K7's sum pass bitwise against its plain version); the
@@ -38,7 +40,8 @@ Phases (any failure exits non-zero; nothing is caught):
                   SDPA's backward; K5 at a query offset at phase 20's rank
                   shapes (gemma3-1b at m = 2 and 4, window 512 and none,
                   softcap, bf16 and f32; granite-moe, zamba2 at D = 80,
-                  internvl2 at D = 128 and musicgen at m = 2), each rank
+                  internvl2 at D = 128 and musicgen at m = 2, the last
+                  three at m = 4 too), each rank
                   against its plain version and bitwise the rows of the
                   launch without an offset, and timed at the last rank
                   (the ``flash_fwd`` record's ``q_offset``).  Device times (torch.profiler; host time
@@ -271,9 +274,10 @@ Prints a ``{"kernels": [...]}`` line (each flash record also holds its
 D = 80 readings under ``d80`` (zamba2, H = KV = 32) and ``d80_rank``
 (phase 19's rank, H = KV = 16), its D = 64 readings under ``d64``
 (granite-moe's training shape), ``flash_fwd`` internvl2's prefill (D =
-128) under ``d128_prefill`` and its query-offset readings under
-``q_offset``; the window records a library time, SDPA with the window's
-mask; launches per path under ``launches_by_path``) and ends with
+128, ``fwd_narrow_kernel<128>``) under ``d128_prefill`` and its
+query-offset readings under ``q_offset``; the window records a library
+time, SDPA with the window's mask; launches per path under
+``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -358,7 +362,10 @@ SERVE_RTOL = 2.0 ** -4  # serving logits: kernel path against reference, in unit
 
 
 PROFILE_TRIES = 4  # device_ms: profiles taken before a short one fails the run
-PROFILE_PAD_S = 0.02  # host idle at each end of a profile (see device_ms)
+PROFILE_PAD_S = 0.02  # host idle at each end of a profile (see profiled)
+MARKER = "spin_kernel"  # torch.cuda._sleep's kernel: the markers that open a profile
+MARKER_CYCLES = 1000  # each marker's spin, under a microsecond
+PROFILE_MARKERS = {"launch": 64, "lost": 0}  # markers a profile opens with; most yet lost
 
 
 def device_events(prof):
@@ -385,17 +392,43 @@ def l2_flush():
 
 def profiled(body, acts):
     """The device events of one ``torch.profiler`` session around ``body()``
-    and a synchronize.  The host idles ``PROFILE_PAD_S`` after the session
-    starts and before it stops: the profiler drops device events that its
-    clock places outside the session, so a launch right at either end is
-    not at the mercy of a small offset between the host's and the card's
-    clocks."""
-    with torch.profiler.profile(activities=acts) as prof:
-        time.sleep(PROFILE_PAD_S)
-        body()
-        torch.cuda.synchronize()
-        time.sleep(PROFILE_PAD_S)
-    return device_events(prof)
+    and a synchronize, the session's markers left out.
+
+    A session can lose its first device events: it holds the host's
+    launches of them, not the kernels.  On an H100 (torch 2.11, CUDA 12.8),
+    once another process had used the card, every session lost its first 2
+    kernels, and 30 s later its first 4; where the first was
+    ``device_ms``'s L2 flush, the profile held one flush too few.  So a
+    session opens with markers (``torch.cuda._sleep``'s spin kernel) and a
+    synchronize before ``body()`` launches anything.  Where a prefix of the
+    session is lost, it is markers; where at least one marker is recorded,
+    recording was on before ``body()`` began, and no event of it is lost at
+    the start.  A session that records no marker is taken again, and each
+    session opens with at least four times as many markers as any session
+    lost so far (``PROFILE_MARKERS``).  The host also idles
+    ``PROFILE_PAD_S`` at each end: the profiler drops device events that
+    its clock places outside the session."""
+    for _ in range(PROFILE_TRIES):
+        launched = PROFILE_MARKERS["launch"]
+        with torch.profiler.profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAD_S)
+            for _ in range(launched):
+                torch.cuda._sleep(MARKER_CYCLES)
+            torch.cuda.synchronize()
+            body()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        events = device_events(prof)
+        lost = launched - sum(e.count for e in events if MARKER in e.key)
+        PROFILE_MARKERS["launch"] = max(launched, 4 * lost)
+        if lost > PROFILE_MARKERS["lost"]:
+            PROFILE_MARKERS["lost"] = lost
+            print(f"kernels[profile]: a session lost its first {lost} of {launched} markers; "
+                  f"sessions now open with {PROFILE_MARKERS['launch']}", flush=True)
+        if lost < launched:
+            return [e for e in events if MARKER not in e.key]
+    raise AssertionError(f"no profile recorded one of its markers in {PROFILE_TRIES} tries "
+                         f"({launched} the last)")
 
 
 def device_ms(fn, calls=10, warmup=2):
@@ -410,10 +443,12 @@ def device_ms(fn, calls=10, warmup=2):
     call is most of the time of the fastest kernels here.
 
     The profile is complete only if it holds exactly ``calls`` flushes and
-    every other kernel a multiple of ``calls`` times; otherwise (the
-    profiler lost or misplaced events, which it does now and then) it is
-    taken again, up to ``PROFILE_TRIES`` times, and the run fails if none is
-    complete.  ``fn`` itself launching a flush kernel fails every try."""
+    every other kernel a multiple of ``calls`` times; ``profiled`` opens it
+    with markers, so the events a session loses at its start are not the
+    first flush and the first call's; a profile short all the same (the
+    profiler lost or misplaced events) is taken again, up to
+    ``PROFILE_TRIES`` times, and the run fails if none is complete.  ``fn``
+    itself launching a flush kernel fails every try."""
     buf, flush = l2_flush()
     for _ in range(warmup):
         fn()
@@ -675,10 +710,16 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     # tile; K7's last block's second warpgroup partly past S), 1,040 (G = 2,
     # window 512, softcap 50), S = 2,048 at window 512
     (1, None, None, bf16, 1100, 64, 32, 2), (2, 512, 50.0, bf16, 1040, 64, 4, 2),
-    (1, 512, None, bf16, 2048, 64, 32, 2)]
-# the bf16 cases at D = 64 and 80, where K5-K7 run the narrow kernels
-# (fwd_narrow_kernel, dq_narrow_kernel, dkv_narrow_kernel)
-NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80) and c[3] == bf16]
+    (1, 512, None, bf16, 2048, 64, 32, 2),
+    # the same edges of K5's 128-key tiles at D = 128 (fwd_narrow_kernel; K6
+    # and K7 run dq_kernel and dkv_kernel there): S = 40 at window 16 (G =
+    # 2), S = 1,100 (a partial last tile), 1,040 (G = 2, window 512, softcap
+    # 50), S = 2,048 at window 512
+    (2, 16, None, bf16, 40, 128, 4, 2), (1, None, None, bf16, 1100, 128, 32, 2),
+    (2, 512, 50.0, bf16, 1040, 128, 4, 2), (1, 512, None, bf16, 2048, 128, 32, 2)]
+# the bf16 cases at D = 64, 80 and 128, where K5 runs fwd_narrow_kernel (and
+# at 64 and 80 K6 and K7 dq_narrow_kernel and dkv_narrow_kernel)
+NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80, 128) and c[3] == bf16]
 
 
 def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
@@ -695,7 +736,8 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     one tile), S = 1,100 (the last 128-key K7 block's second warpgroup partly
     past S; K5's last 128-key tile partial), S = 1,040 (wholly past S; G = 2,
     window 512, softcap 50) and S = 2,048 at window 512; and the same three
-    edges at D = 64, where K5, K6 and K7 run the same narrow kernels.
+    edges at D = 64, where K5, K6 and K7 run the same narrow kernels, and
+    all four at D = 128, where K5 runs fwd_narrow_kernel too.
     Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
     (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
@@ -961,13 +1003,14 @@ OFFSET_CASES = [
     ("gemma3-1b m=4 softcap", 4, 1, 256, None, 50.0, 4, torch.bfloat16),
     ("gemma3-1b m=2 f32", 4, 1, 256, 512, None, 2, torch.float32),
     # the ranks of the SSM, hybrid and frontend archs: zamba2's shared block
-    # at head_dim 80 and musicgen's 64 (fwd_narrow_kernel's 128-key tiles),
-    # internvl2's 128; the two narrow ones at m = 4 too (q0 = 256 .. 768)
+    # at head_dim 80, musicgen's 64 and internvl2's 128 (fwd_narrow_kernel's
+    # 128-key tiles), each at m = 4 too (q0 = 256 .. 768)
     ("zamba2-2.7b m=2", 32, 32, 80, None, None, 2, torch.bfloat16),
     ("internvl2-2b m=2", 16, 8, 128, None, None, 2, torch.bfloat16),
     ("musicgen-large m=2", 32, 32, 64, None, None, 2, torch.bfloat16),
     ("zamba2-2.7b m=4", 32, 32, 80, None, None, 4, torch.bfloat16),
     ("musicgen-large m=4", 32, 32, 64, None, None, 4, torch.bfloat16),
+    ("internvl2-2b m=4", 16, 8, 128, None, None, 4, torch.bfloat16),
 ]
 OFFSET_SEEDS = (31, 32)
 

@@ -14,8 +14,8 @@ the card, on the host and staged through the host by hand), ``ptxas``
 (ptxas's report of the tensor-core flash kernels), ``flash_offset`` and
 ``flash_offset_times`` (phase 3's K5 query-offset checks and times),
 ``flash_one_seed`` (one seed of ``check_flash``, the launches without an
-offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64 and 80, at
-every seed), ``flash_times`` (phase
+offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64, 80 and
+128, where K5 runs ``fwd_narrow_kernel``, at every seed), ``flash_times`` (phase
 3's times: ``time_flash`` at gemma3-1b's full and window-512 layers, then
 ``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
 rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's

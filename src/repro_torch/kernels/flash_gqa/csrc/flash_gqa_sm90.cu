@@ -33,16 +33,18 @@
 //    registers to the consumers (24 / 240).  K/V or Q/dO tiles stream
 //    through a ring with full/empty mbarriers, so the next tile's copy
 //    overlaps this tile's math and the consumers load nothing;
-//  - two designs, by head_dim.  At D = 128 and 256 (fwd_kernel, dq_kernel,
-//    dkv_kernel, shaped for D = 256, where the products dominate) tiles
-//    are whole 64-column blocks, each product is waited for in turn, and
-//    the rings have 2 stages.  At D = 64 and 80 (fwd_narrow_kernel,
-//    dq_narrow_kernel, dkv_narrow_kernel, templates over D on TileN<D>)
-//    tiles sit at the true width (at D = 80 a 64-column and a 16-column
-//    block, no padded columns), keys come 128 to a tile or block, rings have
-//    4 stages, products overlap the elementwise work, and the elementwise
-//    step has no branch inside; each section below says more;
-//  - K5 (fwd_kernel): one block per (batch*head, 128-query tile), each
+//  - two designs, by head_dim.  fwd_kernel, dq_kernel and dkv_kernel,
+//    shaped for D = 256, where the products dominate: tiles are whole
+//    64-column blocks, each product is waited for in turn, and the rings
+//    have 2 stages; they run K5 at D = 256 and K6 / K7 at D = 128 and 256.
+//    fwd_narrow_kernel (K5 at D = 64, 80 and 128), dq_narrow_kernel and
+//    dkv_narrow_kernel (K6 / K7 at D = 64 and 80), templates over D on
+//    TileN<D>: tiles sit at the true width (at D = 80 a 64-column and a
+//    16-column block, no padded columns), keys come 128 to a tile or block,
+//    rings have 2 to 4 stages (as many as shared memory holds), products
+//    overlap the elementwise work, and the elementwise step has no branch
+//    inside; each section below says more;
+//  - K5 (fwd_kernel, D = 256): one block per (batch*head, 128-query tile), each
 //    consumer warpgroup 64 query rows, the last (heaviest causal) tiles
 //    launched first; K/V stream in 64-key tiles; S = Q K^T from shared
 //    memory, the scale and softcap on the f32 scores, the mask, the online
@@ -70,7 +72,7 @@
 //    keeps m = -inf, l = 0, alpha = 1), and the window prunes tiles exactly:
 //    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (q0 the
 //    block's first absolute position, the last clamped to the last query's;
-//    128-key tiles at D = 64 and 80) and K6 the same range in 32-key tiles
+//    128-key tiles at D = 64, 80 and 128) and K6 the same range in 32-key tiles
 //    (128 at D = 64 and 80; each warpgroup computes only those its 64 rows
 //    see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64 (at D = 64 and 80
 //    the same for the block's 128 keys and for each warpgroup's 64;
@@ -88,7 +90,13 @@
 // narrow kernels overlap the two and keep the elementwise step short: no
 // branch per element (the mask is an exponent of -inf; the softcap and the
 // masked-tile choice are made once a tile), the next tile's products issued
-// before this tile's are waited for.  The D = 256 shapes do not carry over:
+// before this tile's are waited for.  K5 at D = 128 moved to the narrow
+// forward too: its products are 1.6x as long as at D = 80 for the same 64
+// exps a thread, but fwd_kernel's 64-key tiles, products waited for in turn
+// and branch per element left the tensor cores idle through every softmax
+// (1.74x SDPA's forward at internvl2's prefill), and the narrow forward's
+// 64 x 128 tiles fit D = 128's registers (O 64 and S 64 f32 a thread).  The
+// D = 256 shapes do not carry over:
 // at D = 80 they padded tiles to 128 columns (1.2-1.3x the counted work);
 // at D = 64 K6's 32-key tiles made S and dP m64n32 products of 4 k-steps,
 // too short to keep the tensor cores fed, and K7's 64-key blocks read Q
@@ -181,6 +189,32 @@ __device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The reverse of tma_load: one box from shared memory at src into a 4-D
+// tensor map's coordinates (rows past the tensor's end are not written),
+// as a bulk group of this thread.
+__device__ __forceinline__ void tma_store(uint32_t src, const CUtensorMap* map, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n" ::
+          "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Waits until this thread's bulk stores have read their shared memory
+// (kRead), or have written their global memory too.
+template <bool kRead>
+__device__ __forceinline__ void bulk_wait() {
+  if constexpr (kRead)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+  else
+    asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+__device__ __forceinline__ void st_shared(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 // The two consumer warpgroups only (named barrier 1; 0 is __syncthreads').
 __device__ __forceinline__ void consumer_sync() {
@@ -489,7 +523,7 @@ fwd_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            float* __restrict__ lse, Shape sh) {
   using L = FwdLayout<D>;
   static_assert(D % 64 == 0,
-                "whole 64-column swizzle blocks (D = 64 and 80 have kernels of their own)");
+                "whole 64-column swizzle blocks (D = 64, 80 and 128 run fwd_narrow_kernel)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sKV = base + L::kQ;  // stage st: K at sKV + 2 st kKV, V after
@@ -1027,39 +1061,60 @@ constexpr int kDqNarrowKeys = 128;   // keys of a K6 K/V tile at D = 64 and 80
 constexpr int kDkvNarrowKeys = 128;  // keys of a K7 block at D = 64 and 80: 64 a warpgroup
 constexpr int kNarrowStages = 4;     // stages of the K6 and K7 rings at D = 64 and 80
 
-// A (rows, D) bf16 tile, D = 64 or 80, of rows * 2D bytes: a 64-column block,
-// 128-byte swizzled (rows x 128 bytes), then at D = 80 a 16-column block,
-// 32-byte swizzled (rows x 32 bytes; the 16-byte chunk c of row r at chunk
-// c ^ ((r / 4) % 2)).  At D = 64 the narrow kernels use the first block
-// alone.
+// A (rows, D) bf16 tile, D = 64, 80 or 128, of rows * 2D bytes: a 64-column
+// block, 128-byte swizzled (rows x 128 bytes), then at D = 80 a 16-column
+// block, 32-byte swizzled (rows x 32 bytes; the 16-byte chunk c of row r at
+// chunk c ^ ((r / 4) % 2)), or at D = 128 a second 64-column block like the
+// first.  At D = 64 the narrow kernels use the first block alone.
 template <int D>
 struct TileN {
-  static_assert(D == 64 || D == kD80, "a TileN holds 64 or 80 columns");
+  static_assert(D == 64 || D == kD80 || D == 128, "a TileN holds 64, 80 or 128 columns");
   static constexpr int bytes(int rows) { return rows * 2 * D; }
   // Rows row0 .. row0 + rows - 1 of `head`: `wide` reads boxes of 64
-  // columns, `narrow` boxes of 16 (not read at D = 64).
+  // columns (twice at D = 128, at columns 0 and 64), `narrow` boxes of 16
+  // (read at D = 80 only).
   __device__ static void load(uint32_t dst, const CUtensorMap* wide, const CUtensorMap* narrow,
                               uint32_t bar, int rows, int head, int row0, int b) {
     tma_load(dst, wide, bar, 0, head, row0, b);
     if constexpr (D == kD80) tma_load(dst + rows * 128, narrow, bar, 64, head, row0, b);
+    if constexpr (D == 128) tma_load(dst + rows * 128, wide, bar, 64, head, row0, b);
+  }
+  // load's reverse: the tile at src into rows row0 .. of `head` (TMA
+  // stores; rows past the tensor's end are not written).
+  __device__ static void store(uint32_t src, const CUtensorMap* wide, const CUtensorMap* narrow,
+                               int rows, int head, int row0, int b) {
+    tma_store(src, wide, 0, head, row0, b);
+    if constexpr (D == kD80) tma_store(src + rows * 128, narrow, 64, head, row0, b);
+    if constexpr (D == 128) tma_store(src + rows * 128, wide, 64, head, row0, b);
+  }
+  // The address of the 16-byte chunk c (columns 8 c .. 8 c + 7) of row r of
+  // a tile of `rows` rows, in its block's swizzle.
+  __device__ static uint32_t chunk(uint32_t tile, int rows, int r, int c) {
+    if (D == kD80 && c >= 8) return tile + rows * 128 + r * 32 + (((c - 8) ^ (r >> 2)) & 1) * 16;
+    return tile + (c >> 3) * rows * 128 + r * 128 + ((c ^ r) & 7) * 16;
   }
   // K-major operand: columns 16 kk .. 16 kk + 15 of rows r0 .. of a tile of
-  // `rows` rows.
+  // `rows` rows (64-column block kk / 4, or at D = 80 the 16-column block).
   __device__ static uint64_t kmajor(uint32_t tile, int rows, int r0, int kk) {
-    if (kk < 4) return desc(tile + r0 * 128 + kk * 32, 16, 1024);
-    return desc(tile + rows * 128 + r0 * 32, 16, 256, kSw32);
+    if (D == kD80 && kk >= 4) return desc(tile + rows * 128 + r0 * 32, 16, 256, kSw32);
+    return desc(tile + (kk >> 2) * rows * 128 + r0 * 128 + (kk & 3) * 32, 16, 1024);
   }
   // acc (64 x D) += A B: A (64 x 16) from the registers a, B the rows 16 kk
   // .. 16 kk + 15 of a tile of `rows` rows (MN-major): m64n64 on the 64-column
-  // block, at D = 80 m64n16 on the 16-column one, the accumulator's columns in
-  // order.
+  // block, at D = 80 m64n16 on the 16-column one, at D = 128 one m64n128 over
+  // both 64-column blocks (rows * 128 bytes apart), the accumulator's columns
+  // in order.
   __device__ static void mma(float (&acc)[D / 2], const uint32_t* a, uint32_t tile, int rows,
                              int kk) {
-    wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(acc), a,
-                 desc(tile + kk * 2048, rows * 128, 1024), 1);
-    if constexpr (D == kD80)
-      wgmma_rs<16>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
-                   desc(tile + rows * 128 + kk * 512, rows * 32, 256, kSw32), 1);
+    if constexpr (D == 128) {
+      wgmma_rs<128>(acc, a, desc(tile + kk * 2048, rows * 128, 1024), 1);
+    } else {
+      wgmma_rs<64>(*reinterpret_cast<float(*)[32]>(acc), a,
+                   desc(tile + kk * 2048, rows * 128, 1024), 1);
+      if constexpr (D == kD80)
+        wgmma_rs<16>(*reinterpret_cast<float(*)[8]>(acc + 32), a,
+                     desc(tile + rows * 128 + kk * 512, rows * 32, 256, kSw32), 1);
+    }
   }
 };
 
@@ -1139,6 +1194,10 @@ __device__ __forceinline__ void turn_wait(int wg) {
 }
 __device__ __forceinline__ void turn_pass(int wg) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(3 - wg), "n"(kConsumers) : "memory");
+}
+// Warpgroup w's 128 threads alone (named barrier 4 + w).
+__device__ __forceinline__ void wg_sync(int wg) {
+  asm volatile("bar.sync %0, 128;\n" ::"r"(4 + wg) : "memory");
 }
 
 // A warpgroup's stage release: once the products that read stage `pending`
@@ -1530,30 +1589,44 @@ dq_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
   }
 }
 
-// -- K5 at head_dim 64 and 80 ---------------------------------------------------
+// -- K5 at head_dim 64, 80 and 128 --------------------------------------------
 //
 // fwd_kernel above was shaped for D = 256, where the products dominate.  At
 // D <= 80 they are short, and the exp, the mask and the softmax's bookkeeping
 // are as much of a tile's time as the products: 128 exps a row of a 128-key
 // tile take the SM's 16 exp units about as long as the tile's two products
 // take its tensor cores; and a short block's start (its Q and first K/V
-// loads) and end (its stores) weigh on it.  So the narrow forward overlaps
-// them all:
+// loads) and end (its stores) weigh on it.  At D = 128 the products are 1.6x
+// as long for the same exps, but fwd_kernel, waiting for each in turn, left
+// the tensor cores idle through every softmax.  So the narrow forward
+// overlaps them all:
 //  - tiles at the true width (TileN<D>: Q, K and V at 80 columns as a
-//    64-column and a 16-column block, or at 64 as one), S = Q K^T at k = D and
-//    O += P V at N = D: no padded work;
+//    64-column and a 16-column block, at 64 as one, at 128 as two 64-column
+//    blocks), S = Q K^T at k = D and O += P V at N = D: no padded work;
 //  - work items of one (batch*head, 128-query tile), two consumer warpgroups
 //    of 64 rows each, as fwd_kernel, but persistent blocks, one an SM, that
-//    walk the items heaviest first (NarrowItem): two Q buffers and a K/V ring
-//    that runs on across items, so the next item's loads overlap this one's
+//    walk the items heaviest first (NarrowItem): Q buffers and K/V rings
+//    that run on across items, so the next item's loads overlap this one's
 //    last tiles and its stores;
-//  - K/V in 128-key tiles (S at m64n128, 64 f32 a thread) through a 4-stage
-//    ring (40 KB a stage at D = 80, 32 KB at 64);
+//  - K/V in 128-key tiles (S at m64n128, 64 f32 a thread) through a K ring
+//    and a V ring with barriers of their own: a K stage is released once
+//    the S that read it is done, a V stage once its P V is, and K tile t is
+//    loaded before V tile t-1, so the next K tile loads while the last P V
+//    still reads its V.  Shared memory sets the depth (FwdNarrowLayout): 2 Q
+//    buffers and 4 stages a ring at D = 64 and 80; at 128, where a tile is
+//    32 KB, 2 stages a ring (1 Q buffer and 3 stages, 64-key tiles in 4
+//    stages, and no turns between the warpgroups all read slower there);
+//  - O leaves through shared memory: each warpgroup writes its 64 x D tile
+//    in the swizzle of the output's tensor map, and one thread stores it
+//    with TMA, so the next item starts while the store runs (O written from
+//    registers, four bytes a thread at a time, was a third of the kernel's
+//    time at D = 128).  With the two O tiles a block takes 176 KB at D =
+//    64, 220 KB at 80 and 224 KB at 128;
 //  - inside a warpgroup, tile t's S = Q K^T is issued before tile t-1's
 //    O += P V, O is rescaled while S runs, and tile t's exp and mask run
 //    while P V runs (two commit groups, wait_group 1); P is packed to bf16
-//    once P V has read the last P, and a stage is released after the wait
-//    that saw the P V that read it;
+//    once P V has read the last P; a Q buffer is released once the item's
+//    last S is done;
 //  - between the warpgroups, turns (named barriers) at issuing products, so
 //    one warpgroup's products run while the other's softmax does;
 //  - an elementwise step with no branch inside: the softcap and "is this
@@ -1565,21 +1638,26 @@ dq_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
 //    an O and l still 0) and never NaN.
 // Key tiles start at absolute multiples of 128 and a query offset is a
 // multiple of the 128-row query tile, so each row of an offset launch visits
-// the same tiles in the same order as in the launch without one.  The
-// epilogue, the LSE and the row-with-no-visible-key contract are fwd_kernel's.
+// the same tiles in the same order as in the launch without one.  The LSE
+// and the row-with-no-visible-key contract are fwd_kernel's.
 
 constexpr int kFwdNarrowKeys = 128;  // keys of a K/V tile of fwd_narrow_kernel
-constexpr int kFwdNarrowStages = 4;
+constexpr int kFwdNarrowQBufs = 2;   // its Q buffers
 
 template <int D>
 struct FwdNarrowLayout {
-  static constexpr int kQRows = 2 * kTile;                       // two warpgroups' rows
-  static constexpr int kQ = TileN<D>::bytes(kQRows);             // one of two Q tiles
-  static constexpr int kKV = TileN<D>::bytes(kFwdNarrowKeys);   // one K or V tile
-  static constexpr int kStage = 2 * kKV;                         // K, then V
-  // q_full[2], q_empty[2], full[], empty[]
-  static constexpr int kBars = 2 * kQ + kFwdNarrowStages * kStage;
-  static constexpr int kBytes = kBars + (4 + 2 * kFwdNarrowStages) * 8 + 1024;
+  // stages of the K ring and of the V ring: as many as a block's shared
+  // memory holds (4-stage rings at D = 128 would take 352 KB in all)
+  static constexpr int kStages = D == 128 ? 2 : 4;
+  static constexpr int kQRows = 2 * kTile;                      // two warpgroups' rows
+  static constexpr int kQ = TileN<D>::bytes(kQRows);            // one Q buffer
+  static constexpr int kKV = TileN<D>::bytes(kFwdNarrowKeys);   // one K or V stage
+  static constexpr int kO = TileN<D>::bytes(kTile);             // a warpgroup's O tile
+  // Q buffers, the K ring, the V ring, the two O tiles; then the barriers
+  // q_full[], q_empty[], k_full[], k_empty[], v_full[], v_empty[]
+  static constexpr int kBars = kFwdNarrowQBufs * kQ + 2 * kStages * kKV + 2 * kO;
+  static constexpr int kBytes = kBars + 2 * (kFwdNarrowQBufs + 2 * kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 // A block of fwd_narrow_kernel is persistent: it runs the work items (one
@@ -1709,36 +1787,45 @@ struct NarrowConst {
   float mul, cap_mul, emul;  // scale / c, c log2 e, raw score -> log2 domain
 };
 
-// One tile of a warpgroup's run: S = Q K^T of this tile (K at sK); unless
-// kFirst, O rescaled and O += P V of the last tile (V at sV_prev) issued
-// behind it; this tile's softmax while P V runs; the last tile's stage
-// released (empty_prev) once P V is done; P packed to bf16.  The uniform
-// choices are template arguments, made by the caller once a tile around the
-// whole step, so no branch is taken while a product is in flight.
+// One use of a ring's stage: its tile, its barriers and the parity of this
+// use's phase.
+struct RingUse {
+  uint32_t tile, full, empty, parity;
+};
+
+// One tile of a warpgroup's run: S = Q K^T of this tile (K in `k`); unless
+// kFirst, O rescaled and O += P V of the last tile (V in `v_prev`) issued
+// behind it; this tile's K stage released once S is done; this tile's
+// softmax while P V runs; the last tile's V stage released once P V is done;
+// P packed to bf16.  The uniform choices are template arguments, made by the
+// caller once a tile around the whole step, so no branch is taken while a
+// product is in flight.
 template <int D, bool kCapped, bool kMasked, bool kFirst>
 __device__ __forceinline__ void narrow_tile(NarrowState<D>& st, const NarrowConst& c,
-                                            uint32_t sK, uint32_t sV_prev, uint32_t empty_prev,
-                                            int k0) {
+                                            const RingUse& k, const RingUse& v_prev, int k0) {
+  mbar_wait(k.full, k.parity);
+  if (!kFirst) mbar_wait(v_prev.full, v_prev.parity);
   turn_wait(c.wg);
-  issue_scores<D>(st.s, c.sQ, sK, c.wg);
+  issue_scores<D>(st.s, c.sQ, k.tile, c.wg);
   if (kFirst) {
     turn_pass(c.wg);
     wgmma_wait<0>();
   } else {
 #pragma unroll
     for (int j = 0; j < D / 2; ++j) st.acc[j] *= st.alpha[(j >> 1) & 1];
-    issue_pv<D>(st.acc, st.pa, sV_prev);
+    issue_pv<D>(st.acc, st.pa, v_prev.tile);
     turn_pass(c.wg);
     wgmma_wait<1>();  // S is done; the last tile's P V runs on
   }
   fence_regs(st.s);
+  mbar_arrive(k.empty);  // no product of ours reads this K stage any more
   online_softmax<kCapped, kMasked>(st.s, st.m, st.l, st.alpha, c.mul, c.cap_mul, c.emul, c.rows,
                                    k0, c.lane, c.window);
   if (!kFirst) {
-    wgmma_wait<0>();  // the last tile's P V is done: its stage and P are free
+    wgmma_wait<0>();  // the last tile's P V is done: its V stage and P are free
     fence_regs(st.acc);
     fence_regs(st.pa);
-    mbar_arrive(empty_prev);
+    mbar_arrive(v_prev.empty);
   }
 #pragma unroll
   for (int j = 0; j < kFwdNarrowKeys / 4; ++j) st.pa[j] = pack_bf16(st.s[2 * j], st.s[2 * j + 1]);
@@ -1748,52 +1835,59 @@ __device__ __forceinline__ void narrow_tile(NarrowState<D>& st, const NarrowCons
 // mask hides a pair of the tile from a row of this warpgroup.
 template <int D, bool kFirst>
 __device__ __forceinline__ void narrow_tile_any(bool capped, bool masked, NarrowState<D>& st,
-                                                const NarrowConst& c, uint32_t sK,
-                                                uint32_t sV_prev, uint32_t empty_prev, int k0) {
+                                                const NarrowConst& c, const RingUse& k,
+                                                const RingUse& v_prev, int k0) {
   if (capped) {
     if (masked)
-      narrow_tile<D, true, true, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+      narrow_tile<D, true, true, kFirst>(st, c, k, v_prev, k0);
     else
-      narrow_tile<D, true, false, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+      narrow_tile<D, true, false, kFirst>(st, c, k, v_prev, k0);
   } else {
     if (masked)
-      narrow_tile<D, false, true, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+      narrow_tile<D, false, true, kFirst>(st, c, k, v_prev, k0);
     else
-      narrow_tile<D, false, false, kFirst>(st, c, sK, sV_prev, empty_prev, k0);
+      narrow_tile<D, false, false, kFirst>(st, c, k, v_prev, k0);
   }
 }
 
-// Each map comes twice: 64-column boxes and 16-column boxes (at D = 64 the
-// second is the first again, unread).  Launched with at most one block an
-// SM; the blocks walk the work items (NarrowItem).  The K/V ring runs on
-// across items, and Q has two buffers, so the next item's Q and first K/V
-// tiles load while this item's last tiles compute and its O is stored.
+// Each map comes twice: 64-column boxes and 16-column boxes (at D = 64 and
+// 128 the second is the first again, unread).  Launched with at most one
+// block an SM; the blocks walk the work items (NarrowItem).  The K and V
+// rings run on across items, and with two Q buffers the next item's Q loads
+// while this item's last tiles compute.  O leaves through shared memory: a
+// warpgroup writes its 64 x D tile there in the map's swizzle, and one
+// thread stores it with TMA while the warpgroup goes on to its next item
+// (the tile's buffer is reused once that store has read it).
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
 fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tq16,
                   const __grid_constant__ CUtensorMap tk, const __grid_constant__ CUtensorMap tk16,
                   const __grid_constant__ CUtensorMap tv, const __grid_constant__ CUtensorMap tv16,
-                  bf16* __restrict__ o, float* __restrict__ lse, Shape sh) {
+                  const __grid_constant__ CUtensorMap to, const __grid_constant__ CUtensorMap to16,
+                  float* __restrict__ lse, Shape sh) {
   using L = FwdNarrowLayout<D>;
   using T = TileN<D>;
-  constexpr int NK = kFwdNarrowKeys, NS = kFwdNarrowStages;
+  constexpr int NK = kFwdNarrowKeys, NS = L::kStages, QB = kFwdNarrowQBufs;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
-  // Q buffer qb at base + qb kQ; stage st: K at sKV + st kStage, V after it
-  const uint32_t sKV = base + 2 * L::kQ;
-  const uint32_t q_full = base + L::kBars, q_empty = q_full + 16, full = q_empty + 16,
-                 empty = full + 8 * NS;
+  // Q buffer qb at base + qb kQ; stage st of the K ring at sK + st kKV, of
+  // the V ring at sV + st kKV; warpgroup w's O tile at sV + NS kKV + w kO
+  const uint32_t sK = base + QB * L::kQ, sV = sK + NS * L::kKV;
+  const uint32_t q_full = base + L::kBars, q_empty = q_full + 8 * QB, k_full = q_empty + 8 * QB,
+                 k_empty = k_full + 8 * NS, v_full = k_empty + 8 * NS, v_empty = v_full + 8 * NS;
   const int n_qt = (sh.sq + L::kQRows - 1) / L::kQRows;
   const int n_items = sh.b * sh.h * n_qt, c0 = blockIdx.x, p = gridDim.x;
 
   if (threadIdx.x == 0) {
-    for (int qb = 0; qb < 2; ++qb) {
+    for (int qb = 0; qb < QB; ++qb) {
       mbar_init(q_full + 8 * qb, 1);
       mbar_init(q_empty + 8 * qb, kConsumers);
     }
     for (int st = 0; st < NS; ++st) {
-      mbar_init(full + 8 * st, 1);
-      mbar_init(empty + 8 * st, kConsumers);
+      mbar_init(k_full + 8 * st, 1);
+      mbar_init(k_empty + 8 * st, kConsumers);
+      mbar_init(v_full + 8 * st, 1);
+      mbar_init(v_empty + 8 * st, kConsumers);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -1802,24 +1896,34 @@ fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
   if (threadIdx.x < 128) {  // producer warpgroup; one thread starts every copy
     set_max_registers_dec<kProducerRegs>();
     if (threadIdx.x == 0) {
-      int g = 0;  // K/V tiles loaded so far: the ring's running count
+      // K tile g is loaded before V tile g - 1: S needs a tile's K a step
+      // before P V needs its V, and a V stage frees a step after a K stage
+      int g = 0;                // K/V tiles loaded so far: the rings' running count
+      int v_kvh = 0, v_row = 0, v_b = 0;  // where V tile g - 1 comes from
+      auto load_v = [&](int gv) {
+        const int st = gv % NS;
+        if (gv >= NS) mbar_wait(v_empty + 8 * st, (gv / NS - 1) & 1);
+        mbar_expect_tx(v_full + 8 * st, L::kKV);
+        T::load(sV + st * L::kKV, &tv, &tv16, v_full + 8 * st, NK, v_kvh, v_row, v_b);
+      };
       for (int k = 0;; ++k) {
         const int w = narrow_item_index(k, c0, p);
         if (w >= n_items) break;
         const NarrowItem it = narrow_item(w, sh, n_qt, p);
-        const int qb = k & 1;
-        if (k >= 2) mbar_wait(q_empty + 8 * qb, ((k >> 1) - 1) & 1);
+        const int qb = k % QB;
+        if (k >= QB) mbar_wait(q_empty + 8 * qb, (k / QB - 1) & 1);
         mbar_expect_tx(q_full + 8 * qb, L::kQ);
         T::load(base + qb * L::kQ, &tq, &tq16, q_full + 8 * qb, L::kQRows, it.h, it.lq0, it.b);
         for (int kt = it.kt_first; kt <= it.kt_last; ++kt, ++g) {
           const int st = g % NS;
-          if (g >= NS) mbar_wait(empty + 8 * st, (g / NS - 1) & 1);
-          const uint32_t bar = full + 8 * st, dst = sKV + st * L::kStage;
-          mbar_expect_tx(bar, L::kStage);
-          T::load(dst, &tk, &tk16, bar, NK, it.kvh, kt * NK, it.b);
-          T::load(dst + L::kKV, &tv, &tv16, bar, NK, it.kvh, kt * NK, it.b);
+          if (g >= NS) mbar_wait(k_empty + 8 * st, (g / NS - 1) & 1);
+          mbar_expect_tx(k_full + 8 * st, L::kKV);
+          T::load(sK + st * L::kKV, &tk, &tk16, k_full + 8 * st, NK, it.kvh, kt * NK, it.b);
+          if (g > 0) load_v(g - 1);
+          v_kvh = it.kvh, v_row = kt * NK, v_b = it.b;
         }
       }
+      if (g > 0) load_v(g - 1);
     }
     return;
   }
@@ -1827,16 +1931,36 @@ fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
 
   const int t = threadIdx.x - 128;
   const int wg = t / 128, warp = (t / 32) % 4, lane = t % 32;
-  const long long q_rs = (long long)sh.h * D;
   const bool capped = sh.softcap > 0.f;
   const int window = sh.window > 0 ? sh.window : INT_MAX, q_end = sh.q0 + sh.sq;
+  // the stage of ring tile i: in the K ring, in the V ring
+  auto k_use = [&](int i) {
+    return RingUse{sK + (i % NS) * L::kKV, k_full + 8 * (i % NS), k_empty + 8 * (i % NS),
+                   (uint32_t)((i / NS) & 1)};
+  };
+  auto v_use = [&](int i) {
+    return RingUse{sV + (i % NS) * L::kKV, v_full + 8 * (i % NS), v_empty + 8 * (i % NS),
+                   (uint32_t)((i / NS) & 1)};
+  };
+  // a tile none of our rows reads: wait for its K and V, so that our
+  // arrivals count for this use of their stages, then release both; an
+  // empty turn (each warpgroup takes one a tile of the item, and one more)
+  auto skip = [&](int i) {
+    const RingUse ku = k_use(i), vu = v_use(i);
+    mbar_wait(ku.full, ku.parity);
+    mbar_arrive(ku.empty);
+    mbar_wait(vu.full, vu.parity);
+    mbar_arrive(vu.empty);
+    turn_wait(wg);
+    turn_pass(wg);
+  };
   if (wg == 1) turn_pass(wg);  // warpgroup 0 issues first
   int g = 0;  // the K/V tiles of the items before this one
   for (int k = 0;; ++k) {
     const int w = narrow_item_index(k, c0, p);
     if (w >= n_items) break;
     const NarrowItem it = narrow_item(w, sh, n_qt, p);
-    const int qb = k & 1;
+    const int qb = k % QB;
     const int r0 = it.q0 + wg * kTile;  // this warpgroup's first row (absolute)
     const bool live = r0 < q_end;
     // this warpgroup's key tiles, a run inside the item's (none if no row of
@@ -1855,79 +1979,72 @@ fwd_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant_
     st.l[0] = st.l[1] = 0.f;
     // some pair of the tile at k0 is hidden from a row of ours
     auto masked = [&](int k0) { return !(k0 + NK - 1 <= r0 && r0 + kTile - 1 - k0 < window); };
-    // the ring's running count of the item's tile kt
+    // the rings' running count of the item's tile kt
     auto ring = [&](int kt) { return g + kt - it.kt_first; };
 
     // every thread waits for this item's Q, so its release below counts for
     // this use of the buffer
-    mbar_wait(q_full + 8 * qb, (k >> 1) & 1);
-    // a stage none of our rows reads: wait for it, so that our arrival counts
-    // for this use of it, then release it
-    for (int kt = it.kt_first; kt < wk_first; ++kt) {
-      const int i = ring(kt);
-      mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
-      mbar_arrive(empty + 8 * (i % NS));
-      turn_wait(wg);  // an empty turn: each warpgroup takes one a tile of the item, and one more
-      turn_pass(wg);
-    }
+    mbar_wait(q_full + 8 * qb, (k / QB) & 1);
+    for (int kt = it.kt_first; kt < wk_first; ++kt) skip(ring(kt));
     if (wk_first <= wk_last) {
-      {
-        const int i = ring(wk_first);
-        mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
-        narrow_tile_any<D, true>(capped, masked(wk_first * NK), st, c,
-                                 sKV + (i % NS) * L::kStage, 0, 0, wk_first * NK);
-      }
-      for (int kt = wk_first + 1; kt <= wk_last; ++kt) {
-        const int i = ring(kt), prev = (i - 1) % NS;
-        mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
-        narrow_tile_any<D, false>(capped, masked(kt * NK), st, c, sKV + (i % NS) * L::kStage,
-                                  sKV + prev * L::kStage + L::kKV, empty + 8 * prev, kt * NK);
-      }
-      const int last = ring(wk_last) % NS;
+      narrow_tile_any<D, true>(capped, masked(wk_first * NK), st, c, k_use(ring(wk_first)),
+                               RingUse{}, wk_first * NK);
+      for (int kt = wk_first + 1; kt <= wk_last; ++kt)
+        narrow_tile_any<D, false>(capped, masked(kt * NK), st, c, k_use(ring(kt)),
+                                  v_use(ring(kt) - 1), kt * NK);
+      mbar_arrive(q_empty + 8 * qb);  // our last S is done: no product of ours reads this Q
+      const RingUse last = v_use(ring(wk_last));
+      mbar_wait(last.full, last.parity);
       turn_wait(wg);
 #pragma unroll
       for (int j = 0; j < D / 2; ++j) st.acc[j] *= st.alpha[(j >> 1) & 1];
-      issue_pv<D>(st.acc, st.pa, sKV + last * L::kStage + L::kKV);
+      issue_pv<D>(st.acc, st.pa, last.tile);
       turn_pass(wg);
       wgmma_wait<0>();
       fence_regs(st.acc);
       fence_regs(st.pa);
-      mbar_arrive(empty + 8 * last);
+      mbar_arrive(last.empty);
     } else {
+      mbar_arrive(q_empty + 8 * qb);
       turn_wait(wg);
       turn_pass(wg);
     }
-    for (int kt = wk_last + 1; kt <= it.kt_last; ++kt) {  // after our run: as before it
-      const int i = ring(kt);
-      mbar_wait(full + 8 * (i % NS), (i / NS) & 1);
-      mbar_arrive(empty + 8 * (i % NS));
-      turn_wait(wg);
-      turn_pass(wg);
-    }
-    mbar_arrive(q_empty + 8 * qb);  // no product of ours reads this Q any more
+    for (int kt = wk_last + 1; kt <= it.kt_last; ++kt) skip(ring(kt));  // as before our run
     g += it.kt_last - it.kt_first + 1;
 
     if (!live) continue;
-    const long long q_off = ((long long)it.b * sh.sq * sh.h + it.h) * D;
+    // thread 0 of the warpgroup starts its O stores
+    const uint32_t so = sV + NS * L::kKV + wg * L::kO;
+    if (t % 128 == 0) bulk_wait<true>();  // the last store from this tile has read it
+    wg_sync(wg);
     const long long bh = (long long)it.b * sh.h + it.h;
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
       float l = st.l[r];
       l += __shfl_xor_sync(0xffffffffu, l, 1);
       l += __shfl_xor_sync(0xffffffffu, l, 2);
-      if (row[r] >= q_end) continue;
-      const int local = row[r] - sh.q0;
       const float lz = l == 0.f ? 1.f : l;
       const float inv = 1.f / lz;
-      bf16* orow = o + q_off + (long long)local * q_rs;
+      // the row in the warpgroup's tile, computed here: the addresses below
+      // would otherwise be held across the items
+      int tr = acc_row(2 * r, warp, lane);
+      asm volatile("" : "+r"(tr));
 #pragma unroll
       for (int n = 0; n < D / 8; ++n)
-        *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * (lane & 3)) =
-            pack_bf16(st.acc[4 * n + 2 * r] * inv, st.acc[4 * n + 2 * r + 1] * inv);
-      if ((lane & 3) == 0) lse[bh * sh.sq + local] = (st.m[r] + log2f(lz)) * kLn2;
+        st_shared(T::chunk(so, kTile, tr, n) + 4 * (lane & 3),
+                  pack_bf16(st.acc[4 * n + 2 * r] * inv, st.acc[4 * n + 2 * r + 1] * inv));
+      if (row[r] < q_end && (lane & 3) == 0)
+        lse[bh * sh.sq + row[r] - sh.q0] = (st.m[r] + log2f(lz)) * kLn2;
+    }
+    fence_async_shared();  // the tile's writes, seen by the TMA store
+    wg_sync(wg);
+    if (t % 128 == 0) {
+      T::store(so, &to, &to16, kTile, it.h, r0 - sh.q0, it.b);
+      bulk_commit();
     }
   }
   if (wg == 0) turn_wait(wg);
+  if (t % 128 == 0) bulk_wait<false>();  // every store written before the block ends
 }
 
 // dk/dv (B, S, KV, D) bf16 = sum over g = 0 .. G-1, in that order, of the f32
@@ -2063,7 +2180,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 
 // The two maps of a (B, S, heads, D) tensor for TileN<D>: 64-column boxes
 // (128-byte swizzle) and, at D = 80, 16-column boxes (32-byte swizzle); at
-// D = 64 the second is the first again (TileN<64> reads one).
+// D = 64 and 128 the second is the first again (TileN<64> and TileN<128>
+// read the first only).
 template <int D>
 int make_maps_narrow(CUtensorMap* maps, const void* ptr, int b, int s, int heads, int rows) {
   if (int err = make_map(&maps[0], ptr, b, s, heads, D, rows)) return err;
@@ -2144,19 +2262,19 @@ int launch_dq<80>(const void* q, const void* k, const void* v, const void* dout,
   return launch_dq_narrow<80>(q, k, v, dout, lse, delta, dq, dq_dtype, sh, st);
 }
 
-// K5 at D = 64 and 80: fwd_narrow_kernel.  Its softmax takes the row max on
-// the raw scores, so it takes a positive scale only.
+// K5 at D = 64, 80 and 128: fwd_narrow_kernel.  Its softmax takes the row
+// max on the raw scores, so it takes a positive scale only.
 template <int D>
 int launch_fwd_narrow(const void* q, const void* k, const void* v, void* o, void* lse,
                       const Shape& sh, cudaStream_t st) {
   using L = FwdNarrowLayout<D>;
   if (!(sh.scale > 0.f)) return (int)cudaErrorInvalidValue;
   auto kernel = fwd_narrow_kernel<D>;
-  CUtensorMap m[6];
-  const void* ptrs[3] = {q, k, v};
-  for (int i = 0; i < 3; ++i) {
-    const int rows = i == 0 ? L::kQRows : kFwdNarrowKeys, heads = i == 0 ? sh.h : sh.kv;
-    const int s = i == 0 ? sh.sq : sh.s;
+  CUtensorMap m[8];
+  const void* ptrs[4] = {q, k, v, o};
+  for (int i = 0; i < 4; ++i) {
+    const int rows = i == 0 ? L::kQRows : i == 3 ? kTile : kFwdNarrowKeys;
+    const int heads = i == 1 || i == 2 ? sh.kv : sh.h, s = i == 1 || i == 2 ? sh.s : sh.sq;
     if (int err = make_maps_narrow<D>(m + 2 * i, ptrs[i], sh.b, s, heads, rows)) return err;
   }
   if (int err = prepare(kernel, L::kBytes)) return err;
@@ -2166,7 +2284,7 @@ int launch_fwd_narrow(const void* q, const void* k, const void* v, void* o, void
   const int n_qt = (sh.sq + L::kQRows - 1) / L::kQRows, items = sh.b * sh.h * n_qt;
   const int hg = n_qt <= sms ? min(sh.b * sh.h, sms / n_qt) : sh.b * sh.h;
   kernel<<<min(items, n_qt <= sms ? hg * n_qt : sms), kThreads, L::kBytes, st>>>(
-      m[0], m[1], m[2], m[3], m[4], m[5], static_cast<bf16*>(o), static_cast<float*>(lse), sh);
+      m[0], m[1], m[2], m[3], m[4], m[5], m[6], m[7], static_cast<float*>(lse), sh);
   return (int)cudaGetLastError();
 }
 
@@ -2180,6 +2298,12 @@ template <>
 int launch_fwd<80>(const void* q, const void* k, const void* v, void* o, void* lse,
                    const Shape& sh, cudaStream_t st) {
   return launch_fwd_narrow<80>(q, k, v, o, lse, sh, st);
+}
+
+template <>
+int launch_fwd<128>(const void* q, const void* k, const void* v, void* o, void* lse,
+                    const Shape& sh, cudaStream_t st) {
+  return launch_fwd_narrow<128>(q, k, v, o, lse, sh, st);
 }
 
 // Returns LAUNCH<D>(args...) for dtype 1 (bfloat16) and D in {64, 80, 128, 256}.

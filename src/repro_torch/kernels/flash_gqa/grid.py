@@ -10,11 +10,11 @@ on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``,
 ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles`` are those ranges of the
 tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 64 and 80 too
 (the narrow kernels there: K5's and K6's 128-key tiles, K7's 128-key blocks
-of two warpgroups' 64 keys), written out so the CPU tests can hold them to
-the mask.  ``attention_pairs`` counts the
-(query, key) pairs causality and the window leave, the work any
-implementation must do (``chip_smoke.py``'s operation bounds), of every
-query row or of a rank's rows q0 .. q0 + sq - 1.
+of two warpgroups' 64 keys; K5's 128-key tiles at head_dim 128 as well),
+written out so the CPU tests can hold them to the mask.
+``attention_pairs`` counts the (query, key) pairs causality and the window
+leave, the work any implementation must do (``chip_smoke.py``'s operation
+bounds), of every query row or of a rank's rows q0 .. q0 + sq - 1.
 """
 from __future__ import annotations
 
@@ -75,10 +75,11 @@ def attention_pairs(s: int, window=None, q0: int = 0, sq=None) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-SM90_TILE = 64       # keys of a K5 K/V tile; keys and queries of a K7 tile (D = 128, 256)
+SM90_TILE = 64  # keys of a K5 K/V tile (D = 256); keys and queries of a K7 tile (D = 128, 256)
 SM90_FWD_ROWS = 128  # query rows of a K5 or K6 block (two warpgroups of 64)
 SM90_DQ_KEYS = 32    # keys of a K6 K/V tile (D = 128, 256)
-# at head_dim 64 and 80 (fwd_narrow_kernel, dq_narrow_kernel, dkv_narrow_kernel)
+# at head_dim 64 and 80 (fwd_narrow_kernel, dq_narrow_kernel, dkv_narrow_kernel),
+# and for K5 at 128 (fwd_narrow_kernel)
 SM90_FWD_NARROW_KEYS = 128  # keys of a K5 K/V tile
 SM90_DQ_NARROW_KEYS = 128   # keys of a K6 K/V tile
 SM90_DKV_NARROW_KEYS = 128  # keys of a K7 block: 64 a warpgroup, a K7 query tile still 64
@@ -97,8 +98,8 @@ def _key_tiles(q0: int, rows: int, s: int, window, keys: int) -> range:
 def sm90_fwd_key_tiles(r0: int, rows: int, s: int, window=None, q0: int = 0,
                        sq=None, keys: int = SM90_TILE) -> range:
     """Key tiles (of ``keys`` keys: 64 in ``fwd_kernel``, 128 at head_dim
-    64 and 80 in ``fwd_narrow_kernel``) that query rows r0 .. r0 + rows - 1
-    visit: a block's range at rows = 128, one warpgroup's (the tiles it
+    64, 80 and 128 in ``fwd_narrow_kernel``) that query rows r0 .. r0 +
+    rows - 1 visit: a block's range at rows = 128, one warpgroup's (the tiles it
     computes) at rows = 64.  Rows are the launch's, whose query 0 sits at
     position ``q0`` of the S keys and which holds ``sq`` queries (None:
     S - q0); rows that all lie past the last query visit none."""
@@ -127,8 +128,8 @@ def sm90_dkv_query_tiles(kt: int, s: int, window=None, keys: int = SM90_TILE) ->
 
 def sm90_fwd_narrow_blocks(b: int, h: int, n_qt: int, sms: int) -> list:
     """The work of ``fwd_narrow_kernel``'s persistent blocks (K5 at head_dim
-    64 and 80): one list a block of its (batch*head, query tile) items, in
-    the order it runs them, for ``n_qt`` 128-row query tiles and ``sms``
+    64, 80 and 128): one list a block of its (batch*head, query tile) items,
+    in the order it runs them, for ``n_qt`` 128-row query tiles and ``sms``
     SMs.  Heads go in groups of hg = sms // n_qt and the launch takes
     hg * n_qt blocks (at most one an item); where n_qt > sms, ``sms``
     blocks and one group of all heads.  The list holds each group's items

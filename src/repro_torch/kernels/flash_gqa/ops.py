@@ -12,9 +12,10 @@ its kernel for CUDA tensors and runs its plain PyTorch version
 
 Which kernel runs is a dispatch by dtype, not a fallback: bf16 (the LM
 slice's type) runs K5-K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``:
-at head_dim 64 and 80 ``fwd_narrow_kernel``, ``dq_narrow_kernel`` and
-``dkv_narrow_kernel`` on tiles at the true width, at 128 and 256
-``fwd_kernel``, ``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
+K5 at head_dim 64, 80 and 128 ``fwd_narrow_kernel``, the persistent
+kernel on 128-key tiles at the true width, and at 256 ``fwd_kernel``; K6
+and K7 at 64 and 80 ``dq_narrow_kernel`` and ``dkv_narrow_kernel``, at
+128 and 256 ``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
 writes per-head f32 partials and
 ``flash_bwd_dkv_sum`` adds them in head order); f32 runs the SIMT kernels
 of ``csrc/flash_gqa.cu``, whose products stay in f32.  A failed build or
@@ -67,7 +68,8 @@ SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
 SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
 HEAD_DIMS = (64, 80, 128, 256)
-NARROW_HEAD_DIMS = (64, 80)  # bf16 K5-K7 run fwd_, dq_ and dkv_narrow_kernel
+FWD_NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K5 runs fwd_narrow_kernel
+NARROW_HEAD_DIMS = (64, 80)  # bf16 K6 and K7 run dq_ and dkv_narrow_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -255,14 +257,14 @@ def flash_bwd_dkv_sum_plain(pk, pv, kv):
 def flash_fwd(q, k, v, window=None, softcap=None, scale=None, q0=None):
     """K5 on the card for CUDA tensors; the plain version for CPU ones.
     ``q0``: the position of q's first row among k/v's (module docstring);
-    None: q and k/v hold the same S positions.  bf16 at head_dim 64 and 80
-    (``NARROW_HEAD_DIMS``) takes a positive scale only: its kernel takes the
-    row max on the raw scores."""
+    None: q and k/v hold the same S positions.  bf16 at head_dim 64, 80 and
+    128 (``FWD_NARROW_HEAD_DIMS``) takes a positive scale only: its kernel
+    takes the row max on the raw scores."""
     b, s, h, kv, d = _check(q, k, v, window, q0=q0)
     q0 = q0 or 0
     if not (q.is_cuda or q.is_meta):
         return flash_fwd_plain(q, k, v, window, softcap, scale, q0)
-    if q.dtype == torch.bfloat16 and d in NARROW_HEAD_DIMS and not _scale(d, scale) > 0:
+    if q.dtype == torch.bfloat16 and d in FWD_NARROW_HEAD_DIMS and not _scale(d, scale) > 0:
         raise ValueError(f"the bf16 forward at head_dim {d} takes a positive scale, got {scale}")
     sq = q.shape[1]
     out = torch.empty_like(q)

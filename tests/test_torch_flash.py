@@ -114,11 +114,12 @@ def _qkv(h, kv, dtype, seed=0, d=D):
 
 @pytest.mark.parametrize("g,window,softcap,d", [
     pytest.param(g, window, softcap, d, id=f"{g}-{window}-{softcap}" + ("" if d == D else f"-d{d}"))
-    for d in (D, 80) for g in (1, 4) for window in (None, 16) for softcap in (None, 50.0)])
+    for d in (D, 80, 128) for g in (1, 4) for window in (None, 16) for softcap in (None, 50.0)])
 def test_flash_forward_lse_and_grads_match_repro_interpret(g, window, softcap, d):
     """Forward, LSE and (dq, dk, dv); at window 16 with 16-blocks the Pallas
     grid is pruned (3 of 4 k-blocks per q row).  Also at head_dim 80,
-    zamba2's shared attention, which the wrappers take as they take 64."""
+    zamba2's shared attention, and 128 (internvl2, olmoe, granite-3-8b),
+    which the wrappers take as they take 64."""
     h, kv = 4, 4 // g
     (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkv(h, kv, "float32", d=d)
     if window is not None:
@@ -274,9 +275,10 @@ def _check_sm90_tile_ranges(s, window, dq_keys, dkv_keys, constants,
 
 @pytest.mark.parametrize("s,window", _TILE_CASES)
 def test_sm90_tile_ranges_visit_exactly_the_tiles_with_visible_pairs(s, window):
-    """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py) at head_dim
-    128 and 256: K5 and K6 blocks of 128 rows over 64- and 32-key tiles, K7
-    key tiles of 64 (``_check_sm90_tile_ranges``)."""
+    """The tile ranges of flash_gqa_sm90.cu (mirrored in grid.py) of the
+    kernels shaped for head_dim 256: K5 (``fwd_kernel``, 256 only) blocks of
+    128 rows over 64-key tiles, K6 (128 and 256) over 32-key tiles, K7 key
+    tiles of 64 (``_check_sm90_tile_ranges``)."""
     _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
         f"constexpr int kTile = {grid.SM90_TILE};",
         f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};"))
@@ -318,6 +320,23 @@ def test_sm90_tile_ranges_at_head_dim_64_visit_exactly_the_tiles_with_visible_pa
                             _NARROW_CONSTANTS, grid.SM90_FWD_NARROW_KEYS)
 
 
+@pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
+def test_sm90_tile_ranges_at_head_dim_128_visit_exactly_the_tiles_with_visible_pairs(s, window):
+    """The same at head_dim 128, where K5 runs fwd_narrow_kernel
+    (``launch_fwd<128>`` is ``launch_fwd_narrow<128>``): its 128-key tiles,
+    for each block, warpgroup and query offset; K6 and K7 stay on dq_kernel's
+    32-key tiles and dkv_kernel's 64-key tiles (no specialization at 128)."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    assert "launch_fwd_narrow<128>(" in _launch_body(src, "fwd", 128)
+    for launch in ("dq", "dkv"):
+        assert _launch_body(src, launch, 128) is None, launch
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
+        f"constexpr int kTile = {grid.SM90_TILE};",
+        f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};",
+        f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};"),
+        grid.SM90_FWD_NARROW_KEYS)
+
+
 @pytest.mark.parametrize("s,window", [(1000, None), (1000, 512), (1100, None), (1100, 512),
                                       (1040, 512), (40, 16), (2048, 512), (128, None)])
 def test_sm90_d80_dkv_warpgroups_own_the_block_tiles(s, window):
@@ -355,8 +374,8 @@ def test_sm90_head_dim_80_backward_runs_its_own_kernels(d):
     at the true width, their own layouts and tensor maps), through
     launch_dq<D> / launch_dkv<D> specialized to launch_*_narrow<D>; 128 and
     256 still launch dq_kernel<D> / dkv_kernel<D>, which are instantiated
-    at no narrow width; the forward's own kernel is at head_dim 64 and 80
-    only (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
+    at no narrow width; the forward's persistent kernel runs at head_dim 64,
+    80 and 128 (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
     src = flash_ops.SM90_SOURCE.read_text()
     for launch, kernel, layout in (("dq", "dq_narrow_kernel", "DqNarrowLayout"),
                                    ("dkv", "dkv_narrow_kernel", "DkvNarrowLayout")):
@@ -367,8 +386,10 @@ def test_sm90_head_dim_80_backward_runs_its_own_kernels(d):
         assert f"{launch}_kernel<" not in narrow, launch
         generic = _launch_body(src, launch)
         assert f"{launch}_kernel<D, false>" in generic and f"{launch}_kernel<D, true>" in generic
-    for launch in ("fwd", "dq", "dkv"):
-        assert re.findall(r"template <>\nint launch_" + launch + r"<(\d+)>", src) == ["64", "80"]
+    for launch, dims in (("fwd", flash_ops.FWD_NARROW_HEAD_DIMS),
+                         ("dq", flash_ops.NARROW_HEAD_DIMS), ("dkv", flash_ops.NARROW_HEAD_DIMS)):
+        found = re.findall(r"template <>\nint launch_" + launch + r"<(\d+)>", src)
+        assert found == [str(x) for x in dims], launch
     assert f"dtype == 1 && d == {d}) return LAUNCH<{d}>" in src
     maps = re.search(r"\nint make_maps_narrow\(.*?\n}", src, re.S).group(0)
     assert "maps[1] = maps[0];" in maps and "CU_TENSOR_MAP_SWIZZLE_32B" in maps
@@ -376,14 +397,16 @@ def test_sm90_head_dim_80_backward_runs_its_own_kernels(d):
 
 @pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
 def test_sm90_narrow_forward_runs_its_own_kernel(d):
-    """bf16 K5 at head_dim 64 and 80 launches fwd_narrow_kernel<D> (128-key
-    tiles at the true width, its own layout and tensor maps: two a tensor
-    at 80, 16-column boxes with a 32-byte swizzle), at 128 and 256
-    fwd_kernel<D> as before; the C entry still dispatches every head_dim
-    through launch_fwd."""
+    """bf16 K5 at head_dim 64, 80 and 128 launches the persistent
+    fwd_narrow_kernel<D> (128-key tiles at the true width, its own layout
+    and tensor maps: two a tensor at 80, 16-column boxes with a 32-byte
+    swizzle; at 128 one map read at columns 0 and 64), at 256
+    fwd_kernel<D> as before, so fwd_kernel is instantiated at 256 only; the
+    C entry still dispatches every head_dim through launch_fwd."""
     src = flash_ops.SM90_SOURCE.read_text()
     body = re.search(r"\nint launch_fwd<" + str(d) + r">\(.*?\n}", src, re.S)
-    if d in (64, 80):
+    assert flash_ops.FWD_NARROW_HEAD_DIMS == (64, 80, 128)
+    if d in flash_ops.FWD_NARROW_HEAD_DIMS:
         assert body and f"launch_fwd_narrow<{d}>(" in body.group(0)
         narrow = re.search(r"\nint launch_fwd_narrow\(.*?\n}", src, re.S).group(0)
         assert "fwd_narrow_kernel<D>" in narrow and "FwdNarrowLayout<D>" in narrow
@@ -392,22 +415,27 @@ def test_sm90_narrow_forward_runs_its_own_kernel(d):
         assert body is None
         generic = re.search(r"\nint launch_fwd\(.*?\n}", src, re.S).group(0)
         assert "fwd_kernel<D>" in generic and "FwdLayout<D>" in generic
+    assert re.findall(r"template <>\nint launch_fwd<(\d+)>", src) == ["64", "80", "128"]
     assert f"dtype == 1 && d == {d}) return LAUNCH<{d}>" in src
+    tile = re.search(r"\nstruct TileN \{.*?\n};", src, re.S).group(0)
+    assert "D == 64 || D == kD80 || D == 128" in tile
+    assert "if constexpr (D == 128) tma_load(dst + rows * 128, wide, bar, 64," in tile
 
 
 @pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
 def test_sm90_narrow_forward_takes_a_positive_scale_only(d):
-    """bf16 K5 at head_dim 64 and 80 refuses a scale <= 0 (its softmax takes
-    the row max on the raw scores), in the wrapper on card-side (meta)
-    tensors and in the source's launch; 128 and 256, f32 and the plain
-    version on the CPU take any scale."""
+    """bf16 K5 at head_dim 64, 80 and 128 (``FWD_NARROW_HEAD_DIMS``) refuses
+    a scale <= 0 (its softmax takes the row max on the raw scores), in the
+    wrapper on card-side (meta) tensors and in the source's launch; 256, f32
+    and the plain version on the CPU take any scale."""
     src = flash_ops.SM90_SOURCE.read_text()
     narrow = re.search(r"\nint launch_fwd_narrow\(.*?\n}", src, re.S).group(0)
     assert "if (!(sh.scale > 0.f)) return (int)cudaErrorInvalidValue;" in narrow
+    assert flash_ops.FWD_NARROW_HEAD_DIMS == (64, 80, 128)
     assert flash_ops.NARROW_HEAD_DIMS == (64, 80)
     q = torch.empty(1, 128, 2, d, dtype=torch.bfloat16, device="meta")
     for scale in (-0.1, 0.0):
-        if d in flash_ops.NARROW_HEAD_DIMS:
+        if d in flash_ops.FWD_NARROW_HEAD_DIMS:
             with pytest.raises(ValueError, match="positive scale"):
                 flash_ops.flash_fwd(q, q, q, scale=scale)
         else:
@@ -418,6 +446,68 @@ def test_sm90_narrow_forward_takes_a_positive_scale_only(d):
     want, want_lse = flash_ops.flash_fwd_plain(x, x, x, scale=-0.1)
     assert torch.equal(out, want) and torch.equal(lse, want_lse)
     assert torch.isfinite(out.float()).all()
+
+
+@pytest.mark.parametrize("d", (128, 256))
+def test_sm90_backward_at_head_dim_128_runs_the_wide_kernels_at_any_scale(d):
+    """The forward's persistent kernel at head_dim 128 leaves the backward
+    as it was: bf16 K6 and K7 at 128 and 256 launch dq_kernel<D> and
+    dkv_kernel<D> (no specialization of launch_dq / launch_dkv there, and
+    those launches take no positive-scale rule), and the wrappers take a
+    scale <= 0 on card-side (meta) tensors, recording one launch each."""
+    from repro_torch.kernels import meta
+
+    src = flash_ops.SM90_SOURCE.read_text()
+    for launch in ("dq", "dkv"):
+        assert _launch_body(src, launch, d) is None, launch
+        generic = _launch_body(src, launch)
+        assert f"{launch}_kernel<D, false>" in generic and "sh.scale" not in generic, launch
+    q = torch.empty(1, 128, 4, d, dtype=torch.bfloat16, device="meta")
+    k = torch.empty(1, 128, 2, d, dtype=torch.bfloat16, device="meta")
+    rows = torch.empty(1, 4, 128, dtype=torch.float32, device="meta")
+    for scale in (-0.1, 0.0):
+        with meta.census() as c:
+            dq = flash_ops.flash_bwd_dq(q, k, k, q, rows, rows, scale=scale)
+            dk, dv = flash_ops.flash_bwd_dkv(q, k, k, q, rows, rows, scale=scale)
+        assert dq.shape == q.shape and dk.shape == dv.shape == k.shape
+        assert c.launches == {"flash_bwd_dq": 1, "flash_bwd_dkv": 1, "flash_bwd_dkv_sum": 1}
+    assert flash_ops.LAUNCHES["flash_bwd_dq"] == flash_ops.LAUNCHES["flash_bwd_dkv"] == 0
+
+
+@pytest.mark.parametrize("d", flash_ops.FWD_NARROW_HEAD_DIMS)
+def test_sm90_narrow_forward_layout_fits_a_block(d):
+    """Each ``FwdNarrowLayout<D>`` (two Q buffers, a K ring and a V ring of
+    128-key bf16 tiles at the true width, the two warpgroups' 64-row O
+    tiles, then the mbarriers and the 1 KB alignment slack), computed from
+    the source's own constants and lines, fits the 232,448 bytes of shared
+    memory a block may take on Hopper, and the source asserts it too.  At
+    D = 128 4-stage rings (those of D = 64 and 80) would not: 352 KB."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    for line in ("static constexpr int kQRows = 2 * kTile;",
+                 "static constexpr int kQ = TileN<D>::bytes(kQRows);",
+                 "static constexpr int kKV = TileN<D>::bytes(kFwdNarrowKeys);",
+                 "static constexpr int kO = TileN<D>::bytes(kTile);",
+                 "static constexpr int kBars = kFwdNarrowQBufs * kQ + 2 * kStages * kKV + 2 * kO;",
+                 "static constexpr int kBytes = kBars + 2 * (kFwdNarrowQBufs + 2 * kStages) * 8 "
+                 "+ 1024;",
+                 "static_assert(kBytes <= 232448,",
+                 "static constexpr int bytes(int rows) { return rows * 2 * D; }",
+                 f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};"):
+        assert line in src, line
+    qbufs = int(re.search(r"constexpr int kFwdNarrowQBufs = (\d+);", src).group(1))
+    at128, other = map(int, re.search(r"static constexpr int kStages = D == 128 \? (\d+) : (\d+);",
+                                      src).groups())
+    stages = at128 if d == 128 else other
+    assert qbufs == 2 and stages >= 2
+
+    def total(stages):
+        rows, keys = 2 * grid.SM90_TILE, grid.SM90_FWD_NARROW_KEYS
+        return (qbufs * rows * 2 * d + 2 * stages * keys * 2 * d + 2 * grid.SM90_TILE * 2 * d
+                + 2 * (qbufs + 2 * stages) * 8 + 1024)
+
+    assert total(stages) <= 232448, (d, total(stages))
+    if d == 128:
+        assert total(other) > 232448
 
 
 @pytest.mark.parametrize("b,h,n_qt", [(2, 32, 16), (2, 16, 16), (4, 32, 4), (4, 16, 4),

@@ -211,6 +211,92 @@ def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys
         assert "build[ptxas]: ptxas info    : (C7520) Potential Performance Loss: wgmma" in out
 
 
+@pytest.mark.parametrize("kernel,family", [
+    ("void (anonymous namespace)::fwd_narrow_kernel<128>(CUtensorMap_st, CUtensorMap_st)",
+     "flash_fwd (K5)"),
+    ("void (anonymous namespace)::fwd_kernel<256>(CUtensorMap_st)", "flash_fwd (K5)"),
+    ("void (anonymous namespace)::dq_narrow_kernel<64, false>(CUtensorMap_st)",
+     "flash_bwd_dq (K6)"),
+    ("void (anonymous namespace)::dkv_narrow_kernel<80, true>(CUtensorMap_st)",
+     "flash_bwd_dkv (K7)"),
+    ("void (anonymous namespace)::dkv_sum_kernel(float const*, float const*)",
+     "flash_bwd_dkv sum pass (K7)")])
+def test_profile_lm_step_names_every_flash_kernel(kernel, family):
+    """``launch/profile_lm_step.py`` sorts device time by kernel family from
+    the kernels' names: the narrow kernels (D = 64, 80, and K5 at 128) count
+    with their pass, not as other work."""
+    from repro_torch.launch import profile_lm_step
+
+    assert profile_lm_step.family(kernel) == family
+
+
+class _LossyProfile:
+    """A stand-in for ``torch.profiler.profile`` whose sessions lose their
+    first ``lost[0]`` device events (the kernels; the sessions hold the
+    rest), as sessions on the card did once another process had used it."""
+
+    launched: list = []
+    lost = [0]
+
+    def __init__(self, activities):
+        self.events = None
+
+    def __enter__(self):
+        _LossyProfile.launched = []
+        return self
+
+    def __exit__(self, *exc):
+        from collections import Counter
+
+        from torch.autograd import DeviceType
+
+        kept = Counter(_LossyProfile.launched[_LossyProfile.lost[0]:])
+        self.events = [type("Avg", (), dict(key=k, count=n, device_type=DeviceType.CUDA,
+                                            self_device_time_total=2.0 * n))()
+                       for k, n in kept.items()]
+
+    def key_averages(self):
+        return self.events
+
+
+@pytest.mark.parametrize("lost", [0, 3, 100, 10**6])
+def test_profile_opens_with_markers_so_a_lost_prefix_spares_the_body(monkeypatch, capsys, lost):
+    """``chip_smoke.profiled`` opens each session with marker kernels and a
+    synchronize: where a session loses its first device events, they are
+    markers, and the body's events come back whole, markers left out; a
+    session that keeps no marker is taken again with four times as many,
+    and the next session opens with at least four times the most lost; a
+    session that never keeps one fails the run.  ``device_ms`` counts its
+    flushes on what comes back: 10 of 10."""
+    cs = _load("chip_smoke.py")
+    monkeypatch.setattr(torch.profiler, "profile", _LossyProfile)
+    monkeypatch.setattr(torch.cuda, "_sleep",
+                        lambda cycles: _LossyProfile.launched.append("spin_kernel(long)"))
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    monkeypatch.setattr(cs, "PROFILE_PAD_S", 0.0)
+    monkeypatch.setattr(_LossyProfile, "lost", [lost])
+
+    def body():
+        for _ in range(10):
+            _LossyProfile.launched += ["flush", "k5"]
+
+    if lost >= 64 * 4 ** (cs.PROFILE_TRIES - 1):
+        with pytest.raises(AssertionError, match="no profile recorded one of its markers"):
+            cs.profiled(body, [])
+        return
+    events = cs.profiled(body, [])
+    assert sorted((e.key, e.count) for e in events) == [("flush", 10), ("k5", 10)]
+    launch = {0: 64, 3: 64, 100: 400}[lost]
+    assert cs.PROFILE_MARKERS == {"launch": launch, "lost": lost}
+    out = capsys.readouterr().out
+    assert (f"a session lost its first {lost} of" in out) == (lost > 0)
+    flush = frozenset({"flush"})
+    monkeypatch.setattr(cs, "l2_flush", lambda: (type("Buf", (), dict(
+        bitwise_not_=lambda self: _LossyProfile.launched.append("flush")))(), flush))
+    fn = lambda: _LossyProfile.launched.append("k5")  # noqa: E731
+    assert cs.device_ms(fn) == 2.0 * 10 / 1e3 / 10
+
+
 def _phase13_model(arch):
     cfg = get_config(arch).reduced().replace(dtype="bfloat16")
     params = tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
