@@ -23,16 +23,17 @@ Phases (any failure exits non-zero; nothing is caught):
                   window on and off, softcap on and off, f32 and bf16, plus
                   bf16 at D = 64 and 128, a ragged S = 1,000 and S = 40, and
                   zamba2's D = 80 (H = KV = 32, bf16 and f32, a masked
-                  bf16 case and the narrow kernels' edges at D = 80 and
-                  64, and K5's at 128: S = 40, 1,040 and 1,100, window
-                  512; timed too, beside SDPA at D = 80 and at phase 19's
+                  bf16 case and the narrow kernels' edges at D = 80, 64
+                  and 128: S = 40, 1,040 and 1,100, window 512; timed too, beside SDPA at D = 80 and at phase 19's
                   rank, H = KV = 16), and phases
-                  13-14's shapes: granite-moe's training (H = 16 over KV =
+                  13-15's shapes: granite-moe's training (H = 16 over KV =
                   8, D = 64, and its sum pass), internvl2's and musicgen's
-                  prefill (B = 4, S = 1,024; D = 128 and 64) (bf16
-                  K5-K7 run on the tensor cores, ``flash_gqa_sm90.cu``:
-                  K5 on the persistent ``fwd_narrow_kernel`` at D = 64,
-                  80 and 128;
+                  prefill (B = 4, S = 1,024; D = 128 and 64) and
+                  internvl2's training (B = 2, S = 2,048, D = 128; timed
+                  too) (bf16 K5-K7 run on the tensor cores,
+                  ``flash_gqa_sm90.cu``: at D = 64, 80 and 128 K5 on the
+                  persistent ``fwd_narrow_kernel``, K6 and K7 on
+                  ``dq_narrow_kernel`` and ``dkv_narrow_kernel``;
                   K6's dq and K7's dk/dv held bitwise across two launches,
                   in f32 before their final rounding within half an ulp,
                   and K7's sum pass bitwise against its plain version); the
@@ -135,17 +136,22 @@ Phases (any failure exits non-zero; nothing is caught):
                   reference path within 2**-4) and its prefill ms, decode ms
                   per step, tokens/s and peak memory;
  15. launch       ``launch/dryrun.py``'s prediction for ``steps.make_train_step``
-                  at phase 6's shape (gemma3-1b, one client, B = 2, S = 2048,
-                  T = 2), counted on the meta device, then the step on the
-                  card at full width and depth: the launches equal the
-                  prediction's, the peak device memory within 10 % of the
-                  predicted peak, the loss within phase 13's limit of the
-                  reference path's; the first local step's gradient per leaf
-                  against the reference path and an f32 run of it (scale
-                  drift and error ratio, ``grad_gaps``), and 7 planted
-                  kernel faults each failing that check; the wall and
-                  device time, counted FLOPs against ``model_flops``, the
-                  roofline terms and the new global delta's gap printed.  Then K1/K2 at C = 1, N = 4 against
+                  at phase 6's shape (one client, B = 2, S = 2048, T = 2),
+                  counted on the meta device, then the step on the card at
+                  full width and depth, for gemma3-1b and internvl2-2b
+                  (``LAUNCH_ARCHS``; D = 128 and its 256 patch positions,
+                  the batch from a seed in ``steps.token_batch``'s
+                  layout): the launches equal the prediction's, the peak
+                  device memory within 10 % of the predicted peak, the loss
+                  within phase 13's limit of the reference path's; the
+                  first local step's gradient per leaf against the
+                  reference path and an f32 run of it (scale drift and
+                  error ratio, ``grad_gaps``), and planted kernel faults
+                  each failing that check (gemma3-1b 7, internvl2-2b the 4
+                  of K5-K7 and the sum pass); the wall and device time and
+                  the idle share of a profiled step, counted FLOPs against
+                  ``model_flops``, the roofline terms and the new global
+                  delta's gap printed.  Then K1/K2 at C = 1, N = 4 against
                   their plain versions, and ``scripts/torch_smoke_models.py``,
                   ``scripts/torch_smoke_fl.py`` and
                   ``examples/torch_quickstart.py`` on the card.
@@ -274,9 +280,11 @@ Prints a ``{"kernels": [...]}`` line (each flash record also holds its
 D = 80 readings under ``d80`` (zamba2, H = KV = 32) and ``d80_rank``
 (phase 19's rank, H = KV = 16), its D = 64 readings under ``d64``
 (granite-moe's training shape), ``flash_fwd`` internvl2's prefill (D =
-128, ``fwd_narrow_kernel<128>``) under ``d128_prefill`` and its
-query-offset readings under ``q_offset``; the window records a library
-time, SDPA with the window's mask; launches per path under
+128, ``fwd_narrow_kernel<128>``) under ``d128_prefill``, K5-K7 and the sum
+pass at internvl2's training shape (D = 128, the narrow kernels) under
+``d128_train``, and K5's query-offset readings under ``q_offset``; the
+window records a library time, SDPA with the window's mask; launches per
+path under
 ``launches_by_path``) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
@@ -687,6 +695,7 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     (2, 512, 50.0, bf16, 1000, 80, 4, 2),
     (2, None, None, bf16, 2048, 64, 16, 2),   # granite-moe-1b-a400m, phase 13
     (2, None, None, bf16, 1024, 128, 16, 4),  # internvl2-2b prefill, phase 14
+    (2, None, None, bf16, 2048, 128, 16, 2),  # internvl2-2b training, phase 15
     (1, None, None, bf16, 1024, 64, 32, 4),   # musicgen-large prefill, phase 14
     # phase 18: one tensor-parallel rank of gemma3-1b at m = 2 (its 2 query
     # heads over the gathered KV head), full and window-512 layers
@@ -711,14 +720,14 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     # window 512, softcap 50), S = 2,048 at window 512
     (1, None, None, bf16, 1100, 64, 32, 2), (2, 512, 50.0, bf16, 1040, 64, 4, 2),
     (1, 512, None, bf16, 2048, 64, 32, 2),
-    # the same edges of K5's 128-key tiles at D = 128 (fwd_narrow_kernel; K6
-    # and K7 run dq_kernel and dkv_kernel there): S = 40 at window 16 (G =
-    # 2), S = 1,100 (a partial last tile), 1,040 (G = 2, window 512, softcap
-    # 50), S = 2,048 at window 512
+    # the same edges at D = 128, where K5-K7 run the narrow kernels too (K6
+    # on a 2-stage ring): S = 40 at window 16 (G = 2), S = 1,100 (a partial
+    # last tile; K7's last block's second warpgroup partly past S), 1,040 (G
+    # = 2, window 512, softcap 50), S = 2,048 at window 512
     (2, 16, None, bf16, 40, 128, 4, 2), (1, None, None, bf16, 1100, 128, 32, 2),
     (2, 512, 50.0, bf16, 1040, 128, 4, 2), (1, 512, None, bf16, 2048, 128, 32, 2)]
-# the bf16 cases at D = 64, 80 and 128, where K5 runs fwd_narrow_kernel (and
-# at 64 and 80 K6 and K7 dq_narrow_kernel and dkv_narrow_kernel)
+# the bf16 cases at D = 64, 80 and 128, where K5, K6 and K7 run
+# fwd_narrow_kernel, dq_narrow_kernel and dkv_narrow_kernel
 NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80, 128) and c[3] == bf16]
 
 
@@ -737,10 +746,11 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     past S; K5's last 128-key tile partial), S = 1,040 (wholly past S; G = 2,
     window 512, softcap 50) and S = 2,048 at window 512; and the same three
     edges at D = 64, where K5, K6 and K7 run the same narrow kernels, and
-    all four at D = 128, where K5 runs fwd_narrow_kernel too.
-    Phases 13 and 14's own shapes, bf16, no window: granite-moe's training
+    all four at D = 128, where they run them too.
+    Phases 13 to 15's own shapes, bf16, no window: granite-moe's training
     (B = 2, S = 2048, H = 16 over KV = 8, D = 64: G = 2 and its sum pass),
     internvl2's prefill (B = 4, S = 1024, H = 16 over KV = 8, D = 128) and
+    training (B = 2, S = 2048) and
     musicgen's (B = 4, S = 1024, H = KV = 32, D = 64); phase 18's
     tensor-parallel rank of gemma3-1b at m = 2 (B = 4, S = 1024, H = 2
     over KV = 1, D = 256, window 512 and none), and its ranks at m = 2 of
@@ -958,14 +968,16 @@ def time_flash_other_shapes():
     record set under its key: zamba2's shared attention (``d80``: H = KV =
     32, D = 80), phase 19's zamba2 training rank at m = 2 (``d80_rank``: H =
     KV = 16), granite-moe's training shape (``d64``: phase 13, H = 16 over
-    KV = 8, D = 64, with K7's sum pass) and internvl2's prefill
+    KV = 8, D = 64, with K7's sum pass), internvl2's prefill
     (``d128_prefill``: phase 14, B = 4, S = 1,024, H = 16 over KV = 8, D =
-    128; K5 alone)."""
+    128; K5 alone) and its training shape (``d128_train``: phase 15, B = 2,
+    S = 2,048; K5-K7 and the sum pass)."""
     return {"d80": time_flash(32, 32, 80, (None,), seed=14),
             "d80_rank": time_flash(16, 16, 80, (None,), seed=15),
             "d64": time_flash(16, 8, 64, (None,), seed=16),
             "d128_prefill": time_flash(16, 8, 128, (None,), seed=17, b=4, s=1024,
-                                       fwd_only=True)}
+                                       fwd_only=True),
+            "d128_train": time_flash(16, 8, 128, (None,), seed=18)}
 
 
 def _time_sdpa_window(recs, window, want, qt, kt, vt, dot, fwd_only):
@@ -1998,6 +2010,18 @@ GRAD_FAULTS = {
 }
 
 
+# phase 15's archs: arch -> (its parameter count, the planted faults of
+# ``GRAD_FAULTS`` its gradient check must fail).  gemma3-1b (D = 256, 22 of
+# 26 layers at window 512) takes them all; internvl2-2b (D = 128, the narrow
+# forward and backward, no window, so no window fault applies) those of the
+# kernels it runs at D = 128
+LAUNCH_ARCHS = {
+    "gemma3-1b": (LM_N, tuple(GRAD_FAULTS)),
+    "internvl2-2b": (ARCH_SERVE_N["internvl2-2b"],
+                     ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K7 sum pass x1.01")),
+}
+
+
 def grad_gaps(g_k, g_r, g_t):
     """The kernel path's gradient ``g_k`` against the reference path's ``g_r``
     and the f32 one ``g_t``: (the largest |<g_k - g_r, g_r>| / |g_r|^2 over the
@@ -2012,53 +2036,80 @@ def grad_gaps(g_k, g_r, g_t):
     return scale, ratio
 
 
+def launch_step_batches(cfg, device="cuda"):
+    """One client's ``LM["local_iters"]`` batches at phase 6's shape, each
+    leaf (1, T, ...): client 0's first batches of phase 6's stream for a
+    text arch; for the vision frontend, whose batches the LM driver's streams
+    do not make, tokens and labels uniform over the vocabulary and patch
+    embeddings standard normal, from seed 0, in ``steps.token_batch``'s
+    layout (the patches take ``n_patches`` of the ``seq_len`` positions)."""
+    t, b, s = LM["local_iters"], LM["batch"], LM["seq_len"]
+    if cfg.frontend == "none":
+        stream = lm_driver.client_streams(cfg, 1, b, s)[0]
+        bs = [next(stream) for _ in range(t)]
+        return {k: torch.from_numpy(np.stack([x[k] for x in bs])[None]).to(
+            device=device, dtype=torch.int32) for k in bs[0]}
+    assert cfg.frontend == "vision_stub", cfg.frontend
+    rng = np.random.default_rng(0)
+    out = {}
+    for k, (shape, dtype) in lm_steps.token_batch(cfg, b, s).items():
+        shape = (1, t) + shape
+        x = (rng.integers(0, cfg.vocab_size, shape) if dtype == torch.int32
+             else rng.standard_normal(shape, dtype=np.float32))
+        out[k] = torch.from_numpy(x).to(device=device, dtype=dtype)
+    return out
+
+
 def launch_step_args(cfg, n=LM_N):
     """``make_train_step``'s inputs at phase 6's shape on the card: one
     client's params from seed 0 (``n`` of them, unchecked for None) and
-    zero local and global deltas, and client 0's first
-    ``LM["local_iters"]`` batches of phase 6's stream."""
+    zero local and global deltas, and its batches (``launch_step_batches``)."""
     params = tf.init_params(torch.Generator(device="cuda").manual_seed(0), cfg, device="cuda")
     assert n is None or sum(x.numel() for x in tree_leaves(params)) == n
     state = {"params": tree_map(lambda x: x.unsqueeze(0), params),
              "delta": tree_map(lambda x: torch.zeros_like(x).unsqueeze(0), params)}
     global_delta = tree_map(torch.zeros_like, params)
-    stream = lm_driver.client_streams(cfg, 1, LM["batch"], LM["seq_len"])[0]
-    bs = [next(stream) for _ in range(LM["local_iters"])]
-    batches = {k: torch.from_numpy(np.stack([b[k] for b in bs])[None]).to(
-        device="cuda", dtype=torch.int32) for k in bs[0]}
-    return state, global_delta, batches
+    return state, global_delta, launch_step_batches(cfg)
 
 
 def launch_tooling_run():
-    """Phase 15: the dry run's prediction for ``steps.make_train_step`` at
-    phase 6's shape (gemma3-1b, one client, B = 2, S = 2048, T = 2, bf16,
-    remat "block"), then the step on the card at full width and depth: the
-    launches must equal the prediction's, the peak device memory be within
-    ``PEAK_RTOL`` of the predicted peak, and the loss within phase 13's limit
-    of the reference path's.  The first local step's gradient is held per
-    leaf (``grad_gaps``), and each planted fault of ``GRAD_FAULTS`` must fail
-    that check.  Prints the wall and device time, the counted FLOPs against
-    ``model_flops``, the roofline terms and the new global delta's gap.
-    Returns the step's launches."""
+    """Phase 15: ``launch_step_check`` for each arch of ``LAUNCH_ARCHS``.
+    Returns {arch: the step's launches}."""
+    return {arch: launch_step_check(arch, n, faults)
+            for arch, (n, faults) in LAUNCH_ARCHS.items()}
+
+
+def launch_step_check(arch, n, faults):
+    """The dry run's prediction for ``steps.make_train_step`` at phase 6's
+    shape (one client, B = 2, S = 2048, T = 2, bf16, remat "block") on
+    ``arch``, then the step on the card at full width and depth (``n``
+    parameters): the launches must equal the prediction's, the peak device
+    memory be within ``PEAK_RTOL`` of the predicted peak, and the loss within
+    phase 13's limit of the reference path's.  The first local step's
+    gradient is held per leaf (``grad_gaps``), and each planted fault of
+    ``faults`` (keys of ``GRAD_FAULTS``) must fail that check.  Prints the
+    wall and device time and the idle share of a profiled step, the counted
+    FLOPs against ``model_flops``, the roofline terms and the new global
+    delta's gap.  Returns the step's launches."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = get_config("gemma3-1b")
+    cfg = get_config(arch)
     assert cfg.remat == "block" and cfg.dtype == "bfloat16", (cfg.remat, cfg.dtype)
     pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
     t0 = time.perf_counter()
-    rec = dryrun.run_one("gemma3-1b", LAUNCH_SHAPE, micro_batch=LM["batch"], save=False,
+    rec = dryrun.run_one(arch, LAUNCH_SHAPE, micro_batch=LM["batch"], save=False,
                          verbose=False)
     mem = rec["memory_analysis"]
     predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-    print(f"launch[dryrun]: {rec['ops']} ops counted on the meta device in "
+    print(f"launch[{arch} dryrun]: {rec['ops']} ops counted on the meta device in "
           f"{time.perf_counter() - t0:.1f}s: launches {rec['launches']}; memory {mem}, "
           f"peak {predicted} bytes ({predicted / 2**30:.3f} GiB), fits={rec['fits']}; "
           f"flops {rec['cost_analysis']['flops']:.6g}, bytes "
           f"{rec['cost_analysis']['bytes accessed']:.6g}", flush=True)
 
     base = torch.cuda.memory_allocated()
-    args = launch_step_args(cfg)
+    args = launch_step_args(cfg, n)
     state, global_delta, batches = args
     held = sum(x.untyped_storage().nbytes() for x in tree_leaves(args))
     assert held == mem["argument_size_in_bytes"], (held, mem)
@@ -2074,7 +2125,7 @@ def launch_tooling_run():
     launches = all_launches()
     measured = torch.cuda.max_memory_allocated() - base
     want = {**{k: 0 for k in launches}, **rec["launches"]}
-    print(f"launch[step]: wall {1e3 * wall:.3f} ms; launches {launches} (predicted "
+    print(f"launch[{arch} step]: wall {1e3 * wall:.3f} ms; launches {launches} (predicted "
           f"{rec['launches']}); peak device memory {measured} bytes ({measured / 2**30:.3f} "
           f"GiB) against the predicted {predicted} ({predicted / 2**30:.3f} GiB): "
           f"{100 * (predicted - measured) / measured:+.2f}% (tol "
@@ -2082,14 +2133,23 @@ def launch_tooling_run():
     assert launches == want, (launches, want)
     assert abs(predicted - measured) <= PEAK_RTOL * measured, (predicted, measured)
 
+    walls = []
+
     def again():
+        t = time.perf_counter()
         step(*args)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
 
     busy = sum(e.self_device_time_total for e in profiled(
         again, [torch.profiler.ProfilerActivity.CUDA])) / 1e3
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip()
+    print(f"launch[{arch} step, profiled, {smi}]: wall {1e3 * walls[-1]:.3f} ms, device busy "
+          f"{busy:.3f} ms, idle share {1 - busy / (1e3 * walls[-1]):.4f}", flush=True)
     rl = rec["roofline"]
     mf = roofline.model_flops(cfg, LAUNCH_SHAPE)
-    print(f"launch[roofline]: device busy {busy:.3f} ms of the step (profiled run); counted "
+    print(f"launch[{arch} roofline]: device busy {busy:.3f} ms of the step (profiled run); counted "
           f"FLOPs {rl['total_flops']:.6g} against model_flops {mf:.6g} (useful "
           f"{mf / rl['total_flops']:.3f}); counted bytes {rl['total_bytes']:.6g}; terms "
           f"compute {1e3 * rl['compute_s']:.3f} ms, memory {1e3 * rl['memory_s']:.3f} ms, "
@@ -2103,7 +2163,7 @@ def launch_tooling_run():
     loss_k, loss_r = loss.item(), ref_loss.item()
     loss_rel = abs(loss_k - loss_r) / abs(loss_r)
     delta_rel = _tree_gap(tree_leaves(new_global), tree_leaves(ref_global))
-    print(f"launch[step]: kernel path against the reference path: loss {loss_k:.6f} / "
+    print(f"launch[{arch} step]: kernel path against the reference path: loss {loss_k:.6f} / "
           f"{loss_r:.6f} (rel diff {loss_rel:.4g}, tol {TRAIN_LOSS_RTOL:.4g}); new global "
           f"delta |d_k - d_r| / |d_r| {delta_rel:.4g} (printed only: bf16 rounding of "
           f"sub-ulp updates)", flush=True)
@@ -2112,7 +2172,7 @@ def launch_tooling_run():
 
     # the first local step's gradient, per leaf, against the reference path
     # and an f32 run of it (``grad_gaps``); then each planted fault of
-    # ``GRAD_FAULTS`` must fail the same check
+    # ``faults`` must fail the same check
     leaves, treedef = tree_flatten(tree_map(lambda x: x[0], state["params"]))
     first = {k: v[0, 0] for k, v in batches.items()}
     del state, global_delta, args
@@ -2121,24 +2181,25 @@ def launch_tooling_run():
     l_r, g_r = loss_and_grads(ref_cfg, leaves, treedef, first)
     l_k, g_k = loss_and_grads(cfg, leaves, treedef, first)
     scale, ratio = grad_gaps(g_k, g_r, g_t)
-    print(f"launch[step]: its first local step, kernel / reference / f32 path: loss {l_k:.6f} "
-          f"/ {l_r:.6f} / {l_t:.6f}; gradient |g_k - g_r| / |g_r| {_tree_gap(g_k, g_r):.4g}, "
+    print(f"launch[{arch} step]: its first local step, kernel / reference / f32 path: loss "
+          f"{l_k:.6f} / {l_r:.6f} / {l_t:.6f}; gradient |g_k - g_r| / |g_r| "
+          f"{_tree_gap(g_k, g_r):.4g}, "
           f"against f32 {_tree_gap(g_k, g_t):.4g} / {_tree_gap(g_r, g_t):.4g} (printed "
           f"only); per leaf: scale drift {scale:.4g} (tol {GRAD_SCALE_TOL:.4g}), error "
           f"against f32 over the reference path's {ratio:.4g} (tol {GRAD_RATIO_TOL:.4g})",
           flush=True)
     assert scale <= GRAD_SCALE_TOL and ratio <= GRAD_RATIO_TOL, (scale, ratio)
     del g_k
-    for name, plants in GRAD_FAULTS.items():
-        with planted(plants):
+    for name in faults:
+        with planted(GRAD_FAULTS[name]):
             _, g_f = loss_and_grads(cfg, leaves, treedef, first)
         f_scale, f_ratio = grad_gaps(g_f, g_r, g_t)
-        print(f"launch[step]: planted fault {name}: scale drift {f_scale:.4g}, error ratio "
-              f"{f_ratio:.4g}", flush=True)
+        print(f"launch[{arch} step]: planted fault {name}: scale drift {f_scale:.4g}, error "
+              f"ratio {f_ratio:.4g}", flush=True)
         assert f_scale > GRAD_SCALE_TOL or f_ratio > GRAD_RATIO_TOL, (name, f_scale, f_ratio)
         del g_f
-    print(f"launch[step]: the check fails each of the {len(GRAD_FAULTS)} planted faults; "
-          f"phase {time.perf_counter() - t_phase:.1f}s", flush=True)
+    print(f"launch[{arch} step]: the check fails each of the {len(faults)} planted faults; "
+          f"{time.perf_counter() - t_phase:.1f}s", flush=True)
     del batches, leaves, g_r, g_t
     gc.collect()
     torch.cuda.empty_cache()
@@ -3827,7 +3888,8 @@ def main():
     for arch in ARCH_SERVE_N:
         paths["serve_" + arch.replace("-", "_").replace(".", "_")] = arch_serve_run(arch)
     lap("phases 11-14")
-    paths["train_step_gemma3_1b"] = launch_tooling_run()
+    for arch, launches in launch_tooling_run().items():
+        paths["train_step_" + arch.replace("-", "_").replace(".", "_")] = launches
     paths.update(scripts_run())
     mesh_paths, worst = mesh_run()
     paths.update(mesh_paths)

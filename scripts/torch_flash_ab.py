@@ -1,0 +1,140 @@
+"""A/B of the tensor-core flash source (``flash_gqa_sm90.cu``) on one H100:
+the working source beside other copies of it (another commit's, or an
+edited one), each built into a library of its own, in one run:
+
+    python scripts/torch_flash_ab.py parent=build/ab/parent.cu \\
+        no_drain=build/ab/no_drain.cu
+
+For each source: ptxas's registers and spills of the dq / dk-dv kernels
+(and any note that it serialized their wgmma products); then, each library
+in a process of its own swapped in for the wrappers' (``ops._sm90_lib``),
+the bf16 D = 128 cases of ``chip_smoke.FLASH_CASES`` at one seed (``check_flash``,
+unless ``--no-check``) and the device times (``chip_smoke.device_ms``) of
+K5, K6, K7 (with and without its sum pass), the sum pass and K6 + K7 at
+``SHAPES``, beside SDPA's forward and backward once.  Prints the card's
+name and power limit first and writes every time to
+``chiprun_out/flash_ab.json``.  A source that does not build fails the run;
+one whose check fails or times out is reported and the others go on.
+"""
+import argparse
+import json
+import re
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+sys.path[:0] = [str(ROOT), str(ROOT / "src")]
+
+# (H, KV, D, B, S): internvl2-2b's training shape, granite-moe's, zamba2's
+SHAPES = {"d128_train": (16, 8, 128, 2, 2048), "d64": (16, 8, 64, 2, 2048),
+          "d80": (32, 32, 80, 2, 2048)}
+CHILD_S = 600  # one source's check and times, then its process is killed
+
+
+def ptxas(cs, src):
+    """ptxas's lines for the dq and dk/dv kernels of ``src``'s library."""
+    from repro_torch.kernels import build as kb
+
+    name = None
+    for line in kb.build_log(src).splitlines():
+        m = re.search(r"Compiling entry function '(\w+_kernel\w*)'", line)
+        if m:
+            name = cs._kernel_name(m.group(1))
+        elif "serialized" in line:
+            print(f"  ptxas note: {line.strip()}", flush=True)
+        elif name and re.match(r"d(q|kv)_", name) and ("registers" in line or "spill" in line):
+            print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}", flush=True)
+
+
+def times(label, src, check):
+    """In a child process: ``src``'s library in the wrappers' place, its
+    check and times; prints one ``RESULT`` line."""
+    import torch
+    import torch.nn.functional as F
+
+    import chip_smoke as cs
+    from repro_torch.kernels import build as kb
+    from repro_torch.kernels.flash_gqa import ops as fo
+
+    lib = kb.bind(Path(src), fo.SM90_SIGNATURES)
+    fo._sm90_lib = lambda: lib
+    bf16 = torch.bfloat16
+    if check:
+        cases = [c for c in cs.FLASH_CASES if c[3] == bf16 and c[5] == 128]
+        print(f"[{label}] check: {cs.check_flash(seeds=(12,), cases=cases)}", flush=True)
+    out = {}
+    for key, (h, kv, d, b, s) in SHAPES.items():
+        g = torch.Generator(device="cuda").manual_seed(18)
+        q, k, v, do = cs._attention(g, h, kv, bf16, b=b, s=s, d=d)
+        o, lse = fo.flash_fwd(q, k, v)
+        delta = fo.row_delta(do, o)
+        r = {"fwd": cs.device_ms(lambda: fo.flash_fwd(q, k, v)),
+             "dq": cs.device_ms(lambda: fo.flash_bwd_dq(q, k, v, do, lse, delta)),
+             "dkv": cs.device_ms(lambda: fo.flash_bwd_dkv(q, k, v, do, lse, delta)),
+             "pair": cs.device_ms(lambda: (fo.flash_bwd_dq(q, k, v, do, lse, delta),
+                                           fo.flash_bwd_dkv(q, k, v, do, lse, delta)))}
+        if h > kv:
+            pk, pv = fo.flash_bwd_dkv_partials(q, k, v, do, lse, delta)
+            r["dkv_alone"] = cs.device_ms(
+                lambda: fo.flash_bwd_dkv_partials(q, k, v, do, lse, delta))
+            r["sum"] = cs.device_ms(lambda: fo.flash_bwd_dkv_sum(pk, pv, kv))
+        if label == "this":
+            qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
+            sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
+                a, b_, c, is_causal=True, enable_gqa=True)
+            r["sdpa_fwd"] = cs.device_ms(lambda: sdpa(qt, kt, vt))
+            leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
+            o2 = sdpa(*leaves)
+            r["sdpa_bwd"] = cs.device_ms(
+                lambda: torch.autograd.grad(o2, leaves, dot, retain_graph=True))
+        out[key] = r
+        print(f"[{label}] {key}: " + ", ".join(f"{n} {x:.4f}" for n, x in r.items()),
+              flush=True)
+    print("RESULT " + json.dumps({label: out}), flush=True)
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("sources", nargs="*", help="label=path of another flash_gqa_sm90.cu")
+    ap.add_argument("--no-check", action="store_true")
+    ap.add_argument("--child", nargs=2, help=argparse.SUPPRESS)
+    args = ap.parse_args(argv)
+    if args.child:
+        return times(*args.child, not args.no_check)
+    import chip_smoke as cs
+    from repro_torch.kernels import build as kb
+
+    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout.strip(), flush=True)
+    srcs = {"this": cs.flash_ops.SM90_SOURCE}
+    for item in args.sources:
+        label, path = item.split("=", 1)
+        srcs[label] = Path(path).resolve()
+    t0 = time.perf_counter()
+    kb.build(*dict.fromkeys(srcs.values()))
+    print(f"built {len(srcs)} sources in {time.perf_counter() - t0:.1f}s", flush=True)
+    results = {}
+    for label, src in srcs.items():
+        print(f"[{label}] {src}", flush=True)
+        ptxas(cs, src)
+        cmd = [sys.executable, __file__, "--child", label, str(src)]
+        cmd += ["--no-check"] if args.no_check else []
+        try:
+            p = subprocess.run(cmd, capture_output=True, text=True, timeout=CHILD_S)
+            lines = (p.stdout + p.stderr).splitlines() + [f"[{label}] exit {p.returncode}"]
+        except subprocess.TimeoutExpired:
+            lines = [f"[{label}] timed out after {CHILD_S} s"]
+        for line in lines:
+            if line.startswith("RESULT "):
+                results.update(json.loads(line[len("RESULT "):]))
+            elif "seed=" not in line and "sum pass" not in line:
+                print(line, flush=True)
+    (ROOT / "chiprun_out").mkdir(exist_ok=True)
+    (ROOT / "chiprun_out" / "flash_ab.json").write_text(json.dumps(results, indent=1))
+    return 0 if len(results) == len(srcs) else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

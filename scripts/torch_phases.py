@@ -19,7 +19,9 @@ offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64, 80 and
 3's times: ``time_flash`` at gemma3-1b's full and window-512 layers, then
 ``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
 rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's
-prefill, beside SDPA), ``train`` (phase 13), ``train_spread`` (phase 13's
+prefill and training shape, beside SDPA), ``train`` (phase 13), ``launch``
+(phase 15: the train step of gemma3-1b and internvl2-2b against the dry
+run, its gradient check and planted faults), ``train_spread`` (phase 13's
 training, then its loss check, planted faults too, on each of
 ``SPREAD_GROUPS`` groups of four client batches: phase 13 reads the first),
 ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
@@ -103,6 +105,7 @@ PHASES = {
     "flash_times": (lambda: {"gemma3-1b": cs.time_flash(4, 1, 256, (None, 512), seed=13),
                              **cs.time_flash_other_shapes()}, False),
     "train": (lambda: {a: cs.arch_train_run(a) for a in cs.ARCH_TRAIN}, True),
+    "launch": (cs.launch_tooling_run, True),
     "train_spread": (train_spread, True),
     "async": (cs.async_run, True),
     "tp_serve": (_tp_serve, True),

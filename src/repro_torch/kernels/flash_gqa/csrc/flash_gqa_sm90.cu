@@ -36,14 +36,13 @@
 //  - two designs, by head_dim.  fwd_kernel, dq_kernel and dkv_kernel,
 //    shaped for D = 256, where the products dominate: tiles are whole
 //    64-column blocks, each product is waited for in turn, and the rings
-//    have 2 stages; they run K5 at D = 256 and K6 / K7 at D = 128 and 256.
-//    fwd_narrow_kernel (K5 at D = 64, 80 and 128), dq_narrow_kernel and
-//    dkv_narrow_kernel (K6 / K7 at D = 64 and 80), templates over D on
-//    TileN<D>: tiles sit at the true width (at D = 80 a 64-column and a
-//    16-column block, no padded columns), keys come 128 to a tile or block,
-//    rings have 2 to 4 stages (as many as shared memory holds), products
-//    overlap the elementwise work, and the elementwise step has no branch
-//    inside; each section below says more;
+//    have 2 stages; they run K5, K6 and K7 at D = 256.  fwd_narrow_kernel,
+//    dq_narrow_kernel and dkv_narrow_kernel run K5, K6 and K7 at D = 64, 80
+//    and 128, templates over D on TileN<D>: tiles sit at the true width (at
+//    D = 80 a 64-column and a 16-column block, no padded columns), keys come
+//    128 to a tile or block, rings have 2 to 4 stages (as many as shared
+//    memory holds), products overlap the elementwise work, and the
+//    elementwise step has no branch inside; each section below says more;
 //  - K5 (fwd_kernel, D = 256): one block per (batch*head, 128-query tile), each
 //    consumer warpgroup 64 query rows, the last (heaviest causal) tiles
 //    launched first; K/V stream in 64-key tiles; S = Q K^T from shared
@@ -73,9 +72,9 @@
 //    K5 visits key tiles max(0, q0 - W + 1)/64 .. (q0 + 127)/64 (q0 the
 //    block's first absolute position, the last clamped to the last query's;
 //    128-key tiles at D = 64, 80 and 128) and K6 the same range in 32-key tiles
-//    (128 at D = 64 and 80; each warpgroup computes only those its 64 rows
-//    see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64 (at D = 64 and 80
-//    the same for the block's 128 keys and for each warpgroup's 64;
+//    (128 at D = 64, 80 and 128; each warpgroup computes only those its 64
+//    rows see), K7 query tiles k0/64 .. (k0 + 63 + W - 1)/64 (at D = 64, 80
+//    and 128 the same for the block's 128 keys and for each warpgroup's 64;
 //    kernels/flash_gqa/grid.py mirrors them all);
 //  - no atomics: at G > 1 each K7 block writes its head's dk/dv partial in
 //    f32 to (B, S, H, D) scratch and dkv_sum_kernel adds the G heads in the
@@ -83,27 +82,29 @@
 //    block owns its dq rows.  Every sum has one order, so results are
 //    bitwise run to run.
 //
-// Why D = 64 and 80 have kernels of their own.  At D <= 80 a tile's
+// Why D = 64, 80 and 128 have kernels of their own.  At D <= 80 a tile's
 // products are short, and the exp, the mask and the bookkeeping take about
 // as long as they do (128 exps a row of a 128-key tile keep the SM's exp
 // units about as busy as the tile's products keep its tensor cores), so the
 // narrow kernels overlap the two and keep the elementwise step short: no
 // branch per element (the mask is an exponent of -inf; the softcap and the
 // masked-tile choice are made once a tile), the next tile's products issued
-// before this tile's are waited for.  K5 at D = 128 moved to the narrow
-// forward too: its products are 1.6x as long as at D = 80 for the same 64
-// exps a thread, but fwd_kernel's 64-key tiles, products waited for in turn
-// and branch per element left the tensor cores idle through every softmax
-// (1.74x SDPA's forward at internvl2's prefill), and the narrow forward's
-// 64 x 128 tiles fit D = 128's registers (O 64 and S 64 f32 a thread).  The
-// D = 256 shapes do not carry over:
+// before this tile's are waited for.  K5, K6 and K7 at D = 128 moved to the
+// narrow kernels too: their products are 1.6x as long as at D = 80 for the
+// same exps a thread, but the D = 256 kernels' short tiles (64 keys in K5
+// and K7, 32 in K6), products waited for in turn and branch per element
+// left the tensor cores idle through every softmax (K5 1.74x SDPA's forward
+// at internvl2's prefill; K6 and K7 at 20 and 22 % of their bounds at its
+// training shape, with the sum pass 2.1x SDPA's backward).  The D = 256
+// shapes do not carry over:
 // at D = 80 they padded tiles to 128 columns (1.2-1.3x the counted work);
 // at D = 64 K6's 32-key tiles made S and dP m64n32 products of 4 k-steps,
 // too short to keep the tensor cores fed, and K7's 64-key blocks read Q
 // and dO twice as often as 128-key ones.  At D <= 80 a warpgroup holds
 // both dV and dK (2 x 32 or 2 x 40 f32 a thread) beside S^T and dP^T, so
 // P^T and dS^T stay in registers as A operands, with no shared-memory
-// round trip and no barrier between the warpgroups on every tile.
+// round trip and no barrier between the warpgroups on every tile; at D = 128
+// (2 x 64) they still do, in another order (the K6 / K7 section).
 //
 // The tensor maps are encoded on the host with cuTensorMapEncodeTiled, taken
 // from the CUDA driver through cudaGetDriverEntryPoint, so the library links
@@ -327,28 +328,6 @@ __device__ __forceinline__ void wgmma_ss<128, 0>(float (&d)[64], uint64_t a, uin
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(a), "l"(b), "r"(accumulate));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_ss<128, 1>(float (&d)[64], uint64_t a, uint64_t b,
-                                                 int accumulate) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1, 0, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -700,7 +679,7 @@ dkv_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUten
            void* __restrict__ dk, void* __restrict__ dv, Shape sh) {
   using L = DkvLayout<D>;
   static_assert(D % 64 == 0,
-                "whole 64-column swizzle blocks (D = 64 and 80 have kernels of their own)");
+                "whole 64-column swizzle blocks (D = 64, 80 and 128 run the narrow kernels)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   uint8_t* const gbase = smem_raw + (base - smem_u32(smem_raw));
@@ -876,7 +855,7 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
           void* __restrict__ dq, Shape sh) {
   using L = DqLayout<D>;
   static_assert(D % 64 == 0,
-                "whole 64-column swizzle blocks (D = 64 and 80 have kernels of their own)");
+                "whole 64-column swizzle blocks (D = 64, 80 and 128 run the narrow kernels)");
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
   const uint32_t sQ = base, sdO = base + L::kQ;
@@ -1020,11 +999,11 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
   }
 }
 
-// -- K6 and K7 at head_dim 64 and 80 -------------------------------------------
+// -- K6 and K7 at head_dim 64, 80 and 128 --------------------------------------
 //
-// Templates over D = 64 and 80, since the kernels above, shaped for D = 256,
-// pad D = 80 to 128 columns and run D = 64 on 32-key K6 tiles and 64-key K7
-// blocks.  A (rows, D) bf16 tile is held at its own D columns (TileN<D>), so
+// Templates over D = 64, 80 and 128, since the kernels above, shaped for
+// D = 256, pad D = 80 to 128 columns and run D = 64 and 128 on 32-key K6
+// tiles and 64-key K7 blocks.  A (rows, D) bf16 tile is held at its own D columns (TileN<D>), so
 // every product runs at the counted work, and the passes are shaped for it:
 //  - K7 (dkv_narrow_kernel): one block per 128 keys; each consumer warpgroup
 //    owns 64 of them and holds both its dV and its dK accumulator (2 x D/2
@@ -1045,21 +1024,30 @@ dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtens
 //    seen the products that read it.  A warpgroup with no key (K7) or row
 //    (K6) in a tile still waits for it and releases it, after its own
 //    products in flight, so arrivals on a stage never run ahead of a use;
+//  - at D = 128 the registers do not hold all of that (K6's dQ, S and dP are
+//    3 x 64 f32 a thread; K7's dV and dK 2 x 64 beside S^T and dP^T; as
+//    above, ptxas serialized both kernels' wgmmas and spilled): K6 waits for
+//    its last dQ product before it issues the next tile's S and dP (kDrain),
+//    and K7 issues dP^T only once P^T is formed, beside the dV product, and
+//    waits for both (kLateDP), so S^T, dP^T and P^T are never held at once;
+//    the other warpgroup's products fill those waits.  P^T through shared
+//    memory instead also cleared the spills, but was slower (PERF.md,
+//    Findings);
 //  - at D = 64, K7's two warpgroups take turns (named barriers) at issuing
 //    S^T and dP^T, so one's products run while the other's elementwise step
 //    does; a warpgroup with no key in a tile takes an empty turn (on an
 //    H100 they made K7 faster at D = 64 and slower at D = 80, and left K6
 //    as it was; PERF.md, Findings);
-//  - a 4-stage ring: K7's Q/dO (and lse, delta) 4 x 21 KB (D = 80) or
-//    4 x 17 KB (D = 64) beside 40 or 32 KB of resident K/V, K6's K/V 4 x 40
-//    or 4 x 32 KB beside 40 or 32 KB of resident Q/dO.
+//  - rings of 4 stages, or 2 in K6 at D = 128: K7's Q/dO (and lse, delta)
+//    4 x 33, 4 x 21 or 4 x 17 KB (D = 128, 80, 64) beside 64, 40 or 32 KB of
+//    resident K/V, K6's K/V 2 x 64, 4 x 40 or 4 x 32 KB beside 64, 40 or
+//    32 KB of resident Q/dO.
 // Masks, windows, the softcap, G > 1 (f32 head partials for the sum pass),
 // the f32 dq and the no-atomics ownership are those of the kernels above.
 
 constexpr int kD80 = 80;
-constexpr int kDqNarrowKeys = 128;   // keys of a K6 K/V tile at D = 64 and 80
-constexpr int kDkvNarrowKeys = 128;  // keys of a K7 block at D = 64 and 80: 64 a warpgroup
-constexpr int kNarrowStages = 4;     // stages of the K6 and K7 rings at D = 64 and 80
+constexpr int kDqNarrowKeys = 128;   // keys of a K6 K/V tile
+constexpr int kDkvNarrowKeys = 128;  // keys of a K7 block: 64 a warpgroup
 
 // A (rows, D) bf16 tile, D = 64, 80 or 128, of rows * 2D bytes: a 64-column
 // block, 128-byte swizzled (rows x 128 bytes), then at D = 80 a 16-column
@@ -1209,11 +1197,16 @@ __device__ __forceinline__ void release(uint32_t empty, int& pending) {
 
 template <int D>
 struct DkvNarrowLayout {
+  static constexpr int kStages = 4;  // of the Q/dO ring
+  // dP^T is issued once P^T is formed, beside the dV product, so S^T, dP^T
+  // and P^T are never in registers at once (at D = 128 beside dV and dK)
+  static constexpr bool kLateDP = D == 128;
   static constexpr int kKV = TileN<D>::bytes(kDkvNarrowKeys);  // resident K or V
   static constexpr int kT = TileN<D>::bytes(kTile);            // one Q or dO tile
   static constexpr int kStage = 2 * kT + 2 * kTile * 4;  // Q, dO, then lse, delta
-  static constexpr int kBars = 2 * kKV + kNarrowStages * kStage;  // kv_full, full[], empty[]
-  static constexpr int kBytes = kBars + (1 + 2 * kNarrowStages) * 8 + 1024;
+  static constexpr int kBars = 2 * kKV + kStages * kStage;  // kv_full, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 // Each map comes twice: 64-column boxes and 16-column boxes (at D = 64 the
@@ -1230,7 +1223,7 @@ dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
                   void* __restrict__ dv, Shape sh) {
   using L = DkvNarrowLayout<D>;
   using T = TileN<D>;
-  constexpr int NS = kNarrowStages;
+  constexpr int NS = L::kStages;
   // At D = 64 the warpgroups take turns at issuing S^T and dP^T, so one's
   // products run while the other's elementwise step does (at D = 80 the
   // turns cost more than they gave)
@@ -1336,26 +1329,30 @@ dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
     const float* delta_c = lse_c + kTile;
     mbar_wait(full + 8 * st_i, (i / NS) & 1);
 
-    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), two groups
+    // S^T = K Q^T and dP^T = V dO^T (64 keys x 64 queries), two groups (at
+    // L::kLateDP, dP^T later)
     if constexpr (kTurns) turn_wait(wg);
     float sc[32], dp[32];
+    auto issue_dp = [&] {
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        wgmma_ss<64, 0>(dp, T::kmajor(sV, kDkvNarrowKeys, wg * kTile, kk),
+                        T::kmajor(sdO, kTile, 0, kk), kk > 0);
+      wgmma_commit();
+    };
 #pragma unroll
     for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
     fence_regs(sc);
-    fence_regs(dp);
+    if constexpr (!L::kLateDP) fence_regs(dp);
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk)
       wgmma_ss<64, 0>(sc, T::kmajor(sK, kDkvNarrowKeys, wg * kTile, kk),
                       T::kmajor(sQ, kTile, 0, kk), kk > 0);
     wgmma_commit();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk)
-      wgmma_ss<64, 0>(dp, T::kmajor(sV, kDkvNarrowKeys, wg * kTile, kk),
-                      T::kmajor(sdO, kTile, 0, kk), kk > 0);
-    wgmma_commit();
+    if constexpr (!L::kLateDP) issue_dp();
     if constexpr (kTurns) turn_pass(wg);
-    wgmma_wait<1>();  // S^T, and the last tile's dV and dK, are done
+    wgmma_wait<L::kLateDP ? 0 : 1>();  // S^T, and the last tile's dV and dK, are done
     fence_regs(sc);
     fence_regs(pa);
     fence_regs(da);
@@ -1372,7 +1369,15 @@ dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < kTile / 16; ++kk) T::mma(dv_acc, pa + 4 * kk, sdO, kTile, kk);
     wgmma_commit();
-    wgmma_wait<1>();  // dP^T is done
+    if constexpr (L::kLateDP) {
+      fence_regs(dp);
+      wgmma_fence();
+      issue_dp();
+      wgmma_wait<0>();  // dV and dP^T are done
+      fence_regs(pa);
+    } else {
+      wgmma_wait<1>();  // dP^T is done
+    }
     fence_regs(dp);
 
     // dS^T = P^T (dP^T - delta) [(1 - t^2)] to bf16; dK += dS^T Q
@@ -1423,12 +1428,17 @@ dkv_narrow_kernel(const __grid_constant__ CUtensorMap tq,
 
 template <int D>
 struct DqNarrowLayout {
+  static constexpr int kStages = D == 128 ? 2 : 4;  // of the K/V ring
+  // the last tile's dQ product is waited for before the next tile's S and
+  // dP are issued, so dS leaves the registers first
+  static constexpr bool kDrain = D == 128;
   static constexpr int kRows = 2 * kTile;                     // two warpgroups' rows
   static constexpr int kQ = TileN<D>::bytes(kRows);           // the Q or the dO tile
   static constexpr int kKV = TileN<D>::bytes(kDqNarrowKeys);  // one K or V tile
-  static constexpr int kStage = 2 * kKV;                          // K, then V
-  static constexpr int kBars = 2 * kQ + kNarrowStages * kStage;  // qd_full, full[], empty[]
-  static constexpr int kBytes = kBars + (1 + 2 * kNarrowStages) * 8 + 1024;
+  static constexpr int kStage = 2 * kKV;                      // K, then V
+  static constexpr int kBars = 2 * kQ + kStages * kStage;     // qd_full, full[], empty[]
+  static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;
+  static_assert(kBytes <= 232448, "a block takes at most 227 KB of shared memory");
 };
 
 // Each map comes twice, as in dkv_narrow_kernel.
@@ -1441,7 +1451,7 @@ dq_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
                  const __grid_constant__ CUtensorMap tdo16, const float* __restrict__ lse,
                  const float* __restrict__ delta, void* __restrict__ dq, Shape sh) {
   using L = DqNarrowLayout<D>;
-  constexpr int NK = kDqNarrowKeys, NS = kNarrowStages;
+  constexpr int NK = kDqNarrowKeys, NS = L::kStages;
   using T = TileN<D>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t base = smem_base(smem_raw);
@@ -1525,6 +1535,11 @@ dq_narrow_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__
     }
     const int k0 = kt * NK;
     mbar_wait(full + 8 * st_i, (i / NS) & 1);
+    if constexpr (L::kDrain) {
+      wgmma_wait<0>();
+      fence_regs(da);
+      release(empty, pending);
+    }
 
     // S = Q K^T and dP = dO V^T (64 rows x 128 keys), two groups
     float sc[NK / 2], dp[NK / 2];
@@ -2193,7 +2208,7 @@ int make_maps_narrow(CUtensorMap* maps, const void* ptr, int b, int s, int heads
   }
 }
 
-// K7 at D = 64 and 80: dkv_narrow_kernel.
+// K7 at D = 64, 80 and 128: dkv_narrow_kernel.
 template <int D>
 int launch_dkv_narrow(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
@@ -2213,7 +2228,7 @@ int launch_dkv_narrow(const void* q, const void* k, const void* v, const void* d
   return (int)cudaGetLastError();
 }
 
-// K6 at D = 64 and 80: dq_narrow_kernel.
+// K6 at D = 64, 80 and 128: dq_narrow_kernel.
 template <int D>
 int launch_dq_narrow(const void* q, const void* k, const void* v, const void* dout,
                      const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
@@ -2249,6 +2264,13 @@ int launch_dkv<80>(const void* q, const void* k, const void* v, const void* dout
 }
 
 template <>
+int launch_dkv<128>(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
+                    cudaStream_t st) {
+  return launch_dkv_narrow<128>(q, k, v, dout, lse, delta, dk, dv, sh, st);
+}
+
+template <>
 int launch_dq<64>(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
                   cudaStream_t st) {
@@ -2260,6 +2282,13 @@ int launch_dq<80>(const void* q, const void* k, const void* v, const void* dout,
                   const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
                   cudaStream_t st) {
   return launch_dq_narrow<80>(q, k, v, dout, lse, delta, dq, dq_dtype, sh, st);
+}
+
+template <>
+int launch_dq<128>(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, int dq_dtype, const Shape& sh,
+                   cudaStream_t st) {
+  return launch_dq_narrow<128>(q, k, v, dout, lse, delta, dq, dq_dtype, sh, st);
 }
 
 // K5 at D = 64, 80 and 128: fwd_narrow_kernel.  Its softmax takes the row

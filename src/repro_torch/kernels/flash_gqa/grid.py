@@ -8,10 +8,10 @@ against ``repro``.  The CUDA kernels (``csrc/flash_gqa.cu``) use their
 own tiles and compute the exact tile range a window needs themselves (K5
 on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``,
 ``sm90_dq_key_tiles`` and ``sm90_dkv_query_tiles`` are those ranges of the
-tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 64 and 80 too
-(the narrow kernels there: K5's and K6's 128-key tiles, K7's 128-key blocks
-of two warpgroups' 64 keys; K5's 128-key tiles at head_dim 128 as well),
-written out so the CPU tests can hold them to the mask.
+tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 256 and at 64,
+80 and 128 (the narrow kernels there: K5's and K6's 128-key tiles, K7's
+128-key blocks of two warpgroups' 64 keys), written out so the CPU tests can
+hold them to the mask.
 ``attention_pairs`` counts the (query, key) pairs causality and the window
 leave, the work any implementation must do (``chip_smoke.py``'s operation
 bounds), of every query row or of a rank's rows q0 .. q0 + sq - 1.
@@ -75,11 +75,10 @@ def attention_pairs(s: int, window=None, q0: int = 0, sq=None) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-SM90_TILE = 64  # keys of a K5 K/V tile (D = 256); keys and queries of a K7 tile (D = 128, 256)
+SM90_TILE = 64  # keys of a K5 K/V tile (D = 256); keys and queries of a K7 tile
 SM90_FWD_ROWS = 128  # query rows of a K5 or K6 block (two warpgroups of 64)
-SM90_DQ_KEYS = 32    # keys of a K6 K/V tile (D = 128, 256)
-# at head_dim 64 and 80 (fwd_narrow_kernel, dq_narrow_kernel, dkv_narrow_kernel),
-# and for K5 at 128 (fwd_narrow_kernel)
+SM90_DQ_KEYS = 32    # keys of a K6 K/V tile (D = 256)
+# at head_dim 64, 80 and 128 (fwd_narrow_kernel, dq_narrow_kernel, dkv_narrow_kernel)
 SM90_FWD_NARROW_KEYS = 128  # keys of a K5 K/V tile
 SM90_DQ_NARROW_KEYS = 128   # keys of a K6 K/V tile
 SM90_DKV_NARROW_KEYS = 128  # keys of a K7 block: 64 a warpgroup, a K7 query tile still 64
@@ -109,15 +108,15 @@ def sm90_fwd_key_tiles(r0: int, rows: int, s: int, window=None, q0: int = 0,
 
 def sm90_dq_key_tiles(q0: int, rows: int, s: int, window=None,
                       keys: int = SM90_DQ_KEYS) -> range:
-    """Key tiles (of ``keys`` keys: 32, or 128 at head_dim 64 and 80) that
-    query rows q0 .. q0 + rows - 1 visit in ``dq_kernel``
+    """Key tiles (of ``keys`` keys: 32, or 128 at head_dim 64, 80 and 128)
+    that query rows q0 .. q0 + rows - 1 visit in ``dq_kernel``
     (``dq_narrow_kernel``), as ``sm90_fwd_key_tiles`` for ``fwd_kernel``."""
     return _key_tiles(q0, rows, s, window, keys)
 
 
 def sm90_dkv_query_tiles(kt: int, s: int, window=None, keys: int = SM90_TILE) -> range:
     """Query tiles (of 64 queries) that key block ``kt`` of ``keys`` keys
-    visits in ``dkv_kernel`` (64), or at head_dim 64 and 80 in
+    visits in ``dkv_kernel`` (64), or at head_dim 64, 80 and 128 in
     ``dkv_narrow_kernel``: a block at 128, each of its warpgroups (64-key
     tile 2 kt + w) at 64.  Keys that all lie past S visit none."""
     k0 = kt * keys

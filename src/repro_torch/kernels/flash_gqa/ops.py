@@ -12,10 +12,10 @@ its kernel for CUDA tensors and runs its plain PyTorch version
 
 Which kernel runs is a dispatch by dtype, not a fallback: bf16 (the LM
 slice's type) runs K5-K7 on the tensor cores (``csrc/flash_gqa_sm90.cu``:
-K5 at head_dim 64, 80 and 128 ``fwd_narrow_kernel``, the persistent
-kernel on 128-key tiles at the true width, and at 256 ``fwd_kernel``; K6
-and K7 at 64 and 80 ``dq_narrow_kernel`` and ``dkv_narrow_kernel``, at
-128 and 256 ``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
+at head_dim 64, 80 and 128 K5 ``fwd_narrow_kernel``, the persistent
+kernel on 128-key tiles at the true width, and K6 and K7
+``dq_narrow_kernel`` and ``dkv_narrow_kernel``; at 256 ``fwd_kernel``,
+``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
 writes per-head f32 partials and
 ``flash_bwd_dkv_sum`` adds them in head order); f32 runs the SIMT kernels
 of ``csrc/flash_gqa.cu``, whose products stay in f32.  A failed build or
@@ -69,7 +69,7 @@ SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
 LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
 HEAD_DIMS = (64, 80, 128, 256)
 FWD_NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K5 runs fwd_narrow_kernel
-NARROW_HEAD_DIMS = (64, 80)  # bf16 K6 and K7 run dq_ and dkv_narrow_kernel
+NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K6 and K7 run dq_ and dkv_narrow_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

@@ -322,26 +322,30 @@ def test_sm90_tile_ranges_at_head_dim_64_visit_exactly_the_tiles_with_visible_pa
 
 @pytest.mark.parametrize("s,window", _TILE_CASES + [(1100, None), (1100, 512), (1040, 512)])
 def test_sm90_tile_ranges_at_head_dim_128_visit_exactly_the_tiles_with_visible_pairs(s, window):
-    """The same at head_dim 128, where K5 runs fwd_narrow_kernel
-    (``launch_fwd<128>`` is ``launch_fwd_narrow<128>``): its 128-key tiles,
-    for each block, warpgroup and query offset; K6 and K7 stay on dq_kernel's
-    32-key tiles and dkv_kernel's 64-key tiles (no specialization at 128)."""
+    """The same at head_dim 128, which runs the narrow kernels of all three
+    passes (``launch_fwd<128>``, ``launch_dq<128>`` and ``launch_dkv<128>``
+    are ``launch_*_narrow<128>``): K5's and K6's 128-key tiles (the same
+    at every narrow width; at 128 K6's ring holds 2 stages), K7 blocks of
+    128 keys and each warpgroup's 64,
+    for each block, warpgroup and query offset; dq_kernel's 32-key tiles and
+    dkv_kernel's 64-key blocks are not launched at 128."""
     src = flash_ops.SM90_SOURCE.read_text()
-    assert "launch_fwd_narrow<128>(" in _launch_body(src, "fwd", 128)
-    for launch in ("dq", "dkv"):
-        assert _launch_body(src, launch, 128) is None, launch
-    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_KEYS, grid.SM90_TILE, (
-        f"constexpr int kTile = {grid.SM90_TILE};",
-        f"constexpr int kDqKeys = {grid.SM90_DQ_KEYS};",
-        f"constexpr int kFwdNarrowKeys = {grid.SM90_FWD_NARROW_KEYS};"),
-        grid.SM90_FWD_NARROW_KEYS)
+    for launch in ("fwd", "dq", "dkv"):
+        assert f"launch_{launch}_narrow<128>(" in _launch_body(src, launch, 128), launch
+    layout = re.search(r"\nstruct DqNarrowLayout \{.*?\n};", src, re.S).group(0)
+    assert "static constexpr int kKV = TileN<D>::bytes(kDqNarrowKeys);" in layout
+    assert "static constexpr int kStages = D == 128 ? 2 : 4;" in layout
+    narrow = _launch_body(src, "dq_narrow")
+    assert narrow.count("kDqNarrowKeys)) return err;") == 2 and "kDqKeys" not in narrow
+    _check_sm90_tile_ranges(s, window, grid.SM90_DQ_NARROW_KEYS, grid.SM90_DKV_NARROW_KEYS,
+                            _NARROW_CONSTANTS, grid.SM90_FWD_NARROW_KEYS)
 
 
 @pytest.mark.parametrize("s,window", [(1000, None), (1000, 512), (1100, None), (1100, 512),
                                       (1040, 512), (40, 16), (2048, 512), (128, None)])
 def test_sm90_d80_dkv_warpgroups_own_the_block_tiles(s, window):
-    """K7 at head_dim 64 and 80 (dkv_narrow_kernel<D>, the same template at
-    both widths): a 128-key block's query tiles are the union of its two
+    """K7 at head_dim 64, 80 and 128 (dkv_narrow_kernel<D>, the same template
+    at each width): a 128-key block's query tiles are the union of its two
     warpgroups' ranges (each held to the mask), each a run from the
     warpgroup's diagonal tile, so a warpgroup skips only a block's first
     tile (the second's keys start one tile later) and its last ones (the
@@ -369,13 +373,14 @@ def test_sm90_d80_dkv_warpgroups_own_the_block_tiles(s, window):
 
 @pytest.mark.parametrize("d", flash_ops.NARROW_HEAD_DIMS)
 def test_sm90_head_dim_80_backward_runs_its_own_kernels(d):
-    """The bf16 dq and dk/dv passes at head_dim 64 and 80 launch
-    dq_narrow_kernel<D> and dkv_narrow_kernel<D> (128-key tiles and blocks
-    at the true width, their own layouts and tensor maps), through
-    launch_dq<D> / launch_dkv<D> specialized to launch_*_narrow<D>; 128 and
-    256 still launch dq_kernel<D> / dkv_kernel<D>, which are instantiated
-    at no narrow width; the forward's persistent kernel runs at head_dim 64,
-    80 and 128 (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
+    """The bf16 dq and dk/dv passes at head_dim 64, 80 and 128
+    (``NARROW_HEAD_DIMS``) launch dq_narrow_kernel<D> and
+    dkv_narrow_kernel<D> (128-key tiles and blocks at the true width, their
+    own layouts and tensor maps), through launch_dq<D> / launch_dkv<D>
+    specialized to launch_*_narrow<D>; 256 still launches dq_kernel<D> /
+    dkv_kernel<D>, which are instantiated at no narrow width; the forward's
+    persistent kernel runs at the same widths
+    (``test_sm90_narrow_forward_runs_its_own_kernel``)."""
     src = flash_ops.SM90_SOURCE.read_text()
     for launch, kernel, layout in (("dq", "dq_narrow_kernel", "DqNarrowLayout"),
                                    ("dkv", "dkv_narrow_kernel", "DkvNarrowLayout")):
@@ -432,7 +437,7 @@ def test_sm90_narrow_forward_takes_a_positive_scale_only(d):
     narrow = re.search(r"\nint launch_fwd_narrow\(.*?\n}", src, re.S).group(0)
     assert "if (!(sh.scale > 0.f)) return (int)cudaErrorInvalidValue;" in narrow
     assert flash_ops.FWD_NARROW_HEAD_DIMS == (64, 80, 128)
-    assert flash_ops.NARROW_HEAD_DIMS == (64, 80)
+    assert flash_ops.NARROW_HEAD_DIMS == (64, 80, 128)
     q = torch.empty(1, 128, 2, d, dtype=torch.bfloat16, device="meta")
     for scale in (-0.1, 0.0):
         if d in flash_ops.FWD_NARROW_HEAD_DIMS:
@@ -450,18 +455,25 @@ def test_sm90_narrow_forward_takes_a_positive_scale_only(d):
 
 @pytest.mark.parametrize("d", (128, 256))
 def test_sm90_backward_at_head_dim_128_runs_the_wide_kernels_at_any_scale(d):
-    """The forward's persistent kernel at head_dim 128 leaves the backward
-    as it was: bf16 K6 and K7 at 128 and 256 launch dq_kernel<D> and
-    dkv_kernel<D> (no specialization of launch_dq / launch_dkv there, and
-    those launches take no positive-scale rule), and the wrappers take a
-    scale <= 0 on card-side (meta) tensors, recording one launch each."""
+    """bf16 K6 and K7 at head_dim 128 launch the narrow backward
+    (launch_dq<128> / launch_dkv<128> are launch_*_narrow<128>), at 256
+    dq_kernel<D> and dkv_kernel<D> (no specialization there); neither
+    backward takes a positive-scale rule (its softmax is the forward's LSE,
+    no row max), and the wrappers take a scale <= 0 on card-side (meta)
+    tensors, recording one launch each."""
     from repro_torch.kernels import meta
 
     src = flash_ops.SM90_SOURCE.read_text()
+    assert (d in flash_ops.NARROW_HEAD_DIMS) == (d == 128)
     for launch in ("dq", "dkv"):
-        assert _launch_body(src, launch, d) is None, launch
         generic = _launch_body(src, launch)
         assert f"{launch}_kernel<D, false>" in generic and "sh.scale" not in generic, launch
+        narrow = _launch_body(src, f"{launch}_narrow")
+        assert f"{launch}_narrow_kernel<D, false>" in narrow and "sh.scale" not in narrow, launch
+        if d == 128:
+            assert f"launch_{launch}_narrow<128>(" in _launch_body(src, launch, d), launch
+        else:
+            assert _launch_body(src, launch, d) is None, launch
     q = torch.empty(1, 128, 4, d, dtype=torch.bfloat16, device="meta")
     k = torch.empty(1, 128, 2, d, dtype=torch.bfloat16, device="meta")
     rows = torch.empty(1, 4, 128, dtype=torch.float32, device="meta")
@@ -508,6 +520,64 @@ def test_sm90_narrow_forward_layout_fits_a_block(d):
     assert total(stages) <= 232448, (d, total(stages))
     if d == 128:
         assert total(other) > 232448
+
+
+def _layout(src, name):
+    """The body of ``struct <name>`` in the source."""
+    return re.search(r"\nstruct " + name + r" \{.*?\n};", src, re.S).group(0)
+
+
+@pytest.mark.parametrize("d", flash_ops.NARROW_HEAD_DIMS)
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_sm90_narrow_backward_layouts_fit_a_block(kernel, d):
+    """``DqNarrowLayout<D>`` (Q and dO of the block's 128 rows resident, a
+    ring of K/V stages of ``kDqNarrowKeys`` keys) and ``DkvNarrowLayout<D>`` (K and
+    V of the block's 128 keys resident, a ring of Q/dO stages of 64 queries
+    with their lse and delta rows), then the mbarriers and the 1 KB alignment slack,
+    computed from the source's own constants and lines, fit the 232,448
+    bytes of shared memory a block may take on Hopper, and the source
+    asserts it too.  At D = 128 K6's ring holds 2 stages: the 4 of D = 64
+    and 80 would take 263 KB."""
+    src = flash_ops.SM90_SOURCE.read_text()
+    keys = grid.SM90_DQ_NARROW_KEYS if kernel == "dq" else grid.SM90_DKV_NARROW_KEYS
+    assert f"constexpr int kDqNarrowKeys = {grid.SM90_DQ_NARROW_KEYS};" in src
+    assert f"constexpr int kDkvNarrowKeys = {grid.SM90_DKV_NARROW_KEYS};" in src
+    assert f"constexpr int kTile = {grid.SM90_TILE};" in src
+    assert "static constexpr int bytes(int rows) { return rows * 2 * D; }" in src
+    tile = lambda rows: rows * 2 * d  # noqa: E731
+    if kernel == "dq":
+        body = _layout(src, "DqNarrowLayout")
+        for line in ("static constexpr int kRows = 2 * kTile;",
+                     "static constexpr int kQ = TileN<D>::bytes(kRows);",
+                     "static constexpr int kKV = TileN<D>::bytes(kDqNarrowKeys);",
+                     "static constexpr int kStage = 2 * kKV;",
+                     "static constexpr int kBars = 2 * kQ + kStages * kStage;",
+                     "static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;"):
+            assert line in body, line
+        at128, other = map(int, re.search(
+            r"static constexpr int kStages = D == 128 \? (\d+) : (\d+);", body).groups())
+        stages = at128 if d == 128 else other
+
+        def total(stages):
+            return (2 * tile(2 * grid.SM90_TILE) + stages * 2 * tile(keys)
+                    + (1 + 2 * stages) * 8 + 1024)
+    else:
+        body = _layout(src, "DkvNarrowLayout")
+        for line in ("static constexpr int kKV = TileN<D>::bytes(kDkvNarrowKeys);",
+                     "static constexpr int kT = TileN<D>::bytes(kTile);",
+                     "static constexpr int kStage = 2 * kT + 2 * kTile * 4;",
+                     "static constexpr int kBars = 2 * kKV + kStages * kStage;",
+                     "static constexpr int kBytes = kBars + (1 + 2 * kStages) * 8 + 1024;"):
+            assert line in body, line
+        stages = other = int(re.search(r"static constexpr int kStages = (\d+);", body).group(1))
+
+        def total(stages):
+            return (2 * tile(keys) + stages * (2 * tile(grid.SM90_TILE) + 2 * grid.SM90_TILE * 4)
+                    + (1 + 2 * stages) * 8 + 1024)
+    assert "static_assert(kBytes <= 232448," in body
+    assert stages >= 2 and total(stages) <= 232448, (kernel, d, stages, total(stages))
+    if kernel == "dq":
+        assert (total(other) > 232448) == (d == 128), (d, total(other))
 
 
 @pytest.mark.parametrize("b,h,n_qt", [(2, 32, 16), (2, 16, 16), (4, 32, 4), (4, 16, 4),

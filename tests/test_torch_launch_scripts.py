@@ -50,7 +50,7 @@ def test_script_imports_only_the_port(rel):
     assert original != src  # the original stays beside it
 
 
-@pytest.mark.parametrize("rel", ["scripts/torch_phases.py"])
+@pytest.mark.parametrize("rel", ["scripts/torch_phases.py", "scripts/torch_flash_ab.py"])
 def test_card_script_imports_only_the_port(rel):
     """The card's own scripts (no ``repro`` original) import neither JAX
     nor ``repro``."""
@@ -336,6 +336,58 @@ def test_phase13_loss_check_passes_the_plain_path_and_fails_each_planted_fault(a
     assert set(cs.TRAIN_FAULTS) <= set(cs.GRAD_FAULTS) and list(faults) == list(plants)
     assert all(v > cs.TRAIN_NLL_RATIO_TOL for v in faults.values()), line
     assert line.count("loss rel diff") == len(plants), line
+
+
+def test_phase15_internvl2_batches_have_the_token_batch_layout():
+    """Phase 15's internvl2-2b batches (``chip_smoke.launch_step_batches``;
+    the LM driver's streams refuse the vision frontend): one client's T
+    batches in ``steps.token_batch``'s layout and dtypes, each leaf (1, T,
+    ...) as the dry run's meta inputs are, so the step's argument bytes are
+    the count's; tokens and labels within the vocabulary, the patches
+    finite and not all alike, and the same from its seed on every call."""
+    from repro_torch.launch import steps
+
+    cs = _load("chip_smoke.py")
+    cfg = get_config("internvl2-2b")
+    got = cs.launch_step_batches(cfg, device="cpu")
+    t = cs.LM["local_iters"]
+    spec = steps.token_batch(cfg, cs.LM["batch"], cs.LM["seq_len"])
+    counted = steps.input_specs(cfg, cs.LAUNCH_SHAPE, micro_batch=cs.LM["batch"])["batches"]
+    assert set(got) == set(spec) == set(counted) == {"tokens", "labels", "patch_embeds"}
+    for k, (shape, dtype) in spec.items():
+        assert got[k].shape == (1, t) + shape == counted[k].shape, k
+        assert got[k].dtype == dtype == counted[k].dtype, k
+    assert got["patch_embeds"].shape[-2:] == (cfg.n_patches, cfg.d_vision)
+    assert got["tokens"].shape[-1] == cs.LM["seq_len"] - cfg.n_patches
+    for k in ("tokens", "labels"):
+        assert 0 <= got[k].min() and got[k].max() < cfg.vocab_size, k
+    assert torch.isfinite(got["patch_embeds"]).all() and got["patch_embeds"].std() > 0.5
+    again = cs.launch_step_batches(cfg, device="cpu")
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+def test_phase15_archs_plant_faults_of_the_kernels_they_run():
+    """Phase 15's archs (``LAUNCH_ARCHS``): gemma3-1b plants every fault
+    of ``GRAD_FAULTS``; internvl2-2b (head_dim 128, no window) names keys of
+    ``GRAD_FAULTS`` only, one for each of K5, K6, K7 and the sum pass (its
+    G = 2 runs it), and no window fault; each arch's parameter count is its
+    config's."""
+    from repro_torch.launch import steps
+
+    cs = _load("chip_smoke.py")
+    assert list(cs.LAUNCH_ARCHS) == ["gemma3-1b", "internvl2-2b"]
+    assert cs.LAUNCH_ARCHS["gemma3-1b"] == (cs.LM_N, tuple(cs.GRAD_FAULTS))
+    n, faults = cs.LAUNCH_ARCHS["internvl2-2b"]
+    cfg = get_config("internvl2-2b")
+    assert cfg.head_dim == 128 and cfg.n_heads // cfg.n_kv_heads == 2
+    assert all(layer.window is None for layer in cfg.layers)
+    assert set(faults) <= set(cs.GRAD_FAULTS) and len(set(faults)) == len(faults) == 4
+    assert not any("window" in name for name in faults)
+    assert {name.split()[0] for name in faults} == {"K5", "K6", "K7"}
+    assert "K7 sum pass x1.01" in faults
+    for arch, (count, _) in cs.LAUNCH_ARCHS.items():
+        params = steps.abstract_params(get_config(arch))
+        assert sum(x.numel() for x in cs.tree_leaves(params)) == count, arch
 
 
 def test_planted_puts_the_kernels_back():
