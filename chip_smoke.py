@@ -9,9 +9,13 @@ Phases (any failure exits non-zero; nothing is caught):
                   versions, compute capability 9.0 asserted;
   2. build        the CUDA kernels from ``src/repro_torch/kernels/*/csrc``,
                   one nvcc per source, all started together; ptxas's
-                  registers, shared memory and spills of the tensor-core
-                  flash kernels printed, and no spill and no serialized
-                  wgmma (ptxas's C7515 / C7520 notes) allowed there;
+                  registers, shared memory and spills of the flash kernels
+                  (``flash_gqa_sm90.cu``, and ``flash_gqa.cu``'s f32
+                  kernels, the tensor-core dq_wgmma_kernel,
+                  dkv_wgmma_kernel, dq_tf32_kernel and dkv_tf32_kernel
+                  among them) printed, and no spill and no
+                  serialized wgmma (ptxas's C7515 / C7520 notes) allowed
+                  there;
   3. kernels      each kernel against its plain PyTorch version on the card:
                   the update pair (K1/K2) at the ResNet path's shape (C = 20
                   clients, N = 1,249,956, shared server delta), at
@@ -36,8 +40,16 @@ Phases (any failure exits non-zero; nothing is caught):
                   ``dq_narrow_kernel`` and ``dkv_narrow_kernel``;
                   K6's dq and K7's dk/dv held bitwise across two launches,
                   in f32 before their final rounding within half an ulp,
-                  and K7's sum pass bitwise against its plain version); the
-                  flash cases at 8 seeds; K6 + K7 timed together beside
+                  and K7's sum pass bitwise against its plain version); f32
+                  K5-K7 (``flash_gqa.cu``: K6 and K7 at D = 64, 80 and 128
+                  on the tensor cores, three TF32 products a product, on
+                  wgmma at 64 and mma.sync at 80 and 128) at
+                  granite-moe's and internvl2's training shapes, zamba2's,
+                  a ragged S with window and softcap at each width and the
+                  reduced config's shape (``TF32_CASES``), and timed at
+                  granite-moe's, internvl2's and zamba2's shapes beside
+                  SDPA in f32 on efficient attention (``time_flash_f32``);
+                  the flash cases at 8 seeds; K6 + K7 timed together beside
                   SDPA's backward; K5 at a query offset at phase 20's rank
                   shapes (gemma3-1b at m = 2 and 4, window 512 and none,
                   softcap, bf16 and f32; granite-moe, zamba2 at D = 80,
@@ -148,7 +160,12 @@ Phases (any failure exits non-zero; nothing is caught):
                   reference path and an f32 run of it (scale drift and
                   error ratio, ``grad_gaps``), and planted kernel faults
                   each failing that check (gemma3-1b 7, internvl2-2b the 4
-                  of K5-K7 and the sum pass); the wall and device time and
+                  of K5-K7 and the sum pass); then granite-moe-1b-a400m's
+                  step at dtype float32 (in ``LAUNCH_ARCHS``: K6 and K7 on
+                  the f32 tensor-core kernels at D = 64, G = 2, no sum
+                  pass), its gradient per leaf against the f32 reference
+                  path's (``f32_grad_gaps``) and the faults of K5, K6, K7
+                  and K4 each failing it; the wall and device time and
                   the idle share of a profiled step, counted FLOPs against
                   ``model_flops``, the roofline terms and the new global
                   delta's gap printed.  Then K1/K2 at C = 1, N = 4 against
@@ -285,7 +302,11 @@ pass at internvl2's training shape (D = 128, the narrow kernels) under
 ``d128_train``, and K5's query-offset readings under ``q_offset``; the
 window records a library time, SDPA with the window's mask; launches per
 path under
-``launches_by_path``) and ends with
+``launches_by_path``; the f32 records ``flash_fwd_f32``,
+``flash_bwd_dq_f32`` and ``flash_bwd_dkv_f32``, source ``flash_gqa.cu``,
+granite-moe's training shape with internvl2's and zamba2's under
+``f32_d128_train`` and ``f32_d80``, launches from every path that runs in
+f32, counted under f32's own keys) and ends with
 ``{"ok": true, "device": {...}}``.  Imports nothing of JAX or ``repro``.
 """
 from __future__ import annotations
@@ -356,6 +377,7 @@ LM_N = 999_826_048  # gemma3-1b parameters (the LM path's C = 1 update)
 SOURCE = "src/repro_torch/kernels/pfedsop_update/csrc/pfedsop_update.cu"
 RMS_SOURCE = "src/repro_torch/kernels/rmsnorm/csrc/rmsnorm.cu"
 FLASH_SM90_SOURCE = "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa_sm90.cu"
+FLASH_SOURCE = "src/repro_torch/kernels/flash_gqa/csrc/flash_gqa.cu"
 LM = dict(clients=4, rounds=3, local_iters=2, batch=2, seq_len=2048)  # the LM slice
 FLASH_SEEDS = (12, 21, 22, 23, 24, 25, 26, 27)  # check_flash: each case at each seed
 SCRATCH = Path(__file__).resolve().parent / "build" / "chip_smoke"  # gitignored
@@ -725,10 +747,32 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     # last tile; K7's last block's second warpgroup partly past S), 1,040 (G
     # = 2, window 512, softcap 50), S = 2,048 at window 512
     (2, 16, None, bf16, 40, 128, 4, 2), (1, None, None, bf16, 1100, 128, 32, 2),
-    (2, 512, 50.0, bf16, 1040, 128, 4, 2), (1, 512, None, bf16, 2048, 128, 32, 2)]
+    (2, 512, 50.0, bf16, 1040, 128, 4, 2), (1, 512, None, bf16, 2048, 128, 32, 2),
+    # f32 at D = 64, 80 and 128, where K6 and K7 run on the tensor cores
+    # (dq_ and dkv_wgmma_kernel at 64; dq_ and dkv_tf32_kernel at 80 and 128;
+    # zamba2's D = 80, H = KV = 32, is above): granite-moe's and internvl2's
+    # training shapes (phase 15 runs granite-moe's step in f32); a ragged S
+    # with window and softcap at each width (S = 1,040: the last 64-row
+    # block and 32-row tile partial at 64, K6's last 64-key tile at 80 and
+    # 128; 1,100: K7's last 128-key block's last warps past S; 40: shorter
+    # than one tile); the reduced config's own shape (B =
+    # 4, S = 64, H 4 over KV 1, D = 64, window 512), every LM entry point's
+    # default
+    (2, None, None, f32, 2048, 64, 16, 2), (2, None, None, f32, 2048, 128, 16, 2),
+    (2, 512, 50.0, f32, 1040, 64, 4, 2), (1, 512, 50.0, f32, 1100, 80, 4, 2),
+    (2, 16, 50.0, f32, 40, 128, 4, 2), (2, 512, 50.0, f32, 1100, 128, 4, 2),
+    (4, 512, None, f32, 64, 64, 4, 4)]
 # the bf16 cases at D = 64, 80 and 128, where K5, K6 and K7 run
 # fwd_narrow_kernel, dq_narrow_kernel and dkv_narrow_kernel
 NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80, 128) and c[3] == bf16]
+# the f32 cases at D = 64, 80 and 128, where K6 and K7 run their products on
+# the tensor cores, three TF32 products each
+TF32_CASES = [c for c in FLASH_CASES if c[5] in (64, 80, 128) and c[3] == f32]
+# K6's and K7's limit there, in units of the largest value: under f32's 1e-4,
+# between the sound kernels' worst reading (6.7e-6, dk and dv; PERF.md,
+# Findings) and what a lost term of the split or a long sum left to
+# the tensor cores' own accumulation reads (1.3e-5 and more)
+TF32_BWD_TOL = 1e-5
 
 
 def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
@@ -764,7 +808,9 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     checked alone.  Tolerance in units of the largest value: f32 1e-4 (sums
     of up to 8,192 f32 terms in another order, the online softmax against
     one logsumexp), bf16 2**-7 (one ulp of the output); the LSE is f32 in
-    both and held to 1e-5.
+    both and held to 1e-5.  K6 and K7 at f32's tensor-core widths (D = 64,
+    80, 128: three TF32 products a product) are held to ``TF32_BWD_TOL``,
+    1e-5, which a lost term of the split fails.
 
     In bf16, K5 rounds P to bf16 before the PV product (where the model's
     reference rounds it; the plain version keeps f32), K6 rounds dS to bf16
@@ -783,9 +829,11 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     dv must be bitwise the same over two launches; K7's sum pass (G > 1 in
     bf16) must equal its plain version bit for bit (the same f32 adds in
     head order).  Returns the worst absolute error of each kernel over all
-    cases and seeds."""
+    cases and seeds, and under ``<name>_f32`` over the f32 cases at D = 64, 80
+    and 128 (``TF32_CASES``)."""
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
-             "flash_bwd_dkv_sum": 0.0}
+             "flash_bwd_dkv_sum": 0.0, "flash_fwd_f32": 0.0, "flash_bwd_dq_f32": 0.0,
+             "flash_bwd_dkv_f32": 0.0}
     worst_rel = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0}
     worst_pre = {"dq": 0.0, "dk/dv": 0.0}  # before the final rounding, bf16
     for seed in seeds:
@@ -812,16 +860,22 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
             assert torch.equal(dq, dq2), ("K6 not deterministic", label)
             assert torch.equal(dk, dk2) and torch.equal(dv, dv2), ("K7 not deterministic", label)
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
+            tc = dtype == f32 and d in flash_ops.TF32_HEAD_DIMS  # K6, K7 on the tensor cores
             assert lse_err[1] <= 1e-5, (label, lse_err)
             line = []
             for name, es in pairs.items():
+                limit = TF32_BWD_TOL if tc and name != "flash_fwd" else tol
                 for err, rel in es:
-                    assert rel <= tol, (name, label, err, rel)
+                    assert rel <= limit, (name, label, err, rel, limit)
                     worst[name] = max(worst[name], err)
+                    if tc:
+                        worst[name + "_f32"] = max(worst[name + "_f32"], err)
                     if dtype == bf16:
                         worst_rel[name] = max(worst_rel[name], rel)
                     line.append(f"{name[6:]} {err:.3g}/{rel:.3g}")
             worst["flash_fwd"] = max(worst["flash_fwd"], lse_err[0])
+            if tc:
+                worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], lse_err[0])
             if dtype == bf16:
                 # K6's dq, and K7's dk/dv at G > 1, in f32 before their final
                 # rounding, against the plain versions on widened inputs
@@ -839,7 +893,8 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
                     worst_pre[name] = max(worst_pre[name], rel)
                     line.append(f"{name} before rounding -/{rel:.3g} (tol {2.0 ** -8:.3g})")
             print(f"kernels[flash {label}]: max_abs_err/relative " + ", ".join(line) +
-                  f", lse {lse_err[0]:.3g}/{lse_err[1]:.3g} (tol {tol:.3g}, lse 1e-05); "
+                  f", lse {lse_err[0]:.3g}/{lse_err[1]:.3g} (tol {tol:.3g}"
+                  f"{f', dq and dk/dv {TF32_BWD_TOL:.3g}' if tc else ''}, lse 1e-05); "
                   "dq, dk/dv bitwise over two launches", flush=True)
     print(f"kernels[flash bf16, worst of {len(seeds)} seeds]: relative " + ", ".join(
         f"{n[6:]} {r:.6g} ({100 * r / 2.0 ** -7:.1f}% of tol)" for n, r in worst_rel.items())
@@ -863,21 +918,26 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     return worst
 
 
-def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False):
-    """Times at one attention shape, bf16 (B = 2, S = 2,048 unless given):
+def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False, dtype=bf16):
+    """Times at one attention shape in ``dtype`` (bf16 unless given; B = 2,
+    S = 2,048 unless given):
     the records at a full-attention layer, where one PyTorch call,
     ``F.scaled_dot_product_attention``, computes the same function, each
     further window of ``windows`` printed beside them as ``window<w>``, its
     yardstick SDPA with the window's boolean mask (K/V heads repeated to H
-    for it); K6 + K7 timed as one backward beside SDPA's; at G > 1 also K7's
-    sum pass alone.  ``fwd_only``: K5 and SDPA's forward alone (a prefill's
-    shape).  Bounds count the visible (query, key) pairs: 4D flops each
+    for it); K6 + K7 timed as one backward beside SDPA's; at G > 1 in bf16
+    also K7's sum pass alone.  ``fwd_only``: K5 and SDPA's forward alone (a
+    prefill's shape).  In f32 the yardstick is SDPA in f32 on its
+    efficient-attention backend (``_sdpa``), the fused one that takes f32.
+    Bounds count the visible (query, key) pairs: 4D flops each
     forward, 6D for the dq pass (scores, dO v^T, dq), 8D for the dk/dv pass,
-    at the bf16 peak, over the D columns; every kernel's tiles hold the true
+    at the type's rate (``roofline.flash_peak``: bf16's peak, or a third of
+    TF32's in f32), over the D columns; every kernel's tiles hold the true
     D (at D = 80 a 64- and a 16-column block), so the work past the count is
     the masked pairs of the tiles on the diagonal and the window's edge."""
     g = torch.Generator(device="cuda").manual_seed(seed)
-    q, k, v, do = _attention(g, h, kv, torch.bfloat16, b=b, s=s, d=d)
+    q, k, v, do = _attention(g, h, kv, dtype, b=b, s=s, d=d)
+    name_t = str(dtype)[6:]
     recs = {}
     for window in windows:
         out, lse = flash_ops.flash_fwd(q, k, v, window=window)
@@ -903,32 +963,25 @@ def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False):
             # K7's time includes its sum pass over the f32 head partials
             r = dict(ms=device_ms(kern), plain_ms=device_ms(plain, calls=5, warmup=1),
                      bound_ms=bnd, bound_by=by)
-            _print_time(f"{name} window={window} B={b} S={s} H={h} KV={kv} D={d} bf16", r)
+            _print_time(f"{name} window={window} B={b} S={s} H={h} KV={kv} D={d} {name_t}", r)
             if window is None:
                 recs[name] = r
             else:
                 recs[name][f"window{window}"] = r
 
-    # the library yardstick at the full-attention layer; before PyTorch 2.5
-    # SDPA has no enable_gqa, and the KV head is repeated for it beforehand
     qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
-    if tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
-        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
-            a, b_, c, is_causal=True, enable_gqa=True)
-    else:
-        kt, vt = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (kt, vt))
-        sdpa = lambda a, b_, c: F.scaled_dot_product_attention(  # noqa: E731
-            a, b_, c, is_causal=True)
+    sdpa, kt, vt, backend = _sdpa(kt, vt, h, dtype)
     want, lse = flash_ops.flash_fwd(q, k, v)
     torch.testing.assert_close(sdpa(qt, kt, vt).transpose(1, 2), want, rtol=2.0 ** -6,
                                atol=2.0 ** -6)
     recs["flash_fwd"]["library_ms"] = device_ms(lambda: sdpa(qt, kt, vt))
+    recs["flash_fwd"]["library"] = backend
     for window in windows:  # SDPA with each window's boolean mask
         if window is not None:
             _time_sdpa_window(recs, window, flash_ops.flash_fwd(q, k, v, window=window)[0],
                               qt, kt, vt, dot, fwd_only)
     if fwd_only:
-        print(f"kernels[time sdpa full-attention D={d} bf16]: forward "
+        print(f"kernels[time sdpa full-attention D={d} {name_t}, {backend}]: forward "
               f"{recs['flash_fwd']['library_ms']:.4f} ms", flush=True)
         return recs
     leaves = [t.detach().requires_grad_() for t in (qt, kt, vt)]
@@ -936,16 +989,16 @@ def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False):
     bwd = device_ms(lambda: torch.autograd.grad(o, leaves, dot, retain_graph=True))
     # one call computes dq, dk and dv: the yardstick of both passes together
     recs["flash_bwd_dq"]["library_ms"] = recs["flash_bwd_dkv"]["library_ms"] = bwd
-    print(f"kernels[time sdpa full-attention D={d} bf16]: forward "
+    print(f"kernels[time sdpa full-attention D={d} {name_t}, {backend}]: forward "
           f"{recs['flash_fwd']['library_ms']:.4f} ms, backward (dq, dk, dv) {bwd:.4f} ms",
           flush=True)
     delta = flash_ops.row_delta(do, want)
     pair = device_ms(lambda: (flash_ops.flash_bwd_dq(q, k, v, do, lse, delta),
                               flash_ops.flash_bwd_dkv(q, k, v, do, lse, delta)))
     recs["flash_bwd_dq"]["with_dkv_ms"] = pair
-    print(f"kernels[time K6 + K7 full-attention D={d} bf16]: {pair:.4f} ms, SDPA's backward "
-          f"{bwd:.4f} ms ({pair / bwd:.2f}x)", flush=True)
-    if h == kv:
+    print(f"kernels[time K6 + K7 full-attention D={d} {name_t}]: {pair:.4f} ms, SDPA's "
+          f"backward {bwd:.4f} ms ({pair / bwd:.2f}x)", flush=True)
+    if h == kv or dtype != bf16:
         return recs
 
     # K7's sum pass alone: reads G f32 partials of dk and of dv, writes both
@@ -963,6 +1016,28 @@ def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False):
     return recs
 
 
+def _sdpa(kt, vt, h, dtype):
+    """(SDPA as ``time_flash`` calls it, kt and vt as it takes them, the name
+    of its backend) on (B, heads, S, D) operands.  bf16: SDPA's own choice,
+    with ``enable_gqa`` from PyTorch 2.5 on (before it, the KV heads
+    repeated to H).  f32: the efficient-attention backend, the fused one
+    that takes f32 (the flash backend does not), on K/V heads repeated to H;
+    a refusal raises."""
+    if dtype == bf16 and tuple(int(p) for p in torch.__version__.split(".")[:2]) >= (2, 5):
+        return (lambda a, b_, c: F.scaled_dot_product_attention(
+            a, b_, c, is_causal=True, enable_gqa=True)), kt, vt, "SDPA default, enable_gqa"
+    kt, vt = (t.repeat_interleave(h // t.shape[1], dim=1) for t in (kt, vt))
+    if dtype == bf16:
+        return (lambda a, b_, c: F.scaled_dot_product_attention(a, b_, c, is_causal=True)), \
+            kt, vt, "SDPA default, KV repeated"
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def sdpa(a, b_, c):
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            return F.scaled_dot_product_attention(a, b_, c, is_causal=True)
+    return sdpa, kt, vt, "SDPA efficient attention, KV repeated"
+
+
 def time_flash_other_shapes():
     """Phase 3's times beyond the LM slice's gemma3-1b, each a ``time_flash``
     record set under its key: zamba2's shared attention (``d80``: H = KV =
@@ -978,6 +1053,20 @@ def time_flash_other_shapes():
             "d128_prefill": time_flash(16, 8, 128, (None,), seed=17, b=4, s=1024,
                                        fwd_only=True),
             "d128_train": time_flash(16, 8, 128, (None,), seed=18)}
+
+
+# phase 3's f32 times (K5-K7 of flash_gqa.cu), each a ``time_flash`` record
+# set: (key, H, KV, D, seed); granite-moe's training shape, internvl2's and
+# zamba2's shared attention, B = 2, S = 2,048, no window
+F32_TIMES = (("f32_d64", 16, 8, 64, 16), ("f32_d128_train", 16, 8, 128, 18),
+             ("f32_d80", 32, 32, 80, 14))
+
+
+def time_flash_f32():
+    """Phase 3's f32 times: ``time_flash`` in f32 at each shape of
+    ``F32_TIMES``, beside SDPA in f32 (efficient attention)."""
+    return {key: time_flash(h, kv, d, (None,), seed=seed, dtype=f32)
+            for key, h, kv, d, seed in F32_TIMES}
 
 
 def _time_sdpa_window(recs, window, want, qt, kt, vt, dot, fwd_only):
@@ -1235,7 +1324,8 @@ def lm_slice():
     hist, states = lm_driver.train(cfg, params, pcfg, on_round=log, **LM)
     launches = all_launches()
     steps = LM["clients"] * LM["local_iters"] * LM["rounds"]
-    want = {k: steps * v for k, v in lm_driver.launches_per_step(cfg).items()}
+    want = {**{k: 0 for k in launches},
+            **{k: steps * v for k, v in lm_driver.launches_per_step(cfg).items()}}
     want.update(reduce3=LM["clients"] * (LM["rounds"] - 1),
                 update=LM["clients"] * (LM["rounds"] - 1))
     assert launches == want, (launches, want)
@@ -2011,15 +2101,47 @@ GRAD_FAULTS = {
 
 
 # phase 15's archs: arch -> (its parameter count, the planted faults of
-# ``GRAD_FAULTS`` its gradient check must fail).  gemma3-1b (D = 256, 22 of
-# 26 layers at window 512) takes them all; internvl2-2b (D = 128, the narrow
-# forward and backward, no window, so no window fault applies) those of the
-# kernels it runs at D = 128
+# ``GRAD_FAULTS`` its gradient check must fail, the dtype the step runs in).
+# gemma3-1b (D = 256, 22 of 26 layers at window 512) takes them all;
+# internvl2-2b (D = 128, the narrow forward and backward, no window, so no
+# window fault applies) those of the kernels it runs at D = 128;
+# granite-moe-1b-a400m runs at dtype float32 (every LM entry point's default
+# through ``reduced()``, and the port's parity contract with repro): K5 on
+# the f32 SIMT kernel, K6 and K7 at D = 64, G = 2 on the f32 tensor-core
+# kernels (no sum pass in f32)
 LAUNCH_ARCHS = {
-    "gemma3-1b": (LM_N, tuple(GRAD_FAULTS)),
+    "gemma3-1b": (LM_N, tuple(GRAD_FAULTS), "bfloat16"),
     "internvl2-2b": (ARCH_SERVE_N["internvl2-2b"],
-                     ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K7 sum pass x1.01")),
+                     ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K7 sum pass x1.01"),
+                     "bfloat16"),
+    "granite-moe-1b-a400m": (ARCH_TRAIN["granite-moe-1b-a400m"][1],
+                             ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01",
+                              "K4 output x1.01"), "float32"),
 }
+# In f32 the reference path is the f32 run itself, so ``grad_gaps``' ratio
+# (against an f32 run) has nothing to divide by.  The f32 check holds, per
+# leaf, |g_k - g_r| / |g_r| and the scale drift <g_k - g_r, g_r> / |g_r|^2
+# (``f32_grad_gaps``).  On an H100 granite-moe's sound step reads 2.8e-6 and
+# 2.0e-6, and the faults of K5, K6, K7 and K4 (x1.01) 1.0e-2 to 7.4e-2 (the
+# smallest, K6's: 1.03e-2 and 1.02e-2): both limits sit between, about 60x
+# above the sound reading and 50x below the smallest fault's (PERF.md,
+# Findings).
+F32_GRAD_RTOL = 2e-4
+F32_SCALE_TOL = 2e-4
+
+
+def f32_grad_gaps(g_k, g_r):
+    """The f32 kernel path's gradient ``g_k`` against the f32 reference
+    path's ``g_r``: (the largest |<g_k - g_r, g_r>| / |g_r|^2, the largest
+    |g_k - g_r| / |g_r|) over the leaves whose reference is not zero."""
+    scale = gap = 0.0
+    for k, r in zip(g_k, g_r):
+        k, r = k.float(), r.float()
+        rr = (r * r).sum().item()
+        if rr > 0:
+            scale = max(scale, abs(((k - r) * r).sum().item()) / rr)
+            gap = max(gap, ((k - r).norm() / r.norm()).item())
+    return scale, gap
 
 
 def grad_gaps(g_k, g_r, g_t):
@@ -2072,37 +2194,47 @@ def launch_step_args(cfg, n=LM_N):
     return state, global_delta, launch_step_batches(cfg)
 
 
-def launch_tooling_run():
-    """Phase 15: ``launch_step_check`` for each arch of ``LAUNCH_ARCHS``.
-    Returns {arch: the step's launches}."""
-    return {arch: launch_step_check(arch, n, faults)
-            for arch, (n, faults) in LAUNCH_ARCHS.items()}
+def launch_tooling_run(archs=tuple(LAUNCH_ARCHS)):
+    """Phase 15: ``launch_step_check`` for each arch of ``archs`` (keys of
+    ``LAUNCH_ARCHS``).  Returns {arch (``<arch>-f32`` for an f32 step): the
+    step's launches}."""
+    return {(arch if dtype == "bfloat16" else f"{arch}-f32"):
+            launch_step_check(arch, n, faults, dtype)
+            for arch, (n, faults, dtype) in LAUNCH_ARCHS.items() if arch in archs}
 
 
-def launch_step_check(arch, n, faults):
+def launch_step_check(arch, n, faults, dtype="bfloat16"):
     """The dry run's prediction for ``steps.make_train_step`` at phase 6's
-    shape (one client, B = 2, S = 2048, T = 2, bf16, remat "block") on
-    ``arch``, then the step on the card at full width and depth (``n``
-    parameters): the launches must equal the prediction's, the peak device
-    memory be within ``PEAK_RTOL`` of the predicted peak, and the loss within
-    phase 13's limit of the reference path's.  The first local step's
-    gradient is held per leaf (``grad_gaps``), and each planted fault of
-    ``faults`` (keys of ``GRAD_FAULTS``) must fail that check.  Prints the
-    wall and device time and the idle share of a profiled step, the counted
-    FLOPs against ``model_flops``, the roofline terms and the new global
-    delta's gap.  Returns the step's launches."""
+    shape (one client, B = 2, S = 2048, T = 2, remat "block") on ``arch``
+    in ``dtype`` (the published config's bf16, or float32), then the step
+    on the card at full width and depth (``n`` parameters): the launches
+    must equal the prediction's, the peak device memory be within
+    ``PEAK_RTOL`` of the predicted peak, and the loss within phase 13's
+    limit of the reference path's.  The first local step's gradient is held
+    per leaf (bf16: ``grad_gaps``; f32: ``f32_grad_gaps``), and each planted
+    fault of ``faults`` (keys of ``GRAD_FAULTS``) must fail that check.
+    Prints the wall and device time and the idle share of a profiled step,
+    the counted FLOPs against ``model_flops``, the roofline terms and the
+    new global delta's gap.  Returns the step's launches."""
     t_phase = time.perf_counter()
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config(arch)
     assert cfg.remat == "block" and cfg.dtype == "bfloat16", (cfg.remat, cfg.dtype)
+    f32_step = dtype == "float32"
+    if f32_step:
+        cfg = cfg.replace(dtype=dtype)
+        arch_tag = f"{arch} f32"
+    else:
+        assert dtype == "bfloat16", dtype
+        arch_tag = arch
     pcfg = PFedSOPConfig(eta1=0.1, eta2=0.1, rho=1.0, lam=1.0)
     t0 = time.perf_counter()
     rec = dryrun.run_one(arch, LAUNCH_SHAPE, micro_batch=LM["batch"], save=False,
-                         verbose=False)
+                         verbose=False, cfg=cfg if f32_step else None)
     mem = rec["memory_analysis"]
     predicted = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
-    print(f"launch[{arch} dryrun]: {rec['ops']} ops counted on the meta device in "
+    print(f"launch[{arch_tag} dryrun]: {rec['ops']} ops counted on the meta device in "
           f"{time.perf_counter() - t0:.1f}s: launches {rec['launches']}; memory {mem}, "
           f"peak {predicted} bytes ({predicted / 2**30:.3f} GiB), fits={rec['fits']}; "
           f"flops {rec['cost_analysis']['flops']:.6g}, bytes "
@@ -2125,7 +2257,7 @@ def launch_step_check(arch, n, faults):
     launches = all_launches()
     measured = torch.cuda.max_memory_allocated() - base
     want = {**{k: 0 for k in launches}, **rec["launches"]}
-    print(f"launch[{arch} step]: wall {1e3 * wall:.3f} ms; launches {launches} (predicted "
+    print(f"launch[{arch_tag} step]: wall {1e3 * wall:.3f} ms; launches {launches} (predicted "
           f"{rec['launches']}); peak device memory {measured} bytes ({measured / 2**30:.3f} "
           f"GiB) against the predicted {predicted} ({predicted / 2**30:.3f} GiB): "
           f"{100 * (predicted - measured) / measured:+.2f}% (tol "
@@ -2145,11 +2277,11 @@ def launch_step_check(arch, n, faults):
         again, [torch.profiler.ProfilerActivity.CUDA])) / 1e3
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip()
-    print(f"launch[{arch} step, profiled, {smi}]: wall {1e3 * walls[-1]:.3f} ms, device busy "
+    print(f"launch[{arch_tag} step, profiled, {smi}]: wall {1e3 * walls[-1]:.3f} ms, device busy "
           f"{busy:.3f} ms, idle share {1 - busy / (1e3 * walls[-1]):.4f}", flush=True)
     rl = rec["roofline"]
     mf = roofline.model_flops(cfg, LAUNCH_SHAPE)
-    print(f"launch[{arch} roofline]: device busy {busy:.3f} ms of the step (profiled run); counted "
+    print(f"launch[{arch_tag} roofline]: device busy {busy:.3f} ms of the step (profiled run); counted "
           f"FLOPs {rl['total_flops']:.6g} against model_flops {mf:.6g} (useful "
           f"{mf / rl['total_flops']:.3f}); counted bytes {rl['total_bytes']:.6g}; terms "
           f"compute {1e3 * rl['compute_s']:.3f} ms, memory {1e3 * rl['memory_s']:.3f} ms, "
@@ -2163,44 +2295,53 @@ def launch_step_check(arch, n, faults):
     loss_k, loss_r = loss.item(), ref_loss.item()
     loss_rel = abs(loss_k - loss_r) / abs(loss_r)
     delta_rel = _tree_gap(tree_leaves(new_global), tree_leaves(ref_global))
-    print(f"launch[{arch} step]: kernel path against the reference path: loss {loss_k:.6f} / "
+    print(f"launch[{arch_tag} step]: kernel path against the reference path: loss {loss_k:.6f} / "
           f"{loss_r:.6f} (rel diff {loss_rel:.4g}, tol {TRAIN_LOSS_RTOL:.4g}); new global "
-          f"delta |d_k - d_r| / |d_r| {delta_rel:.4g} (printed only: bf16 rounding of "
-          f"sub-ulp updates)", flush=True)
+          f"delta |d_k - d_r| / |d_r| {delta_rel:.4g} (printed only"
+          f"{'' if f32_step else ': bf16 rounding of sub-ulp updates'})", flush=True)
     assert math.isfinite(loss_k) and loss_rel <= TRAIN_LOSS_RTOL, (loss_k, loss_r)
     del new_state, new_global, ref_global
 
     # the first local step's gradient, per leaf, against the reference path
-    # and an f32 run of it (``grad_gaps``); then each planted fault of
-    # ``faults`` must fail the same check
+    # (bf16: and an f32 run of it, ``grad_gaps``; f32: the reference path is
+    # the f32 run, ``f32_grad_gaps``); then each planted fault of ``faults``
+    # must fail the same check
     leaves, treedef = tree_flatten(tree_map(lambda x: x[0], state["params"]))
     first = {k: v[0, 0] for k, v in batches.items()}
     del state, global_delta, args
-    l_t, g_t = loss_and_grads(ref_cfg.replace(dtype="float32"), leaves, treedef, first,
-                                f32=True)
     l_r, g_r = loss_and_grads(ref_cfg, leaves, treedef, first)
+    if f32_step:
+        g_t = None
+        gaps = lambda g: f32_grad_gaps(g, g_r)  # noqa: E731
+        tols, second = (F32_SCALE_TOL, F32_GRAD_RTOL), "|g_k - g_r| / |g_r|"
+    else:
+        l_t, g_t = loss_and_grads(ref_cfg.replace(dtype="float32"), leaves, treedef, first,
+                                  f32=True)
+        gaps = lambda g: grad_gaps(g, g_r, g_t)  # noqa: E731
+        tols, second = ((GRAD_SCALE_TOL, GRAD_RATIO_TOL),
+                        "error against f32 over the reference path's")
     l_k, g_k = loss_and_grads(cfg, leaves, treedef, first)
-    scale, ratio = grad_gaps(g_k, g_r, g_t)
-    print(f"launch[{arch} step]: its first local step, kernel / reference / f32 path: loss "
-          f"{l_k:.6f} / {l_r:.6f} / {l_t:.6f}; gradient |g_k - g_r| / |g_r| "
-          f"{_tree_gap(g_k, g_r):.4g}, "
-          f"against f32 {_tree_gap(g_k, g_t):.4g} / {_tree_gap(g_r, g_t):.4g} (printed "
-          f"only); per leaf: scale drift {scale:.4g} (tol {GRAD_SCALE_TOL:.4g}), error "
-          f"against f32 over the reference path's {ratio:.4g} (tol {GRAD_RATIO_TOL:.4g})",
+    scale, other = gaps(g_k)
+    against = ("" if f32_step else f" / {l_t:.6f}; against the f32 path "
+               f"{_tree_gap(g_k, g_t):.4g} / {_tree_gap(g_r, g_t):.4g}")
+    print(f"launch[{arch_tag} step]: its first local step, kernel / reference path"
+          f"{'' if f32_step else ' / f32 path'}: loss {l_k:.7f} / {l_r:.7f}{against}; gradient "
+          f"|g_k - g_r| / |g_r| {_tree_gap(g_k, g_r):.4g} (printed only); per leaf: scale "
+          f"drift {scale:.4g} (tol {tols[0]:.4g}), {second} {other:.4g} (tol {tols[1]:.4g})",
           flush=True)
-    assert scale <= GRAD_SCALE_TOL and ratio <= GRAD_RATIO_TOL, (scale, ratio)
+    assert scale <= tols[0] and other <= tols[1], (scale, other)
     del g_k
     for name in faults:
         with planted(GRAD_FAULTS[name]):
             _, g_f = loss_and_grads(cfg, leaves, treedef, first)
-        f_scale, f_ratio = grad_gaps(g_f, g_r, g_t)
-        print(f"launch[{arch} step]: planted fault {name}: scale drift {f_scale:.4g}, error "
-              f"ratio {f_ratio:.4g}", flush=True)
-        assert f_scale > GRAD_SCALE_TOL or f_ratio > GRAD_RATIO_TOL, (name, f_scale, f_ratio)
+        f_scale, f_other = gaps(g_f)
+        print(f"launch[{arch_tag} step]: planted fault {name}: scale drift {f_scale:.4g}, "
+              f"{second} {f_other:.4g}", flush=True)
+        assert f_scale > tols[0] or f_other > tols[1], (name, f_scale, f_other)
         del g_f
-    print(f"launch[{arch} step]: the check fails each of the {len(faults)} planted faults; "
+    print(f"launch[{arch_tag} step]: the check fails each of the {len(faults)} planted faults; "
           f"{time.perf_counter() - t_phase:.1f}s", flush=True)
-    del batches, leaves, g_r, g_t
+    del batches, leaves, g_r, g_t, gaps
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -3846,6 +3987,7 @@ def main():
         mod.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     print_ptxas(flash_ops.SM90_SOURCE)
+    print_ptxas(flash_ops.SOURCE)
 
     rec = check_kernels()
     for k, r in check_update_c1().items():
@@ -3861,6 +4003,11 @@ def main():
         for name, r in recs.items():
             rec[name][key] = r
     rec["flash_fwd"]["q_offset"] = time_flash_offset()
+    # f32 (flash_gqa.cu): granite-moe's training shape, the others under their keys
+    f32_times = time_flash_f32()
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        rec[name + "_f32"] = {**f32_times["f32_d64"][name], **{
+            key: recs[name] for key, recs in f32_times.items() if key != "f32_d64"}}
     for name, err in worst.items():
         rec[name]["max_abs_err"] = err
     l2_flush.cache_clear()  # the timing phases are over: free the flush buffer
@@ -3906,6 +4053,8 @@ def main():
         rec[k + "_range"] = {**ranges[k], "max_abs_err": worst[k]}
 
     def record(name, key, source, replaces):
+        """The JSON record of ``rec[key]``: launches under ``key`` summed over
+        ``paths``."""
         r = dict(rec[key])
         r.setdefault("library_ms", None)
         by_path = {p: counts.get(key, 0) for p, counts in paths.items()}
@@ -3925,6 +4074,14 @@ def main():
         record("flash_bwd_dkv", "flash_bwd_dkv", FLASH_SM90_SOURCE,
                "src/repro/kernels/flash_gqa/kernel.py:436"),
         record("flash_bwd_dkv_sum", "flash_bwd_dkv_sum", FLASH_SM90_SOURCE,
+               "src/repro/kernels/flash_gqa/kernel.py:436"),
+        # f32 (flash_gqa.cu), counted under f32's own keys wherever a path
+        # runs in f32 (phase 15's f32 step, the reduced configs' scripts)
+        record("flash_fwd_f32", "flash_fwd_f32", FLASH_SOURCE,
+               "src/repro/kernels/flash_gqa/kernel.py:176"),
+        record("flash_bwd_dq_f32", "flash_bwd_dq_f32", FLASH_SOURCE,
+               "src/repro/kernels/flash_gqa/kernel.py:394"),
+        record("flash_bwd_dkv_f32", "flash_bwd_dkv_f32", FLASH_SOURCE,
                "src/repro/kernels/flash_gqa/kernel.py:436"),
         # K1/K2 on one model rank's tile range (repro's
         # pfedsop_update_batched_sharded, ops.py:112): rank 0 of m = 2

@@ -11,7 +11,7 @@ after building the four CUDA sources:
 Phases (``PHASES``): ``gloo_probe`` (gloo's all-reduce between two
 processes sharing the card: ms a call, a 9 KB and a 9.4 MB bf16 tensor, on
 the card, on the host and staged through the host by hand), ``ptxas``
-(ptxas's report of the tensor-core flash kernels), ``flash_offset`` and
+(ptxas's report of the flash kernels of both sources), ``flash_offset`` and
 ``flash_offset_times`` (phase 3's K5 query-offset checks and times),
 ``flash_one_seed`` (one seed of ``check_flash``, the launches without an
 offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64, 80 and
@@ -19,9 +19,12 @@ offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64, 80 and
 3's times: ``time_flash`` at gemma3-1b's full and window-512 layers, then
 ``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
 rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's
-prefill and training shape, beside SDPA), ``train`` (phase 13), ``launch``
-(phase 15: the train step of gemma3-1b and internvl2-2b against the dry
-run, its gradient check and planted faults), ``train_spread`` (phase 13's
+prefill and training shape, beside SDPA), ``flash_f32_times`` (phase 3's
+f32 times, ``time_flash_f32``, and gemma3-1b's full layer at D = 256 in
+f32, beside SDPA in f32), ``train`` (phase 13), ``launch``
+(phase 15: the train step of gemma3-1b and internvl2-2b, and of
+granite-moe-1b-a400m in f32, against the dry run, its gradient check and
+planted faults), ``launch_f32`` (phase 15's f32 step alone), ``train_spread`` (phase 13's
 training, then its loss check, planted faults too, on each of
 ``SPREAD_GROUPS`` groups of four client batches: phase 13 reads the first),
 ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
@@ -97,15 +100,19 @@ def _tp_serve():
 # name -> (the phase, whether cuDNN runs deterministic in it)
 PHASES = {
     "gloo_probe": (lambda: cs._spawn_two(probe, (), 300), False),
-    "ptxas": (lambda: cs.print_ptxas(cs.flash_ops.SM90_SOURCE), False),
+    "ptxas": (lambda: [cs.print_ptxas(src) for src in (cs.flash_ops.SM90_SOURCE,
+                                                        cs.flash_ops.SOURCE)], False),
     "flash_offset": (cs.check_flash_offset, False),
     "flash_one_seed": (lambda: cs.check_flash(seeds=(12,)), False),
     "flash_offset_times": (cs.time_flash_offset, False),
     "flash_narrow": (lambda: cs.check_flash(cases=cs.NARROW_CASES), False),
     "flash_times": (lambda: {"gemma3-1b": cs.time_flash(4, 1, 256, (None, 512), seed=13),
                              **cs.time_flash_other_shapes()}, False),
+    "flash_f32_times": (lambda: {**cs.time_flash_f32(), "f32_d256": cs.time_flash(
+        4, 1, 256, (None,), seed=13, dtype=cs.f32)}, False),
     "train": (lambda: {a: cs.arch_train_run(a) for a in cs.ARCH_TRAIN}, True),
     "launch": (cs.launch_tooling_run, True),
+    "launch_f32": (lambda: cs.launch_tooling_run(("granite-moe-1b-a400m",)), True),
     "train_spread": (train_spread, True),
     "async": (cs.async_run, True),
     "tp_serve": (_tp_serve, True),

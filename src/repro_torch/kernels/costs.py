@@ -3,7 +3,9 @@
 Each ``*_cost`` function gives one launch's ``{"flops", "bytes", "peak"}``:
 the bytes it must move (each input read once, each output written once),
 the operations it must do, and the rate its operations run at.  Flash
-attention counts the visible (query, key) pairs only.  ``bound_ms`` turns a
+attention counts the visible (query, key) pairs only; its bf16 launches
+run at the bf16 tensor-core peak and its f32 launches at a third of the
+TF32 peak (``flash_peak``).  ``bound_ms`` turns a
 cost into the least time the card could take for it.
 
 The kernels' meta-device path (``kernels/meta.py``, the dry run's census)
@@ -16,6 +18,7 @@ from __future__ import annotations
 from repro_torch.kernels.flash_gqa.grid import attention_pairs
 
 PEAK_FLOPS = 989e12  # dense bf16 FLOP/s on the tensor cores, H100 SXM
+TF32_FLOPS = 495e12  # dense TF32 FLOP/s on the tensor cores, H100 SXM
 F32_FLOPS = 67e12  # f32 FLOP/s outside the tensor cores, H100 SXM
 HBM_BW = 3.35e12  # B/s, H100 SXM HBM3
 
@@ -50,6 +53,14 @@ def rmsnorm_cost(rows: int, d: int, itemsize: int) -> dict:
     return _cost(4 * rows * d, 2 * rows * d * itemsize + d * itemsize, PEAK_FLOPS)
 
 
+def flash_peak(itemsize: int) -> float:
+    """The rate of a flash launch's products: bf16 (``itemsize`` 2) at the
+    bf16 peak; f32 at a third of the TF32 peak, since an f32-accurate
+    product on the tensor cores takes three TF32 products (hi*hi, hi*lo,
+    lo*hi of each operand split into two TF32 halves)."""
+    return PEAK_FLOPS if itemsize == 2 else TF32_FLOPS / 3
+
+
 def _flash_io(b, s, h, kv, d, itemsize):
     """(bytes of q + k + v, of one (B, S, H, D) tensor, of one (B, H, S) f32
     row vector)."""
@@ -67,14 +78,14 @@ def flash_fwd_cost(b, s, h, kv, d, window, itemsize, q0=0, sq=None) -> dict:
     io = (b * sq * h * d + 2 * b * keys * kv * d) * itemsize
     qsize, rows = b * sq * h * d * itemsize, b * h * sq * 4
     return _cost(4 * d * b * h * attention_pairs(s, window, q0, sq), io + qsize + rows,
-                 PEAK_FLOPS)
+                 flash_peak(itemsize))
 
 
 def flash_dq_cost(b, s, h, kv, d, window, itemsize) -> dict:
     """K6: reads q, k, v, dO, LSE and delta; writes dq; 6D FLOPs a pair."""
     io, qsize, rows = _flash_io(b, s, h, kv, d, itemsize)
     return _cost(6 * d * b * h * attention_pairs(s, window), io + 2 * qsize + 2 * rows,
-                 PEAK_FLOPS)
+                 flash_peak(itemsize))
 
 
 def flash_dkv_cost(b, s, h, kv, d, window, itemsize) -> dict:
@@ -83,7 +94,7 @@ def flash_dkv_cost(b, s, h, kv, d, window, itemsize) -> dict:
     io, qsize, rows = _flash_io(b, s, h, kv, d, itemsize)
     kvsize = b * s * kv * d * itemsize
     return _cost(8 * d * b * h * attention_pairs(s, window),
-                 io + qsize + 2 * rows + 2 * kvsize, PEAK_FLOPS)
+                 io + qsize + 2 * rows + 2 * kvsize, flash_peak(itemsize))
 
 
 def flash_dkv_sum_cost(b, s, h, kv, d) -> dict:

@@ -11,7 +11,11 @@ on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``,
 tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 256 and at 64,
 80 and 128 (the narrow kernels there: K5's and K6's 128-key tiles, K7's
 128-key blocks of two warpgroups' 64 keys), written out so the CPU tests can
-hold them to the mask.
+hold them to the mask; ``tf32_dq_key_tiles``, ``tf32_dkv_query_tiles`` and
+the ``*_warp_sees`` tests are the same of the f32 mma.sync kernels of
+``csrc/flash_gqa.cu`` (``dq_tf32_kernel``, ``dkv_tf32_kernel``: D = 128),
+``wgmma_dq_key_tiles`` and ``wgmma_dkv_query_tiles`` of its wgmma kernels
+(``dq_wgmma_kernel``, ``dkv_wgmma_kernel``: D = 64 and 80).
 ``attention_pairs`` counts the (query, key) pairs causality and the window
 leave, the work any implementation must do (``chip_smoke.py``'s operation
 bounds), of every query row or of a rank's rows q0 .. q0 + sq - 1.
@@ -153,3 +157,72 @@ def sm90_fwd_narrow_blocks(b: int, h: int, n_qt: int, sms: int) -> list:
             if w < items:
                 blocks[c].append(item(w))
     return blocks
+
+
+TF32_DQ_ROWS = 128   # query rows of an f32 K6 block (dq_tf32_kernel), 16 a warp
+TF32_WARP_ROWS = 16  # rows of one warp (K6 queries; K7 keys, at D = 128 of a pair of warps)
+
+
+def tf32_dq_tile(d: int) -> int:
+    """f32 K6's key tile at head_dim ``d``."""
+    return 32 if d == 128 else 64
+
+
+def tf32_dkv_keys(d: int) -> int:
+    """f32 K7's keys a block at head_dim ``d``: 64 at 128, where two warps
+    share 16 keys, else 128."""
+    return 64 if d == 128 else 128
+
+
+TF32_DKV_TILE = 32  # queries of an f32 mma.sync K7 tile (dkv_tf32_kernel)
+
+
+def tf32_dq_key_tiles(q0: int, s: int, d: int, window=None) -> range:
+    """The key tiles dq_tf32_kernel visits for its block of queries q0 ..
+    q0 + 127: every tile with a key the block can see."""
+    bk = tf32_dq_tile(d)
+    first = max(0, q0 - window + 1) // bk if window else 0
+    return range(first, (min(q0 + TF32_DQ_ROWS, s) - 1) // bk + 1)
+
+
+def tf32_dq_warp_sees(qw: int, k0: int, s: int, d: int, window=None) -> bool:
+    """Whether the warp of queries qw .. qw + 15 multiplies the key tile at
+    k0 (it skips a tile where none of its rows sees a key)."""
+    return (qw < s and k0 <= qw + TF32_WARP_ROWS - 1
+            and (not window or k0 + tf32_dq_tile(d) - 1 >= qw - window + 1))
+
+
+def tf32_dkv_query_tiles(k0: int, s: int, d: int, window=None) -> range:
+    """The query tiles (of each of the G heads) dkv_tf32_kernel visits for
+    its block of keys k0 .. k0 + ``tf32_dkv_keys(d)`` - 1: every tile with a
+    query that sees one of them."""
+    bq = TF32_DKV_TILE
+    k1 = min(k0 + tf32_dkv_keys(d), s) - 1
+    return range(k0 // bq, (min(s - 1, k1 + window - 1) if window else s - 1) // bq + 1)
+
+
+def tf32_dkv_warp_sees(kw: int, q0: int, s: int, d: int, window=None) -> bool:
+    """Whether the warp (at D = 128 the pair of warps) of keys kw .. kw + 15
+    multiplies the query tile at q0 (it skips a tile where no query sees
+    one of its keys)."""
+    return (kw < s and q0 < s and q0 + TF32_DKV_TILE - 1 >= kw
+            and (not window or q0 <= kw + TF32_WARP_ROWS - 1 + window - 1))
+
+
+WGMMA_BLOCK = 64  # queries of an f32 wgmma K6 block, keys of a K7 block: wgmma's M
+WGMMA_TILE = 32   # keys of a streamed K6 tile, queries of a K7 tile
+
+
+def wgmma_dq_key_tiles(q0: int, s: int, window=None) -> range:
+    """The key tiles dq_wgmma_kernel visits for its queries q0 .. q0 + 63:
+    every tile with a key the block can see."""
+    first = max(0, q0 - window + 1) // WGMMA_TILE if window else 0
+    return range(first, (min(q0 + WGMMA_BLOCK, s) - 1) // WGMMA_TILE + 1)
+
+
+def wgmma_dkv_query_tiles(k0: int, s: int, window=None) -> range:
+    """The query tiles (of each of the G heads) dkv_wgmma_kernel visits for
+    its keys k0 .. k0 + 63: every tile with a query that sees one of them."""
+    k1 = min(k0 + WGMMA_BLOCK, s) - 1
+    return range(k0 // WGMMA_TILE,
+                 (min(s - 1, k1 + window - 1) if window else s - 1) // WGMMA_TILE + 1)

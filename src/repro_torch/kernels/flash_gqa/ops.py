@@ -17,9 +17,16 @@ kernel on 128-key tiles at the true width, and K6 and K7
 ``dq_narrow_kernel`` and ``dkv_narrow_kernel``; at 256 ``fwd_kernel``,
 ``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
 writes per-head f32 partials and
-``flash_bwd_dkv_sum`` adds them in head order); f32 runs the SIMT kernels
-of ``csrc/flash_gqa.cu``, whose products stay in f32.  A failed build or
-launch raises.  The bf16 kernels round P, dS (K6) and P^T, dS^T (K7) to
+``flash_bwd_dkv_sum`` adds them in head order); f32 runs
+``csrc/flash_gqa.cu``: K5 at every width and K6 / K7 at 256 on its SIMT
+kernels (products in f32 on the CUDA cores), K6 and K7 at head_dim 64, 80
+and 128 (``TF32_HEAD_DIMS``) on the tensor cores, each f32 product as three
+TF32 products of the operands split into hi and lo halves, so f32-accurate
+(G folded inside K7, no sum pass): at 64 (``WGMMA_HEAD_DIMS``)
+``dq_wgmma_kernel`` and ``dkv_wgmma_kernel`` (wgmma, a producer warpgroup
+writing each streamed tile's split copies), at 80 and 128 ``dq_tf32_kernel``
+and ``dkv_tf32_kernel`` (mma.sync).  A failed build or launch raises.  The bf16
+kernels round P, dS (K6) and P^T, dS^T (K7) to
 bf16 for the tensor cores; ``flash_bwd_dq_wide`` and
 ``flash_bwd_dkv_partials`` return their f32 sums before the final
 rounding, so ``chip_smoke.py`` can hold that departure to a bound.
@@ -29,7 +36,9 @@ differentiable entry: an ``autograd.Function`` whose forward is K5 and
 whose backward is K6 + K7, with delta a torch op between them as
 ``repro`` computes it outside its kernels.  "reference" runs the oracle
 (``ref.flash_gqa_ref``) under plain autograd.  ``LAUNCHES`` counts kernel
-launches (never plain calls); the K7 sum pass has its own key.
+launches (never plain calls), one key a kernel: ``flash_<kind>`` for the
+bf16 kernels of ``flash_gqa_sm90.cu``, ``flash_<kind>_f32`` for the f32
+ones of ``flash_gqa.cu`` (``launch_key``); the K7 sum pass has its own key.
 
 A meta tensor takes the CUDA path up to each launch: the same checks, the
 same outputs and scratch (the LSE; K7's f32 head partials and its sum pass
@@ -66,10 +75,13 @@ from repro_torch.kernels.flash_gqa.ref import NEG_INF, flash_gqa_ref, visible_ma
 
 SOURCE = Path(__file__).parent / "csrc" / "flash_gqa.cu"
 SM90_SOURCE = Path(__file__).parent / "csrc" / "flash_gqa_sm90.cu"
-LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0}
+LAUNCHES = {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "flash_bwd_dkv_sum": 0,
+            "flash_fwd_f32": 0, "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
 HEAD_DIMS = (64, 80, 128, 256)
 FWD_NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K5 runs fwd_narrow_kernel
 NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K6 and K7 run dq_ and dkv_narrow_kernel
+TF32_HEAD_DIMS = (64, 80, 128)  # f32 K6 and K7 run on the tensor cores
+WGMMA_HEAD_DIMS = (64,)  # ... on dq_ and dkv_wgmma_kernel; 80, 128 on dq_ and dkv_tf32_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
@@ -154,16 +166,22 @@ _COSTS = {"fwd": costs.flash_fwd_cost, "bwd_dq": costs.flash_dq_cost,
           "bwd_dkv": costs.flash_dkv_cost}
 
 
+def launch_key(kind, dtype):
+    """The ``LAUNCHES`` key of a ``kind`` launch ("fwd", "bwd_dq" or
+    "bwd_dkv") on ``dtype``: bf16 and f32 run different kernels."""
+    return f"flash_{kind}" if dtype == torch.bfloat16 else f"flash_{kind}_f32"
+
+
 def _launch(kind, tensors, *extra, dtype, b, s, h, kv, d, window, softcap, scale,
             offset=None):
     """Launch ``flash_gqa_<kind>`` (bf16: ``flash_gqa_sm90_<kind>``) on the
     pointers of ``tensors`` and ``extra`` (the forward's Sq and q0, the
-    sm90 dq pass's output dtype) and count it under ``flash_<kind>``; on
+    sm90 dq pass's output dtype) and count it under ``launch_key``; on
     meta tensors record it with its cost (``offset``: the forward's
     {"q0", "sq"}) instead."""
+    key = launch_key(kind, dtype)
     if tensors[0].is_meta:
-        meta.launch(f"flash_{kind}", _COSTS[kind](b, s, h, kv, d, window, dtype.itemsize,
-                                                  **(offset or {})))
+        meta.launch(key, _COSTS[kind](b, s, h, kv, d, window, dtype.itemsize, **(offset or {})))
         return
     lib, prefix = ((_sm90_lib(), "flash_gqa_sm90") if dtype == torch.bfloat16
                    else (_lib(), "flash_gqa"))
@@ -173,7 +191,7 @@ def _launch(kind, tensors, *extra, dtype, b, s, h, kv, d, window, softcap, scale
                                  _DTYPE_CODES[dtype], b, s, h, kv, d, window or 0,
                                  softcap or 0.0, scale, torch.cuda.current_stream().cuda_stream)
     check_launch(lib, err, name, prefix)
-    LAUNCHES[f"flash_{kind}"] += 1
+    LAUNCHES[key] += 1
 
 
 # -- plain versions ----------------------------------------------------------

@@ -27,11 +27,13 @@ from repro_torch.kernels.costs import (  # noqa: F401  (re-exported)
     F32_FLOPS,
     HBM_BW,
     PEAK_FLOPS,
+    TF32_FLOPS,
     bound_ms,
     flash_dkv_cost,
     flash_dkv_sum_cost,
     flash_dq_cost,
     flash_fwd_cost,
+    flash_peak,
     reduce3_cost,
     rmsnorm_cost,
     update_cost,

@@ -25,6 +25,7 @@ import torch
 from repro_torch.configs import ARCH_NAMES, get_config
 from repro_torch.core import pfedsop as pf
 from repro_torch.data import lm_batch_iterator, synthetic_lm_stream
+from repro_torch.kernels.flash_gqa import ops as flash_ops
 from repro_torch.models import transformer as tf
 from repro_torch.utils.device import resolve_device
 from repro_torch.utils.pytree import tree_leaves, tree_stack
@@ -37,15 +38,18 @@ def launches_per_step(cfg):
     q/k-norm and one flash forward, all launched again when
     ``remat="block"`` recomputes the sublayer in the backward, and one dq
     and one dk/dv pass (in bf16 with G > 1 query heads per KV head, also
-    the dk/dv sum pass).  Per ``ssm`` sublayer: its ln1 (again under remat)
-    and no flash kernel.  The final norm once."""
+    the dk/dv sum pass), under f32's own keys (``flash_ops.launch_key``) for
+    an f32 config.  Per ``ssm`` sublayer: its ln1 (again under remat) and no
+    flash kernel.  The final norm once."""
     n_attn = sum(s.kind != "ssm" for s in cfg.layers)
     n_ssm = cfg.n_layers - n_attn
     norms = 4 if cfg.use_qk_norm else 2
     again = 2 if cfg.remat == "block" else 1
     out = {"rmsnorm": (norms * n_attn + n_ssm) * again + 1}
     if n_attn:
-        out.update(flash_fwd=n_attn * again, flash_bwd_dq=n_attn, flash_bwd_dkv=n_attn)
+        dtype = getattr(torch, cfg.dtype)
+        for kind, n in (("fwd", n_attn * again), ("bwd_dq", n_attn), ("bwd_dkv", n_attn)):
+            out[flash_ops.launch_key(kind, dtype)] = n
         if cfg.dtype == "bfloat16" and cfg.n_heads > cfg.n_kv_heads:
             out["flash_bwd_dkv_sum"] = n_attn
     return out

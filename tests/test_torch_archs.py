@@ -327,7 +327,10 @@ def test_launch_count_formula(arch, monkeypatch):
     """``launches_per_step`` per sublayer kind (an ``ssm`` sublayer: one
     K4, again under remat, no flash kernel), counted as the plain
     versions' calls."""
-    calls = {k: 0 for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # the reduced configs are f32: their flash launches count under f32's keys
+    keys = {kind: flash_ops.launch_key(kind, torch.float32)
+            for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+    calls = {k: 0 for k in ("rmsnorm", *keys.values())}
 
     def counting(mod, fn, key):
         orig = getattr(mod, fn)
@@ -339,7 +342,7 @@ def test_launch_count_formula(arch, monkeypatch):
 
     counting(rms_ops, "rmsnorm_plain", "rmsnorm")
     for kind in ("fwd", "bwd_dq", "bwd_dkv"):
-        counting(flash_ops, f"flash_{kind}_plain", f"flash_{kind}")
+        counting(flash_ops, f"flash_{kind}_plain", keys[kind])
     cfg = get_config(arch, reduced=True)
     params = t_tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
     leaves, treedef = tree_flatten(params)

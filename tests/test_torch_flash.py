@@ -141,7 +141,8 @@ def test_flash_forward_lse_and_grads_match_repro_interpret(g, window, softcap, d
     for name, a, b in zip(("dq", "dk", "dv"), t_grads, j_grads):
         np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
     assert flash_ops.LAUNCHES == {"flash_fwd": 0, "flash_bwd_dq": 0, "flash_bwd_dkv": 0,
-                                  "flash_bwd_dkv_sum": 0}
+                                  "flash_bwd_dkv_sum": 0, "flash_fwd_f32": 0,
+                                  "flash_bwd_dq_f32": 0, "flash_bwd_dkv_f32": 0}
 
 
 def test_flash_bf16_and_reference_impl():
@@ -710,3 +711,293 @@ def test_sm90_head_dims_match_the_source_dispatch():
     for entry, launch in (("fwd", "fwd"), ("bwd_dq", "dq"), ("bwd_dkv", "dkv")):
         body = re.search(r'extern "C" int flash_gqa_sm90_' + entry + r"\(.*?\n}", src, re.S)
         assert body and f"SM90_DISPATCH(launch_{launch}," in body.group(0), entry
+
+
+# -- the f32 backward on the tensor cores (dq_tf32_kernel, dkv_tf32_kernel) --
+
+
+@pytest.mark.parametrize("d", flash_ops.TF32_HEAD_DIMS)
+def test_f32_backward_plain_versions_match_repro_interpret_at_two_heads_a_kv_head(d):
+    """The plain dq and dk/dv passes, which ``chip_smoke.py`` holds the f32
+    tensor-core kernels to, against ``repro``'s Pallas dq and dk/dv kernels
+    in interpret mode at each width those kernels take: G = 2 (H 4 over KV
+    2), window 16 (a pruned Pallas grid), softcap 50; the LSE and delta
+    from the plain forward, as the kernels take them."""
+    h, kv = 4, 2
+    (jq, jk, jv, jdo), (tq, tk, tv, tdo) = _qkv(h, kv, "float32", seed=3, d=d)
+    kw = dict(window=16, softcap=50.0)
+    _, vjp = jax.vjp(lambda q, k, v: j_flash_gqa(q, k, v, bq=BLK, bk=BLK, interpret=True,
+                                                 bwd="kernel_interpret", **kw), jq, jk, jv)
+    j_dq, j_dk, j_dv = vjp(jdo)
+    out, lse = flash_ops.flash_fwd_plain(tq, tk, tv, **kw)
+    delta = flash_ops.row_delta(tdo, out)
+    t_dq = flash_ops.flash_bwd_dq_plain(tq, tk, tv, tdo, lse, delta, **kw)
+    t_dk, t_dv = flash_ops.flash_bwd_dkv_plain(tq, tk, tv, tdo, lse, delta, **kw)
+    assert t_dq.dtype == t_dk.dtype == torch.float32
+    for name, a, b in (("dq", t_dq, j_dq), ("dk", t_dk, j_dk), ("dv", t_dv, j_dv)):
+        np.testing.assert_allclose(_np(a), _np(b), err_msg=name, **F32_TOL)
+    # the wrappers take these plain versions for CPU tensors
+    assert torch.equal(flash_ops.flash_bwd_dq(tq, tk, tv, tdo, lse, delta, **kw), t_dq)
+
+
+def _body(src, head):
+    """The text from ``head`` to the end of its function (a closing brace at
+    the start of a line)."""
+    return re.search(re.escape(head) + r".*?\n}", src, re.S).group(0)
+
+
+MMA_SYNC_DIMS = [d for d in flash_ops.TF32_HEAD_DIMS if d not in flash_ops.WGMMA_HEAD_DIMS]
+
+
+@pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
+def test_f32_backward_runs_the_tf32_kernels_at_64_80_and_128(d):
+    """The f32 dq and dk/dv passes dispatch by width through
+    FLASH_BWD_DISPATCH: at head_dim 64 (``WGMMA_HEAD_DIMS``) to
+    launch_dq_wgmma<64> / launch_dkv_wgmma<64>, which launch
+    dq_wgmma_kernel<D> / dkv_wgmma_kernel<D>; at 80 and 128 to
+    launch_dq_tf32<D> / launch_dkv_tf32<D> (dq_tf32_kernel /
+    dkv_tf32_kernel, mma.sync); at 256 to the SIMT launch_dq<256> /
+    launch_dkv<256>.  The forward stays on the SIMT fwd_kernel at every
+    width."""
+    src = flash_ops.SOURCE.read_text()
+    macro = re.search(r"#define FLASH_BWD_DISPATCH\(WGMMA, TF32, SIMT, \.\.\.\).*?while \(0\)",
+                      src, re.S).group(0)
+    route = ("WGMMA" if d in flash_ops.WGMMA_HEAD_DIMS else
+             "TF32" if d in flash_ops.TF32_HEAD_DIMS else "SIMT")
+    assert f"if (dtype == 0 && d == {d}) return {route}<{d}>(__VA_ARGS__);" in macro
+    assert flash_ops.TF32_HEAD_DIMS == (64, 80, 128) and flash_ops.WGMMA_HEAD_DIMS == (64,)
+    for entry, launch in (("bwd_dq", "dq"), ("bwd_dkv", "dkv")):
+        body = _body(src, f'extern "C" int flash_gqa_{entry}(')
+        assert f"FLASH_BWD_DISPATCH(launch_{launch}_wgmma, launch_{launch}_tf32, launch_{launch}," \
+            in re.sub(r"\s+", " ", body), entry
+        assert f"{launch}_wgmma_kernel<D>;" in _body(src, f"int launch_{launch}_wgmma(")
+        assert f"{launch}_tf32_kernel<D>;" in _body(src, f"int launch_{launch}_tf32(")
+        assert f"{launch}_kernel<D>;" in _body(src, f"int launch_{launch}(")
+    assert "FLASH_DISPATCH(launch_fwd," in _body(src, 'extern "C" int flash_gqa_fwd(')
+
+
+def test_f32_source_takes_no_atomics_and_splits_every_product():
+    """No atomics in flash_gqa.cu (every sum in one fixed order: bitwise run
+    to run; K7 folds the G heads itself); every tensor-core product of the
+    f32 kernels is the three-term split (mma.sync: ``mma3``, lo*hi, hi*lo,
+    hi*hi; wgmma: three ``wgmma_tf32`` in that order on an A and a B split
+    into hi and lo, the first starting or continuing the sum, the others
+    adding to it), never one TF32 product; the long sums (dq, dk, dv) take
+    each tile's products from zero and add them in f32; the split rounds as
+    cvt.rna.tf32.f32 does."""
+    src = flash_ops.SOURCE.read_text()
+    assert not re.search(r"\batomic\w*\s*\(|\batom\.|\bred\.", src)
+    assert src.count("mma_tf32(c, ") == 3 and src.count("mma.sync.aligned") == 1
+    mma3 = _body(src, "__device__ __forceinline__ void mma3(")
+    assert re.findall(r"mma_tf32\(c, a\[0\]\.(\w+), .*?, b0\.(\w), b1\.(\w)\);", mma3) == [
+        ("lo", "x", "x"), ("hi", "y", "y"), ("hi", "x", "x")]  # (hi, lo) pairs: x hi, y lo
+    # K6: S, dP, dQ; K7: S^T, dP^T, dV, dK, with dP^T and dK written once for
+    # a warp holding 16 keys alone and once for the second warp of a pair
+    for kernel, scores, long_sums in (("dq_tf32_kernel", 2, 1), ("dkv_tf32_kernel", 3, 3)):
+        body = _body(src, f"{kernel}(const float* __restrict__ q")
+        assert "mma_tf32(" not in body and "mma3(" not in body
+        assert body.count("mma_abt<") == scores and body.count("mma_ab<") == long_sums, kernel
+    # the long sums take each k-step's products from zero, then add in f32
+    mma_ab = _body(src, "__device__ __forceinline__ void mma_ab(")
+    assert "float part[kChunk][4] = {};" in mma_ab
+    assert "for (int i = 0; i < 4; ++i) c[n0 + n][i] += part[n][i];" in mma_ab
+    # wgmma: every product a run of three (A lo, B hi), (A hi, B lo), (A hi,
+    # B hi) into one accumulator (names ending in l / h are lo / hi halves;
+    # an A lo half from shared memory is wgmma_tf32_ss's, N = 32)
+    calls = re.findall(r"wgmma_tf32(?:<(\w+)>|_ss)\((\w+), (\w+)(?:\[\w+\]|\(\w+\))?, (\w+), "
+                       r"([^;]+)\);", src)
+    assert len(calls) == 3 * 6, calls  # K6: S, dP, dQ; K7: S^T, dP^T, dV then dK (``products``)
+    for i in range(0, len(calls), 3):
+        (n0, c0, a0, b0, f0), (n1, c1, a1, b1, f1), (n2, c2, a2, b2, f2) = calls[i:i + 3]
+        assert (n0 or "32") == n1 == n2 and c0 == c1 == c2, calls[i:i + 3]
+        assert (a0[-1], b0[-1], a1[-1], b1[-1], a2[-1], b2[-1]) == tuple("lhhlhh"), calls[i:i + 3]
+        assert a1 == a2 and a0[:-1] == a1[:-1] and b0 == b2 and b1[:-1] == b0[:-1]
+        assert f1 == f2 == "1" and f0 != "1", calls[i:i + 3]
+    for kernel, adds in (("dq_wgmma_kernel", ("acc[i] += part[i];",)),
+                         ("dkv_wgmma_kernel", ("gv[i] += pv[i];", "gk[i] += pk[i];"))):
+        body = _body(src, f"{kernel}(const float* __restrict__ q")
+        assert "mma_tf32(" not in body and "mma3(" not in body
+        for add in adds:
+            assert add in body, (kernel, add)
+        assert "kk > 0);" in body  # each tile's first long-sum product starts from zero
+    to_tf32 = _body(src, "__device__ __forceinline__ uint32_t to_tf32(")
+    assert "(__float_as_uint(x) + 0x1000u) & 0xffffe000u" in to_tf32
+    # round to nearest, ties away from zero, at 10 mantissa bits: cvt.rna's
+    x = np.float32(np.random.RandomState(0).randn(4096))
+    bits = x.view(np.uint32)
+    hi = ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+    m, e = np.frexp(x.astype(np.float64))
+    want = np.ldexp(np.sign(m) * np.floor(np.abs(m) * 2**11 + 0.5) / 2**11, e)
+    assert np.array_equal(hi.astype(np.float64), want)
+
+
+@pytest.mark.parametrize("d", flash_ops.WGMMA_HEAD_DIMS)
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_wgmma_backward_layouts_fit_a_block(kernel, d):
+    """``DqWgLayout<D>`` (two stages of a 32-key tile's K and V, hi and lo
+    as stored, and K's transposed; the lo tile of the block's 64 rows of dO;
+    two buffers of dS) and ``DkvWgLayout<D>`` (two stages of a 32-query
+    tile's Q and dO, hi and lo as stored and transposed; the lo tile of V;
+    the stages' LSE and delta rows; two buffers of P^T and dS^T), computed from the source's own constants and lines, fit the
+    232,448 bytes of shared memory a block may take on Hopper, every
+    swizzled tile on a 1,024-byte boundary, and the source asserts it
+    too."""
+    src = flash_ops.SOURCE.read_text()
+    for line in ("constexpr int kWgThreads = 384;", "constexpr int kWgKeys = 64;",
+                 "constexpr int kWgQ = 32;", "constexpr int kWgStages = 2;",
+                 "  static constexpr int kRows = kWgQ * D * 4;",
+                 "  static constexpr int kCols = D * 128;",
+                 "  static constexpr int kBytes = kBars + (2 * kWgStages + 4) * 8 + 1024;",
+                 "constexpr size_t kMaxSmem = 232448;",
+                 f"{'Dq' if kernel == 'dq' else 'Dkv'}WgLayout<{d}>::kBytes <= kMaxSmem"):
+        assert line in src, line
+    assert grid.WGMMA_BLOCK == 64 and grid.WGMMA_TILE == 32
+    rows, cols, own = 32 * d * 4, d * 128, 64 * d * 4
+    if kernel == "dq":
+        layout = _body(src, "struct DqWgLayout {")
+        for line in ("kStage = 4 * kRows + 2 * kCols;", "kLo = kWgStages * kStage;",
+                     "kExch = kLo + kWgKeys * D * 4;", "kBars = kExch + 2 * 128 * 16 * 4;"):
+            assert line in layout, line
+        lo = 2 * (4 * rows + 2 * cols)
+        total = lo + own + 2 * 128 * 16 * 4
+    else:
+        layout = _body(src, "struct DkvWgLayout {")
+        for line in ("kStage = 4 * kRows + 4 * kCols;", "kLo = kWgStages * kStage;",
+                     "kStats = kLo + kWgKeys * D * 4;",
+                     "kExch = kStats + kWgStages * 2 * kWgQ * 4;",
+                     "kBars = kExch + 2 * 128 * 32 * 4;"):
+            assert line in layout, line
+        lo = 2 * (4 * rows + 4 * cols)
+        total = lo + own + 2 * 2 * 32 * 4 + 2 * 128 * 32 * 4
+    assert rows % 1024 == 0 and cols % 1024 == 0 and lo % 1024 == 0
+    total += (2 * 2 + 4) * 8 + 1024
+    assert total <= 232448, (kernel, d, total)
+
+
+@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (40, 16),
+                                      (200, 300), (1040, 512), (1100, None), (1100, 512)])
+def test_wgmma_tile_ranges_hold_exactly_the_tiles_with_visible_pairs(s, window):
+    """The f32 wgmma kernels' tile ranges (mirrored in grid.py, the source's
+    lines asserted): each K6 block (64 queries) visits exactly the 32-key
+    tiles holding a pair it sees, and each K7 block (64 keys) exactly the
+    32-query tiles; the kernels skip no tile, so every tile visited must
+    hold such a pair."""
+    src = flash_ops.SOURCE.read_text()
+    dq = _body(src, "dq_wgmma_kernel(const float* __restrict__ q")
+    for line in ("const int q0 = (gridDim.y - 1 - blockIdx.y) * kWgKeys;",
+                 "const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kWgQ : 0;",
+                 "const int kt_last = (min(q0 + kWgKeys, sh.s) - 1) / kWgQ;"):
+        assert line in dq, line
+    dkv = _body(src, "dkv_wgmma_kernel(const float* __restrict__ q")
+    for line in ("const int k0 = blockIdx.y * kWgKeys;",
+                 "const int k1 = min(k0 + kWgKeys, sh.s) - 1;",
+                 "const int qt_first = k0 / kWgQ;",
+                 "const int qt_last = (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : "
+                 "sh.s - 1) / kWgQ;"):
+        assert line in dkv, line
+    mask = visible_mask(s, window, "cpu")
+    block, tile = grid.WGMMA_BLOCK, grid.WGMMA_TILE
+    n_tiles = -(-s // tile)
+
+    def sees(q0, nq, k0, nk):
+        return bool(mask[q0:q0 + nq, k0:k0 + nk].any())
+
+    for q0 in range(0, s, block):
+        want = [kt for kt in range(n_tiles) if sees(q0, block, kt * tile, tile)]
+        assert list(grid.wgmma_dq_key_tiles(q0, s, window)) == want, q0
+    for k0 in range(0, s, block):
+        want = [qt for qt in range(n_tiles) if sees(qt * tile, tile, k0, block)]
+        assert list(grid.wgmma_dkv_query_tiles(k0, s, window)) == want, k0
+
+
+@pytest.mark.parametrize("d", MMA_SYNC_DIMS)
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_tf32_backward_layouts_fit_a_block(kernel, d):
+    """``dq_tf32_smem<D>`` (Q and dO of the block's 128 rows resident as
+    f32, the K and V tiles as they land, their (hi, lo) pairs) and
+    ``dkv_tf32_smem<D>`` (K and V of the block's 128 keys resident, 64 at D
+    = 128, the Q and dO tiles as they land with their LSE and delta rows,
+    those rows as multiplied, at D = 128 each warp pair's P^T, the pairs),
+    computed from the source's
+    own constants and lines, fit the 232,448 bytes of shared memory a block
+    may take on Hopper, and the source asserts it too."""
+    src = flash_ops.SOURCE.read_text()
+    for line in (f"constexpr int kDqRows = {grid.TF32_DQ_ROWS};",
+                 "constexpr int kTcThreads = 256;  // 8 warps",
+                 "__host__ __device__ constexpr int dq_tile() {\n  return D == 128 ? 32 : 64;",
+                 "__host__ __device__ constexpr bool dkv_pairs() {\n  return D == 128;",
+                 "__host__ __device__ constexpr int dkv_keys() {\n  return dkv_pairs<D>() ? 64 : 128;",
+                 "__host__ __device__ constexpr int dkv_tile() {\n  return 32;",
+                 "  return D % 32 == 0 ? D : D + 4;",
+                 "constexpr size_t kMaxSmem = 232448;"):
+        assert line in src, line
+    raw_ld = d if d % 32 == 0 else d + 4
+    if kernel == "dq":
+        tile = grid.tf32_dq_tile(d)
+        assert ("  return sizeof(float) * (2 * kDqRows * raw_ld<D>() + 2 * dq_tile<D>() * D) +\n"
+                "         sizeof(uint2) * 2 * dq_tile<D>() * (D + 4);") in src
+        total = 4 * (2 * grid.TF32_DQ_ROWS * raw_ld + 2 * tile * d) + 8 * 2 * tile * (d + 4)
+    else:
+        tile = grid.TF32_DKV_TILE
+        assert ("  return sizeof(float) * (2 * dkv_keys<D>() * raw_ld<D>() + 2 * dkv_tile<D>() * D +\n"
+                "                          4 * dkv_tile<D>() + (dkv_pairs<D>() ? dkv_keys<D>() * "
+                "dkv_tile<D>() : 0)) +\n"
+                "         sizeof(uint2) * 2 * dkv_tile<D>() * (D + 4);") in src
+        keys = grid.tf32_dkv_keys(d)
+        total = (4 * (2 * keys * raw_ld + 2 * tile * d + 4 * tile
+                      + (keys * tile if d == 128 else 0)) + 8 * 2 * tile * (d + 4))
+    assert f"{kernel}_tf32_smem<{d}>() <= kMaxSmem" in src
+    assert total <= 232448, (kernel, d, total)
+
+
+@pytest.mark.parametrize("d", MMA_SYNC_DIMS)
+@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (40, 16),
+                                      (200, 300), (1040, 512), (1100, None), (1100, 512)])
+def test_tf32_tile_ranges_and_warp_skips_cover_exactly_the_visible_pairs(s, window, d):
+    """The f32 kernels' tile ranges and warp skips (mirrored in grid.py, the
+    source's lines asserted): each K6 block (128 queries) visits exactly
+    the key tiles holding a pair it sees, and each of its warps (16 rows)
+    multiplies exactly the tiles holding a pair its rows see; the same for
+    each K7 block (128 keys; 64 at D = 128) over the query tiles and its
+    warps' (at D = 128 warp pairs') 16 keys."""
+    src = flash_ops.SOURCE.read_text()
+    dq = _body(src, "dq_tf32_kernel(const float* __restrict__ q")
+    for line in ("const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / BK : 0;",
+                 "const int kt_last = (min(q0 + kDqRows, sh.s) - 1) / BK;",
+                 "if (qw < sh.s && k0 <= qw + 15 &&",
+                 "(sh.window <= 0 || k0 + BK - 1 >= qw - sh.window + 1)) {"):
+        assert line in dq, line
+    dkv = _body(src, "dkv_tf32_kernel(const float* __restrict__ q")
+    for line in ("const int k1 = min(k0 + kKeys, sh.s) - 1;",
+                 "const int qt_first = k0 / BQ;",
+                 "const int qt_last = (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : "
+                 "sh.s - 1) / BQ;",
+                 "if (!(kw < sh.s && q0 < sh.s && q0 + BQ - 1 >= kw &&",
+                 "(sh.window <= 0 || q0 <= kw + 15 + sh.window - 1)))"):
+        assert line in dkv, line
+    mask = visible_mask(s, window, "cpu")
+    rows = grid.TF32_WARP_ROWS
+
+    def sees(q0, nq, k0, nk):
+        return bool(mask[q0:q0 + nq, k0:k0 + nk].any())
+
+    tile = grid.tf32_dq_tile(d)
+    n_tiles = -(-s // tile)
+    for q0 in range(0, s, grid.TF32_DQ_ROWS):
+        want = [kt for kt in range(n_tiles) if sees(q0, grid.TF32_DQ_ROWS, kt * tile, tile)]
+        got = grid.tf32_dq_key_tiles(q0, s, d, window)
+        assert list(got) == want, q0
+        for qw in range(q0, q0 + grid.TF32_DQ_ROWS, rows):
+            for kt in got:
+                assert grid.tf32_dq_warp_sees(qw, kt * tile, s, d, window) == sees(
+                    qw, rows, kt * tile, tile), (qw, kt)
+    tile, keys = grid.TF32_DKV_TILE, grid.tf32_dkv_keys(d)
+    n_tiles = -(-s // tile)
+    for k0 in range(0, s, keys):
+        want = [qt for qt in range(n_tiles) if sees(qt * tile, tile, k0, keys)]
+        got = grid.tf32_dkv_query_tiles(k0, s, d, window)
+        assert list(got) == want, k0
+        for kw in range(k0, k0 + keys, rows):
+            for qt in got:
+                assert grid.tf32_dkv_warp_sees(kw, qt * tile, s, d, window) == sees(
+                    qt * tile, tile, kw, rows), (kw, qt)

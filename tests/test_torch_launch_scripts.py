@@ -220,10 +220,19 @@ def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys
     ("void (anonymous namespace)::dkv_narrow_kernel<80, true>(CUtensorMap_st)",
      "flash_bwd_dkv (K7)"),
     ("void (anonymous namespace)::dkv_sum_kernel(float const*, float const*)",
-     "flash_bwd_dkv sum pass (K7)")])
+     "flash_bwd_dkv sum pass (K7)"),
+    ("void (anonymous namespace)::dq_tf32_kernel<64>(float const*, float const*)",
+     "flash_bwd_dq (K6)"),
+    ("void (anonymous namespace)::dkv_tf32_kernel<128>(float const*, float const*)",
+     "flash_bwd_dkv (K7)"),
+    ("void (anonymous namespace)::dq_wgmma_kernel<64>(float const*, float const*)",
+     "flash_bwd_dq (K6)"),
+    ("void (anonymous namespace)::dkv_wgmma_kernel<80>(float const*, float const*)",
+     "flash_bwd_dkv (K7)")])
 def test_profile_lm_step_names_every_flash_kernel(kernel, family):
     """``launch/profile_lm_step.py`` sorts device time by kernel family from
-    the kernels' names: the narrow kernels (D = 64, 80, and K5 at 128) count
+    the kernels' names: the narrow kernels (D = 64, 80, and K5 at 128) and
+    the f32 tensor-core dq and dk/dv kernels (mma.sync and wgmma) count
     with their pass, not as other work."""
     from repro_torch.launch import profile_lm_step
 
@@ -370,14 +379,20 @@ def test_phase15_archs_plant_faults_of_the_kernels_they_run():
     """Phase 15's archs (``LAUNCH_ARCHS``): gemma3-1b plants every fault
     of ``GRAD_FAULTS``; internvl2-2b (head_dim 128, no window) names keys of
     ``GRAD_FAULTS`` only, one for each of K5, K6, K7 and the sum pass (its
-    G = 2 runs it), and no window fault; each arch's parameter count is its
-    config's."""
+    G = 2 runs it), and no window fault; granite-moe-1b-a400m runs in f32,
+    which has no sum pass and no window fault to plant, and names K5, K6,
+    K7 and K4; each arch's parameter count is its config's."""
     from repro_torch.launch import steps
 
     cs = _load("chip_smoke.py")
-    assert list(cs.LAUNCH_ARCHS) == ["gemma3-1b", "internvl2-2b"]
-    assert cs.LAUNCH_ARCHS["gemma3-1b"] == (cs.LM_N, tuple(cs.GRAD_FAULTS))
-    n, faults = cs.LAUNCH_ARCHS["internvl2-2b"]
+    assert list(cs.LAUNCH_ARCHS) == ["gemma3-1b", "internvl2-2b", "granite-moe-1b-a400m"]
+    assert cs.LAUNCH_ARCHS["gemma3-1b"] == (cs.LM_N, tuple(cs.GRAD_FAULTS), "bfloat16")
+    _, faults, dtype = cs.LAUNCH_ARCHS["granite-moe-1b-a400m"]
+    assert dtype == "float32" and set(faults) <= set(cs.GRAD_FAULTS)
+    assert {name.split()[0] for name in faults} == {"K4", "K5", "K6", "K7"}
+    assert not any("window" in name or "sum pass" in name for name in faults)
+    n, faults, dtype = cs.LAUNCH_ARCHS["internvl2-2b"]
+    assert dtype == "bfloat16"
     cfg = get_config("internvl2-2b")
     assert cfg.head_dim == 128 and cfg.n_heads // cfg.n_kv_heads == 2
     assert all(layer.window is None for layer in cfg.layers)
@@ -385,7 +400,7 @@ def test_phase15_archs_plant_faults_of_the_kernels_they_run():
     assert not any("window" in name for name in faults)
     assert {name.split()[0] for name in faults} == {"K5", "K6", "K7"}
     assert "K7 sum pass x1.01" in faults
-    for arch, (count, _) in cs.LAUNCH_ARCHS.items():
+    for arch, (count, _, _) in cs.LAUNCH_ARCHS.items():
         params = steps.abstract_params(get_config(arch))
         assert sum(x.numel() for x in cs.tree_leaves(params)) == count, arch
 

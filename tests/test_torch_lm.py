@@ -134,7 +134,10 @@ def test_whole_stack_loss_and_grads_match_repro(name, arch, edits, impls):
 def test_launch_count_formula(monkeypatch):
     """``launches_per_step`` (which chip_smoke.py asserts on the card) counts
     what one step calls: on the CPU, the plain versions the wrappers run."""
-    calls = {k: 0 for k in ("rmsnorm", "flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # the reduced configs are f32: their flash launches count under f32's keys
+    keys = {kind: flash_ops.launch_key(kind, torch.float32)
+            for kind in ("fwd", "bwd_dq", "bwd_dkv")}
+    calls = {k: 0 for k in ("rmsnorm", *keys.values())}
 
     def counting(mod, fn, key):
         orig = getattr(mod, fn)
@@ -146,7 +149,7 @@ def test_launch_count_formula(monkeypatch):
 
     counting(rms_ops, "rmsnorm_plain", "rmsnorm")
     for kind in ("fwd", "bwd_dq", "bwd_dkv"):
-        counting(flash_ops, f"flash_{kind}_plain", f"flash_{kind}")
+        counting(flash_ops, f"flash_{kind}_plain", keys[kind])
     for remat in ("block", "none"):
         cfg = get_config("gemma3-1b", reduced=True).replace(remat=remat)
         params = t_tf.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")

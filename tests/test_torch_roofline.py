@@ -156,3 +156,26 @@ def test_kernel_costs_live_with_the_kernels():
         assert getattr(roofline, fn) is getattr(costs, fn), fn
     for path in sorted((ROOT / "src/repro_torch/kernels").rglob("*.py")):
         assert not re.search(r"^\s*(from|import) repro_torch\.launch", path.read_text(), re.M), path
+
+
+@pytest.mark.parametrize("shape", [(2, 2048, 16, 8, 64, None), (2, 2048, 16, 8, 128, None),
+                                   (2, 2048, 32, 32, 80, None), (4, 64, 4, 1, 64, 512)],
+                         ids=["granite-moe", "internvl2", "zamba2", "reduced"])
+@pytest.mark.parametrize("cost", ["flash_fwd_cost", "flash_dq_cost", "flash_dkv_cost"])
+def test_f32_flash_launch_runs_at_a_third_of_the_tf32_rate(cost, shape):
+    """An f32 launch of K5, K6 or K7 is bounded at three TF32 products a
+    flop (``TF32_FLOPS / 3``: an f32-accurate product on the tensor cores
+    is hi*hi + hi*lo + lo*hi of operands split into TF32 halves); bf16 at
+    the bf16 peak.  The same shape's f32 and bf16 costs count the same
+    FLOPs, so their operation times differ by exactly that rate."""
+    from repro_torch.kernels import costs
+
+    assert roofline.TF32_FLOPS == costs.TF32_FLOPS == 495e12
+    assert roofline.flash_peak is costs.flash_peak
+    fn = getattr(roofline, cost)
+    bf16, f32 = fn(*shape, 2), fn(*shape, 4)
+    assert bf16["peak"] == roofline.PEAK_FLOPS == costs.flash_peak(2)
+    assert f32["peak"] == roofline.TF32_FLOPS / 3 == costs.flash_peak(4)
+    assert f32["flops"] == bf16["flops"] > 0
+    assert f32["flops"] / f32["peak"] == pytest.approx(
+        bf16["flops"] / bf16["peak"] * 3 * 989e12 / 495e12, rel=1e-12)
