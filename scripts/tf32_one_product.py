@@ -5,9 +5,11 @@ that the f32 limits catch a lost term:
     python scripts/tf32_one_product.py build/ab/one.cu
     python scripts/torch_flash_ab.py --f32 one=build/ab/one.cu   # on the card
 
-Each three-term product (``lo*hi, hi*lo, hi*hi``: ``mma3`` on mma.sync, and
-each run of three ``wgmma_tf32`` lines) keeps its ``hi*hi`` product only,
-with the first product's accumulate flag.  With ``--tree DIR`` the copy is
+Each three-term product (``lo*hi, hi*lo, hi*hi``: ``mma3`` on mma.sync,
+which every product of the mma.sync kernels (K5 ``fwd_tf32_kernel``, K6
+``dq_tf32_kernel``, K7 ``dkv_tf32_kernel``) reaches through ``mma_abt`` and
+``mma_ab``, and each run of three ``wgmma_tf32`` lines) keeps its ``hi*hi``
+product only, with the first product's accumulate flag.  With ``--tree DIR`` the copy is
 written over ``DIR``'s own source instead (a checkout unpacked there), so
 that ``chip_smoke.py``'s phases run on it from ``DIR``.  Fails unless every
 product was found and rewritten.
@@ -32,9 +34,17 @@ WGMMA3 = re.compile(
     r"wgmma_tf32<\4>\(\1, \5, \2, 1\);")
 
 
+MMA_SYNC_KERNELS = ("fwd_tf32_kernel", "dq_tf32_kernel", "dkv_tf32_kernel")
+
+
 def one_product(src):
     """``src`` with every three-term product cut to its hi*hi product."""
     assert src.count(MMA3) == 1, "mma3's three products not found"
+    # mma.sync is issued in mma_tf32 alone, and mma_tf32 called in mma3 alone
+    assert src.count("mma.sync.aligned") == 1 and src.count("mma_tf32(c, ") == 3
+    for kernel in MMA_SYNC_KERNELS:  # each takes its products through mma3
+        body = re.search(kernel + r"\(const float\* __restrict__ q.*?\n}", src, re.S).group(0)
+        assert "mma_abt<" in body and "mma_ab<" in body, kernel
     out, n = WGMMA3.subn(r"wgmma_tf32<\4>(\1, \5, \2, \3);", src.replace(MMA3, ONE))
     assert n >= 1 and "wgmma_tf32<" in out, n
     # every wgmma product left is a hi*hi one

@@ -7,9 +7,9 @@ its own, in one run:
     python scripts/torch_flash_ab.py --f32 parent=build/ab/parent_f32.cu --seeds 12 21
 
 Without ``--f32`` the source is the tensor-core one (``flash_gqa_sm90.cu``,
-bf16); with it, ``flash_gqa.cu`` (f32: the SIMT K5, the tensor-core K6 and
-K7 at head_dim 64, 80 and 128).  For each source: ptxas's registers and
-spills of the dq / dk-dv kernels (and any note that it serialized their
+bf16); with it, ``flash_gqa.cu`` (f32: the tensor-core K5, K6 and K7 at
+head_dim 64, 80 and 128).  For each source: ptxas's registers and spills
+of the forward, dq and dk/dv kernels (and any note that it serialized their
 wgmma products); then, each library in a process of its own swapped in for
 the wrappers' (``ops._sm90_lib``, or ``ops._lib`` with ``--f32``), the
 source's cases of ``chip_smoke.FLASH_CASES`` at the ``--seeds`` (bf16 at D =
@@ -41,7 +41,7 @@ CHILD_S = 600  # one source's check and times, then its process is killed
 
 
 def ptxas(cs, src):
-    """ptxas's lines for the dq and dk/dv kernels of ``src``'s library."""
+    """ptxas's lines for the forward, dq and dk/dv kernels of ``src``'s library."""
     from repro_torch.kernels import build as kb
 
     name = None
@@ -51,7 +51,7 @@ def ptxas(cs, src):
             name = cs._kernel_name(m.group(1))
         elif "serialized" in line:
             print(f"  ptxas note: {line.strip()}", flush=True)
-        elif name and re.match(r"d(q|kv)_", name) and ("registers" in line or "spill" in line):
+        elif name and re.match(r"(fwd|dq|dkv)_", name) and ("registers" in line or "spill" in line):
             print(f"  ptxas {name}: {line.split(':', 1)[-1].strip()}", flush=True)
 
 

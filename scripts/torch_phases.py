@@ -20,8 +20,8 @@ offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64, 80 and
 ``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
 rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's
 prefill and training shape, beside SDPA), ``flash_f32_times`` (phase 3's
-f32 times, ``time_flash_f32``, and gemma3-1b's full layer at D = 256 in
-f32, beside SDPA in f32), ``train`` (phase 13), ``launch``
+f32 times, ``time_flash_f32``: D = 64, 80 and 128 and gemma3-1b's full and
+window-512 layers at D = 256, beside SDPA in f32), ``train`` (phase 13), ``launch``
 (phase 15: the train step of gemma3-1b and internvl2-2b, and of
 granite-moe-1b-a400m in f32, against the dry run, its gradient check and
 planted faults), ``launch_f32`` (phase 15's f32 step alone), ``train_spread`` (phase 13's
@@ -108,8 +108,7 @@ PHASES = {
     "flash_narrow": (lambda: cs.check_flash(cases=cs.NARROW_CASES), False),
     "flash_times": (lambda: {"gemma3-1b": cs.time_flash(4, 1, 256, (None, 512), seed=13),
                              **cs.time_flash_other_shapes()}, False),
-    "flash_f32_times": (lambda: {**cs.time_flash_f32(), "f32_d256": cs.time_flash(
-        4, 1, 256, (None,), seed=13, dtype=cs.f32)}, False),
+    "flash_f32_times": (cs.time_flash_f32, False),
     "train": (lambda: {a: cs.arch_train_run(a) for a in cs.ARCH_TRAIN}, True),
     "launch": (cs.launch_tooling_run, True),
     "launch_f32": (lambda: cs.launch_tooling_run(("granite-moe-1b-a400m",)), True),

@@ -2,7 +2,7 @@
 loss + decode step.
 
 Counterpart of ``scripts/smoke_models.py``: the reduced configs (f32, head
-dim 64), so on the card K4 and the f32 K5 run.  Runs on the card unless
+dim 64), so on the card K4 and the f32 K5 (``fwd_tf32_kernel<64>``) run.  Runs on the card unless
 given ``--device cpu``.
 
   PYTHONPATH=src python scripts/torch_smoke_models.py [--device cpu] [arch ...]

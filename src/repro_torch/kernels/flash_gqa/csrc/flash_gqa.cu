@@ -6,12 +6,12 @@
 //   K6  flash_gqa_bwd_pallas, dq pass (_flash_bwd_dq_kernel)  -> flash_gqa_bwd_dq
 //   K7  flash_gqa_bwd_pallas, dk/dv pass (_flash_bwd_dkv_kernel) -> flash_gqa_bwd_dkv
 // All three take f32 here; bf16 runs their tensor-core versions in
-// flash_gqa_sm90.cu.  K5 at every width and K6 / K7 at head_dim 256 run the
-// SIMT kernels below (fwd_kernel, dq_kernel, dkv_kernel: products in f32 on
-// the CUDA cores); K6 and K7 at head_dim 64, 80 and 128 run f32-accurate
-// products on the tensor cores (three TF32 products each, further down):
-// dq_wgmma_kernel and dkv_wgmma_kernel at 64, dq_tf32_kernel and
-// dkv_tf32_kernel (mma.sync) at 80 and 128.
+// flash_gqa_sm90.cu.  At head_dim 256 K5-K7 run the SIMT kernels below
+// (fwd_kernel, dq_kernel, dkv_kernel: products in f32 on the CUDA cores); at
+// head_dim 64, 80 and 128 they run f32-accurate products on the tensor cores
+// (three TF32 products each, further down): K5 fwd_tf32_kernel (mma.sync)
+// at all three, K6 and K7 dq_wgmma_kernel and dkv_wgmma_kernel at 64,
+// dq_tf32_kernel and dkv_tf32_kernel (mma.sync) at 80 and 128.
 //
 // Layouts are the model's (repro.kernels.flash_gqa.ops.flash_gqa takes them):
 //   q, o, dO, dq  (B, S, H, D)     k, v, dk, dv  (B, S, KV, D)     lse, delta (B, H, S) f32
@@ -32,15 +32,16 @@
 //       KV head and every query tile that sees the key tile.
 //   delta = rowsum(dO * out) is computed by the caller, as repro does.
 //
-// What bounds the SIMT kernels on an H100 SXM: at the LM slice (B = 2, S =
-// 2048, H = 4, KV = 1, D = 256) the work is 4D flops per visible (query, key)
-// pair forward, 6D (dq) and 8D (dk/dv) backward, over ~4-17 MB of f32
+// What bounds the SIMT kernels on an H100 SXM: at gemma3-1b's layer (B = 2,
+// S = 2048, H = 4, KV = 1, D = 256) the work is 4D flops per visible (query,
+// key) pair forward, 6D (dq) and 8D (dk/dv) backward, over ~4-17 MB of f32
 // operands: operations set the bound, at three TF32 products a flop on the
 // tensor cores (495e12 / 3 FLOP/s; kernels/costs.py).  These kernels do their
 // products in f32 on the CUDA cores (67 TFLOP/s at most), so they sit far from
 // that bound (5-11 % of it).
 //
-// What the SIMT design does:
+// What the SIMT design does (at D = 256; the templates take any multiple of
+// 16):
 //  - one 256-thread block per (batch*head, 64-query tile) for K5 and K6, and per
 //    (batch*KV head, 32-key tile) for K7; tiles live in shared memory as f32
 //    with rows padded to D + 1 floats, so neither the row-wise nor the
@@ -457,15 +458,16 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 
 // -- K6 and K7 on the tensor cores: mma.sync tf32, three-term split ----------
 //
-// At head_dim 64, 80 and 128 the f32 dq and dk/dv passes run their products
-// on the tensor cores and keep f32 accuracy: each operand x is split as x =
-// hi + lo, hi = tf32(x) and lo = tf32(x - hi), both rounded to nearest with
-// ties away from zero (the bits of cvt.rna.tf32.f32, ``to_tf32``), and a
-// product is taken as lo*hi + hi*lo + hi*hi, the small terms first, into
-// the f32 accumulator (about 2^-21 relative a product; one TF32 product
-// keeps about 2^-11).  At 64 they run on wgmma (the next section); at 80
-// and 128 on the kernels below, mma.sync.m16n8k8 with tf32 operands.  D =
-// 256 stays on the SIMT kernels above: a dispatch by width.
+// At head_dim 64, 80 and 128 the f32 dq and dk/dv passes (and K5, below
+// them) run their products on the tensor cores and keep f32 accuracy: each
+// operand x is split as x = hi + lo, hi = tf32(x) and lo = tf32(x - hi),
+// both rounded to nearest with ties away from zero (the bits of
+// cvt.rna.tf32.f32, ``to_tf32``), and a product is taken as lo*hi + hi*lo +
+// hi*hi, the small terms first, into the f32 accumulator (about 2^-21
+// relative a product; one TF32 product keeps about 2^-11).  K6 and K7 run
+// at 64 on wgmma (the section after K5); at 80 and 128 on the kernels
+// below, mma.sync.m16n8k8 with tf32 operands.  D = 256 stays on the SIMT
+// kernels above: a dispatch by width.
 //
 // Why mma.sync at 80 and 128: wgmma reads tf32 operands from shared memory
 // K-major only (no transpose for 32-bit types), so dq = dS K, dV += P^T dO
@@ -945,6 +947,156 @@ dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         *reinterpret_cast<float2*>(dk + row + 8 * n + 2 * t) =
             make_float2(acc_k[n][2 * i] * sh.scale, acc_k[n][2 * i + 1] * sh.scale);
     }
+  }
+}
+
+// -- K5 on the tensor cores: mma.sync tf32, three-term split -----------------
+//
+// At head_dim 64, 80 and 128 the f32 forward runs its two products, S = Q
+// K^T and O += P V, on the tensor cores with the same split as K6 and K7
+// (``mma3``: lo*hi + hi*lo + hi*hi a product), so it keeps f32 accuracy.
+// What bounds it on an H100 SXM: 4D flops a visible pair over ~10-40 MB at
+// the training shapes, operations at three TF32 products a flop (495e12 / 3
+// FLOP/s), as K6 and K7.  Design, K6's (``dq_tf32_kernel``) with one
+// product fewer:
+//  - one 256-thread block (8 warps, 16 query rows each) per (batch * head,
+//    128-query tile), the tiles with the most keys launched first; Q stays
+//    resident as f32 (``raw_idx``), split a k-step at a time inside
+//    ``mma_abt``; K and V stream in K6's 64-key tiles (32 at D = 128): cp.async
+//    lands tile kt + 1 while tile kt is multiplied, and all threads split
+//    each landed tile once into (hi, lo) pairs;
+//  - per warp S = Q K^T (``mma_abt``), scaled after the product, then the
+//    softcap, then the mask: masked scores are -inf and become exact zeros
+//    in P without entering exp; the online softmax stays in registers (each
+//    row's max and sum over the 4 lanes holding it, xor shuffles in one
+//    fixed order); O <- alpha O + P V, P taken from the accumulator layout
+//    as the A operand (``mma_ab``: each tile's products summed from zero on
+//    the tensor cores, then added in f32, the long-sum rule of K6 and K7);
+//  - a warp whose 16 rows see nothing of a tile skips its products; rows
+//    and keys past the ends load as zeros and are never stored; tiles and
+//    masks are on absolute positions, so at a query offset that is a
+//    multiple of 128 each row is bitwise the row of the launch without one.
+
+// One key tile of the online softmax for a warp's 16 x 8N score tile in
+// accumulator layout (as ``dscores_tc``'s; rows row0 + g and + 8, keys col0
+// + 8n + 2t (+ 1)), in place (sc -> p): the rows' max m and sum l move to
+// this tile and the output rows o are rescaled by exp(m_old - m_new).
+template <int N, int NC>
+__device__ __forceinline__ void softmax_tc(float (&sc)[N][4], float (&m)[2], float (&l)[2],
+                                           float (&o)[NC][4], int row0, int col0, int g,
+                                           int t, const Shape& sh) {
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f}, alpha[2];
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int qi = row0 + g + 8 * (i >> 1), kj = col0 + 8 * n + 2 * t + (i & 1);
+      float s = sc[n][i] * sh.scale;
+      if (sh.softcap > 0.f) s = sh.softcap * tanhf(s / sh.softcap);
+      sc[n][i] = visible(qi, kj, sh) ? s : -INFINITY;
+      mx[i >> 1] = fmaxf(mx[i >> 1], sc[n][i]);
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+    const float m_new = fmaxf(m[r], mx[r]);
+    // a row that has seen no visible key keeps m = -inf, l = 0, alpha = 1
+    alpha[r] = m_new == -INFINITY ? 1.f : __expf(m[r] - m_new);
+    m[r] = m_new;
+  }
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float s = sc[n][i];
+      sc[n][i] = s == -INFINITY ? 0.f : __expf(s - m[i >> 1]);
+      sum[i >> 1] += sc[n][i];
+    }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    l[r] = alpha[r] * l[r] + sum[r];
+  }
+#pragma unroll
+  for (int n = 0; n < NC; ++n) {
+    o[n][0] *= alpha[0];
+    o[n][1] *= alpha[0];
+    o[n][2] *= alpha[1];
+    o[n][3] *= alpha[1];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+fwd_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                Shape sh) {
+  constexpr int BK = dq_tile<D>(), NK = BK / 8, NC = D / 8;  // K6's key tile
+  extern __shared__ __align__(16) float smem[];
+  float* Qs = smem;                          // kDqRows resident rows
+  float* land = Qs + kDqRows * raw_ld<D>();  // K, V: BK x D each, as they land
+  uint2* Kp = reinterpret_cast<uint2*>(land + 2 * BK * D);  // BK x (D + 4) pairs
+  uint2* Vp = Kp + BK * (D + 4);
+
+  const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
+  const int kvh = h / (sh.h / sh.kv);
+  const long long q_rs = (long long)sh.h * D, k_rs = (long long)sh.kv * D;
+  const long long q_off = ((long long)b * sh.sq * sh.h + h) * D;
+  const long long k_off = ((long long)b * sh.s * sh.kv + kvh) * D;
+  // q, o and lse rows are local; masks and key tiles use absolute positions
+  const int lq0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;  // the most keys first
+  const int q0 = sh.q0 + lq0, q_end = sh.q0 + sh.sq;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int qw = q0 + 16 * warp;  // this warp's first row
+
+  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / BK : 0;
+  const int kt_last = (min(q0 + kDqRows, q_end) - 1) / BK;
+  auto land_kv = [&](int kt) {
+    load_rows_async<D, false>(land, k + k_off, k_rs, kt * BK, BK, sh.s);
+    load_rows_async<D, false>(land + BK * D, v + k_off, k_rs, kt * BK, BK, sh.s);
+    cp_commit();
+  };
+  load_rows_async<D, true>(Qs, q + q_off, q_rs, lq0, kDqRows, sh.sq);
+  land_kv(kt_first);  // one group with Q
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, acc[NC][4];
+#pragma unroll
+  for (int n = 0; n < NC; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    cp_wait_all();
+    __syncthreads();  // tile kt landed; every warp is done with the last pairs
+    split_tile<D>(Kp, land, BK);
+    split_tile<D>(Vp, land + BK * D, BK);
+    __syncthreads();  // the pairs are written; the landing buffer is free
+    if (kt < kt_last) land_kv(kt + 1);
+    const int k0 = kt * BK;
+    // warp-uniform: do this warp's 16 rows see any key of the tile?
+    if (qw < q_end && k0 <= qw + 15 &&
+        (sh.window <= 0 || k0 + BK - 1 >= qw - sh.window + 1)) {
+      float sc[NK][4];
+#pragma unroll
+      for (int n = 0; n < NK; ++n) sc[n][0] = sc[n][1] = sc[n][2] = sc[n][3] = 0.f;
+      mma_abt<D, NK>(Qs, 16 * warp, Kp, sc, g, t);  // S = Q K^T
+      softmax_tc<NK, NC>(sc, m, l, acc, qw, k0, g, t, sh);
+      mma_ab<D, NK>(sc, Vp, acc, g, t);  // O += P V
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = qw + g + 8 * i;
+    if (qi >= q_end) continue;
+    const int local = qi - sh.q0;
+    const float lz = l[i] == 0.f ? 1.f : l[i];
+    float* row = o + q_off + (long long)local * q_rs;
+#pragma unroll
+    for (int n = 0; n < NC; ++n)
+      *reinterpret_cast<float2*>(row + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * i] / lz, acc[n][2 * i + 1] / lz);
+    if (t == 0) lse[(long long)bh * sh.sq + local] = m[i] + logf(lz);
   }
 }
 
@@ -1737,13 +1889,36 @@ constexpr size_t dkv_tf32_smem() {
                           4 * dkv_tile<D>() + (dkv_pairs<D>() ? dkv_keys<D>() * dkv_tile<D>() : 0)) +
          sizeof(uint2) * 2 * dkv_tile<D>() * (D + 4);
 }
+// K5: Q resident, the K and V landing tiles, their pairs
+template <int D>
+constexpr size_t fwd_tf32_smem() {
+  return sizeof(float) * (kDqRows * raw_ld<D>() + 2 * dq_tile<D>() * D) +
+         sizeof(uint2) * 2 * dq_tile<D>() * (D + 4);
+}
 constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared memory
+static_assert(fwd_tf32_smem<64>() <= kMaxSmem && fwd_tf32_smem<80>() <= kMaxSmem &&
+                  fwd_tf32_smem<128>() <= kMaxSmem,
+              "K5 tf32 shared memory");
 static_assert(dq_tf32_smem<80>() <= kMaxSmem && dq_tf32_smem<128>() <= kMaxSmem,
               "K6 tf32 shared memory");
 static_assert(dkv_tf32_smem<80>() <= kMaxSmem && dkv_tf32_smem<128>() <= kMaxSmem,
               "K7 tf32 shared memory");
 static_assert(DqWgLayout<64>::kBytes <= kMaxSmem, "K6 wgmma shared memory");
 static_assert(DkvWgLayout<64>::kBytes <= kMaxSmem, "K7 wgmma shared memory");
+
+template <int D>
+int launch_fwd_tf32(const void* q, const void* k, const void* v, void* o, void* lse,
+                    const Shape& sh, cudaStream_t st) {
+  auto kernel = fwd_tf32_kernel<D>;
+  constexpr size_t smem = fwd_tf32_smem<D>();
+  if (int err = prepare(kernel, smem)) return err;
+  const dim3 grid(sh.b * sh.h, (sh.sq + kDqRows - 1) / kDqRows);
+  kernel<<<grid, kTcThreads, smem, st>>>(static_cast<const float*>(q),
+                                         static_cast<const float*>(k),
+                                         static_cast<const float*>(v), static_cast<float*>(o),
+                                         static_cast<float*>(lse), sh);
+  return (int)cudaGetLastError();
+}
 
 template <int D>
 int launch_dq_tf32(const void* q, const void* k, const void* v, const void* dout,
@@ -1805,14 +1980,14 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
   return (int)cudaGetLastError();
 }
 
-// Returns LAUNCH<D>(args...) for dtype 0 (float32) and D in {64, 80, 128, 256}
-// (D a multiple of 16: NC = D / 16 output columns a thread).
-#define FLASH_DISPATCH(LAUNCH, ...)                                \
+// The f32 forward's launch by width: TF32<D> (the mma.sync kernel) at D in
+// {64, 80, 128}, SIMT<256> (the CUDA-core kernel) at 256.
+#define FLASH_FWD_DISPATCH(TF32, SIMT, ...)                        \
   do {                                                             \
-    if (dtype == 0 && d == 64) return LAUNCH<64>(__VA_ARGS__);     \
-    if (dtype == 0 && d == 80) return LAUNCH<80>(__VA_ARGS__);     \
-    if (dtype == 0 && d == 128) return LAUNCH<128>(__VA_ARGS__);   \
-    if (dtype == 0 && d == 256) return LAUNCH<256>(__VA_ARGS__);   \
+    if (dtype == 0 && d == 64) return TF32<64>(__VA_ARGS__);       \
+    if (dtype == 0 && d == 80) return TF32<80>(__VA_ARGS__);       \
+    if (dtype == 0 && d == 128) return TF32<128>(__VA_ARGS__);     \
+    if (dtype == 0 && d == 256) return SIMT<256>(__VA_ARGS__);     \
     return (int)cudaErrorInvalidValue;                             \
   } while (0)
 
@@ -1856,7 +2031,7 @@ extern "C" int flash_gqa_fwd(const void* q, const void* k, const void* v, void* 
   sh.sq = sq;
   sh.q0 = q0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, sh, st);
+  FLASH_FWD_DISPATCH(launch_fwd_tf32, launch_fwd, q, k, v, o, lse, sh, st);
 }
 
 extern "C" int flash_gqa_bwd_dq(const void* q, const void* k, const void* v,

@@ -11,11 +11,12 @@ on absolute positions, at a query offset too); ``sm90_fwd_key_tiles``,
 tensor-core kernels (``csrc/flash_gqa_sm90.cu``), at head_dim 256 and at 64,
 80 and 128 (the narrow kernels there: K5's and K6's 128-key tiles, K7's
 128-key blocks of two warpgroups' 64 keys), written out so the CPU tests can
-hold them to the mask; ``tf32_dq_key_tiles``, ``tf32_dkv_query_tiles`` and
-the ``*_warp_sees`` tests are the same of the f32 mma.sync kernels of
-``csrc/flash_gqa.cu`` (``dq_tf32_kernel``, ``dkv_tf32_kernel``: D = 128),
-``wgmma_dq_key_tiles`` and ``wgmma_dkv_query_tiles`` of its wgmma kernels
-(``dq_wgmma_kernel``, ``dkv_wgmma_kernel``: D = 64 and 80).
+hold them to the mask; ``tf32_fwd_key_tiles``, ``tf32_dq_key_tiles``,
+``tf32_dkv_query_tiles`` and the ``*_warp_sees`` tests are the same of the
+f32 mma.sync kernels of ``csrc/flash_gqa.cu`` (``fwd_tf32_kernel``: D = 64,
+80 and 128, at a query offset too; ``dq_tf32_kernel``, ``dkv_tf32_kernel``:
+D = 80 and 128), ``wgmma_dq_key_tiles`` and ``wgmma_dkv_query_tiles`` of
+its wgmma kernels (``dq_wgmma_kernel``, ``dkv_wgmma_kernel``: D = 64).
 ``attention_pairs`` counts the (query, key) pairs causality and the window
 leave, the work any implementation must do (``chip_smoke.py``'s operation
 bounds), of every query row or of a rank's rows q0 .. q0 + sq - 1.
@@ -159,12 +160,12 @@ def sm90_fwd_narrow_blocks(b: int, h: int, n_qt: int, sms: int) -> list:
     return blocks
 
 
-TF32_DQ_ROWS = 128   # query rows of an f32 K6 block (dq_tf32_kernel), 16 a warp
-TF32_WARP_ROWS = 16  # rows of one warp (K6 queries; K7 keys, at D = 128 of a pair of warps)
+TF32_DQ_ROWS = 128   # query rows of an f32 K5 or K6 block (fwd_ and dq_tf32_kernel), 16 a warp
+TF32_WARP_ROWS = 16  # rows of one warp (K5, K6 queries; K7 keys, at D = 128 of a pair of warps)
 
 
 def tf32_dq_tile(d: int) -> int:
-    """f32 K6's key tile at head_dim ``d``."""
+    """f32 K6's (and K5's) key tile at head_dim ``d``."""
     return 32 if d == 128 else 64
 
 
@@ -185,9 +186,20 @@ def tf32_dq_key_tiles(q0: int, s: int, d: int, window=None) -> range:
     return range(first, (min(q0 + TF32_DQ_ROWS, s) - 1) // bk + 1)
 
 
+def tf32_fwd_key_tiles(r0: int, s: int, d: int, window=None, q0: int = 0, sq=None) -> range:
+    """The key tiles fwd_tf32_kernel (K5: K6's blocks and key tiles, on
+    absolute positions) visits for its block of the launch's rows r0 .. r0
+    + 127, whose query 0 sits at position ``q0`` of the S keys and which
+    holds ``sq`` queries (None: S - q0); its warps skip tiles by
+    ``tf32_dq_warp_sees`` with ``s`` one past its last query."""
+    sq = s - q0 if sq is None else sq
+    return tf32_dq_key_tiles(q0 + r0, q0 + sq, d, window)
+
+
 def tf32_dq_warp_sees(qw: int, k0: int, s: int, d: int, window=None) -> bool:
     """Whether the warp of queries qw .. qw + 15 multiplies the key tile at
-    k0 (it skips a tile where none of its rows sees a key)."""
+    k0 (it skips a tile where none of its rows sees a key; ``s``: one past
+    the last query)."""
     return (qw < s and k0 <= qw + TF32_WARP_ROWS - 1
             and (not window or k0 + tf32_dq_tile(d) - 1 >= qw - window + 1))
 

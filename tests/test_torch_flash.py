@@ -757,8 +757,8 @@ def test_f32_backward_runs_the_tf32_kernels_at_64_80_and_128(d):
     dq_wgmma_kernel<D> / dkv_wgmma_kernel<D>; at 80 and 128 to
     launch_dq_tf32<D> / launch_dkv_tf32<D> (dq_tf32_kernel /
     dkv_tf32_kernel, mma.sync); at 256 to the SIMT launch_dq<256> /
-    launch_dkv<256>.  The forward stays on the SIMT fwd_kernel at every
-    width."""
+    launch_dkv<256>.  The forward dispatches by width too, through
+    FLASH_FWD_DISPATCH (``test_f32_forward_runs_the_tf32_kernel_at_64_80_and_128``)."""
     src = flash_ops.SOURCE.read_text()
     macro = re.search(r"#define FLASH_BWD_DISPATCH\(WGMMA, TF32, SIMT, \.\.\.\).*?while \(0\)",
                       src, re.S).group(0)
@@ -773,13 +773,32 @@ def test_f32_backward_runs_the_tf32_kernels_at_64_80_and_128(d):
         assert f"{launch}_wgmma_kernel<D>;" in _body(src, f"int launch_{launch}_wgmma(")
         assert f"{launch}_tf32_kernel<D>;" in _body(src, f"int launch_{launch}_tf32(")
         assert f"{launch}_kernel<D>;" in _body(src, f"int launch_{launch}(")
-    assert "FLASH_DISPATCH(launch_fwd," in _body(src, 'extern "C" int flash_gqa_fwd(')
+    assert "FLASH_FWD_DISPATCH(launch_fwd_tf32, launch_fwd," in _body(
+        src, 'extern "C" int flash_gqa_fwd(')
+
+
+@pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
+def test_f32_forward_runs_the_tf32_kernel_at_64_80_and_128(d):
+    """The f32 forward dispatches by width through FLASH_FWD_DISPATCH: at
+    head_dim 64, 80 and 128 (``TF32_FWD_HEAD_DIMS``) to launch_fwd_tf32<D>,
+    which launches fwd_tf32_kernel<D> (mma.sync, three TF32 products a
+    product); at 256 to the SIMT launch_fwd<256> (fwd_kernel<D>)."""
+    src = flash_ops.SOURCE.read_text()
+    macro = re.search(r"#define FLASH_FWD_DISPATCH\(TF32, SIMT, \.\.\.\).*?while \(0\)",
+                      src, re.S).group(0)
+    route = "TF32" if d in flash_ops.TF32_FWD_HEAD_DIMS else "SIMT"
+    assert f"if (dtype == 0 && d == {d}) return {route}<{d}>(__VA_ARGS__);" in macro
+    assert macro.count("return TF32<") == 3 and macro.count("return SIMT<") == 1
+    assert flash_ops.TF32_FWD_HEAD_DIMS == (64, 80, 128)
+    assert "fwd_tf32_kernel<D>;" in _body(src, "int launch_fwd_tf32(")
+    assert "fwd_kernel<D>;" in _body(src, "int launch_fwd(")
+    assert "FLASH_DISPATCH(" not in src  # the one-route macro is gone
 
 
 def test_f32_source_takes_no_atomics_and_splits_every_product():
     """No atomics in flash_gqa.cu (every sum in one fixed order: bitwise run
     to run; K7 folds the G heads itself); every tensor-core product of the
-    f32 kernels is the three-term split (mma.sync: ``mma3``, lo*hi, hi*lo,
+    f32 kernels (K5 too) is the three-term split (mma.sync: ``mma3``, lo*hi, hi*lo,
     hi*hi; wgmma: three ``wgmma_tf32`` in that order on an A and a B split
     into hi and lo, the first starting or continuing the sum, the others
     adding to it), never one TF32 product; the long sums (dq, dk, dv) take
@@ -793,7 +812,9 @@ def test_f32_source_takes_no_atomics_and_splits_every_product():
         ("lo", "x", "x"), ("hi", "y", "y"), ("hi", "x", "x")]  # (hi, lo) pairs: x hi, y lo
     # K6: S, dP, dQ; K7: S^T, dP^T, dV, dK, with dP^T and dK written once for
     # a warp holding 16 keys alone and once for the second warp of a pair
-    for kernel, scores, long_sums in (("dq_tf32_kernel", 2, 1), ("dkv_tf32_kernel", 3, 3)):
+    # K5: S and O += P V, once each
+    for kernel, scores, long_sums in (("fwd_tf32_kernel", 1, 1), ("dq_tf32_kernel", 2, 1),
+                                      ("dkv_tf32_kernel", 3, 3)):
         body = _body(src, f"{kernel}(const float* __restrict__ q")
         assert "mma_tf32(" not in body and "mma3(" not in body
         assert body.count("mma_abt<") == scores and body.count("mma_ab<") == long_sums, kernel
@@ -1001,3 +1022,70 @@ def test_tf32_tile_ranges_and_warp_skips_cover_exactly_the_visible_pairs(s, wind
             for qt in got:
                 assert grid.tf32_dkv_warp_sees(kw, qt * tile, s, d, window) == sees(
                     qt * tile, tile, kw, rows), (kw, qt)
+
+
+@pytest.mark.parametrize("d", flash_ops.TF32_FWD_HEAD_DIMS)
+def test_tf32_forward_layout_fits_a_block(d):
+    """``fwd_tf32_smem<D>`` (Q of the block's 128 rows resident as f32, the
+    K and V tiles as they land, their (hi, lo) pairs), computed from the
+    source's own constants and lines, fits the 232,448 bytes of shared
+    memory a block may take on Hopper, and the source asserts it too."""
+    src = flash_ops.SOURCE.read_text()
+    for line in (f"constexpr int kDqRows = {grid.TF32_DQ_ROWS};",
+                 "__host__ __device__ constexpr int dq_tile() {\n  return D == 128 ? 32 : 64;",
+                 "  return D % 32 == 0 ? D : D + 4;",
+                 "  return sizeof(float) * (kDqRows * raw_ld<D>() + 2 * dq_tile<D>() * D) +\n"
+                 "         sizeof(uint2) * 2 * dq_tile<D>() * (D + 4);",
+                 f"fwd_tf32_smem<{d}>() <= kMaxSmem",
+                 "constexpr size_t kMaxSmem = 232448;"):
+        assert line in src, line
+    body = _body(src, "fwd_tf32_kernel(const float* __restrict__ q")
+    for line in ("constexpr int BK = dq_tile<D>(), NK = BK / 8, NC = D / 8;",
+                 "float* land = Qs + kDqRows * raw_ld<D>();",
+                 "uint2* Kp = reinterpret_cast<uint2*>(land + 2 * BK * D);",
+                 "uint2* Vp = Kp + BK * (D + 4);"):
+        assert line in body, line
+    raw_ld = d if d % 32 == 0 else d + 4
+    tile = grid.tf32_dq_tile(d)
+    total = 4 * (grid.TF32_DQ_ROWS * raw_ld + 2 * tile * d) + 8 * 2 * tile * (d + 4)
+    assert total <= 232448, (d, total)
+
+
+@pytest.mark.parametrize("d", flash_ops.TF32_FWD_HEAD_DIMS)
+@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (100, 16), (64, 1), (40, 16),
+                                      (200, 300), (1040, 512), (1100, None), (1100, 512)])
+def test_tf32_forward_tile_ranges_and_warp_skips_cover_exactly_the_visible_pairs(s, window, d):
+    """fwd_tf32_kernel's key-tile range and warp skip (K6's, on absolute
+    positions: ``grid.tf32_fwd_key_tiles``, ``tf32_dq_warp_sees``; the
+    source's lines asserted): each block (128 queries) visits exactly
+    the key tiles holding a pair it sees, and each of its warps (16 rows)
+    multiplies exactly the tiles holding a pair its rows see; at a query
+    offset too (a rank holding the rest of the sequence, and one holding
+    256 queries of it), on absolute positions."""
+    src = flash_ops.SOURCE.read_text()
+    body = _body(src, "fwd_tf32_kernel(const float* __restrict__ q")
+    for line in ("const int lq0 = (gridDim.y - 1 - blockIdx.y) * kDqRows;",
+                 "const int q0 = sh.q0 + lq0, q_end = sh.q0 + sh.sq;",
+                 "const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / BK : 0;",
+                 "const int kt_last = (min(q0 + kDqRows, q_end) - 1) / BK;",
+                 "if (qw < q_end && k0 <= qw + 15 &&",
+                 "(sh.window <= 0 || k0 + BK - 1 >= qw - sh.window + 1)) {"):
+        assert line in body, line
+    rows, block, tile = grid.TF32_WARP_ROWS, grid.TF32_DQ_ROWS, grid.tf32_dq_tile(d)
+    n_tiles = -(-s // tile)
+    launches = [(0, s)] + [(q0, sq) for q0 in range(block, s, 2 * block)
+                           for sq in dict.fromkeys((s - q0, min(2 * block, s - q0)))]
+    for q0, sq in launches:
+        mask = visible_mask(s, window, "cpu", q0, sq)  # rows local, keys absolute
+
+        def sees(r0, nr, k0, nk):
+            return bool(mask[r0:r0 + nr, k0:k0 + nk].any())
+
+        for r0 in range(0, sq, block):
+            want = [kt for kt in range(n_tiles) if sees(r0, block, kt * tile, tile)]
+            got = grid.tf32_fwd_key_tiles(r0, s, d, window, q0, sq)
+            assert list(got) == want, (q0, sq, r0)
+            for lw in range(r0, r0 + block, rows):
+                for kt in got:
+                    assert grid.tf32_dq_warp_sees(q0 + lw, kt * tile, q0 + sq, d, window) == sees(
+                        lw, rows, kt * tile, tile), (q0, sq, lw, kt)

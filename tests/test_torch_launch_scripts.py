@@ -211,6 +211,25 @@ def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys
         assert "build[ptxas]: ptxas info    : (C7520) Potential Performance Loss: wgmma" in out
 
 
+def test_ptxas_report_fails_on_an_expected_kernel_it_does_not_name(monkeypatch, capsys):
+    """``chip_smoke.print_ptxas(source, expect)`` fails naming each kernel
+    of ``expect`` that the report does not name (phase 2 expects f32 K5's
+    ``fwd_tf32_kernel`` at 64, 80 and 128), and reads its template argument
+    from the mangled name."""
+    cs = _load("chip_smoke.py")
+    ns = "_ZN45_GLOBAL__N__5e2b3c1d_12_flash_gqa_cu_6f1e2a0b"
+    lines = [f"ptxas info    : Compiling entry function '{ns}15fwd_tf32_kernelILi80EEEvPKfS1_S1_"
+             "PfS2_NS_5ShapeE' for 'sm_90a'",
+             "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+             "ptxas info    : Used 128 registers, used 1 barriers"]
+    monkeypatch.setattr(cs.kernel_build, "build_log", lambda source: "\n".join(lines))
+    cs.print_ptxas("flash_gqa.cu", ["fwd_tf32_kernel<80>"])
+    assert "build[ptxas fwd_tf32_kernel<80>]: Used 128 registers" in capsys.readouterr().out
+    with pytest.raises(AssertionError, match=re.escape("fwd_tf32_kernel<64>")) as err:
+        cs.print_ptxas("flash_gqa.cu", ["fwd_tf32_kernel<80>", "fwd_tf32_kernel<64>"])
+    assert "fwd_tf32_kernel<80>" not in str(err.value)
+
+
 @pytest.mark.parametrize("kernel,family", [
     ("void (anonymous namespace)::fwd_narrow_kernel<128>(CUtensorMap_st, CUtensorMap_st)",
      "flash_fwd (K5)"),
@@ -228,12 +247,14 @@ def test_ptxas_report_names_each_kernel_and_fails_on_a_spill(monkeypatch, capsys
     ("void (anonymous namespace)::dq_wgmma_kernel<64>(float const*, float const*)",
      "flash_bwd_dq (K6)"),
     ("void (anonymous namespace)::dkv_wgmma_kernel<80>(float const*, float const*)",
-     "flash_bwd_dkv (K7)")])
+     "flash_bwd_dkv (K7)"),
+    ("void (anonymous namespace)::fwd_tf32_kernel<64>(float const*, float const*)",
+     "flash_fwd (K5)")])
 def test_profile_lm_step_names_every_flash_kernel(kernel, family):
     """``launch/profile_lm_step.py`` sorts device time by kernel family from
     the kernels' names: the narrow kernels (D = 64, 80, and K5 at 128) and
-    the f32 tensor-core dq and dk/dv kernels (mma.sync and wgmma) count
-    with their pass, not as other work."""
+    the f32 tensor-core kernels (K5's mma.sync, the dq and dk/dv passes'
+    mma.sync and wgmma) count with their pass, not as other work."""
     from repro_torch.launch import profile_lm_step
 
     assert profile_lm_step.family(kernel) == family
@@ -416,3 +437,24 @@ def test_planted_puts_the_kernels_back():
             assert all(getattr(mod, attr) is not fn for (mod, attr, _), fn in zip(plants, kept))
             raise RuntimeError
     assert [getattr(mod, attr) for mod, attr, _ in plants] == kept
+
+
+def test_one_product_control_cuts_every_tensor_core_product_to_one():
+    """``scripts/tf32_one_product.py`` (the f32 limits' control) leaves one
+    TF32 product (hi*hi) in ``mma3``, through which the mma.sync kernels'
+    products all go (K5's ``fwd_tf32_kernel`` among them), and in each run
+    of three wgmma products; the rest of the source stays as it is."""
+    from repro_torch.kernels.flash_gqa import ops as flash_ops
+
+    control = _load("scripts/tf32_one_product.py")
+    src = flash_ops.SOURCE.read_text()
+    out = control.one_product(src)
+    mma3 = re.search(r"void mma3\(.*?\n}", out, re.S).group(0)
+    assert re.findall(r"mma_tf32\(c, a\[0\]\.(\w+), .*?, b0\.(\w), b1\.(\w)\);", mma3) == [
+        ("hi", "x", "x")]
+    assert len(re.findall(r"wgmma_tf32(?:<\w+>|_ss)\(", out)) == len(
+        re.findall(r"wgmma_tf32(?:<\w+>|_ss)\(", src)) - 2 * 6
+    for kernel in control.MMA_SYNC_KERNELS:
+        head = kernel + "(const float* __restrict__ q"
+        body = re.search(re.escape(head) + r".*?\n}", src, re.S).group(0)
+        assert body in out, kernel
