@@ -13,8 +13,10 @@ Phases (any failure exits non-zero; nothing is caught):
                   (``flash_gqa_sm90.cu``, and ``flash_gqa.cu``'s f32
                   kernels, the tensor-core fwd_tf32_kernel (at 64, 80 and
                   128, each required in the report), dq_wgmma_kernel,
-                  dkv_wgmma_kernel, dq_tf32_kernel and dkv_tf32_kernel
-                  among them) printed, and no spill and no
+                  dkv_wgmma_kernel, dq_tf32_kernel, dkv_tf32_kernel and
+                  dq_ and dkv_tf32_wide_kernel (at 256, required too,
+                  with their dynamic shared memory) among them) printed,
+                  and no spill and no
                   serialized wgmma (ptxas's C7515 / C7520 notes) allowed
                   there;
   3. kernels      each kernel against its plain PyTorch version on the card:
@@ -42,13 +44,15 @@ Phases (any failure exits non-zero; nothing is caught):
                   K6's dq and K7's dk/dv held bitwise across two launches,
                   in f32 before their final rounding within half an ulp,
                   and K7's sum pass bitwise against its plain version); f32
-                  K5-K7 (``flash_gqa.cu``: at D = 64, 80 and 128 on the
-                  tensor cores, three TF32 products a product, K5 on
-                  mma.sync, K6 and K7 on wgmma at 64 and mma.sync at 80
-                  and 128; K5 held to ``TF32_FWD_TOL``, K6 and K7 to
-                  ``TF32_BWD_TOL``) at granite-moe's and internvl2's
-                  training shapes, zamba2's, a ragged S with window and
-                  softcap at each width and the reduced config's shape
+                  K5-K7 (``flash_gqa.cu``: on the tensor cores, three
+                  TF32 products a product, K5 on mma.sync at D = 64, 80
+                  and 128, K6 and K7 on wgmma at 64 and mma.sync at 80,
+                  128 and 256; K5 held to ``TF32_FWD_TOL`` there, K6 and
+                  K7 to ``TF32_BWD_TOL``; K5 at 256 on the CUDA cores to
+                  f32's 1e-4) at granite-moe's and internvl2's
+                  training shapes, zamba2's, gemma3-1b's own layers (D =
+                  256, G = 4, window 512 and none), a ragged S with window
+                  and softcap at each width and the reduced config's shape
                   (``TF32_CASES``), and timed at granite-moe's,
                   internvl2's and zamba2's shapes and gemma3-1b's full and
                   window-512 layers at D = 256 beside SDPA in f32 on
@@ -170,7 +174,11 @@ Phases (any failure exits non-zero; nothing is caught):
                   the f32 tensor-core kernels at D = 64, G = 2, no sum
                   pass), its gradient per leaf against the f32 reference
                   path's (``f32_grad_gaps``) and the faults of K5, K6, K7
-                  and K4 each failing it; the wall and device time and
+                  and K4 each failing it; and gemma3-1b's step at dtype
+                  float32 (K6 and K7 on the f32 tensor-core kernels at D =
+                  256, 22 of 26 layers at window 512), the same check and
+                  the faults of K5, K6, K7 and of the backward's window
+                  (``K6, K7 window - 1``); the wall and device time and
                   the idle share of a profiled step, counted FLOPs against
                   ``model_flops``, the roofline terms and the new global
                   delta's gap printed.  Then K1/K2 at C = 1, N = 4 against
@@ -360,6 +368,7 @@ from repro_torch.fl import (  # noqa: E402
     masked_accuracy,
 )
 from repro_torch.kernels import build as kernel_build  # noqa: E402
+from repro_torch.kernels.flash_gqa import grid as flash_grid  # noqa: E402
 from repro_torch.kernels.flash_gqa import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update import ops  # noqa: E402
 from repro_torch.kernels.pfedsop_update.ref import coeff_from_sums, gompertz_beta  # noqa: E402
@@ -768,13 +777,21 @@ FLASH_CASES = [  # (G, window, softcap, dtype, S, D, H, B)
     (2, None, None, f32, 2048, 64, 16, 2), (2, None, None, f32, 2048, 128, 16, 2),
     (2, 512, 50.0, f32, 1040, 64, 4, 2), (1, 512, 50.0, f32, 1100, 80, 4, 2),
     (2, 16, 50.0, f32, 40, 128, 4, 2), (2, 512, 50.0, f32, 1100, 128, 4, 2),
-    (4, 512, None, f32, 64, 64, 4, 4)]
+    (4, 512, None, f32, 64, 64, 4, 4),
+    # f32 at D = 256, where K6 and K7 run dq_ and dkv_tf32_wide_kernel (the
+    # softcap and G = 1 cases are above): gemma3-1b's own layers (phase 15's
+    # f32 step), a ragged S with window and softcap (S = 1,040: K6's last
+    # 32-query block and 32-key tile and K7's last 32-query tile half past
+    # S, 65 16-key units, the middle one alone in its block) and S = 40 at
+    # window 16 (G = 2; three units, shorter than two tiles)
+    (4, 512, None, f32, 2048, 256, 4, 2), (4, None, None, f32, 2048, 256, 4, 2),
+    (4, 512, 50.0, f32, 1040, 256, 4, 2), (2, 16, None, f32, 40, 256, 4, 2)]
 # the bf16 cases at D = 64, 80 and 128, where K5, K6 and K7 run
 # fwd_narrow_kernel, dq_narrow_kernel and dkv_narrow_kernel
 NARROW_CASES = [c for c in FLASH_CASES if c[5] in (64, 80, 128) and c[3] == bf16]
-# the f32 cases at D = 64, 80 and 128, where K5, K6 and K7 run their
-# products on the tensor cores, three TF32 products each
-TF32_CASES = [c for c in FLASH_CASES if c[5] in (64, 80, 128) and c[3] == f32]
+# the f32 cases at the widths where K6 and K7 run their products on the
+# tensor cores, three TF32 products each: every width (K5 at 64, 80 and 128)
+TF32_CASES = [c for c in FLASH_CASES if c[5] in flash_ops.TF32_HEAD_DIMS and c[3] == f32]
 # K6's and K7's limit there, in units of the largest value: under f32's 1e-4,
 # between the sound kernels' worst reading (6.7e-6, dk and dv; PERF.md,
 # Findings) and what a lost term of the split or a long sum left to
@@ -820,10 +837,11 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     checked alone.  Tolerance in units of the largest value: f32 1e-4 (sums
     of up to 8,192 f32 terms in another order, the online softmax against
     one logsumexp), bf16 2**-7 (one ulp of the output); the LSE is f32 in
-    both and held to 1e-5.  At f32's tensor-core widths (D = 64, 80, 128:
-    three TF32 products a product) K5 is held to ``TF32_FWD_TOL`` and K6
-    and K7 to ``TF32_BWD_TOL``, 1e-5 each, which a lost term of the split
-    fails.
+    both and held to 1e-5.  At f32's tensor-core widths (three TF32
+    products a product: K5 at D = 64, 80 and 128, ``TF32_FWD_HEAD_DIMS``;
+    K6 and K7 at every width, ``TF32_HEAD_DIMS``) K5 is held to
+    ``TF32_FWD_TOL`` and K6 and K7 to ``TF32_BWD_TOL``, 1e-5 each, which a
+    lost term of the split fails; K5 at 256 (the CUDA cores) to f32's 1e-4.
 
     In bf16, K5 rounds P to bf16 before the PV product (where the model's
     reference rounds it; the plain version keeps f32), K6 rounds dS to bf16
@@ -836,14 +854,12 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
     partials before its sum pass rounds them, are held to the plain version
     on the inputs widened to f32 within 2**-8 of the largest value: half an
     ulp, under which the rounded outputs cannot leave the 2**-7 tolerance.
-    (In f32, without a softcap, the SIMT dq and dk/dv passes may equal their
-    plain versions bit for bit: both accumulate each sum as one FMA chain
-    in the same order, as cuBLAS's f32 GEMM does.)  K6's dq and K7's dk and
+    K6's dq and K7's dk and
     dv must be bitwise the same over two launches; K7's sum pass (G > 1 in
     bf16) must equal its plain version bit for bit (the same f32 adds in
     head order).  Returns the worst absolute error of each kernel over all
-    cases and seeds, and under ``<name>_f32`` over the f32 cases at D = 64, 80
-    and 128 (``TF32_CASES``)."""
+    cases and seeds, and under ``<name>_f32`` over the f32 cases where that
+    kernel runs on the tensor cores."""
     worst = {"flash_fwd": 0.0, "flash_bwd_dq": 0.0, "flash_bwd_dkv": 0.0,
              "flash_bwd_dkv_sum": 0.0, "flash_fwd_f32": 0.0, "flash_bwd_dq_f32": 0.0,
              "flash_bwd_dkv_f32": 0.0}
@@ -873,9 +889,14 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
             assert torch.equal(dq, dq2), ("K6 not deterministic", label)
             assert torch.equal(dk, dk2) and torch.equal(dv, dv2), ("K7 not deterministic", label)
             tol = 1e-4 if dtype == torch.float32 else 2.0 ** -7
-            tc = dtype == f32 and d in flash_ops.TF32_HEAD_DIMS  # K5-K7 on the tensor cores
+            # which of K5-K7 run on the tensor cores: K5 at TF32_FWD_HEAD_DIMS, K6
+            # and K7 at TF32_HEAD_DIMS
+            tcs = {"flash_fwd": dtype == f32 and d in flash_ops.TF32_FWD_HEAD_DIMS,
+                   "flash_bwd_dq": dtype == f32 and d in flash_ops.TF32_HEAD_DIMS,
+                   "flash_bwd_dkv": dtype == f32 and d in flash_ops.TF32_HEAD_DIMS}
             line = []
             for name, es in pairs.items():
+                tc = tcs[name]
                 limit = tol if not tc else TF32_FWD_TOL if name == "flash_fwd" else TF32_BWD_TOL
                 for err, rel in es:
                     assert rel <= limit, (name, label, err, rel, limit, "lse", lse_err)
@@ -887,7 +908,7 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
                     line.append(f"{name[6:]} {err:.3g}/{rel:.3g}")
             assert lse_err[1] <= 1e-5, (label, lse_err)
             worst["flash_fwd"] = max(worst["flash_fwd"], lse_err[0])
-            if tc:
+            if tcs["flash_fwd"]:
                 worst["flash_fwd_f32"] = max(worst["flash_fwd_f32"], lse_err[0])
             if dtype == bf16:
                 # K6's dq, and K7's dk/dv at G > 1, in f32 before their final
@@ -905,7 +926,8 @@ def check_flash(seeds=FLASH_SEEDS, cases=FLASH_CASES):
                     assert rel <= 2.0 ** -8, (f"{name} before rounding", label, rel)
                     worst_pre[name] = max(worst_pre[name], rel)
                     line.append(f"{name} before rounding -/{rel:.3g} (tol {2.0 ** -8:.3g})")
-            tols = f"K5 {TF32_FWD_TOL:.3g}, dq and dk/dv {TF32_BWD_TOL:.3g}" if tc else f"{tol:.3g}"
+            tols = (f"K5 {TF32_FWD_TOL if tcs['flash_fwd'] else tol:.3g}, dq and dk/dv "
+                    f"{TF32_BWD_TOL:.3g}" if tcs["flash_bwd_dq"] else f"{tol:.3g}")
             print(f"kernels[flash {label}]: max_abs_err/relative " + ", ".join(line) +
                   f", lse {lse_err[0]:.3g}/{lse_err[1]:.3g} (tol {tols}, lse 1e-05); "
                   "dq, dk/dv bitwise over two launches", flush=True)
@@ -1011,6 +1033,19 @@ def time_flash(h, kv, d, windows, seed, b=2, s=2048, fwd_only=False, dtype=bf16)
     recs["flash_bwd_dq"]["with_dkv_ms"] = pair
     print(f"kernels[time K6 + K7 full-attention D={d} {name_t}]: {pair:.4f} ms, SDPA's "
           f"backward {bwd:.4f} ms ({pair / bwd:.2f}x)", flush=True)
+    for window in windows:  # the pair at each window, beside SDPA's backward with its mask
+        if window is not None:
+            out_w, lse_w = flash_ops.flash_fwd(q, k, v, window=window)
+            delta_w = flash_ops.row_delta(do, out_w)
+            kw = dict(window=window)
+            pair_w = device_ms(lambda: (
+                flash_ops.flash_bwd_dq(q, k, v, do, lse_w, delta_w, **kw),
+                flash_ops.flash_bwd_dkv(q, k, v, do, lse_w, delta_w, **kw)))
+            r_w = recs["flash_bwd_dq"][f"window{window}"]
+            r_w["with_dkv_ms"] = pair_w
+            print(f"kernels[time K6 + K7 window={window} D={d} {name_t}]: {pair_w:.4f} ms, "
+                  f"SDPA's backward with the window's mask {r_w['library_ms']:.4f} ms "
+                  f"({pair_w / r_w['library_ms']:.2f}x)", flush=True)
     if h == kv or dtype != bf16:
         return recs
 
@@ -1072,7 +1107,7 @@ def time_flash_other_shapes():
 # set: (key, H, KV, D, seed, windows); B = 2, S = 2,048: granite-moe's
 # training shape, internvl2's and zamba2's shared attention, no window
 # (the tensor-core kernels), and gemma3-1b's full and window-512 layers at
-# D = 256 (the SIMT kernels)
+# D = 256 (K5 on the CUDA cores, K6 and K7 the tensor-core wide kernels)
 F32_TIMES = (("f32_d64", 16, 8, 64, 16, (None,)), ("f32_d128_train", 16, 8, 128, 18, (None,)),
              ("f32_d80", 32, 32, 80, 14, (None,)),
              ("f32_d256", 4, 1, 256, 13, (None, 512)))
@@ -2127,23 +2162,27 @@ GRAD_FAULTS = {
 }
 
 
-# phase 15's archs: arch -> (its parameter count, the planted faults of
-# ``GRAD_FAULTS`` its gradient check must fail, the dtype the step runs in).
-# gemma3-1b (D = 256, 22 of 26 layers at window 512) takes them all;
-# internvl2-2b (D = 128, the narrow forward and backward, no window, so no
-# window fault applies) those of the kernels it runs at D = 128;
-# granite-moe-1b-a400m runs at dtype float32 (every LM entry point's default
-# through ``reduced()``, and the port's parity contract with repro): K5, K6
-# and K7 at D = 64, G = 2 on the f32 tensor-core kernels (no sum pass in
-# f32)
+# phase 15's steps: (arch, the dtype the step runs in) -> (its parameter
+# count, the planted faults of ``GRAD_FAULTS`` its gradient check must
+# fail).  gemma3-1b in bf16 (D = 256, 22 of 26 layers at window 512) takes
+# them all; internvl2-2b (D = 128, the narrow forward and backward, no
+# window, so no window fault applies) those of the kernels it runs at D =
+# 128.  In float32 (every LM entry point's default through ``reduced()``,
+# and the port's parity contract with repro), on the f32 kernels, no sum
+# pass: granite-moe-1b-a400m's K5, K6 and K7 at D = 64, G = 2 on the tensor
+# cores; gemma3-1b's K6 and K7 at D = 256, G = 4 on the wide tensor-core
+# kernels (K5 on the CUDA cores), where the backward's window fault reads
+# the wide kernels' window pruning on a real step.
 LAUNCH_ARCHS = {
-    "gemma3-1b": (LM_N, tuple(GRAD_FAULTS), "bfloat16"),
-    "internvl2-2b": (ARCH_SERVE_N["internvl2-2b"],
-                     ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K7 sum pass x1.01"),
-                     "bfloat16"),
-    "granite-moe-1b-a400m": (ARCH_TRAIN["granite-moe-1b-a400m"][1],
-                             ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01",
-                              "K4 output x1.01"), "float32"),
+    ("gemma3-1b", "bfloat16"): (LM_N, tuple(GRAD_FAULTS)),
+    ("internvl2-2b", "bfloat16"): (
+        ARCH_SERVE_N["internvl2-2b"],
+        ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K7 sum pass x1.01")),
+    ("granite-moe-1b-a400m", "float32"): (
+        ARCH_TRAIN["granite-moe-1b-a400m"][1],
+        ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K4 output x1.01")),
+    ("gemma3-1b", "float32"): (
+        LM_N, ("K5 output x1.01", "K6 dq x1.01", "K7 dk, dv x1.01", "K6, K7 window - 1")),
 }
 # In f32 the reference path is the f32 run itself, so ``grad_gaps``' ratio
 # (against an f32 run) has nothing to divide by.  The f32 check holds, per
@@ -2221,13 +2260,13 @@ def launch_step_args(cfg, n=LM_N):
     return state, global_delta, launch_step_batches(cfg)
 
 
-def launch_tooling_run(archs=tuple(LAUNCH_ARCHS)):
-    """Phase 15: ``launch_step_check`` for each arch of ``archs`` (keys of
-    ``LAUNCH_ARCHS``).  Returns {arch (``<arch>-f32`` for an f32 step): the
-    step's launches}."""
+def launch_tooling_run(steps=tuple(LAUNCH_ARCHS)):
+    """Phase 15: ``launch_step_check`` for each (arch, dtype) of ``steps``
+    (keys of ``LAUNCH_ARCHS``).  Returns {arch (``<arch>-f32`` for an f32
+    step): the step's launches}."""
     return {(arch if dtype == "bfloat16" else f"{arch}-f32"):
             launch_step_check(arch, n, faults, dtype)
-            for arch, (n, faults, dtype) in LAUNCH_ARCHS.items() if arch in archs}
+            for (arch, dtype), (n, faults) in LAUNCH_ARCHS.items() if (arch, dtype) in steps}
 
 
 def launch_step_check(arch, n, faults, dtype="bfloat16"):
@@ -3964,6 +4003,12 @@ def _kernel_name(mangled):
     return mangled
 
 
+# the f32 tensor-core kernels phase 2 requires in ptxas's report of flash_gqa.cu
+F32_EXPECT = ([f"fwd_tf32_kernel<{d}>" for d in flash_ops.TF32_FWD_HEAD_DIMS]
+              + [f"{k}_tf32_wide_kernel<{d}>" for d in flash_ops.WIDE_HEAD_DIMS
+                 for k in ("dq", "dkv")])
+
+
 def print_ptxas(source, expect=()):
     """Registers, shared memory and spills of each kernel in ``source``, from
     the ``-Xptxas -v`` report the build keeps, and any note that ptxas
@@ -4023,7 +4068,10 @@ def main():
         mod.build()
     print(f"build: {time.perf_counter() - t0:.1f}s", flush=True)
     print_ptxas(flash_ops.SM90_SOURCE)
-    print_ptxas(flash_ops.SOURCE, [f"fwd_tf32_kernel<{d}>" for d in flash_ops.TF32_FWD_HEAD_DIMS])
+    print_ptxas(flash_ops.SOURCE, F32_EXPECT)
+    for name, nbytes in flash_grid.tf32_wide_smem().items():
+        print(f"build[smem {name}]: {nbytes} bytes of dynamic shared memory a block "
+              "(232,448 at most)", flush=True)
 
     rec = check_kernels()
     for k, r in check_update_c1().items():

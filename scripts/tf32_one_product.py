@@ -8,7 +8,9 @@ that the f32 limits catch a lost term:
 Each three-term product (``lo*hi, hi*lo, hi*hi``: ``mma3`` on mma.sync,
 which every product of the mma.sync kernels (K5 ``fwd_tf32_kernel``, K6
 ``dq_tf32_kernel``, K7 ``dkv_tf32_kernel``) reaches through ``mma_abt`` and
-``mma_ab``, and each run of three ``wgmma_tf32`` lines) keeps its ``hi*hi``
+``mma_ab``, and of the D = 256 ones (``dq_tf32_wide_kernel``,
+``dkv_tf32_wide_kernel``) through ``slice_abt`` and ``tile_ab``, and each run
+of three ``wgmma_tf32`` lines) keeps its ``hi*hi``
 product only, with the first product's accumulate flag.  With ``--tree DIR`` the copy is
 written over ``DIR``'s own source instead (a checkout unpacked there), so
 that ``chip_smoke.py``'s phases run on it from ``DIR``.  Fails unless every
@@ -34,7 +36,12 @@ WGMMA3 = re.compile(
     r"wgmma_tf32<\4>\(\1, \5, \2, 1\);")
 
 
-MMA_SYNC_KERNELS = ("fwd_tf32_kernel", "dq_tf32_kernel", "dkv_tf32_kernel")
+# each mma.sync kernel: the helpers through which it reaches mma3
+MMA_SYNC_KERNELS = {"fwd_tf32_kernel": ("mma_abt<", "mma_ab<"),
+                    "dq_tf32_kernel": ("mma_abt<", "mma_ab<"),
+                    "dkv_tf32_kernel": ("mma_abt<", "mma_ab<"),
+                    "dq_tf32_wide_kernel": ("slice_abt<", "tile_ab<"),
+                    "dkv_tf32_wide_kernel": ("slice_abt<", "tile_ab<")}
 
 
 def one_product(src):
@@ -42,9 +49,9 @@ def one_product(src):
     assert src.count(MMA3) == 1, "mma3's three products not found"
     # mma.sync is issued in mma_tf32 alone, and mma_tf32 called in mma3 alone
     assert src.count("mma.sync.aligned") == 1 and src.count("mma_tf32(c, ") == 3
-    for kernel in MMA_SYNC_KERNELS:  # each takes its products through mma3
+    for kernel, helpers in MMA_SYNC_KERNELS.items():  # each takes its products through mma3
         body = re.search(kernel + r"\(const float\* __restrict__ q.*?\n}", src, re.S).group(0)
-        assert "mma_abt<" in body and "mma_ab<" in body, kernel
+        assert all(h in body for h in helpers), kernel
     out, n = WGMMA3.subn(r"wgmma_tf32<\4>(\1, \5, \2, \3);", src.replace(MMA3, ONE))
     assert n >= 1 and "wgmma_tf32<" in out, n
     # every wgmma product left is a hi*hi one

@@ -8,16 +8,18 @@ its own, in one run:
 
 Without ``--f32`` the source is the tensor-core one (``flash_gqa_sm90.cu``,
 bf16); with it, ``flash_gqa.cu`` (f32: the tensor-core K5, K6 and K7 at
-head_dim 64, 80 and 128).  For each source: ptxas's registers and spills
-of the forward, dq and dk/dv kernels (and any note that it serialized their
+head_dim 64, 80 and 128, K6 and K7 at 256 too).  For each source: ptxas's
+registers and spills of the forward, dq and dk/dv kernels (and any note
+that it serialized their
 wgmma products); then, each library in a process of its own swapped in for
 the wrappers' (``ops._sm90_lib``, or ``ops._lib`` with ``--f32``), the
 source's cases of ``chip_smoke.FLASH_CASES`` at the ``--seeds`` (bf16 at D =
-128, or every f32 case at D = 64, 80 and 128: ``check_flash``, unless
+128, or every f32 case, ``chip_smoke.TF32_CASES``: ``check_flash``, unless
 ``--no-check``) and the device times (``chip_smoke.device_ms``) of K5, K6,
 K7 (in bf16 with and without its sum pass, and the sum pass) and K6 + K7 at
-``SHAPES``, beside SDPA's forward and backward once (in f32 SDPA in f32 on
-efficient attention, ``chip_smoke._sdpa``).  Prints the card's name and
+``SHAPES`` (with ``--f32`` ``F32_SHAPES``: gemma3-1b's full and window-512
+layers at D = 256 too), beside SDPA's forward and backward once at each
+full layer (in f32 SDPA in f32 on efficient attention, ``chip_smoke._sdpa``).  Prints the card's name and
 power limit first and writes every time to ``chiprun_out/flash_ab.json``
 (``flash_ab_f32.json`` with ``--f32``).  A source that does not build fails
 the run; one whose check fails or times out is reported and the others go
@@ -34,9 +36,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 sys.path[:0] = [str(ROOT), str(ROOT / "src")]
 
-# (H, KV, D, B, S): internvl2-2b's training shape, granite-moe's, zamba2's
-SHAPES = {"d128_train": (16, 8, 128, 2, 2048), "d64": (16, 8, 64, 2, 2048),
-          "d80": (32, 32, 80, 2, 2048)}
+# (H, KV, D, B, S, window): internvl2-2b's training shape, granite-moe's, zamba2's
+SHAPES = {"d128_train": (16, 8, 128, 2, 2048, None), "d64": (16, 8, 64, 2, 2048, None),
+          "d80": (32, 32, 80, 2, 2048, None)}
+# with --f32 also gemma3-1b's full and window-512 layers (D = 256, G = 4)
+F32_SHAPES = {**SHAPES, "d256": (4, 1, 256, 2, 2048, None), "d256_w512": (4, 1, 256, 2, 2048, 512)}
 CHILD_S = 600  # one source's check and times, then its process is killed
 
 
@@ -77,22 +81,23 @@ def times(label, src, check, f32, seeds):
     if check:
         print(f"[{label}] check: {cs.check_flash(seeds=seeds, cases=cases)}", flush=True)
     out = {}
-    for key, (h, kv, d, b, s) in SHAPES.items():
+    for key, (h, kv, d, b, s, window) in (F32_SHAPES if f32 else SHAPES).items():
         g = torch.Generator(device="cuda").manual_seed(18)
         q, k, v, do = cs._attention(g, h, kv, dtype, b=b, s=s, d=d)
-        o, lse = fo.flash_fwd(q, k, v)
+        w = dict(window=window)
+        o, lse = fo.flash_fwd(q, k, v, **w)
         delta = fo.row_delta(do, o)
-        r = {"fwd": cs.device_ms(lambda: fo.flash_fwd(q, k, v)),
-             "dq": cs.device_ms(lambda: fo.flash_bwd_dq(q, k, v, do, lse, delta)),
-             "dkv": cs.device_ms(lambda: fo.flash_bwd_dkv(q, k, v, do, lse, delta)),
-             "pair": cs.device_ms(lambda: (fo.flash_bwd_dq(q, k, v, do, lse, delta),
-                                           fo.flash_bwd_dkv(q, k, v, do, lse, delta)))}
+        r = {"fwd": cs.device_ms(lambda: fo.flash_fwd(q, k, v, **w)),
+             "dq": cs.device_ms(lambda: fo.flash_bwd_dq(q, k, v, do, lse, delta, **w)),
+             "dkv": cs.device_ms(lambda: fo.flash_bwd_dkv(q, k, v, do, lse, delta, **w)),
+             "pair": cs.device_ms(lambda: (fo.flash_bwd_dq(q, k, v, do, lse, delta, **w),
+                                           fo.flash_bwd_dkv(q, k, v, do, lse, delta, **w)))}
         if h > kv and not f32:
             pk, pv = fo.flash_bwd_dkv_partials(q, k, v, do, lse, delta)
             r["dkv_alone"] = cs.device_ms(
                 lambda: fo.flash_bwd_dkv_partials(q, k, v, do, lse, delta))
             r["sum"] = cs.device_ms(lambda: fo.flash_bwd_dkv_sum(pk, pv, kv))
-        if label == "this":
+        if label == "this" and window is None:
             qt, kt, vt, dot = (t.transpose(1, 2).contiguous() for t in (q, k, v, do))
             sdpa, kt, vt, _ = cs._sdpa(kt, vt, h, dtype)
             r["sdpa_fwd"] = cs.device_ms(lambda: sdpa(qt, kt, vt))

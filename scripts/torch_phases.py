@@ -19,12 +19,14 @@ offset), ``flash_narrow`` (``check_flash``'s bf16 cases at D = 64, 80 and
 3's times: ``time_flash`` at gemma3-1b's full and window-512 layers, then
 ``time_flash_other_shapes``, D = 80 at zamba2's H = KV = 32 and phase 19's
 rank, D = 64 at granite-moe's training shape, D = 128 at internvl2's
-prefill and training shape, beside SDPA), ``flash_f32_times`` (phase 3's
+prefill and training shape, beside SDPA), ``flash_f32`` (``check_flash``'s
+f32 cases, ``TF32_CASES``, at every seed), ``flash_f32_times`` (phase 3's
 f32 times, ``time_flash_f32``: D = 64, 80 and 128 and gemma3-1b's full and
 window-512 layers at D = 256, beside SDPA in f32), ``train`` (phase 13), ``launch``
 (phase 15: the train step of gemma3-1b and internvl2-2b, and of
-granite-moe-1b-a400m in f32, against the dry run, its gradient check and
-planted faults), ``launch_f32`` (phase 15's f32 step alone), ``train_spread`` (phase 13's
+granite-moe-1b-a400m and gemma3-1b in f32, against the dry run, its
+gradient check and planted faults), ``launch_f32`` (phase 15's f32 steps
+alone), ``launch_gemma_f32`` (gemma3-1b's f32 step alone), ``train_spread`` (phase 13's
 training, then its loss check, planted faults too, on each of
 ``SPREAD_GROUPS`` groups of four client batches: phase 13 reads the first),
 ``async`` (phase 9), ``tp_serve`` (phases 18 and 20: one spawn of
@@ -109,9 +111,12 @@ PHASES = {
     "flash_times": (lambda: {"gemma3-1b": cs.time_flash(4, 1, 256, (None, 512), seed=13),
                              **cs.time_flash_other_shapes()}, False),
     "flash_f32_times": (cs.time_flash_f32, False),
+    "flash_f32": (lambda: cs.check_flash(cases=cs.TF32_CASES), False),
     "train": (lambda: {a: cs.arch_train_run(a) for a in cs.ARCH_TRAIN}, True),
     "launch": (cs.launch_tooling_run, True),
-    "launch_f32": (lambda: cs.launch_tooling_run(("granite-moe-1b-a400m",)), True),
+    "launch_f32": (lambda: cs.launch_tooling_run(
+        [key for key in cs.LAUNCH_ARCHS if key[1] == "float32"]), True),
+    "launch_gemma_f32": (lambda: cs.launch_tooling_run((("gemma3-1b", "float32"),)), True),
     "train_spread": (train_spread, True),
     "async": (cs.async_run, True),
     "tp_serve": (_tp_serve, True),

@@ -6,12 +6,13 @@
 //   K6  flash_gqa_bwd_pallas, dq pass (_flash_bwd_dq_kernel)  -> flash_gqa_bwd_dq
 //   K7  flash_gqa_bwd_pallas, dk/dv pass (_flash_bwd_dkv_kernel) -> flash_gqa_bwd_dkv
 // All three take f32 here; bf16 runs their tensor-core versions in
-// flash_gqa_sm90.cu.  At head_dim 256 K5-K7 run the SIMT kernels below
-// (fwd_kernel, dq_kernel, dkv_kernel: products in f32 on the CUDA cores); at
-// head_dim 64, 80 and 128 they run f32-accurate products on the tensor cores
-// (three TF32 products each, further down): K5 fwd_tf32_kernel (mma.sync)
-// at all three, K6 and K7 dq_wgmma_kernel and dkv_wgmma_kernel at 64,
-// dq_tf32_kernel and dkv_tf32_kernel (mma.sync) at 80 and 128.
+// flash_gqa_sm90.cu.  K6 and K7 run f32-accurate products on the tensor
+// cores at every width (three TF32 products each, further down):
+// dq_wgmma_kernel and dkv_wgmma_kernel at head_dim 64, dq_tf32_kernel and
+// dkv_tf32_kernel (mma.sync) at 80 and 128, dq_tf32_wide_kernel and
+// dkv_tf32_wide_kernel (mma.sync, the D split over the warps) at 256.  K5
+// runs fwd_tf32_kernel (mma.sync) at 64, 80 and 128, and at 256 the SIMT
+// fwd_kernel below (products in f32 on the CUDA cores).
 //
 // Layouts are the model's (repro.kernels.flash_gqa.ops.flash_gqa takes them):
 //   q, o, dO, dq  (B, S, H, D)     k, v, dk, dv  (B, S, KV, D)     lse, delta (B, H, S) f32
@@ -32,33 +33,32 @@
 //       KV head and every query tile that sees the key tile.
 //   delta = rowsum(dO * out) is computed by the caller, as repro does.
 //
-// What bounds the SIMT kernels on an H100 SXM: at gemma3-1b's layer (B = 2,
+// What bounds the SIMT forward on an H100 SXM: at gemma3-1b's layer (B = 2,
 // S = 2048, H = 4, KV = 1, D = 256) the work is 4D flops per visible (query,
-// key) pair forward, 6D (dq) and 8D (dk/dv) backward, over ~4-17 MB of f32
-// operands: operations set the bound, at three TF32 products a flop on the
-// tensor cores (495e12 / 3 FLOP/s; kernels/costs.py).  These kernels do their
-// products in f32 on the CUDA cores (67 TFLOP/s at most), so they sit far from
-// that bound (5-11 % of it).
+// key) pair over ~4-17 MB of f32 operands: operations set the bound, at three
+// TF32 products a flop on the tensor cores (495e12 / 3 FLOP/s;
+// kernels/costs.py).  fwd_kernel does its products in f32 on the CUDA cores
+// (67 TFLOP/s at most), so it sits far from that bound (6-8 % of it).
 //
-// What the SIMT design does (at D = 256; the templates take any multiple of
+// What the SIMT forward does (at D = 256; the template takes any multiple of
 // 16):
-//  - one 256-thread block per (batch*head, 64-query tile) for K5 and K6, and per
-//    (batch*KV head, 32-key tile) for K7; tiles live in shared memory as f32
-//    with rows padded to D + 1 floats, so neither the row-wise nor the
-//    column-wise reads of a tile hit one bank twice.  At D = 256 that is 137 KB
-//    (K5), 201 KB (K6) and 210 KB (K7) of dynamic shared memory, one block per
-//    SM; the launch raises the 48 KB default and its return code is checked;
-//  - the window prunes exactly: K5/K6 visit key tiles
-//    max(0, q0 - W + 1)/32 .. (q0 + 63)/32, K7 query tiles k0/64 ..
-//    (k0 + 31 + W - 1)/64, recomputed here for these tiles, not the TPU's 512s;
-//    the element mask is computed for the tile actually loaded;
+//  - one 256-thread block per (batch*head, 64-query tile); tiles live in
+//    shared memory as f32 with rows padded to D + 1 floats, so neither the
+//    row-wise nor the column-wise reads of a tile hit one bank twice.  At D =
+//    256 that is 137 KB of dynamic shared memory, one block per SM; the
+//    launch raises the 48 KB default and its return code is checked;
+//  - the window prunes exactly: the block visits key tiles
+//    max(0, q0 - W + 1)/32 .. (q0 + 63)/32, recomputed here for these tiles,
+//    not the TPU's 512s; the element mask is computed for the tile actually
+//    loaded;
 //  - masked scores are -inf and never enter exp: a row that has seen no
 //    visible key keeps m = -inf, l = 0 and takes alpha = 1, p = 0, so the
 //    tile order does not matter and no NaN arises (the TPU kernel's finite
 //    -1e30 relies on the diagonal tile coming last instead);
-//  - every sum runs in one fixed order inside one block: K6 loops over its key
-//    tiles, K7 over the G heads then the query tiles (the TPU kernel's
-//    sequential innermost axis).  No atomics: results are bitwise run to run;
+//  - every sum runs in one fixed order inside one block, in every kernel of
+//    this file: K6 loops over its key tiles, K7 over the G heads then the
+//    query tiles (the TPU kernel's sequential innermost axis).  No atomics:
+//    results are bitwise run to run;
 //  - a ragged S is masked: rows past S load as zero and are never stored.
 
 #include <cuda_runtime.h>
@@ -74,8 +74,7 @@ constexpr int kLdp = kBK + 1;  // padded row of a (kBQ, kBK) score tile
 // A (kBQ, kBK) score tile: thread (tr = tid / 16, tc = tid % 16) holds rows
 // tr*4 .. tr*4+3 and key columns tc, tc + 16.  The 16 threads of one row group
 // are one half-warp, so row reductions are 4 xor-shuffles.  A (kBQ, D) output
-// tile: the same 4 rows, columns tc + 16*c.  A (kBK, D) tile of K7: rows
-// tr*2, tr*2+1, columns tc + 16*c.
+// tile: the same 4 rows, columns tc + 16*c.
 
 struct Shape {
   int b, s, h, kv;
@@ -245,217 +244,6 @@ fwd_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
   }
 }
 
-// p and ds for one (kBQ, kBK) tile from the scores s, dO v^T and the row stats.
-__device__ __forceinline__ void probs_and_dscores(float (&sc)[4][2], float (&dp)[4][2],
-                                                  const float (&lse_r)[4],
-                                                  const float (&delta_r)[4], int q0,
-                                                  int k0, int tr, int tc, const Shape& sh) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + tr * 4 + i;
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      float s = sc[i][j], t = 0.f;
-      if (sh.softcap > 0.f) {
-        t = tanhf(s / sh.softcap);
-        s = sh.softcap * t;
-      }
-      const float p = visible(qi, k0 + tc + 16 * j, sh) ? expf(s - lse_r[i]) : 0.f;
-      float ds = p * (dp[i][j] - delta_r[i]);
-      if (sh.softcap > 0.f) ds *= 1.f - t * t;
-      sc[i][j] = p;
-      dp[i][j] = ds;
-    }
-  }
-}
-
-// -- K6: dq pass ---------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dq_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-          const float* __restrict__ dout, const float* __restrict__ lse,
-          const float* __restrict__ delta, float* __restrict__ dq, Shape sh) {
-  constexpr int ld = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Qs = smem;              // kBQ x ld, scaled
-  float* dOs = Qs + kBQ * ld;    // kBQ x ld
-  float* Ks = dOs + kBQ * ld;    // kBK x ld
-  float* Vs = Ks + kBK * ld;     // kBK x ld
-  float* dSs = Vs + kBK * ld;    // kBQ x kLdp
-
-  const int bh = blockIdx.y, b = bh / sh.h, h = bh % sh.h;
-  const int kvh = h / (sh.h / sh.kv);
-  const long long q_rs = (long long)sh.h * D, k_rs = (long long)sh.kv * D;
-  const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
-  const long long k_off = ((long long)b * sh.s * sh.kv + kvh) * D;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const int q0 = blockIdx.x * kBQ;
-
-  load_rows<D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
-  load_rows<D>(dOs, dout + q_off, q_rs, q0, kBQ, sh.s, 1.f);
-  float lse_r[4], delta_r[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + tr * 4 + i;
-    lse_r[i] = qi < sh.s ? lse[(long long)bh * sh.s + qi] : 0.f;
-    delta_r[i] = qi < sh.s ? delta[(long long)bh * sh.s + qi] : 0.f;
-  }
-
-  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kBK : 0;
-  const int kt_last = (min(q0 + kBQ, sh.s) - 1) / kBK;
-
-  float acc[4][NC];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc[i][c] = 0.f;
-
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int k0 = kt * kBK;
-    __syncthreads();
-    load_rows<D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
-    load_rows<D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
-    __syncthreads();
-
-    float sc[4][2], dp[4][2];
-    tile_dot<D>(Qs, Ks, tr * 4, tc, sc);
-    tile_dot<D>(dOs, Vs, tr * 4, tc, dp);
-    probs_and_dscores(sc, dp, lse_r, delta_r, q0, k0, tr, tc, sh);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) dSs[(tr * 4 + i) * kLdp + tc + 16 * j] = dp[i][j];
-    __syncthreads();
-
-#pragma unroll 2
-    for (int j = 0; j < kBK; ++j) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) ds[i] = dSs[(tr * 4 + i) * kLdp + j];
-#pragma unroll
-      for (int c = 0; c < NC; ++c) {
-        const float kk = Ks[j * ld + tc + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i][c] = fmaf(ds[i], kk, acc[i][c]);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int qi = q0 + tr * 4 + i;
-    if (qi >= sh.s) continue;
-    float* row = dq + q_off + (long long)qi * q_rs;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) row[tc + 16 * c] = acc[i][c] * sh.scale;
-  }
-}
-
-// -- K7: dk/dv pass ------------------------------------------------------------
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-           const float* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv,
-           Shape sh) {
-  constexpr int ld = D + 1, NC = D / 16;
-  extern __shared__ float smem[];
-  float* Ks = smem;              // kBK x ld
-  float* Vs = Ks + kBK * ld;     // kBK x ld
-  float* Qs = Vs + kBK * ld;     // kBQ x ld, scaled
-  float* dOs = Qs + kBQ * ld;    // kBQ x ld
-  float* Ps = dOs + kBQ * ld;    // kBQ x kLdp
-  float* dSs = Ps + kBQ * kLdp;  // kBQ x kLdp
-
-  const int bkv = blockIdx.y, b = bkv / sh.kv, kvh = bkv % sh.kv;
-  const int g = sh.h / sh.kv;
-  const long long q_rs = (long long)sh.h * D, k_rs = (long long)sh.kv * D;
-  const long long k_off = ((long long)b * sh.s * sh.kv + kvh) * D;
-  const int tr = threadIdx.x >> 4, tc = threadIdx.x & 15;
-  const int k0 = blockIdx.x * kBK;
-  const int k1 = min(k0 + kBK, sh.s) - 1;
-
-  load_rows<D>(Ks, k + k_off, k_rs, k0, kBK, sh.s, 1.f);
-  load_rows<D>(Vs, v + k_off, k_rs, k0, kBK, sh.s, 1.f);
-
-  const int qt_first = k0 / kBQ;
-  const int qt_last = (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : sh.s - 1) / kBQ;
-
-  float acc_k[2][NC], acc_v[2][NC];
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj)
-#pragma unroll
-    for (int c = 0; c < NC; ++c) acc_k[jj][c] = acc_v[jj][c] = 0.f;
-
-  for (int gi = 0; gi < g; ++gi) {
-    const int h = kvh * g + gi;
-    const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
-    const long long row_off = ((long long)b * sh.h + h) * sh.s;
-    for (int qt = qt_first; qt <= qt_last; ++qt) {
-      const int q0 = qt * kBQ;
-      __syncthreads();  // the last step's Qs/dOs/Ps/dSs reads are done
-      load_rows<D>(Qs, q + q_off, q_rs, q0, kBQ, sh.s, sh.scale);
-      load_rows<D>(dOs, dout + q_off, q_rs, q0, kBQ, sh.s, 1.f);
-      __syncthreads();
-
-      float lse_r[4], delta_r[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int qi = q0 + tr * 4 + i;
-        lse_r[i] = qi < sh.s ? lse[row_off + qi] : 0.f;
-        delta_r[i] = qi < sh.s ? delta[row_off + qi] : 0.f;
-      }
-      float sc[4][2], dp[4][2];
-      tile_dot<D>(Qs, Ks, tr * 4, tc, sc);
-      tile_dot<D>(dOs, Vs, tr * 4, tc, dp);
-      probs_and_dscores(sc, dp, lse_r, delta_r, q0, k0, tr, tc, sh);
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-          Ps[(tr * 4 + i) * kLdp + tc + 16 * j] = sc[i][j];
-          dSs[(tr * 4 + i) * kLdp + tc + 16 * j] = dp[i][j];
-        }
-      __syncthreads();
-
-#pragma unroll 2
-      for (int r = 0; r < kBQ; ++r) {
-        float p[2], ds[2];
-#pragma unroll
-        for (int jj = 0; jj < 2; ++jj) {
-          p[jj] = Ps[r * kLdp + tr * 2 + jj];
-          ds[jj] = dSs[r * kLdp + tr * 2 + jj];
-        }
-#pragma unroll
-        for (int c = 0; c < NC; ++c) {
-          const float qv = Qs[r * ld + tc + 16 * c];
-          const float dov = dOs[r * ld + tc + 16 * c];
-#pragma unroll
-          for (int jj = 0; jj < 2; ++jj) {
-            acc_v[jj][c] = fmaf(p[jj], dov, acc_v[jj][c]);
-            acc_k[jj][c] = fmaf(ds[jj], qv, acc_k[jj][c]);
-          }
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int jj = 0; jj < 2; ++jj) {
-    const int kj = k0 + tr * 2 + jj;
-    if (kj >= sh.s) continue;
-    float* krow = dk + k_off + (long long)kj * k_rs;
-    float* vrow = dv + k_off + (long long)kj * k_rs;
-#pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      krow[tc + 16 * c] = acc_k[jj][c];
-      vrow[tc + 16 * c] = acc_v[jj][c];
-    }
-  }
-}
-
 // -- K6 and K7 on the tensor cores: mma.sync tf32, three-term split ----------
 //
 // At head_dim 64, 80 and 128 the f32 dq and dk/dv passes (and K5, below
@@ -466,8 +254,9 @@ dkv_kernel(const float* __restrict__ q, const float* __restrict__ k, const float
 // hi*hi, the small terms first, into the f32 accumulator (about 2^-21
 // relative a product; one TF32 product keeps about 2^-11).  K6 and K7 run
 // at 64 on wgmma (the section after K5); at 80 and 128 on the kernels
-// below, mma.sync.m16n8k8 with tf32 operands.  D = 256 stays on the SIMT
-// kernels above: a dispatch by width.
+// below, mma.sync.m16n8k8 with tf32 operands; at 256 on mma.sync too, with
+// the D split over the warps (``dq_tf32_wide_kernel``,
+// ``dkv_tf32_wide_kernel``, after these): a dispatch by width.
 //
 // Why mma.sync at 80 and 128: wgmma reads tf32 operands from shared memory
 // K-major only (no transpose for 32-bit types), so dq = dS K, dV += P^T dO
@@ -946,6 +735,425 @@ dkv_tf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
       if constexpr (!kPairs)
         *reinterpret_cast<float2*>(dk + row + 8 * n + 2 * t) =
             make_float2(acc_k[n][2 * i] * sh.scale, acc_k[n][2 * i + 1] * sh.scale);
+    }
+  }
+}
+
+// -- K6 and K7 at head_dim 256 on the tensor cores: the D split over warps --
+//
+// At head_dim 256 the f32 dq and dk/dv passes take the same three-term split
+// (``mma3``) on mma.sync, in a design of their own.  The D = 128 kernels'
+// warps each hold 16 rows of the block's resident tile whole and the same 16
+// rows of the output (dQ, or dK and dV) in registers; at 256 the output alone
+// would take 128 registers a thread (dQ) or 256 (dK and dV), and the
+// resident f32 tiles with a streamed tile's pairs more shared memory than a
+// block has (K6's Q and dO at 128 rows are 256 KB of the 227 KB).  So each
+// warp here holds a 64-column slice of D:
+//  - the block's resident rows (K6: 32 queries of a head; K7: 16 keys of a
+//    KV head) are read once into registers, split into (hi, lo), each warp
+//    its slice of one of the two resident tensors (warps 0-3 Q or K, columns
+//    64w .. 64w + 63; warps 4-7 dO or V): 128 registers a thread in K6, 64 in
+//    K7, and none of it in shared memory;
+//  - the streamed tiles (K6: 32 keys of K and V; K7: 32 queries of Q and dO
+//    with their LSE and delta rows) land raw by cp.async in a ring of two
+//    stages, the next while this one is multiplied, rows padded to D + 4
+//    floats, so that every fragment load below hits 32 distinct banks.  A
+//    streamed operand is split into (hi, lo) where it is read: a streamed
+//    value is read by at most two warps (its score slice's and its output
+//    columns'), not by every warp as at 128, and no pair copy takes shared
+//    memory (K7 splitting each tile once into pairs, behind a barrier, ran
+//    1.35-1.39x slower: no warp multiplies while the block splits);
+//  - scores: each warp multiplies its slice (K6: S = Q K^T or dP = dO V^T;
+//    K7: S^T = K Q^T or dP^T = V dO^T), 24 products summed from zero, and
+//    writes that partial to shared memory; each warp then adds the four
+//    partials of one 8-column tile of the scores in a fixed order, ((p0 +
+//    p1) + p2) + p3, and takes P and dS (K6) or P^T and dS^T (K7) of it,
+//    written to shared memory in the accumulator layout the gradient
+//    products read as their A operand (``mma_ab``'s column order);
+//  - gradients: K6 warp w: dQ's columns 32w .. 32w + 31 += dS K; K7 warps
+//    0-3: dV's columns of their slice += P^T dO, warps 4-7 dK's += dS^T Q;
+//    each tile's 12 products summed from zero on the tensor cores, then
+//    added to the output in f32 (the long-sum rule above);
+//  - three barriers a tile: the tile landed and the last tile's reads are
+//    done; the partials written; P and dS written;
+//  - K6: one 256-thread block per (batch * head, 32 queries), the rows with
+//    the most keys first.  K7: one per (batch * KV head, two 16-key units):
+//    block y takes unit y, then unit n - 1 - y, so that under the causal
+//    mask every block does about the same work (gemma3-1b's full layer: 128
+//    blocks of equal work for 132 SMs); the G query heads of the KV head
+//    folded inside, every sum in one fixed order, no atomics;
+//  - ranges on absolute positions: every streamed tile in a block's range
+//    (K6 ``kt_first`` .. ``kt_last``, K7 ``qt_first`` .. ``qt_last``) holds a
+//    pair the block sees, so no warp skips a tile (grid.py mirrors the
+//    ranges); masked pairs are exact zeros; rows past S load as zeros and
+//    are never stored.
+// What bounds them on an H100 SXM: operations, as the kernels above (6D and
+// 8D flops a visible pair, at three TF32 products a flop).  A streamed tile
+// feeds 32 (K6) or 16 (K7) resident rows, so each block also reads 64 KB
+// from the L2 a tile.
+
+constexpr int kWideSlice = 64;    // D columns of a warp's slice
+constexpr int kWideTile = 32;     // rows of a streamed tile: K6 keys, K7 queries
+constexpr int kWideLd = 256 + 4;  // floats a row of a landed tile
+constexpr int kDqWideRows = 32;   // K6: query rows a block
+constexpr int kDkvWideKeys = 16;  // K7: keys a unit, two units a block
+
+// Rows row0 .. row0 + nrows - 1 of an f32 tensor with 256 columns (rows
+// row_stride apart) by cp.async into rows of kWideLd floats, zeros past S.
+__device__ __forceinline__ void load_rows_wide(float* dst, const float* __restrict__ src,
+                                               long long row_stride, int row0, int nrows,
+                                               int s) {
+  constexpr int kChunks = 256 / 4;
+  for (int i = threadIdx.x; i < nrows * kChunks; i += kTcThreads) {
+    const int r = i / kChunks, c = 4 * (i % kChunks), row = row0 + r;
+    const bool ok = row < s;
+    cp_async16(dst + r * kWideLd + c, src + (long long)(ok ? row : 0) * row_stride + c, ok);
+  }
+}
+
+// A warp's rows 16m + g and 16m + g + 8 of a landed tile at columns c0 ..
+// c0 + 63, split into (hi, lo), in A-fragment order: a[m][ks] holds (g, t),
+// (g + 8, t), (g, t + 4), (g + 8, t + 4) of k-step ks.
+template <int M>
+__device__ __forceinline__ void load_slice(Split (&a)[M][8][4], const float* tile, int c0,
+                                           int g, int t) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int ks = 0; ks < 8; ++ks)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        a[m][ks][i] =
+            split(tile[(16 * m + g + 8 * (i & 1)) * kWideLd + c0 + 8 * ks + t + 4 * (i >> 1)]);
+}
+
+// p[m][n] = A B^T over a 64-column slice, summed from zero: A the warp's
+// rows split in registers (``load_slice``), B the rows 8n .. 8n + 7 of the
+// landed tile `b` at columns c0 .. c0 + 63, split where they are read.
+template <int M, int N>
+__device__ __forceinline__ void slice_abt(float (&p)[M][N][4], const Split (&a)[M][8][4],
+                                          const float* b, int c0, int g, int t) {
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < N; ++n) p[m][n][0] = p[m][n][1] = p[m][n][2] = p[m][n][3] = 0.f;
+  const float* bt = b + g * kWideLd + c0 + t;  // row 8n + g, column c0 + 8ks + t
+#pragma unroll
+  for (int ks = 0; ks < 8; ++ks) {
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      const Split b0 = split(bt[8 * n * kWideLd + 8 * ks]);
+      const Split b1 = split(bt[8 * n * kWideLd + 8 * ks + 4]);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+        mma3(p[m][n], a[m][ks], make_uint2(b0.hi, b0.lo), make_uint2(b1.hi, b1.lo));
+    }
+  }
+}
+
+// c[m][n] += A B for one landed tile: A (16M x 8K) in accumulator layout in
+// shared memory (slot (m, kk), the lane's 4 values, at ax[32 (m K + kk) +
+// lane]), B the tile's rows 8kk + 2t and 2t + 1 (A's column order, as
+// ``mma_ab``'s) at columns c0 + 8n + g.  The tile's 3K products are summed
+// from zero on the tensor cores, CH output tiles at a time (registers), then
+// added to c in f32.
+template <int M, int K, int NO, int CH>
+__device__ __forceinline__ void tile_ab(float (&c)[M][NO][4], const float4* ax, const float* b,
+                                        int c0, int lane, int g, int t) {
+  static_assert(NO % CH == 0, "whole chunks");
+#pragma unroll
+  for (int n0 = 0; n0 < NO; n0 += CH) {
+    float part[M][CH][4];
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) part[m][n][i] = 0.f;
+    const float* bt = b + 2 * t * kWideLd + c0 + 8 * n0 + g;  // row 8kk + 2t, column .. + 8n + g
+#pragma unroll
+    for (int kk = 0; kk < K; ++kk) {
+      Split af[M][4];
+#pragma unroll
+      for (int m = 0; m < M; ++m) {
+        const float4 e = ax[32 * (m * K + kk) + lane];  // (g, 2t), (g, 2t + 1), (g + 8, 2t), ...
+        af[m][0] = split(e.x);
+        af[m][1] = split(e.z);
+        af[m][2] = split(e.y);
+        af[m][3] = split(e.w);
+      }
+#pragma unroll
+      for (int n = 0; n < CH; ++n) {
+        const Split b0 = split(bt[8 * kk * kWideLd + 8 * n]);
+        const Split b1 = split(bt[(8 * kk + 1) * kWideLd + 8 * n]);
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          mma3(part[m][n], af[m], make_uint2(b0.hi, b0.lo), make_uint2(b1.hi, b1.lo));
+      }
+    }
+#pragma unroll
+    for (int m = 0; m < M; ++m)
+#pragma unroll
+      for (int n = 0; n < CH; ++n)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) c[m][n0 + n][i] += part[m][n][i];
+  }
+}
+
+// The four warps' partials p[0], p[stride], p[2 stride], p[3 stride] added
+// in that order.
+__device__ __forceinline__ void sum4(float (&out)[4], const float4* p, int stride) {
+  float4 s = p[0];
+#pragma unroll
+  for (int w = 1; w < 4; ++w) {
+    const float4 x = p[w * stride];
+    s.x += x.x;
+    s.y += x.y;
+    s.z += x.z;
+    s.w += x.w;
+  }
+  out[0] = s.x;
+  out[1] = s.y;
+  out[2] = s.z;
+  out[3] = s.w;
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dq_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, Shape sh) {
+  static_assert(D == 4 * kWideSlice && D + 4 == kWideLd, "four 64-column slices");
+  constexpr int M = kDqWideRows / 16, N = kWideTile / 8, kStage = 2 * kWideTile * kWideLd;
+  extern __shared__ __align__(16) float smem[];
+  // two stages of a K and a V tile, then each warp's partial slots, the dS slots
+  float4* part = reinterpret_cast<float4*>(smem + 2 * kStage);
+  float4* dsx = part + 8 * M * N * 32;
+
+  const int bh = blockIdx.x, b = bh / sh.h, h = bh % sh.h;
+  const int kvh = h / (sh.h / sh.kv);
+  const long long q_rs = (long long)sh.h * D, k_rs = (long long)sh.kv * D;
+  const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
+  const long long k_off = ((long long)b * sh.s * sh.kv + kvh) * D;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqWideRows;  // the most keys first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // scores: warps 0-3 S = Q K^T, warps 4-7 dP = dO V^T, over columns c0 ..
+  // c0 + 63; then warp w adds up slot (rm, rn) = (w / N, w % N) of both
+  const int role = warp >> 2, c0 = kWideSlice * (warp & 3), rm = warp / N, rn = warp % N;
+
+  const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kWideTile : 0;
+  const int kt_last = (min(q0 + kDqWideRows, sh.s) - 1) / kWideTile;
+  auto land_kv = [&](int kt) {
+    float* st = smem + ((kt - kt_first) & 1) * kStage;
+    load_rows_wide(st, k + k_off, k_rs, kt * kWideTile, kWideTile, sh.s);
+    load_rows_wide(st + kWideTile * kWideLd, v + k_off, k_rs, kt * kWideTile, kWideTile, sh.s);
+    cp_commit();
+  };
+  // the block's Q and dO rows land in stage 1, read once into registers;
+  // the first key tile in stage 0
+  load_rows_wide(smem + kStage, q + q_off, q_rs, q0, kDqWideRows, sh.s);
+  load_rows_wide(smem + kStage + kWideTile * kWideLd, dout + q_off, q_rs, q0, kDqWideRows, sh.s);
+  land_kv(kt_first);
+
+  float lse_r[2], delta_r[2];  // rows q0 + 16 rm + g (+ 8) of the slot this warp adds up
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qi = q0 + 16 * rm + g + 8 * i;
+    lse_r[i] = qi < sh.s ? lse[(long long)bh * sh.s + qi] : 0.f;
+    delta_r[i] = qi < sh.s ? delta[(long long)bh * sh.s + qi] : 0.f;
+  }
+  cp_wait_all();
+  __syncthreads();
+  Split a[M][8][4];
+  load_slice<M>(a, smem + kStage + role * kWideTile * kWideLd, c0, g, t);
+
+  float acc[M][4][4];  // dQ's rows 16m + g (+ 8), columns 32 warp + 8n + 2t (+ 1)
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int n = 0; n < 4; ++n) acc[m][n][0] = acc[m][n][1] = acc[m][n][2] = acc[m][n][3] = 0.f;
+
+  for (int kt = kt_first; kt <= kt_last; ++kt) {
+    const float* st = smem + ((kt - kt_first) & 1) * kStage;
+    cp_wait_all();
+    __syncthreads();  // tile kt landed; every warp is done with the last tile and the slots
+    if (kt < kt_last) land_kv(kt + 1);
+#pragma unroll
+    for (int n0 = 0; n0 < N; n0 += N / 2) {  // half the key columns at a time (registers)
+      float p[M][N / 2][4];
+      slice_abt<M, N / 2>(p, a, st + (role * kWideTile + 8 * n0) * kWideLd, c0, g, t);
+#pragma unroll
+      for (int m = 0; m < M; ++m)
+#pragma unroll
+        for (int n = 0; n < N / 2; ++n)
+          part[32 * ((warp * M + m) * N + n0 + n) + lane] =
+              make_float4(p[m][n][0], p[m][n][1], p[m][n][2], p[m][n][3]);
+    }
+    __syncthreads();  // every partial written
+    {
+      const float4* sp = part + 32 * (rm * N + rn) + lane;  // warp w's slot at + 32 M N w
+      float sc[4], dp[4], ds[4];
+      sum4(sc, sp, 32 * M * N);
+      sum4(dp, sp + 4 * 32 * M * N, 32 * M * N);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int qi = q0 + 16 * rm + g + 8 * (i >> 1);
+        const int kj = kt * kWideTile + 8 * rn + 2 * t + (i & 1);
+        float s = sc[i] * sh.scale, th = 0.f;
+        if (sh.softcap > 0.f) {
+          th = tanhf(s / sh.softcap);
+          s = sh.softcap * th;
+        }
+        const float pr = visible(qi, kj, sh) ? __expf(s - lse_r[i >> 1]) : 0.f;
+        ds[i] = pr * (dp[i] - delta_r[i >> 1]);
+        if (sh.softcap > 0.f) ds[i] *= 1.f - th * th;
+      }
+      dsx[32 * (rm * N + rn) + lane] = make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();  // dS written
+    tile_ab<M, N, 4, 2>(acc, dsx, st, 32 * warp, lane, g, t);  // dQ += dS K
+  }
+
+#pragma unroll
+  for (int m = 0; m < M; ++m)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int qi = q0 + 16 * m + g + 8 * i;
+      if (qi >= sh.s) continue;
+      float* row = dq + q_off + (long long)qi * q_rs + 32 * warp + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 4; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(acc[m][n][2 * i] * sh.scale, acc[m][n][2 * i + 1] * sh.scale);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kTcThreads, 1)
+dkv_tf32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, Shape sh) {
+  static_assert(D == 4 * kWideSlice && D + 4 == kWideLd, "four 64-column slices");
+  constexpr int N = kWideTile / 8, kStage = 2 * kWideTile * kWideLd + 2 * kWideTile;
+  extern __shared__ __align__(16) float smem[];
+  // two stages of a Q and a dO tile with their LSE and delta rows, then
+  // each warp's partial slots, the P^T slots, the dS^T slots
+  float4* part = reinterpret_cast<float4*>(smem + 2 * kStage);
+  float4* ptx = part + 8 * N * 32;
+  float4* dstx = ptx + N * 32;
+
+  const int bkv = blockIdx.x, b = bkv / sh.kv, kvh = bkv % sh.kv;
+  const int grp = sh.h / sh.kv;
+  const long long q_rs = (long long)sh.h * D, k_rs = (long long)sh.kv * D;
+  const long long k_off = ((long long)b * sh.s * sh.kv + kvh) * D;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  // scores: warps 0-3 S^T = K Q^T, warps 4-7 dP^T = V dO^T, over columns c0
+  // .. c0 + 63; then warp w adds up slot rn = w % N (P^T by warps 0-3, dS^T
+  // by 4-7); gradients at the same columns: warps 0-3 dV += P^T dO, 4-7 dK
+  // += dS^T Q
+  const int role = warp >> 2, c0 = kWideSlice * (warp & 3), rn = warp % N;
+  const int n_units = (sh.s + kDkvWideKeys - 1) / kDkvWideKeys;
+
+  for (int pass = 0; pass < 2; ++pass) {
+    const int unit = pass == 0 ? blockIdx.y : n_units - 1 - blockIdx.y;
+    if (pass == 1 && unit == blockIdx.y) break;  // the middle unit of an odd count
+    const int k0 = unit * kDkvWideKeys, k1 = min(k0 + kDkvWideKeys, sh.s) - 1;
+    const int qt_first = k0 / kWideTile;
+    const int qt_last =
+        (sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : sh.s - 1) / kWideTile;
+    const int nqt = qt_last - qt_first + 1, items = grp * nqt;
+
+    // item j: query head kvh * G + j / nqt, query tile qt_first + j % nqt
+    auto land_item = [&](int j) {
+      float* st = smem + (j & 1) * kStage;
+      const int h = kvh * grp + j / nqt, q0 = (qt_first + j % nqt) * kWideTile;
+      const long long q_off = ((long long)b * sh.s * sh.h + h) * D;
+      load_rows_wide(st, q + q_off, q_rs, q0, kWideTile, sh.s);
+      load_rows_wide(st + kWideTile * kWideLd, dout + q_off, q_rs, q0, kWideTile, sh.s);
+      if (threadIdx.x < 2 * kWideTile) {  // thread r: row r % 32 of the LSE (r < 32) or delta
+        const int qi = q0 + threadIdx.x % kWideTile;
+        const float* rows =
+            (threadIdx.x < kWideTile ? lse : delta) + ((long long)b * sh.h + h) * sh.s;
+        cp_async4(st + 2 * kWideTile * kWideLd + threadIdx.x, rows + (qi < sh.s ? qi : 0),
+                  qi < sh.s);
+      }
+      cp_commit();
+    };
+    __syncthreads();  // every warp is done with the last unit's stages
+    // the unit's K and V rows land in stage 1, read once into registers;
+    // item 0 in stage 0
+    load_rows_wide(smem + kStage, k + k_off, k_rs, k0, kDkvWideKeys, sh.s);
+    load_rows_wide(smem + kStage + kWideTile * kWideLd, v + k_off, k_rs, k0, kDkvWideKeys, sh.s);
+    land_item(0);
+    cp_wait_all();
+    __syncthreads();
+    Split a[1][8][4];
+    load_slice<1>(a, smem + kStage + role * kWideTile * kWideLd, c0, g, t);
+
+    float acc[1][8][4];  // dV (warps 0-3) or dK's rows k0 + g (+ 8), columns c0 + 8n + 2t (+ 1)
+#pragma unroll
+    for (int n = 0; n < 8; ++n) acc[0][n][0] = acc[0][n][1] = acc[0][n][2] = acc[0][n][3] = 0.f;
+
+    for (int j = 0; j < items; ++j) {
+      const float* st = smem + (j & 1) * kStage;
+      const float* stats = st + 2 * kWideTile * kWideLd;  // the tile's LSE rows, then delta's
+      cp_wait_all();
+      __syncthreads();  // item j landed; every warp is done with the last item and the slots
+      if (j + 1 < items) land_item(j + 1);
+      const int q0 = (qt_first + j % nqt) * kWideTile;
+      float p[1][N][4];
+      slice_abt<1, N>(p, a, st + role * kWideTile * kWideLd, c0, g, t);
+#pragma unroll
+      for (int n = 0; n < N; ++n)
+        part[32 * (warp * N + n) + lane] =
+            make_float4(p[0][n][0], p[0][n][1], p[0][n][2], p[0][n][3]);
+      __syncthreads();  // every partial written
+      {
+        // P^T = exp(s - lse) on the visible pairs; dS^T = P^T (dP^T - delta)
+        // times the softcap's chain factor 1 - tanh^2
+        const float4* sp = part + 32 * rn + lane;  // warp w's slot at + 32 N w
+        float sc[4], pt[4];
+        sum4(sc, sp, 32 * N);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const int kj = k0 + g + 8 * (i >> 1), c = 8 * rn + 2 * t + (i & 1);
+          float s = sc[i] * sh.scale, th = 0.f;
+          if (sh.softcap > 0.f) {
+            th = tanhf(s / sh.softcap);
+            s = sh.softcap * th;
+          }
+          pt[i] = visible(q0 + c, kj, sh) ? __expf(s - stats[c]) : 0.f;
+          if (role == 1 && sh.softcap > 0.f) pt[i] *= 1.f - th * th;
+        }
+        if (role == 0) {
+          ptx[32 * rn + lane] = make_float4(pt[0], pt[1], pt[2], pt[3]);
+        } else {
+          float dp[4], ds[4];
+          sum4(dp, sp + 4 * 32 * N, 32 * N);
+#pragma unroll
+          for (int i = 0; i < 4; ++i)
+            ds[i] = pt[i] * (dp[i] - stats[kWideTile + 8 * rn + 2 * t + (i & 1)]);
+          dstx[32 * rn + lane] = make_float4(ds[0], ds[1], ds[2], ds[3]);
+        }
+      }
+      __syncthreads();  // P^T and dS^T written
+      // dV += P^T dO (warps 0-3), dK += dS^T Q (warps 4-7)
+      tile_ab<1, N, 8, 8>(acc, role ? dstx : ptx, st + (role ? 0 : kWideTile * kWideLd), c0,
+                          lane, g, t);
+    }
+
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int kj = k0 + g + 8 * i;
+      if (kj >= sh.s) continue;
+      const float mul = role == 0 ? 1.f : sh.scale;
+      float* row = (role == 0 ? dv : dk) + k_off + (long long)kj * k_rs + c0 + 2 * t;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+        *reinterpret_cast<float2*>(row + 8 * n) =
+            make_float2(acc[0][n][2 * i] * mul, acc[0][n][2 * i + 1] * mul);
     }
   }
 }
@@ -1817,15 +2025,6 @@ template <int D>
 constexpr size_t fwd_smem() {
   return sizeof(float) * (kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * kLdp);
 }
-template <int D>
-constexpr size_t dq_smem() {
-  return sizeof(float) * (2 * kBQ * (D + 1) + 2 * kBK * (D + 1) + kBQ * kLdp);
-}
-template <int D>
-constexpr size_t dkv_smem() {
-  return sizeof(float) * (2 * kBK * (D + 1) + 2 * kBQ * (D + 1) + 2 * kBQ * kLdp);
-}
-
 template <typename Kernel>
 int prepare(Kernel kernel, size_t smem) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1842,36 +2041,6 @@ int launch_fwd(const void* q, const void* k, const void* v, void* o, void* lse,
   kernel<<<grid, kThreads, smem, st>>>(static_cast<const float*>(q), static_cast<const float*>(k),
                                        static_cast<const float*>(v), static_cast<float*>(o),
                                        static_cast<float*>(lse), sh);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const void* lse, const void* delta, void* dq, const Shape& sh,
-              cudaStream_t st) {
-  auto kernel = dq_kernel<D>;
-  constexpr size_t smem = dq_smem<D>();
-  if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid((sh.s + kBQ - 1) / kBQ, sh.b * sh.h);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), sh);
-  return (int)cudaGetLastError();
-}
-
-template <int D>
-int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-               const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
-               cudaStream_t st) {
-  auto kernel = dkv_kernel<D>;
-  constexpr size_t smem = dkv_smem<D>();
-  if (int err = prepare(kernel, smem)) return err;
-  const dim3 grid((sh.s + kBK - 1) / kBK, sh.b * sh.kv);
-  kernel<<<grid, kThreads, smem, st>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sh);
   return (int)cudaGetLastError();
 }
 
@@ -1895,6 +2064,18 @@ constexpr size_t fwd_tf32_smem() {
   return sizeof(float) * (kDqRows * raw_ld<D>() + 2 * dq_tile<D>() * D) +
          sizeof(uint2) * 2 * dq_tile<D>() * (D + 4);
 }
+// K6 at 256: two stages of a K and a V tile, each warp's partial slots, the
+// dS slots
+constexpr size_t dq_wide_smem() {
+  return sizeof(float) * 2 * 2 * kWideTile * kWideLd +
+         sizeof(float4) * (8 + 1) * (kDqWideRows / 16) * (kWideTile / 8) * 32;
+}
+// K7 at 256: two stages of a Q and a dO tile with their LSE and delta rows,
+// each warp's partial slots, the P^T and dS^T slots
+constexpr size_t dkv_wide_smem() {
+  return sizeof(float) * 2 * (2 * kWideTile * kWideLd + 2 * kWideTile) +
+         sizeof(float4) * (8 + 2) * (kWideTile / 8) * 32;
+}
 constexpr size_t kMaxSmem = 232448;  // an H100 block's dynamic shared memory
 static_assert(fwd_tf32_smem<64>() <= kMaxSmem && fwd_tf32_smem<80>() <= kMaxSmem &&
                   fwd_tf32_smem<128>() <= kMaxSmem,
@@ -1903,6 +2084,8 @@ static_assert(dq_tf32_smem<80>() <= kMaxSmem && dq_tf32_smem<128>() <= kMaxSmem,
               "K6 tf32 shared memory");
 static_assert(dkv_tf32_smem<80>() <= kMaxSmem && dkv_tf32_smem<128>() <= kMaxSmem,
               "K7 tf32 shared memory");
+static_assert(dq_wide_smem() <= kMaxSmem && dkv_wide_smem() <= kMaxSmem,
+              "K6, K7 tf32 shared memory at 256");
 static_assert(DqWgLayout<64>::kBytes <= kMaxSmem, "K6 wgmma shared memory");
 static_assert(DkvWgLayout<64>::kBytes <= kMaxSmem, "K7 wgmma shared memory");
 
@@ -1951,6 +2134,38 @@ int launch_dkv_tf32(const void* q, const void* k, const void* v, const void* dou
 }
 
 template <int D>
+int launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, void* dq, const Shape& sh,
+                   cudaStream_t st) {
+  auto kernel = dq_tf32_wide_kernel<D>;
+  constexpr size_t smem = dq_wide_smem();
+  if (int err = prepare(kernel, smem)) return err;
+  const dim3 grid(sh.b * sh.h, (sh.s + kDqWideRows - 1) / kDqWideRows);
+  kernel<<<grid, kTcThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), sh);
+  return (int)cudaGetLastError();
+}
+
+// K7 at 256: block y takes 16-key units y and n - 1 - y
+template <int D>
+int launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, const Shape& sh,
+                    cudaStream_t st) {
+  auto kernel = dkv_tf32_wide_kernel<D>;
+  constexpr size_t smem = dkv_wide_smem();
+  if (int err = prepare(kernel, smem)) return err;
+  const int units = (sh.s + kDkvWideKeys - 1) / kDkvWideKeys;
+  const dim3 grid(sh.b * sh.kv, (units + 1) / 2);
+  kernel<<<grid, kTcThreads, smem, st>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), sh);
+  return (int)cudaGetLastError();
+}
+
+template <int D>
 int launch_dq_wgmma(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, void* dq, const Shape& sh,
                     cudaStream_t st) {
@@ -1991,15 +2206,15 @@ int launch_dkv_wgmma(const void* q, const void* k, const void* v, const void* do
     return (int)cudaErrorInvalidValue;                             \
   } while (0)
 
-// The f32 backward's launch by width: WGMMA<64> (the wgmma kernels), TF32<D>
-// (the mma.sync kernels) at D in {80, 128}, SIMT<256> (the CUDA-core
-// kernels) at 256.
-#define FLASH_BWD_DISPATCH(WGMMA, TF32, SIMT, ...)                 \
+// The f32 backward's launch by width, every one on the tensor cores:
+// WGMMA<64> (the wgmma kernels), TF32<D> (the mma.sync kernels) at D in {80,
+// 128}, WIDE<256> (the mma.sync kernels with the D split over the warps).
+#define FLASH_BWD_DISPATCH(WGMMA, TF32, WIDE, ...)                 \
   do {                                                             \
     if (dtype == 0 && d == 64) return WGMMA<64>(__VA_ARGS__);      \
     if (dtype == 0 && d == 80) return TF32<80>(__VA_ARGS__);       \
     if (dtype == 0 && d == 128) return TF32<128>(__VA_ARGS__);     \
-    if (dtype == 0 && d == 256) return SIMT<256>(__VA_ARGS__);     \
+    if (dtype == 0 && d == 256) return WIDE<256>(__VA_ARGS__);     \
     return (int)cudaErrorInvalidValue;                             \
   } while (0)
 
@@ -2040,8 +2255,8 @@ extern "C" int flash_gqa_bwd_dq(const void* q, const void* k, const void* v,
                                 int window, float softcap, float scale, void* stream) {
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_BWD_DISPATCH(launch_dq_wgmma, launch_dq_tf32, launch_dq, q, k, v, dout, lse, delta, dq,
-                     sh, st);
+  FLASH_BWD_DISPATCH(launch_dq_wgmma, launch_dq_tf32, launch_dq_wide, q, k, v, dout, lse, delta,
+                     dq, sh, st);
 }
 
 extern "C" int flash_gqa_bwd_dkv(const void* q, const void* k, const void* v,
@@ -2051,8 +2266,8 @@ extern "C" int flash_gqa_bwd_dkv(const void* q, const void* k, const void* v,
                                  void* stream) {
   const Shape sh = make_shape(b, s, h, kv, window, softcap, scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  FLASH_BWD_DISPATCH(launch_dkv_wgmma, launch_dkv_tf32, launch_dkv, q, k, v, dout, lse, delta,
-                     dk, dv, sh, st);
+  FLASH_BWD_DISPATCH(launch_dkv_wgmma, launch_dkv_tf32, launch_dkv_wide, q, k, v, dout, lse,
+                     delta, dk, dv, sh, st);
 }
 
 extern "C" const char* flash_gqa_error_string(int err) {

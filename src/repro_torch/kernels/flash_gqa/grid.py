@@ -16,7 +16,10 @@ hold them to the mask; ``tf32_fwd_key_tiles``, ``tf32_dq_key_tiles``,
 f32 mma.sync kernels of ``csrc/flash_gqa.cu`` (``fwd_tf32_kernel``: D = 64,
 80 and 128, at a query offset too; ``dq_tf32_kernel``, ``dkv_tf32_kernel``:
 D = 80 and 128), ``wgmma_dq_key_tiles`` and ``wgmma_dkv_query_tiles`` of
-its wgmma kernels (``dq_wgmma_kernel``, ``dkv_wgmma_kernel``: D = 64).
+its wgmma kernels (``dq_wgmma_kernel``, ``dkv_wgmma_kernel``: D = 64), and
+``tf32_wide_dq_key_tiles``, ``tf32_wide_dkv_query_tiles`` and
+``tf32_wide_dkv_units`` of its D = 256 kernels (``dq_tf32_wide_kernel``,
+``dkv_tf32_wide_kernel``).
 ``attention_pairs`` counts the (query, key) pairs causality and the window
 leave, the work any implementation must do (``chip_smoke.py``'s operation
 bounds), of every query row or of a rank's rows q0 .. q0 + sq - 1.
@@ -238,3 +241,47 @@ def wgmma_dkv_query_tiles(k0: int, s: int, window=None) -> range:
     k1 = min(k0 + WGMMA_BLOCK, s) - 1
     return range(k0 // WGMMA_TILE,
                  (min(s - 1, k1 + window - 1) if window else s - 1) // WGMMA_TILE + 1)
+
+
+TF32_WIDE_TILE = 32      # rows of a streamed tile at D = 256: K6's keys, K7's queries
+TF32_WIDE_DQ_ROWS = 32   # query rows of a dq_tf32_wide_kernel block
+TF32_WIDE_DKV_KEYS = 16  # keys of a dkv_tf32_wide_kernel unit, two units a block
+
+
+def tf32_wide_dq_key_tiles(q0: int, s: int, window=None) -> range:
+    """The key tiles dq_tf32_wide_kernel visits for its queries q0 .. q0 +
+    31: every tile with a key the block can see (its warps skip none)."""
+    first = max(0, q0 - window + 1) // TF32_WIDE_TILE if window else 0
+    return range(first, (min(q0 + TF32_WIDE_DQ_ROWS, s) - 1) // TF32_WIDE_TILE + 1)
+
+
+def tf32_wide_dkv_query_tiles(k0: int, s: int, window=None) -> range:
+    """The query tiles (of each of the G heads) dkv_tf32_wide_kernel visits
+    for its unit of keys k0 .. k0 + 15: every tile with a query that sees
+    one of them (its warps skip none)."""
+    k1 = min(k0 + TF32_WIDE_DKV_KEYS, s) - 1
+    last = min(s - 1, k1 + window - 1) if window else s - 1
+    return range(k0 // TF32_WIDE_TILE, last // TF32_WIDE_TILE + 1)
+
+
+def tf32_wide_dkv_units(s: int) -> list:
+    """The 16-key units each dkv_tf32_wide_kernel block takes, in order:
+    block y unit y, then unit n - 1 - y (n units; the middle unit of an odd
+    n alone)."""
+    n = _cdiv(s, TF32_WIDE_DKV_KEYS)
+    return [[y] + ([n - 1 - y] if n - 1 - y != y else []) for y in range(_cdiv(n, 2))]
+
+
+def tf32_wide_smem() -> dict:
+    """The dynamic shared memory (bytes) a block of dq_tf32_wide_kernel and
+    of dkv_tf32_wide_kernel takes, as the source's ``dq_wide_smem()`` and
+    ``dkv_wide_smem()`` compute it: two stages of the streamed tiles (rows
+    of 256 + 4 floats; K7's with their 32 LSE and 32 delta values), each of
+    the 8 warps' partial slots (a float4 a lane, one a 16 x 8 score tile)
+    and the slots of dS (K6) or P^T and dS^T (K7)."""
+    ld, tile, warps = 256 + 4, TF32_WIDE_TILE, 8
+    score_tiles = tile // 8
+    return {"dq_tf32_wide_kernel<256>": 4 * 2 * 2 * tile * ld
+            + 16 * 32 * (warps + 1) * (TF32_WIDE_DQ_ROWS // 16) * score_tiles,
+            "dkv_tf32_wide_kernel<256>": 4 * 2 * (2 * tile * ld + 2 * tile)
+            + 16 * 32 * (warps + 2) * score_tiles}

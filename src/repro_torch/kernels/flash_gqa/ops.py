@@ -18,15 +18,19 @@ kernel on 128-key tiles at the true width, and K6 and K7
 ``dq_kernel`` and ``dkv_kernel``; at G = H / KV > 1, K7
 writes per-head f32 partials and
 ``flash_bwd_dkv_sum`` adds them in head order); f32 runs
-``csrc/flash_gqa.cu``: K5-K7 at 256 on its SIMT kernels (products in f32 on
-the CUDA cores); at head_dim 64, 80 and 128 on the tensor cores, each f32
-product as three TF32 products of the operands split into hi and lo halves,
-so f32-accurate: K5 (``TF32_FWD_HEAD_DIMS``) ``fwd_tf32_kernel`` (mma.sync,
-the online softmax in registers), K6 and K7 (``TF32_HEAD_DIMS``; G folded
-inside K7, no sum pass) at 64 (``WGMMA_HEAD_DIMS``) ``dq_wgmma_kernel`` and
-``dkv_wgmma_kernel`` (wgmma, a producer warpgroup writing each streamed
-tile's split copies), at 80 and 128 ``dq_tf32_kernel`` and
-``dkv_tf32_kernel`` (mma.sync).  A failed build or launch raises.  The bf16
+``csrc/flash_gqa.cu``: K5 at 256 on the SIMT ``fwd_kernel`` (products in
+f32 on the CUDA cores), the rest on the tensor cores with each f32 product
+as three TF32 products of the operands split into hi and lo halves, so
+f32-accurate: K5 at 64, 80 and 128 (``TF32_FWD_HEAD_DIMS``)
+``fwd_tf32_kernel`` (mma.sync, the online softmax in registers); K6 and K7
+at every width
+(``TF32_HEAD_DIMS``; G folded inside K7, no sum pass): at 64
+(``WGMMA_HEAD_DIMS``) ``dq_wgmma_kernel`` and ``dkv_wgmma_kernel`` (wgmma, a
+producer warpgroup writing each streamed tile's split copies), at 80 and 128
+``dq_tf32_kernel`` and ``dkv_tf32_kernel`` (mma.sync), at 256
+(``WIDE_HEAD_DIMS``) ``dq_tf32_wide_kernel`` and ``dkv_tf32_wide_kernel``
+(mma.sync, each warp a 64-column slice of D).  A failed build or launch
+raises.  The bf16
 kernels round P, dS (K6) and P^T, dS^T (K7) to
 bf16 for the tensor cores; ``flash_bwd_dq_wide`` and
 ``flash_bwd_dkv_partials`` return their f32 sums before the final
@@ -82,8 +86,9 @@ HEAD_DIMS = (64, 80, 128, 256)
 FWD_NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K5 runs fwd_narrow_kernel
 NARROW_HEAD_DIMS = (64, 80, 128)  # bf16 K6 and K7 run dq_ and dkv_narrow_kernel
 TF32_FWD_HEAD_DIMS = (64, 80, 128)  # f32 K5 runs fwd_tf32_kernel; 256 the SIMT fwd_kernel
-TF32_HEAD_DIMS = (64, 80, 128)  # f32 K6 and K7 run on the tensor cores
+TF32_HEAD_DIMS = (64, 80, 128, 256)  # f32 K6 and K7 run on the tensor cores
 WGMMA_HEAD_DIMS = (64,)  # ... on dq_ and dkv_wgmma_kernel; 80, 128 on dq_ and dkv_tf32_kernel
+WIDE_HEAD_DIMS = (256,)  # ... on dq_ and dkv_tf32_wide_kernel
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 _PTR, _INT, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float

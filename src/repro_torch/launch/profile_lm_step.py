@@ -44,9 +44,10 @@ BATCH, SEQ_LEN, LOCAL_ITERS, ETA = 2, 2048, 2, 0.1
 # kernel-name fragments -> family, first match wins
 FAMILIES = [
     ("flash_fwd (K5)", ("fwd_kernel", "fwd_narrow_kernel", "fwd_tf32_kernel")),
-    ("flash_bwd_dq (K6)", ("dq_kernel", "dq_narrow_kernel", "dq_tf32_kernel", "dq_wgmma_kernel")),
+    ("flash_bwd_dq (K6)", ("dq_kernel", "dq_narrow_kernel", "dq_tf32_kernel", "dq_wgmma_kernel",
+                           "dq_tf32_wide_kernel")),
     ("flash_bwd_dkv (K7)", ("dkv_kernel", "dkv_narrow_kernel", "dkv_tf32_kernel",
-                            "dkv_wgmma_kernel")),
+                            "dkv_wgmma_kernel", "dkv_tf32_wide_kernel")),
     ("flash_bwd_dkv sum pass (K7)", ("dkv_sum_kernel",)),
     ("rmsnorm (K4)", ("rmsnorm_kernel",)),
     ("pfedsop reduce3/update (K1/K2)", ("reduce3_kernel", "update_kernel")),

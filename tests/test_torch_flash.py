@@ -746,35 +746,46 @@ def _body(src, head):
     return re.search(re.escape(head) + r".*?\n}", src, re.S).group(0)
 
 
-MMA_SYNC_DIMS = [d for d in flash_ops.TF32_HEAD_DIMS if d not in flash_ops.WGMMA_HEAD_DIMS]
+MMA_SYNC_DIMS = [d for d in flash_ops.TF32_HEAD_DIMS
+                 if d not in flash_ops.WGMMA_HEAD_DIMS + flash_ops.WIDE_HEAD_DIMS]
 
 
 @pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
 def test_f32_backward_runs_the_tf32_kernels_at_64_80_and_128(d):
     """The f32 dq and dk/dv passes dispatch by width through
-    FLASH_BWD_DISPATCH: at head_dim 64 (``WGMMA_HEAD_DIMS``) to
-    launch_dq_wgmma<64> / launch_dkv_wgmma<64>, which launch
-    dq_wgmma_kernel<D> / dkv_wgmma_kernel<D>; at 80 and 128 to
+    FLASH_BWD_DISPATCH, every width to a tensor-core kernel: at head_dim 64
+    (``WGMMA_HEAD_DIMS``) to launch_dq_wgmma<64> / launch_dkv_wgmma<64>,
+    which launch dq_wgmma_kernel<D> / dkv_wgmma_kernel<D>; at 80 and 128 to
     launch_dq_tf32<D> / launch_dkv_tf32<D> (dq_tf32_kernel /
-    dkv_tf32_kernel, mma.sync); at 256 to the SIMT launch_dq<256> /
-    launch_dkv<256>.  The forward dispatches by width too, through
-    FLASH_FWD_DISPATCH (``test_f32_forward_runs_the_tf32_kernel_at_64_80_and_128``)."""
+    dkv_tf32_kernel, mma.sync); at 256 (``WIDE_HEAD_DIMS``) to
+    launch_dq_wide<256> / launch_dkv_wide<256> (dq_tf32_wide_kernel /
+    dkv_tf32_wide_kernel, mma.sync).  No width reaches a SIMT backward, and
+    the SIMT dq_kernel / dkv_kernel and their launches are gone; the
+    forward keeps its SIMT<256> route, through FLASH_FWD_DISPATCH
+    (``test_f32_forward_runs_the_tf32_kernel_at_64_80_and_128``)."""
     src = flash_ops.SOURCE.read_text()
-    macro = re.search(r"#define FLASH_BWD_DISPATCH\(WGMMA, TF32, SIMT, \.\.\.\).*?while \(0\)",
+    macro = re.search(r"#define FLASH_BWD_DISPATCH\(WGMMA, TF32, WIDE, \.\.\.\).*?while \(0\)",
                       src, re.S).group(0)
     route = ("WGMMA" if d in flash_ops.WGMMA_HEAD_DIMS else
-             "TF32" if d in flash_ops.TF32_HEAD_DIMS else "SIMT")
+             "WIDE" if d in flash_ops.WIDE_HEAD_DIMS else "TF32")
     assert f"if (dtype == 0 && d == {d}) return {route}<{d}>(__VA_ARGS__);" in macro
-    assert flash_ops.TF32_HEAD_DIMS == (64, 80, 128) and flash_ops.WGMMA_HEAD_DIMS == (64,)
+    assert "SIMT" not in macro and macro.count("return ") == 5
+    assert flash_ops.TF32_HEAD_DIMS == flash_ops.HEAD_DIMS == (64, 80, 128, 256)
+    assert flash_ops.WGMMA_HEAD_DIMS == (64,) and flash_ops.WIDE_HEAD_DIMS == (256,)
     for entry, launch in (("bwd_dq", "dq"), ("bwd_dkv", "dkv")):
         body = _body(src, f'extern "C" int flash_gqa_{entry}(')
-        assert f"FLASH_BWD_DISPATCH(launch_{launch}_wgmma, launch_{launch}_tf32, launch_{launch}," \
-            in re.sub(r"\s+", " ", body), entry
+        assert (f"FLASH_BWD_DISPATCH(launch_{launch}_wgmma, launch_{launch}_tf32, "
+                f"launch_{launch}_wide,") in re.sub(r"\s+", " ", body), entry
         assert f"{launch}_wgmma_kernel<D>;" in _body(src, f"int launch_{launch}_wgmma(")
         assert f"{launch}_tf32_kernel<D>;" in _body(src, f"int launch_{launch}_tf32(")
-        assert f"{launch}_kernel<D>;" in _body(src, f"int launch_{launch}(")
+        assert f"{launch}_tf32_wide_kernel<D>;" in _body(src, f"int launch_{launch}_wide(")
+        assert f"int launch_{launch}(" not in src, launch
+    assert not re.search(r"\b(dq|dkv)_kernel\b|\b(dq|dkv)_smem\b", src)
     assert "FLASH_FWD_DISPATCH(launch_fwd_tf32, launch_fwd," in _body(
         src, 'extern "C" int flash_gqa_fwd(')
+    fwd = re.search(r"#define FLASH_FWD_DISPATCH\(TF32, SIMT, \.\.\.\).*?while \(0\)",
+                    src, re.S).group(0)
+    assert "if (dtype == 0 && d == 256) return SIMT<256>(__VA_ARGS__);" in fwd
 
 
 @pytest.mark.parametrize("d", flash_ops.HEAD_DIMS)
@@ -822,6 +833,24 @@ def test_f32_source_takes_no_atomics_and_splits_every_product():
     mma_ab = _body(src, "__device__ __forceinline__ void mma_ab(")
     assert "float part[kChunk][4] = {};" in mma_ab
     assert "for (int i = 0; i < 4; ++i) c[n0 + n][i] += part[n][i];" in mma_ab
+    # D = 256 (dq_ and dkv_tf32_wide_kernel): each warp's score partial over
+    # its 64-column slice (``slice_abt``, 24 products summed from zero, one
+    # call: S or dP, S^T or dP^T by the warp's role) and its gradient columns
+    # (``tile_ab``, one call: dQ; dV or dK by the role), every product through
+    # mma3; the four partials added in one fixed order (``sum4``)
+    for kernel in ("dq_tf32_wide_kernel", "dkv_tf32_wide_kernel"):
+        body = _body(src, f"{kernel}(const float* __restrict__ q")
+        assert "mma_tf32(" not in body and "mma3(" not in body and "mma_ab" not in body
+        assert body.count("slice_abt<") == body.count("tile_ab<") == 1, kernel
+        assert body.count("sum4(") == 2, kernel
+    slice_abt = _body(src, "__device__ __forceinline__ void slice_abt(")
+    assert "p[m][n][0] = p[m][n][1] = p[m][n][2] = p[m][n][3] = 0.f;" in slice_abt
+    assert slice_abt.count("mma3(") == 1 and "mma_tf32(" not in slice_abt
+    tile_ab = _body(src, "__device__ __forceinline__ void tile_ab(")
+    assert "part[m][n][i] = 0.f;" in tile_ab and "c[m][n0 + n][i] += part[m][n][i];" in tile_ab
+    assert tile_ab.count("mma3(part[m][n], ") == 1 and "mma_tf32(" not in tile_ab
+    sum4 = _body(src, "__device__ __forceinline__ void sum4(")
+    assert "float4 s = p[0];" in sum4 and "for (int w = 1; w < 4; ++w) {" in sum4
     # wgmma: every product a run of three (A lo, B hi), (A hi, B lo), (A hi,
     # B hi) into one accumulator (names ending in l / h are lo / hi halves;
     # an A lo half from shared memory is wgmma_tf32_ss's, N = 32)
@@ -1022,6 +1051,117 @@ def test_tf32_tile_ranges_and_warp_skips_cover_exactly_the_visible_pairs(s, wind
             for qt in got:
                 assert grid.tf32_dkv_warp_sees(kw, qt * tile, s, d, window) == sees(
                     qt * tile, tile, kw, rows), (kw, qt)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkv"])
+def test_tf32_wide_backward_layouts_fit_a_block(kernel):
+    """``dq_wide_smem()`` (two stages of a 32-key K and V tile, rows of D + 4
+    floats; each of the 8 warps' partial slots, 2 x 4 float4 a lane; the dS
+    slots) and ``dkv_wide_smem()`` (two stages of a 32-query Q and dO tile
+    with their LSE and delta rows; 8 warps' 4 partial slots; the P^T and
+    dS^T slots), computed from the source's own constants and lines, fit the
+    232,448 bytes of shared memory a block may take on Hopper, and the
+    source asserts it too; the kernels lay their shared memory out as sized
+    (the slots after the two stages, 16-byte aligned)."""
+    src = flash_ops.SOURCE.read_text()
+    for line in ("constexpr int kWideSlice = 64;", "constexpr int kWideTile = 32;",
+                 "constexpr int kWideLd = 256 + 4;",
+                 f"constexpr int kDqWideRows = {grid.TF32_WIDE_DQ_ROWS};",
+                 f"constexpr int kDkvWideKeys = {grid.TF32_WIDE_DKV_KEYS};",
+                 "constexpr int kTcThreads = 256;  // 8 warps",
+                 "constexpr size_t kMaxSmem = 232448;",
+                 "static_assert(dq_wide_smem() <= kMaxSmem && dkv_wide_smem() <= kMaxSmem,"):
+        assert line in src, line
+    assert grid.TF32_WIDE_TILE == 32 and flash_ops.WIDE_HEAD_DIMS == (256,)
+    d, ld, tile, warps = 256, 256 + 4, grid.TF32_WIDE_TILE, 8
+    body = _body(src, f"{kernel}_tf32_wide_kernel(const float* __restrict__ q")
+    assert "float4* part = reinterpret_cast<float4*>(smem + 2 * kStage);" in body
+    if kernel == "dq":
+        assert ("  return sizeof(float) * 2 * 2 * kWideTile * kWideLd +\n"
+                "         sizeof(float4) * (8 + 1) * (kDqWideRows / 16) * (kWideTile / 8) * 32;"
+                ) in src
+        for line in ("constexpr int M = kDqWideRows / 16, N = kWideTile / 8, "
+                     "kStage = 2 * kWideTile * kWideLd;", "float4* dsx = part + 8 * M * N * 32;"):
+            assert line in body, line
+        stage = 2 * tile * ld
+        slots = (warps + 1) * (grid.TF32_WIDE_DQ_ROWS // 16) * (tile // 8) * 32
+    else:
+        assert ("  return sizeof(float) * 2 * (2 * kWideTile * kWideLd + 2 * kWideTile) +\n"
+                "         sizeof(float4) * (8 + 2) * (kWideTile / 8) * 32;") in src
+        for line in ("constexpr int N = kWideTile / 8, kStage = 2 * kWideTile * kWideLd + "
+                     "2 * kWideTile;", "float4* ptx = part + 8 * N * 32;",
+                     "float4* dstx = ptx + N * 32;"):
+            assert line in body, line
+        stage = 2 * tile * ld + 2 * tile
+        slots = (warps + 2) * (tile // 8) * 32
+    assert (4 * 2 * stage) % 16 == 0 and (4 * ld) % 16 == 0  # float4 slots, cp.async rows
+    total = 4 * 2 * stage + 16 * slots
+    assert total <= 232448, (kernel, total)
+    assert grid.tf32_wide_smem()[f"{kernel}_tf32_wide_kernel<256>"] == total  # phase 2 prints it
+    assert d == 4 * 64  # four 64-column slices, one a warp of each role
+
+
+@pytest.mark.parametrize("s,window", [(2048, 512), (2048, None), (1040, 512), (100, 16),
+                                      (40, 16), (1100, None), (64, 1)])
+def test_tf32_wide_tile_ranges_and_warp_skips_cover_exactly_the_visible_pairs(s, window):
+    """The f32 D = 256 kernels' tile ranges (mirrored in grid.py, the
+    source's lines asserted): each K6 block (32 queries) visits exactly the
+    32-key tiles holding a pair it sees, and each K7 unit (16 keys) exactly
+    the 32-query tiles; every warp of a block covers the block's rows (a
+    64-column slice each), so no warp skips a tile, and every tile visited
+    holds such a pair.  K7's blocks take units y and n - 1 - y: each unit
+    once, and at a full layer every block the same number of tiles within
+    one."""
+    src = flash_ops.SOURCE.read_text()
+    dq = _body(src, "dq_tf32_wide_kernel(const float* __restrict__ q")
+    for line in ("const int q0 = (gridDim.y - 1 - blockIdx.y) * kDqWideRows;",
+                 "const int kt_first = sh.window > 0 ? max(0, q0 - sh.window + 1) / kWideTile : 0;",
+                 "const int kt_last = (min(q0 + kDqWideRows, sh.s) - 1) / kWideTile;",
+                 "for (int kt = kt_first; kt <= kt_last; ++kt) {"):
+        assert line in dq, line
+    dkv = _body(src, "dkv_tf32_wide_kernel(const float* __restrict__ q")
+    for line in ("const int n_units = (sh.s + kDkvWideKeys - 1) / kDkvWideKeys;",
+                 "const int unit = pass == 0 ? blockIdx.y : n_units - 1 - blockIdx.y;",
+                 "if (pass == 1 && unit == blockIdx.y) break;",
+                 "const int k0 = unit * kDkvWideKeys, k1 = min(k0 + kDkvWideKeys, sh.s) - 1;",
+                 "const int qt_first = k0 / kWideTile;",
+                 "(sh.window > 0 ? min(sh.s - 1, k1 + sh.window - 1) : sh.s - 1) / kWideTile;",
+                 "for (int j = 0; j < items; ++j) {"):
+        assert line in dkv, line
+    assert "const dim3 grid(sh.b * sh.kv, (units + 1) / 2);" in _body(src, "int launch_dkv_wide(")
+    assert ("const dim3 grid(sh.b * sh.h, (sh.s + kDqWideRows - 1) / kDqWideRows);"
+            in _body(src, "int launch_dq_wide("))
+    # no warp skips a tile: the tile loops hold no continue and no test of a
+    # warp's rows, only the barriers every warp reaches
+    for body, head, indent in ((dq, "for (int kt = kt_first; kt <= kt_last; ++kt) {", "  "),
+                               (dkv, "for (int j = 0; j < items; ++j) {", "    ")):
+        loop = body[body.index(head):]
+        loop = loop[:loop.index("\n" + indent + "}\n")]
+        assert "continue" not in loop and "break" not in loop
+        assert loop.count("__syncthreads();") == 3
+        assert not re.search(r"if \(!?\(?(qw|kw|q0|k0)\b", loop)
+    mask = visible_mask(s, window, "cpu")
+    tile, rows, keys = grid.TF32_WIDE_TILE, grid.TF32_WIDE_DQ_ROWS, grid.TF32_WIDE_DKV_KEYS
+    n_tiles = -(-s // tile)
+
+    def sees(q0, nq, k0, nk):
+        return bool(mask[q0:q0 + nq, k0:k0 + nk].any())
+
+    for q0 in range(0, s, rows):
+        want = [kt for kt in range(n_tiles) if sees(q0, rows, kt * tile, tile)]
+        assert list(grid.tf32_wide_dq_key_tiles(q0, s, window)) == want, q0
+    for k0 in range(0, s, keys):
+        want = [qt for qt in range(n_tiles) if sees(qt * tile, tile, k0, keys)]
+        assert list(grid.tf32_wide_dkv_query_tiles(k0, s, window)) == want, k0
+    blocks = grid.tf32_wide_dkv_units(s)
+    n_units = -(-s // keys)
+    assert len(blocks) == -(-n_units // 2)
+    assert sorted(u for units in blocks for u in units) == list(range(n_units))
+    assert all(units[0] == y for y, units in enumerate(blocks))
+    work = [sum(len(grid.tf32_wide_dkv_query_tiles(u * keys, s, window)) for u in units)
+            for units in blocks]
+    if window is None and n_units % 2 == 0:
+        assert max(work) - min(work) <= 1, work
 
 
 @pytest.mark.parametrize("d", flash_ops.TF32_FWD_HEAD_DIMS)

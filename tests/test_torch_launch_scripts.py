@@ -248,13 +248,18 @@ def test_ptxas_report_fails_on_an_expected_kernel_it_does_not_name(monkeypatch, 
      "flash_bwd_dq (K6)"),
     ("void (anonymous namespace)::dkv_wgmma_kernel<80>(float const*, float const*)",
      "flash_bwd_dkv (K7)"),
+    ("void (anonymous namespace)::dq_tf32_wide_kernel<256>(float const*, float const*)",
+     "flash_bwd_dq (K6)"),
+    ("void (anonymous namespace)::dkv_tf32_wide_kernel<256>(float const*, float const*)",
+     "flash_bwd_dkv (K7)"),
     ("void (anonymous namespace)::fwd_tf32_kernel<64>(float const*, float const*)",
      "flash_fwd (K5)")])
 def test_profile_lm_step_names_every_flash_kernel(kernel, family):
     """``launch/profile_lm_step.py`` sorts device time by kernel family from
     the kernels' names: the narrow kernels (D = 64, 80, and K5 at 128) and
     the f32 tensor-core kernels (K5's mma.sync, the dq and dk/dv passes'
-    mma.sync and wgmma) count with their pass, not as other work."""
+    mma.sync and wgmma, and at D = 256 the wide mma.sync kernels) count with
+    their pass, not as other work."""
     from repro_torch.launch import profile_lm_step
 
     assert profile_lm_step.family(kernel) == family
@@ -397,23 +402,34 @@ def test_phase15_internvl2_batches_have_the_token_batch_layout():
 
 
 def test_phase15_archs_plant_faults_of_the_kernels_they_run():
-    """Phase 15's archs (``LAUNCH_ARCHS``): gemma3-1b plants every fault
-    of ``GRAD_FAULTS``; internvl2-2b (head_dim 128, no window) names keys of
-    ``GRAD_FAULTS`` only, one for each of K5, K6, K7 and the sum pass (its
-    G = 2 runs it), and no window fault; granite-moe-1b-a400m runs in f32,
-    which has no sum pass and no window fault to plant, and names K5, K6,
-    K7 and K4; each arch's parameter count is its config's."""
+    """Phase 15's steps (``LAUNCH_ARCHS``, keyed by (arch, dtype)): gemma3-1b
+    in bf16 plants every fault of ``GRAD_FAULTS``; internvl2-2b (head_dim
+    128, no window) names keys of ``GRAD_FAULTS`` only, one for each of K5,
+    K6, K7 and the sum pass (its G = 2 runs it), and no window fault;
+    granite-moe-1b-a400m runs in f32, which has no sum pass and no window
+    fault to plant, and names K5, K6, K7 and K4; gemma3-1b in f32 (head_dim
+    256, window 512 on 22 of its 26 layers) names K5, K6 and K7 and the
+    backward's window fault, no sum pass; each arch's parameter count is its
+    config's."""
     from repro_torch.launch import steps
 
     cs = _load("chip_smoke.py")
-    assert list(cs.LAUNCH_ARCHS) == ["gemma3-1b", "internvl2-2b", "granite-moe-1b-a400m"]
-    assert cs.LAUNCH_ARCHS["gemma3-1b"] == (cs.LM_N, tuple(cs.GRAD_FAULTS), "bfloat16")
-    _, faults, dtype = cs.LAUNCH_ARCHS["granite-moe-1b-a400m"]
-    assert dtype == "float32" and set(faults) <= set(cs.GRAD_FAULTS)
+    assert list(cs.LAUNCH_ARCHS) == [("gemma3-1b", "bfloat16"), ("internvl2-2b", "bfloat16"),
+                                     ("granite-moe-1b-a400m", "float32"),
+                                     ("gemma3-1b", "float32")]
+    assert cs.LAUNCH_ARCHS["gemma3-1b", "bfloat16"] == (cs.LM_N, tuple(cs.GRAD_FAULTS))
+    _, faults = cs.LAUNCH_ARCHS["granite-moe-1b-a400m", "float32"]
+    assert set(faults) <= set(cs.GRAD_FAULTS)
     assert {name.split()[0] for name in faults} == {"K4", "K5", "K6", "K7"}
     assert not any("window" in name or "sum pass" in name for name in faults)
-    n, faults, dtype = cs.LAUNCH_ARCHS["internvl2-2b"]
-    assert dtype == "bfloat16"
+    n, faults = cs.LAUNCH_ARCHS["gemma3-1b", "float32"]
+    cfg = get_config("gemma3-1b")
+    assert n == cs.LM_N and cfg.head_dim == 256 and cfg.n_heads // cfg.n_kv_heads == 4
+    assert sum(layer.window == 512 for layer in cfg.layers) == 22 == len(cfg.layers) - 4
+    assert set(faults) <= set(cs.GRAD_FAULTS) and len(set(faults)) == len(faults) == 4
+    assert "K6, K7 window - 1" in faults and not any("sum pass" in name for name in faults)
+    assert {name.split()[0].rstrip(",") for name in faults} == {"K5", "K6", "K7"}
+    n, faults = cs.LAUNCH_ARCHS["internvl2-2b", "bfloat16"]
     cfg = get_config("internvl2-2b")
     assert cfg.head_dim == 128 and cfg.n_heads // cfg.n_kv_heads == 2
     assert all(layer.window is None for layer in cfg.layers)
@@ -421,7 +437,8 @@ def test_phase15_archs_plant_faults_of_the_kernels_they_run():
     assert not any("window" in name for name in faults)
     assert {name.split()[0] for name in faults} == {"K5", "K6", "K7"}
     assert "K7 sum pass x1.01" in faults
-    for arch, (count, _, _) in cs.LAUNCH_ARCHS.items():
+    for (arch, dtype), (count, _) in cs.LAUNCH_ARCHS.items():
+        assert dtype in ("bfloat16", "float32"), (arch, dtype)
         params = steps.abstract_params(get_config(arch))
         assert sum(x.numel() for x in cs.tree_leaves(params)) == count, arch
 
